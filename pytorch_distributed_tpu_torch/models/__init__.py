@@ -1,0 +1,9 @@
+from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
+from pytorch_distributed_tpu_torch.models.transformer import (
+    TransformerConfig,
+    TransformerLM,
+    tiny_config,
+)
+
+__all__ = ["TransformerConfig", "TransformerLM", "tiny_config", "init_params",
+           "params_from_jax"]

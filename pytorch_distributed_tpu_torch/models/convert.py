@@ -1,0 +1,120 @@
+"""Weights across frameworks: flax parameter trees to the port's
+``TransformerLM`` state dict, and a numpy initialiser in the flax layout.
+
+The flax layout (``pytorch_distributed_tpu/models/transformer.py``):
+
+- ``wte``/``wpe``: ``Embed.embedding`` ``[V, E]`` / ``[max_seq_len, E]``;
+- ``block{i}/attn/qkv``: ``DenseGeneral`` kernel ``[E, 3, H, D]`` and bias
+  ``[3, H, D]``; ``block{i}/attn/proj``: kernel ``[H, D, E]``, no bias;
+- ``block{i}/mlp_up`` (kernel ``[E, 4E]``, bias) and ``mlp_down`` (kernel
+  ``[4E, E]``, no bias): ``Dense`` kernels are ``[in, out]``, the transpose
+  of ``nn.Linear.weight``;
+- ``ln1``/``ln2``/``ln_f``: ``scale`` and ``bias``;
+- ``lm_head``: kernel ``[E, V]``, no bias.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from pytorch_distributed_tpu_torch.models.transformer import TransformerConfig
+
+
+def _np(x) -> np.ndarray:
+    return np.array(x, dtype=np.float32)  # a writable copy
+
+
+def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for the port's ``TransformerLM`` from a flax parameter
+    tree whose leaves are numpy arrays (``jax.tree.map(np.asarray, p)``)
+    or the tree ``init_params`` makes. Tensors are fp32 on the CPU;
+    ``load_state_dict`` casts them to the module's dtypes."""
+    n_layers = sum(1 for k in params if k.startswith("block"))
+    expected = {"wte", "wpe", "ln_f", "lm_head"} | {
+        f"block{i}" for i in range(n_layers)}
+    if set(params) != expected:
+        raise ValueError(
+            f"unexpected flax tree: keys {sorted(params)}; a learned-position "
+            f"MHA TransformerLM has {sorted(expected)}")
+
+    def t(x) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(_np(x)))
+
+    def ln(prefix, p, out):
+        out[f"{prefix}.weight"] = t(p["scale"])
+        out[f"{prefix}.bias"] = t(p["bias"])
+
+    sd: Dict[str, torch.Tensor] = {
+        "wte.weight": t(params["wte"]["embedding"]),
+        "wpe.weight": t(params["wpe"]["embedding"]),
+        "lm_head.weight": t(_np(params["lm_head"]["kernel"]).T),
+    }
+    ln("ln_f", params["ln_f"], sd)
+    for i in range(n_layers):
+        p, pre = params[f"block{i}"], f"blocks.{i}"
+        qkv_k = _np(p["attn"]["qkv"]["kernel"])  # [E, 3, H, D]
+        e = qkv_k.shape[0]
+        sd[f"{pre}.attn.qkv.weight"] = t(qkv_k.reshape(e, -1).T)
+        sd[f"{pre}.attn.qkv.bias"] = t(_np(p["attn"]["qkv"]["bias"]).reshape(-1))
+        proj_k = _np(p["attn"]["proj"]["kernel"])  # [H, D, E]
+        sd[f"{pre}.attn.proj.weight"] = t(proj_k.reshape(-1, proj_k.shape[-1]).T)
+        sd[f"{pre}.mlp_up.weight"] = t(_np(p["mlp_up"]["kernel"]).T)
+        sd[f"{pre}.mlp_up.bias"] = t(p["mlp_up"]["bias"])
+        sd[f"{pre}.mlp_down.weight"] = t(_np(p["mlp_down"]["kernel"]).T)
+        ln(f"{pre}.ln1", p["ln1"], sd)
+        ln(f"{pre}.ln2", p["ln2"], sd)
+    return sd
+
+
+def _truncated_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:
+    """Normal cut at ±2 standard deviations, rescaled to ``std`` (flax's
+    ``truncated_normal`` variance scaling)."""
+    x = rng.standard_normal(shape, dtype=np.float32)
+    bad = np.abs(x) > 2.0
+    while bad.any():
+        x[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
+        bad = np.abs(x) > 2.0
+    # std of a unit normal truncated to [-2, 2]
+    return x * np.float32(std / 0.87962566103423978)
+
+
+def init_params(cfg: TransformerConfig, seed: int = 0) -> Dict:
+    """Random weights in the flax layout at flax's default scales, from a
+    numpy seed: ``lecun_normal`` Dense kernels (truncated normal, variance
+    1/fan_in), zero biases, unit LayerNorm scales, ``Embed`` tables
+    normal with variance 1/E. Feed the result to ``params_from_jax``."""
+    rng = np.random.default_rng(seed)
+    e, h, d, v = cfg.embed_dim, cfg.num_heads, cfg.head_dim, cfg.vocab_size
+    m = e * cfg.mlp_ratio
+
+    def dense(fan_in, shape):
+        return _truncated_normal(rng, shape, fan_in ** -0.5)
+
+    def ln():
+        return {"scale": np.ones(e, np.float32), "bias": np.zeros(e, np.float32)}
+
+    params = {
+        "wte": {"embedding": rng.standard_normal((v, e), dtype=np.float32)
+                * np.float32(e ** -0.5)},
+        "wpe": {"embedding": rng.standard_normal((cfg.max_seq_len, e),
+                                                 dtype=np.float32)
+                * np.float32(e ** -0.5)},
+    }
+    for i in range(cfg.num_layers):
+        params[f"block{i}"] = {
+            "ln1": ln(),
+            "attn": {
+                "qkv": {"kernel": dense(e, (e, 3, h, d)),
+                        "bias": np.zeros((3, h, d), np.float32)},
+                "proj": {"kernel": dense(h * d, (h, d, e))},
+            },
+            "ln2": ln(),
+            "mlp_up": {"kernel": dense(e, (e, m)), "bias": np.zeros(m, np.float32)},
+            "mlp_down": {"kernel": dense(m, (m, e))},
+        }
+    params["ln_f"] = ln()
+    params["lm_head"] = {"kernel": dense(e, (e, v))}
+    return params

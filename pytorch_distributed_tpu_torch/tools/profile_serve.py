@@ -1,0 +1,143 @@
+"""Where a serve's time goes on the card.
+
+Serves the ``chip_smoke.py`` workload (the full-width LM, random weights
+from seed 0, 8 slots, block_len 16, prefill chunk 32, 16 requests of
+64-1024 prompt tokens, 32 new tokens each) once to warm up, then again
+under ``torch.profiler``, and prints:
+
+- wall, ticks and decode tokens/s of the profiled serve;
+- the device's busy share: the union of kernel intervals over the wall;
+- the top operators by device time and by host time;
+- the time of the prefill and decode halves of a tick, by host clock.
+
+    python -m pytorch_distributed_tpu_torch.tools.profile_serve
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
+from pytorch_distributed_tpu_torch.recipes.serve_lm import full_config
+from pytorch_distributed_tpu_torch.serving import Scheduler
+
+
+def workload(cfg, seed=0, n=16, lo=64, hi=1024):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab_size, size=int(k)).astype(np.int32)
+            for k in rng.integers(lo, hi + 1, size=n)]
+
+
+def busy_share(prof, wall_us: float) -> float:
+    """Union of device-kernel intervals over the wall."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / wall_us
+
+
+class TickTimer:
+    """Host-clock split of each tick into its prefill and decode halves
+    (each half ends with the host waiting for its results only where the
+    engine already waits: the decode half's token copy)."""
+
+    def __init__(self, sched):
+        self.prefill, self.decode = [], []
+        eng = sched.engine
+        run_chunks, decode = eng.run_chunks, eng.decode
+
+        def timed_chunks(jobs):
+            t = time.perf_counter()
+            run_chunks(jobs)
+            torch.cuda.synchronize()
+            self.prefill.append(time.perf_counter() - t)
+
+        def timed_decode(*a, **k):
+            t = time.perf_counter()
+            out = decode(*a, **k)
+            self.decode.append(time.perf_counter() - t)
+            return out
+
+        eng.run_chunks, eng.decode = timed_chunks, timed_decode
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--gather-impl", choices=("kernel", "dense"), default="kernel")
+    args = p.parse_args(argv)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    cfg = full_config()
+    state = params_from_jax(init_params(cfg, seed=0))
+    kw = dict(n_slots=8, block_len=16, prefill_chunk=32,
+              gather_impl=args.gather_impl, device="cuda")
+    prompts = workload(cfg)
+    warm = Scheduler(cfg, state, **kw)
+    for q in prompts[:4]:
+        warm.submit(q, 4)
+    warm.drain()
+    del warm
+
+    sched = Scheduler(cfg, state, **kw)
+    for q in prompts:
+        sched.submit(q, 32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    m = sched.metrics()
+    print(f"card: {card}; gather_impl={args.gather_impl}")
+    print(f"profiled serve: wall {wall:.3f}s, {m['steps']} ticks, "
+          f"{m['tokens_out'] / wall:.1f} tok/s (profiler on)")
+    print(f"device busy share: {busy_share(prof, wall * 1e6):.3f}")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25,
+                                    max_name_column_width=60))
+    print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=20,
+                                    max_name_column_width=60))
+
+    # an unprofiled serve, its ticks split by host clock
+    sched = Scheduler(cfg, state, **kw)
+    timer = TickTimer(sched)
+    for q in prompts:
+        sched.submit(q, 32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.drain()
+    wall = time.perf_counter() - t0
+    m = sched.metrics()
+    summary = {
+        "card": card, "gather_impl": args.gather_impl, "wall_s": wall,
+        "ticks": m["steps"], "tok_per_s": m["tokens_out"] / wall,
+        "prefill_calls": len(timer.prefill),
+        "prefill_ms_mean": 1e3 * float(np.mean(timer.prefill)),
+        "prefill_s_total": float(np.sum(timer.prefill)),
+        "decode_calls": len(timer.decode),
+        "decode_ms_mean": 1e3 * float(np.mean(timer.decode)),
+        "decode_s_total": float(np.sum(timer.decode)),
+        "ttft_p50_s": m["ttft_p50_s"], "ttft_p95_s": m["ttft_p95_s"],
+    }
+    print(json.dumps(summary))
+
+
+if __name__ == "__main__":
+    main()
