@@ -7,16 +7,25 @@ Run from the root of a checkout on a machine with one NVIDIA GPU (an H100):
 Phases, each of which fails the run:
 
   (a) the card's name and power limit; the CUDA kernels build from
-      ``pytorch_distributed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a;
-  (b) each kernel against the plain PyTorch version on the card, at the
-      full-width serving shapes and at small GQA / padding-row shapes;
-  (c) the port's main path: ``Scheduler`` serves 16 requests through the
-      full-width LM (32000 vocab, 12 layers, 12 heads, width 768, 2048
-      positions, bf16, random weights from seed 0), with the launch
-      counters reset just before and read just after; then the final
-      prefill logits of the kernel path against a plain-attention run;
-  (d) kernel, plain-version and library (SDPA on pre-gathered K/V) times at
-      the decode shape, beside each kernel's bound;
+      ``pytorch_distributed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
+      nvcc per source, all started together;
+  (b) each kernel against the plain PyTorch version on the card: the paged
+      kernels at the full-width serving shapes and at small GQA /
+      padding-row shapes; the flash forward (O, LSE) and fused backward
+      (dQ, dK, dV) at the training shape in bf16, at ragged lengths in fp32
+      (causal and not), at D = 128, and with fully masked rows;
+  (c) the port's two main paths, each with the launch counters reset just
+      before and read just after, on the full-width LM (32000 vocab, 12
+      layers, 12 heads, width 768, 2048 positions, bf16, random weights
+      from seed 0): ``Scheduler`` serves 16 requests, then the final prefill
+      logits of the kernel path against a plain-attention run;
+      ``LMTrainer`` takes 8 steps at batch 8 x 2048 tokens and one
+      validation pass, then the first step's loss and grad norm with flash
+      attention against dense attention (batch 2);
+  (d) kernel, plain-version and library times beside each kernel's bound:
+      the paged kernels at the decode shape (library: SDPA on pre-gathered
+      K/V), the flash kernels at the training shape (library: causal SDPA,
+      forward, and its backward through autograd);
   (e) one JSON line listing every kernel;
   (f) the last line: ``{"ok": true, "device": {...}}``.
 
@@ -39,6 +48,17 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 BF16_TOL = 2e-2  # bf16 output, p rounded to bf16 before PV
 FP32_TOL = 1e-4
 SPLIT_VS_SWEEP_TOL = 1e-3  # another fp32 summation order (paged_flash.py:278)
+# bf16 gradients of |g| <= 8: two bf16 ulps at 8; dQ sums key tiles by
+# atomics in no fixed order, and the kernel rounds p and dS against the
+# running statistics where the plain version uses whole rows
+BF16_GRAD_TOL = 6e-2
+LSE_TOL = 1e-4  # fp32 statistics in another summation order
+# flash vs dense training step, bf16 compute through 12 layers: flash
+# rounds p to bf16 before PV and dS before dQ/dK, dense keeps fp32
+# probabilities; the loss is a mean over 4094 tokens
+TRAIN_LOSS_TOL = 2e-2
+TRAIN_GRAD_NORM_RTOL = 5e-2
+TRAIN = dict(batch=8, seq=2048, steps=8)
 
 
 def card_line() -> str:
@@ -94,6 +114,40 @@ def bound(inp) -> dict:
             "bytes": n_bytes, "flops": flops}
 
 
+def flash_inputs(torch, dtype, *, b=8, l=2048, h=12, d=64, lk=None, seed=0):
+    """q, k, v, dO ``[B, L, H, D]`` of unit-normal noise on the card."""
+    rng = np.random.default_rng(seed)
+    lk = lk or l
+    shapes = [(b, l, h, d), (b, lk, h, d), (b, lk, h, d), (b, l, h, d)]
+    return [torch.from_numpy(rng.standard_normal(s, np.float32)).to("cuda", dtype)
+            for s in shapes]
+
+
+def flash_bound(q, k, causal=True, shift=0) -> dict:
+    """Least times of the forward and of the backward for these inputs:
+    QK and PV (forward) and S, dP, dV, dK, dQ (backward) at 2 flops per
+    multiply-add for each visible (q, k) pair; each input read once and
+    each output written once (forward: q, k, v, O, LSE; backward: q, k, v,
+    O, dO, LSE, dQ, dK, dV)."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    i = np.arange(lq)
+    visible = np.clip(i + shift + 1, 0, lk) if causal else np.full(lq, lk)
+    pairs = b * h * float(visible.sum())
+    elem = q.element_size()
+    row_bytes = b * h * d * elem
+    out = {}
+    for name, flops, n_bytes in (
+            ("fwd", 4 * d * pairs, row_bytes * (2 * lq + 2 * lk) + b * h * lq * 4),
+            ("bwd", 10 * d * pairs, row_bytes * (4 * lq + 4 * lk) + b * h * lq * 4)):
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[str(q.dtype)]
+        out[name] = {"bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": n_bytes, "flops": flops}
+    return out
+
+
 def time_ms(torch, fn, iters=100, warmup=5):
     """Mean CUDA-event time of ``fn`` with the 50 MB L2 flushed before each
     call, as a layer's attention finds it in the serving loop (12 layers
@@ -126,12 +180,21 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pytorch_distributed_tpu_torch.data import SyntheticTokens
     from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
-    from pytorch_distributed_tpu_torch.ops import _build, paged_flash
+    from pytorch_distributed_tpu_torch.models.transformer import Dense
+    from pytorch_distributed_tpu_torch.ops import _build, flash_attention, paged_flash
     from pytorch_distributed_tpu_torch.ops.attention import paged_attention_reference
     from pytorch_distributed_tpu_torch.recipes.serve_lm import full_config
     from pytorch_distributed_tpu_torch.serving import PagedEngine, Scheduler
     from pytorch_distributed_tpu_torch.serving.engine import ChunkJob
+    from pytorch_distributed_tpu_torch.train import (
+        LMTrainer,
+        LMTrainerConfig,
+        create_lm_state,
+        lm_collate,
+        make_lm_train_step,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -208,6 +271,42 @@ def main() -> int:
     wide = decode_inputs(torch, f32, b=2, c=2, h=2, h_kv=2, d=128, w=8, seed=4)
     check("D=128 fp32, split_s=2", paged_flash.paged_flash_attention(**wide, split_s=2),
           paged_attention_reference(**wide), FP32_TOL)
+
+    FWD, BWD = flash_attention.FWD, flash_attention.BWD
+
+    def check_flash(label, dtype, tol_o, tol_g, causal=True, shift=0, **shape):
+        """Both flash kernels against their plain versions; the backward
+        takes the plain forward's O and LSE, as both sides must see the
+        same inputs. Returns the largest error of each kernel."""
+        q, k, v, do = flash_inputs(torch, dtype, **shape)
+        sc = q.shape[-1] ** -0.5
+        o, lse = flash_attention.launch_forward(q, k, v, causal, sc, shift)
+        ro, rlse = flash_attention.flash_forward_reference(q, k, v, causal=causal,
+                                                           scale=sc, shift=shift)
+        err_o = check(f"flash fwd O, {label}", o, ro, tol_o)
+        check(f"flash fwd LSE, {label}", lse, rlse, LSE_TOL)
+        grads = flash_attention.launch_backward(q, k, v, ro, rlse, do, causal, sc, shift)
+        want = flash_attention.flash_backward_reference(q, k, v, ro, rlse, do,
+                                                        causal=causal, scale=sc, shift=shift)
+        err_g = max(check(f"flash bwd {n}, {label}", g, w, tol_g)
+                    for n, g, w in zip(("dQ", "dK", "dV"), grads, want))
+        if shift < 0 and not ((o[:, :-shift] == 0).all() and (grads[0][:, :-shift] == 0).all()
+                              and (lse[:, :, :-shift] == -1e30).all()):
+            failures.append(f"fully masked rows, {label}")
+        return {FWD: err_o, BWD: err_g}
+
+    flash_errs = check_flash("training shape B=8 L=2048 H=12 D=64 causal bf16", bf16,
+                             BF16_TOL, BF16_GRAD_TOL)
+    for causal in (True, False):
+        check_flash(f"ragged L=300 fp32 causal={causal}", f32, FP32_TOL, FP32_TOL,
+                    causal=causal, b=2, l=300, h=2, seed=1)
+    check_flash("Lq=90 Lk=200 fp32 not causal", f32, FP32_TOL, FP32_TOL, causal=False,
+                b=2, l=90, lk=200, h=2, seed=2)
+    for dtype, tol_o, tol_g in ((bf16, BF16_TOL, BF16_GRAD_TOL), (f32, FP32_TOL, FP32_TOL)):
+        check_flash(f"D=128 L=130 causal {dtype}", dtype, tol_o, tol_g, b=2, l=130, h=2,
+                    d=128, seed=3)
+        check_flash(f"rows 0-36 fully masked (shift -37) {dtype}", dtype, tol_o, tol_g,
+                    shift=-37, b=1, l=100, h=2, seed=4)
     if failures:
         raise SystemExit(f"chip_smoke: kernels disagree with the plain version: {failures}")
 
@@ -301,6 +400,74 @@ def main() -> int:
     if not np.isfinite(logit_err) or logit_err > 0.25:
         raise SystemExit("chip_smoke: kernel-path logits far from the plain path")
 
+    # ---- (c) the training path: LMTrainer on the full-width model ----
+    torch.cuda.empty_cache()
+    bsz, seq, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    tcfg = full_config(attention="flash")
+    trainer = LMTrainer(
+        tcfg, SyntheticTokens(steps * bsz, seq, tcfg.vocab_size),
+        SyntheticTokens(bsz, seq, tcfg.vocab_size, seed=1),
+        LMTrainerConfig(batch_size=bsz, lr=3e-4, warmup_steps=0, log_every=1,
+                        grad_clip_norm=1.0), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.reset_launch_counts()
+    trainer.train_epoch(0)
+    torch.cuda.synchronize()
+    train_launches = dict(flash_attention.launch_counts)
+    flash_attention.reset_launch_counts()
+    val = trainer.validate()
+    val_launches = dict(flash_attention.launch_counts)
+    losses = [r["loss"] for r in trainer.history]
+    step_s = np.median([r["step_s"] for r in trainer.history[1:]])
+    n_matmul = sum(m.weight.numel() for m in trainer.state.model.modules()
+                   if isinstance(m, Dense))
+    shape = (bsz, seq, tcfg.num_heads, tcfg.head_dim)
+    fb_train = flash_bound(*(torch.empty(shape, dtype=bf16, device="meta") for _ in "qk"))
+    attn_flops = tcfg.num_layers * (fb_train["fwd"]["flops"] + fb_train["bwd"]["flops"])
+    step_flops = 6 * n_matmul * bsz * seq + attn_flops
+    print(f"(c) trained {steps} steps of B={bsz} x L={seq} bf16 (fp32 parameters), flash "
+          f"attention, on {card}: losses {[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(r['grad_norm'], 3) for r in trainer.history]}")
+    print(f"(c) step p50 {step_s * 1e3:.1f} ms (first step {trainer.history[0]['step_s']:.2f} s), "
+          f"{bsz * seq / step_s:.0f} tokens/s; model {step_flops / 1e12:.2f} TFLOP/step "
+          f"(6 x {n_matmul / 1e6:.1f} M matmul parameters x tokens + attention "
+          f"{attn_flops / 1e12:.2f}) = {step_flops / step_s / 1e12:.1f} TFLOP/s, "
+          f"{step_flops / step_s / PEAK_FLOPS['torch.bfloat16']:.3f} of 989; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    print(f"(c) validation: loss {val['loss']:.4f} over {val['tokens']:.0f} tokens; launches "
+          f"during training {train_launches}, during validation {val_launches}")
+    if len(losses) != steps or not all(np.isfinite(losses)) or not np.isfinite(val["loss"]):
+        raise SystemExit(f"chip_smoke: a non-finite or missing training loss: {losses}")
+    n_layers = tcfg.num_layers
+    if train_launches != {FWD: n_layers * steps, BWD: n_layers * steps}:
+        raise SystemExit(f"chip_smoke: expected {n_layers} forward and {n_layers} backward "
+                         f"flash launches per step, got {train_launches} in {steps} steps")
+    if val_launches != {FWD: n_layers * len(trainer.val_loader), BWD: 0}:
+        raise SystemExit(f"chip_smoke: validation launches {val_launches}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the first step from the same weights on the same batch: flash vs dense
+    pair_batch = {k: torch.from_numpy(v).cuda() for k, v in lm_collate(
+        [SyntheticTokens(2, seq, tcfg.vocab_size, seed=2)[i] for i in range(2)]).items()}
+    first = {}
+    for attn in ("flash", "dense"):
+        st = create_lm_state(full_config(attention=attn), lr_schedule=lambda step: 0.0,
+                             params=state, device="cuda")
+        _, m = make_lm_train_step(grad_clip_norm=1.0)(st, pair_batch)
+        first[attn] = {k: float(v) for k, v in m.items()}
+        del st, m
+        torch.cuda.empty_cache()
+    d_loss = abs(first["flash"]["loss"] - first["dense"]["loss"])
+    d_norm = abs(first["flash"]["grad_norm"] / first["dense"]["grad_norm"] - 1)
+    print(f"(c) first step B=2 x L={seq}, flash vs dense: loss {first['flash']['loss']:.5f} vs "
+          f"{first['dense']['loss']:.5f} (|diff| {d_loss:.2e}, tol {TRAIN_LOSS_TOL:g}); grad "
+          f"norm {first['flash']['grad_norm']:.5f} vs {first['dense']['grad_norm']:.5f} "
+          f"(rel diff {d_norm:.2e}, tol {TRAIN_GRAD_NORM_RTOL:g})")
+    if not (d_loss <= TRAIN_LOSS_TOL and d_norm <= TRAIN_GRAD_NORM_RTOL):
+        raise SystemExit("chip_smoke: the flash training step disagrees with the dense one")
+
     # ---- (d) times at the decode shape ----
     import torch.nn.functional as F
 
@@ -340,6 +507,46 @@ def main() -> int:
               f"{sdpa_ms * 1e3:.1f} us, bound {bd['bound_ms'] * 1e3:.2f} us "
               f"({bd['bound_by']}: {bd['bytes'] / 1e6:.2f} MB, {bd['flops'] / 1e6:.1f} MFLOP)")
 
+    # flash kernels at the training shape; the backward's time is the
+    # wrapper's (Delta, the kernel, the dQ cast), as the training step runs it
+    q, k, v, do = flash_inputs(torch, bf16, b=bsz, l=seq, seed=7)
+    sc = q.shape[-1] ** -0.5
+    o, lse = flash_attention.launch_forward(q, k, v, True, sc, 0)
+    fb = flash_bound(q, k)
+    flash_ms = {
+        FWD: time_ms(torch, lambda: flash_attention.launch_forward(q, k, v, True, sc, 0),
+                     iters=20),
+        BWD: time_ms(torch, lambda: flash_attention.launch_backward(
+            q, k, v, o, lse, do, True, sc, 0), iters=20),
+    }
+    flash_plain_ms = {
+        FWD: time_ms(torch, lambda: flash_attention.flash_forward_reference(
+            q, k, v, causal=True, scale=sc), iters=3, warmup=1),
+        BWD: time_ms(torch, lambda: flash_attention.flash_backward_reference(
+            q, k, v, o, lse, do, causal=True, scale=sc), iters=3, warmup=1),
+    }
+    qg, kg, vg = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dog = do.transpose(1, 2).contiguous()
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    flash_lib_ms = {
+        FWD: time_ms(torch, lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+                     iters=20),
+        BWD: time_ms(torch, lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dog,
+                                                         retain_graph=True), iters=20),
+    }
+    sdpa_fwdbwd = time_ms(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True), (qg, kg, vg), dog),
+        iters=20)
+    for name, part in ((FWD, "fwd"), (BWD, "bwd")):
+        print(f"(d) {name} at B, L, H, D = {tuple(q.shape)} causal bf16 on {card}: "
+              f"{flash_ms[name] * 1e3:.1f} us per call "
+              f"({fb[part]['flops'] / flash_ms[name] / 1e9:.1f} TFLOP/s), plain "
+              f"{flash_plain_ms[name] * 1e3:.1f} us, SDPA {flash_lib_ms[name] * 1e3:.1f} us, "
+              f"bound {fb[part]['bound_ms'] * 1e3:.1f} us ({fb[part]['bound_by']}: "
+              f"{fb[part]['bytes'] / 1e6:.1f} MB, {fb[part]['flops'] / 1e9:.1f} GFLOP)")
+    print(f"(d) SDPA forward + backward {sdpa_fwdbwd * 1e3:.1f} us; the kernels' "
+          f"{(flash_ms[FWD] + flash_ms[BWD]) * 1e3:.1f} us")
+
     # ---- (e) the kernels line; (f) the result ----
     replaces = {
         paged_flash.SWEEP: "pytorch_distributed_tpu/ops/paged_flash.py:375",
@@ -353,6 +560,16 @@ def main() -> int:
         "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
         "library_ms": sdpa_ms,
     } for name in (paged_flash.SWEEP, paged_flash.SPLIT)]
+    flash_replaces = {FWD: "pytorch_distributed_tpu/ops/flash_attention.py:138",
+                      BWD: "pytorch_distributed_tpu/ops/flash_attention.py:375"}
+    kernels += [{
+        "name": name, "route": "cuda",
+        "source": "pytorch_distributed_tpu_torch/csrc/flash_attention.cu",
+        "replaces": flash_replaces[name], "launches": train_launches[name],
+        "max_abs_err": flash_errs[name], "ms": flash_ms[name],
+        "plain_ms": flash_plain_ms[name], "bound_ms": fb[part]["bound_ms"],
+        "bound_by": fb[part]["bound_by"], "library_ms": flash_lib_ms[name],
+    } for name, part in ((FWD, "fwd"), (BWD, "bwd"))]
     print(f"total {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

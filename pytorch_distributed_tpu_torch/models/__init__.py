@@ -1,4 +1,8 @@
-from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
+from pytorch_distributed_tpu_torch.models.convert import (
+    init_params,
+    params_from_jax,
+    params_to_jax,
+)
 from pytorch_distributed_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
@@ -6,4 +10,4 @@ from pytorch_distributed_tpu_torch.models.transformer import (
 )
 
 __all__ = ["TransformerConfig", "TransformerLM", "tiny_config", "init_params",
-           "params_from_jax"]
+           "params_from_jax", "params_to_jax"]

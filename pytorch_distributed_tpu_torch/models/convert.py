@@ -1,5 +1,6 @@
 """Weights across frameworks: flax parameter trees to the port's
-``TransformerLM`` state dict, and a numpy initialiser in the flax layout.
+``TransformerLM`` state dict and back, and a numpy initialiser in the flax
+layout.
 
 The flax layout (``pytorch_distributed_tpu/models/transformer.py``):
 
@@ -67,6 +68,45 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         ln(f"{pre}.ln1", p["ln1"], sd)
         ln(f"{pre}.ln2", p["ln2"], sd)
     return sd
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor],
+                  cfg: TransformerConfig) -> Dict:
+    """The inverse of ``params_from_jax``: the flax parameter tree, numpy
+    fp32 leaves, of a ``TransformerLM`` state dict (any device and
+    dtype), so a trained state compares with the JAX package's."""
+
+    def a(name) -> np.ndarray:  # a copy: never a view of a live parameter
+        return state_dict[name].detach().float().cpu().numpy().copy()
+
+    def kernel(name, *shape) -> np.ndarray:  # nn.Linear weight -> Dense kernel
+        w = a(f"{name}.weight").T
+        return w.reshape(shape) if shape else w
+
+    def ln(prefix):
+        return {"scale": a(f"{prefix}.weight"), "bias": a(f"{prefix}.bias")}
+
+    e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    params = {
+        "wte": {"embedding": a("wte.weight")},
+        "wpe": {"embedding": a("wpe.weight")},
+        "ln_f": ln("ln_f"),
+        "lm_head": {"kernel": kernel("lm_head")},
+    }
+    for i in range(cfg.num_layers):
+        pre = f"blocks.{i}"
+        params[f"block{i}"] = {
+            "ln1": ln(f"{pre}.ln1"),
+            "attn": {
+                "qkv": {"kernel": kernel(f"{pre}.attn.qkv", e, 3, h, d),
+                        "bias": a(f"{pre}.attn.qkv.bias").reshape(3, h, d)},
+                "proj": {"kernel": kernel(f"{pre}.attn.proj", h, d, e)},
+            },
+            "ln2": ln(f"{pre}.ln2"),
+            "mlp_up": {"kernel": kernel(f"{pre}.mlp_up"), "bias": a(f"{pre}.mlp_up.bias")},
+            "mlp_down": {"kernel": kernel(f"{pre}.mlp_down")},
+        }
+    return params
 
 
 def _truncated_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:

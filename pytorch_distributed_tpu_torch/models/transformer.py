@@ -1,11 +1,20 @@
-"""Causal transformer LM for paged serving, in PyTorch.
+"""Causal transformer LM, in PyTorch.
 
-The port of ``pytorch_distributed_tpu/models/transformer.py`` along its
-paged-serving path: learned token and position embeddings, pre-LN blocks
-(attention, GELU MLP), a final LayerNorm and an untied LM head with fp32
-logits. Each layer's attention writes the chunk's K/V into the block pool
-and attends through the block tables (``ops.attention.paged_attention``).
-One forward serves chunked prefill (C = chunk) and decode (C = 1).
+The port of ``pytorch_distributed_tpu/models/transformer.py`` along two
+paths: learned token and position embeddings, pre-LN blocks (attention,
+GELU MLP), a final LayerNorm and an untied LM head with fp32 logits.
+
+- Paged serving (``cache=`` given): each layer's attention writes the
+  chunk's K/V into the block pool and attends through the block tables
+  (``ops.attention.paged_attention``). One forward serves chunked prefill
+  (C = chunk) and decode (C = 1).
+- Training (no cache): causal self-attention over the whole sequence,
+  ``attention="flash"`` through the CUDA kernels of
+  ``ops.flash_attention`` or ``"dense"`` in plain PyTorch; with
+  ``return_hidden`` it stops after the final LayerNorm for the fused loss.
+
+Both forwards share one module and its state-dict names, so
+``models.convert.params_from_jax`` serves both.
 
 What must match the flax module exactly:
 
@@ -14,11 +23,19 @@ What must match the flax module exactly:
 - ``proj``, ``mlp_down`` and ``lm_head`` have no bias;
 - embeddings, the residual stream and every Dense output are in
   ``config.dtype``; a LayerNorm's fp32 output is cast to it at the next
-  Dense, and the logits are the head's output cast to fp32.
+  Dense, and the logits are the head's output cast to fp32;
+- flax sets no ``param_dtype``, so the JAX model trains fp32 parameters and
+  casts each Dense's and Embed's operands to ``config.dtype``. Here
+  ``config.param_dtype`` (None = ``config.dtype``, the serving default)
+  picks the parameters' dtype and ``Dense``/``Embed`` cast to
+  ``config.dtype`` at use; training sets it to fp32
+  (``train.lm.create_lm_state``), because AdamW on bf16 parameters loses
+  most updates.
 
-The ring, blockwise, flash, MoE, tensor-parallel, RoPE, dropout and
-GQA-model branches of the JAX module are not ported yet, nor are their
-config fields.
+The ring, blockwise, MoE, tensor-parallel, RoPE, dropout and GQA branches
+of the JAX module are not ported yet: their config fields raise
+``NotImplementedError`` when set, and ``attention="ring"``/``"blockwise"``
+when the training forward runs.
 """
 
 from __future__ import annotations
@@ -32,13 +49,24 @@ from torch import nn
 
 from pytorch_distributed_tpu_torch.ops.attention import (
     GATHER_IMPLS,
+    dense_attention,
     paged_attention,
 )
+from pytorch_distributed_tpu_torch.ops.flash_attention import flash_attention
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
+ATTENTIONS = ("dense", "flash")
+#: JAX config fields whose branches are not ported, with their defaults
+NOT_PORTED = {"dropout": 0.0, "num_kv_heads": None, "pos_embedding": "learned",
+              "n_experts": 0, "tp_size": 1}
 
 #: one layer's KV pools: (key, value), each [n_blocks, block_len, H_kv, D]
 LayerCache = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _later(what: str) -> str:
+    return (f"{what}: not ported yet (ROADMAP.md, the port's queue: dropout, "
+            "GQA, RoPE, MoE, TP, blockwise and the ring come with later slices)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,21 +78,38 @@ class TransformerConfig:
     mlp_ratio: int = 4
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    attention: str = "dense"  # serving checks it (models.generate)
+    # parameters' dtype; None = dtype (serving). Training keeps fp32.
+    param_dtype: Optional[torch.dtype] = None
+    # training attention: "flash" (the CUDA kernels) or "dense"; serving
+    # requires "dense" (models.generate) and reads through gather_impl
+    attention: str = "dense"
     # paged read path: "kernel" runs the CUDA kernels of ops/paged_flash.py
     # (the JAX package's "pallas"), "dense" the plain PyTorch version
     gather_impl: str = "kernel"
     # flash-decoding workers: None = auto (ops.paged_flash.auto_split_s),
     # 1 = single sweep, S > 1 forced
     split_s: Optional[int] = None
+    # not ported: any value but the default raises NotImplementedError
+    dropout: float = 0.0
+    num_kv_heads: Optional[int] = None
+    pos_embedding: str = "learned"
+    n_experts: int = 0
+    tp_size: int = 1
 
     def __post_init__(self):
+        later = [f"{k}={getattr(self, k)!r}" for k, default in NOT_PORTED.items()
+                 if getattr(self, k) != default]
+        if later:
+            raise NotImplementedError(_later(", ".join(later)))
         if self.embed_dim % self.num_heads:
             raise ValueError(
                 f"embed_dim {self.embed_dim} not divisible by num_heads "
                 f"{self.num_heads}")
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {self.dtype}")
+        if self.param_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(
+                f"param_dtype must be None, float32 or bfloat16, got {self.param_dtype}")
         if self.gather_impl not in GATHER_IMPLS:
             raise ValueError(
                 f"gather_impl {self.gather_impl!r} must be one of {GATHER_IMPLS}")
@@ -76,6 +121,10 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
+
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        return self.param_dtype or self.dtype
 
 
 def tiny_config(**overrides) -> TransformerConfig:
@@ -117,24 +166,64 @@ class LayerNorm32(nn.LayerNorm):
         return super().forward(x.float())
 
 
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=cfg.dtype)``: parameters in
+    ``cfg.weight_dtype``; input, weight and bias cast to ``cfg.dtype`` at
+    use (no-ops when the two agree)."""
+
+    def __init__(self, cfg: TransformerConfig, d_in: int, d_out: int,
+                 bias: bool = True):
+        super().__init__(d_in, d_out, bias=bias, dtype=cfg.weight_dtype)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Embed(nn.Embedding):
+    """flax ``nn.Embed(dtype=cfg.dtype)``: the table in
+    ``cfg.weight_dtype``, the looked-up rows in ``cfg.dtype``."""
+
+    def __init__(self, cfg: TransformerConfig, n: int, dim: int):
+        super().__init__(n, dim, dtype=cfg.weight_dtype)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return super().forward(idx).to(self.compute_dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
         e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
-        self.qkv = nn.Linear(e, 3 * h * d, dtype=cfg.dtype)  # out (3, H, D)
-        self.proj = nn.Linear(h * d, e, bias=False, dtype=cfg.dtype)
+        self.qkv = Dense(cfg, e, 3 * h * d)  # out (3, H, D)
+        self.proj = Dense(cfg, h * d, e, bias=False)
 
-    def forward(self, x: torch.Tensor, index: "PagedIndex",
-                cache: LayerCache) -> torch.Tensor:
-        """``x [B, L, E]`` (LayerNorm output). Writes the chunk's K/V into
-        the pools in place at ``(index.blk, index.off)``, then attends
-        through the tables; the chunk just written is visible to itself
-        through the same frontier mask."""
+    def forward(self, x: torch.Tensor, index: Optional["PagedIndex"] = None,
+                cache: Optional[LayerCache] = None,
+                position_offset: int = 0) -> torch.Tensor:
+        """``x [B, L, E]`` (LayerNorm output).
+
+        Paged (``cache`` given): writes the chunk's K/V into the pools in
+        place at ``(index.blk, index.off)``, then attends through the
+        tables; the chunk just written is visible to itself through the
+        same frontier mask. Training (no cache): causal self-attention over
+        the L tokens, flash or dense by ``cfg.attention``; the flash kernel
+        masks from position 0, which is exact for equal q/k offsets."""
         cfg = self.cfg
         b, l, _ = x.shape
         h, d = cfg.num_heads, cfg.head_dim
-        q, k, v = self.qkv(x.to(cfg.dtype)).view(b, l, 3, h, d).unbind(dim=2)
+        q, k, v = self.qkv(x).view(b, l, 3, h, d).unbind(dim=2)
+        if cache is None:
+            if cfg.attention == "flash":
+                out = flash_attention(q, k, v, causal=True)
+            else:
+                out = dense_attention(q, k, v, causal=True, q_offset=position_offset,
+                                      k_offset=position_offset)
+            return self.proj(out.reshape(b, l, h * d))
         k_pool, v_pool = cache
         # inactive lanes write to the trash block, where clashes are harmless
         k_pool[index.blk, index.off] = k.to(k_pool.dtype)
@@ -152,40 +241,51 @@ class Block(nn.Module):
         self.ln1 = LayerNorm32(e)
         self.attn = Attention(cfg)
         self.ln2 = LayerNorm32(e)
-        self.mlp_up = nn.Linear(e, e * cfg.mlp_ratio, dtype=cfg.dtype)
-        self.mlp_down = nn.Linear(e * cfg.mlp_ratio, e, bias=False, dtype=cfg.dtype)
+        self.mlp_up = Dense(cfg, e, e * cfg.mlp_ratio)
+        self.mlp_down = Dense(cfg, e * cfg.mlp_ratio, e, bias=False)
 
-    def forward(self, x, index: "PagedIndex", cache: LayerCache):
-        dt = self.cfg.dtype
-        x = x + self.attn(self.ln1(x), index, cache)
-        hdn = F.gelu(self.mlp_up(self.ln2(x).to(dt)), approximate="tanh")
+    def forward(self, x, index: Optional["PagedIndex"] = None,
+                cache: Optional[LayerCache] = None, position_offset: int = 0):
+        x = x + self.attn(self.ln1(x), index, cache, position_offset)
+        hdn = F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh")
         return x + self.mlp_down(hdn)
 
 
 class TransformerLM(nn.Module):
-    """Decoder-only LM over a block-pooled KV cache.
+    """Decoder-only LM, for training or over a block-pooled KV cache.
 
-    ``forward(tokens [B, L], position_offset [B], block_tables [B, W],
-    cache)`` → logits ``[B, L, vocab]`` fp32, with ``cache`` a list of one
-    ``(key_pool, value_pool)`` pair per layer, updated in place (the JAX
-    module returns a new cache; here the pools are mutated, which saves a
-    pool copy per call). ``logits_index [B]`` keeps one row per request —
+    Paged: ``forward(tokens [B, L], position_offset [B], block_tables
+    [B, W], cache)`` → logits ``[B, L, vocab]`` fp32, with ``cache`` a list
+    of one ``(key_pool, value_pool)`` pair per layer, updated in place (the
+    JAX module returns a new cache; here the pools are mutated, which saves
+    a pool copy per call). ``logits_index [B]`` keeps one row per request —
     the LM head then runs on B rows instead of B·L.
+
+    Training: ``forward(tokens [B, L], position_offset=0, positions=None,
+    return_hidden=False)`` → logits ``[B, L, vocab]`` fp32, or with
+    ``return_hidden`` the fp32 output of the final LayerNorm (the fused
+    loss applies ``lm_head.weight`` itself). ``positions [L]`` overrides
+    ``position_offset + arange(L)`` for the position embedding.
     """
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
         e = cfg.embed_dim
-        self.wte = nn.Embedding(cfg.vocab_size, e, dtype=cfg.dtype)
-        self.wpe = nn.Embedding(cfg.max_seq_len, e, dtype=cfg.dtype)
+        self.wte = Embed(cfg, cfg.vocab_size, e)
+        self.wpe = Embed(cfg, cfg.max_seq_len, e)
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm32(e)
-        self.lm_head = nn.Linear(e, cfg.vocab_size, bias=False, dtype=cfg.dtype)
+        self.lm_head = Dense(cfg, e, cfg.vocab_size, bias=False)
 
-    def forward(self, tokens: torch.Tensor, position_offset: torch.Tensor,
-                block_tables: torch.Tensor, cache: List[LayerCache],
-                logits_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, position_offset=0,
+                block_tables: Optional[torch.Tensor] = None,
+                cache: Optional[List[LayerCache]] = None,
+                logits_index: Optional[torch.Tensor] = None, *,
+                positions: Optional[torch.Tensor] = None,
+                return_hidden: bool = False) -> torch.Tensor:
+        if cache is None:
+            return self._forward_train(tokens, position_offset, positions, return_hidden)
         if len(cache) != self.cfg.num_layers:
             raise ValueError(
                 f"cache has {len(cache)} layers, the model {self.cfg.num_layers}")
@@ -198,5 +298,28 @@ class TransformerLM(nn.Module):
             x = blk(x, index, layer_cache)
         if logits_index is not None:
             x = x[torch.arange(b, device=x.device), logits_index.long()][:, None]
-        h = self.ln_f(x).to(self.cfg.dtype)
-        return self.lm_head(h).float()
+        return self.lm_head(self.ln_f(x)).float()
+
+    def _forward_train(self, tokens: torch.Tensor, position_offset,
+                       positions: Optional[torch.Tensor],
+                       return_hidden: bool) -> torch.Tensor:
+        if torch.is_tensor(position_offset) and position_offset.dim() > 0:
+            raise ValueError(
+                "a [B] position_offset is the paged serving convention (pass "
+                "block_tables and cache); training takes a scalar offset or "
+                "positions=")
+        if self.cfg.attention not in ATTENTIONS:
+            if self.cfg.attention in ("blockwise", "ring", "ring_flash"):
+                raise NotImplementedError(_later(f"attention={self.cfg.attention!r}"))
+            raise ValueError(
+                f"attention {self.cfg.attention!r} must be one of {ATTENTIONS}")
+        offset = int(position_offset)
+        if positions is None:
+            positions = offset + torch.arange(tokens.shape[1], device=tokens.device)
+        x = self.wte(tokens) + self.wpe(positions)
+        for blk in self.blocks:
+            x = blk(x, position_offset=offset)
+        x = self.ln_f(x)
+        if return_hidden:
+            return x
+        return self.lm_head(x).float()

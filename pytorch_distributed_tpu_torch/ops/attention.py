@@ -1,4 +1,5 @@
-"""Paged attention: the plain PyTorch version and the spelling switch.
+"""Attention in plain PyTorch: ``dense_attention`` for training, and
+paged attention's plain version and spelling switch for serving.
 
 ``paged_attention_reference`` is the dense-gather spelling of
 ``pytorch_distributed_tpu/ops/attention.py:paged_attention``: take each
@@ -92,6 +93,41 @@ def paged_attention_reference(
     p = torch.softmax(s, dim=-1) * allowed
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, vg)
     return out.reshape(b, c, h, d).to(q.dtype)
+
+
+def causal_mask(lq: int, lk: int, q_offset: int, k_offset: int,
+                device) -> torch.Tensor:
+    """``[Lq, Lk]`` bool: key j visible to query i iff
+    ``k_offset + j <= q_offset + i``."""
+    q_pos = q_offset + torch.arange(lq, device=device)
+    k_pos = k_offset + torch.arange(lk, device=device)
+    return k_pos[None, :] <= q_pos[:, None]
+
+
+def dense_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+) -> torch.Tensor:
+    """O(L²) attention on ``[B, L, H, D]`` (``ops/attention.py:122`` of the
+    JAX package): fp32 logits of the input-dtype operands, scaled after the
+    product; the causal mask from the offsets; a fully masked row comes out
+    0 (``probs * mask``), not uniform; PV in fp32, the output in q's dtype.
+    It is the ``attention="dense"`` training path."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        allowed = causal_mask(q.shape[1], k.shape[1], q_offset, k_offset, q.device)
+        logits = logits.masked_fill(~allowed, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    if causal:
+        probs = probs * allowed
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
 
 
 def paged_attention(

@@ -1,0 +1,272 @@
+"""FlashAttention through the hand-written CUDA kernels.
+
+The port of ``pytorch_distributed_tpu/ops/flash_attention.py``'s
+``flash_attention`` with its default fused backward, as a
+``torch.autograd.Function``. Two kernels of ``csrc/flash_attention.cu``:
+
+- ``flash_attention_fwd`` (the TPU's ``_flash_fwd``): O in the input dtype
+  and the row log-sum-exp LSE ``[B, H, Lq]`` fp32;
+- ``flash_attention_bwd`` (the TPU's ``_flash_bwd_fused``): dK, dV and dQ
+  in one pass over the visible (q, k) tiles, dQ summed in fp32 across key
+  tiles, which is the JAX kernel's ``partials_f32=True``. Δ = rowsum(dO ⊙ O)
+  and the final dQ cast are torch ops around it, as they are XLA ops
+  around the Pallas kernel.
+
+Beside each kernel is its plain version (``flash_forward_reference``,
+``flash_backward_reference``): the same arithmetic and rounding on whole
+``[B, H, Lq, Lk]`` tensors, the backward written out from the formula of
+``_masked_p_ds`` (not autograd through ``dense_attention``). The wrappers
+run the plain version for tensors on the CPU; for CUDA tensors they launch
+a kernel or raise. ``launch_counts`` counts each kernel's launches and
+nothing else.
+
+Shapes follow the JAX package: q ``[B, Lq, H, D]``, k and v ``[B, Lk, H,
+D]``. The kernels read them through their strides, so the fused qkv
+projection's views need no copy, and mask keys past Lk themselves, so any
+length works without padding. ``q_offset``/``k_offset`` shift the causal
+diagonal (key j visible to query i iff ``k_offset + j <= q_offset + i``),
+which makes fully masked rows: they give O = 0, LSE = NEG_INF and zero
+gradients.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from pytorch_distributed_tpu_torch.ops import _build
+from pytorch_distributed_tpu_torch.ops.attention import NEG_INF, causal_mask
+
+FWD = "flash_attention_fwd"
+BWD = "flash_attention_bwd"
+#: launches of each kernel since the last ``reset_launch_counts``
+launch_counts = {FWD: 0, BWD: 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _allowed(lq: int, lk: int, causal: bool, shift: int, device) -> torch.Tensor:
+    if not causal:
+        return torch.ones((lq, lk), dtype=torch.bool, device=device)
+    return causal_mask(lq, lk, shift, 0, device)
+
+
+def _scaled_logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """fp32 ``[B, H, Lq, Lk]`` logits of q scaled in its own dtype
+    (``ops/flash_attention.py:75``)."""
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    return torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+
+
+def flash_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool, scale: float,
+                            shift: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's plain version: ``(O [B, Lq, H, D]`` in q's
+    dtype, ``LSE [B, H, Lq]`` fp32). Softmax statistics in fp32, p rounded
+    to V's dtype before PV, rows without a visible key 0 with LSE
+    NEG_INF."""
+    allowed = _allowed(q.shape[1], k.shape[1], causal, shift, q.device)
+    s = _scaled_logits(q, k, scale).masked_fill(~allowed, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(allowed, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    lc = l.clamp_min(1e-37)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    o = pv / lc.squeeze(-1).transpose(1, 2)[..., None]
+    lse = torch.where(l > 0, m + torch.log(lc), NEG_INF).squeeze(-1)
+    return o.to(q.dtype), lse
+
+
+def flash_backward_reference(q, k, v, o, lse, do, *, causal: bool, scale: float,
+                             shift: int = 0):
+    """The fused backward's plain version: ``(dq, dk, dv)`` in the inputs'
+    dtypes, from P = where(mask, exp(S − LSE), 0), dP = dO·Vᵀ and
+    dS = P ⊙ (dP − Δ)·scale (``_masked_p_ds``), with P in dO's dtype for
+    dV, dS in q's dtype for dK and dQ, and dQ summed in fp32."""
+    allowed = _allowed(q.shape[1], k.shape[1], causal, shift, q.device)
+    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)  # [B, H, Lq]
+    p = torch.where(allowed, torch.exp(_scaled_logits(q, k, scale) - lse[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dsc = ds.to(q.dtype).float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsc, q.float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsc, k.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    operand = [p, i64, i64, i64]  # pointer and its (B, L, H) element strides
+    dims = [i, i, i, i, i, i, i, i]  # dtype, B, H, Lq, Lk, D, causal, shift
+    lib.pdt_flash_fwd.argtypes = operand * 3 + [p, p] + dims + [f, p]
+    lib.pdt_flash_fwd.restype = i
+    lib.pdt_flash_bwd.argtypes = operand * 4 + [p, p, p, p, p] + dims + [f, p]
+    lib.pdt_flash_bwd.restype = i
+    lib.pdt_flash_error_string.argtypes = [i]
+    lib.pdt_flash_error_string.restype = ctypes.c_char_p
+
+
+def _library() -> ctypes.CDLL:
+    return _build.load_library("flash_attention", declare=_declare)
+
+
+def _check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
+    if code != 0:
+        msg = lib.pdt_flash_error_string(code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {code})")
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"q must be [B, Lq, H, D] and k, v [B, Lk, H, D]; got q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if (q.shape[0], q.shape[2], q.shape[3]) != (k.shape[0], k.shape[2], k.shape[3]):
+        raise ValueError(
+            f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in batch, heads "
+            "or head dim")
+
+
+def _check_cuda_operands(*tensors: torch.Tensor) -> None:
+    """What the kernels take: one card, one dtype in {fp32, bf16}, D in
+    ``HEAD_DIMS``, unit stride in D, 16-byte aligned rows, non-empty."""
+    first = tensors[0]
+    for t in tensors:
+        if t.device != first.device:
+            raise ValueError(f"operands on {t.device} and {first.device}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"operands of dtypes {t.dtype} and {first.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError("the flash kernels need unit stride in the head dim")
+        elem = t.element_size()
+        if t.data_ptr() % 16 or any(s * elem % 16 for s in t.stride()[:3]):
+            raise ValueError("the flash kernels need 16-byte aligned rows")
+    if first.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the flash kernels take float32 or bfloat16, got {first.dtype}")
+    if first.shape[-1] not in HEAD_DIMS:
+        raise ValueError(
+            f"head dim {first.shape[-1]} unsupported: the kernels take D in {HEAD_DIMS}")
+    if min(t.shape[1] for t in tensors) < 1:
+        raise ValueError("the flash kernels need non-empty sequences")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _operand(t: torch.Tensor) -> list:
+    return [_ptr(t), t.stride(0), t.stride(1), t.stride(2)]
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def launch_forward(q, k, v, causal: bool, scale: float,
+                   shift: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the forward kernel on checked CUDA operands. Returns
+    ``(O [B, Lq, H, D], LSE [B, H, Lq] fp32)``."""
+    b, lq, h, d = q.shape
+    o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    lib = _library()
+    code = lib.pdt_flash_fwd(
+        *_operand(q), *_operand(k), *_operand(v), _ptr(o), _ptr(lse),
+        _DTYPE_CODES[q.dtype], b, h, lq, k.shape[1], d, int(causal), int(shift),
+        float(scale), _stream(q))
+    _check_launch(lib, FWD, code)
+    launch_counts[FWD] += 1
+    return o, lse
+
+
+def launch_backward(q, k, v, o, lse, do, causal: bool, scale: float, shift: int):
+    """Δ, one launch of the fused backward kernel on checked CUDA operands,
+    and the dQ cast. Returns ``(dq, dk, dv)`` in the inputs' dtype."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    dq = torch.zeros((b, lq, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, lk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, lk, h, d), dtype=v.dtype, device=v.device)
+    lib = _library()
+    code = lib.pdt_flash_bwd(
+        *_operand(q), *_operand(k), *_operand(v), *_operand(do), _ptr(lse),
+        _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), _DTYPE_CODES[q.dtype], b, h,
+        lq, lk, d, int(causal), int(shift), float(scale), _stream(q))
+    _check_launch(lib, BWD, code)
+    launch_counts[BWD] += 1
+    return dq.to(q.dtype), dk, dv
+
+
+def flash_forward(q, k, v, *, causal: bool, scale: float, shift: int = 0):
+    """``(O, LSE)``: the plain version on the CPU, the kernel on CUDA."""
+    _check_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, causal=causal, scale=scale, shift=shift)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _check_cuda_operands(q, k, v)
+    return launch_forward(q, k, v, causal, scale, shift)
+
+
+def flash_backward(q, k, v, o, lse, do, *, causal: bool, scale: float, shift: int = 0):
+    """``(dq, dk, dv)``: the plain version on the CPU, the kernel on CUDA."""
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, o, lse, do, causal=causal,
+                                        scale=scale, shift=shift)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    do = do.contiguous()
+    _check_cuda_operands(q, k, v, o, do)
+    return launch_backward(q, k, v, o, lse, do, causal, scale, shift)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float, shift: int):
+        o, lse = flash_forward(q, k, v, causal=causal, scale=scale, shift=shift)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, scale, shift)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, scale, shift = ctx.args
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do.to(q.dtype), causal=causal,
+                                    scale=scale, shift=shift)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+) -> torch.Tensor:
+    """``softmax(QKᵀ·scale)V`` on ``[B, L, H, D]``, differentiable in q, k
+    and v (``ops/flash_attention.py:530`` of the JAX package, with
+    ``bwd_impl="fused"``). Returns ``[B, Lq, H, D]`` in q's dtype.
+
+    On CUDA tensors the forward and the backward each launch one kernel
+    (D in ``HEAD_DIMS``, fp32 or bf16), or raise; on CPU tensors they run
+    the plain versions. dQ sums in fp32 (the JAX ``partials_f32=True``),
+    so against JAX's default bf16 partials it differs by their rounding.
+    """
+    _check_shapes(q, k, v)
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    return _FlashAttention.apply(q, k, v, bool(causal), scale,
+                                 int(q_offset) - int(k_offset))

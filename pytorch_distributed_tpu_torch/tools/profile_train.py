@@ -1,0 +1,116 @@
+"""Where a training step's time goes on the card.
+
+Trains the ``chip_smoke.py`` configuration (the full-width LM, random
+weights from seed 0, synthetic tokens, batch 8 x 2048, bf16 compute on
+fp32 parameters, flash attention, clip 1.0) for two warm-up steps, then
+profiles three steps under ``torch.profiler``, and prints:
+
+- the unprofiled step time (p50 of five steps, host clock after a sync);
+- the device's busy share over the profiled steps;
+- device time per step by kind of kernel: the flash forward and backward,
+  matrix products (the fused CE's TF32 ones apart), the optimizer, copies
+  and casts, and the rest (elementwise, reductions, norms);
+- the top operators by device time.
+
+    python -m pytorch_distributed_tpu_torch.tools.profile_train [--attention dense --batch 2]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from pytorch_distributed_tpu_torch.data import SyntheticTokens, to_device
+from pytorch_distributed_tpu_torch.recipes.serve_lm import full_config
+from pytorch_distributed_tpu_torch.tools.profile_serve import busy_share
+from pytorch_distributed_tpu_torch.train import (
+    create_lm_state,
+    lm_collate,
+    make_lm_train_step,
+)
+
+GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
+
+
+def kind_of(kernel_name: str) -> str:
+    name = kernel_name.lower()
+    if "flash_fwd_kernel" in name:
+        return "flash forward"
+    if "flash_bwd_kernel" in name:
+        return "flash backward"
+    if any(m in name for m in GEMM_MARKS):
+        # the fused CE's products run in TF32 on bf16-valued operands
+        return "matrix products, tf32" if "tf32" in name else "matrix products"
+    if "multi_tensor_apply" in name:
+        return "optimizer"
+    if "copy" in name:
+        return "copies and casts"
+    return "other"
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--attention", choices=("flash", "dense"), default="flash")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=2048)
+    args = p.parse_args(argv)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    cfg = full_config(attention=args.attention)
+    state = create_lm_state(cfg, lr_schedule=lambda step: 3e-4, weight_decay=0.1,
+                            device="cuda")
+    step = make_lm_train_step(grad_clip_norm=1.0)
+    data = SyntheticTokens(10 * args.batch, args.seq, cfg.vocab_size)
+    batches = [to_device({k: torch.from_numpy(v) for k, v in lm_collate(
+        [data[i * args.batch + j] for j in range(args.batch)]).items()}, "cuda")
+        for i in range(10)]
+
+    def run(i):
+        _, m = step(state, batches[i % len(batches)])
+        return m
+
+    for i in range(2):
+        float(run(i)["loss"])
+    times = []
+    for i in range(5):
+        t = time.perf_counter()
+        float(run(i)["loss"])
+        times.append(time.perf_counter() - t)
+    n_prof = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_prof):
+            run(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kind: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kind_of(e.name)
+            by_kind[k] = by_kind.get(k, 0.0) + (e.time_range.end - e.time_range.start)
+    device_ms = {k: v / 1e3 / n_prof for k, v in sorted(by_kind.items())}
+    summary = {
+        "card": card, "attention": args.attention, "batch": args.batch, "seq": args.seq,
+        "step_p50_ms": 1e3 * float(np.median(times)),
+        "tokens_per_s": args.batch * args.seq / float(np.median(times)),
+        "profiled_step_ms": 1e3 * wall / n_prof,
+        "device_busy_share": busy_share(prof, wall * 1e6),
+        "device_ms_per_step": device_ms,
+        "device_ms_per_step_total": sum(device_ms.values()),
+    }
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25,
+                                    max_name_column_width=60))
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,128 @@
+"""LMTrainer on one card (``pytorch_distributed_tpu/train/lm_trainer.py``).
+
+The epoch loop of the JAX trainer without its mesh: the sampler's
+``set_epoch`` reshuffle, the warmup-cosine AdamW (``LMTrainerConfig`` has
+the JAX defaults), optional global-norm clipping and ``nan_guard``, and a
+validation pass per epoch reporting token perplexity. Checkpoints, best
+and suspend/resume, the compile cache, the watchdog, metrics JSONL and
+telemetry come with a later slice; the trainer keeps its logged records in
+``history`` instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List
+
+import numpy as np
+
+from pytorch_distributed_tpu_torch._device import resolve_device
+from pytorch_distributed_tpu_torch.data import DataLoader, DistributedSampler, to_device
+from pytorch_distributed_tpu_torch.ops.schedules import warmup_cosine
+from pytorch_distributed_tpu_torch.train.lm import (
+    create_lm_state,
+    empty_lm_metrics,
+    make_lm_eval_step,
+    make_lm_train_step,
+    shift_labels,
+)
+
+
+def lm_collate(samples) -> dict:
+    """``[L]``-token samples → ``{"tokens", "labels", "weights"}`` ``[B, L]``."""
+    tokens = np.stack(samples).astype(np.int32)
+    labels, weights = shift_labels(tokens)
+    return {"tokens": tokens, "labels": labels, "weights": weights}
+
+
+@dataclasses.dataclass
+class LMTrainerConfig:
+    epochs: int = 1
+    batch_size: int = 8
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 0
+    min_lr_ratio: float = 0.1
+    log_every: int = 100
+    seed: int = 0
+    grad_clip_norm: float = 0.0
+    nan_guard: bool = False
+
+
+class LMTrainer:
+    """Drives a ``TransformerConfig`` over token datasets on one device
+    (CUDA unless ``device="cpu"``), from the seeded initialisation."""
+
+    def __init__(self, model_config, train_dataset, val_dataset,
+                 config: LMTrainerConfig, device=None):
+        self.config = config
+        self.model_config = model_config
+        self.device = resolve_device(device)
+        pin = self.device.type == "cuda"
+        self.train_sampler = DistributedSampler(len(train_dataset), shuffle=True,
+                                                seed=config.seed)
+        self.val_sampler = DistributedSampler(len(val_dataset), shuffle=False,
+                                              seed=config.seed)
+        self.train_loader = DataLoader(train_dataset, config.batch_size, lm_collate,
+                                       sampler=self.train_sampler, drop_last=True,
+                                       pin_memory=pin)
+        self.val_loader = DataLoader(val_dataset, config.batch_size, lm_collate,
+                                     sampler=self.val_sampler, drop_last=False,
+                                     pin_memory=pin)
+        schedule = warmup_cosine(
+            config.lr, total_steps=max(len(self.train_loader) * config.epochs, 1),
+            warmup_steps=config.warmup_steps, final_lr=config.lr * config.min_lr_ratio)
+        self.state = create_lm_state(model_config, lr_schedule=schedule,
+                                     weight_decay=config.weight_decay, seed=config.seed,
+                                     device=self.device)
+        self.train_step = make_lm_train_step(grad_clip_norm=config.grad_clip_norm,
+                                             nan_guard=config.nan_guard)
+        self.eval_step = make_lm_eval_step()
+        self.best_ppl = float("inf")
+        #: one record per logged step: its metrics, epoch, step, and the
+        #: mean wall time of the steps since the previous record
+        self.history: List[dict] = []
+
+    def train_epoch(self, epoch: int, start_step: int = 0) -> dict:
+        """One epoch from batch ``start_step``; every ``log_every`` steps
+        the metrics are read (a device sync) and recorded. Returns the last
+        record's metrics."""
+        cfg = self.config
+        last: dict = {}
+        t_prev, since = time.perf_counter(), 0
+        for step, host_batch in enumerate(self.train_loader.iter_batches(start_step),
+                                          start=start_step):
+            batch = to_device(host_batch, self.device)
+            self.state, metrics = self.train_step(self.state, batch)
+            since += 1
+            if cfg.log_every and step % cfg.log_every == 0:
+                last = {k: float(v) for k, v in metrics.items()}
+                now = time.perf_counter()
+                self.history.append(dict(last, epoch=epoch, step=step,
+                                         step_s=(now - t_prev) / since))
+                t_prev, since = now, 0
+                print(f"epoch {epoch} step {step}: loss {last['loss']:.4f}")
+        return last
+
+    def validate(self) -> dict:
+        acc = empty_lm_metrics(self.device)
+        for host_batch in self.val_loader.iter_batches(0):
+            acc = self.eval_step(self.state, to_device(host_batch, self.device), acc)
+        tokens = float(acc["tokens"])
+        if tokens == 0.0:
+            raise ValueError("validation saw zero tokens: the val dataset is "
+                             "empty or its sequences have length 1")
+        mean = float(acc["loss_sum"]) / tokens
+        return {"loss": mean, "ppl": float(np.exp(min(mean, 30.0))), "tokens": tokens}
+
+    def fit(self) -> dict:
+        summary: dict = {}
+        for epoch in range(self.config.epochs):
+            self.train_sampler.set_epoch(epoch)
+            self.train_epoch(epoch)
+            summary = self.validate()
+            print(f"epoch {epoch}: val loss {summary['loss']:.4f} ppl {summary['ppl']:.3f}")
+            self.best_ppl = min(self.best_ppl, summary["ppl"])
+        summary["best_ppl"] = self.best_ppl
+        return summary

@@ -97,6 +97,30 @@ def test_recipe_without_device_raises_on_a_cpu_machine(monkeypatch):
         serve_lm.main(["--tiny", "--requests", "1"])
 
 
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    from pytorch_distributed_tpu_torch.data import SyntheticTokens
+    from pytorch_distributed_tpu_torch.recipes import lm_pretrain
+    from pytorch_distributed_tpu_torch.train import (
+        LMTrainer,
+        LMTrainerConfig,
+        create_lm_state,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_config(max_seq_len=16)
+    data = SyntheticTokens(4, 16, cfg.vocab_size)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMTrainer(cfg, data, data, LMTrainerConfig(batch_size=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_lm_state(cfg, lr_schedule=lambda s: 0.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_pretrain.main(["--tiny", "--steps", "1"])
+    # an explicit CPU request is honoured
+    trainer = LMTrainer(cfg, data, data, LMTrainerConfig(batch_size=2), device="cpu")
+    assert trainer.device.type == "cpu"
+    assert next(trainer.state.model.parameters()).device.type == "cpu"
+
+
 def _run_smoke(cwd, script):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""  # no card, whatever the machine has
