@@ -2,7 +2,8 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU (an H100):
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # everything
+    python3 chip_smoke.py --kernels-only   # (a) and (b), then stop
 
 Phases, each of which fails the run:
 
@@ -11,21 +12,33 @@ Phases, each of which fails the run:
       nvcc per source, all started together;
   (b) each kernel against the plain PyTorch version on the card: the paged
       kernels at the full-width serving shapes and at small GQA /
-      padding-row shapes; the flash forward (O, LSE) and fused backward
-      (dQ, dK, dV) at the training shape in bf16, at ragged lengths in fp32
-      (causal and not), at D = 128, and with fully masked rows;
+      padding-row shapes; their int8 / fp8 e4m3 / fp8 e5m2 dequantizing
+      variants at the decode shape and on a 32-row chunk, with bf16 and
+      fp32 q; the quantize-on-scatter kernel bit-equal, in the three pool
+      dtypes, at a chunk shape (8 jobs x 32 rows) and the decode shape (8
+      rows), rows whose amax spans 1e-8 to 1e4; the flash forward (O, LSE)
+      and fused backward (dQ, dK, dV) at the training shape in bf16, at
+      ragged lengths in fp32 (causal and not), at D = 128, and with fully
+      masked rows;
   (c) the port's two main paths, each with the launch counters reset just
       before and read just after, on the full-width LM (32000 vocab, 12
       layers, 12 heads, width 768, 2048 positions, bf16, random weights
       from seed 0): ``Scheduler`` serves 16 requests, then the final prefill
-      logits of the kernel path against a plain-attention run;
+      logits of the kernel path against a plain-attention run; the same 16
+      requests on int8, fp8 and fp8_e5m2 pools of the bf16 pool's bytes
+      (more blocks), with their greedy match against the bf16 serve; a
+      prefix-sharing serve (16 requests on a 512-token shared prefix,
+      staggered) against prefix off; an over-committed fp8 serve that
+      preempts on OOM, by swap and by recompute, against the ample one;
       ``LMTrainer`` takes 8 steps at batch 8 x 2048 tokens and one
       validation pass, then the first step's loss and grad norm with flash
       attention against dense attention (batch 2);
   (d) kernel, plain-version and library times beside each kernel's bound:
       the paged kernels at the decode shape (library: SDPA on pre-gathered
-      K/V), the flash kernels at the training shape (library: causal SDPA,
-      forward, and its backward through autograd);
+      K/V; no PyTorch call reads int8/fp8 K/V with per-row scales, so the
+      quantized variants and the scatter have none), the scatter at the
+      chunk and decode shapes, the flash kernels at the training shape
+      (library: causal SDPA, forward, and its backward through autograd);
   (e) one JSON line listing every kernel;
   (f) the last line: ``{"ok": true, "device": {...}}``.
 
@@ -44,7 +57,10 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# fp8 and int8 operands could run on the tensor cores at 1979 T/s
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12, "torch.int8": 1979e12,
+              "torch.float8_e4m3fn": 1979e12, "torch.float8_e5m2": 1979e12}
+QUANT = ("int8", "fp8", "fp8_e5m2")
 BF16_TOL = 2e-2  # bf16 output, p rounded to bf16 before PV
 FP32_TOL = 1e-4
 SPLIT_VS_SWEEP_TOL = 1e-3  # another fp32 summation order (paged_flash.py:278)
@@ -96,22 +112,87 @@ def decode_inputs(torch, dtype, *, b=8, c=1, h=12, h_kv=12, d=64, bl=16, w=128,
 
 def bound(inp) -> dict:
     """Least time for the work these inputs need: each visible K/V row
-    read once, q, positions and tables read once, the output written
-    once; QK and PV at 2 flops per multiply-add for each visible key."""
+    (with its scale, on a quantized pool) read once, q, positions and
+    tables read once, the output written once; QK and PV at 2 flops per
+    multiply-add for each visible key, at the rate of the pools' type."""
     q, kp = inp["q"], inp["k_pool"]
     b, c, h, d = q.shape
     h_kv = kp.shape[2]
     elem = q.element_size()
+    scale = inp["k_scale"].element_size() if inp.get("k_scale") is not None else 0
     pos = inp["q_positions"].cpu().numpy()
     visible_rows = int(np.maximum(pos.max(axis=1) + 1, 0).sum())  # per batch row
-    n_bytes = (2 * visible_rows * h_kv * d * elem + 2 * q.numel() * elem
+    n_bytes = (2 * visible_rows * h_kv * (d * kp.element_size() + scale)
+               + 2 * q.numel() * elem
                + inp["q_positions"].numel() * 4 + inp["block_tables"].numel() * 4)
     flops = 4 * d * h * float(np.maximum(pos + 1, 0).sum())
+    return roofline(n_bytes, flops, PEAK_FLOPS[str(kp.dtype)])
+
+
+def roofline(n_bytes, flops, peak) -> dict:
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[str(q.dtype)]
+    t_ops = flops / peak
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": n_bytes, "flops": flops}
+
+
+def quantized(torch, inp, kv):
+    """``inp`` with its pools quantized to ``kv`` by the plain
+    ``quantize_kv`` (scales beside them)."""
+    from pytorch_distributed_tpu_torch.serving.kv_pool import kv_pool_dtype, quantize_kv
+
+    kq, ks = quantize_kv(inp["k_pool"], kv_pool_dtype(kv))
+    vq, vs = quantize_kv(inp["v_pool"], kv_pool_dtype(kv))
+    return dict(inp, k_pool=kq, v_pool=vq, k_scale=ks, v_scale=vs)
+
+
+def scatter_inputs(torch, kv, dtype, *, b, l, h=12, d=64, bl=16, n_blocks=1025, seed=0):
+    """Quantize-on-scatter operands on the card: k, v ``[B, L, H, D]`` as
+    views of a fused ``[B, L, 3, H, D]`` qkv, each (row, head) scaled so
+    amax spans 1e-8 to 1e4; destinations along ragged chains, the last
+    batch row a dead lane writing the trash block; pools and scales of
+    random bytes (so a stray write shows)."""
+    from pytorch_distributed_tpu_torch.serving.kv_pool import kv_pool_dtype, pool_scale_dtype
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, 3, h, d))
+    x *= np.exp(rng.uniform(np.log(1e-8), np.log(1e4), (b, l, 3, h, 1)))
+    qkv = torch.from_numpy(x.astype(np.float32)).to("cuda", dtype)
+    w = -(-(l + 256) // bl)
+    order = rng.permutation(np.arange(1, n_blocks))[:b * w].reshape(b, w)
+    pos = rng.integers(0, 256, size=(b, 1)) + np.arange(l)[None, :]
+    blk = np.take_along_axis(order, pos // bl, axis=1)
+    off = pos % bl
+    blk[-1], off[-1] = 0, 0  # a dead lane: every row onto trash (0, 0)
+    pool_dt = kv_pool_dtype(kv)
+    sc_dt = pool_scale_dtype(pool_dt)
+
+    def noise(shape, dt):
+        n = int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+        return torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).cuda().view(
+            dt).reshape(shape)
+
+    pools = [noise((n_blocks, bl, h, d), pool_dt) for _ in range(2)]
+    scales = [noise((n_blocks, bl, h), sc_dt) for _ in range(2)]
+    return (qkv[:, :, 1], qkv[:, :, 2], torch.from_numpy(blk).cuda(),
+            torch.from_numpy(off).cuda(), *pools, *scales)
+
+
+def scatter_bound(args) -> dict:
+    """Each K/V row read once (input dtype), blk/off read once, each
+    quantized row and its scale written once; a few fp32 operations per
+    value (abs, max, scale, round)."""
+    k, _, blk, _, kp, _, ks, _ = args
+    rows = k.shape[0] * k.shape[1] * k.shape[2]
+    n_bytes = (2 * rows * k.shape[3] * (k.element_size() + kp.element_size())
+               + 2 * rows * ks.element_size() + 2 * blk.numel() * 8)
+    return roofline(n_bytes, 2 * rows * k.shape[3] * 4, PEAK_FLOPS["torch.float32"])
+
+
+def match_rate(a, b) -> float:
+    """Share of equal tokens at equal places of two lists of streams."""
+    return float(np.mean([x == y for s, t in zip(a, b) for x, y in zip(s, t)]))
 
 
 def flash_inputs(torch, dtype, *, b=8, l=2048, h=12, d=64, lk=None, seed=0):
@@ -172,7 +253,7 @@ def time_ms(torch, fn, iters=100, warmup=5):
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -186,7 +267,7 @@ def main() -> int:
     from pytorch_distributed_tpu_torch.ops import _build, flash_attention, paged_flash
     from pytorch_distributed_tpu_torch.ops.attention import paged_attention_reference
     from pytorch_distributed_tpu_torch.recipes.serve_lm import full_config
-    from pytorch_distributed_tpu_torch.serving import PagedEngine, Scheduler
+    from pytorch_distributed_tpu_torch.serving import PagedEngine, Scheduler, pool_block_bytes
     from pytorch_distributed_tpu_torch.serving.engine import ChunkJob
     from pytorch_distributed_tpu_torch.train import (
         LMTrainer,
@@ -272,6 +353,46 @@ def main() -> int:
     check("D=128 fp32, split_s=2", paged_flash.paged_flash_attention(**wide, split_s=2),
           paged_attention_reference(**wide), FP32_TOL)
 
+    # the dequantizing variants: pools quantized by the plain quantize_kv
+    decode_q = {}
+    for kv in QUANT:
+        for dtype, tol in ((bf16, BF16_TOL), (f32, FP32_TOL)):
+            for label, shape in (("decode B=8 C=1 H=12 D=64 W=128", {}),
+                                 ("prefill chunk B=4 C=32 W=64",
+                                  dict(b=4, c=32, w=64,
+                                       positions=starts[:, None] + np.arange(32)))):
+                inp = quantized(torch, decode_inputs(torch, f32, seed=5, **shape), kv)
+                inp["q"] = inp["q"].to(dtype)
+                ref = paged_attention_reference(**inp)
+                for name, split_s in ((paged_flash.SWEEP, 1), (paged_flash.SPLIT, None)):
+                    err = check(f"{label} {kv} pools, {dtype} q, {name}",
+                                paged_flash.paged_flash_attention(**inp, split_s=split_s),
+                                ref, tol)
+                    if dtype == bf16 and not shape:
+                        errs[paged_flash.variant(name, inp["k_pool"].dtype)] = err
+                if dtype == bf16 and not shape:
+                    decode_q[kv] = inp
+
+    # quantize-on-scatter: bit-equal to the plain version (the trash block,
+    # where the dead lane's rows land in no fixed order, aside)
+    for kv in QUANT:
+        for dtype in (bf16, f32):
+            for label, (b_, l_) in (("chunk 8 jobs x 32 rows", (8, 32)), ("decode 8 rows", (8, 1))):
+                args = scatter_inputs(torch, kv, dtype, b=b_, l=l_, seed=6)
+                mine = [t.clone() for t in args[4:]]
+                plain = [t.clone() for t in args[4:]]
+                paged_flash.paged_quantize_scatter(*args[:4], *mine)
+                paged_flash.paged_quantize_scatter_reference(*args[:4], *plain)
+                torch.cuda.synchronize()
+                n_diff = sum(int((x[1:].view(torch.uint8) != y[1:].view(torch.uint8)).sum())
+                             for x, y in zip(mine, plain))
+                print(f"(b) quantize-on-scatter {label} {dtype} into {kv}: "
+                      f"{'bit-equal' if n_diff == 0 else f'{n_diff} bytes DIFFER'}")
+                if n_diff:
+                    failures.append(f"quantize-on-scatter {label} {dtype} {kv}")
+                if dtype == bf16 and l_ == 1:  # bit-equal, or the run stops below
+                    errs[paged_flash.variant(paged_flash.QUANTIZE, mine[0].dtype)] = 0.0
+
     FWD, BWD = flash_attention.FWD, flash_attention.BWD
 
     def check_flash(label, dtype, tol_o, tol_g, causal=True, shift=0, **shape):
@@ -309,6 +430,10 @@ def main() -> int:
                     shift=-37, b=1, l=100, h=2, seed=4)
     if failures:
         raise SystemExit(f"chip_smoke: kernels disagree with the plain version: {failures}")
+    if "--kernels-only" in argv:
+        print(f"(b) all kernels agree; --kernels-only: stopping after "
+              f"{time.perf_counter() - t_start:.1f}s")
+        return 0
 
     # ---- (c) the main path: serve the full-width model ----
     cfg = full_config()
@@ -322,40 +447,67 @@ def main() -> int:
     warm.submit(prompts[0][:40], 2)
     warm.drain()  # cuBLAS handles, allocator pools, the kernel library
     del warm
-    sched = Scheduler(cfg, state, gather_impl="kernel", **serve_kw)
-    torch.cuda.synchronize()
-    paged_flash.reset_launch_counts()
-    t0 = time.perf_counter()
-    rids = [sched.submit(p, max_new) for p in prompts]
-    streams = sched.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(paged_flash.launch_counts)
-    m = sched.metrics()
-    if sorted(streams) != sorted(rids) or any(
-            len(streams[r]) != max_new for r in rids):
-        raise SystemExit("chip_smoke: a request did not complete its budget")
-    if any(not 0 <= t < cfg.vocab_size for r in rids for t in streams[r]):
-        raise SystemExit("chip_smoke: a token outside the vocabulary")
-    if sched.engine.allocator.in_use != 0:
-        raise SystemExit(f"chip_smoke: {sched.engine.allocator.in_use} blocks leaked")
-    if not all(launches[k] > 0 for k in (paged_flash.SWEEP, paged_flash.SPLIT)):
+
+    def all_launches():
+        return {k: v for counts in (paged_flash.launch_counts,
+                                    paged_flash.quant_launch_counts)
+                for k, v in counts.items() if v}
+
+    def serve(label, reqs, *, stagger=0, **kw):
+        """Serve ``reqs`` (``stagger`` steps between submissions) through
+        the kernels, the launch counts reset just before and read just
+        after; every request must complete its budget inside the
+        vocabulary and every block must come back. Returns the scheduler,
+        the streams in submit order, the metrics, the wall and the
+        launches."""
+        sched = Scheduler(cfg, state, gather_impl="kernel", **{**serve_kw, **kw})
+        torch.cuda.synchronize()
+        paged_flash.reset_launch_counts()
+        t0 = time.perf_counter()
+        rids, streams = [], {}
+        for p in reqs:
+            rids.append(sched.submit(p, max_new))
+            for _ in range(stagger):
+                for rid, tok in sched.step():
+                    streams.setdefault(rid, []).append(tok)
+        for rid, toks in sched.drain().items():
+            streams.setdefault(rid, []).extend(toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        m = sched.metrics()
+        if sorted(streams) != sorted(rids) or any(len(streams[r]) != max_new for r in rids):
+            raise SystemExit(f"chip_smoke: {label}: a request did not complete its budget")
+        if any(not 0 <= t < cfg.vocab_size for r in rids for t in streams[r]):
+            raise SystemExit(f"chip_smoke: {label}: a token outside the vocabulary")
+        leaked = sched.engine.allocator.in_use - m["prefix_index_blocks"]
+        if leaked or m["host_store_bytes"] or m["parked"]:
+            raise SystemExit(f"chip_smoke: {label}: {leaked} blocks leaked, "
+                             f"{m['host_store_bytes']} host bytes, {m['parked']} parked")
+        print(f"(c) {label}: {len(rids)} requests x {max_new} tokens on {card}: wall "
+              f"{wall:.3f}s, {m['tokens_out'] / wall:.1f} tok/s, {m['steps']} ticks, TTFT "
+              f"p50 {m['ttft_p50_s'] * 1e3:.1f} ms p95 {m['ttft_p95_s'] * 1e3:.1f} ms, "
+              f"token gap p50 {m['token_lat_p50_s'] * 1e3:.2f} ms, tick p50 "
+              f"{m['tick_p50_s'] * 1e3:.2f} ms, {m['pool_blocks']} pool blocks; "
+              f"launches {launches}")
+        return sched, [streams[r] for r in rids], m, wall, launches
+
+    def per_tick(eng):
+        """The kernels' launches in one decode tick with all 8 lanes armed."""
+        paged_flash.reset_launch_counts()
+        for slot in range(8):
+            eng.admit(slot, 64, 1)
+        eng.decode(np.full(8, 64), np.ones(8, bool))
+        torch.cuda.synchronize()
+        eng.release_all()
+        return all_launches()
+
+    sched, bf16_streams, m, wall, launches = serve("bf16 pools", prompts)
+    if not all(launches.get(k, 0) > 0 for k in (paged_flash.SWEEP, paged_flash.SPLIT)):
         raise SystemExit(f"chip_smoke: a kernel never ran on the main path: {launches}")
-    # one decode tick, all 8 lanes armed, launches per tick
-    paged_flash.reset_launch_counts()
-    eng = sched.engine
-    for slot in range(8):
-        eng.admit(slot, 64, 1)
-    eng.decode(np.full(8, 64), np.ones(8, bool))
-    per_tick = dict(paged_flash.launch_counts)
-    eng.release_all()
-    print(f"(c) served {len(rids)} requests x {max_new} tokens, prompts 64-1024, "
-          f"on {card}: wall {wall:.3f}s, {m['tokens_out'] / wall:.1f} tok/s, "
-          f"{m['steps']} ticks, TTFT p50 {m['ttft_p50_s'] * 1e3:.1f} ms p95 "
-          f"{m['ttft_p95_s'] * 1e3:.1f} ms, token gap p50 "
-          f"{m['token_lat_p50_s'] * 1e3:.2f} ms, tick p50 {m['tick_p50_s'] * 1e3:.2f} ms")
-    print(f"(c) launches during the serve: {launches}; per decode tick: {per_tick}")
-    del sched, eng
+    print(f"(c) launches per decode tick: {per_tick(sched.engine)}")
+    n_bf16 = sched.engine.allocator.n_blocks
+    del sched
     torch.cuda.empty_cache()
 
     # final-prefill logits: kernel path against a plain-attention engine
@@ -399,6 +551,69 @@ def main() -> int:
           f"{2 * max_new} tokens")
     if not np.isfinite(logit_err) or logit_err > 0.25:
         raise SystemExit("chip_smoke: kernel-path logits far from the plain path")
+
+    # quantized pools of the bf16 pool's bytes: more blocks, same 16 requests
+    quant_streams = {}
+    for kv in QUANT:
+        n_blocks = n_bf16 * pool_block_bytes(cfg, 16) // pool_block_bytes(cfg, 16, kv)
+        sched, quant_streams[kv], _, _, lq = serve(f"{kv} pools", prompts,
+                                                   kv_dtype=kv, n_blocks=n_blocks)
+        tick = per_tick(sched.engine)
+        dt = sched.engine.cache[0].key.dtype
+        names = [paged_flash.variant(k, dt) for k in
+                 (paged_flash.SWEEP, paged_flash.SPLIT, paged_flash.QUANTIZE)]
+        launches.update({k: lq.get(k, 0) for k in names})
+        print(f"(c) {kv}: {n_blocks} blocks in the bytes of {n_bf16} bf16 blocks "
+              f"({n_blocks / n_bf16:.3f}x); greedy match with the bf16 serve "
+              f"{match_rate(quant_streams[kv], bf16_streams):.3f}; launches per decode "
+              f"tick {tick}")
+        if not all(lq.get(k, 0) > 0 for k in names) or not all(
+                tick.get(k, 0) == cfg.num_layers for k in names[1:]):
+            raise SystemExit(f"chip_smoke: {kv}: a quantized kernel did not run on the "
+                             f"main path: serve {lq}, tick {tick}")
+        del sched
+        torch.cuda.empty_cache()
+
+    # prefix sharing: 16 requests on one 512-token prefix, submitted 4 steps apart
+    prng = np.random.default_rng(1)
+    shared = prng.integers(1, cfg.vocab_size, size=512).astype(np.int32)
+    prefix_reqs = [np.concatenate([shared, prng.integers(1, cfg.vocab_size, size=int(n))
+                                   .astype(np.int32)])
+                   for n in prng.integers(16, 129, size=16)]
+    on, on_streams, m_on, _, _ = serve("prefix on, fp8 pools", prefix_reqs, stagger=4,
+                                       kv_dtype="fp8", prefix_cache=True)
+    _, off_streams, m_off, _, _ = serve("prefix off, fp8 pools", prefix_reqs, stagger=4,
+                                        kv_dtype="fp8")
+    indexed = on.engine.allocator.in_use
+    on.engine.release_all()
+    print(f"(c) prefix: hit rate {m_on['prefix_hit_rate']:.3f} ({m_on['prefix_hits']} of "
+          f"{m_on['prefix_lookups']}), admitted prefill tokens {m_on['admitted_prefill_tokens']}"
+          f" vs {m_off['admitted_prefill_tokens']} off "
+          f"({m_off['admitted_prefill_tokens'] / m_on['admitted_prefill_tokens']:.2f}x cut), "
+          f"{m_on['prefix_cow_copies']} copy-on-write, {indexed} blocks in use = "
+          f"{m_on['prefix_index_blocks']} indexed, {on.engine.allocator.in_use} after "
+          f"release_all; greedy match with prefix off {match_rate(on_streams, off_streams):.3f}")
+    if (m_on["prefix_hits"] < 1 or indexed != m_on["prefix_index_blocks"]
+            or on.engine.allocator.in_use != 0):
+        raise SystemExit("chip_smoke: the prefix serve shared nothing or leaked blocks")
+    del on
+    torch.cuda.empty_cache()
+
+    # the pressure tier: 200 fp8 blocks for the 16 requests (about 590 at once)
+    for policy in ("swap", "recompute"):
+        sched, st, mp, _, _ = serve(f"pressure, fp8 pools, 200 blocks, {policy}", prompts,
+                                    kv_dtype="fp8", n_blocks=200, offload=True,
+                                    preempt_on_oom=True, swap_policy=policy)
+        print(f"(c) pressure {policy}: {mp['preempts']} preempts, {mp['restores']} restores "
+              f"(swap {mp['swap_outs']} out / {mp['swap_ins']} in, {mp['swap_bytes']} bytes, "
+              f"wall mean {mp.get('swap_mean_s', 0.0) * 1e3:.2f} ms max "
+              f"{mp.get('swap_max_s', 0.0) * 1e3:.2f} ms), greedy match with the ample fp8 serve "
+              f"{match_rate(st, quant_streams['fp8']):.3f}")
+        if not mp["preempts"] == mp["restores"] >= 1:
+            raise SystemExit(f"chip_smoke: pressure {policy}: preempts {mp['preempts']}, "
+                             f"restores {mp['restores']}")
+        del sched
+        torch.cuda.empty_cache()
 
     # ---- (c) the training path: LMTrainer on the full-width model ----
     torch.cuda.empty_cache()
@@ -506,6 +721,37 @@ def main() -> int:
               f"launch), plain {plain_ms * 1e3:.1f} us, SDPA on gathered K/V "
               f"{sdpa_ms * 1e3:.1f} us, bound {bd['bound_ms'] * 1e3:.2f} us "
               f"({bd['bound_by']}: {bd['bytes'] / 1e6:.2f} MB, {bd['flops'] / 1e6:.1f} MFLOP)")
+    plains = {name: plain_ms for name in timed}
+    bounds = {name: bd for name in timed}
+
+    # the dequantizing variants at the decode shape (bf16 q) and the scatter
+    # at the chunk and decode shapes; no single PyTorch call reads int8/fp8
+    # K/V with per-row scales, so these have no library time
+    for kv, inp in decode_q.items():
+        bq = bound(inp)
+        q_plain = time_ms(torch, lambda: paged_attention_reference(**inp))
+        for name, split_s in ((paged_flash.SWEEP, 1), (paged_flash.SPLIT, None)):
+            key = paged_flash.variant(name, inp["k_pool"].dtype)
+            timed[key] = time_ms(torch, lambda: paged_flash.paged_flash_attention(
+                **inp, split_s=split_s))
+            plains[key], bounds[key] = q_plain, bq
+            print(f"(d) {key} at decode B=8 H=12 D=64 W=128, bf16 q, on {card}: "
+                  f"{timed[key] * 1e3:.1f} us per call, plain {q_plain * 1e3:.1f} us, bound "
+                  f"{bq['bound_ms'] * 1e3:.2f} us ({bq['bound_by']}: {bq['bytes'] / 1e6:.2f} "
+                  f"MB, {bq['bound_ms'] / bd['bound_ms']:.2f}x the bf16 bound)")
+    for kv in QUANT:
+        for label, (b_, l_) in (("chunk 8 jobs x 32 rows", (8, 32)), ("decode 8 rows", (8, 1))):
+            args = scatter_inputs(torch, kv, bf16, b=b_, l=l_, seed=8)
+            sb = scatter_bound(args)
+            key = paged_flash.variant(paged_flash.QUANTIZE, args[4].dtype)
+            t_kernel = time_ms(torch, lambda: paged_flash.paged_quantize_scatter(*args))
+            t_plain = time_ms(torch, lambda: paged_flash.paged_quantize_scatter_reference(
+                *args))
+            print(f"(d) {key} at {label}, H=12 D=64 bf16, on {card}: {t_kernel * 1e3:.1f} us "
+                  f"per call, plain {t_plain * 1e3:.1f} us, bound {sb['bound_ms'] * 1e3:.3f} us "
+                  f"({sb['bound_by']}: {sb['bytes'] / 1e3:.1f} KB)")
+            if l_ == 1:
+                timed[key], plains[key], bounds[key] = t_kernel, t_plain, sb
 
     # flash kernels at the training shape; the backward's time is the
     # wrapper's (Delta, the kernel, the dQ cast), as the training step runs it
@@ -551,15 +797,16 @@ def main() -> int:
     replaces = {
         paged_flash.SWEEP: "pytorch_distributed_tpu/ops/paged_flash.py:375",
         paged_flash.SPLIT: "pytorch_distributed_tpu/ops/paged_flash.py:430",
+        paged_flash.QUANTIZE: "pytorch_distributed_tpu/ops/paged_flash.py:563",
     }
     kernels = [{
         "name": name, "route": "cuda",
         "source": "pytorch_distributed_tpu_torch/csrc/paged_attention.cu",
-        "replaces": replaces[name], "launches": launches[name],
-        "max_abs_err": errs[name], "ms": timed[name], "plain_ms": plain_ms,
-        "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-        "library_ms": sdpa_ms,
-    } for name in (paged_flash.SWEEP, paged_flash.SPLIT)]
+        "replaces": replaces[name.split("[")[0]], "launches": launches[name],
+        "max_abs_err": errs[name], "ms": timed[name], "plain_ms": plains[name],
+        "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+        "library_ms": sdpa_ms if "[" not in name else None,
+    } for name in timed]
     flash_replaces = {FWD: "pytorch_distributed_tpu/ops/flash_attention.py:138",
                       BWD: "pytorch_distributed_tpu/ops/flash_attention.py:375"}
     kernels += [{
@@ -579,4 +826,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,12 +1,17 @@
-// Paged attention over a block-pooled KV cache, for Hopper (sm_90a).
+// Paged attention over a block-pooled KV cache, and quantize-on-scatter
+// into it, for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of
+// Replaces the three Pallas TPU kernels of
 // pytorch_distributed_tpu/ops/paged_flash.py:
 //   - the single sweep  (paged_flash_attention, pallas_call at :375;
 //     kernel _paged_kernel :159, body _attend_block :108), and
 //   - the flash-decoding split (pallas_call at :430; kernel
 //     _paged_split_kernel :197) together with its fp32 log-sum-exp merge,
-//     which the JAX package runs in jnp after its kernel (:444-459).
+//     which the JAX package runs in jnp after its kernel (:444-459),
+//     both with their in-kernel dequantization of int8/fp8 pools
+//     (:119-130); and
+//   - paged_quantize_scatter (pallas_call at :563, body :532), further
+//     down this file.
 //
 // What it computes: each query head h = kv * G + g (GQA group G) at chunk
 // index c attends to pools [n_blocks, block_len, H_kv, D] through block
@@ -14,6 +19,13 @@
 // j <= qpos[b, c]; a padding row carries qpos = -1 and comes out 0. q is
 // scaled in its own dtype, QK^T and the softmax statistics (m, l, acc) are
 // fp32, p is rounded to V's dtype before PV, as _attend_block does.
+//
+// Pools are q's dtype, or quantized: int8 rows with an fp32 scale, or
+// fp8 (e4m3 / e5m2) rows with an int8 exponent e, one per (block, slot,
+// KV head) in scales [n_blocks, bl, H_kv]. A quantized row is dequantized
+// to fp32 as it is loaded, float(q) * scale or float(q) * 2^e, with 2^e
+// built exactly from its exponent bits. V is then fp32, so p stays fp32
+// for PV there.
 //
 // What bounds it on the H100: the bytes of the attended K/V chain. Each
 // pool element it reads feeds ~2 flops per query row (R = G * C rows share
@@ -42,6 +54,7 @@
 // pipeline are later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,6 +70,27 @@ constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in ops/attention.py
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_float(__nv_fp8_e5m2 x) { return static_cast<float>(x); }
+
+// 2^e for an integer e in [-126, 127], from the exponent bits: exact
+__device__ __forceinline__ float pow2(int e) { return __int_as_float((e + 127) << 23); }
+
+// Scale kinds of a pool: none (float pool), an fp32 multiplier (int8
+// pool) or an int8 exponent (fp8 pools).
+constexpr int kNoScale = 0;
+constexpr int kMultiplier = 1;
+constexpr int kExponent = 2;
+
+// the dequantization factor of scales[i]
+template <int kScale>
+__device__ __forceinline__ float row_scale(const void* scales, int64_t i) {
+  if constexpr (kScale == kMultiplier) return __ldg(static_cast<const float*>(scales) + i);
+  if constexpr (kScale == kExponent)
+    return pow2(__ldg(static_cast<const signed char*>(scales) + i));
+  return 1.f;
 }
 
 template <typename T>
@@ -119,6 +153,8 @@ struct Params {
   int64_t q_sb, q_sc, q_sh;
   const void* k_pool;   // [n_blocks, bl, H_kv, D]
   const void* v_pool;
+  const void* k_scale;  // [n_blocks, bl, H_kv] for quantized pools, else null
+  const void* v_scale;
   const int* tables;    // [B, W]
   const int* qpos;      // [B, C]
   void* out;            // [B, C, H_kv * G, D]
@@ -130,9 +166,11 @@ struct Params {
   float scale;
 };
 
-// grid (n_row_tiles * S, H_kv, B); S == 1 for the single sweep.
-template <typename T, int kDpl, bool kSplit>
+// grid (n_row_tiles * S, H_kv, B); S == 1 for the single sweep. T is q's
+// and the output's type, P the pools' element type, kScale its scale kind.
+template <typename T, typename P, int kScale, int kDpl, bool kSplit>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params p) {
+  constexpr bool kQuant = kScale != kNoScale;
   constexpr int D = 32 * kDpl;
   constexpr int kHalf = D / 2;
   constexpr int kQStride = kHalf + 1;  // padded: the two halves sit on other banks
@@ -195,8 +233,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
     for (int k = 0; k < kDpl; ++k) acc[r][k] = 0.f;
   }
 
-  const T* k_pool = static_cast<const T*>(p.k_pool);
-  const T* v_pool = static_cast<const T*>(p.v_pool);
+  const P* k_pool = static_cast<const P*>(p.k_pool);
+  const P* v_pool = static_cast<const P*>(p.v_pool);
   const int64_t row_stride = static_cast<int64_t>(p.H_kv) * D;
   const int kl = lane & (kKeysPerPass - 1);  // this lane's key in a pass
   const int half = lane >> 4;                // and its half of D
@@ -220,13 +258,28 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
         // every load of the pass is in flight before any use: one memory latency
         // per pass, not one per key. Rows past the block repeat its last
         // row; their p is 0.
+        const int t_row = min(t, p.bl - 1);
         float kr[kHalf];
-        load_vec<kHalf>(kr, k_pool + base + min(t, p.bl - 1) * row_stride + half * kHalf);
+        load_vec<kHalf>(kr, k_pool + base + t_row * row_stride + half * kHalf);
         float v[kKeysPerPass][kDpl];
 #pragma unroll
         for (int tt = 0; tt < kKeysPerPass; ++tt)
           load_vec<kDpl>(v[tt], v_pool + base + (t0 + min(tt, nk - 1)) * row_stride +
                                     lane * kDpl);
+        if constexpr (kQuant) {
+          // this lane's key's scales; key tt's V scale comes from lane tt
+          const int64_t srow = (blk * p.bl + t_row) * p.H_kv + h;
+          const float ks = row_scale<kScale>(p.k_scale, srow);
+          const float vs = row_scale<kScale>(p.v_scale, srow);
+#pragma unroll
+          for (int d = 0; d < kHalf; ++d) kr[d] *= ks;
+#pragma unroll
+          for (int tt = 0; tt < kKeysPerPass; ++tt) {
+            const float vst = __shfl_sync(kFull, vs, tt);
+#pragma unroll
+            for (int k = 0; k < kDpl; ++k) v[tt][k] *= vst;
+          }
+        }
         const int kpos = j * p.bl + t;
         float pr[kRows];
 #pragma unroll
@@ -255,7 +308,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
             m[r] = m_new;
 #pragma unroll
             for (int k = 0; k < kDpl; ++k) acc[r][k] *= corr;
-            pr[r] = round_to<T>(pv);  // p in V's dtype before PV
+            pr[r] = kQuant ? pv : round_to<T>(pv);  // p in V's dtype before PV
           }
         }
 #pragma unroll
@@ -352,71 +405,213 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
   }
 }
 
-template <typename T, bool kSplit>
-int launch_dtype(const Params& p, int B, int D, cudaStream_t stream) {
+constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+
+template <typename T, typename P, int kScale, bool kSplit, int kDpl>
+int launch_one(const Params& p, int B, cudaStream_t stream) {
   const int R = p.G * p.C;
   const dim3 grid(((R + kRows - 1) / kRows) * p.S, p.H_kv, B);
-  switch (D) {
-    case 32:
-      paged_attention_kernel<T, 1, kSplit><<<grid, kThreads, 0, stream>>>(p);
-      break;
-    case 64:
-      paged_attention_kernel<T, 2, kSplit><<<grid, kThreads, 0, stream>>>(p);
-      break;
-    case 96:
-      paged_attention_kernel<T, 3, kSplit><<<grid, kThreads, 0, stream>>>(p);
-      break;
-    case 128:
-      paged_attention_kernel<T, 4, kSplit><<<grid, kThreads, 0, stream>>>(p);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  paged_attention_kernel<T, P, kScale, kDpl, kSplit><<<grid, kThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// quantized pools are built for D in {64, 128} only, float pools for all four
+template <typename T, typename P, int kScale, bool kSplit>
+int launch_d(const Params& p, int B, int D, cudaStream_t st) {
+  if (D == 64) return launch_one<T, P, kScale, kSplit, 2>(p, B, st);
+  if (D == 128) return launch_one<T, P, kScale, kSplit, 4>(p, B, st);
+  if constexpr (kScale == kNoScale) {
+    if (D == 32) return launch_one<T, P, kScale, kSplit, 1>(p, B, st);
+    if (D == 96) return launch_one<T, P, kScale, kSplit, 3>(p, B, st);
+  }
+  return kInvalid;
+}
+
+template <typename T, bool kSplit>
+int launch_pool(const Params& p, int pool, int B, int D, cudaStream_t st) {
+  switch (pool) {
+    case 0: return launch_d<T, T, kNoScale, kSplit>(p, B, D, st);
+    case 1: return launch_d<T, int8_t, kMultiplier, kSplit>(p, B, D, st);
+    case 2: return launch_d<T, __nv_fp8_e4m3, kExponent, kSplit>(p, B, D, st);
+    case 3: return launch_d<T, __nv_fp8_e5m2, kExponent, kSplit>(p, B, D, st);
+    default: return kInvalid;
+  }
+}
+
+template <bool kSplit>
+int launch(Params p, int dtype, int pool, int B, int D, void* stream) {
+  if (B < 1 || p.H_kv < 1 || p.G < 1 || p.C < 1 || p.bl < 1 || p.W < 1 ||
+      p.S < 1 || p.S > p.W || (pool != 0) != (p.k_scale != nullptr) ||
+      (pool != 0) != (p.v_scale != nullptr)) {
+    return kInvalid;
+  }
+  p.wc = (p.W + p.S - 1) / p.S;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_pool<float, kSplit>(p, pool, B, D, st);
+  if (dtype == 1) return launch_pool<__nv_bfloat16, kSplit>(p, pool, B, D, st);
+  return kInvalid;
+}
+
+// ---------------------------------------------------------------------------
+// Quantize-on-scatter: replaces paged_quantize_scatter
+// (pytorch_distributed_tpu/ops/paged_flash.py:462-577, pallas_call :563).
+//
+// What it computes: each written K/V row [D] of each KV head goes into the
+// quantized pool at (blk, off) with its scale beside it, in place, with
+// the arithmetic of serving.kv_pool.quantize_rows:
+//   int8: s = amax * fp32(1/127); q = clip(rint(x / s), -127, 127)
+//   fp8:  e = clip(ceil(log2(amax / fmax)), -126, 126), taken exactly from
+//         frexp(amax) = (m, k): e = k - k_fmax + (m > 0.875), as fmax is
+//         0.875 * 2^k_fmax; q = cvt_rn_satfinite(x * 2^-e)
+// with amax = max(max |x|, 1e-8). IEEE division, rint and exact powers of
+// two make it bit-identical to the plain PyTorch version.
+//
+// What bounds it on the H100: neither bytes nor operations. A decode tick
+// writes 8 rows x 12 heads x 2 of 64 values per layer, under 25 KB; the
+// plain version costs ~15 launches per layer. The kernel is one launch.
+//
+// Design: one warp per (row, KV head, K or V): each lane holds D/32 values
+// read through the strides of the fused qkv view, the row's amax is a warp
+// max by shuffle, and lane 0 writes the scale. Duplicate destinations come
+// only from inactive lanes writing the trash block.
+
+struct QParams {
+  const void* k;  // k[b, l, h, :] at k + b*k_sb + l*k_sl + h*k_sh
+  int64_t k_sb, k_sl, k_sh;
+  const void* v;
+  int64_t v_sb, v_sl, v_sh;
+  const int64_t* blk;  // [N] destination blocks, N = B * L
+  const int64_t* off;  // [N] in-block offsets
+  void* k_pool;        // [n_blocks, bl, H_kv, D]
+  void* v_pool;
+  void* k_scale;       // [n_blocks, bl, H_kv]
+  void* v_scale;
+  int N, L, H_kv, bl;
+};
+
+constexpr float kAmaxFloor = 1e-8f;
+constexpr float kInt8Scale = static_cast<float>(1.0 / 127.0);  // jnp.float32(1/127)
+constexpr int kPoolInt8 = 1;
+constexpr int kPoolE4M3 = 2;
+
+template <typename T, int kPool, int kDpl>
+__global__ void __launch_bounds__(kThreads) quantize_scatter_kernel(const QParams p) {
+  constexpr int D = 32 * kDpl;
+  const int lane = threadIdx.x & 31;
+  const int64_t task = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (task >= 2 * static_cast<int64_t>(p.N) * p.H_kv) return;
+  const bool is_v = task & 1;
+  const int h = static_cast<int>((task >> 1) % p.H_kv);
+  const int64_t n = (task >> 1) / p.H_kv;
+  const int64_t bi = n / p.L;
+  const int64_t li = n - bi * p.L;
+  const T* src = is_v ? static_cast<const T*>(p.v) + bi * p.v_sb + li * p.v_sl + h * p.v_sh
+                      : static_cast<const T*>(p.k) + bi * p.k_sb + li * p.k_sl + h * p.k_sh;
+  float x[kDpl];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDpl; ++i) {
+    x[i] = to_float(src[lane * kDpl + i]);
+    amax = fmaxf(amax, fabsf(x[i]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
+  amax = fmaxf(amax, kAmaxFloor);
+  const int64_t row = (p.blk[n] * p.bl + p.off[n]) * p.H_kv + h;
+  uint8_t* dst = static_cast<uint8_t*>(is_v ? p.v_pool : p.k_pool) + row * D + lane * kDpl;
+  void* scales = is_v ? p.v_scale : p.k_scale;
+  if constexpr (kPool == kPoolInt8) {
+    const float s = amax * kInt8Scale;
+#pragma unroll
+    for (int i = 0; i < kDpl; ++i)
+      dst[i] = static_cast<uint8_t>(
+          static_cast<int8_t>(fminf(fmaxf(rintf(x[i] / s), -127.f), 127.f)));
+    if (lane == 0) static_cast<float*>(scales)[row] = s;
+  } else {
+    constexpr __nv_fp8_interpretation_t kFmt = kPool == kPoolE4M3 ? __NV_E4M3 : __NV_E5M2;
+    constexpr int kFmaxExp = kPool == kPoolE4M3 ? 9 : 16;  // 448, 57344 = 0.875 * 2^k
+    int k;
+    const float m = frexpf(amax, &k);
+    const int e = min(max(k - kFmaxExp + (m > 0.875f ? 1 : 0), -126), 126);
+    const float inv = pow2(-e);
+#pragma unroll
+    for (int i = 0; i < kDpl; ++i)
+      dst[i] = __nv_cvt_float_to_fp8(x[i] * inv, __NV_SATFINITE, kFmt);
+    if (lane == 0) static_cast<int8_t*>(scales)[row] = static_cast<int8_t>(e);
+  }
+}
+
+template <typename T, int kPool>
+int launch_quantize_d(const QParams& p, int D, cudaStream_t st) {
+  const int64_t tasks = 2 * static_cast<int64_t>(p.N) * p.H_kv;
+  const unsigned grid = static_cast<unsigned>((tasks + kWarps - 1) / kWarps);
+  if (D == 64) {
+    quantize_scatter_kernel<T, kPool, 2><<<grid, kThreads, 0, st>>>(p);
+  } else if (D == 128) {
+    quantize_scatter_kernel<T, kPool, 4><<<grid, kThreads, 0, st>>>(p);
+  } else {
+    return kInvalid;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kSplit>
-int launch(Params p, int dtype, int B, int D, void* stream) {
-  if (B < 1 || p.H_kv < 1 || p.G < 1 || p.C < 1 || p.bl < 1 || p.W < 1 ||
-      p.S < 1 || p.S > p.W) {
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int launch_quantize_pool(const QParams& p, int pool, int D, cudaStream_t st) {
+  switch (pool) {
+    case 1: return launch_quantize_d<T, 1>(p, D, st);
+    case 2: return launch_quantize_d<T, 2>(p, D, st);
+    case 3: return launch_quantize_d<T, 3>(p, D, st);
+    default: return kInvalid;
   }
-  p.wc = (p.W + p.S - 1) / p.S;
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dtype<float, kSplit>(p, B, D, st);
-  if (dtype == 1) return launch_dtype<__nv_bfloat16, kSplit>(p, B, D, st);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, the pools and out). D in {32, 64,
-// 96, 128}. Strides in elements. Returns the launch's cudaError_t (0 =
-// launched).
+// dtype: 0 = float32, 1 = bfloat16 (q and out). pool: 0 = pools in q's
+// dtype (no scales), 1 = int8 with fp32 scales, 2 = fp8 e4m3 and 3 = fp8
+// e5m2 with int8 exponents. D in {32, 64, 96, 128} (quantized: {64, 128}).
+// Strides in elements. Returns the launch's cudaError_t (0 = launched).
 extern "C" int pdt_paged_attention_sweep(
     const void* q, int64_t q_sb, int64_t q_sc, int64_t q_sh, const void* k_pool,
-    const void* v_pool, const void* tables, const void* qpos, void* out,
-    int dtype, int B, int C, int H_kv, int G, int D, int bl, int W, float scale,
-    void* stream) {
-  Params p{q, q_sb, q_sc, q_sh, k_pool, v_pool,
+    const void* v_pool, const void* k_scale, const void* v_scale, const void* tables,
+    const void* qpos, void* out, int dtype, int pool, int B, int C, int H_kv, int G,
+    int D, int bl, int W, float scale, void* stream) {
+  Params p{q, q_sb, q_sc, q_sh, k_pool, v_pool, k_scale, v_scale,
            static_cast<const int*>(tables), static_cast<const int*>(qpos), out,
            nullptr, nullptr, nullptr, nullptr, H_kv, G, C, bl, W, 1, W, scale};
-  return launch<false>(p, dtype, B, D, stream);
+  return launch<false>(p, dtype, pool, B, D, stream);
 }
 
 // tickets: B * H_kv * ceil(G * C / 8) int32, zero on entry (left zero).
 extern "C" int pdt_paged_attention_split(
     const void* q, int64_t q_sb, int64_t q_sc, int64_t q_sh, const void* k_pool,
-    const void* v_pool, const void* tables, const void* qpos, void* out,
-    void* part_acc, void* part_m, void* part_l, void* tickets, int dtype, int B,
-    int C, int H_kv, int G, int D, int bl, int W, int S, float scale,
-    void* stream) {
-  Params p{q, q_sb, q_sc, q_sh, k_pool, v_pool,
+    const void* v_pool, const void* k_scale, const void* v_scale, const void* tables,
+    const void* qpos, void* out, void* part_acc, void* part_m, void* part_l,
+    void* tickets, int dtype, int pool, int B, int C, int H_kv, int G, int D, int bl,
+    int W, int S, float scale, void* stream) {
+  Params p{q, q_sb, q_sc, q_sh, k_pool, v_pool, k_scale, v_scale,
            static_cast<const int*>(tables), static_cast<const int*>(qpos), out,
            static_cast<float*>(part_acc), static_cast<float*>(part_m),
            static_cast<float*>(part_l), static_cast<int*>(tickets), H_kv, G, C, bl,
            W, S, 0, scale};
-  return launch<true>(p, dtype, B, D, stream);
+  return launch<true>(p, dtype, pool, B, D, stream);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (k and v, strides in elements); pool: 1
+// = int8, 2 = fp8 e4m3, 3 = fp8 e5m2; blk and off int64 [N]; D in {64, 128}.
+extern "C" int pdt_paged_quantize_scatter(
+    const void* k, int64_t k_sb, int64_t k_sl, int64_t k_sh, const void* v,
+    int64_t v_sb, int64_t v_sl, int64_t v_sh, const void* blk, const void* off,
+    void* k_pool, void* v_pool, void* k_scale, void* v_scale, int dtype, int pool,
+    int N, int L, int H_kv, int D, int bl, void* stream) {
+  if (N < 1 || L < 1 || N % L || H_kv < 1 || bl < 1) return kInvalid;
+  QParams p{k, k_sb, k_sl, k_sh, v, v_sb, v_sl, v_sh,
+            static_cast<const int64_t*>(blk), static_cast<const int64_t*>(off),
+            k_pool, v_pool, k_scale, v_scale, N, L, H_kv, bl};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_quantize_pool<float>(p, pool, D, st);
+  if (dtype == 1) return launch_quantize_pool<__nv_bfloat16>(p, pool, D, st);
+  return kInvalid;
 }
 
 extern "C" int pdt_paged_attention_rows_per_tile() { return kRows; }

@@ -1,5 +1,7 @@
 from pytorch_distributed_tpu_torch.models.convert import (
     init_params,
+    paged_cache_from_jax,
+    paged_cache_to_jax,
     params_from_jax,
     params_to_jax,
 )
@@ -10,4 +12,5 @@ from pytorch_distributed_tpu_torch.models.transformer import (
 )
 
 __all__ = ["TransformerConfig", "TransformerLM", "tiny_config", "init_params",
-           "params_from_jax", "params_to_jax"]
+           "params_from_jax", "params_to_jax", "paged_cache_from_jax",
+           "paged_cache_to_jax"]

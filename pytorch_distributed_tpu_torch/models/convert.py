@@ -1,6 +1,7 @@
-"""Weights across frameworks: flax parameter trees to the port's
-``TransformerLM`` state dict and back, and a numpy initialiser in the flax
-layout.
+"""Weights and paged caches across frameworks: flax parameter trees to
+the port's ``TransformerLM`` state dict and back, a numpy initialiser in
+the flax layout, and the flax paged cache to the port's list of
+``LayerCache`` and back.
 
 The flax layout (``pytorch_distributed_tpu/models/transformer.py``):
 
@@ -11,17 +12,22 @@ The flax layout (``pytorch_distributed_tpu/models/transformer.py``):
   ``[4E, E]``, no bias): ``Dense`` kernels are ``[in, out]``, the transpose
   of ``nn.Linear.weight``;
 - ``ln1``/``ln2``/``ln_f``: ``scale`` and ``bias``;
-- ``lm_head``: kernel ``[E, V]``, no bias.
+- ``lm_head``: kernel ``[E, V]``, no bias;
+- the paged cache: ``block{i}/attn/{key,value}`` pools and, for quantized
+  pools, ``key_scale``/``value_scale``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
 
-from pytorch_distributed_tpu_torch.models.transformer import TransformerConfig
+from pytorch_distributed_tpu_torch.models.transformer import LayerCache, TransformerConfig
+
+#: fp8 dtypes by their numpy (ml_dtypes) name
+_FP8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
 
 
 def _np(x) -> np.ndarray:
@@ -158,3 +164,49 @@ def init_params(cfg: TransformerConfig, seed: int = 0) -> Dict:
     params["ln_f"] = ln()
     params["lm_head"] = {"kernel": dense(e, (e, v))}
     return params
+
+
+def paged_cache_from_jax(cache_tree: Mapping) -> List[LayerCache]:
+    """The port's paged cache (CPU tensors, copies) from a flax paged cache
+    tree ``{"block{i}": {"attn": {"key", "value"[, "key_scale",
+    "value_scale"]}}}`` with numpy or jax leaves: float or quantized pools
+    with their scales. fp8 leaves travel as their bytes."""
+
+    def t(x) -> torch.Tensor:
+        a = np.asarray(x)
+        if a.dtype.name in _FP8:
+            return torch.from_numpy(a.view(np.uint8).copy()).view(_FP8[a.dtype.name])
+        return torch.from_numpy(a.copy())
+
+    n_layers = sum(1 for k in cache_tree if k.startswith("block"))
+    out = []
+    for i in range(n_layers):
+        attn = cache_tree[f"block{i}"]["attn"]
+        out.append(LayerCache(t(attn["key"]), t(attn["value"]),
+                              *(t(attn[n]) if n in attn else None
+                                for n in ("key_scale", "value_scale"))))
+    return out
+
+
+def paged_cache_to_jax(cache: List[LayerCache]) -> Dict:
+    """The inverse of ``paged_cache_from_jax``: the flax paged cache tree of
+    numpy arrays (fp8 as ``ml_dtypes`` arrays, which only this function
+    needs)."""
+
+    def a(x: torch.Tensor) -> np.ndarray:
+        x = x.detach().cpu()
+        for name, dt in _FP8.items():
+            if x.dtype == dt:
+                import ml_dtypes
+
+                return x.view(torch.uint8).numpy().copy().view(getattr(ml_dtypes, name))
+        return x.numpy().copy()
+
+    tree = {}
+    for i, layer in enumerate(cache):
+        attn = {"key": a(layer.key), "value": a(layer.value)}
+        if layer.key_scale is not None:
+            attn["key_scale"] = a(layer.key_scale)
+            attn["value_scale"] = a(layer.value_scale)
+        tree[f"block{i}"] = {"attn": attn}
+    return tree

@@ -7,7 +7,9 @@ GELU MLP), a final LayerNorm and an untied LM head with fp32 logits.
 - Paged serving (``cache=`` given): each layer's attention writes the
   chunk's K/V into the block pool and attends through the block tables
   (``ops.attention.paged_attention``). One forward serves chunked prefill
-  (C = chunk) and decode (C = 1).
+  (C = chunk) and decode (C = 1). A quantized pool (int8/fp8, told by its
+  dtype alone) is written by quantize-on-scatter, and the chunk then
+  attends to the quantized values it wrote, as every later read does.
 - Training (no cache): causal self-attention over the whole sequence,
   ``attention="flash"`` through the CUDA kernels of
   ``ops.flash_attention`` or ``"dense"`` in plain PyTorch; with
@@ -41,7 +43,7 @@ when the training forward runs.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -60,8 +62,17 @@ ATTENTIONS = ("dense", "flash")
 NOT_PORTED = {"dropout": 0.0, "num_kv_heads": None, "pos_embedding": "learned",
               "n_experts": 0, "tp_size": 1}
 
-#: one layer's KV pools: (key, value), each [n_blocks, block_len, H_kv, D]
-LayerCache = Tuple[torch.Tensor, torch.Tensor]
+
+class LayerCache(NamedTuple):
+    """One layer's KV pools, ``key``/``value`` ``[n_blocks, block_len,
+    H_kv, D]``. Quantized pools carry ``key_scale``/``value_scale``
+    ``[n_blocks, block_len, H_kv]`` (``serving.kv_pool``); float pools
+    leave them None."""
+
+    key: torch.Tensor
+    value: torch.Tensor
+    key_scale: Optional[torch.Tensor] = None
+    value_scale: Optional[torch.Tensor] = None
 
 
 def _later(what: str) -> str:
@@ -224,12 +235,20 @@ class Attention(nn.Module):
                 out = dense_attention(q, k, v, causal=True, q_offset=position_offset,
                                       k_offset=position_offset)
             return self.proj(out.reshape(b, l, h * d))
-        k_pool, v_pool = cache
+        k_pool, v_pool, k_scale, v_scale = cache
         # inactive lanes write to the trash block, where clashes are harmless
-        k_pool[index.blk, index.off] = k.to(k_pool.dtype)
-        v_pool[index.blk, index.off] = v.to(v_pool.dtype)
+        if k_scale is None:
+            k_pool[index.blk, index.off] = k.to(k_pool.dtype)
+            v_pool[index.blk, index.off] = v.to(v_pool.dtype)
+        else:
+            from pytorch_distributed_tpu_torch.ops import paged_flash
+
+            scatter = (paged_flash.paged_quantize_scatter if cfg.gather_impl == "kernel"
+                       else paged_flash.paged_quantize_scatter_reference)
+            scatter(k, v, index.blk, index.off, *cache)
         out = paged_attention(q, k_pool, v_pool, index.tables, index.positions,
-                              gather_impl=cfg.gather_impl, split_s=cfg.split_s)
+                              gather_impl=cfg.gather_impl, split_s=cfg.split_s,
+                              k_scale=k_scale, v_scale=v_scale)
         return self.proj(out.reshape(b, l, h * d))
 
 
@@ -256,7 +275,7 @@ class TransformerLM(nn.Module):
 
     Paged: ``forward(tokens [B, L], position_offset [B], block_tables
     [B, W], cache)`` → logits ``[B, L, vocab]`` fp32, with ``cache`` a list
-    of one ``(key_pool, value_pool)`` pair per layer, updated in place (the
+    of one ``LayerCache`` per layer, updated in place (the
     JAX module returns a new cache; here the pools are mutated, which saves
     a pool copy per call). ``logits_index [B]`` keeps one row per request —
     the LM head then runs on B rows instead of B·L.

@@ -11,7 +11,9 @@ tensors on the CPU.
 
 Shapes follow the JAX package: q ``[B, C, H, D]``, pools
 ``[n_blocks, block_len, H_kv, D]``, tables ``[B, W]``, positions
-``[B, C]``.
+``[B, C]``. Quantized pools (int8 or fp8, ``serving.kv_pool``) come
+with scales ``[n_blocks, block_len, H_kv]``: the plain version
+dequantizes after the gather and attends in fp32.
 """
 
 from __future__ import annotations
@@ -55,6 +57,24 @@ def check_paged_shapes(q: torch.Tensor, k_pool: torch.Tensor,
         )
 
 
+def check_scales(k_pool: torch.Tensor, k_scale: Optional[torch.Tensor],
+                 v_scale: Optional[torch.Tensor]) -> None:
+    """Raise unless quantized pools come with both scales and float pools
+    with none."""
+    from pytorch_distributed_tpu_torch.serving.kv_pool import is_quantized_pool
+
+    quantized = is_quantized_pool(k_pool.dtype)
+    if quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError(
+            "quantized (int8/fp8) pools need k_scale and v_scale and float pools "
+            f"must not pass them (pool dtype {k_pool.dtype}, k_scale "
+            f"{'set' if k_scale is not None else 'None'}, v_scale "
+            f"{'set' if v_scale is not None else 'None'})")
+    if quantized and tuple(k_scale.shape) != tuple(k_pool.shape[:3]):
+        raise ValueError(f"scales must be {tuple(k_pool.shape[:3])}, got "
+                         f"{tuple(k_scale.shape)}")
+
+
 def paged_attention_reference(
     q: torch.Tensor,
     k_pool: torch.Tensor,
@@ -63,6 +83,8 @@ def paged_attention_reference(
     q_positions: torch.Tensor,
     *,
     scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode/chunk attention against a block-pooled KV cache, by a dense
     gather (``ops/attention.py:152-290`` of the JAX package).
@@ -71,11 +93,13 @@ def paged_attention_reference(
     Table entries past a request's allocation point at the trash block;
     their logical positions lie past every query position, so the mask
     hides them. A row whose every key is masked (a padding row with
-    position -1) comes out 0: ``p * allowed`` after the softmax.
+    position -1) comes out 0: ``p * allowed`` after the softmax. Quantized
+    pools dequantize after the gather, ``q · scale_factors(scales)``.
 
     Returns ``[B, C, H, D]`` in q's dtype; logits, softmax and PV in fp32.
     """
     check_paged_shapes(q, k_pool, v_pool, block_tables, q_positions)
+    check_scales(k_pool, k_scale, v_scale)
     b, c, h, d = q.shape
     _, block_len, h_kv, _ = k_pool.shape
     group = h // h_kv
@@ -84,6 +108,11 @@ def paged_attention_reference(
     idx = block_tables.long()
     kg = k_pool[idx].reshape(b, w * block_len, h_kv, d).float()
     vg = v_pool[idx].reshape(b, w * block_len, h_kv, d).float()
+    if k_scale is not None:
+        from pytorch_distributed_tpu_torch.serving.kv_pool import scale_factors
+
+        kg = kg * scale_factors(k_scale)[idx].reshape(b, w * block_len, h_kv, 1)
+        vg = vg * scale_factors(v_scale)[idx].reshape(b, w * block_len, h_kv, 1)
     qg = (q.float() * scale).reshape(b, c, h_kv, group, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kg)  # [B, H_kv, G, C, W*bl]
     k_pos = torch.arange(w * block_len, device=q.device)
@@ -140,21 +169,27 @@ def paged_attention(
     scale: Optional[float] = None,
     gather_impl: str = "kernel",
     split_s: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The serving read path: ``gather_impl="kernel"`` runs the CUDA
     kernels of ``ops.paged_flash`` (the counterpart of the JAX package's
     ``"pallas"``), ``"dense"`` the plain version above, wherever the
     tensors lie. ``split_s`` is the flash-decoding worker count of the
     kernel spelling (None = ``auto_split_s``); the dense spelling has no
-    chain sweep to split and ignores it."""
+    chain sweep to split and ignores it. ``k_scale``/``v_scale``: the
+    scales of quantized pools, required for them and refused for float
+    pools."""
     if gather_impl == "dense":
         return paged_attention_reference(q, k_pool, v_pool, block_tables,
-                                         q_positions, scale=scale)
+                                         q_positions, scale=scale,
+                                         k_scale=k_scale, v_scale=v_scale)
     if gather_impl == "kernel":
         from pytorch_distributed_tpu_torch.ops.paged_flash import (
             paged_flash_attention,
         )
 
         return paged_flash_attention(q, k_pool, v_pool, block_tables,
-                                     q_positions, scale=scale, split_s=split_s)
+                                     q_positions, scale=scale, split_s=split_s,
+                                     k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"gather_impl {gather_impl!r} must be one of {GATHER_IMPLS}")

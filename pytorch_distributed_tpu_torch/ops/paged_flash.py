@@ -1,26 +1,32 @@
-"""Paged attention through the hand-written CUDA kernels.
+"""Paged attention and quantize-on-scatter through the hand-written CUDA
+kernels.
 
-The port of ``pytorch_distributed_tpu/ops/paged_flash.py``'s
-``paged_flash_attention``: the queries attend to the block-pooled KV
-cache through the block tables, and the gathered sequence never exists
-in device memory. Two kernels of ``csrc/paged_attention.cu``:
+The port of ``pytorch_distributed_tpu/ops/paged_flash.py``. Three kernels
+of ``csrc/paged_attention.cu``:
 
 - ``paged_attention_sweep``: one thread block per (row tile, KV head,
   batch row) walks the whole chain with an fp32 online softmax;
 - ``paged_attention_split`` (flash-decoding): the chain splits over S
   workers that write fp32 ``(acc, m, l)`` partials; the last worker of
   each row tile merges them by log-sum-exp inside the same launch (the
-  JAX package merges in jnp after its kernel).
+  JAX package merges in jnp after its kernel);
+- ``paged_quantize_scatter``: writes a chunk's K/V rows into quantized
+  pools, computing each row's per-head scale inside the write.
 
-The kernels read q ``[B, C, H, D]`` through its strides (the fused qkv
-projection's view needs no copy) and fold GQA into rows themselves:
-query head ``kv·G + g`` at chunk index ``c`` is row ``g·C + c`` of KV head
-``kv``, so a KV head's whole query group shares each K/V block it reads.
+Both attention kernels read float pools (q's dtype) or quantized pools
+(int8 with fp32 scales, fp8 e4m3/e5m2 with int8 exponents), which they
+dequantize as they load each row. They read q ``[B, C, H, D]`` through its
+strides (the fused qkv projection's view needs no copy) and fold GQA into
+rows themselves: query head ``kv·G + g`` at chunk index ``c`` is row
+``g·C + c`` of KV head ``kv``, so a KV head's whole query group shares
+each K/V block it reads.
 
-For tensors on the CPU the wrapper runs the plain version
-(``ops.attention.paged_attention_reference``); for CUDA tensors it
-launches a kernel or raises. ``launch_counts`` counts each kernel's
-launches and nothing else.
+For tensors on the CPU each wrapper runs its plain version
+(``ops.attention.paged_attention_reference``,
+``paged_quantize_scatter_reference``); for CUDA tensors it launches a
+kernel or raises. ``launch_counts`` counts the attention kernels'
+launches on float pools, ``quant_launch_counts`` each kernel's launches on
+each quantized pool dtype; nothing else adds to them.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.ops.attention import (
     check_paged_shapes,
+    check_scales,
     paged_attention_reference,
 )
 
@@ -44,16 +51,33 @@ MAX_SPLIT = 8
 
 SWEEP = "paged_attention_sweep"
 SPLIT = "paged_attention_split"
-#: launches of each kernel since the last ``reset_launch_counts``
+QUANTIZE = "paged_quantize_scatter"
+#: quantized pool dtypes by their ``kv_dtype`` name, with the kernels' code
+POOL_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8",
+              torch.float8_e5m2: "fp8_e5m2"}
+_POOL_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
+#: launches of the attention kernels on float pools since the last
+#: ``reset_launch_counts``
 launch_counts = {SWEEP: 0, SPLIT: 0}
+#: launches of each kernel on each quantized pool dtype (``variant``)
+quant_launch_counts = {f"{k}[{kv}]": 0 for k in (SWEEP, SPLIT, QUANTIZE)
+                       for kv in POOL_NAMES.values()}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 96, 128)
+#: head dims of the kernels on quantized pools (fewer instantiations to build)
+_QUANT_HEAD_DIMS = (64, 128)
+
+
+def variant(kernel: str, pool_dtype: torch.dtype) -> str:
+    """The ``quant_launch_counts`` key of ``kernel`` on a quantized pool."""
+    return f"{kernel}[{POOL_NAMES[pool_dtype]}]"
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, quant_launch_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def auto_split_s(w: int, b: int, *, threshold: int = SPLIT_THRESHOLD,
@@ -69,14 +93,19 @@ def auto_split_s(w: int, b: int, *, threshold: int = SPLIT_THRESHOLD,
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    operands = [p, i64, i64, i64, p, p, p, p, p]  # q + strides, pools, tables, qpos, out
-    dims = [i, i, i, i, i, i, i, i]  # dtype, B, C, H_kv, G, D, block_len, W
+    # q + strides, pools, scales, tables, qpos, out
+    operands = [p, i64, i64, i64, p, p, p, p, p, p, p]
+    dims = [i, i, i, i, i, i, i, i, i]  # dtype, pool, B, C, H_kv, G, D, block_len, W
     lib.pdt_paged_attention_sweep.argtypes = operands + dims + [f, p]
     lib.pdt_paged_attention_sweep.restype = i
     lib.pdt_paged_attention_split.argtypes = operands + [p, p, p, p] + dims + [i, f, p]
     lib.pdt_paged_attention_split.restype = i
     lib.pdt_paged_attention_rows_per_tile.argtypes = []
     lib.pdt_paged_attention_rows_per_tile.restype = i
+    # k, v + strides; blk, off; the four pools; dtype, pool, N, L, H_kv, D, block_len
+    lib.pdt_paged_quantize_scatter.argtypes = (
+        [p, i64, i64, i64, p, i64, i64, i64, p, p, p, p, p, p] + [i] * 7 + [p])
+    lib.pdt_paged_quantize_scatter.restype = i
     lib.pdt_cuda_error_string.argtypes = [i]
     lib.pdt_cuda_error_string.restype = ctypes.c_char_p
 
@@ -91,27 +120,39 @@ def _check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {code})")
 
 
-def _check_cuda_operands(q, k_pool, v_pool, block_tables, q_positions) -> None:
-    dev = q.device
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables),
-                    ("q_positions", q_positions)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+def _check_pools(dev, d: int, tensors, k_pool, v_pool, k_scale) -> None:
+    """Device, dtype, layout and head-dim checks the kernels share."""
+    for name, t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    quantized = k_scale is not None
+    dims = _QUANT_HEAD_DIMS if quantized else _HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"head dim {d} unsupported: the kernels take D in {dims}"
+                         f"{' on quantized pools' if quantized else ''}")
+    for name, t in tensors:
+        if name.endswith(("pool", "scale")) and t is not None:
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check_cuda_operands(q, k_pool, v_pool, block_tables, q_positions,
+                         k_scale, v_scale) -> None:
     if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the paged kernels take float32 or bfloat16 q, got {q.dtype}")
+    if k_pool.dtype != v_pool.dtype:
+        raise TypeError(f"k_pool ({k_pool.dtype}) and v_pool ({v_pool.dtype}) differ")
+    if k_scale is None and k_pool.dtype != q.dtype:
         raise TypeError(
-            f"the paged kernels take float32 or bfloat16, got {q.dtype}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(
-            f"q ({q.dtype}) and the pools ({k_pool.dtype}, {v_pool.dtype}) "
-            "must share one dtype")
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
-        raise ValueError("the KV pools must be contiguous")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("the KV pools must be 16-byte aligned")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(
-            f"head dim {q.shape[-1]} unsupported: the kernels take D in {_HEAD_DIMS}")
+            f"q ({q.dtype}) and the float pools ({k_pool.dtype}) must share one "
+            "dtype; quantized pools are int8, float8_e4m3fn or float8_e5m2")
+    _check_pools(q.device, q.shape[-1],
+                 (("k_pool", k_pool), ("v_pool", v_pool),
+                  ("block_tables", block_tables), ("q_positions", q_positions),
+                  ("k_scale", k_scale), ("v_scale", v_scale)),
+                 k_pool, v_pool, k_scale)
     if block_tables.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"block_tables must be an integer tensor, got "
                         f"{block_tables.dtype}")
@@ -126,6 +167,8 @@ def paged_flash_attention(
     *,
     scale: Optional[float] = None,
     split_s: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention of ``q [B, C, H, D]`` against the pools
     ``[n_blocks, block_len, H_kv, D]`` through ``block_tables [B, W]``,
@@ -136,18 +179,28 @@ def paged_flash_attention(
     sums in another order than the sweep, so the two agree to a
     tolerance (1e-3 in fp32), not bit for bit.
 
+    ``k_scale``/``v_scale`` ``[n_blocks, block_len, H_kv]``: the scales of
+    quantized pools (``serving.kv_pool`` layout), None for float pools.
+    On quantized pools the kernels dequantize each row to fp32 as they
+    load it and keep p in fp32 for PV (V is fp32 there, and p takes V's
+    dtype, as in the Pallas body); on float pools p is rounded to the
+    pools' dtype.
+
     CPU tensors run ``paged_attention_reference``; CUDA tensors launch a
     kernel or raise. Returns ``[B, C, H, D]`` in q's dtype.
     """
     check_paged_shapes(q, k_pool, v_pool, block_tables, q_positions)
+    check_scales(k_pool, k_scale, v_scale)
     if split_s is not None and split_s < 1:
         raise ValueError(f"split_s must be >= 1, got {split_s}")
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pool, v_pool, block_tables,
-                                         q_positions, scale=scale)
+                                         q_positions, scale=scale,
+                                         k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_attention runs on cuda or cpu, not {q.device}")
-    _check_cuda_operands(q, k_pool, v_pool, block_tables, q_positions)
+    _check_cuda_operands(q, k_pool, v_pool, block_tables, q_positions,
+                         k_scale, v_scale)
     b, _, _, d = q.shape
     w = block_tables.shape[1]
     scale = scale if scale is not None else d ** -0.5
@@ -157,33 +210,48 @@ def paged_flash_attention(
     tables = block_tables.to(torch.int32).contiguous()
     qpos = q_positions.to(torch.int32).contiguous()
     if s_workers == 1:
-        return launch_sweep(q, k_pool, v_pool, tables, qpos, scale)
-    return launch_split(q, k_pool, v_pool, tables, qpos, s_workers, scale)
+        return launch_sweep(q, k_pool, v_pool, tables, qpos, scale,
+                            k_scale=k_scale, v_scale=v_scale)
+    return launch_split(q, k_pool, v_pool, tables, qpos, s_workers, scale,
+                        k_scale=k_scale, v_scale=v_scale)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
 
 
-def _operands(q, k_pool, v_pool, tables, qpos, out) -> List:
+def _operands(q, k_pool, v_pool, k_scale, v_scale, tables, qpos, out) -> List:
     return [_ptr(q), q.stride(0), q.stride(1), q.stride(2), _ptr(k_pool),
-            _ptr(v_pool), _ptr(tables), _ptr(qpos), _ptr(out)]
+            _ptr(v_pool), _ptr(k_scale), _ptr(v_scale), _ptr(tables), _ptr(qpos),
+            _ptr(out)]
 
 
-def _dims(q, k_pool, tables) -> List[int]:
+def _pool_code(k_pool: torch.Tensor, k_scale) -> int:
+    return 0 if k_scale is None else _POOL_CODES[k_pool.dtype]
+
+
+def _dims(q, k_pool, k_scale, tables) -> List[int]:
     b, c, h, d = q.shape
     h_kv = k_pool.shape[2]
-    return [_DTYPE_CODES[q.dtype], b, c, h_kv, h // h_kv, d, k_pool.shape[1],
-            tables.shape[1]]
+    return [_DTYPE_CODES[q.dtype], _pool_code(k_pool, k_scale), b, c, h_kv,
+            h // h_kv, d, k_pool.shape[1], tables.shape[1]]
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _count(kernel: str, k_pool: torch.Tensor, k_scale) -> None:
+    if k_scale is None:
+        launch_counts[kernel] += 1
+    else:
+        quant_launch_counts[variant(kernel, k_pool.dtype)] += 1
+
+
 def launch_sweep(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                 tables: torch.Tensor, qpos: torch.Tensor,
-                 scale: float) -> torch.Tensor:
+                 tables: torch.Tensor, qpos: torch.Tensor, scale: float, *,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the single-sweep kernel. ``q [B, C, H, D]`` may be a
     strided view with unit stride in D; int32 ``tables [B, W]`` and
     ``qpos [B, C]`` are contiguous; all on one card
@@ -192,16 +260,17 @@ def launch_sweep(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = _library()
     code = lib.pdt_paged_attention_sweep(
-        *_operands(q, k_pool, v_pool, tables, qpos, out),
-        *_dims(q, k_pool, tables), float(scale), _stream(q))
+        *_operands(q, k_pool, v_pool, k_scale, v_scale, tables, qpos, out),
+        *_dims(q, k_pool, k_scale, tables), float(scale), _stream(q))
     _check_launch(lib, SWEEP, code)
-    launch_counts[SWEEP] += 1
+    _count(SWEEP, k_pool, k_scale)
     return out
 
 
 def launch_split(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  tables: torch.Tensor, qpos: torch.Tensor, s_workers: int,
-                 scale: float) -> torch.Tensor:
+                 scale: float, *, k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the flash-decoding kernel (operands as
     ``launch_sweep``, ``1 <= s_workers <= W``). Its fp32 partials go to
     scratch, and the last worker of each row tile merges them into the
@@ -218,9 +287,88 @@ def launch_split(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     tickets = torch.zeros((b, h_kv, row_tiles), dtype=torch.int32, device=q.device)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     code = lib.pdt_paged_attention_split(
-        *_operands(q, k_pool, v_pool, tables, qpos, out),
+        *_operands(q, k_pool, v_pool, k_scale, v_scale, tables, qpos, out),
         _ptr(acc), _ptr(m), _ptr(l), _ptr(tickets),
-        *_dims(q, k_pool, tables), s_workers, float(scale), _stream(q))
+        *_dims(q, k_pool, k_scale, tables), s_workers, float(scale), _stream(q))
     _check_launch(lib, SPLIT, code)
-    launch_counts[SPLIT] += 1
+    _count(SPLIT, k_pool, k_scale)
     return out
+
+
+# ---------------------------------------------------------------------------
+# quantize-on-scatter (kernel 9)
+# ---------------------------------------------------------------------------
+
+
+def paged_quantize_scatter_reference(k, v, blk, off, k_pool, v_pool, k_scale,
+                                     v_scale) -> None:
+    """The plain version: ``serving.kv_pool.quantize_kv`` of each chunk,
+    then four ``index_put_`` writes at ``(blk, off)``, in place."""
+    from pytorch_distributed_tpu_torch.serving.kv_pool import quantize_kv
+
+    for x, pool, scales in ((k, k_pool, k_scale), (v, v_pool, v_scale)):
+        xq, xs = quantize_kv(x, pool.dtype)
+        pool[blk, off] = xq
+        scales[blk, off] = xs
+
+
+def paged_quantize_scatter(k: torch.Tensor, v: torch.Tensor, blk: torch.Tensor,
+                           off: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, k_scale: torch.Tensor,
+                           v_scale: torch.Tensor) -> None:
+    """Write the chunk's K/V rows ``k, v [B, L, H_kv, D]`` (float32 or
+    bfloat16, strided views with unit stride in D) into the quantized
+    pools in place: row ``(b, l)`` goes to pool block ``blk[b, l]`` at
+    offset ``off[b, l]``, with its per-head scale (``quantize_rows``) in
+    ``k_scale``/``v_scale`` at the same place. Bit-identical to the plain
+    version. Duplicate destinations come only from inactive lanes writing
+    the trash block, where any order is harmless.
+
+    CPU tensors run ``paged_quantize_scatter_reference``; CUDA tensors
+    launch the kernel or raise."""
+    from pytorch_distributed_tpu_torch.serving.kv_pool import is_quantized_pool
+
+    if not is_quantized_pool(k_pool.dtype):
+        raise ValueError(f"paged_quantize_scatter writes quantized pools "
+                         f"(int8/fp8), got {k_pool.dtype}")
+    check_scales(k_pool, k_scale, v_scale)
+    if k.dim() != 4 or k.shape != v.shape or tuple(k.shape[2:]) != tuple(k_pool.shape[2:]):
+        raise ValueError(f"k, v must be [B, L, H_kv={k_pool.shape[2]}, "
+                         f"D={k_pool.shape[3]}], got {tuple(k.shape)}, {tuple(v.shape)}")
+    if tuple(blk.shape) != tuple(k.shape[:2]) or tuple(off.shape) != tuple(k.shape[:2]):
+        raise ValueError(f"blk and off must be [B, L] = {tuple(k.shape[:2])}")
+    if k.device.type == "cpu":
+        paged_quantize_scatter_reference(k, v, blk, off, k_pool, v_pool,
+                                         k_scale, v_scale)
+        return
+    if k.device.type != "cuda":
+        raise ValueError(f"paged_quantize_scatter runs on cuda or cpu, not {k.device}")
+    if k.dtype not in _DTYPE_CODES or v.dtype != k.dtype:
+        raise TypeError(f"k and v must share float32 or bfloat16, got {k.dtype}, {v.dtype}")
+    _check_pools(k.device, k.shape[-1],
+                 (("v", v), ("blk", blk), ("off", off), ("k_pool", k_pool),
+                  ("v_pool", v_pool), ("k_scale", k_scale), ("v_scale", v_scale)),
+                 k_pool, v_pool, k_scale)
+    if k.stride(-1) != 1:
+        k = k.contiguous()
+    if v.stride(-1) != 1:
+        v = v.contiguous()
+    launch_quantize_scatter(k, v, blk.to(torch.int64).contiguous(),
+                            off.to(torch.int64).contiguous(), k_pool, v_pool,
+                            k_scale, v_scale)
+
+
+def launch_quantize_scatter(k, v, blk, off, k_pool, v_pool, k_scale,
+                            v_scale) -> None:
+    """One launch of the quantize-on-scatter kernel on operands that
+    ``paged_quantize_scatter`` checked (int64 contiguous ``blk``/``off``)."""
+    b, l, h_kv, d = k.shape
+    lib = _library()
+    code = lib.pdt_paged_quantize_scatter(
+        _ptr(k), k.stride(0), k.stride(1), k.stride(2),
+        _ptr(v), v.stride(0), v.stride(1), v.stride(2),
+        _ptr(blk), _ptr(off), _ptr(k_pool), _ptr(v_pool), _ptr(k_scale),
+        _ptr(v_scale), _DTYPE_CODES[k.dtype], _POOL_CODES[k_pool.dtype],
+        b * l, l, h_kv, d, k_pool.shape[1], _stream(k))
+    _check_launch(lib, QUANTIZE, code)
+    quant_launch_counts[variant(QUANTIZE, k_pool.dtype)] += 1

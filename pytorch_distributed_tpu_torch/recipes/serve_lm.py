@@ -8,6 +8,15 @@ positions, learned positions, bf16) with random weights made from
 
     python -m pytorch_distributed_tpu_torch.recipes.serve_lm
     python -m pytorch_distributed_tpu_torch.recipes.serve_lm --device cpu --tiny
+    python -m pytorch_distributed_tpu_torch.recipes.serve_lm --kv-dtype fp8 \
+        --prefix-cache --preempt --n-blocks 600
+
+``--kv-dtype`` quantizes the KV pool (int8 or fp8, with the
+quantize-on-scatter and dequantizing attention kernels),
+``--prefix-cache`` shares full prompt blocks between requests, and
+``--preempt`` arms the pressure tier: pool OOM preempts the least
+recently served request (swap to host RAM or recompute,
+``--swap-policy``) instead of waiting for a retirement.
 
 Without ``--device`` it runs on CUDA and fails where there is none.
 """
@@ -57,6 +66,20 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "PyTorch version")
     p.add_argument("--split-s", type=int, default=None,
                    help="flash-decoding workers (default: auto)")
+    p.add_argument("--kv-dtype", choices=("int8", "fp8", "fp8_e5m2"), default=None,
+                   help="quantize the KV pool: 'int8' (+fp32 per-row scales, "
+                        "2D/(D+4) the blocks of bf16 in the same bytes) or "
+                        "'fp8'/'fp8_e5m2' (e4m3/e5m2 + int8 exponents, 2D/(D+1))")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="share full prompt blocks between requests (radix index "
+                        "with copy-on-write); greedy streams stay identical")
+    p.add_argument("--preempt", action="store_true",
+                   help="the pressure tier: on pool OOM preempt the least "
+                        "recently served request to host RAM or to recompute")
+    p.add_argument("--swap-policy", choices=("auto", "swap", "recompute"),
+                   default="auto",
+                   help="preemption path: 'auto' takes the measured "
+                        "swap-vs-recompute crossover per request")
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
 
@@ -76,7 +99,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
         block_len=args.block_len, prefill_chunk=args.prefill_chunk,
         n_blocks=args.n_blocks, admit_per_step=args.admit_per_step,
         seed=args.seed, gather_impl=args.gather_impl, split_s=args.split_s,
-        device=args.device,
+        kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
+        offload=args.preempt, preempt_on_oom=args.preempt,
+        swap_policy=args.swap_policy, device=args.device,
     )
     for prompt in _prompts(args, cfg):
         s.submit(prompt, args.max_new)

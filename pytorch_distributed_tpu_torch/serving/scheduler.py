@@ -1,5 +1,6 @@
 """Continuous scheduler over the paged engine
-(``pytorch_distributed_tpu/serving/scheduler.py``, its core).
+(``pytorch_distributed_tpu/serving/scheduler.py``, its core, the prefix
+path and the pressure tier).
 
 Policy (continuous batching with chunked prefill):
 
@@ -13,15 +14,28 @@ Policy (continuous batching with chunked prefill):
   once.
 - **OOM queues**: a request the pool cannot serve now stays queued.
   ``submit`` raises only for a request no configuration could serve.
+- **prefix sharing** (``prefix_cache=True``): admission goes through
+  ``PagedEngine.admit_shared``, so a prompt whose leading full blocks are
+  indexed prefills only its tail; every full prompt block a chunk
+  completes is indexed at once. Streams stay token-identical.
+- **the pressure tier** (``offload=True``): ``preempt(rid)`` parks a
+  decoding request, either swapping its chain to host RAM
+  (``HostBlockStore``) or dropping it to be recomputed from the prompt
+  plus the tokens it streamed, by the measured swap-vs-recompute
+  comparison (``telemetry.costmodel.swap_vs_recompute``) unless
+  ``swap_policy`` forces one. Parked requests are restored first in
+  every step, before admissions, token-identical either way.
+  ``preempt_on_oom`` preempts one least-recently-served victim per stuck
+  queue head.
 
-Metrics are exact host-side counters and latency series. Offload,
-preemption, prefix sharing, tracing, the fleet hooks, deadlines and
-cancel are not ported yet.
+Metrics are exact host-side counters and latency series. Tracing, the
+fleet hooks, deadlines and cancel are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
@@ -30,23 +44,39 @@ import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.serving.engine import ChunkJob, PagedEngine
+from pytorch_distributed_tpu_torch.serving.kv_pool import HostBlockStore
+from pytorch_distributed_tpu_torch.telemetry.costmodel import (
+    SwapDecision,
+    swap_vs_recompute,
+)
 from pytorch_distributed_tpu_torch.telemetry.latency import LatencySeries
+
+SWAP_POLICIES = ("auto", "swap", "recompute")
 
 
 @dataclasses.dataclass
 class Request:
     rid: int
-    tokens: np.ndarray  # [L] int32 prompt
+    tokens: np.ndarray  # [L] int32 prompt (grows on a recompute restore)
     max_new_tokens: int
     submit_step: int
     submit_time: float
     slot: int = -1  # -1 while queued
-    prefill_done: int = 0  # prompt tokens prefilled so far (chunk multiple)
+    prefill_done: int = 0  # prompt tokens prefilled so far
     produced: int = 0
+    admit_time: float = float("nan")
     first_token_time: float = float("nan")
     last_token_time: float = float("nan")
     # inter-token gaps after the first token
     token_gaps: List[float] = dataclasses.field(default_factory=list)
+    # tokens streamed since the last recompute restore, kept under offload:
+    # a recompute restore prefills them again as prompt
+    generated: Optional[List[int]] = None
+    # the decode position a swap restore resumes at
+    resume_position: int = 0
+    preempts: int = 0
+    # a just-restored request is not a victim again before this step
+    protect_until: int = -1
 
     @property
     def length(self) -> int:
@@ -58,7 +88,7 @@ class Scheduler:
     returns ``[(rid, token)]`` for the tokens it produced, ``drain`` runs
     to empty. Runs on CUDA unless ``device="cpu"`` is passed; raises
     without a card. ``seed`` seeds the sampling generator (unused when
-    greedy)."""
+    greedy). ``host_store_max_bytes`` bounds the host tier."""
 
     def __init__(self, config, params, n_slots: int, *,
                  n_blocks: Optional[int] = None, block_len: int = 16,
@@ -67,7 +97,15 @@ class Scheduler:
                  seed: int = 0, eos_id: Optional[int] = None,
                  gather_impl: Optional[str] = None,
                  kv_dtype: Optional[str] = None,
+                 prefix_cache: bool = False,
+                 offload: bool = False, preempt_on_oom: bool = False,
+                 swap_policy: str = "auto", protect_ticks: int = 2,
+                 host_store_max_bytes: Optional[int] = None,
                  split_s: Optional[int] = None, device=None):
+        if swap_policy not in SWAP_POLICIES:
+            raise ValueError(f"swap_policy {swap_policy!r} must be auto|swap|recompute")
+        if preempt_on_oom and not offload:
+            raise ValueError("preempt_on_oom needs offload=True")
         if eos_id is not None and not 0 <= eos_id < config.vocab_size:
             raise ValueError(
                 f"eos_id {eos_id} outside [0, vocab_size={config.vocab_size})")
@@ -76,20 +114,32 @@ class Scheduler:
         self.engine = PagedEngine(
             config, params, n_slots, n_blocks=n_blocks, block_len=block_len,
             prefill_chunk=prefill_chunk, temperature=temperature, top_k=top_k,
-            gather_impl=gather_impl, kv_dtype=kv_dtype, split_s=split_s,
-            device=device,
+            gather_impl=gather_impl, kv_dtype=kv_dtype, prefix_cache=prefix_cache,
+            split_s=split_s, device=device,
         )
         # the engine may have replaced gather_impl/split_s into the config
         self.config = self.engine.config
         self.n_slots = n_slots
         self.admit_per_step = admit_per_step
         self.eos_id = eos_id
+        self.prefix_cache = prefix_cache
+        self.offload = offload
+        self.preempt_on_oom = preempt_on_oom
+        self.swap_policy = swap_policy
+        self.protect_ticks = protect_ticks
+        self.host_store = HostBlockStore(max_bytes=host_store_max_bytes)
         self._generator = torch.Generator(device=self.engine.device)
         self._generator.manual_seed(seed)
         self._next_rid = 0
         self._step_count = 0
         self.queue: deque = deque()
         self.resident: Dict[int, Request] = {}  # slot -> request
+        # rid -> (request, "swap" | "recompute"), restored in this order
+        self.parked: Dict[int, Tuple[Request, str]] = {}
+        # open swap-out windows: (rid, request, PendingSwap, t0, decision)
+        self._swapping: List[tuple] = []
+        self._swap_slots: set = set()  # slots whose chain is mid swap-out
+        self._oom_preempted_for: Optional[int] = None
         self.positions = np.zeros(n_slots, np.int64)
         self.remaining = np.zeros(n_slots, np.int64)
         self._tokens_out = 0
@@ -98,11 +148,28 @@ class Scheduler:
         self._adm_latency_steps = 0
         self._adm_latency_s = 0.0
         self._occupancy_sum = 0.0
+        self._admitted_prefill_tokens = 0
+        self._prefix_covered_tokens = 0
+        self._preempts = 0
+        self._restores = 0
+        self._swap_outs = 0
+        self._swap_ins = 0
+        self._swap_aborts = 0
+        self._swap_bytes = 0
+        self._decision_swap = 0
+        self._decision_recompute = 0
+        # host wall of run_chunks calls after the first (which loads the
+        # kernels and warms the allocator): the recompute side of the
+        # swap-vs-recompute decision
+        self._chunk_runs = 0
+        self._chunk_calls = 0
+        self._chunk_wall_s = 0.0
         self._start_time: Optional[float] = None
         self.ttft = LatencySeries("ttft")
         self.token_lat = LatencySeries("token_lat")
         self.queue_wait = LatencySeries("queue_wait")
         self.tick_lat = LatencySeries("tick")
+        self.swap_lat = LatencySeries("swap")
 
     # ---- API ----
 
@@ -132,11 +199,35 @@ class Scheduler:
         self.queue.append(Request(
             rid=rid, tokens=prompt, max_new_tokens=max_new_tokens,
             submit_step=self._step_count, submit_time=time.perf_counter(),
+            generated=[] if self.offload else None,
         ))
         return rid
 
     def _free_slots(self) -> List[int]:
-        return [s for s in range(self.n_slots) if s not in self.resident]
+        # a slot whose chain is mid swap-out is not free until it finishes
+        return [s for s in range(self.n_slots)
+                if s not in self.resident and s not in self._swap_slots]
+
+    def _place(self, req: Request, slot: int, hit) -> None:
+        """Make ``req`` resident in ``slot`` to be prefilled from its prefix
+        hit's frontier (or 0); its decode lane is armed after the last
+        chunk."""
+        req.slot = slot
+        req.prefill_done = hit.covered if hit is not None else 0
+        self.resident[slot] = req
+        self.positions[slot] = 0
+        self.remaining[slot] = 0
+        self._admitted_prefill_tokens += req.length - req.prefill_done
+        if hit is not None:
+            self._prefix_covered_tokens += hit.covered
+
+    def _admit_chain(self, slot: int, tokens: np.ndarray, max_new: int):
+        """``(ok, hit)``: the slot's chain through the prefix index when it
+        is on, else a plain admission."""
+        if self.prefix_cache:
+            hit = self.engine.admit_shared(slot, tokens, max_new)
+            return hit is not None, hit
+        return self.engine.admit(slot, len(tokens), max_new), None
 
     def _admit(self) -> None:
         """Admit up to ``admit_per_step`` queue-head requests; the first
@@ -147,19 +238,176 @@ class Scheduler:
         while self.queue and free and admitted < self.admit_per_step:
             req = self.queue[0]
             slot = free[0]
-            if not self.engine.admit(slot, req.length, req.max_new_tokens):
-                break  # pool OOM: stays queued until blocks free up
+            ok, hit = self._admit_chain(slot, req.tokens, req.max_new_tokens)
+            if not ok:
+                # pool OOM: the request stays queued. Under preempt_on_oom
+                # one victim is preempted per stuck queue head: restores go
+                # before admissions, so preempting every step would only
+                # carousel chains through the host store.
+                if (self.preempt_on_oom and not self.parked and not self._swapping
+                        and self._oom_preempted_for != req.rid):
+                    if self.preempt_lru() is not None:
+                        self._oom_preempted_for = req.rid
+                break
             self.queue.popleft()
             free.pop(0)
-            req.slot = slot
-            self.resident[slot] = req
-            self.positions[slot] = 0
-            self.remaining[slot] = 0  # decode-armed after the last chunk
+            req.admit_time = now
+            self._place(req, slot, hit)
             self._admitted += 1
             self._adm_latency_steps += self._step_count - req.submit_step
             self._adm_latency_s += now - req.submit_time
             self.queue_wait.observe(now - req.submit_time)
             admitted += 1
+
+    # ---- the pressure tier: preempt, park, restore ----
+
+    def _victims(self) -> List[Tuple[float, int, int]]:
+        """``(last token time, rid, slot)`` of the preemptible requests,
+        least recently served first: decoding, not mid swap-out, and out
+        of their post-restore protection."""
+        if not self.offload:
+            return []
+        out = []
+        for slot, req in self.resident.items():
+            if req.prefill_done < req.length or slot in self._swap_slots:
+                continue
+            if self._step_count < req.protect_until:
+                continue
+            last = req.last_token_time
+            out.append((req.admit_time if math.isnan(last) else last, req.rid, slot))
+        out.sort()
+        return out
+
+    def _swap_decision(self, req: Request, slot: int) -> Optional[SwapDecision]:
+        """Swap or recompute for this request: the chain's bytes over the
+        measured link against the resume prefill's chunks times the mean
+        measured chunk wall, then the hard limits (a resume prefill that
+        overflows the table must swap; a full host store must recompute).
+        None when neither is possible."""
+        bytes_to_move = self.engine.chain_bytes(len(self.engine.allocator.chain(slot)))
+        seq_len = req.length + len(req.generated or ())
+        c = self.engine.chunk
+        chunk_wall = self._chunk_wall_s / self._chunk_calls if self._chunk_calls else None
+        decision = swap_vs_recompute(bytes_to_move, chunks=-(-seq_len // c),
+                                     chunk_wall_s=chunk_wall)
+        if self.swap_policy != "auto":
+            decision = dataclasses.replace(decision, choice=self.swap_policy,
+                                           reason=f"forced-{self.swap_policy}")
+        need = self.engine.blocks_for(seq_len, req.max_new_tokens - req.produced)
+        can_recompute = (-(-seq_len // c) * c <= self.config.max_seq_len
+                         and need <= min(self.engine.table_width,
+                                         self.engine.allocator.n_blocks - 1))
+        if decision.choice == "recompute" and not can_recompute:
+            decision = dataclasses.replace(decision, choice="swap",
+                                           reason="recompute-overflows-table")
+        elif decision.choice == "swap" and not self.host_store.has_room(bytes_to_move):
+            if not can_recompute:
+                return None
+            decision = dataclasses.replace(decision, choice="recompute",
+                                           reason="host-store-full")
+        return decision
+
+    def preempt_lru(self) -> Optional[int]:
+        """Preempt the least recently served preemptible request; its rid,
+        or None when nothing is preemptible."""
+        for _, rid, _slot in self._victims():
+            if self.preempt(rid) is not None:
+                return rid
+        return None
+
+    def preempt(self, rid: int) -> Optional[SwapDecision]:
+        """Park decoding request ``rid``: swap its chain out (freed when
+        the copy commits, at the next step) or drop it to be recomputed.
+        Either way its lane stops now, and it is restored, before its next
+        decode, once there is room. Returns the decision, None when the
+        request cannot be preempted now."""
+        slot = next((s for s, r in self.resident.items() if r.rid == rid), None)
+        if slot is None:
+            raise ValueError(f"rid {rid} is not resident")
+        req = self.resident[slot]
+        if req.prefill_done < req.length:
+            raise ValueError(f"rid {rid} is mid-prefill: not preemptible")
+        decision = self._swap_decision(req, slot)
+        if decision is None:
+            return None
+        del self.resident[slot]
+        self.remaining[slot] = 0
+        if decision.choice == "recompute":
+            self.engine.release(slot)
+            self.parked[rid] = (req, "recompute")
+            self._decision_recompute += 1
+        else:
+            req.resume_position = int(self.positions[slot])
+            pending = self.engine.swap_out_begin(slot)
+            self._swap_slots.add(slot)
+            self._swapping.append((rid, req, pending, time.perf_counter(), decision))
+            self._decision_swap += 1
+        req.preempts += 1
+        self._preempts += 1
+        return decision
+
+    def _finalize_swaps(self) -> None:
+        """Close every open swap-out window: wait for the copy, commit the
+        host chain, free the device chain. A store that refuses the chain
+        reverts the preemption: the chain never left, so the lane is armed
+        again."""
+        pending, self._swapping = self._swapping, []
+        for rid, req, pend, t0, _decision in pending:
+            slot = pend.slot
+            self._swap_slots.discard(slot)
+            try:
+                chain = self.engine.swap_out_finish(pend, self.host_store, rid)
+            except OSError:
+                self.resident[slot] = req
+                self.remaining[slot] = req.max_new_tokens - req.produced
+                self._swap_aborts += 1
+                continue
+            self.parked[rid] = (req, "swap")
+            self._swap_outs += 1
+            self._swap_bytes += chain.nbytes
+            self.swap_lat.observe(time.perf_counter() - t0)
+
+    def _restore_parked(self) -> None:
+        """Restore parked requests in preemption order, before this step's
+        admissions. Swap: a fresh chain filled from host RAM, the lane armed
+        at its position with its logits row. Recompute: the streamed
+        tokens join the prompt and the request is prefilled again, whose
+        last chunk writes the same logits row. A restore that cannot
+        proceed leaves the request parked for the next step."""
+        for rid in list(self.parked):
+            req, path = self.parked[rid]
+            free = self._free_slots()
+            if not free:
+                break
+            slot = free[0]
+            if path == "swap":
+                t0 = time.perf_counter()
+                chain = self.host_store.get(rid)
+                if not self.engine.swap_in_chain(slot, chain):
+                    break  # no room yet
+                self.host_store.pop(rid)
+                self._swap_ins += 1
+                self._swap_bytes += chain.nbytes
+                self.swap_lat.observe(time.perf_counter() - t0)
+                req.slot = slot
+                self.resident[slot] = req
+                self.positions[slot] = req.resume_position
+                self.remaining[slot] = req.max_new_tokens - req.produced
+            else:
+                seq = req.tokens
+                if req.generated:
+                    seq = np.concatenate([req.tokens, np.asarray(req.generated, np.int32)])
+                ok, hit = self._admit_chain(slot, seq, req.max_new_tokens - req.produced)
+                if not ok:
+                    break
+                req.tokens = seq
+                req.generated = []
+                self._place(req, slot, hit)
+            del self.parked[rid]
+            req.protect_until = self._step_count + self.protect_ticks
+            self._restores += 1
+
+    # ---- the tick ----
 
     def _chunk_jobs(self) -> List[ChunkJob]:
         c = self.engine.chunk
@@ -179,22 +427,36 @@ class Scheduler:
         return jobs
 
     def step(self) -> List[Tuple[int, int]]:
-        """One tick: admissions, one prefill chunk for every unfinished
-        prompt, one decode token for every armed lane, retirements."""
+        """One tick: finished swap-outs and restores (under offload),
+        admissions, one prefill chunk for every unfinished prompt, one
+        decode token for every armed lane, retirements."""
         if self._start_time is None:
             self._start_time = time.perf_counter()
         t0 = time.perf_counter()
+        if self.offload:
+            self._finalize_swaps()
+            self._restore_parked()
         self._admit()
         jobs = self._chunk_jobs()
         if jobs:
-            self.engine.run_chunks(jobs)
+            wall = self.engine.run_chunks(jobs)
+            self._chunk_runs += 1
+            if self._chunk_runs > 1:  # the first call loads kernels: not a sample
+                self._chunk_calls += 1
+                self._chunk_wall_s += wall
             for j in jobs:
                 req = self.resident[j.slot]
                 req.prefill_done += self.engine.chunk
+                if self.prefix_cache:
+                    # index the full prompt blocks this chunk completed, so
+                    # a same-prefix request later in this burst hits now
+                    self.engine.prefix_insert(j.slot, req.tokens,
+                                              upto=min(req.prefill_done, req.length))
                 if req.prefill_done >= req.length:
-                    # arm the decode lane at the prompt's true frontier
+                    # arm the decode lane at the prompt's true frontier; after
+                    # a recompute restore only the rest of the budget is left
                     self.positions[j.slot] = req.length
-                    self.remaining[j.slot] = req.max_new_tokens
+                    self.remaining[j.slot] = req.max_new_tokens - req.produced
         active = self.remaining > 0
         self._occupancy_sum += len(self.resident) / self.n_slots
         self._step_count += 1
@@ -219,6 +481,8 @@ class Scheduler:
                 self.token_lat.observe(gap)
             req.last_token_time = now
             req.produced += 1
+            if req.generated is not None:
+                req.generated.append(token)
             self._tokens_out += 1
             if ((self.eos_id is not None and token == self.eos_id)
                     or req.produced >= req.max_new_tokens):
@@ -233,8 +497,9 @@ class Scheduler:
 
     @property
     def idle(self) -> bool:
-        """Nothing queued and nothing resident."""
-        return not self.queue and not self.resident
+        """Nothing queued, resident, parked or mid swap-out."""
+        return (not self.queue and not self.resident and not self.parked
+                and not self._swapping)
 
     def drain(self, max_steps: int = 100_000) -> Dict[int, List[int]]:
         """Step until idle; returns ``{rid: [tokens]}``."""
@@ -247,7 +512,8 @@ class Scheduler:
         raise RuntimeError(
             f"drain did not converge within {max_steps} steps: "
             f"{len(self.queue)} queued, resident rids "
-            f"{sorted(r.rid for r in self.resident.values())}")
+            f"{sorted(r.rid for r in self.resident.values())}, parked "
+            f"{sorted(self.parked)}")
 
     def metrics(self) -> dict:
         """Exact host-side accounting; no device sync."""
@@ -263,10 +529,12 @@ class Scheduler:
             "occupancy": len(self.resident) / self.n_slots,
             "occupancy_mean": (self._occupancy_sum / self._step_count
                                if self._step_count else 0.0),
+            "pool_blocks": self.engine.allocator.n_blocks,
             "pool_blocks_in_use": alloc_blocks,
             "pool_frac_in_use": alloc_blocks / (self.engine.allocator.n_blocks - 1),
             "padding_waste_frac": (1.0 - used_tokens / alloc_tokens
                                    if alloc_tokens else 0.0),
+            "kv_dtype": self.engine.kv_dtype,
             "admitted": self._admitted,
             "completed": self._completed,
             "tokens_out": self._tokens_out,
@@ -275,6 +543,22 @@ class Scheduler:
                 self._adm_latency_steps / self._admitted if self._admitted else 0.0),
             "admission_latency_s_mean": (
                 self._adm_latency_s / self._admitted if self._admitted else 0.0),
+            "offload": self.offload,
+            "preemptible": len(self._victims()),
+            "parked": len(self.parked),
+            "preempts": self._preempts,
+            "restores": self._restores,
+            "swap_outs": self._swap_outs,
+            "swap_ins": self._swap_ins,
+            "swap_aborts": self._swap_aborts,
+            "swap_bytes": self._swap_bytes,
+            "decision_swap": self._decision_swap,
+            "decision_recompute": self._decision_recompute,
+            "host_store_bytes": self.host_store.bytes_used,
+            **self.engine.prefix_metrics(),
+            "prefix_covered_tokens": self._prefix_covered_tokens,
+            "admitted_prefill_tokens": self._admitted_prefill_tokens,
+            **self.swap_lat.summary("swap"),
             **self.ttft.summary("ttft"),
             **self.token_lat.summary("token_lat"),
             **self.queue_wait.summary("queue_wait"),

@@ -8,9 +8,11 @@ under ``torch.profiler``, and prints:
 - wall, ticks and decode tokens/s of the profiled serve;
 - the device's busy share: the union of kernel intervals over the wall;
 - the top operators by device time and by host time;
+- the device kernels one decode tick launches (8 lanes armed);
 - the time of the prefill and decode halves of a tick, by host clock.
 
-    python -m pytorch_distributed_tpu_torch.tools.profile_serve
+    python -m pytorch_distributed_tpu_torch.tools.profile_serve \
+        [--gather-impl kernel|dense] [--kv-dtype int8|fp8|fp8_e5m2]
 """
 
 from __future__ import annotations
@@ -65,9 +67,10 @@ class TickTimer:
 
         def timed_chunks(jobs):
             t = time.perf_counter()
-            run_chunks(jobs)
+            wall = run_chunks(jobs)
             torch.cuda.synchronize()
             self.prefill.append(time.perf_counter() - t)
+            return wall
 
         def timed_decode(*a, **k):
             t = time.perf_counter()
@@ -78,9 +81,26 @@ class TickTimer:
         eng.run_chunks, eng.decode = timed_chunks, timed_decode
 
 
+def kernels_per_decode_tick(sched) -> int:
+    """Device kernels (and copies) of one decode tick with all 8 lanes
+    armed at position 64, under ``torch.profiler``."""
+    eng = sched.engine
+    for slot in range(8):
+        eng.admit(slot, 64, 1)
+    args = (np.full(8, 64), np.ones(8, bool))
+    eng.decode(*args)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.decode(*args)
+        torch.cuda.synchronize()
+    eng.release_all()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--gather-impl", choices=("kernel", "dense"), default="kernel")
+    p.add_argument("--kv-dtype", choices=("int8", "fp8", "fp8_e5m2"), default=None)
     args = p.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -88,7 +108,7 @@ def main(argv=None) -> None:
     cfg = full_config()
     state = params_from_jax(init_params(cfg, seed=0))
     kw = dict(n_slots=8, block_len=16, prefill_chunk=32,
-              gather_impl=args.gather_impl, device="cuda")
+              gather_impl=args.gather_impl, kv_dtype=args.kv_dtype, device="cuda")
     prompts = workload(cfg)
     warm = Scheduler(cfg, state, **kw)
     for q in prompts[:4]:
@@ -106,7 +126,7 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     m = sched.metrics()
-    print(f"card: {card}; gather_impl={args.gather_impl}")
+    print(f"card: {card}; gather_impl={args.gather_impl}, kv_dtype={args.kv_dtype}")
     print(f"profiled serve: wall {wall:.3f}s, {m['steps']} ticks, "
           f"{m['tokens_out'] / wall:.1f} tok/s (profiler on)")
     print(f"device busy share: {busy_share(prof, wall * 1e6):.3f}")
@@ -126,7 +146,8 @@ def main(argv=None) -> None:
     wall = time.perf_counter() - t0
     m = sched.metrics()
     summary = {
-        "card": card, "gather_impl": args.gather_impl, "wall_s": wall,
+        "card": card, "gather_impl": args.gather_impl, "kv_dtype": args.kv_dtype,
+        "wall_s": wall,
         "ticks": m["steps"], "tok_per_s": m["tokens_out"] / wall,
         "prefill_calls": len(timer.prefill),
         "prefill_ms_mean": 1e3 * float(np.mean(timer.prefill)),
@@ -136,6 +157,7 @@ def main(argv=None) -> None:
         "decode_s_total": float(np.sum(timer.decode)),
         "ttft_p50_s": m["ttft_p50_s"], "ttft_p95_s": m["ttft_p95_s"],
     }
+    summary["kernels_per_decode_tick"] = kernels_per_decode_tick(sched)
     print(json.dumps(summary))
 
 

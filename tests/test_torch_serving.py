@@ -143,10 +143,10 @@ def test_decode_routes_inactive_lanes_to_trash(weights):
     _, _, state = weights
     eng = PagedEngine(tiny_config(max_seq_len=MAX_SEQ), state, device="cpu", **SERVE)
     assert eng.admit(0, 4, 4)
-    before = [k.clone() for k, _ in eng.cache]
+    before = [k.clone() for k, *_ in eng.cache]
     tokens, pos = eng.decode(np.array([4, 9, 9]), np.array([True, False, False]))
     assert tokens.shape == (3,) and list(pos) == [5, 9, 9]
-    for k0, (k1, _) in zip(before, eng.cache):
+    for k0, (k1, *_) in zip(before, eng.cache):
         changed = (k0 != k1).any(dim=(1, 2, 3)).nonzero().flatten().tolist()
         # lane 0 writes its own block at offset 4; dead lanes only the trash
         assert set(changed) <= {TRASH_BLOCK, int(eng.tables[0, 0])}
@@ -199,11 +199,22 @@ def test_init_paged_cache_layout():
     cfg = tiny_config(dtype=torch.bfloat16)
     cache = init_paged_cache(cfg, n_blocks=5, block_len=4)
     assert len(cache) == cfg.num_layers
-    for k, v in cache:
+    for k, v, k_scale, v_scale in cache:
         assert k.shape == v.shape == (5, 4, cfg.num_heads, cfg.head_dim)
         assert k.dtype == torch.bfloat16 and not k.any()
-    with pytest.raises(NotImplementedError, match="second serving"):
-        init_paged_cache(cfg, 5, 4, kv_dtype="int8")
+        assert k_scale is None and v_scale is None
+    # quantized pools: 1-byte values, scales [n_blocks, block_len, H_kv]
+    # (fp32 multipliers for int8, int8 exponents for fp8)
+    for kv, pool_dt, sc_dt in (("int8", torch.int8, torch.float32),
+                               ("fp8", torch.float8_e4m3fn, torch.int8),
+                               ("fp8_e5m2", torch.float8_e5m2, torch.int8)):
+        for layer in init_paged_cache(cfg, 5, 4, kv_dtype=kv):
+            assert layer.key.dtype == layer.value.dtype == pool_dt
+            assert layer.key.shape == (5, 4, cfg.num_heads, cfg.head_dim)
+            assert layer.key_scale.dtype == layer.value_scale.dtype == sc_dt
+            assert layer.key_scale.shape == (5, 4, cfg.num_heads)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        init_paged_cache(cfg, 5, 4, kv_dtype="int4")
 
 
 def test_sample_greedy_and_top_k():

@@ -73,7 +73,7 @@ def run_both(dtype, gather_impl):
                    np.asarray(jcache[f"block{i}"]["attn"]["value"], np.float32))
                   for i in range(tcfg.num_layers)]
         tpools = [(k.float().numpy().copy(), v.float().numpy().copy())
-                  for k, v in tcache]
+                  for k, v, *_ in tcache]
         results.append((np.asarray(out), got.numpy(), jpools, tpools))
     return results
 
