@@ -19,8 +19,11 @@ Phases, each of which fails the run:
       rows), rows whose amax spans 1e-8 to 1e4; the flash forward (O, LSE)
       and fused backward (dQ, dK, dV) at the training shape in bf16, at
       ragged lengths in fp32 (causal and not), at D = 128, and with fully
-      masked rows;
-  (c) the port's two main paths, each with the launch counters reset just
+      masked rows; the bottleneck tail's moments, tail_bwd_reduce (gp
+      bit-equal) and tail_bwd_dz at ResNet-50's four stage shapes (B = 128,
+      bf16), moments at the four downsample inputs, the stage shapes at
+      B = 8 in fp32, and ragged shapes (N = 147, F = 40);
+  (c) the port's main paths, each with the launch counters reset just
       before and read just after, on the full-width LM (32000 vocab, 12
       layers, 12 heads, width 768, 2048 positions, bf16, random weights
       from seed 0): ``Scheduler`` serves 16 requests, then the final prefill
@@ -32,13 +35,22 @@ Phases, each of which fails the run:
       preempts on OOM, by swap and by recompute, against the ample one;
       ``LMTrainer`` takes 8 steps at batch 8 x 2048 tokens and one
       validation pass, then the first step's loss and grad norm with flash
-      attention against dense attention (batch 2);
+      attention against dense attention (batch 2); ResNet-50 (random weights
+      from seed 0, synthetic 224^2 images): the fused-bottleneck bf16
+      ``Trainer`` takes 8 steps at B = 128 and a validation pass, with 20 /
+      16 / 16 tail launches a step, then the first step's loss and grad
+      norm of the fused model against the plain-block one from the same
+      weights (B = 64, fp32 and bf16), then ``recipes/resnet_single.py``
+      (fp32, plain blocks: no tail launch) for 4 steps of B = 64;
   (d) kernel, plain-version and library times beside each kernel's bound:
       the paged kernels at the decode shape (library: SDPA on pre-gathered
       K/V; no PyTorch call reads int8/fp8 K/V with per-row scales, so the
       quantized variants and the scatter have none), the scatter at the
       chunk and decode shapes, the flash kernels at the training shape
-      (library: causal SDPA, forward, and its backward through autograd);
+      (library: causal SDPA, forward, and its backward through autograd),
+      the tail kernels at ResNet-50's stage-1 and stage-4 shapes beside the
+      cuBLAS spelling of the XLA step (no single PyTorch call computes
+      them, so they have no library time);
   (e) one JSON line listing every kernel;
   (f) the last line: ``{"ok": true, "device": {...}}``.
 
@@ -75,6 +87,28 @@ LSE_TOL = 1e-4  # fp32 statistics in another summation order
 TRAIN_LOSS_TOL = 2e-2
 TRAIN_GRAD_NORM_RTOL = 5e-2
 TRAIN = dict(batch=8, seq=2048, steps=8)
+# the bottleneck tail kernels at ResNet-50's four stages, B = 128: (B, H = W,
+# F) of the expand tail's z, E = 4F; and the downsample's strided input
+TAIL_STAGES = ((128, 56, 64), (128, 28, 128), (128, 14, 256), (128, 7, 512))
+TAIL_DOWNSAMPLE = ((128, 56, 64), (128, 28, 256), (128, 14, 512), (128, 7, 1024))
+# fp32 sums (Σz, zᵀz, P, Σgp) relative to the largest |value|: blocks add
+# their tiles by atomics in no fixed order over up to 401,408 rows
+TAIL_SUM_RTOL = 1e-4
+# dz relative to the largest |value|: bf16 output (one ulp 2^-8 relative)
+# from fp32 sums in another order, and wa, c rounded to bf16 on both sides
+TAIL_DZ_RTOL = {"torch.bfloat16": 8e-3, "torch.float32": 1e-4}
+# fused vs plain-block ResNet-50, first step from the same weights. fp32:
+# summation order only (tests/test_torch_resnet.py holds both to flax at
+# 1e-5 / 1e-4). bf16: the two models round in different places (the
+# tail's statistics from input moments, y3·a + b with a and b in bf16, on
+# one side; the bf16 conv output normalized on the other), and at random
+# weights the early BatchNorm grads of either bf16 model differ from fp32
+# by O(1), so only the sums are compared, to bf16-noise tolerances
+RESNET_FIRST_STEP_TOL = {"torch.float32": (1e-3, 5e-3), "torch.bfloat16": (0.2, 5e-2)}
+RESNET = dict(batch=128, steps=8, compare_batch=64, recipe_batch=64, recipe_steps=4)
+#: launches of (moments, tail_bwd_reduce, tail_bwd_dz) per ResNet-50 train
+#: step: 16 expand tails plus 4 downsamples; 16; 16
+RESNET_TAIL_LAUNCHES = (20, 16, 16)
 
 
 def card_line() -> str:
@@ -229,6 +263,36 @@ def flash_bound(q, k, causal=True, shift=0) -> dict:
     return out
 
 
+def tail_inputs(torch, dtype, b, hw, f, seed=0, dev="cuda"):
+    """Tail operands on the card from a seed: z = relu(noise) ``[B, H, W,
+    F]``, g and out noise ``[B, H, W, 4F]``, wa ``[4F, F]``, c ``[F, F]``,
+    dmn ``[F]`` fp32 at the scales of a backward."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    e = 4 * f
+
+    def noise(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    z = noise(b, hw, hw, f).relu_().to(dtype)
+    g, out = (noise(b, hw, hw, e).to(dtype) for _ in range(2))
+    return z, g, out, noise(e, f, scale=e ** -0.5), noise(f, f, scale=f ** -1), noise(f)
+
+
+def tail_bound(name, n, f, e, elem, dtype) -> dict:
+    """Least time of each tail kernel for n rows: every input read once and
+    every output written once; 2 flops per multiply-add of its product
+    (zᵀz as the full F x F square)."""
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+
+    n_bytes, flops = {
+        bt.MOMENTS: (n * f * elem + (f + f * f) * 4, 2 * n * f * f),
+        bt.BWD_REDUCE: (n * f * elem + 3 * n * e * elem + (f * e + e) * 4, 2 * n * f * e),
+        bt.BWD_DZ: (n * e * elem + 2 * n * f * elem + (e * f + f * f + f) * 4,
+                    2 * n * (e + f) * f),
+    }[name]
+    return roofline(n_bytes, flops, PEAK_FLOPS[str(dtype)])
+
+
 def time_ms(torch, fn, iters=100, warmup=5):
     """Mean CUDA-event time of ``fn`` with the 50 MB L2 flushed before each
     call, as a layer's attention finds it in the serving loop (12 layers
@@ -251,6 +315,244 @@ def time_ms(torch, fn, iters=100, warmup=5):
         events.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def check_tail_kernels(torch, failures, dev="cuda") -> dict:
+    """Phase (b) for the bottleneck tail: each kernel against its plain
+    version at ResNet-50's stage shapes (bf16, B = 128), the downsample
+    inputs (moments), B = 8 in fp32, and ragged shapes; fp32 sums relative
+    to their largest value, gp bit-equal (a select), dz within a bf16 ulp
+    or two of its largest value. Returns each kernel's largest absolute
+    error over the bf16 shapes of the main path."""
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def check_rel(label, got, want, rtol):
+        sync(torch, dev)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / max(want.float().abs().max().item(), 1e-30)
+        ok = rel <= rtol and torch.isfinite(got).all().item()
+        print(f"(b) {label}: max_abs_err {err:.3e}, relative to max {rel:.2e} (tol {rtol:g}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+        return err
+
+    def check_tail(label, dtype, b, hw, f, moments_only=False):
+        z, g, out, wa, c, dmn = tail_inputs(torch, dtype, b, hw, f, seed=hw + f, dev=dev)
+        shape = f"z [{b},{hw},{hw},{f}] E={4 * f} {str(dtype)[6:]}, {label}"
+        got, want = bt.moments(z), bt.moments_reference(z)
+        err = {bt.MOMENTS: max(check_rel(f"moments Σz, {shape}", got[0], want[0], TAIL_SUM_RTOL),
+                               check_rel(f"moments zᵀz, {shape}", got[1], want[1],
+                                         TAIL_SUM_RTOL))}
+        if moments_only:
+            return err
+        (gp, p, sb), (rgp, rp, rsb) = (bt.tail_bwd_reduce(z, g, out),
+                                       bt.tail_bwd_reduce_reference(z, g, out))
+        sync(torch, dev)
+        bits = torch.int16 if dtype == bf16 else torch.int32
+        n_diff = int((gp.view(bits) != rgp.view(bits)).sum())
+        print(f"(b) tail_bwd_reduce gp, {shape}: "
+              f"{'bit-equal' if n_diff == 0 else f'{n_diff} values DIFFER'}")
+        if n_diff:
+            failures.append(f"tail_bwd_reduce gp, {shape}")
+        err[bt.BWD_REDUCE] = max(check_rel(f"tail_bwd_reduce P, {shape}", p, rp, TAIL_SUM_RTOL),
+                                 check_rel(f"tail_bwd_reduce Σgp, {shape}", sb, rsb,
+                                           TAIL_SUM_RTOL))
+        err[bt.BWD_DZ] = check_rel(f"tail_bwd_dz, {shape}", bt.tail_bwd_dz(rgp, z, wa, c, dmn),
+                                   bt.tail_bwd_dz_reference(rgp, z, wa, c, dmn),
+                                   TAIL_DZ_RTOL[str(dtype)])
+        return err
+
+    errs = {}
+    for i, (b, hw, f) in enumerate(TAIL_STAGES):
+        for k, v in check_tail(f"stage {i + 1}", bf16, b, hw, f).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        check_tail(f"stage {i + 1}, B=8", f32, 8, hw, f)
+    for i, (b, hw, f) in enumerate(TAIL_DOWNSAMPLE):
+        err = check_tail(f"downsample input of stage {i + 1}", bf16, b, hw, f, moments_only=True)
+        errs[bt.MOMENTS] = max(errs[bt.MOMENTS], err[bt.MOMENTS])
+    for dtype in (bf16, f32):  # ragged: N = 147 rows, and F = 40 (not a whole tile)
+        for f in (64, 40):
+            check_tail("ragged", dtype, 3, 7, f)
+    return errs
+
+
+def resnet_runs(torch, card) -> dict:
+    """Phase (c) for ResNet-50: the fused bf16 ``Trainer`` (as bench.py
+    builds the model) for ``RESNET["steps"]`` steps and a validation pass,
+    with the tail kernels' launches counted; the first step of the fused
+    and the plain-block model from the same weights; the fp32 recipe path.
+    Returns the tail launches of the fused training run."""
+    from pytorch_distributed_tpu_torch.data import (
+        SyntheticImageClassification,
+        image_collate,
+        to_device,
+    )
+    from pytorch_distributed_tpu_torch.models.convert import (
+        init_resnet_params,
+        resnet_params_from_jax,
+    )
+    from pytorch_distributed_tpu_torch.models.resnet import resnet50
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+    from pytorch_distributed_tpu_torch.ops.losses import cross_entropy_loss
+    from pytorch_distributed_tpu_torch.ops.optim import global_norm
+    from pytorch_distributed_tpu_torch.recipes import resnet_single
+    from pytorch_distributed_tpu_torch.train import Trainer, TrainerConfig, create_resnet_state
+
+    bf16 = torch.bfloat16
+    tail = (bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ)
+
+    def data(n, seed=0):
+        return SyntheticImageClassification(n, 224, 1000, seed=seed)
+
+    rb, steps = RESNET["batch"], RESNET["steps"]
+    trainer = Trainer(resnet50(dtype=bf16, fused_bottleneck=True), data(steps * rb),
+                      data(rb, seed=1),
+                      TrainerConfig(epochs=1, batch_size=rb, precision="bf16", log_every=1),
+                      device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bt.reset_launch_counts()
+    trainer.train_epoch(0)
+    torch.cuda.synchronize()
+    launches = dict(bt.launch_counts)
+    bt.reset_launch_counts()
+    val = trainer.validate()
+    val_launches = dict(bt.launch_counts)
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    step_s = [r["step_s"] - r["data_s"] for r in hist[1:]]
+    p50 = float(np.median(step_s))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"(c) ResNet-50 fused bottleneck, bf16 compute on fp32 parameters, SGD(0.1, 0.9, "
+          f"1e-4), {steps} steps of B={rb} x 224^2 on {card}: losses "
+          f"{[round(x, 4) for x in losses]}")
+    print(f"(c) step p50 {p50 * 1e3:.1f} ms ({rb / p50:.0f} img/s; steps "
+          f"{[round(x * 1e3, 1) for x in step_s]} ms; first step {hist[0]['step_s']:.2f} s; "
+          f"making and copying a batch {np.median([r['data_s'] for r in hist]) * 1e3:.0f} ms, "
+          f"outside the step time), peak memory {peak:.1f} GiB; tail launches per step "
+          f"{ {k: launches[k] / steps for k in tail} }; validation acc1 {val['acc1']:.2f} loss "
+          f"{val['loss']:.4f} over {val['count']:.0f} images, tail launches {val_launches}")
+    if len(losses) != steps or not all(np.isfinite(losses)) or not np.isfinite(val["loss"]):
+        raise SystemExit(f"chip_smoke: a non-finite or missing ResNet loss: {losses}")
+    if [launches[k] for k in tail] != [n * steps for n in RESNET_TAIL_LAUNCHES]:
+        raise SystemExit(f"chip_smoke: expected {RESNET_TAIL_LAUNCHES} tail launches per "
+                         f"step, got {launches} in {steps} steps")
+    if any(val_launches.values()):
+        raise SystemExit(f"chip_smoke: validation launched tail kernels: {val_launches}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the first step from the same weights on the same batch: fused vs plain
+    tree = init_resnet_params(resnet50(), seed=0)
+    cb = RESNET["compare_batch"]
+    cdata = data(cb, seed=2)
+    batch = to_device({k: torch.from_numpy(v) for k, v in image_collate(
+        [cdata[i] for i in range(cb)]).items()}, "cuda")
+    for dtype in (torch.float32, bf16):
+        first = {}
+        for fused in (True, False):
+            st = create_resnet_state(resnet50(dtype=dtype, fused_bottleneck=fused),
+                                     lr_schedule=lambda step: 0.0,
+                                     params=resnet_params_from_jax(tree, fused=fused),
+                                     device="cuda")
+            st.model.train()
+            loss = cross_entropy_loss(st.model(batch["image"]), batch["label"])
+            loss.backward()
+            first[fused] = (loss.item(),
+                            global_norm([q.grad for q in st.model.parameters()]).item())
+            del st, loss
+            torch.cuda.empty_cache()
+        d_loss = abs(first[True][0] - first[False][0])
+        d_norm = abs(first[True][1] / first[False][1] - 1)
+        tol_loss, tol_norm = RESNET_FIRST_STEP_TOL[str(dtype)]
+        print(f"(c) ResNet-50 first step B={cb}, fused vs plain blocks, {str(dtype)[6:]}: loss "
+              f"{first[True][0]:.5f} vs {first[False][0]:.5f} (|diff| {d_loss:.2e}, tol "
+              f"{tol_loss:g}); grad norm {first[True][1]:.5f} vs {first[False][1]:.5f} "
+              f"(rel diff {d_norm:.2e}, tol {tol_norm:g})")
+        if not (d_loss <= tol_loss and d_norm <= tol_norm):
+            raise SystemExit("chip_smoke: the fused ResNet-50 step disagrees with the plain one")
+
+    # the recipe path: fp32, plain blocks, full width; no tail kernel runs
+    nb, nsteps = RESNET["recipe_batch"], RESNET["recipe_steps"]
+    bt.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = resnet_single.main(
+        ["--synthetic", "--epochs", "1", "--batch-size", str(nb), "--device", "cuda"],
+        datasets=(data(nsteps * nb), data(nb, seed=1), 224, 1000))
+    torch.cuda.synchronize()
+    print(f"(c) recipes/resnet_single.py, fp32 plain blocks, {nsteps} steps of B={nb} and a "
+          f"validation batch: {time.perf_counter() - t0:.1f} s, val loss {summary['loss']:.4f} "
+          f"acc1 {summary['acc1']:.2f}; tail launches {dict(bt.launch_counts)} (the plain "
+          f"blocks launch none)")
+    if not np.isfinite(summary["loss"]) or any(bt.launch_counts.values()):
+        raise SystemExit(f"chip_smoke: the fp32 recipe run failed: {summary}, "
+                         f"{bt.launch_counts}")
+    return launches
+
+
+def time_tail_kernels(torch, card, dev="cuda") -> dict:
+    """Phase (d) for the tail kernels at the stage-1 and stage-4 shapes:
+    each wrapper (its zeroed fp32 outputs included), its plain version and
+    the cuBLAS spelling of the XLA step (no single PyTorch call computes
+    any of the three), beside the bound. Returns the stage-1 entries of
+    the kernels line."""
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+
+    bf16 = torch.bfloat16
+    spelling = {bt.MOMENTS: "z2d.T @ z2d, z2d.sum(0): 2 calls",
+                bt.BWD_REDUCE: "torch.where(out > 0, g, 0), z2d.T @ gp, gp.sum(0): 4 kernels",
+                bt.BWD_DZ: "torch.addmm(dmn, torch.cat([gp, z], 1), torch.cat([wa, c]) in "
+                           "bf16): 4 calls"}
+    entries = {}
+    for label, (b, hw, f) in (("stage 1", TAIL_STAGES[0]), ("stage 4", TAIL_STAGES[3])):
+        z, g, out, wa, c, dmn = tail_inputs(torch, bf16, b, hw, f, seed=11, dev=dev)
+        e = 4 * f
+        z2, g2, o2 = (x.view(-1, x.shape[-1]) for x in (z, g, out))
+        gp = bt.tail_bwd_reduce_reference(z, g, out)[0]
+        gp2 = gp.view(-1, e)
+
+        def reduce_spelling():
+            q = torch.where(o2 > 0, g2, 0)
+            return z2.T @ q, q.sum(0, dtype=torch.float32)
+
+        runs = {
+            bt.MOMENTS: (lambda: bt.moments(z), lambda: bt.moments_reference(z),
+                         lambda: (z2.T @ z2, z2.sum(0, dtype=torch.float32))),
+            bt.BWD_REDUCE: (lambda: bt.tail_bwd_reduce(z, g, out),
+                            lambda: bt.tail_bwd_reduce_reference(z, g, out), reduce_spelling),
+            bt.BWD_DZ: (lambda: bt.tail_bwd_dz(gp, z, wa, c, dmn),
+                        lambda: bt.tail_bwd_dz_reference(gp, z, wa, c, dmn),
+                        lambda: torch.addmm(dmn.to(bf16), torch.cat([gp2, z2], 1),
+                                            torch.cat([wa, c]).to(bf16))),
+        }
+        for name, fns in runs.items():
+            t_k, t_p, t_s = (time_ms(torch, fn, iters=20) for fn in fns)
+            bd = tail_bound(name, z2.shape[0], f, e, 2, bf16)
+            print(f"(d) {name} at {label} z [{b},{hw},{hw},{f}] E={e} bf16 on {card}: "
+                  f"{t_k * 1e3:.1f} us per call, plain {t_p * 1e3:.1f} us, cuBLAS spelling "
+                  f"{t_s * 1e3:.1f} us ({spelling[name]}), bound {bd['bound_ms'] * 1e3:.1f} us "
+                  f"({bd['bound_by']}: {bd['bytes'] / 1e6:.1f} MB, {bd['flops'] / 1e9:.2f} "
+                  f"GFLOP), {bd['bound_ms'] / t_k:.3f} of the bound")
+            if label == "stage 1":
+                entries[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bd["bound_ms"],
+                                 "bound_by": bd["bound_by"], "library_ms": None,
+                                 "spelling_ms": t_s}
+        del runs, z, g, out, gp, gp2, z2, g2, o2
+        empty_cache(torch, dev)
+    return entries
+
+
+def sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def empty_cache(torch, dev):
+    if dev == "cuda":
+        torch.cuda.empty_cache()
 
 
 def main(argv) -> int:
@@ -428,6 +730,7 @@ def main(argv) -> int:
                     d=128, seed=3)
         check_flash(f"rows 0-36 fully masked (shift -37) {dtype}", dtype, tol_o, tol_g,
                     shift=-37, b=1, l=100, h=2, seed=4)
+    tail_errs = check_tail_kernels(torch, failures)
     if failures:
         raise SystemExit(f"chip_smoke: kernels disagree with the plain version: {failures}")
     if "--kernels-only" in argv:
@@ -683,6 +986,10 @@ def main(argv) -> int:
     if not (d_loss <= TRAIN_LOSS_TOL and d_norm <= TRAIN_GRAD_NORM_RTOL):
         raise SystemExit("chip_smoke: the flash training step disagrees with the dense one")
 
+    # ---- (c) ResNet-50: the fused bf16 trainer, the first step, the recipe ----
+    resnet_launches = resnet_runs(torch, card)
+    torch.cuda.empty_cache()
+
     # ---- (d) times at the decode shape ----
     import torch.nn.functional as F
 
@@ -793,6 +1100,8 @@ def main(argv) -> int:
     print(f"(d) SDPA forward + backward {sdpa_fwdbwd * 1e3:.1f} us; the kernels' "
           f"{(flash_ms[FWD] + flash_ms[BWD]) * 1e3:.1f} us")
 
+    tail_times = time_tail_kernels(torch, card)
+
     # ---- (e) the kernels line; (f) the result ----
     replaces = {
         paged_flash.SWEEP: "pytorch_distributed_tpu/ops/paged_flash.py:375",
@@ -817,6 +1126,17 @@ def main(argv) -> int:
         "plain_ms": flash_plain_ms[name], "bound_ms": fb[part]["bound_ms"],
         "bound_by": fb[part]["bound_by"], "library_ms": flash_lib_ms[name],
     } for name, part in ((FWD, "fwd"), (BWD, "bwd"))]
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+
+    tail_replaces = {bt.MOMENTS: "pytorch_distributed_tpu/ops/bottleneck_tail.py:69",
+                     bt.BWD_REDUCE: "pytorch_distributed_tpu/ops/bottleneck_tail.py:114",
+                     bt.BWD_DZ: "pytorch_distributed_tpu/ops/bottleneck_tail.py:160"}
+    kernels += [{
+        "name": name, "route": "cuda",
+        "source": "pytorch_distributed_tpu_torch/csrc/bottleneck_tail.cu",
+        "replaces": tail_replaces[name], "launches": resnet_launches[name],
+        "max_abs_err": tail_errs[name], **tail_times[name],
+    } for name in (bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ)]
     print(f"total {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,461 @@
+// The fused bottleneck tail's three one-pass reductions, for Hopper (sm_90a).
+//
+// Replaces the three Pallas TPU kernels of pytorch_distributed_tpu/ops/bottleneck_tail.py:
+//   - moments (pallas_call at :69; kernel _moments_kernel :49): one read of
+//     z [N, F] gives s = sum_n z[n] [F] and M2 = z^T z [F, F], both fp32;
+//   - tail_bwd_reduce (pallas_call at :114; kernel _bwd_reduce_kernel :86):
+//     one read of z [N, F], g and out [N, E] gives gp = g * [out > 0] in g's
+//     dtype (written once), P = z^T gp [F, E] fp32 and sum_n gp [E] fp32;
+//   - tail_bwd_dz (pallas_call at :160; kernel _bwd_dz_kernel :137):
+//     dz = gp @ wa + z @ c + dmn [N, F] in z's dtype, one output write, with
+//     wa [E, F] and c [F, F] stacked as w = [wa ; c] [E + F, F] in z's dtype
+//     (the caller rounds them from fp32) and dmn [F] fp32.
+// N = B*H*W rows of the NHWC activations, read through a row stride with
+// unit stride along the channels.
+//
+// What bounds them on the H100: bytes. At ResNet-50's stage 1 (B 128, z
+// [401408, 64], E 256) moments reads 51 MB for 3.3 GFLOP, tail_bwd_reduce
+// moves 668 MB for 13 GFLOP and tail_bwd_dz 308 MB for 16 GFLOP: well under
+// the card's ~295 flops per byte. At stage 4 (z [6272, 512], E 2048) the
+// products are 3-16 GFLOP over 6-83 MB, near the line.
+//
+// What the design does about it:
+//   - The Pallas kernels walk the batch in order and carry the sums in VMEM
+//     from one grid step to the next. Here blocks run in parallel: a block
+//     owns one 64x64 tile of the F x F (or F x E) output and one chunk of
+//     rows, loops over the chunk 32 rows at a time, and adds its fp32 tile
+//     into the zeroed output with atomics at the end. There are enough
+//     chunks for about four blocks per SM whatever the tile count.
+//   - moments computes the upper triangle of tiles only and adds each
+//     off-diagonal tile at both places; a diagonal block reads its rows
+//     once for both operands.
+//   - tail_bwd_reduce forms gp on the load (out compared in fp32, as the
+//     Pallas body does), and only the blocks of the first F tile write it
+//     and sum it, so gp is written once.
+//   - tail_bwd_dz is one product of K = E + F: [gp | z] @ [wa ; c], the
+//     row tiles switching from gp to z at k = E, plus dmn in the fp32
+//     epilogue before the one rounding to z's dtype. wa and c come rounded
+//     to the operands' dtype for the tensor cores (bf16 for bf16
+//     activations), where the Pallas kernel multiplies bf16 by fp32.
+//   - bf16 products run on the tensor cores through mma.sync m16n8k16 with
+//     fp32 accumulators; fp32 inputs take the same code with the product on
+//     CUDA cores, for exact fp32 numerics.
+// Loads are synchronous 16-byte copies into padded shared-memory tiles,
+// from which ldmatrix gathers the bf16 fragments; cp.async or TMA
+// pipelines and wgmma are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 128;  // four warps, each a 32x32 quadrant of the tile
+constexpr int kTile = 64;      // output tile edge
+constexpr int kStep = 32;      // contraction rows per shared-memory step
+constexpr int kPad = 8;        // row padding of the shared-memory tiles
+constexpr int kTargetBlocks = 4 * 132;
+constexpr int kMinChunk = 128;  // rows
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8x8 b16 matrices from shared memory, lanes 8j..8j+7 giving the row
+// addresses of matrix j; each lane receives (row l/4, columns 2(l%4), +1) of
+// every matrix, or with kTrans the same of every matrix transposed.
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  if (kTrans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// acc += A B over k in [0, kStep) for the warp's 32x32 quadrant at rows m0
+// and columns n0 of the tile, from shared-memory tiles: B stored [k][n]
+// (row stride ldb); A stored [k][m] when kAKMajor (the reductions' z^T),
+// else [m][k] (row stride lda). acc[mi][ni] is the m16n8 C fragment of
+// rows m0 + 16 mi and columns n0 + 8 ni: lane 4g + t holds C[g][2t, 2t+1]
+// in elements 0, 1 and C[g+8][2t, 2t+1] in 2, 3 (mma.sync's layout).
+// bf16: the fragments come from ldmatrix (transposed where the tile is
+// stored k-major), the products from mma.sync m16n8k16.
+template <bool kAKMajor>
+__device__ __forceinline__ void warp_product(float (&acc)[2][4][4], const bf16* a, int lda,
+                                             const bf16* b, int ldb, int m0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int j = lane >> 3;  // the matrix this lane addresses
+  const int r = lane & 7;   // and its row
+#pragma unroll
+  for (int k0 = 0; k0 < kStep; k0 += 16) {
+    uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int m = m0 + 16 * mi;
+      // matrices: (m, k), (m + 8, k), (m, k + 8), (m + 8, k + 8)
+      if (kAKMajor)
+        ldmatrix_x4<true>(af[mi], a + (k0 + r + ((j >> 1) << 3)) * lda + m + ((j & 1) << 3));
+      else
+        ldmatrix_x4<false>(af[mi], a + (m + (lane & 15)) * lda + k0 + ((lane >> 4) << 3));
+    }
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      // matrices: (k, n), (k + 8, n), (k, n + 8), (k + 8, n + 8)
+      uint32_t q[4];
+      ldmatrix_x4<true>(q, b + (k0 + r + ((j & 1) << 3)) * ldb + n0 + 16 * np + ((j >> 1) << 3));
+      bfr[2 * np][0] = q[0];
+      bfr[2 * np][1] = q[1];
+      bfr[2 * np + 1][0] = q[2];
+      bfr[2 * np + 1][1] = q[3];
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], af[mi], bfr[ni]);
+  }
+}
+
+// The same product in fp32 on CUDA cores, into the same fragment layout.
+// The k loop stays rolled to keep nvcc quick; the fp32 kernels serve
+// checks and fp32 models, not the bf16 training path.
+template <bool kAKMajor>
+__device__ __forceinline__ void warp_product(float (&acc)[2][4][4], const float* a, int lda,
+                                             const float* b, int ldb, int m0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll 1
+  for (int k = 0; k < kStep; ++k) {
+    float ar[2][2], br[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 16 * mi + g + 8 * h;
+        ar[mi][h] = kAKMajor ? a[k * lda + m] : a[m * lda + k];
+      }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      br[ni][0] = b[k * ldb + n0 + 8 * ni + 2 * t];
+      br[ni][1] = b[k * ldb + n0 + 8 * ni + 2 * t + 1];
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        acc[mi][ni][0] = fmaf(ar[mi][0], br[ni][0], acc[mi][ni][0]);
+        acc[mi][ni][1] = fmaf(ar[mi][0], br[ni][1], acc[mi][ni][1]);
+        acc[mi][ni][2] = fmaf(ar[mi][1], br[ni][0], acc[mi][ni][2]);
+        acc[mi][ni][3] = fmaf(ar[mi][1], br[ni][1], acc[mi][ni][3]);
+      }
+  }
+}
+
+// Rows [r0, r0 + kStep) and columns [c0, c0 + kTile) of a [n_rows, n_cols]
+// operand (row stride ld) into dst[kStep][kTile + kPad], 16 bytes a
+// thread at a time; rows and columns outside are zero. n_cols is a
+// multiple of the vector width. kGate: the tile is gp = src * [gate > 0]
+// (gate compared in fp32), also stored to gp_out (row stride n_cols) when
+// it is not null.
+template <typename T, bool kGate>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t ld, const T* gate,
+                                          int64_t ld_gate, T* gp_out, int r0, int c0,
+                                          int n_rows, int n_cols) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = kTile / kVec;
+  constexpr int LD = kTile + kPad;
+  for (int v = threadIdx.x; v < kStep * kPerRow; v += kThreads) {
+    const int r = v / kPerRow;
+    const int c = (v % kPerRow) * kVec;
+    const int row = r0 + r;
+    const int col = c0 + c;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row < n_rows && col < n_cols) {
+      val = *reinterpret_cast<const uint4*>(src + row * ld + col);
+      if (kGate) {
+        const uint4 gv = *reinterpret_cast<const uint4*>(gate + row * ld_gate + col);
+        T* x = reinterpret_cast<T*>(&val);
+        const T* o = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i)
+          if (!(to_float(o[i]) > 0.f)) x[i] = from_float<T>(0.f);
+        if (gp_out != nullptr)
+          *reinterpret_cast<uint4*>(gp_out + static_cast<int64_t>(row) * n_cols + col) = val;
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+  }
+}
+
+// Shared by moments (kGate false: B is z itself) and tail_bwd_reduce
+// (kGate true: B is gp = g * [out > 0]). Block (tile, chunk) computes
+// A^T B over its rows for one 64x64 output tile, with A = z[:, i tile]
+// and B = z[:, j tile] or gp[:, j tile], and adds the tile, and the column
+// sums of B where the block owns them, into out [F, n_b] and colsum [n_b].
+template <typename T, bool kGate>
+__global__ void __launch_bounds__(kThreads)
+    tail_reduce_kernel(const T* __restrict__ z, int64_t ldz, const T* __restrict__ g, int64_t ldg,
+                  const T* __restrict__ gate, int64_t ld_gate, T* __restrict__ gp,
+                  float* __restrict__ out, float* __restrict__ colsum, int N, int F, int n_b,
+                  int chunk) {
+  constexpr int LD = kTile + kPad;
+  __shared__ __align__(16) T a_s[kStep * LD];
+  __shared__ __align__(16) T b_s[kStep * LD];
+
+  // moments: the upper triangle of (i, j) tile pairs; tail_bwd_reduce: all
+  int ti, tj;
+  if (kGate) {
+    const int n_i = (F + kTile - 1) / kTile;
+    ti = blockIdx.x % n_i;
+    tj = blockIdx.x / n_i;
+  } else {
+    const int n_t = (F + kTile - 1) / kTile;
+    int p = blockIdx.x;
+    ti = 0;
+    while (p >= n_t - ti) {
+      p -= n_t - ti;
+      ++ti;
+    }
+    tj = ti + p;
+  }
+  const int i0 = ti * kTile;
+  const int j0 = tj * kTile;
+  const bool diag = !kGate && ti == tj;
+  // the block that owns column sums of B: the diagonal one (moments), the
+  // first F tile (tail_bwd_reduce), which also writes gp
+  const bool owner = kGate ? ti == 0 : diag;
+  const int r_begin = blockIdx.y * chunk;
+  const int r_end = min(r_begin + chunk, N);
+
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp & 1) * 32;
+  const int n0 = (warp >> 1) * 32;
+  float acc[2][4][4] = {};
+  float csum = 0.f;
+  const int c_col = threadIdx.x & (kTile - 1);
+  const int c_half = threadIdx.x >> 6;  // rows [16 half, 16 half + 16) of a step
+
+  const T* b_src = kGate ? g : z;
+  const int64_t ld_b = kGate ? ldg : ldz;
+  const T* b_tile = diag ? a_s : b_s;
+  for (int r0 = r_begin; r0 < r_end; r0 += kStep) {
+    __syncthreads();  // the previous step's reads are done
+    load_rows<T, false>(a_s, z, ldz, nullptr, 0, nullptr, r0, i0, r_end, F);
+    if (!diag)
+      load_rows<T, kGate>(b_s, b_src, ld_b, gate, ld_gate, owner ? gp : nullptr, r0, j0,
+                          r_end, n_b);
+    __syncthreads();
+    // A(m, k) = z[r0 + k][i0 + m]: the tile read down its columns
+    warp_product<true>(acc, a_s, LD, b_tile, LD, m0, n0);
+    if (owner) {
+#pragma unroll 4
+      for (int r = 16 * c_half; r < 16 * c_half + 16; ++r) csum += to_float(b_tile[r * LD + c_col]);
+    }
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = i0 + m0 + 16 * mi + gq + (e >= 2 ? 8 : 0);
+        const int col = j0 + n0 + 8 * ni + 2 * t + (e & 1);
+        if (row < F && col < n_b) {
+          atomicAdd(out + static_cast<int64_t>(row) * n_b + col, acc[mi][ni][e]);
+          if (!kGate && ti != tj) atomicAdd(out + static_cast<int64_t>(col) * n_b + row, acc[mi][ni][e]);
+        }
+      }
+  if (owner && j0 + c_col < n_b) atomicAdd(colsum + j0 + c_col, csum);
+}
+
+// dz [N, F] = [gp | z] @ w + dmn: block (row tile, column tile) loops
+// over K = E + F in steps of 32. w [K, F] contiguous.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    tail_dz_kernel(const T* __restrict__ gp, int64_t ldgp, const T* __restrict__ z, int64_t ldz,
+              const T* __restrict__ w, const float* __restrict__ dmn, T* __restrict__ dz,
+              int N, int F, int E) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int LDA = kStep + kPad;
+  constexpr int LDB = kTile + kPad;
+  __shared__ __align__(16) T a_s[kTile * LDA];
+  __shared__ __align__(16) T b_s[kStep * LDB];
+  const int n_base = blockIdx.x * kTile;
+  const int f_base = blockIdx.y * kTile;
+  const int K = E + F;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp & 1) * 32;
+  const int n0 = (warp >> 1) * 32;
+  float acc[2][4][4] = {};
+
+  for (int k0 = 0; k0 < K; k0 += kStep) {
+    __syncthreads();
+    // A rows: gp for k < E, z for E <= k < K (E and F are multiples of kVec,
+    // so a vector never straddles the switch)
+    for (int v = threadIdx.x; v < kTile * (kStep / kVec); v += kThreads) {
+      const int r = v / (kStep / kVec);
+      const int kk = (v % (kStep / kVec)) * kVec;
+      const int row = n_base + r;
+      const int k = k0 + kk;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (row < N && k < K)
+        val = k < E ? *reinterpret_cast<const uint4*>(gp + row * ldgp + k)
+                    : *reinterpret_cast<const uint4*>(z + row * ldz + (k - E));
+      *reinterpret_cast<uint4*>(a_s + r * LDA + kk) = val;
+    }
+    // B rows: w[k0 .. k0 + 32)
+    for (int v = threadIdx.x; v < kStep * (kTile / kVec); v += kThreads) {
+      const int r = v / (kTile / kVec);
+      const int cc = (v % (kTile / kVec)) * kVec;
+      const int k = k0 + r;
+      const int col = f_base + cc;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (k < K && col < F)
+        val = *reinterpret_cast<const uint4*>(w + static_cast<int64_t>(k) * F + col);
+      *reinterpret_cast<uint4*>(b_s + r * LDB + cc) = val;
+    }
+    __syncthreads();
+    warp_product<false>(acc, a_s, LDA, b_s, LDB, m0, n0);
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = n_base + m0 + 16 * mi + gq + (e >= 2 ? 8 : 0);
+        const int col = f_base + n0 + 8 * ni + 2 * t + (e & 1);
+        if (row < N && col < F)
+          dz[static_cast<int64_t>(row) * F + col] = from_float<T>(acc[mi][ni][e] + dmn[col]);
+      }
+}
+
+// Rows per block for a grid of n_tiles output tiles: about kTargetBlocks
+// blocks in all, at least kMinChunk rows each, a multiple of kStep.
+int chunk_rows(int N, int n_tiles) {
+  int chunks = (kTargetBlocks + n_tiles - 1) / n_tiles;
+  int rows = (N + chunks - 1) / chunks;
+  if (rows < kMinChunk) rows = kMinChunk;
+  return (rows + kStep - 1) / kStep * kStep;
+}
+
+template <typename T>
+int launch_reduce(const void* z, int64_t ldz, const void* g, int64_t ldg, const void* out,
+                  int64_t ldo, void* gp, float* acc_out, float* colsum, int N, int F, int n_b,
+                  bool gated, cudaStream_t st) {
+  const int n_i = (F + kTile - 1) / kTile;
+  const int n_j = (n_b + kTile - 1) / kTile;
+  const int n_tiles = gated ? n_i * n_j : n_i * (n_i + 1) / 2;
+  const int chunk = chunk_rows(N, n_tiles);
+  const dim3 grid(n_tiles, (N + chunk - 1) / chunk);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const T* zt = static_cast<const T*>(z);
+  if (gated)
+    tail_reduce_kernel<T, true><<<grid, kThreads, 0, st>>>(
+        zt, ldz, static_cast<const T*>(g), ldg, static_cast<const T*>(out), ldo,
+        static_cast<T*>(gp), acc_out, colsum, N, F, n_b, chunk);
+  else
+    tail_reduce_kernel<T, false><<<grid, kThreads, 0, st>>>(zt, ldz, nullptr, 0, nullptr, 0, nullptr,
+                                                      acc_out, colsum, N, F, n_b, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dz(const void* gp, int64_t ldgp, const void* z, int64_t ldz, const void* w,
+              const float* dmn, void* dz, int N, int F, int E, cudaStream_t st) {
+  const dim3 grid((N + kTile - 1) / kTile, (F + kTile - 1) / kTile);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  tail_dz_kernel<T><<<grid, kThreads, 0, st>>>(static_cast<const T*>(gp), ldgp,
+                                               static_cast<const T*>(z), ldz,
+                                               static_cast<const T*>(w), dmn,
+                                               static_cast<T*>(dz), N, F, E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// F and E multiples of 8 (one 16-byte vector of bf16), N >= 1.
+bool bad_dims(int dtype, int N, int F, int E) {
+  return (dtype != 0 && dtype != 1) || N < 1 || F < 8 || E < 8 || F % 8 || E % 8;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (z, g, out, gp, dz). Row strides in
+// elements, unit stride along the channels, rows 16-byte aligned. The fp32
+// outputs (s, m2, p, sb) are zero on entry and accumulated by atomics.
+// Each returns the launch's cudaError_t (0 = launched).
+
+// s [F] and m2 [F, F] of z [N, F].
+extern "C" int pdt_moments(const void* z, int64_t ldz, int dtype, int N, int F, void* s,
+                           void* m2, void* stream) {
+  if (bad_dims(dtype, N, F, 8)) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* m = static_cast<float*>(m2);
+  auto* sum = static_cast<float*>(s);
+  return dtype == 1 ? launch_reduce<bf16>(z, ldz, nullptr, 0, nullptr, 0, nullptr, m, sum, N, F,
+                                          F, false, st)
+                    : launch_reduce<float>(z, ldz, nullptr, 0, nullptr, 0, nullptr, m, sum, N,
+                                           F, F, false, st);
+}
+
+// gp [N, E] contiguous, p [F, E] and sb [E] of z [N, F], g and out [N, E].
+extern "C" int pdt_tail_bwd_reduce(const void* z, int64_t ldz, const void* g, int64_t ldg,
+                                   const void* out, int64_t ldo, void* gp, void* p, void* sb,
+                                   int dtype, int N, int F, int E, void* stream) {
+  if (bad_dims(dtype, N, F, E)) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* pp = static_cast<float*>(p);
+  auto* s = static_cast<float*>(sb);
+  return dtype == 1 ? launch_reduce<bf16>(z, ldz, g, ldg, out, ldo, gp, pp, s, N, F, E, true, st)
+                    : launch_reduce<float>(z, ldz, g, ldg, out, ldo, gp, pp, s, N, F, E, true,
+                                           st);
+}
+
+// dz [N, F] contiguous from gp [N, E], z [N, F], w = [wa ; c] [E + F, F]
+// (contiguous, in the dtype of z) and dmn [F] (fp32).
+extern "C" int pdt_tail_bwd_dz(const void* gp, int64_t ldgp, const void* z, int64_t ldz,
+                               const void* w, const void* dmn, void* dz, int dtype, int N,
+                               int F, int E, void* stream) {
+  if (bad_dims(dtype, N, F, E)) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* d = static_cast<const float*>(dmn);
+  return dtype == 1 ? launch_dz<bf16>(gp, ldgp, z, ldz, w, d, dz, N, F, E, st)
+                    : launch_dz<float>(gp, ldgp, z, ldz, w, d, dz, N, F, E, st);
+}
+
+extern "C" const char* pdt_tail_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

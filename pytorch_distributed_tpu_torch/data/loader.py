@@ -1,9 +1,10 @@
-"""A minimal single-process batch loader for LM training.
+"""A minimal single-process batch loader for the trainers.
 
 The JAX package's ``data/loader.py`` pulls in its ``resilience`` package,
 whose ``__init__`` imports JAX, so it is not reused. This one keeps what
-the LM trainer needs: batches in sampler order, seekable by batch,
-collated by ``collate_fn`` (``train.lm_trainer.lm_collate``), with
+the trainers need: batches in sampler order, seekable by batch,
+collated by ``collate_fn`` (``train.lm_trainer.lm_collate``,
+``data.synthetic.image_collate``), with
 ``drop_last``, as pinned host tensors when ``pin_memory`` is set;
 ``to_device`` copies them without blocking. Worker threads, prefetch and
 retries come with a later slice.

@@ -1,9 +1,19 @@
 from pytorch_distributed_tpu_torch.models.convert import (
     init_params,
+    init_resnet_params,
     paged_cache_from_jax,
     paged_cache_to_jax,
     params_from_jax,
     params_to_jax,
+    resnet_params_from_jax,
+    resnet_params_to_jax,
+)
+from pytorch_distributed_tpu_torch.models.resnet import (
+    ResNet,
+    resnet18,
+    resnet34,
+    resnet50,
+    resnet101,
 )
 from pytorch_distributed_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -11,6 +21,7 @@ from pytorch_distributed_tpu_torch.models.transformer import (
     tiny_config,
 )
 
-__all__ = ["TransformerConfig", "TransformerLM", "tiny_config", "init_params",
-           "params_from_jax", "params_to_jax", "paged_cache_from_jax",
-           "paged_cache_to_jax"]
+__all__ = ["ResNet", "TransformerConfig", "TransformerLM", "tiny_config", "init_params",
+           "init_resnet_params", "params_from_jax", "params_to_jax", "paged_cache_from_jax",
+           "paged_cache_to_jax", "resnet18", "resnet34", "resnet50", "resnet101",
+           "resnet_params_from_jax", "resnet_params_to_jax"]

@@ -1,7 +1,7 @@
 """Weights and paged caches across frameworks: flax parameter trees to
-the port's ``TransformerLM`` state dict and back, a numpy initialiser in
-the flax layout, and the flax paged cache to the port's list of
-``LayerCache`` and back.
+the port's ``TransformerLM`` and ``ResNet`` state dicts and back, numpy
+initialisers in the flax layout, and the flax paged cache to the port's
+list of ``LayerCache`` and back.
 
 The flax layout (``pytorch_distributed_tpu/models/transformer.py``):
 
@@ -15,6 +15,14 @@ The flax layout (``pytorch_distributed_tpu/models/transformer.py``):
 - ``lm_head``: kernel ``[E, V]``, no bias;
 - the paged cache: ``block{i}/attn/{key,value}`` pools and, for quantized
   pools, ``key_scale``/``value_scale``.
+
+and of ``pytorch_distributed_tpu/models/resnet.py`` (``{"params",
+"batch_stats"}``, module names as the port's): ``nn.Conv`` kernels
+``[kh, kw, in, out]`` (the port's OIHW ``weight``; the fused block's
+``Conv_2`` and ``downsample_conv`` as ``[in, out]``), ``fc`` a ``Dense``
+kernel ``[in, out]`` and bias, BatchNorm ``scale``/``bias`` with
+``batch_stats`` ``mean``/``var`` (the port's ``weight``, ``bias``,
+``running_mean``, ``running_var``).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Dict, List, Mapping
 import numpy as np
 import torch
 
+from pytorch_distributed_tpu_torch.models.resnet import Conv, Dense, ResNet, _Kernel1x1
 from pytorch_distributed_tpu_torch.models.transformer import LayerCache, TransformerConfig
 
 #: fp8 dtypes by their numpy (ml_dtypes) name
@@ -210,3 +219,104 @@ def paged_cache_to_jax(cache: List[LayerCache]) -> Dict:
             attn["value_scale"] = a(layer.value_scale)
         tree[f"block{i}"] = {"attn": attn}
     return tree
+
+
+_BN_LEAVES = {"scale": "weight", "bias": "bias"}
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree: Mapping, path=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def resnet_params_from_jax(variables: Mapping, fused: bool = False) -> Dict[str, torch.Tensor]:
+    """State dict for the port's ``ResNet`` from flax ``{"params",
+    "batch_stats"}`` with numpy leaves. ``fused``: the target runs
+    ``FusedBottleneckBlock``s (``model.fused``), whose ``Conv_2`` and
+    ``downsample_conv`` are ``[in, out]`` matrices; one flax tree serves
+    both block kinds, as in the JAX package."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def t(x) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x))
+
+    for path, leaf in _leaves(variables["params"]):
+        mod, name, x = ".".join(path[:-1]), path[-1], _np(leaf)
+        if name == "kernel" and path[-2] == "fc":
+            sd[f"{mod}.weight"] = t(x.T)
+        elif name == "kernel" and fused and path[-2] in ("Conv_2", "downsample_conv"):
+            sd[f"{mod}.weight"] = t(x[0, 0])
+        elif name == "kernel":
+            sd[f"{mod}.weight"] = t(x.transpose(3, 2, 0, 1))
+        elif path[-2] == "fc":
+            sd[f"{mod}.bias"] = t(x)
+        else:
+            sd[f"{mod}.{_BN_LEAVES[name]}"] = t(x)
+    for path, leaf in _leaves(variables.get("batch_stats", {})):
+        sd[f"{'.'.join(path[:-1])}.{_BN_STATS[path[-1]]}"] = t(_np(leaf))
+    return sd
+
+
+def resnet_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of ``resnet_params_from_jax``: flax ``{"params",
+    "batch_stats"}`` with numpy fp32 leaves (copies)."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put(tree, dotted, leaf, value):
+        node = tree
+        for k in dotted.split("."):
+            node = node.setdefault(k, {})
+        node[leaf] = value
+
+    for key, v in state_dict.items():
+        mod, name = key.rsplit(".", 1)
+        x = v.detach().float().cpu().numpy().copy()
+        if name in ("running_mean", "running_var"):
+            put(stats, mod, name[len("running_"):], x)
+        elif mod.split(".")[-1] == "fc":
+            put(params, mod, "kernel" if name == "weight" else "bias", x.T.copy()
+                if name == "weight" else x)
+        elif name == "weight" and x.ndim == 4:
+            put(params, mod, "kernel", x.transpose(2, 3, 1, 0).copy())
+        elif name == "weight" and mod.split(".")[-1] in ("Conv_2", "downsample_conv"):
+            put(params, mod, "kernel", x[None, None].copy())
+        else:
+            put(params, mod, {"weight": "scale", "bias": "bias"}[name], x)
+    return {"params": params, "batch_stats": stats}
+
+
+def init_resnet_params(model: ResNet, seed: int = 0) -> Dict:
+    """Random weights for ``model`` in the flax layout at the JAX model's
+    scales, from a numpy seed: conv kernels normal with variance
+    2/fan_out (torchvision's kaiming fan-out, ``resnet.py:34-35``), the
+    ``fc`` kernel flax's ``lecun_normal`` with a zero bias, BatchNorm
+    scales 1, biases 0, running means 0 and variances 1. Feed the result
+    to ``resnet_params_from_jax(..., fused=model.fused)``."""
+    rng = np.random.default_rng(seed)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, mod in model.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(mod, Conv):
+            o, _, kh, kw = mod.weight.shape
+            std = np.sqrt(2.0 / (kh * kw * o))
+            sd[pre + "weight"] = torch.from_numpy(
+                rng.standard_normal(tuple(mod.weight.shape), dtype=np.float32) * np.float32(std))
+        elif isinstance(mod, _Kernel1x1):
+            std = np.sqrt(2.0 / mod.weight.shape[1])
+            sd[pre + "weight"] = torch.from_numpy(
+                rng.standard_normal(tuple(mod.weight.shape), dtype=np.float32) * np.float32(std))
+        elif isinstance(mod, Dense):
+            out, cin = mod.weight.shape
+            sd[pre + "weight"] = torch.from_numpy(
+                np.ascontiguousarray(_truncated_normal(rng, (cin, out), cin ** -0.5).T))
+            sd[pre + "bias"] = torch.zeros(out)
+    for key, v in model.state_dict().items():
+        if key not in sd:  # the BatchNorms' parameters and statistics
+            one = key.endswith(".weight") or key.endswith("running_var")
+            sd[key] = torch.ones(v.shape) if one else torch.zeros(v.shape)
+    return resnet_params_to_jax(sd)

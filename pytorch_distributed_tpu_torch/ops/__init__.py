@@ -1,2 +1,5 @@
-"""Attention over the paged KV cache: the plain version
-(``ops.attention``) and the CUDA kernels' wrappers (``ops.paged_flash``)."""
+"""Ops of the port: attention over the paged KV cache (``ops.attention``,
+the CUDA wrappers in ``ops.paged_flash``), FlashAttention
+(``ops.flash_attention``), the bottleneck tail's reductions
+(``ops.bottleneck_tail``), the losses, metrics, optimizers, schedules and
+precision policy of the trainers."""

@@ -1,0 +1,210 @@
+"""The fused bottleneck tail's one-pass reductions through hand-written CUDA.
+
+The port of ``pytorch_distributed_tpu/ops/bottleneck_tail.py``: three
+kernels of ``csrc/bottleneck_tail.cu`` that the fused expand tail of
+``models.resnet`` runs every train step.
+
+- ``moments(z)``: ``(Σz [F], zᵀz [F, F])``, one read of z, fp32 sums;
+- ``tail_bwd_reduce(z, g, out)``: ``(gp, P, Σgp)`` with ``gp = g·[out > 0]``
+  in g's dtype (written once), ``P = zᵀgp`` ``[F, E]`` and ``Σgp`` ``[E]``
+  fp32, one read of (z, g, out);
+- ``tail_bwd_dz(gp, z, wa, c, dmn)``: ``gp @ wa + z @ c + dmn`` ``[..., F]``
+  in z's dtype, one output write; wa ``[E, F]``, c ``[F, F]`` and dmn
+  ``[F]`` are fp32 and are rounded to z's dtype for the product (on the
+  tensor cores in bf16), which the JAX kernel does not do.
+
+Operands are NHWC ``[B, H, W, C]`` or ``[N, C]``, bf16 or fp32, read as
+``[N, C]`` rows through their row stride: a ``channels_last`` NCHW
+activation passes as ``x.permute(0, 2, 3, 1)``, a view, and no wide
+operand is copied. Beside each kernel is its plain version
+(``*_reference``): the same function on the ``[N, C]`` view in torch ops,
+sums in fp32. The wrappers run the plain version for tensors on the CPU;
+for CUDA tensors they launch the kernel or raise. ``launch_counts`` counts
+each kernel's launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from pytorch_distributed_tpu_torch.ops import _build
+
+MOMENTS = "moments"
+BWD_REDUCE = "tail_bwd_reduce"
+BWD_DZ = "tail_bwd_dz"
+#: launches of each kernel since the last ``reset_launch_counts``
+launch_counts = {MOMENTS: 0, BWD_REDUCE: 0, BWD_DZ: 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def rows(x: torch.Tensor) -> torch.Tensor:
+    """The ``[N, C]`` view of NHWC (or ``[N, C]``) ``x``; raises where the
+    rows are not one stride apart (no copy is made)."""
+    if x.dim() == 2:
+        return x
+    if x.dim() != 4:
+        raise ValueError(f"expected NHWC [B, H, W, C] or [N, C], got {tuple(x.shape)}")
+    try:
+        return x.view(-1, x.shape[-1])
+    except RuntimeError as err:
+        raise ValueError(
+            f"NHWC operand of strides {x.stride()} is not a [N, C] view; pass a "
+            "channels_last activation's permute(0, 2, 3, 1)") from err
+
+
+# ---- the plain versions ----
+
+def moments_reference(z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    z2 = rows(z).float()
+    return z2.sum(0), z2.T @ z2
+
+
+def tail_bwd_reduce_reference(z, g, out):
+    g2 = rows(g)
+    gp = torch.where(rows(out).float() > 0, g2, torch.zeros((), dtype=g2.dtype, device=g2.device))
+    gpf = gp.float()
+    return gp.view(g.shape), rows(z).float().T @ gpf, gpf.sum(0)
+
+
+def tail_bwd_dz_reference(gp, z, wa, c, dmn):
+    dt = z.dtype
+    acc = (rows(gp).float() @ wa.to(dt).float() + rows(z).float() @ c.to(dt).float()
+           + dmn.reshape(1, -1).float())
+    return acc.to(dt).view(z.shape)
+
+
+# ---- the kernels ----
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.pdt_moments.argtypes = [p, i64, i, i, i, p, p, p]
+    lib.pdt_moments.restype = i
+    lib.pdt_tail_bwd_reduce.argtypes = [p, i64, p, i64, p, i64, p, p, p, i, i, i, i, p]
+    lib.pdt_tail_bwd_reduce.restype = i
+    lib.pdt_tail_bwd_dz.argtypes = [p, i64, p, i64, p, p, p, i, i, i, i, p]
+    lib.pdt_tail_bwd_dz.restype = i
+    lib.pdt_tail_error_string.argtypes = [i]
+    lib.pdt_tail_error_string.restype = ctypes.c_char_p
+
+
+def _library() -> ctypes.CDLL:
+    return _build.load_library("bottleneck_tail", declare=_declare)
+
+
+def _check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
+    if code != 0:
+        msg = lib.pdt_tail_error_string(code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {code})")
+
+
+def _check_rows(*xs: torch.Tensor) -> None:
+    """What the kernels take: one card, one dtype in {fp32, bf16}, unit
+    channel stride, 16-byte aligned rows, channel counts multiples of 8."""
+    first = xs[0]
+    if first.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the tail kernels take float32 or bfloat16, got {first.dtype}")
+    for x in xs:
+        if x.device != first.device or x.dtype != first.dtype:
+            raise ValueError(f"operands on {x.device}/{x.dtype} and {first.device}/{first.dtype}")
+        if x.stride(1) != 1 or x.shape[1] % 8:
+            raise ValueError(f"the tail kernels need unit channel stride and channels "
+                             f"a multiple of 8, got shape {tuple(x.shape)} strides {x.stride()}")
+        if x.data_ptr() % 16 or x.stride(0) * x.element_size() % 16:
+            raise ValueError("the tail kernels need 16-byte aligned rows")
+        if x.shape[0] != first.shape[0] or x.shape[0] < 1:
+            raise ValueError("operands differ in rows, or have none")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _on(x: torch.Tensor, name: str) -> bool:
+    """True for a CPU tensor (the plain version runs); False for CUDA."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    return False
+
+
+def moments(z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(Σz [F], zᵀz [F, F])`` over the rows of NHWC ``z``, fp32."""
+    if _on(z, MOMENTS):
+        return moments_reference(z)
+    z2 = rows(z)
+    _check_rows(z2)
+    n, f = z2.shape
+    s = torch.zeros(f, dtype=torch.float32, device=z.device)
+    m2 = torch.zeros((f, f), dtype=torch.float32, device=z.device)
+    lib = _library()
+    code = lib.pdt_moments(_ptr(z2), z2.stride(0), _DTYPE_CODES[z.dtype], n, f, _ptr(s),
+                           _ptr(m2), _stream(z))
+    _check_launch(lib, MOMENTS, code)
+    launch_counts[MOMENTS] += 1
+    return s, m2
+
+
+def tail_bwd_reduce(z: torch.Tensor, g: torch.Tensor, out: torch.Tensor):
+    """``(gp, P, Σgp)``: ``gp = g·[out > 0]`` shaped as g in g's dtype,
+    ``P = zᵀgp [F, E]`` and ``Σgp [E]`` fp32, over the rows of NHWC z, g
+    and out."""
+    if _on(z, BWD_REDUCE):
+        return tail_bwd_reduce_reference(z, g, out)
+    z2, g2, o2 = rows(z), rows(g), rows(out)
+    _check_rows(z2, g2, o2)
+    if g2.shape != o2.shape:
+        raise ValueError(f"g {tuple(g.shape)} and out {tuple(out.shape)} differ")
+    n, f = z2.shape
+    e = g2.shape[1]
+    gp = torch.empty((n, e), dtype=g.dtype, device=g.device)
+    p = torch.zeros((f, e), dtype=torch.float32, device=z.device)
+    sb = torch.zeros(e, dtype=torch.float32, device=z.device)
+    lib = _library()
+    code = lib.pdt_tail_bwd_reduce(
+        _ptr(z2), z2.stride(0), _ptr(g2), g2.stride(0), _ptr(o2), o2.stride(0), _ptr(gp),
+        _ptr(p), _ptr(sb), _DTYPE_CODES[z.dtype], n, f, e, _stream(z))
+    _check_launch(lib, BWD_REDUCE, code)
+    launch_counts[BWD_REDUCE] += 1
+    return gp.view(g.shape), p, sb
+
+
+def tail_bwd_dz(gp: torch.Tensor, z: torch.Tensor, wa: torch.Tensor, c: torch.Tensor,
+                dmn: torch.Tensor) -> torch.Tensor:
+    """``gp @ wa + z @ c + dmn`` shaped as z, in z's dtype: gp NHWC
+    ``[..., E]``, z ``[..., F]``, wa ``[E, F]``, c ``[F, F]``, dmn ``[F]``
+    or ``[1, F]`` (fp32, rounded to z's dtype for the product)."""
+    if _on(z, BWD_DZ):
+        return tail_bwd_dz_reference(gp, z, wa, c, dmn)
+    gp2, z2 = rows(gp), rows(z)
+    _check_rows(gp2, z2)
+    n, f = z2.shape
+    e = gp2.shape[1]
+    dmn = dmn.reshape(-1).float().contiguous()
+    if wa.shape != (e, f) or c.shape != (f, f) or dmn.shape != (f,):
+        raise ValueError(f"wa {tuple(wa.shape)}, c {tuple(c.shape)}, dmn {tuple(dmn.shape)} "
+                         f"do not fit E={e}, F={f}")
+    if any(x.device != z.device for x in (wa, c, dmn)):
+        raise ValueError("wa, c and dmn must lie on z's device")
+    w = torch.cat([wa, c]).to(z.dtype)  # [E + F, F], rounded once for the tensor cores
+    dz = torch.empty((n, f), dtype=z.dtype, device=z.device)
+    lib = _library()
+    code = lib.pdt_tail_bwd_dz(
+        _ptr(gp2), gp2.stride(0), _ptr(z2), z2.stride(0), _ptr(w), _ptr(dmn), _ptr(dz),
+        _DTYPE_CODES[z.dtype], n, f, e, _stream(z))
+    _check_launch(lib, BWD_DZ, code)
+    launch_counts[BWD_DZ] += 1
+    return dz.view(z.shape)

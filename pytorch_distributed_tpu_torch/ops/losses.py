@@ -1,6 +1,7 @@
 """Softmax cross-entropy over integer labels
 (``pytorch_distributed_tpu/ops/losses.py``): ``log_softmax`` in fp32, so it
-is safe on bf16-produced logits. The unfused LM loss tail."""
+is safe on bf16-produced logits. The image trainers' loss and the unfused LM
+loss tail."""
 
 from __future__ import annotations
 

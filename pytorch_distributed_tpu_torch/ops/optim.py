@@ -1,5 +1,11 @@
-"""The LM's optimizer and gradient clipping
-(``pytorch_distributed_tpu/ops/optim.py``).
+"""Optimizers and gradient clipping (``pytorch_distributed_tpu/ops/optim.py``).
+
+``sgd_with_weight_decay`` (:115) is optax's ``add_decayed_weights(wd)`` →
+``trace(momentum)`` → ``scale_by_learning_rate``: ``g ← g + wd·p``,
+``buf ← momentum·buf + g`` (zero-initialised), ``p ← p − lr·buf``.
+``torch.optim.SGD`` with dampening 0 and no Nesterov applies exactly that
+(its first step sets ``buf = g``, which is the same value); it decays every
+parameter it is given, BatchNorm's included, as the optax chain does.
 
 ``"adamw"`` is ``optax.adamw(lr, weight_decay=wd)`` (:143): b1 0.9, b2
 0.999, ε 1e-8 outside the square root, decay on every parameter, and
@@ -16,11 +22,18 @@ from typing import Iterable, List
 import torch
 
 
+def sgd_with_weight_decay(params: Iterable[torch.nn.Parameter], momentum: float = 0.9,
+                          weight_decay: float = 1e-4) -> torch.optim.Optimizer:
+    """SGD with momentum and weight decay in optax's order, lr 0 until the
+    train step sets it from the schedule."""
+    return torch.optim.SGD(list(params), lr=0.0, momentum=momentum, dampening=0.0,
+                           weight_decay=weight_decay, nesterov=False)
+
+
 def adamw(params: Iterable[torch.nn.Parameter],
           weight_decay: float = 1e-4) -> torch.optim.Optimizer:
     """The ``"adamw"`` entry over ``params``, lr 0 until the train step
-    sets it (the JAX registry's other entry, SGD, comes with the ResNet
-    slice)."""
+    sets it."""
     return torch.optim.AdamW(list(params), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=weight_decay)
 

@@ -14,6 +14,19 @@ import math
 from typing import Callable
 
 
+def step_lr(base_lr: float, steps_per_epoch: int, step_size_epochs: int = 30,
+            gamma: float = 0.1) -> Callable[[int], float]:
+    """``base_lr · gamma^floor(epoch / step_size_epochs)`` with ``epoch =
+    step // steps_per_epoch``: torch's ``StepLR(step_size, gamma)`` stepped
+    once per epoch, as a function of the step."""
+
+    def schedule(step: int) -> float:
+        epoch = int(step) // max(int(steps_per_epoch), 1)
+        return base_lr * gamma ** (epoch // step_size_epochs)
+
+    return schedule
+
+
 def warmup_cosine(base_lr: float, total_steps: int, warmup_steps: int = 0,
                   final_lr: float = 0.0) -> Callable[[int], float]:
     """Linear warmup from 0 to ``base_lr`` over ``warmup_steps``, then a

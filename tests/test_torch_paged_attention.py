@@ -159,7 +159,7 @@ def test_missing_nvcc_raises_and_loads_nothing(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library("paged_attention")
     assert _build._libs == {}
-    assert _build.kernel_sources() == ["flash_attention", "paged_attention"]
+    assert _build.kernel_sources() == ["bottleneck_tail", "flash_attention", "paged_attention"]
 
 
 def test_build_command_targets_hopper(tmp_path):

@@ -121,6 +121,28 @@ def test_training_entry_points_raise_without_a_card(monkeypatch):
     assert next(trainer.state.model.parameters()).device.type == "cpu"
 
 
+def test_resnet_entry_points_raise_without_a_card(monkeypatch):
+    from pytorch_distributed_tpu_torch.data import SyntheticImageClassification
+    from pytorch_distributed_tpu_torch.models.resnet import BasicBlock, ResNet
+    from pytorch_distributed_tpu_torch.recipes import resnet_single
+    from pytorch_distributed_tpu_torch.train import Trainer, TrainerConfig, create_resnet_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def tiny():
+        return ResNet(stage_sizes=(1,), block_cls=BasicBlock, num_classes=2, num_filters=8)
+
+    data = SyntheticImageClassification(4, 8, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(tiny(), data, data, TrainerConfig(batch_size=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_resnet_state(tiny(), lr_schedule=lambda s: 0.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet_single.main(["--tiny", "--synthetic"])
+    trainer = Trainer(tiny(), data, data, TrainerConfig(batch_size=2), device="cpu")
+    assert next(trainer.state.model.parameters()).device.type == "cpu"
+
+
 def _run_smoke(cwd, script):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""  # no card, whatever the machine has
