@@ -19,7 +19,11 @@ Phases, each of which fails the run:
       rows), rows whose amax spans 1e-8 to 1e4; the flash forward (O, LSE)
       and fused backward (dQ, dK, dV) at the training shape in bf16, at
       ragged lengths in fp32 (causal and not), at D = 128, and with fully
-      masked rows; the bottleneck tail's moments, tail_bwd_reduce (gp
+      masked rows; the split backward (dK/dV and dQ kernels) at the same
+      shapes and at the ring's (a 1024-row shard; 512-row zigzag chunk
+      views with the shard's LSE and a sliced, precomputed Δ) against the
+      plain version and against the fused kernel (dK, dV bitwise equal),
+      with two launches bitwise equal; the bottleneck tail's moments, tail_bwd_reduce (gp
       bit-equal) and tail_bwd_dz at ResNet-50's four stage shapes (B = 128,
       bf16), moments at the four downsample inputs, the stage shapes at
       B = 8 in fp32, and ragged shapes (N = 147, F = 40);
@@ -41,7 +45,16 @@ Phases, each of which fails the run:
       16 / 16 tail launches a step, then the first step's loss and grad
       norm of the fused model against the plain-block one from the same
       weights (B = 64, fp32 and bf16), then ``recipes/resnet_single.py``
-      (fp32, plain blocks: no tail launch) for 4 steps of B = 64;
+      (fp32, plain blocks: no tail launch) for 4 steps of B = 64; the ring,
+      spawned by ``tools/ring_check.py``: on one card 2 ranks over gloo
+      with the P2P traffic staged through the host (a correctness run, not
+      a speed run), with 2 or more cards one rank a card, up to 4, over
+      NCCL: ``ring_flash_attention`` at B = 8, L = 2048, contiguous and
+      zigzag, fused and split backward, gathered and held against
+      single-card flash (relative error), with each rank's launches;
+      ``LMTrainer`` at dp 1 x sp ranks with ``ring_flash``, 4 steps of
+      B = 8 x 2048 and a validation pass in each layout, the first step
+      against the one-card flash step;
   (d) kernel, plain-version and library times beside each kernel's bound:
       the paged kernels at the decode shape (library: SDPA on pre-gathered
       K/V; no PyTorch call reads int8/fp8 K/V with per-row scales, so the
@@ -64,6 +77,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -87,6 +101,65 @@ LSE_TOL = 1e-4  # fp32 statistics in another summation order
 TRAIN_LOSS_TOL = 2e-2
 TRAIN_GRAD_NORM_RTOL = 5e-2
 TRAIN = dict(batch=8, seq=2048, steps=8)
+# kernel 6, the split backward, against its plain version, the fused kernel
+# and itself: (label, dtype, causal, shift, flash_inputs shape); a shape
+# with ``view=(q half, kv half)`` checks a zigzag ring visit: the two halves
+# of the shard as strided views, with the shard's O and LSE (its causal
+# forward) and Δ computed once for the shard and sliced, as the ring passes them
+SPLIT_CHECKS = (
+    ("training shape B=8 L=2048 H=12 D=64 causal bf16", "bfloat16", True, 0, {}),
+    ("training shape B=8 L=2048 H=12 D=64 full bf16", "bfloat16", False, 0, {}),
+    ("ring shard B=8 L=1024 H=12 D=64 causal bf16", "bfloat16", True, 0, dict(l=1024, seed=5)),
+    ("ring shard B=8 L=1024 H=12 D=64 full bf16", "bfloat16", False, 0, dict(l=1024, seed=5)),
+    ("ring zigzag (hi, lo) chunk views of the L=1024 shard, sliced delta, bf16", "bfloat16",
+     False, 0, dict(l=1024, seed=6, view=(1, 0))),
+    ("ring zigzag (hi, hi) chunk views of the L=1024 shard, sliced delta, bf16", "bfloat16",
+     True, 0, dict(l=1024, seed=6, view=(1, 1))),
+    ("ragged L=300 fp32 causal", "float32", True, 0, dict(b=2, l=300, h=2, seed=1)),
+    ("ragged L=300 fp32 full", "float32", False, 0, dict(b=2, l=300, h=2, seed=1)),
+    ("Lq=90 Lk=200 fp32 full", "float32", False, 0, dict(b=2, l=90, lk=200, h=2, seed=2)),
+    ("Lq=200 Lk=90 fp32 causal", "float32", True, 0, dict(b=2, l=200, lk=90, h=2, seed=2)),
+    ("D=128 L=130 causal bf16", "bfloat16", True, 0, dict(b=2, l=130, h=2, d=128, seed=3)),
+    ("D=128 L=130 causal fp32", "float32", True, 0, dict(b=2, l=130, h=2, d=128, seed=3)),
+    ("rows 0-36 fully masked (shift -37) bf16", "bfloat16", True, -37,
+     dict(b=1, l=100, h=2, seed=4)),
+    ("rows 0-36 fully masked (shift -37) fp32", "float32", True, -37,
+     dict(b=1, l=100, h=2, seed=4)),
+)
+# the ring: the training shape, 4 steps in each layout, the full-width model
+RING = dict(batch=8, seq=2048, steps=4, timeout_s=300)
+RING_MODEL = dict(vocab_size=32000, num_layers=12, num_heads=12, embed_dim=768)
+RING_CASES = [dict(impl="ring_flash", layout=layout, bwd_impl=bwd, causal=True)
+              for layout in ("contiguous", "zigzag") for bwd in ("fused", "split")]
+
+
+def ring_ranks(cards: int) -> tuple:
+    """``(ranks, backend)`` of the ring phase: 2 ranks sharing one card (or
+    the CPU) over gloo, else one rank a card, up to 4, over NCCL."""
+    return (2, "gloo") if cards < 2 else (min(cards, 4), "nccl")
+
+
+def ring_launches(layout: str, ranks: int) -> list:
+    """Forward launches on each rank of one causal ring call: contiguous
+    rank r folds the r + 1 shards at or before it; a zigzag rank runs
+    three chunk kernels on its own shard and two on each other one."""
+    if layout == "contiguous":
+        return [r + 1 for r in range(ranks)]
+    return [2 * ranks + 1] * ranks
+
+# the ring's attention against single-card flash, bf16, each of O, dQ, dK,
+# dV by ||ring - one card|| / ||one card||: the ring merges per-visit
+# outputs in fp32 and rounds O once, and rounds each visit's gradients to
+# bf16 before their fp32 sums; a few bf16 unit roundoffs (2^-9). A dropped
+# or doubled visit moves a rank's rows by O(1)
+RING_ATTN_RTOL = 1e-2
+# the ring's first training step against the one-card flash step, bf16
+# compute through 12 layers, the same rounding differences: measured
+# (PERF.md) loss 9.1e-5 to 1.6e-4 and grad norm 5.2e-5 to 3.9e-4 relative
+# on 1 and 4 cards; a few times those. Contiguous positions planted under
+# zigzag moved them by 1.9e-2 and 9.6e-3 (a small model on the CPU)
+RING_LOSS_TOL = 1e-3
+RING_GRAD_NORM_RTOL = 2e-3
 # the bottleneck tail kernels at ResNet-50's four stages, B = 128: (B, H = W,
 # F) of the expand tail's z, E = 4F; and the downsample's strided input
 TAIL_STAGES = ((128, 56, 64), (128, 28, 128), (128, 14, 256), (128, 7, 512))
@@ -229,12 +302,12 @@ def match_rate(a, b) -> float:
     return float(np.mean([x == y for s, t in zip(a, b) for x, y in zip(s, t)]))
 
 
-def flash_inputs(torch, dtype, *, b=8, l=2048, h=12, d=64, lk=None, seed=0):
+def flash_inputs(torch, dtype, *, b=8, l=2048, h=12, d=64, lk=None, seed=0, dev="cuda"):
     """q, k, v, dO ``[B, L, H, D]`` of unit-normal noise on the card."""
     rng = np.random.default_rng(seed)
     lk = lk or l
     shapes = [(b, l, h, d), (b, lk, h, d), (b, lk, h, d), (b, l, h, d)]
-    return [torch.from_numpy(rng.standard_normal(s, np.float32)).to("cuda", dtype)
+    return [torch.from_numpy(rng.standard_normal(s, np.float32)).to(dev, dtype)
             for s in shapes]
 
 
@@ -243,7 +316,10 @@ def flash_bound(q, k, causal=True, shift=0) -> dict:
     QK and PV (forward) and S, dP, dV, dK, dQ (backward) at 2 flops per
     multiply-add for each visible (q, k) pair; each input read once and
     each output written once (forward: q, k, v, O, LSE; backward: q, k, v,
-    O, dO, LSE, dQ, dK, dV)."""
+    O, dO, LSE, dQ, dK, dV). The split backward (``bwd_split``) does the
+    same work with 7 products a pair, S and dP in both of its kernels:
+    ``bwd_dkv`` S, dP, dV, dK (reading q, k, v, dO, LSE, Δ; writing dK,
+    dV) and ``bwd_dq`` S, dP, dQ (the same reads; writing dQ)."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
     i = np.arange(lq)
@@ -251,10 +327,14 @@ def flash_bound(q, k, causal=True, shift=0) -> dict:
     pairs = b * h * float(visible.sum())
     elem = q.element_size()
     row_bytes = b * h * d * elem
+    rows = b * h * lq * 4
     out = {}
     for name, flops, n_bytes in (
-            ("fwd", 4 * d * pairs, row_bytes * (2 * lq + 2 * lk) + b * h * lq * 4),
-            ("bwd", 10 * d * pairs, row_bytes * (4 * lq + 4 * lk) + b * h * lq * 4)):
+            ("fwd", 4 * d * pairs, row_bytes * (2 * lq + 2 * lk) + rows),
+            ("bwd", 10 * d * pairs, row_bytes * (4 * lq + 4 * lk) + rows),
+            ("bwd_split", 14 * d * pairs, row_bytes * (4 * lq + 4 * lk) + rows),
+            ("bwd_dkv", 8 * d * pairs, row_bytes * (2 * lq + 4 * lk) + 2 * rows),
+            ("bwd_dq", 6 * d * pairs, row_bytes * (3 * lq + 2 * lk) + 2 * rows)):
         t_bytes = n_bytes / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[str(q.dtype)]
         out[name] = {"bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -315,6 +395,249 @@ def time_ms(torch, fn, iters=100, warmup=5):
         events.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def kernel_device_ms(torch, fn, match, iters=10) -> dict:
+    """Mean device time per call of ``fn`` of each kernel that
+    ``match[name](kernel_name)`` picks out, from a ``torch.profiler``
+    trace of ``iters`` calls with the L2 flushed before each: for kernels
+    that one call launches back to back, where CUDA events around the call
+    time them together."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in match}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        for name, pred in match.items():
+            if pred(evt.key):
+                out[name] += us / 1e3 / iters
+    return out
+
+
+def check_abs(torch, failures, label, got, want, tol, dev="cuda") -> float:
+    """Largest absolute error of ``got`` against ``want``, printed; a
+    failure (or a non-finite value) is recorded."""
+    sync(torch, dev)
+    err = (got.float() - want.float()).abs().max().item()
+    ok = err <= tol and torch.isfinite(got).all().item()
+    print(f"(b) {label}: max_abs_err {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(label)
+    return err
+
+
+def check_split_kernels(torch, failures, dev="cuda") -> dict:
+    """Phase (b) for kernel 6, the split backward (``bwd_impl="split"``),
+    at the ``SPLIT_CHECKS`` shapes: dQ, dK and dV against the plain
+    version, all on the plain forward's O and LSE, to the flash backward's
+    tolerances (bf16 6e-2: S is summed in another order than the plain
+    version's and dS rounds to bf16 from it; fp32 1e-4); against the fused
+    kernel (kernel 5), whose dK/dV code the dK/dV kernel runs without the
+    dQ pass: dK and dV bitwise equal, dQ (summed by the fused kernel's
+    atomics) to the same tolerances; a second launch bitwise equal to the
+    first (the split kernels write each output once, with no atomics);
+    fully masked rows with zero dQ. Returns each kernel's largest error
+    over the training and ring shapes."""
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+
+    errs = {fa.BWD_DKV: 0.0, fa.BWD_DQ: 0.0}
+    for label, dtype_name, causal, shift, shape in SPLIT_CHECKS:
+        dtype = getattr(torch, dtype_name)
+        tol = BF16_GRAD_TOL if dtype == torch.bfloat16 else FP32_TOL
+        shape = dict(shape)
+        view = shape.pop("view", None)
+        q, k, v, do = flash_inputs(torch, dtype, dev=dev, **shape)
+        kw = dict(causal=causal, scale=q.shape[-1] ** -0.5, shift=shift)
+        if view is None:
+            o, lse = fa.flash_forward_reference(q, k, v, **kw)
+        else:  # a zigzag ring visit's operands, as ops/ring_flash.py slices them
+            o, lse = fa.flash_forward_reference(q, k, v, causal=True, scale=kw["scale"])
+            delta = fa.compute_delta(do, o)
+            half = q.shape[1] // 2
+            rq, rk = (slice(0, half) if x == 0 else slice(half, None) for x in view)
+            q, o, do, k, v = q[:, rq], o[:, rq], do[:, rq], k[:, rk], v[:, rk]
+            lse, kw["delta"] = lse[:, :, rq], delta[:, :, rq]
+        split = fa.flash_backward(q, k, v, o, lse, do, bwd_impl="split", **kw)
+        again = fa.flash_backward(q, k, v, o, lse, do, bwd_impl="split", **kw)
+        fused = fa.flash_backward(q, k, v, o, lse, do, bwd_impl="fused", **kw)
+        want = fa.flash_backward_reference(q, k, v, o, lse, do, **kw)
+        sync(torch, dev)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+
+        def n_diff(a, b):
+            return int((a.view(bits) != b.view(bits)).sum())
+
+        for i, name in enumerate(("dQ", "dK", "dV")):
+            err = check_abs(torch, failures, f"split bwd {name}, {label}", split[i], want[i],
+                            tol, dev)
+            if i == 0:
+                check_abs(torch, failures, f"split vs fused bwd dQ, {label}", split[0],
+                          fused[0], tol, dev)
+            else:
+                n = n_diff(split[i], fused[i])
+                print(f"(b) split vs fused bwd {name}, {label}: "
+                      f"{'bitwise equal' if n == 0 else f'differ in {n} values'}")
+                if n:
+                    failures.append(f"split vs fused bwd {name}, {label}")
+            if label.startswith(("training", "ring")):
+                key = fa.BWD_DQ if i == 0 else fa.BWD_DKV
+                errs[key] = max(errs[key], err)
+        n = sum(n_diff(a, b) for a, b in zip(split, again))
+        print(f"(b) split bwd, {label}: two launches "
+              f"{'bitwise equal' if n == 0 else f'differ in {n} values'}")
+        if n:
+            failures.append(f"split bwd repeat, {label}")
+        if shift < 0 and not (split[0][:, :-shift] == 0).all():
+            failures.append(f"split bwd fully masked rows, {label}")
+        del q, k, v, do, o, lse, split, again, fused, want, kw
+        empty_cache(torch, dev)
+    return errs
+
+
+def ring_runs(torch, card, tmp, dev="cuda") -> dict:
+    """Phase (c) for the ring: the ranks of ``ring_ranks`` spawned through
+    ``tools/ring_check.py`` (the kernels are built already, so the ranks
+    only load them). First ``ring_flash_attention`` in ``RING_CASES``,
+    gathered and held against single-card flash on the whole sequence
+    (``RING_ATTN_RTOL``), with each rank's launches; then ``LMTrainer`` at
+    dp 1 x sp ranks with ``ring_flash`` in both layouts, its first step
+    against the one-card flash step.
+    Returns the split kernels' launches over the split cases and the
+    trainer's flash launches. With ``dev="cpu"`` (a rehearsal) the ranks
+    meet over gloo on the CPU, where the plain versions launch nothing."""
+    from pytorch_distributed_tpu_torch.data import DataLoader, DistributedSampler, to_device
+    from pytorch_distributed_tpu_torch.data import SyntheticTokens
+    from pytorch_distributed_tpu_torch.models.transformer import TransformerConfig
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_tpu_torch.tools import ring_check
+    from pytorch_distributed_tpu_torch.train import create_lm_state, lm_collate
+    from pytorch_distributed_tpu_torch.train import make_lm_train_step
+
+    bsz, seq, steps = RING["batch"], RING["seq"], RING["steps"]
+    heads, n_layers = RING_MODEL["num_heads"], RING_MODEL["num_layers"]
+    on_card = 1 if dev == "cuda" else 0  # CPU tensors run the plain versions
+    ranks, backend = ring_ranks(torch.cuda.device_count() if dev == "cuda" else 0)
+    where = (f"{ranks} ranks on {ranks} cards" if backend == "nccl" else
+             f"{ranks} ranks on 1 card, P2P and all-reduce staged through the host")
+    print(f"(c) ring: backend {backend}, {where}")
+    base = dict(backend=backend, dp=1, sp=ranks, device=dev, timeout_s=RING["timeout_s"])
+    empty_cache(torch, dev)
+
+    # ring_flash_attention against single-card flash on the whole sequence
+    job = dict(base, task="attention", rendezvous=f"file://{tmp}/rendezvous-attention",
+               out=f"{tmp}/attention", dtype="bfloat16", seed=5,
+               shape=(bsz, seq, heads, RING_MODEL["embed_dim"] // heads), cases=RING_CASES)
+    t0 = time.perf_counter()
+    ring_check.run(job, ranks)
+    results = ring_check.load(job)
+    spawn_s = time.perf_counter() - t0
+    q, k, v, do = (torch.from_numpy(x).to(dev, torch.bfloat16)
+                   for x in ring_check.attention_inputs(job))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    o = fa.flash_attention(q, k, v, causal=True)
+    o.backward(do)
+    want = {"o": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    split_launches = {fa.BWD_DKV: 0, fa.BWD_DQ: 0}
+    failures = []
+    for case in RING_CASES:
+        name = ring_check.case_name(case)
+        errs, rel = {}, {}
+        for key in want:
+            diff = (ring_check.gather([r[name][key] for r in results], 1, ranks,
+                                      case["layout"]).to(dev).float() - want[key].float())
+            errs[key] = diff.abs().max().item()
+            rel[key] = (diff.norm() / want[key].float().norm()).item()
+        fwd = [r[name]["fwd_launches"] for r in results]
+        bwd = [r[name]["bwd_launches"] for r in results]
+        n_fwd = [n * on_card for n in ring_launches(case["layout"], ranks)]
+        bwd_names = (fa.BWD,) if case["bwd_impl"] == "fused" else (fa.BWD_DKV, fa.BWD_DQ)
+        launches_ok = all(f[fa.FWD] == n and all(b_[x] == n for x in bwd_names)
+                          and sum(b_.values()) == n * len(bwd_names)
+                          for f, b_, n in zip(fwd, bwd, n_fwd))
+        ok = max(rel.values()) <= RING_ATTN_RTOL and launches_ok
+        print(f"(c) ring_flash_attention {name} B={bsz} L={seq} ({seq // ranks} a rank) "
+              f"H={heads} D={q.shape[-1]} bf16 vs single-card flash, relative error "
+              f"||ring - one card|| / ||one card||: "
+              + ", ".join(f"{x} {rel[x.lower()]:.2e}" for x in ("O", "dQ", "dK", "dV"))
+              + f" (tol {RING_ATTN_RTOL:g}); max_abs_err "
+              + ", ".join(f"{x} {errs[x.lower()]:.3e}" for x in ("O", "dQ", "dK", "dV"))
+              + f"; launches per rank: forward {[f[fa.FWD] for f in fwd]}, backward "
+              f"{[{x: b_[x] for x in bwd_names} for b_ in bwd]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(name)
+        if case["bwd_impl"] == "split":
+            for b_ in bwd:
+                for x in split_launches:
+                    split_launches[x] += b_[x]
+    print(f"(c) ring attention: {len(RING_CASES)} cases in {spawn_s:.1f}s of spawned ranks")
+    del q, k, v, do, o, want, results
+    empty_cache(torch, dev)
+    if failures:
+        raise SystemExit(f"chip_smoke: the ring disagrees with single-card flash: {failures}")
+
+    # LMTrainer on the ring in both layouts, from the seed-0 weights
+    models = {layout: dict(RING_MODEL, max_seq_len=seq, dtype="bfloat16",
+                           attention="ring_flash", ring_layout=layout)
+              for layout in ("contiguous", "zigzag")}
+    job = dict(base, task="trainer", rendezvous=f"file://{tmp}/rendezvous-trainer",
+               out=f"{tmp}/trainer", models=models, batch=bsz, seq=seq, steps=steps)
+    ring_check.run(job, ranks)
+    results = ring_check.load(job)
+    # the one-card flash step on the trainer's first batch
+    data = SyntheticTokens(steps * bsz, seq, RING_MODEL["vocab_size"])
+    loader = DataLoader(data, bsz, lm_collate,
+                        sampler=DistributedSampler(len(data), shuffle=True, seed=0))
+    first_batch = to_device(next(loader.iter_batches(0)), dev)
+    one_card = TransformerConfig(**RING_MODEL, max_seq_len=seq, dtype=torch.bfloat16,
+                                 attention="flash")
+    st = create_lm_state(one_card, lr_schedule=lambda step: 0.0, device=dev)
+    _, m = make_lm_train_step(grad_clip_norm=1.0)(st, first_batch)
+    one = {k: float(x) for k, x in m.items()}
+    del st, m
+    empty_cache(torch, dev)
+    trainer_launches = {}
+    for layout in models:
+        runs = [r[layout] for r in results]
+        hist = runs[0]["history"]
+        losses = [h["loss"] for h in hist]
+        d_loss = abs(hist[0]["loss"] - one["loss"])
+        d_norm = abs(hist[0]["grad_norm"] / one["grad_norm"] - 1)
+        step_ms = [round(h["step_s"] * 1e3, 1) for h in hist]
+        print(f"(c) LMTrainer ring_flash {layout}, dp 1 x sp {ranks}, {steps} steps of "
+              f"B={bsz} x L={seq} bf16 (fp32 parameters) on {card}: losses "
+              f"{[round(x, 4) for x in losses]}; grad norms "
+              f"{[round(h['grad_norm'], 3) for h in hist]}; validation loss "
+              f"{runs[0]['val']['loss']:.4f} over {runs[0]['val']['tokens']:.0f} tokens")
+        print(f"(c) ring {layout} step times {step_ms} ms ({backend}"
+              f"{'-staged: not a speed figure' if backend == 'gloo' else ''}); peak memory per "
+              f"rank {[round(r['peak_gib'], 1) for r in runs]} GiB; flash launches per rank in "
+              f"training {[r['train_launches'] for r in runs]}, in validation "
+              f"{[r['val_launches'] for r in runs]}")
+        print(f"(c) ring {layout} first step vs one card (flash): loss {hist[0]['loss']:.5f} vs "
+              f"{one['loss']:.5f} (|diff| {d_loss:.2e}, tol {RING_LOSS_TOL:g}); grad norm "
+              f"{hist[0]['grad_norm']:.5f} vs {one['grad_norm']:.5f} (rel diff {d_norm:.2e}, "
+              f"tol {RING_GRAD_NORM_RTOL:g})")
+        if len(losses) != steps or not all(np.isfinite(losses)) or not np.isfinite(
+                runs[0]["val"]["loss"]):
+            raise SystemExit(f"chip_smoke: ring {layout}: a non-finite or missing loss")
+        if not (d_loss <= RING_LOSS_TOL and d_norm <= RING_GRAD_NORM_RTOL):
+            raise SystemExit(f"chip_smoke: the ring {layout} step disagrees with one card")
+        for r, n in zip(runs, ring_launches(layout, ranks)):
+            n *= n_layers * steps * on_card
+            if r["train_launches"] != {fa.FWD: n, fa.BWD: n, fa.BWD_DKV: 0, fa.BWD_DQ: 0}:
+                raise SystemExit(f"chip_smoke: ring {layout}: launches {r['train_launches']}")
+        trainer_launches[layout] = [r["train_launches"] for r in runs]
+    return {"split_launches": split_launches, "trainer_launches": trainer_launches}
 
 
 def check_tail_kernels(torch, failures, dev="cuda") -> dict:
@@ -599,14 +922,7 @@ def main(argv) -> int:
     failures = []
 
     def check(label, got, want, tol):
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ok = err <= tol and torch.isfinite(got).all().item()
-        print(f"(b) {label}: max_abs_err {err:.3e} (tol {tol:g}) "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(label)
-        return err
+        return check_abs(torch, failures, label, got, want, tol)
 
     bf16, f32 = torch.bfloat16, torch.float32
     decode_bf16 = decode_inputs(torch, bf16)
@@ -731,6 +1047,7 @@ def main(argv) -> int:
         check_flash(f"rows 0-36 fully masked (shift -37) {dtype}", dtype, tol_o, tol_g,
                     shift=-37, b=1, l=100, h=2, seed=4)
     tail_errs = check_tail_kernels(torch, failures)
+    split_errs = check_split_kernels(torch, failures)
     if failures:
         raise SystemExit(f"chip_smoke: kernels disagree with the plain version: {failures}")
     if "--kernels-only" in argv:
@@ -958,10 +1275,12 @@ def main(argv) -> int:
     if len(losses) != steps or not all(np.isfinite(losses)) or not np.isfinite(val["loss"]):
         raise SystemExit(f"chip_smoke: a non-finite or missing training loss: {losses}")
     n_layers = tcfg.num_layers
-    if train_launches != {FWD: n_layers * steps, BWD: n_layers * steps}:
+    if train_launches != {FWD: n_layers * steps, BWD: n_layers * steps,
+                          flash_attention.BWD_DKV: 0, flash_attention.BWD_DQ: 0}:
         raise SystemExit(f"chip_smoke: expected {n_layers} forward and {n_layers} backward "
                          f"flash launches per step, got {train_launches} in {steps} steps")
-    if val_launches != {FWD: n_layers * len(trainer.val_loader), BWD: 0}:
+    if val_launches != {FWD: n_layers * len(trainer.val_loader), BWD: 0,
+                        flash_attention.BWD_DKV: 0, flash_attention.BWD_DQ: 0}:
         raise SystemExit(f"chip_smoke: validation launches {val_launches}")
     del trainer
     torch.cuda.empty_cache()
@@ -988,6 +1307,11 @@ def main(argv) -> int:
 
     # ---- (c) ResNet-50: the fused bf16 trainer, the first step, the recipe ----
     resnet_launches = resnet_runs(torch, card)
+    torch.cuda.empty_cache()
+
+    # ---- (c) the ring: ring_flash_attention and LMTrainer over 2 ranks ----
+    with tempfile.TemporaryDirectory() as tmp:
+        ring = ring_runs(torch, card, tmp)
     torch.cuda.empty_cache()
 
     # ---- (d) times at the decode shape ----
@@ -1100,6 +1424,32 @@ def main(argv) -> int:
     print(f"(d) SDPA forward + backward {sdpa_fwdbwd * 1e3:.1f} us; the kernels' "
           f"{(flash_ms[FWD] + flash_ms[BWD]) * 1e3:.1f} us")
 
+    # kernel 6 at the training shape: the wrapper (Delta, both kernels) by
+    # CUDA events, each kernel by its device time in a profiler trace
+    DKV, DQ = flash_attention.BWD_DKV, flash_attention.BWD_DQ
+    split_call = lambda: flash_attention.launch_backward_split(  # noqa: E731
+        q, k, v, o, lse, do, True, sc, 0)
+    split_pair_ms = time_ms(torch, split_call, iters=20)
+    split_ms = kernel_device_ms(torch, split_call, {
+        DKV: lambda key: "flash_bwd_kernel<" in key and "false>" in key,
+        DQ: lambda key: "flash_bwd_dq_kernel<" in key})
+    if not all(split_ms.values()):
+        raise SystemExit(f"chip_smoke: the profiler recorded no device time for the split "
+                         f"kernels: {split_ms}")
+    for name, part in ((DKV, "bwd_dkv"), (DQ, "bwd_dq")):
+        fb[name] = fb[part]
+        print(f"(d) {name} at B, L, H, D = {tuple(q.shape)} causal bf16 on {card}: "
+              f"{split_ms[name] * 1e3:.1f} us device time per launch "
+              f"({fb[part]['flops'] / split_ms[name] / 1e9:.1f} TFLOP/s), bound "
+              f"{fb[part]['bound_ms'] * 1e3:.1f} us ({fb[part]['bound_by']}: "
+              f"{fb[part]['bytes'] / 1e6:.1f} MB, {fb[part]['flops'] / 1e9:.1f} GFLOP)")
+    print(f"(d) split backward (Delta + {DKV} + {DQ}) {split_pair_ms * 1e3:.1f} us per call "
+          f"({fb['bwd_split']['flops'] / split_pair_ms / 1e9:.1f} TFLOP/s), bound "
+          f"{fb['bwd_split']['bound_ms'] * 1e3:.1f} us ({fb['bwd_split']['bound_by']}: "
+          f"{fb['bwd_split']['flops'] / 1e9:.1f} GFLOP); fused {flash_ms[BWD] * 1e3:.1f} us, "
+          f"plain {flash_plain_ms[BWD] * 1e3:.1f} us, SDPA backward "
+          f"{flash_lib_ms[BWD] * 1e3:.1f} us")
+
     tail_times = time_tail_kernels(torch, card)
 
     # ---- (e) the kernels line; (f) the result ----
@@ -1126,6 +1476,17 @@ def main(argv) -> int:
         "plain_ms": flash_plain_ms[name], "bound_ms": fb[part]["bound_ms"],
         "bound_by": fb[part]["bound_by"], "library_ms": flash_lib_ms[name],
     } for name, part in ((FWD, "fwd"), (BWD, "bwd"))]
+    # kernel 6: launches on the ring's split-backward path; its plain
+    # version and SDPA's backward compute both kernels' work in one call
+    kernels += [{
+        "name": name, "route": "cuda",
+        "source": "pytorch_distributed_tpu_torch/csrc/flash_attention.cu",
+        "replaces": replaces_at, "launches": ring["split_launches"][name],
+        "max_abs_err": split_errs[name], "ms": split_ms[name],
+        "plain_ms": flash_plain_ms[BWD], "bound_ms": fb[name]["bound_ms"],
+        "bound_by": fb[name]["bound_by"], "library_ms": flash_lib_ms[BWD],
+    } for name, replaces_at in ((DKV, "pytorch_distributed_tpu/ops/flash_attention.py:451"),
+                                (DQ, "pytorch_distributed_tpu/ops/flash_attention.py:434"))]
     from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
 
     tail_replaces = {bt.MOMENTS: "pytorch_distributed_tpu/ops/bottleneck_tail.py:69",

@@ -5,8 +5,10 @@ Its paths, each through hand-written CUDA kernels for Hopper:
 - paged LM serving with float or int8/fp8 pools, prefix sharing and
   preemption: ``serving.Scheduler`` → ``serving.PagedEngine`` →
   ``models.TransformerLM`` (``csrc/paged_attention.cu``);
-- single-card LM training: ``train.LMTrainer`` → ``models.TransformerLM``
-  with flash attention (``csrc/flash_attention.cu``);
+- LM training: ``train.LMTrainer`` → ``models.TransformerLM`` with flash
+  attention (``csrc/flash_attention.cu``), on one card or on a data × seq
+  grid of ranks (``parallel``) with ring attention over the same kernels
+  (``ops.ring_flash``, the split backward with ``bwd_impl="split"``);
 - single-card ResNet training: ``recipes.resnet_single`` →
   ``train.Trainer`` → ``models.ResNet``, whose fused bottleneck blocks
   reduce through ``csrc/bottleneck_tail.cu``.

@@ -1,11 +1,20 @@
-// FlashAttention forward and fused backward, for Hopper (sm_90a).
+// FlashAttention forward, fused backward and split backward, for Hopper
+// (sm_90a).
 //
-// Replaces two Pallas TPU kernels of pytorch_distributed_tpu/ops/flash_attention.py:
+// Replaces three Pallas TPU kernels of pytorch_distributed_tpu/ops/flash_attention.py:
 //   - the forward _flash_fwd (pallas_call at :138; kernel _fwd_kernel :55),
 //     which returns O and the row log-sum-exp LSE;
 //   - the fused single-pass backward _flash_bwd_fused (pallas_call at :375;
 //     kernel _bwd_fused_kernel :280, block math _masked_p_ds :164), which
-//     returns dK, dV and per-KV-block dQ partials that XLA sums (:397).
+//     returns dK, dV and per-KV-block dQ partials that XLA sums (:397);
+//   - the split backward _flash_bwd (pallas_calls at :434 for _bwd_dq_kernel
+//     :195 and :451 for _bwd_dkv_kernel :232), the one ops/ring_flash.py runs
+//     per ring visit with bwd_impl="split": flash_bwd_dq_kernel gives dQ with
+//     one block per Q tile sweeping the K/V tiles, and flash_bwd_kernel
+//     without its dQ part gives dK, dV with one block per K/V tile sweeping
+//     the Q tiles. Each output is written once, with no atomics, so two
+//     launches give bit-identical gradients. The split spends 7 products per
+//     visible pair (S and dP twice) where the fused kernel spends 5.
 //
 // What it computes, for q [B, Lq, H, D] and k, v [B, Lk, H, D] read through
 // their strides (the fused qkv projection's views need no copy): key j is
@@ -19,23 +28,26 @@
 // Delta = rowsum(dO * O) from the caller, and accumulates dV += P^T dO (P in
 // dO's dtype), dK += dS^T Q and dQ += dS K (dS in q's dtype). dQ sums in
 // fp32 across key tiles by atomics into a zeroed [B, Lq, H, D] buffer: the
-// numerics of the JAX kernel's partials_f32=True.
+// numerics of the JAX kernel's partials_f32=True. The split dQ sums the same
+// fp32 products in registers and writes dQ once in the input dtype.
 //
 // What bounds it on the H100: the operations. At the training shape
 // (B 8, L 2048, H 12, D 64, causal) the forward does 4 D flops per visible
 // (q, k) pair, 52 GFLOP, over ~100 MB of q, k, v, O; the backward 10 D per
-// pair, 129 GFLOP, over ~200 MB: hundreds of flops per byte, above the
-// H100's ~295 flops/byte line, so the bf16 tensor cores set the least time.
+// pair, 129 GFLOP, over ~200 MB (the split backward 14 D per pair, 181
+// GFLOP): hundreds of flops per byte, above the H100's ~295 flops/byte line,
+// so the bf16 tensor cores set the least time.
 //
 // What the design does about it:
 //   - bf16 products run on the tensor cores through mma.sync m16n8k16 with
 //     fp32 accumulators; the softmax probabilities stay in registers and
 //     feed the PV product as its A operand without a trip through memory
 //     (the C fragment of S is laid out as the A fragment of P).
-//   - One thread block per (64-row tile, batch x head): the forward loops
-//     over K/V tiles, the backward (one block per K/V tile) over Q tiles;
-//     causal tiles above the diagonal are skipped, so the work is the
-//     visible pairs'. Causal forward blocks start with the longest rows.
+//   - One thread block per (64-row tile, batch x head): the forward and the
+//     split dQ kernel loop over K/V tiles, the fused backward and the split
+//     dK/dV kernel (one block per K/V tile) over Q tiles; causal tiles above
+//     the diagonal are skipped, so the work is the visible pairs'. Causal
+//     forward and dQ blocks start with the longest rows.
 //   - No padding copies: rows past L are zero in shared memory and masked.
 //   - fp32 inputs take the same code with the product run on CUDA cores
 //     (lanes trade fragment values by shuffle), for exact fp32 numerics.
@@ -222,7 +234,8 @@ struct Params {
   void* out;           // forward: O, contiguous [B, Lq, H, D]
   float* lse;          // [B, H, Lq]
   const float* delta;  // backward: [B, H, Lq]
-  float* dq;           // backward: fp32 [B, Lq, H, D], zero on entry
+  float* dq;           // fused backward: fp32 [B, Lq, H, D], zero on entry
+  void* dq_out;        // split backward: dQ in the input dtype, contiguous [B, Lq, H, D]
   void* dk;            // backward: contiguous [B, Lk, H, D]
   void* dv;
   int H, Lq, Lk, causal, shift;
@@ -360,8 +373,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   }
 }
 
-// grid (ceil(Lk / 64), B * H); warp w owns keys 16w .. 16w + 15 of the tile
-template <typename T, int D>
+// grid (ceil(Lk / 64), B * H); warp w owns keys 16w .. 16w + 15 of the tile.
+// kDq: the fused backward, which also adds each tile's dQ by atomics; without
+// it, the split backward's dK/dV kernel.
+template <typename T, int D, bool kDq>
 __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(const Params p) {
   constexpr int LD = D + kPad;
   constexpr int LDS = kTile + kPad;
@@ -371,8 +386,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(const Params p) {
   T* Qs = Vs + kTile * LD;   // q as given, for dK
   T* Qss = Qs + kTile * LD;  // q scaled in its dtype, for S
   T* dOs = Qss + kTile * LD;
-  T* dSt = dOs + kTile * LD;  // dS^T [key][q] in q's dtype, for dQ
-  float* lse_s = reinterpret_cast<float*>(dSt + kTile * LDS);
+  T* dSt = dOs + kTile * LD;  // dS^T [key][q] in q's dtype, for dQ (kDq only)
+  float* lse_s = reinterpret_cast<float*>(dSt + (kDq ? kTile * LDS : 0));
   float* dl_s = lse_s + kTile;
 
   const int kt = blockIdx.x;  // causal: the first key tiles see the most rows
@@ -468,36 +483,38 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(const Params p) {
       }
     }
 
-    // dQ[rows of this tile] += dS K: dS^T goes through shared memory, and
-    // warp w takes rows 16w .. 16w + 15 over all 64 keys of the tile
+    if constexpr (kDq) {
+      // dQ[rows of this tile] += dS K: dS^T goes through shared memory, and
+      // warp w takes rows 16w .. 16w + 15 over all 64 keys of the tile
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dSt[(warp * 16 + g + 8 * (e >> 1)) * LDS + j * 8 + 2 * t + (e & 1)] =
-            from_float<T>(dpt[j][e]);
-    }
-    __syncthreads();
-    FragA<T> dsa[4];  // A[row][key] = dS^T[key][row]
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      load_a(dsa[kk], dSt + (kk * 16) * LDS + warp * 16, 1, LDS, g, t);
-    const int qr[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      float acc[4] = {};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        FragB<T> kb;  // B[key][d] = K[key][d]
-        load_b(kb, Ks + (kk * 16) * LD + n * 8, LD, 1, g, t);
-        mma(acc, dsa[kk], kb);
+        for (int e = 0; e < 4; ++e)
+          dSt[(warp * 16 + g + 8 * (e >> 1)) * LDS + j * 8 + 2 * t + (e & 1)] =
+              from_float<T>(dpt[j][e]);
       }
+      __syncthreads();
+      FragA<T> dsa[4];  // A[row][key] = dS^T[key][row]
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (qr[r] < p.Lq) {
-          float* row = p.dq + ((static_cast<int64_t>(b) * p.Lq + qr[r]) * p.H + h) * D;
-          atomicAdd(row + n * 8 + 2 * t, acc[2 * r]);
-          atomicAdd(row + n * 8 + 2 * t + 1, acc[2 * r + 1]);
+      for (int kk = 0; kk < 4; ++kk)
+        load_a(dsa[kk], dSt + (kk * 16) * LDS + warp * 16, 1, LDS, g, t);
+      const int qr[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        float acc[4] = {};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          FragB<T> kb;  // B[key][d] = K[key][d]
+          load_b(kb, Ks + (kk * 16) * LD + n * 8, LD, 1, g, t);
+          mma(acc, dsa[kk], kb);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (qr[r] < p.Lq) {
+            float* row = p.dq + ((static_cast<int64_t>(b) * p.Lq + qr[r]) * p.H + h) * D;
+            atomicAdd(row + n * 8 + 2 * t, acc[2 * r]);
+            atomicAdd(row + n * 8 + 2 * t + 1, acc[2 * r + 1]);
+          }
         }
       }
     }
@@ -521,33 +538,189 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D, bool kBwd>
+// The split backward's dQ (the TPU's _bwd_dq_kernel): grid (ceil(Lq / 64),
+// B * H); warp w owns rows 16w .. 16w + 15 of the Q tile and sweeps the K/V
+// tiles, when causal up to the tile's last visible key. Per K/V tile:
+// S = (q scale) K^T and dP = dO V^T (fp32), P = where(mask, exp(S - LSE), 0),
+// dS = P (dP - Delta) scale, dQ += dS K with dS in q's dtype; the fp32 sum
+// stays in registers and dQ is written once in the input dtype.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) {
+  constexpr int LD = D + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qss = reinterpret_cast<T*>(smem);  // q scaled in its dtype, for S
+  T* dOs = Qss + kTile * LD;
+  T* Ks = dOs + kTile * LD;
+  T* Vs = Ks + kTile * LD;
+  float* lse_s = reinterpret_cast<float*>(Vs + kTile * LD);
+  float* dl_s = lse_s + kTile;
+
+  const int n_qt = (p.Lq + kTile - 1) / kTile;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x);  // longest rows first
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* lse = p.lse + static_cast<int64_t>(bh) * p.Lq;
+  const float* delta = p.delta + static_cast<int64_t>(bh) * p.Lq;
+
+  const int q0 = qt * kTile;
+  load_tile<T, D, true>(Qss, q, p.q_sl, q0, p.Lq, round_to<T>(p.scale));
+  load_tile<T, D, false>(dOs, dout, p.o_sl, q0, p.Lq, 1.f);
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    const bool in = q0 + i < p.Lq;
+    lse_s[i] = in ? lse[q0 + i] : 0.f;
+    dl_s[i] = in ? delta[q0 + i] : 0.f;
+  }
+  __syncthreads();
+  const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const float lse_r[2] = {lse_s[warp * 16 + g], lse_s[warp * 16 + g + 8]};
+  const float dl_r[2] = {dl_s[warp * 16 + g], dl_s[warp * 16 + g + 8]};
+  float dq[D / 8][4] = {};
+
+  const int n_kt = (p.Lk + kTile - 1) / kTile;
+  int kt_end = n_kt;
+  if (p.causal) {
+    const int last = q0 + kTile - 1 + p.shift;  // the tile's last visible key
+    kt_end = last < 0 ? 0 : min(n_kt, last / kTile + 1);
+  }
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_tile<T, D, false>(Ks, k, p.k_sl, k0, p.Lk, 1.f);
+    load_tile<T, D, false>(Vs, v, p.v_sl, k0, p.Lk, 1.f);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T, 16 rows x 64 keys: 8 tiles of 8 keys
+    float s[8][4] = {};
+    float dp[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      FragA<T> qa, oa;
+      load_a(qa, Qss + (warp * 16) * LD + kk * 16, LD, 1, g, t);
+      load_a(oa, dOs + (warp * 16) * LD + kk * 16, LD, 1, g, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        FragB<T> kb, vb;  // B[d][key] = K[key][d], V[key][d]
+        load_b(kb, Ks + (j * 8) * LD + kk * 16, 1, LD, g, t);
+        mma(s[j], qa, kb);
+        load_b(vb, Vs + (j * 8) * LD + kk * 16, 1, LD, g, t);
+        mma(dp[j], oa, vb);
+      }
+    }
+
+    // P = where(mask, exp(S - LSE), 0); dS = P (dP - Delta) scale
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+        const bool vis = kpos < p.Lk && (!p.causal || kpos <= qrow[r] + p.shift);
+        const float pv = vis ? expf(s[j][e] - lse_r[r]) : 0.f;
+        dp[j][e] = pv * (dp[j][e] - dl_r[r]) * p.scale;
+      }
+    }
+
+    // dQ += dS K, dS in q's dtype
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      FragA<T> da;
+      a_from_c(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        FragB<T> kb;  // B[key][d] = K[key][d]
+        load_b(kb, Ks + (kk * 16) * LD + n * 8, LD, 1, g, t);
+        mma(dq[n], da, kb);
+      }
+    }
+  }
+
+  T* dq_out = static_cast<T*>(p.dq_out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qrow[r] < p.Lq) {
+      T* row = dq_out + ((static_cast<int64_t>(b) * p.Lq + qrow[r]) * p.H + h) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        row[n * 8 + 2 * t] = from_float<T>(dq[n][2 * r]);
+        row[n * 8 + 2 * t + 1] = from_float<T>(dq[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+enum Kind { kFwd, kBwdFused, kBwdDkv, kBwdDq };
+
+template <typename T, int D, int K>
 int launch_typed(const Params& p, int B, cudaStream_t stream) {
   constexpr int LD = D + kPad;
-  const size_t smem =
-      kBwd ? (5 * kTile * LD + kTile * (kTile + kPad)) * sizeof(T) + 2 * kTile * sizeof(float)
-           : 3 * kTile * LD * sizeof(T);
+  constexpr size_t tile = kTile * LD * sizeof(T);
+  constexpr size_t rows = 2 * kTile * sizeof(float);  // LSE and Delta of a Q tile
+  size_t smem = 3 * tile;
   void (*kernel)(const Params) = flash_fwd_kernel<T, D>;
-  if constexpr (kBwd) kernel = flash_bwd_kernel<T, D>;
+  int n_rows = p.Lq;
+  if constexpr (K == kBwdFused) {
+    smem = 5 * tile + kTile * (kTile + kPad) * sizeof(T) + rows;
+    kernel = flash_bwd_kernel<T, D, true>;
+    n_rows = p.Lk;
+  } else if constexpr (K == kBwdDkv) {
+    smem = 5 * tile + rows;
+    kernel = flash_bwd_kernel<T, D, false>;
+    n_rows = p.Lk;
+  } else if constexpr (K == kBwdDq) {
+    smem = 4 * tile + rows;
+    kernel = flash_bwd_dq_kernel<T, D>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = kBwd ? p.Lk : p.Lq;
-  const dim3 grid((rows + kTile - 1) / kTile, B * p.H);
+  const dim3 grid((n_rows + kTile - 1) / kTile, B * p.H);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kBwd>
+template <int K>
 int launch(const Params& p, int dtype, int B, int D, void* stream) {
   if (B < 1 || p.H < 1 || p.Lq < 1 || p.Lk < 1 || B * p.H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch_typed<float, 64, kBwd>(p, B, st);
-  if (dtype == 0 && D == 128) return launch_typed<float, 128, kBwd>(p, B, st);
-  if (dtype == 1 && D == 64) return launch_typed<bf16, 64, kBwd>(p, B, st);
-  if (dtype == 1 && D == 128) return launch_typed<bf16, 128, kBwd>(p, B, st);
+  if (dtype == 0 && D == 64) return launch_typed<float, 64, K>(p, B, st);
+  if (dtype == 0 && D == 128) return launch_typed<float, 128, K>(p, B, st);
+  if (dtype == 1 && D == 64) return launch_typed<bf16, 64, K>(p, B, st);
+  if (dtype == 1 && D == 128) return launch_typed<bf16, 128, K>(p, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+Params backward_params(const void* q, int64_t q_sb, int64_t q_sl, int64_t q_sh,
+                       const void* k, int64_t k_sb, int64_t k_sl, int64_t k_sh,
+                       const void* v, int64_t v_sb, int64_t v_sl, int64_t v_sh,
+                       const void* dout, int64_t o_sb, int64_t o_sl, int64_t o_sh,
+                       const void* lse, const void* delta, void* dk, void* dv, int H,
+                       int Lq, int Lk, int causal, int shift, float scale) {
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.q_sb = q_sb, p.q_sl = q_sl, p.q_sh = q_sh;
+  p.k_sb = k_sb, p.k_sl = k_sl, p.k_sh = k_sh;
+  p.v_sb = v_sb, p.v_sl = v_sl, p.v_sh = v_sh;
+  p.o_sb = o_sb, p.o_sl = o_sl, p.o_sh = o_sh;
+  p.lse = static_cast<float*>(const_cast<void*>(lse));
+  p.delta = static_cast<const float*>(delta);
+  p.dk = dk;
+  p.dv = dv;
+  p.H = H, p.Lq = Lq, p.Lk = Lk, p.causal = causal, p.shift = shift;
+  p.scale = scale;
+  return p;
 }
 
 }  // namespace
@@ -572,7 +745,7 @@ extern "C" int pdt_flash_fwd(const void* q, int64_t q_sb, int64_t q_sl, int64_t 
   p.lse = static_cast<float*>(lse);
   p.H = H, p.Lq = Lq, p.Lk = Lk, p.causal = causal, p.shift = shift;
   p.scale = scale;
-  return launch<false>(p, dtype, B, D, stream);
+  return launch<kFwd>(p, dtype, B, D, stream);
 }
 
 // dq: fp32 [B, Lq, H, D], zero on entry; dk, dv: contiguous [B, Lk, H, D];
@@ -584,23 +757,31 @@ extern "C" int pdt_flash_bwd(const void* q, int64_t q_sb, int64_t q_sl, int64_t 
                              const void* lse, const void* delta, void* dq, void* dk,
                              void* dv, int dtype, int B, int H, int Lq, int Lk, int D,
                              int causal, int shift, float scale, void* stream) {
-  Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.q_sb = q_sb, p.q_sl = q_sl, p.q_sh = q_sh;
-  p.k_sb = k_sb, p.k_sl = k_sl, p.k_sh = k_sh;
-  p.v_sb = v_sb, p.v_sl = v_sl, p.v_sh = v_sh;
-  p.o_sb = o_sb, p.o_sl = o_sl, p.o_sh = o_sh;
-  p.lse = static_cast<float*>(const_cast<void*>(lse));
-  p.delta = static_cast<const float*>(delta);
+  Params p = backward_params(q, q_sb, q_sl, q_sh, k, k_sb, k_sl, k_sh, v, v_sb, v_sl, v_sh,
+                             dout, o_sb, o_sl, o_sh, lse, delta, dk, dv, H, Lq, Lk, causal,
+                             shift, scale);
   p.dq = static_cast<float*>(dq);
-  p.dk = dk;
-  p.dv = dv;
-  p.H = H, p.Lq = Lq, p.Lk = Lk, p.causal = causal, p.shift = shift;
-  p.scale = scale;
-  return launch<true>(p, dtype, B, D, stream);
+  return launch<kBwdFused>(p, dtype, B, D, stream);
+}
+
+// The split backward: the dK/dV kernel, then the dQ kernel, on one stream.
+// dq: contiguous [B, Lq, H, D] in the input dtype, written once; the rest as
+// pdt_flash_bwd.
+extern "C" int pdt_flash_bwd_split(const void* q, int64_t q_sb, int64_t q_sl, int64_t q_sh,
+                                   const void* k, int64_t k_sb, int64_t k_sl, int64_t k_sh,
+                                   const void* v, int64_t v_sb, int64_t v_sl, int64_t v_sh,
+                                   const void* dout, int64_t o_sb, int64_t o_sl,
+                                   int64_t o_sh, const void* lse, const void* delta,
+                                   void* dq, void* dk, void* dv, int dtype, int B, int H,
+                                   int Lq, int Lk, int D, int causal, int shift,
+                                   float scale, void* stream) {
+  Params p = backward_params(q, q_sb, q_sl, q_sh, k, k_sb, k_sl, k_sh, v, v_sb, v_sl, v_sh,
+                             dout, o_sb, o_sl, o_sh, lse, delta, dk, dv, H, Lq, Lk, causal,
+                             shift, scale);
+  p.dq_out = dq;
+  const int err = launch<kBwdDkv>(p, dtype, B, D, stream);
+  if (err != 0) return err;
+  return launch<kBwdDq>(p, dtype, B, D, stream);
 }
 
 extern "C" const char* pdt_flash_error_string(int code) {

@@ -14,6 +14,11 @@ GELU MLP), a final LayerNorm and an untied LM head with fp32 logits.
   ``attention="flash"`` through the CUDA kernels of
   ``ops.flash_attention`` or ``"dense"`` in plain PyTorch; with
   ``return_hidden`` it stops after the final LayerNorm for the fused loss.
+  Sequence-parallel training shards the sequence over the mesh's
+  ``config.seq_axis`` group and attends round the ring: ``"ring_flash"``
+  through the flash kernels (``ops.ring_flash``), ``"ring"`` in plain
+  PyTorch (``parallel.sequence``), with ``ring_layout`` contiguous or
+  zigzag (a zigzag shard's wpe positions come as ``positions=``).
 
 Both forwards share one module and its state-dict names, so
 ``models.convert.params_from_jax`` serves both.
@@ -34,10 +39,10 @@ What must match the flax module exactly:
   (``train.lm.create_lm_state``), because AdamW on bf16 parameters loses
   most updates.
 
-The ring, blockwise, MoE, tensor-parallel, RoPE, dropout and GQA branches
-of the JAX module are not ported yet: their config fields raise
-``NotImplementedError`` when set, and ``attention="ring"``/``"blockwise"``
-when the training forward runs.
+The blockwise, MoE, tensor-parallel, RoPE, dropout and GQA branches of the
+JAX module are not ported yet: their config fields raise
+``NotImplementedError`` when set, and ``attention="blockwise"`` when the
+training forward runs.
 """
 
 from __future__ import annotations
@@ -55,9 +60,13 @@ from pytorch_distributed_tpu_torch.ops.attention import (
     paged_attention,
 )
 from pytorch_distributed_tpu_torch.ops.flash_attention import flash_attention
+from pytorch_distributed_tpu_torch.ops.ring_flash import ring_flash_attention
+from pytorch_distributed_tpu_torch.parallel.mesh import SEQ_AXIS, axis_group
+from pytorch_distributed_tpu_torch.parallel.sequence import LAYOUTS, ring_attention
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
-ATTENTIONS = ("dense", "flash")
+ATTENTIONS = ("dense", "flash", "ring", "ring_flash")
+RING_ATTENTIONS = ("ring", "ring_flash")
 #: JAX config fields whose branches are not ported, with their defaults
 NOT_PORTED = {"dropout": 0.0, "num_kv_heads": None, "pos_embedding": "learned",
               "n_experts": 0, "tp_size": 1}
@@ -77,7 +86,7 @@ class LayerCache(NamedTuple):
 
 def _later(what: str) -> str:
     return (f"{what}: not ported yet (ROADMAP.md, the port's queue: dropout, "
-            "GQA, RoPE, MoE, TP, blockwise and the ring come with later slices)")
+            "GQA, RoPE, MoE, TP and blockwise come with later slices)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,9 +100,15 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     # parameters' dtype; None = dtype (serving). Training keeps fp32.
     param_dtype: Optional[torch.dtype] = None
-    # training attention: "flash" (the CUDA kernels) or "dense"; serving
-    # requires "dense" (models.generate) and reads through gather_impl
+    # training attention: "flash" (the CUDA kernels), "dense", or over a
+    # sequence-parallel group "ring_flash" (the kernels per ring visit) or
+    # "ring" (plain PyTorch); serving requires "dense" (models.generate) and
+    # reads through gather_impl
     attention: str = "dense"
+    # the mesh axis whose group the ring runs over (parallel.mesh.make_mesh
+    # registers it), and the shards' layout: "contiguous" or "zigzag"
+    seq_axis: str = SEQ_AXIS
+    ring_layout: str = "contiguous"
     # paged read path: "kernel" runs the CUDA kernels of ops/paged_flash.py
     # (the JAX package's "pallas"), "dense" the plain PyTorch version
     gather_impl: str = "kernel"
@@ -121,6 +136,14 @@ class TransformerConfig:
         if self.param_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(
                 f"param_dtype must be None, float32 or bfloat16, got {self.param_dtype}")
+        if self.ring_layout not in LAYOUTS:
+            raise ValueError(
+                f"ring_layout {self.ring_layout!r} must be 'contiguous' or 'zigzag'")
+        if self.ring_layout == "zigzag" and self.attention not in RING_ATTENTIONS:
+            raise ValueError(
+                f"ring_layout='zigzag' only applies to ring attention (got "
+                f"attention={self.attention!r}); the layout is a causal-ring "
+                "scheduling balance, meaningless elsewhere")
         if self.gather_impl not in GATHER_IMPLS:
             raise ValueError(
                 f"gather_impl {self.gather_impl!r} must be one of {GATHER_IMPLS}")
@@ -222,8 +245,11 @@ class Attention(nn.Module):
         place at ``(index.blk, index.off)``, then attends through the
         tables; the chunk just written is visible to itself through the
         same frontier mask. Training (no cache): causal self-attention over
-        the L tokens, flash or dense by ``cfg.attention``; the flash kernel
-        masks from position 0, which is exact for equal q/k offsets."""
+        the L tokens by ``cfg.attention``; the flash kernel masks from
+        position 0, which is exact for equal q/k offsets, and the rings
+        take their causal structure from the ring positions (the contiguous
+        plain ring from the document's base, ``position_offset`` less this
+        shard's start)."""
         cfg = self.cfg
         b, l, _ = x.shape
         h, d = cfg.num_heads, cfg.head_dim
@@ -231,6 +257,14 @@ class Attention(nn.Module):
         if cache is None:
             if cfg.attention == "flash":
                 out = flash_attention(q, k, v, causal=True)
+            elif cfg.attention == "ring_flash":
+                out = ring_flash_attention(q, k, v, causal=True, layout=cfg.ring_layout,
+                                           group=axis_group(cfg.seq_axis))
+            elif cfg.attention == "ring":
+                ax = axis_group(cfg.seq_axis)
+                base = 0 if cfg.ring_layout == "zigzag" else position_offset - ax.index * l
+                out = ring_attention(q, k, v, group=ax, causal=True, base_offset=base,
+                                     layout=cfg.ring_layout)
             else:
                 out = dense_attention(q, k, v, causal=True, q_offset=position_offset,
                                       k_offset=position_offset)
@@ -284,7 +318,9 @@ class TransformerLM(nn.Module):
     return_hidden=False)`` → logits ``[B, L, vocab]`` fp32, or with
     ``return_hidden`` the fp32 output of the final LayerNorm (the fused
     loss applies ``lm_head.weight`` itself). ``positions [L]`` overrides
-    ``position_offset + arange(L)`` for the position embedding.
+    ``position_offset + arange(L)`` for the position embedding (required
+    for a zigzag shard). Sequence-parallel: ``tokens`` is this rank's shard
+    and ``position_offset`` its first token's position.
     """
 
     def __init__(self, cfg: TransformerConfig):
@@ -328,10 +364,17 @@ class TransformerLM(nn.Module):
                 "block_tables and cache); training takes a scalar offset or "
                 "positions=")
         if self.cfg.attention not in ATTENTIONS:
-            if self.cfg.attention in ("blockwise", "ring", "ring_flash"):
+            if self.cfg.attention == "blockwise":
                 raise NotImplementedError(_later(f"attention={self.cfg.attention!r}"))
             raise ValueError(
                 f"attention {self.cfg.attention!r} must be one of {ATTENTIONS}")
+        if self.cfg.ring_layout == "zigzag" and positions is None:
+            raise ValueError(
+                "ring_layout='zigzag' requires the per-shard position vector "
+                "(positions=): shards hold chunk pairs (r, 2s-1-r), so "
+                "offset+arange wpe positions are wrong. Use the LM train/eval "
+                "steps (train/lm.py), which compute it, and shard batches with "
+                "shard_lm_batch(..., layout='zigzag').")
         offset = int(position_offset)
         if positions is None:
             positions = offset + torch.arange(tokens.shape[1], device=tokens.device)

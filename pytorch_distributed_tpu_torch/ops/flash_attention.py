@@ -1,8 +1,9 @@
 """FlashAttention through the hand-written CUDA kernels.
 
 The port of ``pytorch_distributed_tpu/ops/flash_attention.py``'s
-``flash_attention`` with its default fused backward, as a
-``torch.autograd.Function``. Two kernels of ``csrc/flash_attention.cu``:
+``flash_attention`` with both of its backwards (``bwd_impl="fused"``, the
+default, or ``"split"``), as a ``torch.autograd.Function``. Four kernels of
+``csrc/flash_attention.cu``:
 
 - ``flash_attention_fwd`` (the TPU's ``_flash_fwd``): O in the input dtype
   and the row log-sum-exp LSE ``[B, H, Lq]`` fp32;
@@ -10,7 +11,16 @@ The port of ``pytorch_distributed_tpu/ops/flash_attention.py``'s
   in one pass over the visible (q, k) tiles, dQ summed in fp32 across key
   tiles, which is the JAX kernel's ``partials_f32=True``. Δ = rowsum(dO ⊙ O)
   and the final dQ cast are torch ops around it, as they are XLA ops
-  around the Pallas kernel.
+  around the Pallas kernel;
+- ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq`` (the TPU's
+  split ``_flash_bwd``, ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``): dK, dV
+  with one block per key tile, and dQ with one block per query tile, each
+  written once in the input dtype with no atomics, so their gradients are
+  bit-identical from one launch to the next. The ring runs them per visit
+  with ``bwd_impl="split"``.
+
+Both backwards take an optional precomputed Δ ``[B, H, Lq]`` fp32: the ring
+computes it once from the final O, not once per visit.
 
 Beside each kernel is its plain version (``flash_forward_reference``,
 ``flash_backward_reference``): the same arithmetic and rounding on whole
@@ -41,8 +51,11 @@ from pytorch_distributed_tpu_torch.ops.attention import NEG_INF, causal_mask
 
 FWD = "flash_attention_fwd"
 BWD = "flash_attention_bwd"
+BWD_DKV = "flash_attention_bwd_dkv"
+BWD_DQ = "flash_attention_bwd_dq"
 #: launches of each kernel since the last ``reset_launch_counts``
-launch_counts = {FWD: 0, BWD: 0}
+launch_counts = {FWD: 0, BWD: 0, BWD_DKV: 0, BWD_DQ: 0}
+BWD_IMPLS = ("fused", "split")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
@@ -85,14 +98,33 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
     return o.to(q.dtype), lse
 
 
+def check_bwd_impl(bwd_impl: str) -> None:
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(
+            f"bwd_impl {bwd_impl!r} must be 'split' (two kernels) or "
+            "'fused' (single-pass dQ+dK+dV with HBM dQ partials)")
+
+
+def compute_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """Δ = rowsum(dO ⊙ O) in fp32, ``[B, H, Lq]``, contiguous
+    (``compute_delta``:401 of the JAX package, without its 128-lane
+    broadcast)."""
+    return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
 def flash_backward_reference(q, k, v, o, lse, do, *, causal: bool, scale: float,
-                             shift: int = 0):
-    """The fused backward's plain version: ``(dq, dk, dv)`` in the inputs'
+                             shift: int = 0, delta: Optional[torch.Tensor] = None):
+    """The plain version of both backwards: ``(dq, dk, dv)`` in the inputs'
     dtypes, from P = where(mask, exp(S − LSE), 0), dP = dO·Vᵀ and
     dS = P ⊙ (dP − Δ)·scale (``_masked_p_ds``), with P in dO's dtype for
-    dV, dS in q's dtype for dK and dQ, and dQ summed in fp32."""
+    dV, dS in q's dtype for dK and dQ, and dQ summed in fp32. The JAX
+    package computes both of its backward kernels, fused and split, from
+    ``_masked_p_ds``; the split's dQ is the pure-fp32 sum modelled here, and
+    the fused kernel's is the same sum with ``partials_f32=True``. ``delta``
+    (``[B, H, Lq]`` fp32) defaults to ``compute_delta(do, o)``."""
     allowed = _allowed(q.shape[1], k.shape[1], causal, shift, q.device)
-    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)  # [B, H, Lq]
+    if delta is None:
+        delta = compute_delta(do, o)
     p = torch.where(allowed, torch.exp(_scaled_logits(q, k, scale) - lse[..., None]), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     ds = p * (dp - delta[..., None]) * scale
@@ -111,6 +143,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pdt_flash_fwd.restype = i
     lib.pdt_flash_bwd.argtypes = operand * 4 + [p, p, p, p, p] + dims + [f, p]
     lib.pdt_flash_bwd.restype = i
+    lib.pdt_flash_bwd_split.argtypes = operand * 4 + [p, p, p, p, p] + dims + [f, p]
+    lib.pdt_flash_bwd_split.restype = i
     lib.pdt_flash_error_string.argtypes = [i]
     lib.pdt_flash_error_string.restype = ctypes.c_char_p
 
@@ -188,23 +222,57 @@ def launch_forward(q, k, v, causal: bool, scale: float,
     return o, lse
 
 
-def launch_backward(q, k, v, o, lse, do, causal: bool, scale: float, shift: int):
-    """Δ, one launch of the fused backward kernel on checked CUDA operands,
-    and the dQ cast. Returns ``(dq, dk, dv)`` in the inputs' dtype."""
+def _backward_operands(q, k, v, o, lse, do, delta):
+    """The C functions' leading arguments, and the fp32 rows they read:
+    LSE and Δ as contiguous ``[B, H, Lq]`` (a zigzag chunk's slice of the
+    rows is copied; Δ from ``do`` and ``o`` when not given)."""
+    if delta is None:
+        delta = compute_delta(do, o)
+    rows = lse.contiguous(), delta.contiguous()
+    args = [*_operand(q), *_operand(k), *_operand(v), *_operand(do), _ptr(rows[0]),
+            _ptr(rows[1])]
+    return args, rows
+
+
+def launch_backward(q, k, v, o, lse, do, causal: bool, scale: float, shift: int,
+                    delta: Optional[torch.Tensor] = None):
+    """Δ (unless given), one launch of the fused backward kernel on checked
+    CUDA operands, and the dQ cast. Returns ``(dq, dk, dv)`` in the inputs'
+    dtype."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
-    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    args, rows = _backward_operands(q, k, v, o, lse, do, delta)
     dq = torch.zeros((b, lq, h, d), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, lk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, lk, h, d), dtype=v.dtype, device=v.device)
     lib = _library()
     code = lib.pdt_flash_bwd(
-        *_operand(q), *_operand(k), *_operand(v), *_operand(do), _ptr(lse),
-        _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), _DTYPE_CODES[q.dtype], b, h,
-        lq, lk, d, int(causal), int(shift), float(scale), _stream(q))
+        *args, _ptr(dq), _ptr(dk), _ptr(dv), _DTYPE_CODES[q.dtype], b, h, lq, lk, d,
+        int(causal), int(shift), float(scale), _stream(q))
     _check_launch(lib, BWD, code)
     launch_counts[BWD] += 1
     return dq.to(q.dtype), dk, dv
+
+
+def launch_backward_split(q, k, v, o, lse, do, causal: bool, scale: float, shift: int,
+                          delta: Optional[torch.Tensor] = None):
+    """Δ (unless given), then the split backward on checked CUDA operands:
+    the dK/dV kernel and the dQ kernel, one launch each, every output
+    written once in the input dtype. Returns ``(dq, dk, dv)``."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    args, rows = _backward_operands(q, k, v, o, lse, do, delta)
+    dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, lk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, lk, h, d), dtype=v.dtype, device=v.device)
+    lib = _library()
+    code = lib.pdt_flash_bwd_split(
+        *args, _ptr(dq), _ptr(dk), _ptr(dv), _DTYPE_CODES[q.dtype], b, h, lq, lk, d,
+        int(causal), int(shift), float(scale), _stream(q))
+    _check_launch(lib, f"{BWD_DKV}/{BWD_DQ}", code)
+    launch_counts[BWD_DKV] += 1
+    launch_counts[BWD_DQ] += 1
+    return dq, dk, dv
 
 
 def flash_forward(q, k, v, *, causal: bool, scale: float, shift: int = 0):
@@ -218,33 +286,37 @@ def flash_forward(q, k, v, *, causal: bool, scale: float, shift: int = 0):
     return launch_forward(q, k, v, causal, scale, shift)
 
 
-def flash_backward(q, k, v, o, lse, do, *, causal: bool, scale: float, shift: int = 0):
-    """``(dq, dk, dv)``: the plain version on the CPU, the kernel on CUDA."""
+def flash_backward(q, k, v, o, lse, do, *, causal: bool, scale: float, shift: int = 0,
+                   bwd_impl: str = "fused", delta: Optional[torch.Tensor] = None):
+    """``(dq, dk, dv)``: the plain version on the CPU; on CUDA the fused
+    kernel or, with ``bwd_impl="split"``, the two split kernels."""
+    check_bwd_impl(bwd_impl)
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, o, lse, do, causal=causal,
-                                        scale=scale, shift=shift)
+                                        scale=scale, shift=shift, delta=delta)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     do = do.contiguous()
     _check_cuda_operands(q, k, v, o, do)
-    return launch_backward(q, k, v, o, lse, do, causal, scale, shift)
+    launch = launch_backward if bwd_impl == "fused" else launch_backward_split
+    return launch(q, k, v, o, lse, do, causal, scale, shift, delta)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float, shift: int):
+    def forward(ctx, q, k, v, causal: bool, scale: float, shift: int, bwd_impl: str):
         o, lse = flash_forward(q, k, v, causal=causal, scale=scale, shift=shift)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (causal, scale, shift)
+        ctx.args = (causal, scale, shift, bwd_impl)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, scale, shift = ctx.args
+        causal, scale, shift, bwd_impl = ctx.args
         dq, dk, dv = flash_backward(q, k, v, o, lse, do.to(q.dtype), causal=causal,
-                                    scale=scale, shift=shift)
-        return dq, dk, dv, None, None, None
+                                    scale=scale, shift=shift, bwd_impl=bwd_impl)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -256,17 +328,21 @@ def flash_attention(
     scale: Optional[float] = None,
     q_offset: int = 0,
     k_offset: int = 0,
+    bwd_impl: str = "fused",
 ) -> torch.Tensor:
     """``softmax(QKᵀ·scale)V`` on ``[B, L, H, D]``, differentiable in q, k
-    and v (``ops/flash_attention.py:530`` of the JAX package, with
-    ``bwd_impl="fused"``). Returns ``[B, Lq, H, D]`` in q's dtype.
+    and v (``ops/flash_attention.py:530`` of the JAX package). Returns
+    ``[B, Lq, H, D]`` in q's dtype.
 
-    On CUDA tensors the forward and the backward each launch one kernel
-    (D in ``HEAD_DIMS``, fp32 or bf16), or raise; on CPU tensors they run
-    the plain versions. dQ sums in fp32 (the JAX ``partials_f32=True``),
-    so against JAX's default bf16 partials it differs by their rounding.
+    On CUDA tensors the forward launches one kernel and the backward the
+    fused kernel (``bwd_impl="fused"``) or the two split kernels
+    (``"split"``), D in ``HEAD_DIMS``, fp32 or bf16, or they raise; on CPU
+    tensors they run the plain versions. dQ sums in fp32 either way (the
+    JAX ``partials_f32=True``, and the split kernels' own accumulation), so
+    against JAX's default bf16 partials it differs by their rounding.
     """
     _check_shapes(q, k, v)
+    check_bwd_impl(bwd_impl)
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     return _FlashAttention.apply(q, k, v, bool(causal), scale,
-                                 int(q_offset) - int(k_offset))
+                                 int(q_offset) - int(k_offset), bwd_impl)

@@ -1,10 +1,13 @@
-"""LMTrainer on one card (``pytorch_distributed_tpu/train/lm_trainer.py``).
+"""LMTrainer (``pytorch_distributed_tpu/train/lm_trainer.py``).
 
-The epoch loop of the JAX trainer without its mesh: the sampler's
-``set_epoch`` reshuffle, the warmup-cosine AdamW (``LMTrainerConfig`` has
-the JAX defaults), optional global-norm clipping and ``nan_guard``, and a
-validation pass per epoch reporting token perplexity. Checkpoints, best
-and suspend/resume, the compile cache, the watchdog, metrics JSONL and
+The epoch loop of the JAX trainer: the sampler's ``set_epoch`` reshuffle,
+the warmup-cosine AdamW (``LMTrainerConfig`` has the JAX defaults),
+optional global-norm clipping and ``nan_guard``, and a validation pass per
+epoch reporting token perplexity. On one device, or as one rank of a
+data × seq ``parallel.mesh.Mesh``: the sampler shards rows over the data
+axis, ``shard_lm_batch`` gives the rank its sequence columns, the steps
+all-reduce over every rank, and only rank 0 prints. Checkpoints, best and
+suspend/resume, the compile cache, the watchdog, metrics JSONL and
 telemetry come with a later slice; the trainer keeps its logged records in
 ``history`` instead.
 """
@@ -13,13 +16,18 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
+import torch
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.data import DataLoader, DistributedSampler, to_device
 from pytorch_distributed_tpu_torch.ops.schedules import warmup_cosine
+from pytorch_distributed_tpu_torch.parallel.collectives import broadcast_from_primary
+from pytorch_distributed_tpu_torch.parallel.distributed import is_primary
+from pytorch_distributed_tpu_torch.parallel.mesh import Mesh
+from pytorch_distributed_tpu_torch.parallel.sequence import zigzag_shard
 from pytorch_distributed_tpu_torch.train.lm import (
     create_lm_state,
     empty_lm_metrics,
@@ -34,6 +42,27 @@ def lm_collate(samples) -> dict:
     tokens = np.stack(samples).astype(np.int32)
     labels, weights = shift_labels(tokens)
     return {"tokens": tokens, "labels": labels, "weights": weights}
+
+
+def shard_lm_batch(mesh: Optional[Mesh], batch: dict, layout: str = "contiguous") -> dict:
+    """This rank's columns of its data replica's ``[B, L]`` batch: collate
+    and ``shift_labels`` ran on the whole sequence, then with
+    ``layout="zigzag"`` every per-token array is permuted alike
+    (``parallel.sequence.zigzag_shard``), then sequence shard s takes
+    columns ``[s·L/sp, (s+1)·L/sp)`` (``shard_lm_batch``:63 of the JAX
+    package). Never shift per shard. Without a seq axis the batch is
+    returned as it is."""
+    if mesh is None or mesh.seq.size == 1:
+        return batch
+    sp, r = mesh.seq.size, mesh.seq.index
+    out = {}
+    for k, x in batch.items():
+        if layout == "zigzag":
+            x = zigzag_shard(x, sp, axis=1)
+        n = x.shape[1] // sp
+        part = x[:, r * n:(r + 1) * n]
+        out[k] = part.contiguous() if isinstance(part, torch.Tensor) else np.ascontiguousarray(part)
+    return out
 
 
 @dataclasses.dataclass
@@ -52,18 +81,22 @@ class LMTrainerConfig:
 
 class LMTrainer:
     """Drives a ``TransformerConfig`` over token datasets on one device
-    (CUDA unless ``device="cpu"``), from the seeded initialisation."""
+    (CUDA unless ``device="cpu"``), or as this process's rank of ``mesh``,
+    from the seeded initialisation (rank 0's, broadcast).
+    ``config.batch_size`` is per data replica."""
 
     def __init__(self, model_config, train_dataset, val_dataset,
-                 config: LMTrainerConfig, device=None):
+                 config: LMTrainerConfig, device=None, mesh: Optional[Mesh] = None):
         self.config = config
         self.model_config = model_config
+        self.mesh = mesh
         self.device = resolve_device(device)
         pin = self.device.type == "cuda"
-        self.train_sampler = DistributedSampler(len(train_dataset), shuffle=True,
-                                                seed=config.seed)
-        self.val_sampler = DistributedSampler(len(val_dataset), shuffle=False,
-                                              seed=config.seed)
+        dp, d = (mesh.data.size, mesh.data.index) if mesh is not None else (1, 0)
+        self.train_sampler = DistributedSampler(len(train_dataset), num_replicas=dp, rank=d,
+                                                shuffle=True, seed=config.seed)
+        self.val_sampler = DistributedSampler(len(val_dataset), num_replicas=dp, rank=d,
+                                              shuffle=False, seed=config.seed)
         self.train_loader = DataLoader(train_dataset, config.batch_size, lm_collate,
                                        sampler=self.train_sampler, drop_last=True,
                                        pin_memory=pin)
@@ -76,9 +109,12 @@ class LMTrainer:
         self.state = create_lm_state(model_config, lr_schedule=schedule,
                                      weight_decay=config.weight_decay, seed=config.seed,
                                      device=self.device)
+        if mesh is not None:
+            broadcast_from_primary(list(self.state.model.state_dict().values()))
         self.train_step = make_lm_train_step(grad_clip_norm=config.grad_clip_norm,
-                                             nan_guard=config.nan_guard)
-        self.eval_step = make_lm_eval_step()
+                                             nan_guard=config.nan_guard, mesh=mesh,
+                                             config=model_config)
+        self.eval_step = make_lm_eval_step(mesh=mesh, config=model_config)
         self.best_ppl = float("inf")
         #: one record per logged step: its metrics, epoch, step, and the
         #: mean wall time of the steps since the previous record
@@ -93,7 +129,7 @@ class LMTrainer:
         t_prev, since = time.perf_counter(), 0
         for step, host_batch in enumerate(self.train_loader.iter_batches(start_step),
                                           start=start_step):
-            batch = to_device(host_batch, self.device)
+            batch = to_device(self._shard(host_batch), self.device)
             self.state, metrics = self.train_step(self.state, batch)
             since += 1
             if cfg.log_every and step % cfg.log_every == 0:
@@ -102,13 +138,18 @@ class LMTrainer:
                 self.history.append(dict(last, epoch=epoch, step=step,
                                          step_s=(now - t_prev) / since))
                 t_prev, since = now, 0
-                print(f"epoch {epoch} step {step}: loss {last['loss']:.4f}")
+                if is_primary():
+                    print(f"epoch {epoch} step {step}: loss {last['loss']:.4f}")
         return last
+
+    def _shard(self, host_batch: dict) -> dict:
+        return shard_lm_batch(self.mesh, host_batch, self.model_config.ring_layout)
 
     def validate(self) -> dict:
         acc = empty_lm_metrics(self.device)
         for host_batch in self.val_loader.iter_batches(0):
-            acc = self.eval_step(self.state, to_device(host_batch, self.device), acc)
+            acc = self.eval_step(self.state, to_device(self._shard(host_batch), self.device),
+                                 acc)
         tokens = float(acc["tokens"])
         if tokens == 0.0:
             raise ValueError("validation saw zero tokens: the val dataset is "
@@ -122,7 +163,9 @@ class LMTrainer:
             self.train_sampler.set_epoch(epoch)
             self.train_epoch(epoch)
             summary = self.validate()
-            print(f"epoch {epoch}: val loss {summary['loss']:.4f} ppl {summary['ppl']:.3f}")
+            if is_primary():
+                print(f"epoch {epoch}: val loss {summary['loss']:.4f} "
+                      f"ppl {summary['ppl']:.3f}")
             self.best_ppl = min(self.best_ppl, summary["ppl"])
         summary["best_ppl"] = self.best_ppl
         return summary

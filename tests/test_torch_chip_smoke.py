@@ -60,3 +60,108 @@ def test_tail_bounds_at_resnet50_stage_shapes(chip_smoke):
           for k in (bt.MOMENTS, bt.BWD_DZ)}
     assert all(v["bound_by"] == "operations" for v in s4.values())
     assert s4[bt.BWD_DZ]["bound_ms"] == pytest.approx(2 * 6272 * 2560 * 512 / 989e12 * 1e3)
+
+
+def test_split_backward_checks_rehearse_on_cpu(chip_smoke, monkeypatch, capsys):
+    """Kernel 6's check phase on CPU tensors, where the wrappers run the
+    plain version: every shape of ``SPLIT_CHECKS`` (the training and ring
+    shapes cut to L = 70, the zigzag chunk views kept) passes, with dK and
+    dV bitwise equal to the fused path's, repeats bitwise and reports both
+    kernels' errors."""
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+
+    def cut(shape):
+        if shape.get("l", 2048) < 1024:
+            return shape
+        return dict(b=1, l=70, h=2, **{k: x for k, x in shape.items() if k == "view"})
+
+    small = tuple((label, dt, causal, shift, cut(shape))
+                  for label, dt, causal, shift, shape in chip_smoke.SPLIT_CHECKS)
+    assert sum("view" in shape for *_, shape in small) == 2
+    monkeypatch.setattr(chip_smoke, "SPLIT_CHECKS", small)
+    failures = []
+    errs = chip_smoke.check_split_kernels(torch, failures, dev="cpu")
+    assert failures == []
+    assert set(errs) == {fa.BWD_DKV, fa.BWD_DQ}
+    out = capsys.readouterr().out
+    assert out.count("two launches bitwise equal") == len(small) == 14
+    assert out.count("split vs fused") == 3 * len(small)
+    assert out.count("bitwise equal") == 3 * len(small)  # repeats, and dK, dV vs fused
+    assert "FAIL" not in out
+
+
+def test_split_backward_check_takes_a_zigzag_visit_as_the_ring_does(chip_smoke, monkeypatch):
+    """The zigzag cases hand the split backward strided half-shard views
+    and a precomputed, sliced Δ, as ``ops/ring_flash.py`` does."""
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+
+    seen = []
+    real = fa.flash_backward
+
+    def spy(q, k, v, o, lse, do, **kw):
+        seen.append((q.is_contiguous(), k.is_contiguous(), q.shape[1], k.shape[1],
+                     kw.get("delta")))
+        return real(q, k, v, o, lse, do, **kw)
+
+    monkeypatch.setattr(fa, "flash_backward", spy)
+    monkeypatch.setattr(chip_smoke, "SPLIT_CHECKS", tuple(
+        (label, dt, causal, shift, dict(b=2, l=70, h=2, view=shape["view"]))
+        for label, dt, causal, shift, shape in chip_smoke.SPLIT_CHECKS if "view" in shape))
+    failures = []
+    chip_smoke.check_split_kernels(torch, failures, dev="cpu")
+    assert failures == [] and len(seen) == 6  # split twice and fused, two cases
+    for q_contig, k_contig, lq, lk, delta in seen:
+        assert not q_contig and not k_contig and lq == lk == 35
+        assert delta is not None and delta.shape[-1] == 35 and not delta.is_contiguous()
+
+
+def test_split_backward_bound_at_the_training_shape(chip_smoke):
+    """B 8, L 2048, H 12, D 64, causal bf16: 14·D flops per visible pair
+    against the fused kernel's 10·D, so 1.4 x its 130.3 µs; the two split
+    kernels' products add up to the pair's."""
+    q = torch.empty(8, 2048, 12, 64, dtype=torch.bfloat16, device="meta")
+    fb = chip_smoke.flash_bound(q, q)
+    pairs = 8 * 12 * 2048 * 2049 / 2
+    assert fb["bwd_split"]["flops"] == 14 * 64 * pairs
+    assert fb["bwd_split"]["flops"] == fb["bwd_dkv"]["flops"] + fb["bwd_dq"]["flops"]
+    assert all(fb[k]["bound_by"] == "operations" for k in ("bwd_split", "bwd_dkv", "bwd_dq"))
+    assert fb["bwd_split"]["bound_ms"] == pytest.approx(14 * 64 * pairs / 989e12 * 1e3)
+    assert fb["bwd_split"]["bound_ms"] == pytest.approx(0.1825, rel=1e-3)
+    assert fb["bwd_split"]["bound_ms"] / fb["bwd"]["bound_ms"] == pytest.approx(1.4)
+
+
+def test_ring_phase_rehearses_on_cpu(chip_smoke, monkeypatch, tmp_path, capsys):
+    """The ring phase end to end with CPU ranks over gloo at a small size
+    (2 layers, 2 heads of 64, L = 64, B = 2, 2 steps): the four
+    ``ring_flash_attention`` cases against one device, then the trainer in
+    both layouts with its first step against the one-device flash step."""
+    monkeypatch.setattr(chip_smoke, "RING", dict(batch=2, seq=64, steps=2, timeout_s=120))
+    monkeypatch.setattr(chip_smoke, "RING_MODEL", dict(vocab_size=128, num_layers=2,
+                                                       num_heads=2, embed_dim=128))
+    out = chip_smoke.ring_runs(torch, "CPU", str(tmp_path), dev="cpu")
+    text = capsys.readouterr().out
+    assert "backend gloo, 2 ranks on 1 card" in text
+    assert text.count(" ok\n") == 4 and "FAIL" not in text
+    assert text.count("first step vs one card") == 2
+    assert set(out["trainer_launches"]) == {"contiguous", "zigzag"}
+    assert all(n == 0 for n in out["split_launches"].values())  # plain versions
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4, 8])
+def test_ring_launch_expectations_follow_the_ring_schedule(chip_smoke, ranks):
+    """The forward launches chip_smoke expects on each rank (a formula)
+    equal the kernel calls the port's ring schedules, in both layouts."""
+    from pytorch_distributed_tpu_torch.ops.ring_flash import _visits
+
+    for layout in ("contiguous", "zigzag"):
+        scheduled = [sum(len(_visits(layout, True, my, (my - step) % ranks))
+                         for step in range(ranks)) for my in range(ranks)]
+        assert chip_smoke.ring_launches(layout, ranks) == scheduled
+
+
+@pytest.mark.parametrize("cards, want", [(0, (2, "gloo")), (1, (2, "gloo")), (2, (2, "nccl")),
+                                         (4, (4, "nccl")), (8, (4, "nccl"))])
+def test_ring_phase_takes_its_ranks_from_the_cards(chip_smoke, cards, want):
+    """Two ranks share one card (or the CPU) over gloo; with more cards,
+    one rank a card, up to 4, over NCCL."""
+    assert chip_smoke.ring_ranks(cards) == want

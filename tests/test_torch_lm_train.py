@@ -137,7 +137,7 @@ def test_training_config_refuses_unported_branches():
                          ("pos_embedding", "rope"), ("n_experts", 4), ("tp_size", 2)]:
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tiny_config(**{field: value})
-    model = TransformerLM(tiny_config(attention="ring"))
+    model = TransformerLM(tiny_config(attention="blockwise"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         model(torch.from_numpy(tokens()))
 
@@ -367,7 +367,7 @@ def test_recipe_trains_tiny_on_the_cpu():
                                 "--log-every", "1"])
     assert np.isfinite(summary["loss"]) and summary["tokens"] == 8 * 31
     with pytest.raises(SystemExit, match="not ported"):
-        lm_pretrain.main(["--device", "cpu", "--tiny", "--seq-parallel", "2"])
+        lm_pretrain.main(["--device", "cpu", "--tiny", "--model-parallel", "2"])
 
 
 def test_create_lm_state_keeps_fp32_parameters():
