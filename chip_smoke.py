@@ -22,11 +22,13 @@ Phases, each of which fails the run:
       masked rows; the split backward (dK/dV and dQ kernels) at the same
       shapes and at the ring's (a 1024-row shard; 512-row zigzag chunk
       views with the shard's LSE and a sliced, precomputed Δ) against the
-      plain version and against the fused kernel (dK, dV bitwise equal),
-      with two launches bitwise equal; the bottleneck tail's moments, tail_bwd_reduce (gp
-      bit-equal) and tail_bwd_dz at ResNet-50's four stage shapes (B = 128,
-      bf16), moments at the four downsample inputs, the stage shapes at
-      B = 8 in fp32, and ragged shapes (N = 147, F = 40);
+      plain version and against the fused kernel (dK, dV bitwise equal);
+      the bottleneck tail's moments, tail_bwd_reduce (gp bit-equal) and
+      tail_bwd_dz at ResNet-50's four stage shapes (B = 128, bf16), moments
+      at the four downsample inputs, the stage shapes at B = 8 in fp32, and
+      ragged shapes (N = 147, F = 40); two launches bitwise equal for
+      moments, tail_bwd_reduce and both flash backwards at every shape they
+      are checked at;
   (c) the port's main paths, each with the launch counters reset just
       before and read just after, on the full-width LM (32000 vocab, 12
       layers, 12 heads, width 768, 2048 positions, bf16, random weights
@@ -55,7 +57,8 @@ Phases, each of which fails the run:
       ``LMTrainer`` at dp 1 x sp ranks with ``ring_flash``, 4 steps of
       B = 8 x 2048 and a validation pass in each layout, the first step
       against the one-card flash step;
-  (d) kernel, plain-version and library times beside each kernel's bound:
+  (d) kernel, plain-version and library times beside each kernel's bound
+      (the flash calls also by their kernels' device time):
       the paged kernels at the decode shape (library: SDPA on pre-gathered
       K/V; no PyTorch call reads int8/fp8 K/V with per-row scales, so the
       quantized variants and the scatter have none), the scatter at the
@@ -90,9 +93,11 @@ QUANT = ("int8", "fp8", "fp8_e5m2")
 BF16_TOL = 2e-2  # bf16 output, p rounded to bf16 before PV
 FP32_TOL = 1e-4
 SPLIT_VS_SWEEP_TOL = 1e-3  # another fp32 summation order (paged_flash.py:278)
-# bf16 gradients of |g| <= 8: two bf16 ulps at 8; dQ sums key tiles by
-# atomics in no fixed order, and the kernel rounds p and dS against the
-# running statistics where the plain version uses whole rows
+# bf16 gradients of |g| <= 8: two bf16 ulps at 8; the kernels sum S, dP and
+# dQ in another (fixed) order than the plain version, and round p and dS
+# from those sums. At D = 128 the backward scales S in fp32 by the
+# bf16-rounded scale where the plain version rounds q * scale to bf16 (a
+# relative 2^-9 on S), well inside the same tolerance
 BF16_GRAD_TOL = 6e-2
 LSE_TOL = 1e-4  # fp32 statistics in another summation order
 # flash vs dense training step, bf16 compute through 12 layers: flash
@@ -164,8 +169,9 @@ RING_GRAD_NORM_RTOL = 2e-3
 # F) of the expand tail's z, E = 4F; and the downsample's strided input
 TAIL_STAGES = ((128, 56, 64), (128, 28, 128), (128, 14, 256), (128, 7, 512))
 TAIL_DOWNSAMPLE = ((128, 56, 64), (128, 28, 256), (128, 14, 512), (128, 7, 1024))
-# fp32 sums (Σz, zᵀz, P, Σgp) relative to the largest |value|: blocks add
-# their tiles by atomics in no fixed order over up to 401,408 rows
+# fp32 sums (Σz, zᵀz, P, Σgp) relative to the largest |value|: blocks sum
+# chunks of up to 3,072 rows, then the chunks in ascending order, over up
+# to 401,408 rows; the plain version sums in cuBLAS's order
 TAIL_SUM_RTOL = 1e-4
 # dz relative to the largest |value|: bf16 output (one ulp 2^-8 relative)
 # from fp32 sums in another order, and wa, c rounded to bf16 on both sides
@@ -424,6 +430,17 @@ def kernel_device_ms(torch, fn, match, iters=10) -> dict:
     return out
 
 
+def is_dkv_kernel(name: str) -> bool:
+    """Kernel 6's dK/dV kernel in a profiler trace: the flash backward that
+    is not the dQ kernel (the wgmma backward in bf16)."""
+    return "flash_bwd" in name and "dq_kernel" not in name
+
+
+def is_dq_kernel(name: str) -> bool:
+    """Kernel 6's dQ kernel in a profiler trace."""
+    return "flash_bwd_dq_kernel<" in name
+
+
 def check_abs(torch, failures, label, got, want, tol, dev="cuda") -> float:
     """Largest absolute error of ``got`` against ``want``, printed; a
     failure (or a non-finite value) is recorded."""
@@ -436,6 +453,20 @@ def check_abs(torch, failures, label, got, want, tol, dev="cuda") -> float:
     return err
 
 
+def check_repeat(torch, failures, label, first, second, dev="cuda") -> int:
+    """Two launches' outputs (tuples of tensors) bit for bit: the count of
+    differing values, printed; a difference is a failure."""
+    sync(torch, dev)
+    n = 0
+    for a, b in zip(first, second):
+        bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+        n += int((a.contiguous().view(bits) != b.contiguous().view(bits)).sum())
+    print(f"(b) {label}: two launches {'bitwise equal' if n == 0 else f'differ in {n} values'}")
+    if n:
+        failures.append(f"{label}: repeat")
+    return n
+
+
 def check_split_kernels(torch, failures, dev="cuda") -> dict:
     """Phase (b) for kernel 6, the split backward (``bwd_impl="split"``),
     at the ``SPLIT_CHECKS`` shapes: dQ, dK and dV against the plain
@@ -444,9 +475,10 @@ def check_split_kernels(torch, failures, dev="cuda") -> dict:
     version's and dS rounds to bf16 from it; fp32 1e-4); against the fused
     kernel (kernel 5), whose dK/dV code the dK/dV kernel runs without the
     dQ pass: dK and dV bitwise equal, dQ (summed by the fused kernel's
-    atomics) to the same tolerances; a second launch bitwise equal to the
-    first (the split kernels write each output once, with no atomics);
-    fully masked rows with zero dQ. Returns each kernel's largest error
+    fixed-order adds) to the same tolerances; a second launch of each
+    backward bitwise equal to the first (the split kernels write each output
+    once; the fused kernel adds its dQ tiles in a fixed order); fully masked
+    rows with zero dQ. Returns each kernel's largest error
     over the training and ring shapes."""
     from pytorch_distributed_tpu_torch.ops import flash_attention as fa
 
@@ -470,6 +502,7 @@ def check_split_kernels(torch, failures, dev="cuda") -> dict:
         split = fa.flash_backward(q, k, v, o, lse, do, bwd_impl="split", **kw)
         again = fa.flash_backward(q, k, v, o, lse, do, bwd_impl="split", **kw)
         fused = fa.flash_backward(q, k, v, o, lse, do, bwd_impl="fused", **kw)
+        fused_again = fa.flash_backward(q, k, v, o, lse, do, bwd_impl="fused", **kw)
         want = fa.flash_backward_reference(q, k, v, o, lse, do, **kw)
         sync(torch, dev)
         bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
@@ -492,14 +525,11 @@ def check_split_kernels(torch, failures, dev="cuda") -> dict:
             if label.startswith(("training", "ring")):
                 key = fa.BWD_DQ if i == 0 else fa.BWD_DKV
                 errs[key] = max(errs[key], err)
-        n = sum(n_diff(a, b) for a, b in zip(split, again))
-        print(f"(b) split bwd, {label}: two launches "
-              f"{'bitwise equal' if n == 0 else f'differ in {n} values'}")
-        if n:
-            failures.append(f"split bwd repeat, {label}")
+        check_repeat(torch, failures, f"split bwd, {label}", split, again, dev)
+        check_repeat(torch, failures, f"fused bwd, {label}", fused, fused_again, dev)
         if shift < 0 and not (split[0][:, :-shift] == 0).all():
             failures.append(f"split bwd fully masked rows, {label}")
-        del q, k, v, do, o, lse, split, again, fused, want, kw
+        del q, k, v, do, o, lse, split, again, fused, fused_again, want, kw
         empty_cache(torch, dev)
     return errs
 
@@ -645,7 +675,8 @@ def check_tail_kernels(torch, failures, dev="cuda") -> dict:
     version at ResNet-50's stage shapes (bf16, B = 128), the downsample
     inputs (moments), B = 8 in fp32, and ragged shapes; fp32 sums relative
     to their largest value, gp bit-equal (a select), dz within a bf16 ulp
-    or two of its largest value. Returns each kernel's largest absolute
+    or two of its largest value; moments and tail_bwd_reduce bitwise equal
+    over two launches (their chunks are summed in a fixed order). Returns each kernel's largest absolute
     error over the bf16 shapes of the main path."""
     from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
 
@@ -666,6 +697,7 @@ def check_tail_kernels(torch, failures, dev="cuda") -> dict:
         z, g, out, wa, c, dmn = tail_inputs(torch, dtype, b, hw, f, seed=hw + f, dev=dev)
         shape = f"z [{b},{hw},{hw},{f}] E={4 * f} {str(dtype)[6:]}, {label}"
         got, want = bt.moments(z), bt.moments_reference(z)
+        check_repeat(torch, failures, f"moments, {shape}", got, bt.moments(z), dev)
         err = {bt.MOMENTS: max(check_rel(f"moments Σz, {shape}", got[0], want[0], TAIL_SUM_RTOL),
                                check_rel(f"moments zᵀz, {shape}", got[1], want[1],
                                          TAIL_SUM_RTOL))}
@@ -673,6 +705,8 @@ def check_tail_kernels(torch, failures, dev="cuda") -> dict:
             return err
         (gp, p, sb), (rgp, rp, rsb) = (bt.tail_bwd_reduce(z, g, out),
                                        bt.tail_bwd_reduce_reference(z, g, out))
+        check_repeat(torch, failures, f"tail_bwd_reduce, {shape}", (gp, p, sb),
+                     bt.tail_bwd_reduce(z, g, out), dev)
         sync(torch, dev)
         bits = torch.int16 if dtype == bf16 else torch.int32
         n_diff = int((gp.view(bits) != rgp.view(bits)).sum())
@@ -915,7 +949,7 @@ def main(argv) -> int:
     print(f"(a) built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"    ptxas {name}: {line.strip()}")
 
     # ---- (b) kernels against the plain version on the card ----
@@ -1025,6 +1059,8 @@ def main(argv) -> int:
         err_o = check(f"flash fwd O, {label}", o, ro, tol_o)
         check(f"flash fwd LSE, {label}", lse, rlse, LSE_TOL)
         grads = flash_attention.launch_backward(q, k, v, ro, rlse, do, causal, sc, shift)
+        check_repeat(torch, failures, f"flash bwd, {label}", grads,
+                     flash_attention.launch_backward(q, k, v, ro, rlse, do, causal, sc, shift))
         want = flash_attention.flash_backward_reference(q, k, v, ro, rlse, do,
                                                         causal=causal, scale=sc, shift=shift)
         err_g = max(check(f"flash bwd {n}, {label}", g, w, tol_g)
@@ -1414,10 +1450,19 @@ def main(argv) -> int:
     sdpa_fwdbwd = time_ms(torch, lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qg, kg, vg, is_causal=True), (qg, kg, vg), dog),
         iters=20)
+    # the kernels alone, by their device time (the backward call also runs
+    # Delta, the row statistics' copy and the dQ cast as torch ops)
+    flash_kernel_ms = {
+        FWD: kernel_device_ms(torch, lambda: flash_attention.launch_forward(
+            q, k, v, True, sc, 0), {FWD: lambda key: "flash_fwd" in key})[FWD],
+        BWD: kernel_device_ms(torch, lambda: flash_attention.launch_backward(
+            q, k, v, o, lse, do, True, sc, 0), {BWD: lambda key: "flash_bwd" in key})[BWD],
+    }
     for name, part in ((FWD, "fwd"), (BWD, "bwd")):
         print(f"(d) {name} at B, L, H, D = {tuple(q.shape)} causal bf16 on {card}: "
               f"{flash_ms[name] * 1e3:.1f} us per call "
-              f"({fb[part]['flops'] / flash_ms[name] / 1e9:.1f} TFLOP/s), plain "
+              f"({fb[part]['flops'] / flash_ms[name] / 1e9:.1f} TFLOP/s; the kernel "
+              f"{flash_kernel_ms[name] * 1e3:.1f} us device time), plain "
               f"{flash_plain_ms[name] * 1e3:.1f} us, SDPA {flash_lib_ms[name] * 1e3:.1f} us, "
               f"bound {fb[part]['bound_ms'] * 1e3:.1f} us ({fb[part]['bound_by']}: "
               f"{fb[part]['bytes'] / 1e6:.1f} MB, {fb[part]['flops'] / 1e9:.1f} GFLOP)")
@@ -1431,8 +1476,7 @@ def main(argv) -> int:
         q, k, v, o, lse, do, True, sc, 0)
     split_pair_ms = time_ms(torch, split_call, iters=20)
     split_ms = kernel_device_ms(torch, split_call, {
-        DKV: lambda key: "flash_bwd_kernel<" in key and "false>" in key,
-        DQ: lambda key: "flash_bwd_dq_kernel<" in key})
+        DKV: is_dkv_kernel, DQ: is_dq_kernel})
     if not all(split_ms.values()):
         raise SystemExit(f"chip_smoke: the profiler recorded no device time for the split "
                          f"kernels: {split_ms}")

@@ -23,12 +23,17 @@
 //   - The Pallas kernels walk the batch in order and carry the sums in VMEM
 //     from one grid step to the next. Here blocks run in parallel: a block
 //     owns one 64x64 tile of the F x F (or F x E) output and one chunk of
-//     rows, loops over the chunk 32 rows at a time, and adds its fp32 tile
-//     into the zeroed output with atomics at the end. There are enough
-//     chunks for about four blocks per SM whatever the tile count.
-//   - moments computes the upper triangle of tiles only and adds each
-//     off-diagonal tile at both places; a diagonal block reads its rows
-//     once for both operands.
+//     rows, loops over the chunk 32 rows at a time, and writes its fp32
+//     tile, and its column sums, to a partial buffer [chunks, F + 1, n_b]
+//     (row F holds the column sums). A second small kernel, tail_sum_kernel,
+//     adds the chunks in ascending order, so two launches give the same
+//     bits: no atomics. There are enough chunks for about four blocks per SM
+//     whatever the tile count; the caller sizes the chunks (chunk_rows in
+//     ops/bottleneck_tail.py) and allocates the partial buffer.
+//   - moments computes the upper triangle of tiles only; the sum kernel
+//     writes each summed off-diagonal element at both places, so the two
+//     halves are equal bit for bit; a diagonal block reads its rows once
+//     for both operands.
 //   - tail_bwd_reduce forms gp on the load (out compared in fp32, as the
 //     Pallas body does), and only the blocks of the first F tile write it
 //     and sum it, so gp is written once.
@@ -56,8 +61,6 @@ constexpr int kThreads = 128;  // four warps, each a 32x32 quadrant of the tile
 constexpr int kTile = 64;      // output tile edge
 constexpr int kStep = 32;      // contraction rows per shared-memory step
 constexpr int kPad = 8;        // row padding of the shared-memory tiles
-constexpr int kTargetBlocks = 4 * 132;
-constexpr int kMinChunk = 128;  // rows
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
@@ -216,14 +219,14 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t ld, cons
 // Shared by moments (kGate false: B is z itself) and tail_bwd_reduce
 // (kGate true: B is gp = g * [out > 0]). Block (tile, chunk) computes
 // A^T B over its rows for one 64x64 output tile, with A = z[:, i tile]
-// and B = z[:, j tile] or gp[:, j tile], and adds the tile, and the column
-// sums of B where the block owns them, into out [F, n_b] and colsum [n_b].
+// and B = z[:, j tile] or gp[:, j tile], and writes the tile, and the
+// column sums of B where the block owns them, into its chunk's slice of
+// partial [chunks, F + 1, n_b]: rows 0..F-1 the tile, row F the sums.
 template <typename T, bool kGate>
 __global__ void __launch_bounds__(kThreads)
     tail_reduce_kernel(const T* __restrict__ z, int64_t ldz, const T* __restrict__ g, int64_t ldg,
                   const T* __restrict__ gate, int64_t ld_gate, T* __restrict__ gp,
-                  float* __restrict__ out, float* __restrict__ colsum, int N, int F, int n_b,
-                  int chunk) {
+                  float* __restrict__ partial, int N, int F, int n_b, int chunk) {
   constexpr int LD = kTile + kPad;
   __shared__ __align__(16) T a_s[kStep * LD];
   __shared__ __align__(16) T b_s[kStep * LD];
@@ -252,6 +255,7 @@ __global__ void __launch_bounds__(kThreads)
   const bool owner = kGate ? ti == 0 : diag;
   const int r_begin = blockIdx.y * chunk;
   const int r_end = min(r_begin + chunk, N);
+  float* mine = partial + static_cast<int64_t>(blockIdx.y) * (F + 1) * n_b;
 
   const int warp = threadIdx.x >> 5;
   const int m0 = (warp & 1) * 32;
@@ -290,12 +294,40 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int row = i0 + m0 + 16 * mi + gq + (e >= 2 ? 8 : 0);
         const int col = j0 + n0 + 8 * ni + 2 * t + (e & 1);
-        if (row < F && col < n_b) {
-          atomicAdd(out + static_cast<int64_t>(row) * n_b + col, acc[mi][ni][e]);
-          if (!kGate && ti != tj) atomicAdd(out + static_cast<int64_t>(col) * n_b + row, acc[mi][ni][e]);
-        }
+        if (row < F && col < n_b) mine[static_cast<int64_t>(row) * n_b + col] = acc[mi][ni][e];
       }
-  if (owner && j0 + c_col < n_b) atomicAdd(colsum + j0 + c_col, csum);
+  // the column sums: two threads per column (halves of each step), added
+  // in a fixed order through shared memory
+  __syncthreads();
+  float* half_sums = reinterpret_cast<float*>(a_s);
+  if (owner && c_half == 1) half_sums[c_col] = csum;
+  __syncthreads();
+  if (owner && c_half == 0 && j0 + c_col < n_b)
+    mine[static_cast<int64_t>(F) * n_b + j0 + c_col] = csum + half_sums[c_col];
+}
+
+// out [F, n_b] and colsum [n_b] from partial [chunks, F + 1, n_b]: each
+// element the sum of its chunks in ascending order. kMirror (moments): only
+// the upper triangle of 64x64 tiles was computed; each element there is
+// written at (row, col) and, off the diagonal tiles, at (col, row).
+template <bool kMirror>
+__global__ void __launch_bounds__(256)
+    tail_sum_kernel(const float* __restrict__ partial, int chunks, int F, int n_b,
+                    float* __restrict__ out, float* __restrict__ colsum) {
+  const int64_t per_chunk = static_cast<int64_t>(F + 1) * n_b;
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= per_chunk) return;
+  const int row = static_cast<int>(idx / n_b);
+  const int col = static_cast<int>(idx - static_cast<int64_t>(row) * n_b);
+  if (kMirror && row < F && row / kTile > col / kTile) return;
+  float s = 0.f;
+  for (int c = 0; c < chunks; ++c) s += partial[c * per_chunk + idx];
+  if (row == F) {
+    colsum[col] = s;
+    return;
+  }
+  out[idx] = s;
+  if (kMirror && row / kTile != col / kTile) out[static_cast<int64_t>(col) * n_b + row] = s;
 }
 
 // dz [N, F] = [gp | z] @ w + dmn: block (row tile, column tile) loops
@@ -364,33 +396,36 @@ __global__ void __launch_bounds__(kThreads)
       }
 }
 
-// Rows per block for a grid of n_tiles output tiles: about kTargetBlocks
-// blocks in all, at least kMinChunk rows each, a multiple of kStep.
-int chunk_rows(int N, int n_tiles) {
-  int chunks = (kTargetBlocks + n_tiles - 1) / n_tiles;
-  int rows = (N + chunks - 1) / chunks;
-  if (rows < kMinChunk) rows = kMinChunk;
-  return (rows + kStep - 1) / kStep * kStep;
-}
-
+// The reduction and the sum of its chunks, one launch each on one stream.
+// chunk: rows per block (a multiple of kStep, from ops/bottleneck_tail.py's
+// chunk_rows); partial: fp32 [ceil(N / chunk), F + 1, n_b] scratch.
 template <typename T>
 int launch_reduce(const void* z, int64_t ldz, const void* g, int64_t ldg, const void* out,
-                  int64_t ldo, void* gp, float* acc_out, float* colsum, int N, int F, int n_b,
-                  bool gated, cudaStream_t st) {
+                  int64_t ldo, void* gp, int chunk, float* partial, float* acc_out,
+                  float* colsum, int N, int F, int n_b, bool gated, cudaStream_t st) {
   const int n_i = (F + kTile - 1) / kTile;
   const int n_j = (n_b + kTile - 1) / kTile;
   const int n_tiles = gated ? n_i * n_j : n_i * (n_i + 1) / 2;
-  const int chunk = chunk_rows(N, n_tiles);
-  const dim3 grid(n_tiles, (N + chunk - 1) / chunk);
+  if (chunk < kStep || chunk % kStep) return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (N + chunk - 1) / chunk;
+  const dim3 grid(n_tiles, chunks);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const T* zt = static_cast<const T*>(z);
   if (gated)
     tail_reduce_kernel<T, true><<<grid, kThreads, 0, st>>>(
         zt, ldz, static_cast<const T*>(g), ldg, static_cast<const T*>(out), ldo,
-        static_cast<T*>(gp), acc_out, colsum, N, F, n_b, chunk);
+        static_cast<T*>(gp), partial, N, F, n_b, chunk);
   else
-    tail_reduce_kernel<T, false><<<grid, kThreads, 0, st>>>(zt, ldz, nullptr, 0, nullptr, 0, nullptr,
-                                                      acc_out, colsum, N, F, n_b, chunk);
+    tail_reduce_kernel<T, false><<<grid, kThreads, 0, st>>>(zt, ldz, nullptr, 0, nullptr, 0,
+                                                           nullptr, partial, N, F, n_b, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n_out = static_cast<int64_t>(F + 1) * n_b;
+  const unsigned sum_blocks = static_cast<unsigned>((n_out + 255) / 256);
+  if (gated)
+    tail_sum_kernel<false><<<sum_blocks, 256, 0, st>>>(partial, chunks, F, n_b, acc_out, colsum);
+  else
+    tail_sum_kernel<true><<<sum_blocks, 256, 0, st>>>(partial, chunks, F, n_b, acc_out, colsum);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -415,33 +450,38 @@ bool bad_dims(int dtype, int N, int F, int E) {
 
 // dtype: 0 = float32, 1 = bfloat16 (z, g, out, gp, dz). Row strides in
 // elements, unit stride along the channels, rows 16-byte aligned. The fp32
-// outputs (s, m2, p, sb) are zero on entry and accumulated by atomics.
-// Each returns the launch's cudaError_t (0 = launched).
+// outputs (s, m2, p, sb) are written once each, by the sum kernel. Each
+// returns the launches' cudaError_t (0 = launched).
 
-// s [F] and m2 [F, F] of z [N, F].
-extern "C" int pdt_moments(const void* z, int64_t ldz, int dtype, int N, int F, void* s,
-                           void* m2, void* stream) {
+// s [F] and m2 [F, F] of z [N, F]; partial: fp32 [ceil(N / chunk), F + 1, F].
+extern "C" int pdt_moments(const void* z, int64_t ldz, int dtype, int N, int F, int chunk,
+                           void* partial, void* s, void* m2, void* stream) {
   if (bad_dims(dtype, N, F, 8)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
+  auto* part = static_cast<float*>(partial);
   auto* m = static_cast<float*>(m2);
   auto* sum = static_cast<float*>(s);
-  return dtype == 1 ? launch_reduce<bf16>(z, ldz, nullptr, 0, nullptr, 0, nullptr, m, sum, N, F,
-                                          F, false, st)
-                    : launch_reduce<float>(z, ldz, nullptr, 0, nullptr, 0, nullptr, m, sum, N,
-                                           F, F, false, st);
+  return dtype == 1 ? launch_reduce<bf16>(z, ldz, nullptr, 0, nullptr, 0, nullptr, chunk, part,
+                                          m, sum, N, F, F, false, st)
+                    : launch_reduce<float>(z, ldz, nullptr, 0, nullptr, 0, nullptr, chunk, part,
+                                           m, sum, N, F, F, false, st);
 }
 
-// gp [N, E] contiguous, p [F, E] and sb [E] of z [N, F], g and out [N, E].
+// gp [N, E] contiguous, p [F, E] and sb [E] of z [N, F], g and out [N, E];
+// partial: fp32 [ceil(N / chunk), F + 1, E].
 extern "C" int pdt_tail_bwd_reduce(const void* z, int64_t ldz, const void* g, int64_t ldg,
-                                   const void* out, int64_t ldo, void* gp, void* p, void* sb,
-                                   int dtype, int N, int F, int E, void* stream) {
+                                   const void* out, int64_t ldo, void* gp, int chunk,
+                                   void* partial, void* p, void* sb, int dtype, int N, int F,
+                                   int E, void* stream) {
   if (bad_dims(dtype, N, F, E)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
+  auto* part = static_cast<float*>(partial);
   auto* pp = static_cast<float*>(p);
   auto* s = static_cast<float*>(sb);
-  return dtype == 1 ? launch_reduce<bf16>(z, ldz, g, ldg, out, ldo, gp, pp, s, N, F, E, true, st)
-                    : launch_reduce<float>(z, ldz, g, ldg, out, ldo, gp, pp, s, N, F, E, true,
-                                           st);
+  return dtype == 1 ? launch_reduce<bf16>(z, ldz, g, ldg, out, ldo, gp, chunk, part, pp, s, N, F,
+                                          E, true, st)
+                    : launch_reduce<float>(z, ldz, g, ldg, out, ldo, gp, chunk, part, pp, s, N,
+                                           F, E, true, st);
 }
 
 // dz [N, F] contiguous from gp [N, E], z [N, F], w = [wa ; c] [E + F, F]

@@ -21,6 +21,12 @@ operand is copied. Beside each kernel is its plain version
 sums in fp32. The wrappers run the plain version for tensors on the CPU;
 for CUDA tensors they launch the kernel or raise. ``launch_counts`` counts
 each kernel's launches and nothing else.
+
+The two reductions are deterministic: each block writes its fp32 tile of
+one chunk of rows to a partial buffer ``[chunks, F + 1, n_b]`` (row F the
+column sums), which a second small kernel sums in ascending chunk order,
+so two launches give the same bits, as the Pallas kernels' sequential
+grid does. ``reduce_grid`` sizes the chunks and the buffer.
 """
 
 from __future__ import annotations
@@ -39,6 +45,10 @@ BWD_DZ = "tail_bwd_dz"
 launch_counts = {MOMENTS: 0, BWD_REDUCE: 0, BWD_DZ: 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 64  # output tile edge of the reduction kernels
+STEP = 32  # contraction rows a block takes per step
+TARGET_BLOCKS = 4 * 132  # about four blocks per SM of an H100
+MIN_CHUNK = 128  # rows
 
 
 def reset_launch_counts() -> None:
@@ -84,11 +94,32 @@ def tail_bwd_dz_reference(gp, z, wa, c, dmn):
 
 # ---- the kernels ----
 
+def chunk_rows(n: int, n_tiles: int) -> int:
+    """Rows per block of a reduction over ``n`` rows with ``n_tiles``
+    output tiles: about ``TARGET_BLOCKS`` blocks in all, at least
+    ``MIN_CHUNK`` rows each, a multiple of ``STEP``."""
+    chunks = -(-TARGET_BLOCKS // n_tiles)
+    rows = max(-(-n // chunks), MIN_CHUNK)
+    return -(-rows // STEP) * STEP
+
+
+def reduce_grid(n: int, f: int, n_b: int, gated: bool) -> Tuple[int, int, Tuple[int, int, int]]:
+    """``(output tiles, chunk rows, partial-buffer shape)`` of a reduction
+    ``zᵀB`` over ``n`` rows, z ``[n, f]`` and B ``[n, n_b]``: moments
+    (``gated=False``, B = z) computes the upper triangle of its 64x64 tiles,
+    tail_bwd_reduce all of them. The fp32 partial buffer holds one
+    ``[f + 1, n_b]`` slice per chunk of rows."""
+    n_i, n_j = -(-f // TILE), -(-n_b // TILE)
+    n_tiles = n_i * n_j if gated else n_i * (n_i + 1) // 2
+    chunk = chunk_rows(n, n_tiles)
+    return n_tiles, chunk, (-(-n // chunk), f + 1, n_b)
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.pdt_moments.argtypes = [p, i64, i, i, i, p, p, p]
+    lib.pdt_moments.argtypes = [p, i64, i, i, i, i, p, p, p, p]
     lib.pdt_moments.restype = i
-    lib.pdt_tail_bwd_reduce.argtypes = [p, i64, p, i64, p, i64, p, p, p, i, i, i, i, p]
+    lib.pdt_tail_bwd_reduce.argtypes = [p, i64, p, i64, p, i64, p, i, p, p, p, i, i, i, i, p]
     lib.pdt_tail_bwd_reduce.restype = i
     lib.pdt_tail_bwd_dz.argtypes = [p, i64, p, i64, p, p, p, i, i, i, i, p]
     lib.pdt_tail_bwd_dz.restype = i
@@ -148,11 +179,13 @@ def moments(z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     z2 = rows(z)
     _check_rows(z2)
     n, f = z2.shape
-    s = torch.zeros(f, dtype=torch.float32, device=z.device)
-    m2 = torch.zeros((f, f), dtype=torch.float32, device=z.device)
+    _, chunk, part_shape = reduce_grid(n, f, f, gated=False)
+    partial = torch.empty(part_shape, dtype=torch.float32, device=z.device)
+    s = torch.empty(f, dtype=torch.float32, device=z.device)
+    m2 = torch.empty((f, f), dtype=torch.float32, device=z.device)
     lib = _library()
-    code = lib.pdt_moments(_ptr(z2), z2.stride(0), _DTYPE_CODES[z.dtype], n, f, _ptr(s),
-                           _ptr(m2), _stream(z))
+    code = lib.pdt_moments(_ptr(z2), z2.stride(0), _DTYPE_CODES[z.dtype], n, f, chunk,
+                           _ptr(partial), _ptr(s), _ptr(m2), _stream(z))
     _check_launch(lib, MOMENTS, code)
     launch_counts[MOMENTS] += 1
     return s, m2
@@ -171,12 +204,14 @@ def tail_bwd_reduce(z: torch.Tensor, g: torch.Tensor, out: torch.Tensor):
     n, f = z2.shape
     e = g2.shape[1]
     gp = torch.empty((n, e), dtype=g.dtype, device=g.device)
-    p = torch.zeros((f, e), dtype=torch.float32, device=z.device)
-    sb = torch.zeros(e, dtype=torch.float32, device=z.device)
+    _, chunk, part_shape = reduce_grid(n, f, e, gated=True)
+    partial = torch.empty(part_shape, dtype=torch.float32, device=z.device)
+    p = torch.empty((f, e), dtype=torch.float32, device=z.device)
+    sb = torch.empty(e, dtype=torch.float32, device=z.device)
     lib = _library()
     code = lib.pdt_tail_bwd_reduce(
         _ptr(z2), z2.stride(0), _ptr(g2), g2.stride(0), _ptr(o2), o2.stride(0), _ptr(gp),
-        _ptr(p), _ptr(sb), _DTYPE_CODES[z.dtype], n, f, e, _stream(z))
+        chunk, _ptr(partial), _ptr(p), _ptr(sb), _DTYPE_CODES[z.dtype], n, f, e, _stream(z))
     _check_launch(lib, BWD_REDUCE, code)
     launch_counts[BWD_REDUCE] += 1
     return gp.view(g.shape), p, sb

@@ -9,15 +9,22 @@ default, or ``"split"``), as a ``torch.autograd.Function``. Four kernels of
   and the row log-sum-exp LSE ``[B, H, Lq]`` fp32;
 - ``flash_attention_bwd`` (the TPU's ``_flash_bwd_fused``): dK, dV and dQ
   in one pass over the visible (q, k) tiles, dQ summed in fp32 across key
-  tiles, which is the JAX kernel's ``partials_f32=True``. Δ = rowsum(dO ⊙ O)
-  and the final dQ cast are torch ops around it, as they are XLA ops
-  around the Pallas kernel;
+  tiles, which is the JAX kernel's ``partials_f32=True``. The key tiles
+  add their dQ tiles in a fixed order (per-tile counters, ``dq_workspace``),
+  so two launches give the same bits. Δ = rowsum(dO ⊙ O) and the final dQ
+  cast are torch ops around it, as they are XLA ops around the Pallas
+  kernel;
 - ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq`` (the TPU's
   split ``_flash_bwd``, ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``): dK, dV
-  with one block per key tile, and dQ with one block per query tile, each
-  written once in the input dtype with no atomics, so their gradients are
-  bit-identical from one launch to the next. The ring runs them per visit
-  with ``bwd_impl="split"``.
+  with one block per key tile (the fused kernel's code without its dQ
+  pass), and dQ with one block per query tile, each written once in the
+  input dtype. The ring runs them per visit with ``bwd_impl="split"``.
+
+In bf16 the forward and both dK/dV passes are ``wgmma`` kernels fed by
+TMA: each operand reaches the kernel as a tensor map over its own strides,
+whose geometry ``tensor_map_geometry`` computes here; LSE and Δ reach it
+as one zero-padded fp32 buffer (``row_stats``). fp32 inputs run CUDA-core
+kernels from the same C functions.
 
 Both backwards take an optional precomputed Δ ``[B, H, Lq]`` fp32: the ring
 computes it once from the final O, not once per visit.
@@ -59,6 +66,7 @@ BWD_IMPLS = ("fused", "split")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+TILE = 64  # rows of a Q or K/V tile, and the TMA box's rows and columns
 
 
 def reset_launch_counts() -> None:
@@ -109,7 +117,7 @@ def compute_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     """Δ = rowsum(dO ⊙ O) in fp32, ``[B, H, Lq]``, contiguous
     (``compute_delta``:401 of the JAX package, without its 128-lane
     broadcast)."""
-    return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    return (do.float() * o).sum(dim=-1).transpose(1, 2).contiguous()
 
 
 def flash_backward_reference(q, k, v, o, lse, do, *, causal: bool, scale: float,
@@ -135,15 +143,74 @@ def flash_backward_reference(q, k, v, o, lse, do, *, causal: bool, scale: float,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def tensor_map_geometry(t: torch.Tensor) -> Tuple[int, ...]:
+    """The TMA tensor map of a bf16 ``[B, L, H, D]`` operand, read through
+    its strides: dims ``(D, H, L, B)`` innermost first, the byte strides of
+    H, L and B, and the box ``(64, 1, 64, 1)``, one 64-row x 64-column tile
+    of one (batch, head), 128 bytes a row (the 128-byte swizzle's span; D =
+    128 takes two boxes, at columns 0 and 64). The fp32 kernels read only
+    its dims and strides."""
+    b, l, h, d = t.shape
+    e = t.element_size()
+    return (d, h, l, b, t.stride(2) * e, t.stride(1) * e, t.stride(0) * e, TILE, 1, TILE, 1)
+
+
+def row_stats(lse: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """LSE and Δ (``[B, H, Lq]`` fp32, any strides) as the kernels read
+    them: one fp32 ``[2, B·H, ceil(Lq / 64)·64]`` buffer, zero past Lq, so
+    every Q tile's 64 values are one aligned bulk copy."""
+    b, h, lq = lse.shape
+    rows = torch.zeros((2, b, h, -(-lq // TILE) * TILE), dtype=torch.float32,
+                       device=lse.device)
+    rows[0, ..., :lq] = lse
+    rows[1, ..., :lq] = delta
+    return rows.view(2, b * h, -1)
+
+
+def dq_workspace(b: int, lq: int, h: int, d: int, causal: bool, shift: int,
+                 device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 fused backward's fp32 dQ and its int32 counters. dQ: one
+    contiguous 64 x D tile per (batch·head, Q tile), ``[B·H, ceil(Lq / 64),
+    64·D]``, in the kernel's thread order (``dq_from_workspace``), so a
+    block adds a tile with one bulk copy; counters ``[B·H, ceil(Lq / 64)]``,
+    zero, one per tile. The first key tile to add to a Q tile stores, so dQ
+    needs zeros only where a Q tile sees no key at all: causal with ``shift
+    < -63``, the first tile's last row then masked."""
+    n_qt = -(-lq // TILE)
+    zero_dq = causal and shift < -(TILE - 1)
+    make = torch.zeros if zero_dq else torch.empty
+    dq = make((b * h, n_qt, TILE * d), dtype=torch.float32, device=device)
+    turns = torch.zeros((b * h, n_qt), dtype=torch.int32, device=device)
+    return dq, turns
+
+
+def dq_from_workspace(ws: torch.Tensor, b: int, lq: int, dtype: torch.dtype) -> torch.Tensor:
+    """dQ ``[B, Lq, H, D]`` in ``dtype`` from ``dq_workspace``'s tiles: the
+    cast, then one permuting copy. A tile holds float4 ``k = 8x + j`` of
+    consumer thread ``tid = 32w + 4g + t`` at ``(k·128 + tid)·4``: rows
+    ``16w + g`` and ``16w + g + 8`` of the tile, columns ``64x + 8j + 2t``
+    and ``+ 1``, in the order (g, 2t), (g, 2t + 1), (g + 8, 2t),
+    (g + 8, 2t + 1)."""
+    bh, n_qt, size = ws.shape
+    h, d = bh // b, size // TILE
+    # dims: b, h, Q tile, x, j, warp, g, t, row half, column parity
+    tiles = ws.to(dtype).view(b, h, n_qt, d // TILE, 8, 4, 8, 4, 2, 2)
+    out = torch.empty((b, n_qt * TILE, h, d), dtype=dtype, device=ws.device)
+    out.view(b, n_qt, 4, 2, 8, h, d // TILE, 8, 4, 2).copy_(
+        tiles.permute(0, 2, 5, 8, 6, 1, 3, 4, 7, 9))
+    return out if lq == n_qt * TILE else out[:, :lq].contiguous()
+
+
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    operand = [p, i64, i64, i64]  # pointer and its (B, L, H) element strides
-    dims = [i, i, i, i, i, i, i, i]  # dtype, B, H, Lq, Lk, D, causal, shift
-    lib.pdt_flash_fwd.argtypes = operand * 3 + [p, p] + dims + [f, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    g = ctypes.POINTER(ctypes.c_int64)
+    operand = [p, g]  # pointer and its tensor_map_geometry
+    tail = [i, i, i, f, p]  # dtype, causal, shift, scale, stream
+    lib.pdt_flash_fwd.argtypes = operand * 3 + [p, p] + tail
     lib.pdt_flash_fwd.restype = i
-    lib.pdt_flash_bwd.argtypes = operand * 4 + [p, p, p, p, p] + dims + [f, p]
+    lib.pdt_flash_bwd.argtypes = operand * 4 + [p, i, p, p, p, p] + tail
     lib.pdt_flash_bwd.restype = i
-    lib.pdt_flash_bwd_split.argtypes = operand * 4 + [p, p, p, p, p] + dims + [f, p]
+    lib.pdt_flash_bwd_split.argtypes = operand * 4 + [p, i, p, p, p] + tail
     lib.pdt_flash_bwd_split.restype = i
     lib.pdt_flash_error_string.argtypes = [i]
     lib.pdt_flash_error_string.restype = ctypes.c_char_p
@@ -198,7 +265,7 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def _operand(t: torch.Tensor) -> list:
-    return [_ptr(t), t.stride(0), t.stride(1), t.stride(2)]
+    return [_ptr(t), (ctypes.c_int64 * 11)(*tensor_map_geometry(t))]
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -214,23 +281,21 @@ def launch_forward(q, k, v, causal: bool, scale: float,
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     lib = _library()
     code = lib.pdt_flash_fwd(
-        *_operand(q), *_operand(k), *_operand(v), _ptr(o), _ptr(lse),
-        _DTYPE_CODES[q.dtype], b, h, lq, k.shape[1], d, int(causal), int(shift),
-        float(scale), _stream(q))
+        *_operand(q), *_operand(k), *_operand(v), _ptr(o), _ptr(lse), _DTYPE_CODES[q.dtype],
+        int(causal), int(shift), float(scale), _stream(q))
     _check_launch(lib, FWD, code)
     launch_counts[FWD] += 1
     return o, lse
 
 
 def _backward_operands(q, k, v, o, lse, do, delta):
-    """The C functions' leading arguments, and the fp32 rows they read:
-    LSE and Δ as contiguous ``[B, H, Lq]`` (a zigzag chunk's slice of the
-    rows is copied; Δ from ``do`` and ``o`` when not given)."""
+    """The C functions' leading arguments, and the fp32 row statistics
+    they read (``row_stats``; Δ from ``do`` and ``o`` when not given)."""
     if delta is None:
         delta = compute_delta(do, o)
-    rows = lse.contiguous(), delta.contiguous()
-    args = [*_operand(q), *_operand(k), *_operand(v), *_operand(do), _ptr(rows[0]),
-            _ptr(rows[1])]
+    rows = row_stats(lse, delta)
+    args = [*_operand(q), *_operand(k), *_operand(v), *_operand(do), _ptr(rows),
+            rows.shape[-1]]
     return args, rows
 
 
@@ -242,16 +307,21 @@ def launch_backward(q, k, v, o, lse, do, causal: bool, scale: float, shift: int,
     b, lq, h, d = q.shape
     lk = k.shape[1]
     args, rows = _backward_operands(q, k, v, o, lse, do, delta)
-    dq = torch.zeros((b, lq, h, d), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:  # the wgmma kernel: tiles added in a fixed order
+        dq, turns = dq_workspace(b, lq, h, d, causal, shift, q.device)
+    else:  # fp32: dQ written once by the CUDA-core dQ kernel
+        dq, turns = torch.empty((b, lq, h, d), dtype=torch.float32, device=q.device), None
     dk = torch.empty((b, lk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, lk, h, d), dtype=v.dtype, device=v.device)
     lib = _library()
     code = lib.pdt_flash_bwd(
-        *args, _ptr(dq), _ptr(dk), _ptr(dv), _DTYPE_CODES[q.dtype], b, h, lq, lk, d,
-        int(causal), int(shift), float(scale), _stream(q))
+        *args, _ptr(dq), None if turns is None else _ptr(turns), _ptr(dk), _ptr(dv),
+        _DTYPE_CODES[q.dtype], int(causal), int(shift), float(scale), _stream(q))
     _check_launch(lib, BWD, code)
     launch_counts[BWD] += 1
-    return dq.to(q.dtype), dk, dv
+    if turns is None:
+        return dq, dk, dv
+    return dq_from_workspace(dq, b, lq, q.dtype), dk, dv
 
 
 def launch_backward_split(q, k, v, o, lse, do, causal: bool, scale: float, shift: int,
@@ -267,8 +337,8 @@ def launch_backward_split(q, k, v, o, lse, do, causal: bool, scale: float, shift
     dv = torch.empty((b, lk, h, d), dtype=v.dtype, device=v.device)
     lib = _library()
     code = lib.pdt_flash_bwd_split(
-        *args, _ptr(dq), _ptr(dk), _ptr(dv), _DTYPE_CODES[q.dtype], b, h, lq, lk, d,
-        int(causal), int(shift), float(scale), _stream(q))
+        *args, _ptr(dq), _ptr(dk), _ptr(dv), _DTYPE_CODES[q.dtype], int(causal), int(shift),
+        float(scale), _stream(q))
     _check_launch(lib, f"{BWD_DKV}/{BWD_DQ}", code)
     launch_counts[BWD_DKV] += 1
     launch_counts[BWD_DQ] += 1

@@ -56,12 +56,14 @@ TAIL_KINDS = ("tail moments", "tail_bwd_reduce", "tail_bwd_dz")
 
 def kind_of(kernel_name: str) -> str:
     name = kernel_name.lower()
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd" in name:  # flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (fp32)
         return "flash forward"
-    if "flash_bwd_kernel" in name:
+    if "flash_bwd" in name:  # the wgmma backward, the fp32 and dQ kernels
         return "flash backward"
     if "tail_reduce_kernel" in name:  # <T, kGate>: false is moments
         return "tail_bwd_reduce" if "true" in name else "tail moments"
+    if "tail_sum_kernel" in name:  # <kMirror>: true sums moments' chunks
+        return "tail moments" if "true" in name else "tail_bwd_reduce"
     if "tail_dz_kernel" in name:
         return "tail_bwd_dz"
     if "copy" in name:

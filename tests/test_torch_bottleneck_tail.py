@@ -130,3 +130,27 @@ def test_wrappers_route_only_cpu_tensors_to_the_plain_version(monkeypatch):
         bt.tail_bwd_dz(gp, tz, torch.zeros(E, F), torch.zeros(F, F), torch.zeros(F))
     assert plain == []
     assert bt.launch_counts == {bt.MOMENTS: 0, bt.BWD_REDUCE: 0, bt.BWD_DZ: 0}
+
+
+@pytest.mark.parametrize("b, hw, f", [(128, 56, 64), (128, 28, 128), (128, 14, 256),
+                                      (128, 7, 512), (3, 7, 40)])
+def test_reduce_grid_sizes_the_partial_buffer(b, hw, f):
+    """The deterministic reductions' chunks and fp32 partial buffer at
+    ResNet-50's four expand-tail shapes (B 128, E = 4F) and a ragged one:
+    chunks of a multiple of 32 rows, at least 128, covering the N rows
+    exactly once; about four blocks per SM of an H100 where N allows; one
+    ``[F + 1, n_b]`` slice per chunk (row F the column sums), 8.7 to 14.7
+    MB at the stage shapes."""
+    n, e = b * hw * hw, 4 * f
+    for gated, n_b in ((False, f), (True, e)):
+        n_tiles, chunk, shape = bt.reduce_grid(n, f, n_b, gated)
+        n_i = -(-f // bt.TILE)
+        assert n_tiles == (n_i * -(-e // bt.TILE) if gated else n_i * (n_i + 1) // 2)
+        chunks = shape[0]
+        assert chunk % bt.STEP == 0 and chunk >= bt.MIN_CHUNK
+        assert (chunks - 1) * chunk < n <= chunks * chunk
+        assert shape[1:] == (f + 1, n_b)
+        if n >= bt.TARGET_BLOCKS * bt.MIN_CHUNK:
+            assert bt.TARGET_BLOCKS * 0.9 <= n_tiles * chunks <= bt.TARGET_BLOCKS * 1.1
+        if b == 128:
+            assert 8.7e6 <= 4 * np.prod(shape) <= 14.8e6

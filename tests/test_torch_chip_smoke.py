@@ -36,6 +36,9 @@ def test_tail_checks_and_timings_rehearse_on_cpu(chip_smoke, capsys):
     assert set(errs) == {bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ}
     out = capsys.readouterr().out
     assert out.count("bit-equal") == 12  # 4 stages x 2 dtypes + 2 ragged x 2 dtypes
+    # moments at 16 shapes (the 12 above and 4 downsample inputs),
+    # tail_bwd_reduce at 12, each launched twice and compared bit for bit
+    assert out.count("two launches bitwise equal") == 28
     assert "FAIL" not in out
     entries = chip_smoke.time_tail_kernels(torch, "CPU", dev="cpu")
     assert set(entries) == {bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ}
@@ -84,10 +87,63 @@ def test_split_backward_checks_rehearse_on_cpu(chip_smoke, monkeypatch, capsys):
     assert failures == []
     assert set(errs) == {fa.BWD_DKV, fa.BWD_DQ}
     out = capsys.readouterr().out
-    assert out.count("two launches bitwise equal") == len(small) == 14
+    assert out.count("two launches bitwise equal") == 2 * len(small) == 28  # split, fused
     assert out.count("split vs fused") == 3 * len(small)
-    assert out.count("bitwise equal") == 3 * len(small)  # repeats, and dK, dV vs fused
+    assert out.count("bitwise equal") == 4 * len(small)  # repeats, and dK, dV vs fused
     assert "FAIL" not in out
+
+
+def _unrepeatable(fn, index):
+    """``fn`` with a different tiny offset on output ``index`` each call, as
+    a kernel that sums in a varying order would give."""
+    calls = []
+
+    def wrapped(*args, **kw):
+        calls.append(1)
+        out = list(fn(*args, **kw))
+        out[index] = out[index] + len(calls) * 1e-7 * out[index].abs().max().clamp_min(1.0)
+        return tuple(out)
+
+    return wrapped
+
+
+@pytest.mark.parametrize("kernel", ["moments", "tail_bwd_reduce"])
+def test_tail_repeat_check_fails_a_kernel_that_does_not_repeat(chip_smoke, monkeypatch,
+                                                               capsys, kernel):
+    """A planted stub whose two launches differ fails the tail phase's
+    repeat check, though it stays within the tolerance of the plain
+    version."""
+    monkeypatch.setattr(chip_smoke, "TAIL_STAGES", chip_smoke.TAIL_STAGES[:1])
+    monkeypatch.setattr(chip_smoke, "TAIL_DOWNSAMPLE", ())
+    monkeypatch.setattr(bt, kernel, _unrepeatable(getattr(bt, kernel), -1))  # m2, or Σgp
+    failures = []
+    chip_smoke.check_tail_kernels(torch, failures, dev="cpu")
+    assert failures and all(f.startswith(kernel) and f.endswith("repeat") for f in failures)
+    assert "differ in" in capsys.readouterr().out
+
+
+def test_flash_repeat_check_fails_a_fused_backward_that_does_not_repeat(chip_smoke,
+                                                                      monkeypatch):
+    """The same for the fused flash backward in the split phase: only its
+    repeat check fails (its dQ stays within tolerance of the split one)."""
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+
+    real = fa.flash_backward
+    fused = _unrepeatable(lambda *a, **kw: real(*a, **kw), 0)  # dQ
+
+    def planted(*args, bwd_impl="fused", **kw):
+        if bwd_impl == "fused":
+            return fused(*args, bwd_impl=bwd_impl, **kw)
+        return real(*args, bwd_impl=bwd_impl, **kw)
+
+    monkeypatch.setattr(fa, "flash_backward", planted)
+    monkeypatch.setattr(chip_smoke, "SPLIT_CHECKS", tuple(
+        (label, dt, causal, shift, dict(b=1, l=70, h=2, seed=1))
+        for label, dt, causal, shift, shape in chip_smoke.SPLIT_CHECKS[6:8]))
+    failures = []
+    chip_smoke.check_split_kernels(torch, failures, dev="cpu")
+    assert len(failures) == 2 and all(f.startswith("fused bwd") and f.endswith("repeat")
+                                      for f in failures)
 
 
 def test_split_backward_check_takes_a_zigzag_visit_as_the_ring_does(chip_smoke, monkeypatch):
@@ -109,7 +165,7 @@ def test_split_backward_check_takes_a_zigzag_visit_as_the_ring_does(chip_smoke, 
         for label, dt, causal, shift, shape in chip_smoke.SPLIT_CHECKS if "view" in shape))
     failures = []
     chip_smoke.check_split_kernels(torch, failures, dev="cpu")
-    assert failures == [] and len(seen) == 6  # split twice and fused, two cases
+    assert failures == [] and len(seen) == 8  # split and fused twice each, two cases
     for q_contig, k_contig, lq, lk, delta in seen:
         assert not q_contig and not k_contig and lq == lk == 35
         assert delta is not None and delta.shape[-1] == 35 and not delta.is_contiguous()
@@ -165,3 +221,34 @@ def test_ring_phase_takes_its_ranks_from_the_cards(chip_smoke, cards, want):
     """Two ranks share one card (or the CPU) over gloo; with more cards,
     one rank a card, up to 4, over NCCL."""
     assert chip_smoke.ring_ranks(cards) == want
+
+
+@pytest.mark.parametrize("kernel, kind", [
+    ("void (anonymous namespace)::flash_fwd_wgmma_kernel<1, 3, 3>(CUtensorMap, CUtensorMap, "
+     "CUtensorMap, (anonymous namespace)::FwdArgs)", "flash forward"),
+    ("void (anonymous namespace)::flash_fwd_kernel<float, 64>((anonymous namespace)::Params)",
+     "flash forward"),
+    ("void (anonymous namespace)::flash_bwd_wgmma_kernel<1, 2, true>(CUtensorMap, CUtensorMap, "
+     "CUtensorMap, CUtensorMap, (anonymous namespace)::BwdArgs)", "flash backward"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, 64>(Params)",
+     "flash backward"),
+    ("void (anonymous namespace)::tail_reduce_kernel<__nv_bfloat16, false>(...)", "tail moments"),
+    ("void (anonymous namespace)::tail_sum_kernel<true>(float const*, int, int, int, float*, "
+     "float*)", "tail moments"),
+    ("void (anonymous namespace)::tail_reduce_kernel<__nv_bfloat16, true>(...)",
+     "tail_bwd_reduce"),
+    ("void (anonymous namespace)::tail_sum_kernel<false>(float const*, int, int, int, float*, "
+     "float*)", "tail_bwd_reduce"),
+    ("void (anonymous namespace)::tail_dz_kernel<__nv_bfloat16>(...)", "tail_bwd_dz"),
+])
+def test_profiles_name_every_kernel_of_the_port(chip_smoke, kernel, kind):
+    """``profile_train.kind_of`` files each kernel of the flash and tail
+    sources, the wgmma kernels and the tail's chunk sums included, under
+    its kernel, not under "other"; chip_smoke's device-time match for
+    kernel 6's dK/dV kernel picks the wgmma backward and not the dQ kernel."""
+    from pytorch_distributed_tpu_torch.tools.profile_train import kind_of
+
+    assert kind_of(kernel) == kind
+    assert chip_smoke.is_dkv_kernel(kernel) == ("flash_bwd_wgmma" in kernel
+                                                 or "flash_bwd_kernel" in kernel)
+    assert chip_smoke.is_dq_kernel(kernel) == ("flash_bwd_dq_kernel" in kernel)

@@ -190,3 +190,107 @@ def test_kernel_operand_checks():
         fa._check_cuda_operands(torch.zeros(2, 8, 2, 65)[..., 1:], ok, ok)
     with pytest.raises(ValueError, match="non-empty"):
         fa._check_cuda_operands(torch.zeros(2, 0, 2, 64), ok, ok)
+
+
+def _addressed(t, geometry):
+    """The elements a tensor map of ``geometry`` reads for ``t``, gathered
+    from t's storage through the map's dims and byte strides."""
+    d, h, l, b, sh, sl, sb = geometry[:7]
+    e = t.element_size()
+    assert sh % 16 == sl % 16 == sb % 16 == 0  # TMA's stride rule
+    flat = torch.as_strided(t, (t.untyped_storage().nbytes() // e,), (1,), 0)
+    idx = (t.storage_offset() + torch.arange(b)[:, None, None, None] * (sb // e)
+           + torch.arange(l)[None, :, None, None] * (sl // e)
+           + torch.arange(h)[None, None, :, None] * (sh // e)
+           + torch.arange(d)[None, None, None, :])
+    return flat[idx]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_map_geometry_reads_fused_qkv_views(d):
+    """q, k, v as the fused qkv projection hands them over: views of the
+    JAX package's DenseGeneral((3, H, D)) output ``[B, L, 3, H, D]``. Each
+    map reads exactly its operand, and its box is one 64 x 64 tile of one
+    (batch, head), D / 64 boxes a row."""
+    import flax.linen as nn
+
+    b, l, h, e = 2, 70, 3, 32
+    out = jax.eval_shape(lambda x: nn.DenseGeneral((3, h, d)).init_with_output(
+        jax.random.PRNGKey(0), x)[0], jnp.zeros((b, l, e))).shape
+    assert out == (b, l, 3, h, d)
+    qkv = torch.randn(out).bfloat16()
+    for i, x in enumerate(qkv.unbind(dim=2)):
+        g = fa.tensor_map_geometry(x)
+        assert g == (d, h, l, b, d * 2, 3 * h * d * 2, l * 3 * h * d * 2, 64, 1, 64, 1)
+        assert torch.equal(_addressed(x, g), x)
+        assert (x.data_ptr() - qkv.data_ptr()) == i * h * d * 2  # 16-byte aligned
+        assert d % g[7] == 0 and g[7] == g[9] == fa.TILE
+
+
+def test_tensor_map_geometry_reads_zigzag_chunk_views():
+    """The ring's zigzag visit hands each half of a shard over as a view
+    (``ring_flash._row_parts``): the map starts at the chunk and keeps the
+    shard's strides, so no copy is made."""
+    from pytorch_distributed_tpu_torch.ops.ring_flash import _row_parts
+
+    shard = torch.randn(2, 1024, 3, 64).bfloat16()
+    for part in _row_parts("zigzag", 1024):
+        x = shard[:, part]
+        g = fa.tensor_map_geometry(x)
+        assert g[:4] == (64, 3, 512, 2) and g[4:7] == (128, 3 * 128, 1024 * 3 * 128)
+        assert torch.equal(_addressed(x, g), x) and x.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("lq", [1, 64, 130, 2048])
+def test_row_stats_and_dq_workspace_sizes(lq):
+    """LSE and Δ become one zero-padded ``[2, B·H, ceil(Lq/64)·64]`` buffer
+    (every Q tile one aligned 256-byte copy); the fused backward's counters
+    are one int32 per (batch·head, Q tile), zero; its fp32 dQ holds one
+    contiguous 64 x D tile per counter, zeroed only where some Q tile sees
+    no key (causal, shift < -63)."""
+    b, h = 2, 3
+    lse, delta = torch.randn(b, h, lq), torch.randn(b, h, lq)
+    rows = fa.row_stats(lse, delta)
+    n_qt = -(-lq // 64)
+    assert rows.shape == (2, b * h, n_qt * 64) and rows.dtype == torch.float32
+    assert torch.equal(rows[0, :, :lq], lse.reshape(b * h, lq))
+    assert torch.equal(rows[1, :, :lq], delta.reshape(b * h, lq))
+    assert not rows[:, :, lq:].any()
+    for d in (64, 128):
+        for causal, shift, zeroed in ((True, 0, False), (False, -500, False),
+                                      (True, -63, False), (True, -64, True)):
+            ws, turns = fa.dq_workspace(b, lq, h, d, causal, shift, "cpu")
+            assert ws.shape == (b * h, n_qt, 64 * d) and ws.dtype == torch.float32
+            assert turns.shape == (b * h, n_qt) and turns.dtype == torch.int32
+            assert not turns.any()
+            if zeroed:
+                assert not ws.any()
+
+
+@pytest.mark.parametrize("lq, d", [(70, 64), (128, 128)])
+def test_dq_from_workspace_reads_the_kernels_thread_order(lq, d):
+    """The fused kernel leaves each dQ tile in its consumer threads' order:
+    float4 ``8x + j`` of thread ``32w + 4g + t`` holds rows 16w + g and
+    16w + g + 8, columns 64x + 8j + 2t and + 1. Written so here, by loops
+    over the threads, the tiles read back as ``[B, Lq, H, D]``, ragged
+    rows cut, contiguous."""
+    b, h = 2, 2
+    want = torch.randn(b, lq, h, d)
+    ws, _ = fa.dq_workspace(b, lq, h, d, True, 0, "cpu")
+    pad = torch.zeros(b, ws.shape[1] * 64, h, d)
+    pad[:, :lq] = want
+    for bh in range(b * h):
+        bb, hh = divmod(bh, h)
+        for qt in range(ws.shape[1]):
+            tile = ws[bh, qt].view(-1, 128, 4)
+            for tid in range(128):
+                w, g, t = tid // 32, tid % 32 // 4, tid % 4
+                r = qt * 64 + 16 * w + g
+                for x in range(d // 64):
+                    for j in range(8):
+                        c = 64 * x + 8 * j + 2 * t
+                        tile[8 * x + j, tid] = torch.stack(
+                            [pad[bb, r, hh, c], pad[bb, r, hh, c + 1], pad[bb, r + 8, hh, c],
+                             pad[bb, r + 8, hh, c + 1]])
+    got = fa.dq_from_workspace(ws, b, lq, torch.bfloat16)
+    assert got.is_contiguous() and torch.equal(got, want.bfloat16())

@@ -135,14 +135,17 @@ def test_a_bad_bwd_impl_raises_as_in_jax():
 
 def test_split_kernel_operands_follow_the_fused_contract():
     """The split launcher takes what the fused one takes: its operand checks
-    are ``_check_cuda_operands``, and Δ and LSE go to the kernels as
-    contiguous ``[B, H, Lq]`` rows even when the ring hands over a zigzag
-    chunk's slice of them."""
+    are ``_check_cuda_operands``, and Δ and LSE go to the kernels as one
+    zero-padded ``[2, B·H, 64]`` buffer of rows even when the ring hands over
+    a zigzag chunk's slice of them."""
     t = torch.zeros(2, 8, 2, 64)
-    lse = torch.zeros(2, 2, 16)[:, :, 8:]
+    lse = torch.arange(2 * 2 * 16, dtype=torch.float32).view(2, 2, 16)[:, :, 8:]
     assert not lse.is_contiguous()
     args, rows = fa._backward_operands(t, t, t, t, lse, t, None)
-    assert all(r.is_contiguous() and r.shape == (2, 2, 8) for r in rows)
-    assert len(args) == 18  # four strided operands, then the LSE and Δ rows
+    assert rows.shape == (2, 4, 64) and rows.is_contiguous()
+    assert torch.equal(rows[0, :, :8], lse.reshape(4, 8)) and not rows[:, :, 8:].any()
+    assert not rows[1].any()  # Δ = rowsum(dO ⊙ O) of zeros
+    assert len(args) == 10  # four operands with their tensor maps, then the rows and their ld
+    assert args[-1] == 64
     with pytest.raises(ValueError, match="head dim"):
         fa._check_cuda_operands(*[torch.zeros(2, 8, 2, 32)] * 5)
