@@ -676,8 +676,9 @@ def check_tail_kernels(torch, failures, dev="cuda") -> dict:
     inputs (moments), B = 8 in fp32, and ragged shapes; fp32 sums relative
     to their largest value, gp bit-equal (a select), dz within a bf16 ulp
     or two of its largest value; moments and tail_bwd_reduce bitwise equal
-    over two launches (their chunks are summed in a fixed order). Returns each kernel's largest absolute
-    error over the bf16 shapes of the main path."""
+    over two launches (their chunks are summed in a fixed order). Returns
+    each kernel's largest absolute error over the bf16 shapes of the main
+    path."""
     from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
 
     bf16, f32 = torch.bfloat16, torch.float32
