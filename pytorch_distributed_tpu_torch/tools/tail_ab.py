@@ -1,0 +1,97 @@
+"""The bottleneck tail's kernels of two checkouts, timed on one card in turns.
+
+    python -m pytorch_distributed_tpu_torch.tools.tail_ab --parent DIR [--rounds 2]
+
+``DIR`` is another checkout of the repository (say the parent commit,
+unpacked with ``git archive`` into an ignored directory). Each round runs
+the parent, this checkout, this checkout again and the parent, each in a
+process of its own that imports the package from its checkout and builds
+that checkout's ``csrc/bottleneck_tail.cu``. Each process times
+``moments``, ``tail_bwd_reduce`` and ``tail_bwd_dz`` through their public
+wrappers at ResNet-50's four expand-tail shapes (z ``[128, H, W, F]``, E =
+4F, bf16, the operands of ``chip_smoke.py``'s ``tail_inputs``) by CUDA
+events over 20 calls, with the L2 flushed before each (``chip_smoke.py``'s
+``time_ms``), and prints one JSON line. The last line printed is the
+median of each (checkout, kernel, stage) over its runs, with the card's
+name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+STAGES = ((128, 56, 64), (128, 28, 128), (128, 14, 256), (128, 7, 512))
+KERNELS = ("moments", "tail_bwd_reduce", "tail_bwd_dz")
+THIS = Path(__file__).resolve().parents[2]
+
+
+def _load_chip_smoke(root: Path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def worker(checkout: str) -> dict:
+    """Times, in µs, of each kernel at each stage, for the package of
+    ``checkout`` (this process imports it from there)."""
+    sys.path.insert(0, checkout)
+    import torch
+
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+
+    cs = _load_chip_smoke(THIS)  # the timer and the operands: this checkout's
+    out = {}
+    for b, hw, f in STAGES:
+        z, g, o, wa, c, dmn = cs.tail_inputs(torch, torch.bfloat16, b, hw, f, seed=11)
+        gp = bt.tail_bwd_reduce(z, g, o)[0]
+        calls = {"moments": lambda: bt.moments(z),
+                 "tail_bwd_reduce": lambda: bt.tail_bwd_reduce(z, g, o),
+                 "tail_bwd_dz": lambda: bt.tail_bwd_dz(gp, z, wa, c, dmn)}
+        for name in KERNELS:
+            out[f"{name} z[{b},{hw},{hw},{f}]"] = cs.time_ms(torch, calls[name], iters=20) * 1e3
+        del z, g, o, gp
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--parent", required=True, help="the other checkout's root")
+    p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--worker", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.worker:
+        print(json.dumps(worker(args.worker)))
+        return {}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    roots = {"parent": str(Path(args.parent).resolve()), "change": str(THIS)}
+    runs = {name: [] for name in roots}
+    for r in range(args.rounds):
+        for name in ("parent", "change", "change", "parent"):
+            res = subprocess.run([sys.executable, __file__, "--parent", roots["parent"],
+                                  "--worker", roots[name]],
+                                 capture_output=True, text=True, check=True,
+                                 env=dict(os.environ, PYTHONPATH=""))
+            times = json.loads(res.stdout.strip().splitlines()[-1])
+            runs[name].append(times)
+            print(json.dumps({"round": r, "checkout": name, "us": times}))
+    summary = {"card": card, "median_us": {
+        name: {k: statistics.median(t[k] for t in ts) for k in ts[0]}
+        for name, ts in runs.items()}}
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -252,3 +252,17 @@ def test_profiles_name_every_kernel_of_the_port(chip_smoke, kernel, kind):
     assert chip_smoke.is_dkv_kernel(kernel) == ("flash_bwd_wgmma" in kernel
                                                  or "flash_bwd_kernel" in kernel)
     assert chip_smoke.is_dq_kernel(kernel) == ("flash_bwd_dq_kernel" in kernel)
+
+
+def test_tail_ab_times_the_main_paths_stage_shapes():
+    """``tools/tail_ab.py`` times the tail kernels of two checkouts at
+    ResNet-50's four expand-tail shapes, the ones ``chip_smoke.py`` checks
+    (B 128, E = 4F), through the three public wrappers."""
+    from pytorch_distributed_tpu_torch.tools import tail_ab
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_unpatched", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert tail_ab.STAGES == cs.TAIL_STAGES
+    assert set(tail_ab.KERNELS) == {bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ}
+    assert (tail_ab.THIS / "chip_smoke.py").is_file()
