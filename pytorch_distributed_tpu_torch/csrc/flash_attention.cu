@@ -58,8 +58,8 @@
 //     overlaps another's products. Causal tiles above the diagonal are
 //     skipped, so the work is the visible pairs'.
 //   - The fused backward's dQ: each block adds its 64 x D fp32 tile to the
-//     dQ workspace by 16-byte atomics in descending key-tile order, by a
-//     per-(batch x head, Q tile) counter in global memory
+//     dQ workspace with one bulk reduce-add, in descending key-tile order
+//     kept by a per-(batch x head, Q tile) counter in global memory
 //     (flash_bwd_wgmma_kernel), so the sum's order never changes and no
 //     per-key-block partials are kept.
 // fp32 inputs take the CUDA-core kernels (the product on CUDA cores, lanes
@@ -1059,15 +1059,16 @@ struct BwdArgs {
 // the A operand (MN-major) of dQ_tile = dS K, and the tile is added to the
 // fp32 dQ in a fixed order: Q tile qt's key tiles add in descending order,
 // each waiting until the counter turns[bh, qt] names its turn (the first
-// stores, the rest add by 16-byte atomics), then bumping it with a
-// release after a barrier of the warpgroup, as CUTLASS's serial split-K
-// semaphore does. dS goes to shared memory before dV and dK are
-// computed, so the dV, dK and dQ products run as one batch. A causal Q tile's first adder is then the diagonal
-// block's first iteration and each later one comes one iteration after its
-// predecessor. A block waits only on blocks of higher key tiles, which
-// have lower linear indices and so were started before it: no deadlock
-// whatever the grid's size. Without kDq this is kernel 6's dK/dV kernel,
-// the same code, so the same dK and dV bits.
+// stores the tile, the rest add it at L2, one bulk copy each), then bumping
+// it with a release once the copy has landed (thread 0 does so while the
+// next tile's S and dP run), as CUTLASS's serial split-K semaphore does. A
+// causal Q tile's first adder is then the diagonal block's first iteration
+// and each later one comes one iteration after its predecessor. A block
+// waits only on blocks of higher key tiles, which have lower linear
+// indices and so were started before it: no deadlock whatever the grid's
+// size. dS goes to shared memory before dV and dK are computed, so the dV,
+// dK and dQ products run as one batch. Without kDq this is kernel 6's
+// dK/dV kernel, the same code, so the same dK and dV bits.
 template <int kBoxes, int kStages, bool kDq, int kMinBlocks>
 __global__ void __launch_bounds__(kThreadsW, kMinBlocks)
     flash_bwd_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
