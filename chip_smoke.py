@@ -12,17 +12,19 @@ Phases, each of which fails the run:
       nvcc per source, all started together;
   (b) each kernel against the plain PyTorch version on the card: the paged
       kernels at the full-width serving shapes and at small GQA /
-      padding-row shapes; their int8 / fp8 e4m3 / fp8 e5m2 dequantizing
-      variants at the decode shape and on a 32-row chunk, with bf16 and
-      fp32 q; the quantize-on-scatter kernel bit-equal, in the three pool
-      dtypes, at a chunk shape (8 jobs x 32 rows) and the decode shape (8
-      rows), rows whose amax spans 1e-8 to 1e4; the flash forward (O, LSE)
-      and fused backward (dQ, dK, dV) at the training shape in bf16, at
-      ragged lengths in fp32 (causal and not), at D = 128, and with fully
-      masked rows; the split backward (dK/dV and dQ kernels) at the same
-      shapes and at the ring's (a 1024-row shard; 512-row zigzag chunk
-      views with the shard's LSE and a sliced, precomputed Δ) against the
-      plain version and against the fused kernel (dK, dV bitwise equal);
+      padding-row shapes, one with R = G·C = 80 rows per KV head (two
+      row tiles of the bf16 sweep's tensor-core kernel); their int8 / fp8
+      e4m3 / fp8 e5m2 dequantizing variants at the decode shape and on a
+      32-row chunk, with bf16 and fp32 q; the quantize-on-scatter kernel
+      bit-equal, in the three pool dtypes, at a chunk shape (8 jobs x 32
+      rows) and the decode shape (8 rows), rows whose amax spans 1e-8 to
+      1e4; the flash forward (O, LSE) and fused backward (dQ, dK, dV) at
+      the training shape in bf16, at ragged lengths in fp32 (causal and
+      not), at D = 128, and with fully masked rows; the split backward (dK/dV and dQ kernels, both TMA +
+      wgmma in bf16) at the same shapes and at the ring's (a 1024-row
+      shard; 512-row zigzag chunk views with the shard's LSE and a
+      sliced, precomputed Δ) against the plain version and against the
+      fused kernel (dK, dV bitwise equal);
       the bottleneck tail's moments, tail_bwd_reduce (gp bit-equal) and
       tail_bwd_dz at ResNet-50's four stage shapes (B = 128, bf16), moments
       at the four downsample inputs, the stage shapes at B = 8 in fp32, and
@@ -61,8 +63,9 @@ Phases, each of which fails the run:
       (the flash calls also by their kernels' device time):
       the paged kernels at the decode shape (library: SDPA on pre-gathered
       K/V; no PyTorch call reads int8/fp8 K/V with per-row scales, so the
-      quantized variants and the scatter have none), the scatter at the
-      chunk and decode shapes, the flash kernels at the training shape
+      quantized variants and the scatter have none), the bf16 sweep also at
+      the prefill chunk where the serve runs it (B 4 x C 32, W 64), the
+      scatter at the chunk and decode shapes, the flash kernels at the training shape
       (library: causal SDPA, forward, and its backward through autograd),
       the tail kernels at ResNet-50's stage-1 and stage-4 shapes beside the
       cuBLAS spelling of the XLA step (no single PyTorch call computes
@@ -124,6 +127,9 @@ SPLIT_CHECKS = (
     ("ragged L=300 fp32 full", "float32", False, 0, dict(b=2, l=300, h=2, seed=1)),
     ("Lq=90 Lk=200 fp32 full", "float32", False, 0, dict(b=2, l=90, lk=200, h=2, seed=2)),
     ("Lq=200 Lk=90 fp32 causal", "float32", True, 0, dict(b=2, l=200, lk=90, h=2, seed=2)),
+    ("ragged L=300 bf16 causal", "bfloat16", True, 0, dict(b=2, l=300, h=2, seed=1)),
+    ("Lq=90 Lk=200 bf16 full", "bfloat16", False, 0, dict(b=2, l=90, lk=200, h=2, seed=2)),
+    ("Lq=200 Lk=90 bf16 causal", "bfloat16", True, 0, dict(b=2, l=200, lk=90, h=2, seed=2)),
     ("D=128 L=130 causal bf16", "bfloat16", True, 0, dict(b=2, l=130, h=2, d=128, seed=3)),
     ("D=128 L=130 causal fp32", "float32", True, 0, dict(b=2, l=130, h=2, d=128, seed=3)),
     ("rows 0-36 fully masked (shift -37) bf16", "bfloat16", True, -37,
@@ -198,7 +204,7 @@ def card_line() -> str:
 
 
 def decode_inputs(torch, dtype, *, b=8, c=1, h=12, h_kv=12, d=64, bl=16, w=128,
-                  seed=0, positions=None):
+                  seed=0, positions=None, dev="cuda"):
     """A full-size pool (every slot can hold 2048 positions, plus trash)
     filled with noise, trash included; ragged chains with trash tails."""
     rng = np.random.default_rng(seed)
@@ -216,11 +222,36 @@ def decode_inputs(torch, dtype, *, b=8, c=1, h=12, h_kv=12, d=64, bl=16, w=128,
         n = int(positions[i].max()) // bl + 1 if positions[i].max() >= 0 else 0
         tables[i, :n] = order[i * w:i * w + n]
     q = torch.from_numpy(rng.standard_normal((b, c, h, d), np.float32))
-    dev = "cuda"
     return dict(q=q.to(dev, dtype), k_pool=k_pool.to(dev, dtype),
                 v_pool=v_pool.to(dev, dtype),
                 block_tables=torch.from_numpy(tables).to(dev),
                 q_positions=torch.from_numpy(positions).to(dev, torch.int32))
+
+
+def prefill_inputs(torch, dtype, dev="cuda", seed=2):
+    """A prefill chunk as the serve runs the single sweep on it: 4 jobs x
+    32 rows (the serve's prefill chunk) at chain starts 0, 32, 480 and 992,
+    W = 64 blocks of 16; R = G·C = 32 rows per KV head."""
+    starts = np.array([0, 32, 480, 992])
+    return decode_inputs(torch, dtype, b=4, c=32, w=64, seed=seed, dev=dev,
+                         positions=starts[:, None] + np.arange(32))
+
+
+def gathered(torch, inp):
+    """SDPA's operands for a paged call (its library yardstick): q ``[B, H,
+    C, D]``, K and V gathered through the block tables into ``[B, H, W·bl,
+    D]`` (a KV head repeated for its G query heads) and the position mask
+    ``[B, 1, C, W·bl]``."""
+    q, kp = inp["q"], inp["k_pool"]
+    b, c, h, d = q.shape
+    bl, h_kv = kp.shape[1], kp.shape[2]
+    w = inp["block_tables"].shape[1]
+    idx = inp["block_tables"].long()
+    kg, vg = (pool[idx].reshape(b, w * bl, h_kv, d).repeat_interleave(h // h_kv, dim=2)
+              .transpose(1, 2).contiguous() for pool in (kp, inp["v_pool"]))
+    mask = (torch.arange(w * bl, device=q.device)[None, None, None, :]
+            <= inp["q_positions"].long()[:, None, :, None])
+    return q.transpose(1, 2).contiguous(), kg, vg, mask
 
 
 def bound(inp) -> dict:
@@ -433,12 +464,13 @@ def kernel_device_ms(torch, fn, match, iters=10) -> dict:
 def is_dkv_kernel(name: str) -> bool:
     """Kernel 6's dK/dV kernel in a profiler trace: the flash backward that
     is not the dQ kernel (the wgmma backward in bf16)."""
-    return "flash_bwd" in name and "dq_kernel" not in name
+    return "flash_bwd" in name and "flash_bwd_dq" not in name
 
 
 def is_dq_kernel(name: str) -> bool:
-    """Kernel 6's dQ kernel in a profiler trace."""
-    return "flash_bwd_dq_kernel<" in name
+    """Kernel 6's dQ kernel in a profiler trace (``flash_bwd_dq_wgmma_kernel``
+    in bf16, ``flash_bwd_dq_kernel`` in fp32)."""
+    return "flash_bwd_dq" in name
 
 
 def check_abs(torch, failures, label, got, want, tol, dev="cuda") -> float:
@@ -984,9 +1016,7 @@ def main(argv) -> int:
     check("decode fp32, sweep", sweep32, ref32, FP32_TOL)
     check("decode fp32, auto split", split32, ref32, FP32_TOL)
     check("decode fp32, split vs sweep", split32, sweep32, SPLIT_VS_SWEEP_TOL)
-    starts = np.array([0, 32, 480, 992])
-    chunk = decode_inputs(torch, bf16, b=4, c=32, w=64, seed=2,
-                          positions=starts[:, None] + np.arange(32))
+    chunk = prefill_inputs(torch, bf16)
     ref_chunk = paged_attention_reference(**chunk)
     for split_s in (1, None):
         check(f"prefill chunk B=4 C=32 W=64 bf16, split_s={split_s}",
@@ -1002,6 +1032,20 @@ def main(argv) -> int:
         for split_s in (1, 3):
             check(f"GQA H=8 H_kv=2 C=5 padding rows {dtype}, split_s={split_s}",
                   paged_flash.paged_flash_attention(**gqa, split_s=split_s), ref, tol)
+    # R = G*C = 80 rows per KV head: two tensor-core row tiles (64 + 16)
+    # and ten CUDA-core ones; a long chain, padding rows, a fully masked
+    # batch row
+    pos = np.full((3, 20), -1)
+    pos[0] = 180 + np.arange(20)
+    pos[1, :7] = 40 + np.arange(7)
+    for dtype, tol in ((bf16, BF16_TOL), (f32, FP32_TOL)):
+        many = decode_inputs(torch, dtype, b=3, c=20, h=8, h_kv=2, w=16, seed=9,
+                             positions=pos)
+        ref = paged_attention_reference(**many)
+        for split_s in (1, 3):
+            check(f"GQA H=8 H_kv=2 C=20 (R=80, {paged_flash.tc_row_tiles(80)} tensor-core row "
+                  f"tiles) padding rows {dtype}, split_s={split_s}",
+                  paged_flash.paged_flash_attention(**many, split_s=split_s), ref, tol)
     wide = decode_inputs(torch, f32, b=2, c=2, h=2, h_kv=2, d=128, w=8, seed=4)
     check("D=128 fp32, split_s=2", paged_flash.paged_flash_attention(**wide, split_s=2),
           paged_attention_reference(**wide), FP32_TOL)
@@ -1010,20 +1054,20 @@ def main(argv) -> int:
     decode_q = {}
     for kv in QUANT:
         for dtype, tol in ((bf16, BF16_TOL), (f32, FP32_TOL)):
-            for label, shape in (("decode B=8 C=1 H=12 D=64 W=128", {}),
-                                 ("prefill chunk B=4 C=32 W=64",
-                                  dict(b=4, c=32, w=64,
-                                       positions=starts[:, None] + np.arange(32)))):
-                inp = quantized(torch, decode_inputs(torch, f32, seed=5, **shape), kv)
+            for label, decode in (("decode B=8 C=1 H=12 D=64 W=128", True),
+                                  ("prefill chunk B=4 C=32 W=64", False)):
+                raw = (decode_inputs(torch, f32, seed=5) if decode
+                       else prefill_inputs(torch, f32, seed=5))
+                inp = quantized(torch, raw, kv)
                 inp["q"] = inp["q"].to(dtype)
                 ref = paged_attention_reference(**inp)
                 for name, split_s in ((paged_flash.SWEEP, 1), (paged_flash.SPLIT, None)):
                     err = check(f"{label} {kv} pools, {dtype} q, {name}",
                                 paged_flash.paged_flash_attention(**inp, split_s=split_s),
                                 ref, tol)
-                    if dtype == bf16 and not shape:
+                    if dtype == bf16 and decode:
                         errs[paged_flash.variant(name, inp["k_pool"].dtype)] = err
-                if dtype == bf16 and not shape:
+                if dtype == bf16 and decode:
                     decode_q[kv] = inp
 
     # quantize-on-scatter: bit-equal to the plain version (the trash block,
@@ -1354,15 +1398,8 @@ def main(argv) -> int:
     # ---- (d) times at the decode shape ----
     import torch.nn.functional as F
 
-    b, c, h, d = decode_bf16["q"].shape
-    w = decode_bf16["block_tables"].shape[1]
-    bl = decode_bf16["k_pool"].shape[1]
-    idx = decode_bf16["block_tables"].long()
-    kg = decode_bf16["k_pool"][idx].reshape(b, w * bl, h, d).transpose(1, 2).contiguous()
-    vg = decode_bf16["v_pool"][idx].reshape(b, w * bl, h, d).transpose(1, 2).contiguous()
-    qg = decode_bf16["q"].transpose(1, 2).contiguous()
-    mask = (torch.arange(w * bl, device="cuda")[None, None, None, :]
-            <= decode_bf16["q_positions"].long()[:, None, :, None])
+    d = decode_bf16["q"].shape[-1]
+    qg, kg, vg, mask = gathered(torch, decode_bf16)
     sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qg, kg, vg, attn_mask=mask))
     plain_ms = time_ms(torch, lambda: paged_attention_reference(**decode_bf16))
@@ -1391,6 +1428,24 @@ def main(argv) -> int:
               f"({bd['bound_by']}: {bd['bytes'] / 1e6:.2f} MB, {bd['flops'] / 1e6:.1f} MFLOP)")
     plains = {name: plain_ms for name in timed}
     bounds = {name: bd for name in timed}
+
+    # the sweep where the serve runs it: the prefill chunk, B 4 x C 32, W 64
+    pqg, pkg, pvg, pmask = gathered(torch, chunk)
+    pre = {
+        "prefill_ms": time_ms(torch, lambda: paged_flash.paged_flash_attention(
+            **chunk, split_s=1)),
+        "prefill_plain_ms": time_ms(torch, lambda: paged_attention_reference(**chunk)),
+        "prefill_library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            pqg, pkg, pvg, attn_mask=pmask)),
+    }
+    pbd = bound(chunk)
+    pre["prefill_bound_ms"] = pbd["bound_ms"]
+    print(f"(d) {paged_flash.SWEEP} at prefill chunk B=4 C=32 H=12 D=64 W=64 bf16 on {card}: "
+          f"{pre['prefill_ms'] * 1e3:.1f} us per call, plain {pre['prefill_plain_ms'] * 1e3:.1f} "
+          f"us, SDPA on gathered K/V {pre['prefill_library_ms'] * 1e3:.1f} us, bound "
+          f"{pbd['bound_ms'] * 1e3:.2f} us ({pbd['bound_by']}: {pbd['bytes'] / 1e6:.2f} MB, "
+          f"{pbd['flops'] / 1e6:.1f} MFLOP)")
+    del pqg, pkg, pvg, pmask
 
     # the dequantizing variants at the decode shape (bf16 q) and the scatter
     # at the chunk and decode shapes; no single PyTorch call reads int8/fp8
@@ -1510,6 +1565,7 @@ def main(argv) -> int:
         "max_abs_err": errs[name], "ms": timed[name], "plain_ms": plains[name],
         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
         "library_ms": sdpa_ms if "[" not in name else None,
+        **(pre if name == paged_flash.SWEEP else {}),
     } for name in timed]
     flash_replaces = {FWD: "pytorch_distributed_tpu/ops/flash_attention.py:138",
                       BWD: "pytorch_distributed_tpu/ops/flash_attention.py:375"}

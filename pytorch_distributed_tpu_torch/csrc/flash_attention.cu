@@ -11,10 +11,10 @@
 //   - the split backward _flash_bwd (pallas_calls at :434 for _bwd_dq_kernel
 //     :195 and :451 for _bwd_dkv_kernel :232), the one ops/ring_flash.py runs
 //     per ring visit with bwd_impl="split": the fused backward's code without
-//     its dQ pass gives dK, dV (one block per K/V tile), and
-//     flash_bwd_dq_kernel gives dQ with one block per Q tile sweeping the K/V
-//     tiles. The split spends 7 products per visible pair (S and dP twice)
-//     where the fused kernel spends 5.
+//     its dQ pass gives dK, dV (one block per K/V tile), and the dQ
+//     kernel gives dQ with one block per Q tile sweeping the K/V tiles.
+//     The split spends 7 products per visible pair (S and dP twice) where
+//     the fused kernel spends 5.
 //
 // What it computes, for q [B, Lq, H, D] and k, v [B, Lk, H, D] read through
 // their strides (the fused qkv projection's views and the ring's zigzag
@@ -44,7 +44,8 @@
 //     cores' full rate: S = Q K^T and the backward's S^T, dP^T from shared
 //     memory; O += P V, dV += P^T dO and dK += dS^T Q with P, P^T and dS^T
 //     straight from the previous product's accumulator registers as the A
-//     operand; dQ = dS K from a swizzled shared tile of dS^T.
+//     operand; the fused backward's dQ = dS K from a swizzled shared tile
+//     of dS^T, the split backward's dQ += dS K with dS from registers.
 //   - Operand tiles arrive by TMA (a tensor map over the operand's own
 //     strides, 128-byte swizzle, zero fill past L) into a ring of stages
 //     with mbarriers, issued by one producer warp while the consumer
@@ -53,10 +54,10 @@
 //   - The softmax runs in log2 units with ex2 on registers; the mask is
 //     applied only on the diagonal and ragged tiles.
 //   - One block per (64-row Q tile, batch x head), longest causal rows
-//     first, for the forward; one per (K/V tile, batch x head) for the
-//     backward. Two to three blocks share an SM, so one block's softmax
-//     overlaps another's products. Causal tiles above the diagonal are
-//     skipped, so the work is the visible pairs'.
+//     first, for the forward and the split's dQ; one per (K/V tile, batch x
+//     head) for the dK/dV backward. Two to three blocks share an SM, so one
+//     block's softmax overlaps another's products. Causal tiles above the
+//     diagonal are skipped, so the work is the visible pairs'.
 //   - The fused backward's dQ: each block adds its 64 x D fp32 tile to the
 //     dQ workspace with one bulk reduce-add, in descending key-tile order
 //     kept by a per-(batch x head, Q tile) counter in global memory
@@ -65,15 +66,11 @@
 // fp32 inputs take the CUDA-core kernels (the product on CUDA cores, lanes
 // trading fragment values by shuffle) for exact fp32 numerics: they serve
 // chip_smoke.py's fp32 checks, not the bf16 training path, and their fused
-// backward is the split's two kernels, dQ written once in fp32. Kernel 6's
-// dQ kernel (flash_bwd_dq_kernel, mma.sync with scalar shared-memory
-// operand loads) keeps its first design in both dtypes.
+// backward is the split's two kernels, dQ written once in fp32.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -105,52 +102,33 @@ __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
 }
 
-// Fragments of one product C[16x8] += A[16x16] B[16x8], as mma.sync
-// m16n8k16 holds them. Lane 4g + t holds
+// Fragments of one product C[16x8] += A[16x16] B[16x8] of the fp32
+// CUDA-core kernels, laid out as mma.sync m16n8k16 holds them. Lane 4g + t
+// holds
 //   A: pair 0 = A[g][2t, 2t+1], 1 = A[g+8][2t, 2t+1],
 //      pair 2 = A[g][2t+8, 2t+9], 3 = A[g+8][2t+8, 2t+9];
 //   B: pair 0 = B[2t, 2t+1][g], 1 = B[2t+8, 2t+9][g];
-//   C: c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1].
-// bf16 packs a pair into one 32-bit register (first element in the low
-// half); fp32 keeps both floats.
+//   C: c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1],
+// each pair as two floats.
 template <typename T>
 struct FragA {
   float x[8];
-};
-template <>
-struct FragA<bf16> {
-  uint32_t x[4];
 };
 template <typename T>
 struct FragB {
   float x[4];
 };
-template <>
-struct FragB<bf16> {
-  uint32_t x[2];
-};
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
 
 // pair i of a fragment from p[0] and p[s]
 __device__ __forceinline__ void set_pair(float* x, int i, const float* p, int s) {
   x[2 * i] = p[0];
   x[2 * i + 1] = p[s];
 }
-__device__ __forceinline__ void set_pair(uint32_t* x, int i, const bf16* p, int s) {
-  x[i] = pack(p[0], p[s]);
-}
 
-// pair i from two fp32 values, rounded to the fragment's type
+// pair i from two fp32 values
 __device__ __forceinline__ void set_pair_f(float* x, int i, float a, float b) {
   x[2 * i] = a;
   x[2 * i + 1] = b;
-}
-__device__ __forceinline__ void set_pair_f(uint32_t* x, int i, float a, float b) {
-  x[i] = pack(__float2bfloat16(a), __float2bfloat16(b));
 }
 
 // A[m][k] at base[m * rs + k * cs], a 16x16 block
@@ -181,17 +159,7 @@ __device__ __forceinline__ void a_from_c(FragA<T>& f, const float (&lo)[4],
   set_pair_f(f.x, 3, hi[2], hi[3]);
 }
 
-__device__ __forceinline__ void mma(float (&c)[4], const FragA<bf16>& a,
-                                    const FragB<bf16>& b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a.x[0]), "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]), "r"(b.x[0]),
-        "r"(b.x[1]));
-}
-
-// The same product in fp32 on CUDA cores. Lane (g, s) holds rows g and
+// The product on CUDA cores. Lane (g, s) holds rows g and
 // g+8 of A at k = 2s, 2s+1, 2s+8, 2s+9; lane (n, s) holds column n of B at
 // the same k. Each lane gathers what its four C elements need by shuffle.
 // The loop stays rolled: unrolled, the fp32 kernels took most of two
@@ -518,12 +486,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(const Params p) {
   }
 }
 
-// The split backward's dQ (the TPU's _bwd_dq_kernel): grid (ceil(Lq / 64),
-// B * H); warp w owns rows 16w .. 16w + 15 of the Q tile and sweeps the K/V
-// tiles, when causal up to the tile's last visible key. Per K/V tile:
-// S = (q scale) K^T and dP = dO V^T (fp32), P = where(mask, exp(S - LSE), 0),
-// dS = P (dP - Delta) scale, dQ += dS K with dS in q's dtype; the fp32 sum
-// stays in registers and dQ is written once in the input dtype.
+// The split backward's dQ of fp32 inputs (the TPU's _bwd_dq_kernel): grid
+// (ceil(Lq / 64), B * H); warp w owns rows 16w .. 16w + 15 of the Q tile
+// and sweeps the K/V tiles, when causal up to the tile's last visible key.
+// Per K/V tile: S = (q scale) K^T and dP = dO V^T, P = where(mask, exp(S -
+// LSE), 0), dS = P (dP - Delta) scale, dQ += dS K; the sum stays in
+// registers and dQ is written once.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) {
   constexpr int LD = D + kPad;
@@ -658,49 +626,6 @@ constexpr int kBoxBytes = kBox * kBox * 2;      // 8 KB: 64 rows of 128 bytes
 constexpr int kSliceBytes = 16 * 128;           // 16 rows of a box: one k16 step
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost first
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // `bytes` contiguous bytes (a multiple of 16, 16-byte aligned)
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
@@ -746,11 +671,6 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// the consumer warpgroup alone (named barrier 1; the producer never joins)
-__device__ __forceinline__ void sync_consumers() {
-  asm volatile("bar.sync 1, 128;\n" ::: "memory");
-}
-
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
@@ -759,16 +679,6 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
 
 __device__ __forceinline__ void red_release_add(int* p, int v) {
   asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  return pack(__float2bfloat16(lo), __float2bfloat16(hi));
 }
 
 // wgmma shared-memory descriptor of a 1024-byte-aligned swizzled box (plus
@@ -789,6 +699,10 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// returns once at most one committed group is still running
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 // keeps the compiler from moving accumulator reads across a wgmma wait
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
@@ -1045,6 +959,7 @@ struct BwdArgs {
   int* turns;         // kDq: [B * H, ceil(Lq / 64)] counters, zero on entry
   void* dk;           // contiguous [B, Lk, H, D] bf16
   void* dv;
+  void* dq_out;       // the dQ kernel: contiguous [B, Lq, H, D] bf16
   int H, Lq, Lk, causal, shift;
   float scale;
 };
@@ -1319,26 +1234,190 @@ __global__ void __launch_bounds__(kThreadsW, kMinBlocks)
   }
 }
 
-// ---- launches ----
+// Kernel 6's dQ (the TPU's _bwd_dq_kernel) for bf16: grid (ceil(Lq / 64),
+// B * H), the longest causal rows first within each (batch, head); a block
+// owns one 64-row Q tile. The producer lands q, dO and the tile's LSE and
+// Delta once, then streams the K/V tiles the rows see (when causal, up to
+// the tile's last visible key) through the ring. Per K/V tile: S = (q
+// scale) K^T and dP = dO V^T by wgmma from shared memory, both operands
+// K-major; P = where(mask, exp(S - LSE), 0) (masked only on diagonal and
+// ragged tiles) while dP is still running, then dS = P (dP - Delta) scale
+// in registers; dQ += dS K with dS rounded to bf16 as the register A
+// operand and K read MN-major from the same stage. dQ stays in fp32
+// registers and is written once, so two launches give the same bits.
+template <int kBoxes, int kStages, int kMinBlocks>
+__global__ void __launch_bounds__(kThreadsW, kMinBlocks)
+    flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
+                              __grid_constant__ const CUtensorMap map_k,
+                              __grid_constant__ const CUtensorMap map_v,
+                              __grid_constant__ const CUtensorMap map_do, const BwdArgs a) {
+  constexpr int kTileBytes = kBoxes * kBoxBytes;
+  constexpr int kRowBytes = 2 * kBox * sizeof(float);  // LSE and Delta of the Q tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* q_s = smem;
+  unsigned char* do_s = q_s + kTileBytes;
+  unsigned char* kv_s = do_s + kTileBytes;  // stage s: K at 2 s tiles, V after it
+  float* rows_s = reinterpret_cast<float*>(kv_s + 2 * kStages * kTileBytes);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(rows_s + 2 * kBox);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, so the library needs no -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBox;
+  const int n_kt = (a.Lk + kBox - 1) / kBox;
+  int kt_end = n_kt;
+  if (a.causal) {
+    const int last = q0 + kBox - 1 + a.shift;  // the tile's last visible key
+    kt_end = last < 0 ? 0 : min(n_kt, last / kBox + 1);
   }
-  return fn;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(q_full, 2 * kTileBytes + kRowBytes);
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load(q_s + x * kBoxBytes, &map_q, q_full, x * kBox, h, q0, b);
+        tma_load(do_s + x * kBoxBytes, &map_do, q_full, x * kBox, h, q0, b);
+      }
+      bulk_load(rows_s, a.rows + static_cast<int64_t>(bh) * a.ld + q0, kBox * sizeof(float),
+                q_full);
+      bulk_load(rows_s + kBox, a.rows + static_cast<int64_t>(gridDim.y + bh) * a.ld + q0,
+                kBox * sizeof(float), q_full);
+      for (int i = 0; i < kt_end; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(empty + s, ((i / kStages) & 1) ^ 1);
+        unsigned char* k_st = kv_s + 2 * s * kTileBytes;
+        mbar_expect_tx(full + s, 2 * kTileBytes);
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load(k_st + x * kBoxBytes, &map_k, full + s, x * kBox, h, i * kBox, b);
+          tma_load(k_st + kTileBytes + x * kBoxBytes, &map_v, full + s, x * kBox, h, i * kBox,
+                   b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = q0 + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+  mbar_wait(q_full, 0);
+  {  // q scaled in its own dtype, once, in place (a swizzle moves no value)
+    const float sc = round_to<bf16>(a.scale);
+    uint4* v = reinterpret_cast<uint4*>(q_s);
+    for (int i = tid; i < kTileBytes / 16; i += kConsumers) {
+      uint4 x = v[i];
+      bf16* e = reinterpret_cast<bf16*>(&x);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16(__bfloat162float(e[k]) * sc);
+      v[i] = x;
+    }
+    fence_async_smem();
+    sync_consumers();
+  }
+  // LSE in log2 units and Delta of this thread's rows (zero past Lq, where
+  // q and dO are zero too, so dS is 0 there)
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse2[r] = rows_s[16 * warp + g + 8 * r] * kLog2e;
+    dl[r] = rows_s[kBox + 16 * warp + g + 8 * r];
+  }
+
+  float dq[kBoxes][32];
+#pragma unroll
+  for (int x = 0; x < kBoxes; ++x)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[x][e] = 0.f;
+  for (int i = 0; i < kt_end; ++i) {
+    const int s = i % kStages;
+    const unsigned char* k_st = kv_s + 2 * s * kTileBytes;
+    const unsigned char* v_st = k_st + kTileBytes;
+    float sacc[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sacc[e] = dp[e] = 0.f;
+    mbar_wait(full + s, (i / kStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * kBoxes; ++kk) {
+      const int off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
+      wgmma_ss<0, 0>(sacc, desc(q_s + off), desc(k_st + off), kk);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4 * kBoxes; ++kk) {
+      const int off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
+      wgmma_ss<0, 0>(dp, desc(do_s + off), desc(v_st + off), kk);
+    }
+    wgmma_commit();
+    wgmma_wait_1();  // S is done; dP runs on
+    fence_regs(sacc);
+
+    const int k0 = i * kBox;
+    const bool masked = k0 + kBox > a.Lk || (a.causal && k0 + kBox - 1 > q0 + a.shift);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r = (e >> 1) & 1;
+      float pv = ex2(fmaf(sacc[e], kLog2e, -lse2[r]));
+      if (masked) {
+        const int kpos = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        if (!(kpos < a.Lk && (!a.causal || kpos <= row0 + 8 * r + a.shift))) pv = 0.f;
+      }
+      sacc[e] = pv;
+    }
+    wgmma_wait();
+    fence_regs(dp);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dp[e] = sacc[e] * (dp[e] - dl[(e >> 1) & 1]) * a.scale;
+    uint32_t da[4][4];  // dS rounded to q's dtype, one A operand per 16 keys
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_from_acc(da[kk], dp, kk);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x)
+        wgmma_rs<1>(dq[x], da[kk], desc(k_st + x * kBoxBytes + kk * kSliceBytes), 1);
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int x = 0; x < kBoxes; ++x) fence_regs(dq[x]);
+    mbar_arrive(empty + s);  // K and V of this stage are read
+  }
+
+  bf16* out = static_cast<bf16*>(a.dq_out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qrow = row0 + 8 * r;
+    if (qrow < a.Lq) {
+      bf16* orow = out + ((static_cast<int64_t>(b) * a.Lq + qrow) * a.H + h) * (kBoxes * kBox);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(orow + x * kBox + 8 * j + 2 * t) =
+              pack2(dq[x][4 * j + 2 * r], dq[x][4 * j + 2 * r + 1]);
+    }
+  }
 }
+
+// ---- launches ----
 
 // An operand's geometry, as ops/flash_attention.py's tensor_map_geometry
 // gives it: dims (D, H, L, B), byte strides (H, L, B), box (64, 1, 64, 1).
@@ -1407,7 +1486,7 @@ int operands(Operands& o, const void* q, const int64_t* gq, const void* k, const
   return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The CUDA-core / mma.sync kernels' parameters (fp32, and kernel 6's dQ)
+// The CUDA-core kernels' parameters (fp32)
 Params old_params(const Operands& o, int causal, int shift, float scale) {
   Params p{};
   p.q = o.q, p.k = o.k, p.v = o.v, p.dout = o.dout;
@@ -1448,10 +1527,10 @@ int launch_dkv_fp32(const Params& p, int B, cudaStream_t st) {
                        kThreads, smem, st, p);
 }
 
-template <typename T, int D>
-int launch_dq(const Params& p, int B, cudaStream_t st) {
-  const size_t smem = 4 * kTile * (D + kPad) * sizeof(T) + 2 * kTile * sizeof(float);
-  return launch_kernel(flash_bwd_dq_kernel<T, D>, dim3((p.Lq + kTile - 1) / kTile, B * p.H),
+template <int D>
+int launch_dq_fp32(const Params& p, int B, cudaStream_t st) {
+  const size_t smem = 4 * kTile * (D + kPad) * sizeof(float) + 2 * kTile * sizeof(float);
+  return launch_kernel(flash_bwd_dq_kernel<float, D>, dim3((p.Lq + kTile - 1) / kTile, B * p.H),
                        kThreads, smem, st, p);
 }
 
@@ -1496,6 +1575,27 @@ int launch_bwd_wgmma(const Operands& o, const BwdArgs& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kBoxes>
+int launch_dq_wgmma(const Operands& o, const BwdArgs& a, cudaStream_t st) {
+  constexpr int kStages = kBoxes == 1 ? 3 : 2;
+  constexpr int kMinBlocks = 2;
+  CUtensorMap mq, mk, mv, mdo;
+  int err = encode(&mq, o.q, o.gq);
+  if (err == 0) err = encode(&mk, o.k, o.gk);
+  if (err == 0) err = encode(&mv, o.v, o.gv);
+  if (err == 0) err = encode(&mdo, o.dout, o.gdo);
+  if (err != 0) return err;
+  auto kernel = flash_bwd_dq_wgmma_kernel<kBoxes, kStages, kMinBlocks>;
+  const size_t smem = 1024 + (2 + 2 * kStages) * kBoxes * kBoxBytes + 2 * kBox * sizeof(float) +
+                      (1 + 2 * kStages) * 8;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((o.Lq + kBox - 1) / kBox, o.B * o.H);
+  kernel<<<grid, kThreadsW, smem, st>>>(mq, mk, mv, mdo, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 BwdArgs bwd_args(const Operands& o, const void* rows, int rows_ld, void* dq, void* turns,
                  void* dk, void* dv, int causal, int shift, float scale) {
   BwdArgs a{};
@@ -1520,7 +1620,7 @@ int backward_fp32(const Operands& o, const void* rows, int rows_ld, void* dq, vo
   p.dk = dk, p.dv = dv, p.dq_out = dq;
   int err = o.D == 64 ? launch_dkv_fp32<64>(p, o.B, st) : launch_dkv_fp32<128>(p, o.B, st);
   if (err != 0 || dq == nullptr) return err;
-  return o.D == 64 ? launch_dq<float, 64>(p, o.B, st) : launch_dq<float, 128>(p, o.B, st);
+  return o.D == 64 ? launch_dq_fp32<64>(p, o.B, st) : launch_dq_fp32<128>(p, o.B, st);
 }
 
 }  // namespace
@@ -1589,15 +1689,11 @@ extern "C" int pdt_flash_bwd_split(const void* q, const int64_t* gq, const void*
   if (rows_ld % kBox || rows_ld < o.Lq) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return backward_fp32(o, rows, rows_ld, dq, dk, dv, causal, shift, scale, st);
-  const BwdArgs a = bwd_args(o, rows, rows_ld, nullptr, nullptr, dk, dv, causal, shift, scale);
+  BwdArgs a = bwd_args(o, rows, rows_ld, nullptr, nullptr, dk, dv, causal, shift, scale);
   err = o.D == 64 ? launch_bwd_wgmma<1, false>(o, a, st) : launch_bwd_wgmma<2, false>(o, a, st);
   if (err != 0) return err;
-  Params p = old_params(o, causal, shift, scale);
-  p.lse = static_cast<float*>(const_cast<void*>(rows));
-  p.delta = p.lse + static_cast<int64_t>(o.B) * o.H * rows_ld;
-  p.rows_ld = rows_ld;
-  p.dq_out = dq;
-  return o.D == 64 ? launch_dq<bf16, 64>(p, o.B, st) : launch_dq<bf16, 128>(p, o.B, st);
+  a.dq_out = dq;
+  return o.D == 64 ? launch_dq_wgmma<1>(o, a, st) : launch_dq_wgmma<2>(o, a, st);
 }
 
 extern "C" const char* pdt_flash_error_string(int code) {

@@ -33,7 +33,9 @@
 // where the tensor cores would be the limit, so the least time is the
 // visible chain's bytes over 3.35 TB/s.
 //
-// What the design does about it:
+// What the design does about it: the single sweep on bf16 pools with bf16
+// q is paged_sweep_tc_kernel, below (tensor cores, a TMA ring, 64-row
+// tiles). Every other sweep and the split are the CUDA-core walk:
 //   - One thread block per (row tile, KV head, batch row[, split worker])
 //     reads its own table entries; the TPU's sequential chain axis becomes
 //     a loop. Its 4 warps take every 4th pool block of the range, each with
@@ -50,13 +52,14 @@
 //     of few, long requests fills the 132 SMs; the last of the S blocks to
 //     finish (an atomic ticket) merges the S fp32 partials and writes the
 //     output, so the merge costs no second launch.
-// CUDA cores do the two small products; wgmma, TMA and a deeper load
-// pipeline are later work.
+// The walk's row tile is kRows = 8 rows, so a prefill chunk of R = 32 rows
+// reads its chain four times; tensor cores and a TMA ring for the split and
+// the quantized pools are later work.
 
-#include <cuda_bf16.h>
 #include <cuda_fp8.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -405,7 +408,406 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The single sweep on bf16 pools with bf16 q, on tensor cores, fed by TMA.
+//
+// One thread block per (row tile of up to 64 rows, KV head, batch row):
+// every R = G * C row of a KV head up to 64 shares one block, so a chain
+// byte is read from HBM once per (batch row, KV head) for R <= 64; rows
+// past 64 take further row tiles. Four consumer warps and one producer
+// warp.
+//   - Loads: the producer walks the chain up to the tile's frontier in
+//     stages of 64 keys, a ring of kStages stages under full/empty
+//     mbarriers. Each stage is whole TMA boxes of the pool viewed as
+//     [n_blocks * bl, H_kv, D] (box (64, 1, min(bl, 64)), 128-byte
+//     swizzle, D = 128 two boxes), one per pool block (bl <= 64) or per 64
+//     rows of one (bl a multiple of 64), so several pool blocks of K and V
+//     are in flight while the consumers compute. The producer's lanes hold
+//     the pool rows of the next 32 boxes and of the 32 after them (one
+//     table read per lane, a batch ahead); a box past the frontier is
+//     asked for out of bounds and lands as zeros, reading no HBM.
+//   - Products: QK^T and PV on mma.sync m16n8k16 (bf16 in, fp32 sums), a
+//     warp owning 16 rows; K fragments by ldmatrix, V fragments by
+//     ldmatrix.trans, both conflict-free on the swizzled boxes; p goes from
+//     the S accumulators to the A operand in registers, rounded to bf16.
+//     Not wgmma: a decode tick has R = G rows (1 for MHA), where wgmma's
+//     64-row tile would waste 63 rows of each product, and the work is
+//     bound by the chain's bytes at any R <= 64, far from the tensor cores'
+//     rate, so mma.sync's 16-row tile serves every R.
+//   - Warps: with n16 = ceil(rows / 16) row groups, the 4 / n16 key groups
+//     (4 at R <= 16, 2 at R <= 32, 1 above) take every (4 / n16)-th stage,
+//     each with its own fp32 online softmax; at the end group 0 merges the
+//     others' states, passed through shared memory, into its registers and
+//     writes the rows. The ring's stage count is a multiple of
+//     4, so ring slot s belongs to key group s % (4 / n16) and a group
+//     meets its slots' phases in order: an mbarrier parity wait cannot tell
+//     a phase from the one two ahead, so a group running ahead must never
+//     wait on another group's slot.
+// Semantics as the CUDA-core walk: q scaled in its dtype, S and (m, l, acc)
+// fp32, p rounded to bf16 before PV, a padding row (qpos = -1) 0.
+
+constexpr int kStageKeys = 64;  // chain keys per ring stage
+constexpr int kTcRows = 64;     // query rows per thread block
+constexpr int kTcConsumers = 32 * kWarps;
+constexpr int kTcThreads = kTcConsumers + 32;  // and one producer warp
+constexpr int kBoxCols = 64;                   // 128 bytes: the swizzle's span
+constexpr int kBoxBytes = kStageKeys * kBoxCols * 2;
+
+// address of (key, column) in a stage's tile of 128-byte-swizzled boxes
+// (1024-byte aligned): 16-byte chunk j of row r sits at j ^ (r % 8)
+__device__ __forceinline__ uint32_t swizzled(uint32_t tile, int key, int col) {
+  const uint32_t off = key * 128 + (col % kBoxCols) * 2;
+  return tile + (col / kBoxCols) * kBoxBytes + (off ^ (((off >> 7) & 7) << 4));
+}
+
+// four 8x8 bf16 matrices; lane 8i + r gives row r of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&x)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&x)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(addr));
+}
+
+// C[16x8] += A[16x16] B[16x8]: lane 4g + t holds a = A[g][2t, 2t+1],
+// A[g+8][..], A[g][2t+8, 2t+9], A[g+8][..]; b = B[2t, 2t+1][g],
+// B[2t+8, 2t+9][g]; c = C[g][2t, 2t+1], C[g+8][2t, 2t+1]
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct TcParams {
+  const __nv_bfloat16* q;  // q[b, c, h, :] at q + b*q_sb + c*q_sc + h*q_sh
+  int64_t q_sb, q_sc, q_sh;
+  const int* tables;  // [B, W]
+  const int* qpos;    // [B, C]
+  __nv_bfloat16* out;  // [B, C, H_kv * G, D]
+  int H_kv, G, C, bl, W, box_rows, pool_rows;
+  float scale;
+};
+
+// grid (ceil(G * C / 64), H_kv, B); D = 64 * kBoxes
+template <int kBoxes, int kStages>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    paged_sweep_tc_kernel(__grid_constant__ const CUtensorMap map_k,
+                          __grid_constant__ const CUtensorMap map_v, const TcParams p) {
+  constexpr int D = kBoxes * kBoxCols;
+  constexpr int kTileBytes = kBoxes * kBoxBytes;  // 64 keys of K (or V)
+  constexpr float kLog2e = 1.4426950408889634f;
+  static_assert(kStages % kWarps == 0, "each key group owns its own ring slots");
+  static_assert((kWarps - 1) * kTcRows * (D + 4) * 4 <= 2 * kStages * kTileBytes,
+                "the ring holds the key groups' states at the end");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =  // stage s: K at 2 s tiles, V after it
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + 2 * kStages * kTileBytes);
+  uint64_t* empty = full + kStages;
+  __shared__ int qp_s[kTcRows];
+  __shared__ float m_s[(kWarps - 1) * kTcRows];  // key groups 1 .. 3 at the end
+  __shared__ float l_s[(kWarps - 1) * kTcRows];
+
+  const int R = p.G * p.C;
+  const int row0 = blockIdx.x * kTcRows;
+  const int nr = min(kTcRows, R - row0);
+  const int n16 = (nr + 15) / 16;  // row groups of 16
+  const int n_kg = kWarps / n16;   // key groups
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  if (tid < kTcRows)
+    qp_s[tid] = tid < nr ? p.qpos[static_cast<int64_t>(b) * p.C + (row0 + tid) % p.C] : -1;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, n16);  // lane 0 of each warp of the stage's key group
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int frontier = -1;
+  for (int r = 0; r < nr; ++r) frontier = max(frontier, qp_s[r]);
+  // keys [0, n_keys) are read; a block whose first key lies past every
+  // row's position is all masked
+  const int n_keys = frontier < 0 ? 0 : min(p.W * p.bl, frontier + 1);
+  const int n_st = (n_keys + kStageKeys - 1) / kStageKeys;
+
+  if (warp == kWarps) {  // the producer
+    const int n_copies = kStageKeys / p.box_rows;  // boxes per stage, a divisor of 32
+    const int* table = p.tables + static_cast<int64_t>(b) * p.W;
+    // the pool row of box 32 * batch + lane, or -1 past the frontier
+    auto box_row = [&](int batch) {
+      const int key0 = (32 * batch + lane) * p.box_rows;
+      if (key0 >= n_keys) return -1;
+      const int j = key0 / p.bl;
+      return __ldg(table + j) * p.bl + (key0 - j * p.bl);
+    };
+    int cur = box_row(0);
+    int nxt = box_row(1);
+    for (int i = 0; i < n_st; ++i) {
+      const int s = i % kStages;
+      const int c0 = i * n_copies;  // the stage's first box
+      if (c0 > 0 && c0 % 32 == 0) {
+        cur = nxt;
+        nxt = box_row(c0 / 32 + 1);
+      }
+      const int src = __shfl_sync(kFull, cur, (c0 % 32) + min(lane, n_copies - 1));
+      if (lane == 0) {
+        if (i >= kStages) mbar_wait(empty + s, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * kTileBytes);
+      }
+      __syncwarp();
+      if (lane < n_copies) {
+        const int row = src >= 0 ? src : p.pool_rows;  // out of bounds: zeros
+        unsigned char* k_st = ring + 2 * s * kTileBytes + lane * p.box_rows * 128;
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load(k_st + x * kBoxBytes, &map_k, full + s, x * kBoxCols, h, row);
+          tma_load(k_st + kTileBytes + x * kBoxBytes, &map_v, full + s, x * kBoxCols, h, row);
+        }
+      }
+    }
+    return;
+  }
+
+  const int rt = warp % n16;  // this warp's rows: 16 rt .. 16 rt + 15 of the tile
+  const int kg = warp / n16;  // and its key group
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // q of rows 16 rt + g and + 8, scaled in its dtype, as A fragments. Every
+  // pair is loaded before any is used (a row past nr reads row 0 and is
+  // zeroed), so the loads are in flight together.
+  uint32_t qa[D / 16][4];
+  int qp[2];
+  {
+    const float sc = __bfloat162float(__float2bfloat16(p.scale));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rl = 16 * rt + g + 8 * r;
+      qp[r] = qp_s[rl];
+      const int row = row0 + (rl < nr ? rl : 0);
+      const int gq = row / p.C;
+      const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
+          p.q + b * p.q_sb + (row - gq * p.C) * p.q_sc + (h * p.G + gq) * p.q_sh);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) qa[kk][r + 2 * hf] = __ldg(qrow + 8 * kk + 4 * hf + t);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&qa[kk][i]);
+        const bool in = 16 * rt + g + 8 * (i & 1) < nr;
+        qa[kk][i] = in ? pack2(__low2float(x) * sc, __high2float(x) * sc) : 0u;
+      }
+  }
+
+  float m[2] = {-INFINITY, -INFINITY};  // row max of S so far
+  float l[2] = {0.f, 0.f};              // this lane's share of the row sums
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int mi = lane >> 3;  // the ldmatrix matrix this lane addresses
+  for (int i = (kg < n_kg ? kg : n_st); i < n_st; i += n_kg) {
+    const int s = i % kStages;
+    const uint32_t k_st = smem_u32(ring + 2 * s * kTileBytes);
+    const uint32_t v_st = k_st + kTileBytes;
+    mbar_wait(full + s, (i / kStages) & 1);
+
+    float sc[8][4];  // S: 16 rows x 64 keys, 8 tiles of 8 keys
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        // matrix mi: keys 16 jp + 8 (mi / 2) .. + 7, columns 16 kk + 8 (mi % 2) .. + 7
+        uint32_t kb[4];
+        ldmatrix_x4(kb, swizzled(k_st, 16 * jp + 8 * (mi >> 1) + (lane & 7),
+                                 16 * kk + 8 * (mi & 1)));
+        mma(sc[2 * jp], qa[kk], kb[0], kb[1]);
+        mma(sc[2 * jp + 1], qa[kk], kb[2], kb[3]);
+      }
+
+    const int k0 = i * kStageKeys;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+        if (!(kpos <= qp[e >> 1] && kpos < n_keys)) sc[j][e] = -INFINITY;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float ms = (m_new == -INFINITY ? 0.f : m_new) * kLog2e;
+      const float corr = ex2(m[r] * kLog2e - ms);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float pv = ex2(fmaf(sc[j][2 * r + c], kLog2e, -ms));  // p * mask
+          sc[j][2 * r + c] = pv;
+          ps += pv;
+        }
+      l[r] = l[r] * corr + ps;
+      m[r] = m_new;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * r] *= corr;
+        acc[n][2 * r + 1] *= corr;
+      }
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // keys 16 kk .. 16 kk + 15
+      const uint32_t pa[4] = {pack2(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack2(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack2(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        // matrix mi: keys 16 kk + 8 (mi % 2) .. + 7, columns 16 np + 8 (mi / 2) .. + 7
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, swizzled(v_st, 16 * kk + 8 * (mi & 1) + (lane & 7),
+                                       16 * np + 8 * (mi >> 1)));
+        mma(acc[2 * np], pa, vb[0], vb[1]);
+        mma(acc[2 * np + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);  // this warp has read the stage
+  }
+
+  // every stage has landed and been read: key groups 1 .. n_kg - 1 hand
+  // their states to group 0 through the ring (slot (kg - 1) * 64 + row, a
+  // row padded by 4 floats against bank conflicts), and group 0 merges
+  // them into its own in registers and writes its rows
+  constexpr int kAccLd = D + 4;
+  sync_consumers();
+  float* acc_s = reinterpret_cast<float*>(ring);
+  float lt[2];  // the row sums
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lt[r] = l[r];
+    lt[r] += __shfl_xor_sync(kFull, lt[r], 1);
+    lt[r] += __shfl_xor_sync(kFull, lt[r], 2);
+  }
+  if (kg > 0 && kg < n_kg) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int slot = (kg - 1) * kTcRows + 16 * rt + g + 8 * r;
+      if (t == 0) {
+        m_s[slot] = m[r];
+        l_s[slot] = lt[r];
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(acc_s + slot * kAccLd + 8 * n + 2 * t) =
+            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+  }
+  sync_consumers();
+  if (kg > 0) return;
+  const int H = p.H_kv * p.G;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rl = 16 * rt + g + 8 * r;
+    if (rl >= nr) continue;
+    float ms = m[r];
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k)
+      if (k < n_kg) ms = fmaxf(ms, m_s[(k - 1) * kTcRows + rl]);
+    // a key group that saw no visible key (m = -inf) drops out
+    const float a0 = m[r] == -INFINITY ? 0.f : ex2((m[r] - ms) * kLog2e);
+    float al[kWarps];
+    float ls = lt[r] * a0;
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k) {
+      al[k] = 0.f;
+      if (k < n_kg) {
+        const float mk = m_s[(k - 1) * kTcRows + rl];
+        al[k] = mk == -INFINITY ? 0.f : ex2((mk - ms) * kLog2e);
+        ls += l_s[(k - 1) * kTcRows + rl] * al[k];
+      }
+    }
+    const float lc = fmaxf(ls, 1e-37f);  // fully masked rows (ls == 0) come out 0
+    const int gq = (row0 + rl) / p.C;
+    const int c = row0 + rl - gq * p.C;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(
+        p.out + ((static_cast<int64_t>(b) * p.C + c) * H + h * p.G + gq) * D);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      float v0 = acc[n][2 * r] * a0;
+      float v1 = acc[n][2 * r + 1] * a0;
+#pragma unroll
+      for (int k = 1; k < kWarps; ++k)
+        if (k < n_kg) {
+          const float2 x = *reinterpret_cast<const float2*>(
+              acc_s + ((k - 1) * kTcRows + rl) * kAccLd + 8 * n + 2 * t);
+          v0 += x.x * al[k];
+          v1 += x.y * al[k];
+        }
+      orow[4 * n + t] = pack2(v0 / lc, v1 / lc);
+    }
+  }
+}
+
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+
+// A pool's tensor map from ops/paged_flash.py's pool_tensor_map_geometry:
+// dims (D, H_kv, n_blocks * bl), byte strides (H_kv, row), box (64, 1, rows)
+int encode_pool(CUtensorMap* map, const void* pool, const int64_t* geo) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(geo[0]), static_cast<cuuint64_t>(geo[1]),
+                              static_cast<cuuint64_t>(geo[2])};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(geo[3]),
+                                 static_cast<cuuint64_t>(geo[4])};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(geo[5]), static_cast<cuuint32_t>(geo[6]),
+                             static_cast<cuuint32_t>(geo[7])};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(pool), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kInvalid;
+}
+
+template <int kBoxes, int kStages>
+int launch_tc(const CUtensorMap& mk, const CUtensorMap& mv, const TcParams& p, int B,
+              cudaStream_t st) {
+  auto kernel = paged_sweep_tc_kernel<kBoxes, kStages>;
+  const size_t smem = 1024 + 2 * kStages * kBoxes * kBoxBytes + 2 * kStages * 8;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((p.G * p.C + kTcRows - 1) / kTcRows, p.H_kv, B);
+  kernel<<<grid, kTcThreads, smem, st>>>(mk, mv, p);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T, typename P, int kScale, bool kSplit, int kDpl>
 int launch_one(const Params& p, int B, cudaStream_t stream) {
@@ -612,6 +1014,36 @@ extern "C" int pdt_paged_quantize_scatter(
   if (dtype == 0) return launch_quantize_pool<float>(p, pool, D, st);
   if (dtype == 1) return launch_quantize_pool<__nv_bfloat16>(p, pool, D, st);
   return kInvalid;
+}
+
+// The single sweep on tensor cores: bf16 q [B, C, H, D] (4-byte aligned,
+// even strides in elements) on bf16 pools, D in {64, 128}; geometry: the pools' tensor map,
+// 8 int64 values (ops/paged_flash.py: pool_tensor_map_geometry), whose box
+// rows are bl (8, 16 or 32) or 64 (bl a multiple of 64).
+extern "C" int pdt_paged_attention_sweep_tc(const void* q, int64_t q_sb, int64_t q_sc,
+                                            int64_t q_sh, const void* k_pool, const void* v_pool,
+                                            const int64_t* geometry, const void* tables,
+                                            const void* qpos, void* out, int B, int C, int H_kv,
+                                            int G, int bl, int W, float scale, void* stream) {
+  const int64_t D = geometry[0];
+  const int64_t box = geometry[7];
+  const bool box_ok = bl < kStageKeys ? box == bl && box >= 8 && kStageKeys % bl == 0
+                                      : box == kStageKeys && bl % kStageKeys == 0;
+  if (B < 1 || B > 65535 || H_kv < 1 || H_kv > 65535 || G < 1 || C < 1 || W < 1 ||
+      reinterpret_cast<uintptr_t>(q) % 4 || q_sb % 2 || q_sc % 2 || q_sh % 2 ||
+      (D != 64 && D != 128) || geometry[1] != H_kv || geometry[2] % bl ||
+      geometry[2] > INT32_MAX || geometry[5] != kBoxCols || geometry[6] != 1 || !box_ok)
+    return kInvalid;
+  CUtensorMap mk, mv;
+  int err = encode_pool(&mk, k_pool, geometry);
+  if (err == 0) err = encode_pool(&mv, v_pool, geometry);
+  if (err != 0) return err;
+  TcParams p{static_cast<const __nv_bfloat16*>(q), q_sb, q_sc, q_sh,
+             static_cast<const int*>(tables), static_cast<const int*>(qpos),
+             static_cast<__nv_bfloat16*>(out), H_kv, G, C, bl, W, static_cast<int>(box),
+             static_cast<int>(geometry[2]), scale};
+  auto st = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_tc<1, 8>(mk, mv, p, B, st) : launch_tc<2, 4>(mk, mv, p, B, st);
 }
 
 extern "C" int pdt_paged_attention_rows_per_tile() { return kRows; }

@@ -5,8 +5,8 @@ Each ``csrc/<name>.cu`` compiles on first use, with ``nvcc`` for Hopper
 ``csrc/build/``; the library is loaded with ``ctypes``. A file that
 includes no PyTorch header builds in seconds, where
 ``torch.utils.cpp_extension.load`` takes minutes. The library's name
-carries a hash of its source, so an edited source never loads a stale
-build.
+carries a hash of its source and of the headers the sources share
+(``csrc/*.cuh``), so an edited source never loads a stale build.
 
 Nothing here runs at import time. A missing ``nvcc`` or a failed build
 raises: no caller falls back to a plain version on a build failure.
@@ -58,9 +58,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _nvcc_command(name: str, out: Path) -> List[str]:

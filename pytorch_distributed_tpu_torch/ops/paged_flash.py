@@ -5,7 +5,11 @@ The port of ``pytorch_distributed_tpu/ops/paged_flash.py``. Three kernels
 of ``csrc/paged_attention.cu``:
 
 - ``paged_attention_sweep``: one thread block per (row tile, KV head,
-  batch row) walks the whole chain with an fp32 online softmax;
+  batch row) walks the whole chain with an fp32 online softmax. bf16 q on
+  bf16 pools runs ``paged_sweep_tc_kernel`` (``sweep_kernel`` decides):
+  its products on tensor cores, the pool blocks landed by TMA through a
+  ring of stages, a row tile holding all ``G·C`` rows of a KV head up to
+  64; other operands run the CUDA-core walk;
 - ``paged_attention_split`` (flash-decoding): the chain splits over S
   workers that write fp32 ``(acc, m, l)`` partials; the last worker of
   each row tile merges them by log-sum-exp inside the same launch (the
@@ -32,7 +36,7 @@ each quantized pool dtype; nothing else adds to them.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -68,10 +72,55 @@ _HEAD_DIMS = (32, 64, 96, 128)
 #: head dims of the kernels on quantized pools (fewer instantiations to build)
 _QUANT_HEAD_DIMS = (64, 128)
 
+#: the single sweep's two kernels (``sweep_kernel``)
+TENSOR_CORES = "tensor_cores"
+CUDA_CORES = "cuda_cores"
+#: the tensor-core sweep: query rows of a thread block, chain keys of a
+#: ring stage, and its head dims (one or two 64-column TMA boxes, the
+#: 128-byte swizzle's span)
+TC_TILE_ROWS = 64
+TC_STAGE_KEYS = 64
+TC_HEAD_DIMS = (64, 128)
+
 
 def variant(kernel: str, pool_dtype: torch.dtype) -> str:
     """The ``quant_launch_counts`` key of ``kernel`` on a quantized pool."""
     return f"{kernel}[{POOL_NAMES[pool_dtype]}]"
+
+
+def sweep_kernel(q_dtype: torch.dtype, pool_dtype: torch.dtype, d: int,
+                 block_len: int) -> str:
+    """Which kernel runs the single sweep: ``TENSOR_CORES`` for bf16 q on
+    bf16 pools with D in ``TC_HEAD_DIMS`` and a block length that a 64-key
+    stage takes in whole TMA boxes of at least 8 rows (8, 16, 32, or a
+    multiple of 64); else ``CUDA_CORES``: fp32 pools, quantized pools (their
+    dequantized V and p are fp32 for PV, which bf16 tensor cores would not
+    reproduce), and the other head dims and block lengths."""
+    whole_boxes = (8 <= block_len and TC_STAGE_KEYS % block_len == 0
+                   or block_len % TC_STAGE_KEYS == 0)
+    if (q_dtype == torch.bfloat16 and pool_dtype == torch.bfloat16
+            and d in TC_HEAD_DIMS and whole_boxes):
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def tc_row_tiles(rows: int) -> int:
+    """Thread blocks of the tensor-core sweep per (batch row, KV head) for
+    ``rows = G·C`` query rows: one holds up to ``TC_TILE_ROWS``, so at
+    R <= 64 each chain byte is read once per (batch row, KV head)."""
+    return -(-rows // TC_TILE_ROWS)
+
+
+def pool_tensor_map_geometry(pool: torch.Tensor) -> Tuple[int, ...]:
+    """The TMA tensor map of a contiguous bf16 pool ``[n_blocks, bl, H_kv,
+    D]`` as the tensor-core sweep reads it: the pool viewed as ``[n_blocks·bl,
+    H_kv, D]``, dims ``(D, H_kv, n_blocks·bl)`` innermost first, the byte
+    strides of H_kv and of a row, and the box ``(64, 1, min(bl, 64))``: one
+    pool block of one KV head (or 64 rows of one), 64 columns (D = 128 takes
+    two boxes)."""
+    n_blocks, bl, h_kv, d = pool.shape
+    e = pool.element_size()
+    return (d, h_kv, n_blocks * bl, d * e, h_kv * d * e, 64, 1, min(bl, TC_STAGE_KEYS))
 
 
 def reset_launch_counts() -> None:
@@ -98,6 +147,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     dims = [i, i, i, i, i, i, i, i, i]  # dtype, pool, B, C, H_kv, G, D, block_len, W
     lib.pdt_paged_attention_sweep.argtypes = operands + dims + [f, p]
     lib.pdt_paged_attention_sweep.restype = i
+    # q + strides, pools, their tensor map geometry, tables, qpos, out;
+    # B, C, H_kv, G, block_len, W; scale, stream
+    lib.pdt_paged_attention_sweep_tc.argtypes = (
+        [p, i64, i64, i64, p, p, ctypes.POINTER(i64), p, p, p] + [i] * 6 + [f, p])
+    lib.pdt_paged_attention_sweep_tc.restype = i
     lib.pdt_paged_attention_split.argtypes = operands + [p, p, p, p] + dims + [i, f, p]
     lib.pdt_paged_attention_split.restype = i
     lib.pdt_paged_attention_rows_per_tile.argtypes = []
@@ -252,16 +306,27 @@ def launch_sweep(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  tables: torch.Tensor, qpos: torch.Tensor, scale: float, *,
                  k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of the single-sweep kernel. ``q [B, C, H, D]`` may be a
-    strided view with unit stride in D; int32 ``tables [B, W]`` and
-    ``qpos [B, C]`` are contiguous; all on one card
+    """One launch of the single-sweep kernel that ``sweep_kernel`` picks.
+    ``q [B, C, H, D]`` may be a strided view with unit stride in D; int32
+    ``tables [B, W]`` and ``qpos [B, C]`` are contiguous; all on one card
     (``paged_flash_attention`` checks and prepares them). Returns
     ``[B, C, H, D]`` in q's dtype."""
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = _library()
-    code = lib.pdt_paged_attention_sweep(
-        *_operands(q, k_pool, v_pool, k_scale, v_scale, tables, qpos, out),
-        *_dims(q, k_pool, k_scale, tables), float(scale), _stream(q))
+    b, c, h, d = q.shape
+    _, bl, h_kv, _ = k_pool.shape
+    if sweep_kernel(q.dtype, k_pool.dtype, d, bl) == TENSOR_CORES:
+        if q.data_ptr() % 4 or any(s % 2 for s in q.stride()[:3]):  # q is read in pairs
+            q = q.contiguous()
+        geometry = (ctypes.c_int64 * 8)(*pool_tensor_map_geometry(k_pool))
+        code = lib.pdt_paged_attention_sweep_tc(
+            _ptr(q), q.stride(0), q.stride(1), q.stride(2), _ptr(k_pool), _ptr(v_pool),
+            geometry, _ptr(tables), _ptr(qpos), _ptr(out), b, c, h_kv, h // h_kv, bl,
+            tables.shape[1], float(scale), _stream(q))
+    else:
+        code = lib.pdt_paged_attention_sweep(
+            *_operands(q, k_pool, v_pool, k_scale, v_scale, tables, qpos, out),
+            *_dims(q, k_pool, k_scale, tables), float(scale), _stream(q))
     _check_launch(lib, SWEEP, code)
     _count(SWEEP, k_pool, k_scale)
     return out

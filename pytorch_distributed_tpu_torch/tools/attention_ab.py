@@ -1,0 +1,83 @@
+"""Kernel 6's split backward and kernel 7's single sweep of two checkouts,
+timed on one card in turns.
+
+    python -m pytorch_distributed_tpu_torch.tools.attention_ab --parent DIR [--rounds 2]
+
+``DIR`` is another checkout of the repository (say the parent commit,
+unpacked with ``git archive`` into an ignored directory). As
+``tools/tail_ab.py`` does, each round runs the parent, this checkout, this
+checkout again and the parent, each in a process of its own that imports
+the package from its checkout and builds that checkout's kernels. Each
+process times, through the public wrappers and with ``chip_smoke.py``'s
+operands and timers (CUDA events over the calls, the L2 flushed before
+each):
+
+- the split backward (``flash_backward(..., bwd_impl="split")``: Δ, the
+  dK/dV kernel, the dQ kernel) at the training shape (B 8, L 2048, H 12,
+  D 64, causal, bf16), and its two kernels' device times from a
+  ``torch.profiler`` trace;
+- the single sweep (``paged_flash_attention(..., split_s=1)``) on bf16
+  pools at the decode shape (B 8, C 1, H 12, W 128) and at the serve's
+  prefill chunk (B 4 x C 32, W 64).
+
+The last line printed is the median of each (checkout, entry) over its
+runs, with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+if __package__:
+    from pytorch_distributed_tpu_torch.tools import tail_ab
+else:  # a worker run as a script imports its own checkout's package below
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import tail_ab
+
+
+def worker(checkout: str) -> dict:
+    """Times, in µs, for the package of ``checkout`` (this process imports
+    it from there)."""
+    sys.path.insert(0, checkout)
+    import torch
+
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_tpu_torch.ops import paged_flash as pf
+
+    cs = tail_ab._load_chip_smoke(tail_ab.THIS)  # operands and timers: this checkout's
+    bf16 = torch.bfloat16
+    q, k, v, do = cs.flash_inputs(torch, bf16, seed=7)
+    sc = q.shape[-1] ** -0.5
+    o, lse = fa.flash_forward(q, k, v, causal=True, scale=sc)
+
+    def split():
+        return fa.flash_backward(q, k, v, o, lse, do, causal=True, scale=sc, bwd_impl="split")
+
+    out = {"split backward call": cs.time_ms(torch, split, iters=20) * 1e3}
+    dev = cs.kernel_device_ms(torch, split, {"dQ": cs.is_dq_kernel, "dK/dV": cs.is_dkv_kernel})
+    out.update({f"{name} kernel (device)": ms * 1e3 for name, ms in dev.items()})
+    del q, k, v, do, o, lse
+    for label, inp in (("decode", cs.decode_inputs(torch, bf16)),
+                       ("prefill chunk", cs.prefill_inputs(torch, bf16))):
+        out[f"sweep at {label}"] = cs.time_ms(
+            torch, lambda: pf.paged_flash_attention(**inp, split_s=1)) * 1e3
+    return out
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--parent", required=True, help="the other checkout's root")
+    p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--worker", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.worker:
+        print(json.dumps(worker(args.worker)))
+        return {}
+    return tail_ab.compare(__file__, args.parent, args.rounds)
+
+
+if __name__ == "__main__":
+    main()

@@ -63,23 +63,20 @@ def worker(checkout: str) -> dict:
     return out
 
 
-def main(argv=None) -> dict:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--parent", required=True, help="the other checkout's root")
-    p.add_argument("--rounds", type=int, default=2)
-    p.add_argument("--worker", help=argparse.SUPPRESS)
-    args = p.parse_args(argv)
-    if args.worker:
-        print(json.dumps(worker(args.worker)))
-        return {}
+def compare(script: str, parent: str, rounds: int) -> dict:
+    """Run ``script --worker ROOT`` (a tool whose worker prints one JSON
+    line of times) for the parent, this checkout, this checkout again and
+    the parent, ``rounds`` times, each in a process of its own; print each
+    run's line, then the median of each (checkout, entry) with the card's
+    name and power limit, and return that summary."""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    roots = {"parent": str(Path(args.parent).resolve()), "change": str(THIS)}
+    roots = {"parent": str(Path(parent).resolve()), "change": str(THIS)}
     runs = {name: [] for name in roots}
-    for r in range(args.rounds):
+    for r in range(rounds):
         for name in ("parent", "change", "change", "parent"):
-            res = subprocess.run([sys.executable, __file__, "--parent", roots["parent"],
+            res = subprocess.run([sys.executable, script, "--parent", roots["parent"],
                                   "--worker", roots[name]],
                                  capture_output=True, text=True, check=True,
                                  env=dict(os.environ, PYTHONPATH=""))
@@ -92,6 +89,17 @@ def main(argv=None) -> dict:
     print(json.dumps(summary))
     return summary
 
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--parent", required=True, help="the other checkout's root")
+    p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--worker", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.worker:
+        print(json.dumps(worker(args.worker)))
+        return {}
+    return compare(__file__, args.parent, args.rounds)
 
 if __name__ == "__main__":
     main()

@@ -9,6 +9,7 @@ replaced; the bounds are checked against the shapes' arithmetic.
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -87,7 +88,7 @@ def test_split_backward_checks_rehearse_on_cpu(chip_smoke, monkeypatch, capsys):
     assert failures == []
     assert set(errs) == {fa.BWD_DKV, fa.BWD_DQ}
     out = capsys.readouterr().out
-    assert out.count("two launches bitwise equal") == 2 * len(small) == 28  # split, fused
+    assert out.count("two launches bitwise equal") == 2 * len(small) == 34  # split, fused
     assert out.count("split vs fused") == 3 * len(small)
     assert out.count("bitwise equal") == 4 * len(small)  # repeats, and dK, dV vs fused
     assert "FAIL" not in out
@@ -230,8 +231,10 @@ def test_ring_phase_takes_its_ranks_from_the_cards(chip_smoke, cards, want):
      "flash forward"),
     ("void (anonymous namespace)::flash_bwd_wgmma_kernel<1, 2, true>(CUtensorMap, CUtensorMap, "
      "CUtensorMap, CUtensorMap, (anonymous namespace)::BwdArgs)", "flash backward"),
-    ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, 64>(Params)",
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<float, 64>(Params)",
      "flash backward"),
+    ("void (anonymous namespace)::flash_bwd_dq_wgmma_kernel<1, 3, 2>(CUtensorMap, CUtensorMap, "
+     "CUtensorMap, CUtensorMap, (anonymous namespace)::BwdArgs)", "flash backward"),
     ("void (anonymous namespace)::tail_reduce_kernel<__nv_bfloat16, false>(...)", "tail moments"),
     ("void (anonymous namespace)::tail_sum_kernel<true>(float const*, int, int, int, float*, "
      "float*)", "tail moments"),
@@ -251,7 +254,47 @@ def test_profiles_name_every_kernel_of_the_port(chip_smoke, kernel, kind):
     assert kind_of(kernel) == kind
     assert chip_smoke.is_dkv_kernel(kernel) == ("flash_bwd_wgmma" in kernel
                                                  or "flash_bwd_kernel" in kernel)
-    assert chip_smoke.is_dq_kernel(kernel) == ("flash_bwd_dq_kernel" in kernel)
+    assert chip_smoke.is_dq_kernel(kernel) == ("flash_bwd_dq" in kernel)
+
+
+def test_prefill_timing_inputs_and_bound_rehearse_on_cpu(chip_smoke):
+    """Phase (d)'s sweep timing at the serve's prefill chunk (B 4 x C 32, W
+    64 blocks of 16): the inputs, the library yardstick (SDPA on K/V
+    gathered through the tables, with the position mask) agreeing with the
+    plain version, and the bound: each visible K/V row read once."""
+    from pytorch_distributed_tpu_torch.ops.attention import paged_attention_reference
+
+    inp = chip_smoke.prefill_inputs(torch, torch.float32, dev="cpu")
+    q, kp, pos = inp["q"], inp["k_pool"], inp["q_positions"]
+    assert tuple(q.shape) == (4, 32, 12, 64) and tuple(kp.shape) == (257, 16, 12, 64)
+    assert tuple(inp["block_tables"].shape) == (4, 64)
+    assert pos[:, 0].tolist() == [0, 32, 480, 992] and pos[:, -1].tolist() == [31, 63, 511, 1023]
+    qg, kg, vg, mask = chip_smoke.gathered(torch, inp)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    torch.testing.assert_close(sdpa.transpose(1, 2), paged_attention_reference(**inp),
+                               rtol=1e-5, atol=1e-5)
+    bd = chip_smoke.bound(dict(inp, q=q.bfloat16(), k_pool=kp.bfloat16()))
+    visible = 32 + 64 + 512 + 1024  # each batch row's chain up to its last position
+    assert bd["bytes"] == (2 * visible * 12 * 64 * 2 + 2 * q.numel() * 2 + pos.numel() * 4
+                           + inp["block_tables"].numel() * 4)
+    assert bd["flops"] == 4 * 64 * 12 * float((pos + 1).sum())
+    assert bd["bound_by"] == "bytes"
+
+
+def test_gathered_yardstick_repeats_kv_heads_for_gqa(chip_smoke):
+    """SDPA's gathered K/V repeat each KV head for its G query heads: at
+    H 8, H_kv 2, C 20 (R = 80 rows a KV head) the yardstick is the plain
+    version."""
+    from pytorch_distributed_tpu_torch.ops.attention import paged_attention_reference
+
+    pos = 150 + np.arange(20)[None, :] + np.array([[0], [40], [7]])
+    inp = chip_smoke.decode_inputs(torch, torch.float32, b=3, c=20, h=8, h_kv=2, w=16,
+                                   seed=9, positions=pos, dev="cpu")
+    qg, kg, vg, mask = chip_smoke.gathered(torch, inp)
+    assert tuple(kg.shape) == (3, 8, 256, 64)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    torch.testing.assert_close(sdpa.transpose(1, 2), paged_attention_reference(**inp),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_tail_ab_times_the_main_paths_stage_shapes():
@@ -266,3 +309,37 @@ def test_tail_ab_times_the_main_paths_stage_shapes():
     assert tail_ab.STAGES == cs.TAIL_STAGES
     assert set(tail_ab.KERNELS) == {bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ}
     assert (tail_ab.THIS / "chip_smoke.py").is_file()
+
+
+def test_ab_driver_runs_parent_change_change_parent(monkeypatch, capsys, tmp_path):
+    """``tail_ab.compare``, the driver of both A/B tools, runs each round
+    as parent, change, change, parent, each a worker process of the tool's
+    own script on its checkout, and reports each entry's median with the
+    card; ``attention_ab`` times kernel 6's split backward and kernel 7's
+    sweep through that driver."""
+    import json
+    import types
+
+    from pytorch_distributed_tpu_torch.tools import attention_ab, tail_ab
+
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        if cmd[0] == "nvidia-smi":
+            return types.SimpleNamespace(stdout="NVIDIA H100 80GB HBM3, 700.00 W\n")
+        root = cmd[cmd.index("--worker") + 1]
+        us = 2.0 if root == str(tail_ab.THIS) else 5.0 + len(calls)
+        return types.SimpleNamespace(stdout="build noise\n" + json.dumps({"k": us}) + "\n")
+
+    monkeypatch.setattr(tail_ab.subprocess, "run", fake_run)
+    summary = tail_ab.compare(attention_ab.__file__, str(tmp_path), rounds=2)
+    workers = [c[c.index("--worker") + 1] for c in calls if c[0] != "nvidia-smi"]
+    parent, change = str(tmp_path.resolve()), str(tail_ab.THIS)
+    assert workers == [parent, change, change, parent] * 2
+    assert all(c[1] == attention_ab.__file__ for c in calls if c[0] != "nvidia-smi")
+    assert summary["card"] == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert summary["median_us"]["change"] == {"k": 2.0}
+    assert summary["median_us"]["parent"]["k"] == np.median([5.0 + i for i in (2, 5, 6, 9)])
+    assert len(capsys.readouterr().out.strip().splitlines()) == 9
+

@@ -168,3 +168,22 @@ def test_build_command_targets_hopper(tmp_path):
     assert {"-O3", "-shared", "-Xcompiler", "-fPIC"} <= set(cmd)
     lib = _build.library_path("paged_attention")
     assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
+
+
+def test_library_name_follows_the_source_and_the_shared_headers(monkeypatch, tmp_path):
+    """An edit to a kernel's source or to a header the sources share
+    (``csrc/*.cuh``) names a new library, so a stale build never loads."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", csrc / "build")
+    (csrc / "k.cu").write_text('#include "shared.cuh"\n')
+    (csrc / "shared.cuh").write_text("// v1\n")
+    first = _build.library_path("k")
+    assert first == _build.library_path("k")
+    (csrc / "shared.cuh").write_text("// v2\n")
+    second = _build.library_path("k")
+    (csrc / "k.cu").write_text('#include "shared.cuh"\n// edited\n')
+    assert len({first, second, _build.library_path("k")}) == 3
+    assert _build.kernel_sources() == ["k"]
+
