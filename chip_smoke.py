@@ -13,8 +13,11 @@ Phases, each of which fails the run:
   (b) each kernel against the plain PyTorch version on the card: the paged
       kernels at the full-width serving shapes and at small GQA /
       padding-row shapes, one with R = G·C = 80 rows per KV head (two
-      row tiles of the bf16 sweep's tensor-core kernel); their int8 / fp8
-      e4m3 / fp8 e5m2 dequantizing variants at the decode shape and on a
+      row tiles of the bf16 sweep's tensor-core kernel), the bf16 split
+      (``paged_split_tc_kernel``) at every check that splits (decode, q a
+      strided view, GQA R = 20 and R = 80 with S = 3, D = 128) and at a
+      forced S = 16, each split also bitwise over two launches; their
+      int8 / fp8 e4m3 / fp8 e5m2 dequantizing variants at the decode shape and on a
       32-row chunk, with bf16 and fp32 q; the quantize-on-scatter kernel
       bit-equal, in the three pool dtypes, at a chunk shape (8 jobs x 32
       rows) and the decode shape (8 rows), rows whose amax spans 1e-8 to
@@ -29,8 +32,9 @@ Phases, each of which fails the run:
       tail_bwd_dz at ResNet-50's four stage shapes (B = 128, bf16), moments
       at the four downsample inputs, the stage shapes at B = 8 in fp32, and
       ragged shapes (N = 147, F = 40); two launches bitwise equal for
-      moments, tail_bwd_reduce and both flash backwards at every shape they
-      are checked at;
+      moments, tail_bwd_reduce, tail_bwd_dz and both flash backwards at
+      every shape they are checked at; tail_bwd_dz (``tail_dz_wgmma_kernel``
+      in bf16) also on gp and z rows wider than their channels;
   (c) the port's main paths, each with the launch counters reset just
       before and read just after, on the full-width LM (32000 vocab, 12
       layers, 12 heads, width 768, 2048 positions, bf16, random weights
@@ -63,11 +67,13 @@ Phases, each of which fails the run:
       (the flash calls also by their kernels' device time):
       the paged kernels at the decode shape (library: SDPA on pre-gathered
       K/V; no PyTorch call reads int8/fp8 K/V with per-row scales, so the
-      quantized variants and the scatter have none), the bf16 sweep also at
+      quantized variants and the scatter have none; the bf16 split also by
+      its kernel's device time), the bf16 sweep also at
       the prefill chunk where the serve runs it (B 4 x C 32, W 64), the
       scatter at the chunk and decode shapes, the flash kernels at the training shape
       (library: causal SDPA, forward, and its backward through autograd),
-      the tail kernels at ResNet-50's stage-1 and stage-4 shapes beside the
+      the tail kernels at ResNet-50's stage-1 and stage-4 shapes, and
+      tail_bwd_dz at all four (also by its kernel's device time), beside the
       cuBLAS spelling of the XLA step (no single PyTorch call computes
       them, so they have no library time);
   (e) one JSON line listing every kernel;
@@ -467,6 +473,16 @@ def is_dkv_kernel(name: str) -> bool:
     return "flash_bwd" in name and "flash_bwd_dq" not in name
 
 
+def is_dz_kernel(name: str) -> bool:
+    """Kernel 3 in a profiler trace (``tail_dz_wgmma_kernel`` in bf16)."""
+    return "tail_dz" in name
+
+
+def is_split_kernel(name: str) -> bool:
+    """Kernel 8 in a profiler trace (``paged_split_tc_kernel`` on bf16 pools)."""
+    return "paged_split_tc" in name
+
+
 def is_dq_kernel(name: str) -> bool:
     """Kernel 6's dQ kernel in a profiler trace (``flash_bwd_dq_wgmma_kernel``
     in bf16, ``flash_bwd_dq_kernel`` in fp32)."""
@@ -750,7 +766,10 @@ def check_tail_kernels(torch, failures, dev="cuda") -> dict:
         err[bt.BWD_REDUCE] = max(check_rel(f"tail_bwd_reduce P, {shape}", p, rp, TAIL_SUM_RTOL),
                                  check_rel(f"tail_bwd_reduce Σgp, {shape}", sb, rsb,
                                            TAIL_SUM_RTOL))
-        err[bt.BWD_DZ] = check_rel(f"tail_bwd_dz, {shape}", bt.tail_bwd_dz(rgp, z, wa, c, dmn),
+        dz = bt.tail_bwd_dz(rgp, z, wa, c, dmn)
+        check_repeat(torch, failures, f"tail_bwd_dz, {shape}", (dz,),
+                     (bt.tail_bwd_dz(rgp, z, wa, c, dmn),), dev)
+        err[bt.BWD_DZ] = check_rel(f"tail_bwd_dz, {shape}", dz,
                                    bt.tail_bwd_dz_reference(rgp, z, wa, c, dmn),
                                    TAIL_DZ_RTOL[str(dtype)])
         return err
@@ -766,6 +785,13 @@ def check_tail_kernels(torch, failures, dev="cuda") -> dict:
     for dtype in (bf16, f32):  # ragged: N = 147 rows, and F = 40 (not a whole tile)
         for f in (64, 40):
             check_tail("ragged", dtype, 3, 7, f)
+    # dz through rows wider than their channels: gp and z column slices
+    z, g, out, wa, c, dmn = tail_inputs(torch, bf16, 8, 14, 256, seed=3, dev=dev)
+    gp = bt.tail_bwd_reduce_reference(z, g, out)[0]
+    gpw, zw = (torch.cat([x, x[..., :8]], -1)[..., :x.shape[-1]] for x in (gp, z))
+    check_rel("tail_bwd_dz, gp and z rows 16 bytes wider than their channels, z [8,14,14,256]"
+              " bf16", bt.tail_bwd_dz(gpw, zw, wa, c, dmn),
+              bt.tail_bwd_dz_reference(gp, z, wa, c, dmn), TAIL_DZ_RTOL[str(bf16)])
     return errs
 
 
@@ -884,11 +910,12 @@ def resnet_runs(torch, card) -> dict:
 
 
 def time_tail_kernels(torch, card, dev="cuda") -> dict:
-    """Phase (d) for the tail kernels at the stage-1 and stage-4 shapes:
-    each wrapper (its zeroed fp32 outputs included), its plain version and
-    the cuBLAS spelling of the XLA step (no single PyTorch call computes
-    any of the three), beside the bound. Returns the stage-1 entries of
-    the kernels line."""
+    """Phase (d) for the tail kernels at the stage-1 and stage-4 shapes, and
+    tail_bwd_dz at all four: each wrapper, its plain version and the cuBLAS
+    spelling of the XLA step (no single PyTorch call computes any of the
+    three), beside the bound; tail_bwd_dz's kernel also by its device time
+    (``kernel_device_ms``). Returns the stage-1 entries of the kernels
+    line, tail_bwd_dz's with its time at every stage."""
     from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
 
     bf16 = torch.bfloat16
@@ -896,8 +923,9 @@ def time_tail_kernels(torch, card, dev="cuda") -> dict:
                 bt.BWD_REDUCE: "torch.where(out > 0, g, 0), z2d.T @ gp, gp.sum(0): 4 kernels",
                 bt.BWD_DZ: "torch.addmm(dmn, torch.cat([gp, z], 1), torch.cat([wa, c]) in "
                            "bf16): 4 calls"}
-    entries = {}
-    for label, (b, hw, f) in (("stage 1", TAIL_STAGES[0]), ("stage 4", TAIL_STAGES[3])):
+    entries, dz_stages = {}, {}
+    for i, (b, hw, f) in enumerate(TAIL_STAGES):
+        label = f"stage {i + 1}"
         z, g, out, wa, c, dmn = tail_inputs(torch, bf16, b, hw, f, seed=11, dev=dev)
         e = 4 * f
         z2, g2, o2 = (x.view(-1, x.shape[-1]) for x in (z, g, out))
@@ -919,19 +947,29 @@ def time_tail_kernels(torch, card, dev="cuda") -> dict:
                                             torch.cat([wa, c]).to(bf16))),
         }
         for name, fns in runs.items():
+            if name != bt.BWD_DZ and label not in ("stage 1", "stage 4"):
+                continue
             t_k, t_p, t_s = (time_ms(torch, fn, iters=20) for fn in fns)
             bd = tail_bound(name, z2.shape[0], f, e, 2, bf16)
+            device = ""
+            if name == bt.BWD_DZ:
+                t_dev = kernel_device_ms(torch, fns[0], {name: is_dz_kernel})[name]
+                device = f" (the kernel {t_dev * 1e3:.1f} us device time)"
+                dz_stages[label] = {"ms": t_k, "device_ms": t_dev, "bound_ms": bd["bound_ms"],
+                                    "spelling_ms": t_s}
             print(f"(d) {name} at {label} z [{b},{hw},{hw},{f}] E={e} bf16 on {card}: "
-                  f"{t_k * 1e3:.1f} us per call, plain {t_p * 1e3:.1f} us, cuBLAS spelling "
-                  f"{t_s * 1e3:.1f} us ({spelling[name]}), bound {bd['bound_ms'] * 1e3:.1f} us "
-                  f"({bd['bound_by']}: {bd['bytes'] / 1e6:.1f} MB, {bd['flops'] / 1e9:.2f} "
-                  f"GFLOP), {bd['bound_ms'] / t_k:.3f} of the bound")
+                  f"{t_k * 1e3:.1f} us per call{device}, plain {t_p * 1e3:.1f} us, cuBLAS "
+                  f"spelling {t_s * 1e3:.1f} us ({spelling[name]}), bound "
+                  f"{bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']}: {bd['bytes'] / 1e6:.1f} MB, "
+                  f"{bd['flops'] / 1e9:.2f} GFLOP), {bd['bound_ms'] / t_k:.3f} of the bound")
             if label == "stage 1":
                 entries[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bd["bound_ms"],
                                  "bound_by": bd["bound_by"], "library_ms": None,
                                  "spelling_ms": t_s}
         del runs, z, g, out, gp, gp2, z2, g2, o2
         empty_cache(torch, dev)
+    entries[bt.BWD_DZ].update(kernel="tail_dz_wgmma_kernel", device_ms=dz_stages["stage 1"][
+        "device_ms"], stages=dz_stages)
     return entries
 
 
@@ -991,6 +1029,13 @@ def main(argv) -> int:
     def check(label, got, want, tol):
         return check_abs(torch, failures, label, got, want, tol)
 
+    def check_split_repeat(label, inp, split_s):
+        """The split's output of two launches, bit for bit (its merge sums
+        the workers' partials in a fixed order)."""
+        check_repeat(torch, failures, f"{label}, split", (
+            paged_flash.paged_flash_attention(**inp, split_s=split_s),),
+            (paged_flash.paged_flash_attention(**inp, split_s=split_s),))
+
     bf16, f32 = torch.bfloat16, torch.float32
     decode_bf16 = decode_inputs(torch, bf16)
     ref_decode = paged_attention_reference(**decode_bf16)
@@ -1009,6 +1054,13 @@ def main(argv) -> int:
         check(f"decode bf16, q a strided view, split_s={split_s}",
               paged_flash.paged_flash_attention(**strided, split_s=split_s),
               ref_decode, BF16_TOL)
+    # the bf16 split (paged_split_tc_kernel): repeatable, and at a forced 16
+    # workers (spans of 8 blocks: two ring stages each)
+    check_split_repeat("decode B=8 C=1 H=12 D=64 W=128 bf16, auto split", decode_bf16, None)
+    check_split_repeat("decode bf16, q a strided view, auto split", strided, None)
+    check("decode B=8 C=1 H=12 D=64 W=128 bf16, split_s=16",
+          paged_flash.paged_flash_attention(**decode_bf16, split_s=16), ref_decode, BF16_TOL)
+    check_split_repeat("decode bf16, split_s=16", decode_bf16, 16)
     decode_f32 = decode_inputs(torch, f32, seed=1)
     ref32 = paged_attention_reference(**decode_f32)
     sweep32 = paged_flash.paged_flash_attention(**decode_f32, split_s=1)
@@ -1032,6 +1084,7 @@ def main(argv) -> int:
         for split_s in (1, 3):
             check(f"GQA H=8 H_kv=2 C=5 padding rows {dtype}, split_s={split_s}",
                   paged_flash.paged_flash_attention(**gqa, split_s=split_s), ref, tol)
+        check_split_repeat(f"GQA H=8 H_kv=2 C=5 padding rows {dtype}", gqa, 3)
     # R = G*C = 80 rows per KV head: two tensor-core row tiles (64 + 16)
     # and ten CUDA-core ones; a long chain, padding rows, a fully masked
     # batch row
@@ -1046,9 +1099,12 @@ def main(argv) -> int:
             check(f"GQA H=8 H_kv=2 C=20 (R=80, {paged_flash.tc_row_tiles(80)} tensor-core row "
                   f"tiles) padding rows {dtype}, split_s={split_s}",
                   paged_flash.paged_flash_attention(**many, split_s=split_s), ref, tol)
-    wide = decode_inputs(torch, f32, b=2, c=2, h=2, h_kv=2, d=128, w=8, seed=4)
-    check("D=128 fp32, split_s=2", paged_flash.paged_flash_attention(**wide, split_s=2),
-          paged_attention_reference(**wide), FP32_TOL)
+        check_split_repeat(f"GQA H=8 H_kv=2 C=20 (R=80) padding rows {dtype}", many, 3)
+    for dtype, tol in ((bf16, BF16_TOL), (f32, FP32_TOL)):
+        wide = decode_inputs(torch, dtype, b=2, c=2, h=2, h_kv=2, d=128, w=8, seed=4)
+        check(f"D=128 {dtype}, split_s=2", paged_flash.paged_flash_attention(**wide, split_s=2),
+              paged_attention_reference(**wide), tol)
+        check_split_repeat(f"D=128 {dtype}", wide, 2)
 
     # the dequantizing variants: pools quantized by the plain quantize_kv
     decode_q = {}
@@ -1206,6 +1262,10 @@ def main(argv) -> int:
     sched, bf16_streams, m, wall, launches = serve("bf16 pools", prompts)
     if not all(launches.get(k, 0) > 0 for k in (paged_flash.SWEEP, paged_flash.SPLIT)):
         raise SystemExit(f"chip_smoke: a kernel never ran on the main path: {launches}")
+    if paged_flash.sweep_kernel(bf16, bf16, cfg.head_dim, serve_kw["block_len"]) != (
+            paged_flash.TENSOR_CORES):
+        raise SystemExit("chip_smoke: the serve's bf16 pools do not route to the tensor-core "
+                         "sweep and split")
     print(f"(c) launches per decode tick: {per_tick(sched.engine)}")
     n_bf16 = sched.engine.allocator.n_blocks
     del sched
@@ -1419,11 +1479,18 @@ def main(argv) -> int:
         paged_flash.SPLIT: time_ms(torch, lambda: paged_flash.launch_split(
             *pools, 8, d ** -0.5)),
     }
+    # the split's kernel alone, by its device time
+    split_device_ms = kernel_device_ms(torch, lambda: paged_flash.paged_flash_attention(
+        **decode_bf16), {paged_flash.SPLIT: is_split_kernel})[paged_flash.SPLIT]
+    if not split_device_ms:
+        raise SystemExit("chip_smoke: the profiler recorded no paged_split_tc_kernel at decode")
     bd = bound(decode_bf16)
     for name in timed:
+        device = (f"; the kernel {split_device_ms * 1e3:.1f} us device time"
+                  if name == paged_flash.SPLIT else "")
         print(f"(d) {name} at decode B=8 H=12 D=64 W=128 bf16 on {card}: "
               f"{timed[name] * 1e3:.1f} us per call ({bare[name] * 1e3:.1f} us bare "
-              f"launch), plain {plain_ms * 1e3:.1f} us, SDPA on gathered K/V "
+              f"launch{device}), plain {plain_ms * 1e3:.1f} us, SDPA on gathered K/V "
               f"{sdpa_ms * 1e3:.1f} us, bound {bd['bound_ms'] * 1e3:.2f} us "
               f"({bd['bound_by']}: {bd['bytes'] / 1e6:.2f} MB, {bd['flops'] / 1e6:.1f} MFLOP)")
     plains = {name: plain_ms for name in timed}
@@ -1566,6 +1633,8 @@ def main(argv) -> int:
         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
         "library_ms": sdpa_ms if "[" not in name else None,
         **(pre if name == paged_flash.SWEEP else {}),
+        **({"kernel": "paged_split_tc_kernel", "device_ms": split_device_ms}
+           if name == paged_flash.SPLIT else {}),
     } for name in timed]
     flash_replaces = {FWD: "pytorch_distributed_tpu/ops/flash_attention.py:138",
                       BWD: "pytorch_distributed_tpu/ops/flash_attention.py:375"}

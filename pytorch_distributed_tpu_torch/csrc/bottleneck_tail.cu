@@ -37,21 +37,21 @@
 //   - tail_bwd_reduce forms gp on the load (out compared in fp32, as the
 //     Pallas body does), and only the blocks of the first F tile write it
 //     and sum it, so gp is written once.
-//   - tail_bwd_dz is one product of K = E + F: [gp | z] @ [wa ; c], the
-//     row tiles switching from gp to z at k = E, plus dmn in the fp32
-//     epilogue before the one rounding to z's dtype. wa and c come rounded
-//     to the operands' dtype for the tensor cores (bf16 for bf16
-//     activations), where the Pallas kernel multiplies bf16 by fp32.
-//   - bf16 products run on the tensor cores through mma.sync m16n8k16 with
-//     fp32 accumulators; fp32 inputs take the same code with the product on
-//     CUDA cores, for exact fp32 numerics.
-// Loads are synchronous 16-byte copies into padded shared-memory tiles,
-// from which ldmatrix gathers the bf16 fragments; cp.async or TMA
-// pipelines and wgmma are later work.
+//   - tail_bwd_dz is one product of K = E + F: [gp | z] @ [wa ; c], plus
+//     dmn in the fp32 epilogue before the one rounding to z's dtype. wa and c
+//     come rounded to the operands' dtype for the tensor cores (bf16 for bf16
+//     activations), where the Pallas kernel multiplies bf16 by fp32. On bf16
+//     it is tail_dz_wgmma_kernel, further down: TMA and wgmma, a persistent
+//     stream of (row tile, k step) stages.
+//   - The reductions' bf16 products run on the tensor cores through mma.sync
+//     m16n8k16 with fp32 accumulators; fp32 inputs take the same code with
+//     the product on CUDA cores, for exact fp32 numerics, and fp32 dz the
+//     CUDA-core tail_dz_kernel.
+// The reductions' loads are synchronous 16-byte copies into padded
+// shared-memory tiles, from which ldmatrix gathers the bf16 fragments;
+// cp.async or TMA pipelines and wgmma for them are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -87,18 +87,11 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 
 // Four 8x8 b16 matrices from shared memory, lanes 8j..8j+7 giving the row
 // addresses of matrix j; each lane receives (row l/4, columns 2(l%4), +1) of
-// every matrix, or with kTrans the same of every matrix transposed.
-template <bool kTrans>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  if (kTrans)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
+// every matrix transposed.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
 }
 
 // acc += A B over k in [0, kStep) for the warp's 32x32 quadrant at rows m0
@@ -107,11 +100,12 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
 // else [m][k] (row stride lda). acc[mi][ni] is the m16n8 C fragment of
 // rows m0 + 16 mi and columns n0 + 8 ni: lane 4g + t holds C[g][2t, 2t+1]
 // in elements 0, 1 and C[g+8][2t, 2t+1] in 2, 3 (mma.sync's layout).
-// bf16: the fragments come from ldmatrix (transposed where the tile is
-// stored k-major), the products from mma.sync m16n8k16.
+// bf16 (the reductions, A k-major only): the fragments come from
+// ldmatrix, transposed, the products from mma.sync m16n8k16.
 template <bool kAKMajor>
 __device__ __forceinline__ void warp_product(float (&acc)[2][4][4], const bf16* a, int lda,
                                              const bf16* b, int ldb, int m0, int n0) {
+  static_assert(kAKMajor, "bf16 dz runs tail_dz_wgmma_kernel");
   const int lane = threadIdx.x & 31;
   const int j = lane >> 3;  // the matrix this lane addresses
   const int r = lane & 7;   // and its row
@@ -122,16 +116,13 @@ __device__ __forceinline__ void warp_product(float (&acc)[2][4][4], const bf16* 
     for (int mi = 0; mi < 2; ++mi) {
       const int m = m0 + 16 * mi;
       // matrices: (m, k), (m + 8, k), (m, k + 8), (m + 8, k + 8)
-      if (kAKMajor)
-        ldmatrix_x4<true>(af[mi], a + (k0 + r + ((j >> 1) << 3)) * lda + m + ((j & 1) << 3));
-      else
-        ldmatrix_x4<false>(af[mi], a + (m + (lane & 15)) * lda + k0 + ((lane >> 4) << 3));
+      ldmatrix_x4_trans(af[mi], a + (k0 + r + ((j >> 1) << 3)) * lda + m + ((j & 1) << 3));
     }
 #pragma unroll
     for (int np = 0; np < 2; ++np) {
       // matrices: (k, n), (k + 8, n), (k, n + 8), (k + 8, n + 8)
       uint32_t q[4];
-      ldmatrix_x4<true>(q, b + (k0 + r + ((j & 1) << 3)) * ldb + n0 + 16 * np + ((j >> 1) << 3));
+      ldmatrix_x4_trans(q, b + (k0 + r + ((j & 1) << 3)) * ldb + n0 + 16 * np + ((j >> 1) << 3));
       bfr[2 * np][0] = q[0];
       bfr[2 * np][1] = q[1];
       bfr[2 * np + 1][0] = q[2];
@@ -330,8 +321,9 @@ __global__ void __launch_bounds__(256)
   if (kMirror && row / kTile != col / kTile) out[static_cast<int64_t>(col) * n_b + row] = s;
 }
 
-// dz [N, F] = [gp | z] @ w + dmn: block (row tile, column tile) loops
-// over K = E + F in steps of 32. w [K, F] contiguous.
+// dz [N, F] = [gp | z] @ w + dmn on fp32 rows (CUDA cores): block (row
+// tile, column tile) loops over K = E + F in steps of 32. w [K, F]
+// contiguous.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     tail_dz_kernel(const T* __restrict__ gp, int64_t ldgp, const T* __restrict__ z, int64_t ldz,
@@ -396,6 +388,197 @@ __global__ void __launch_bounds__(kThreads)
       }
 }
 
+// ---------------------------------------------------------------------------
+// tail_bwd_dz on bf16 rows, on Hopper's own units: TMA, mbarriers, wgmma.
+//
+// The product is a GEMM of M = N rows, N = F columns and K = E + F, read
+// through four 2-D tensor maps (ops/bottleneck_tail.py's
+// dz_tensor_map_geometry): A from gp [N, E] for k < E and from z [N, F]
+// after, each by its own row stride (a channels-last activation's rows need
+// no copy); B from wa [E, F] and then c [F, F], MN-major (F contiguous).
+// Every box is 64 x 64 bf16 with the 128-byte swizzle that the wgmma
+// descriptors name; a box past an operand's edge lands as zeros, so the K
+// loop takes ceil(E / 64) steps on (gp, wa) and then ceil(F / 64) on (z, c)
+// and E, F need only be multiples of 8.
+//   - Persistent blocks, one an SM: block b walks the output tiles b, b +
+//     grid, ... of 128 rows x 64 kNB columns, column tile fastest, so blocks
+//     at work together read the same A rows (L2 hits at F > 64).
+//   - One producer warp streams the block's (tile, k step) stages through a
+//     ring of kStages: A as two 64-row boxes, B as kNB boxes. It runs ahead
+//     across tiles, so the next tile's loads overlap a tile's last products
+//     and epilogue: at ResNet-50's stage 1 (K = 320, five k steps a tile)
+//     the kernel is one stream of A at the rate of the ring, not a GEMM.
+//   - Two consumer warpgroups, 64 rows of the tile each: per stage four k16
+//     steps of kNB m64n64k16 wgmma (A K-major, B MN-major), committed as one
+//     group; the previous stage is released once its group completes, so
+//     one stage's products overlap the next one's wait.
+//   - Epilogue: fp32 accumulators + dmn, one rounding to bf16, stored for
+//     rows < N and columns < F. One block computes each dz element in a
+//     fixed k order, so two launches give the same bits.
+
+constexpr int kDzBox = 64;                          // rows and columns of a box
+constexpr int kDzBoxBytes = kDzBox * kDzBox * 2;    // 8 KB
+constexpr int kDzSlice = 16 * 128;                  // 16 rows of a box: one k16 step
+constexpr int kDzTileRows = 128;                    // two consumer warpgroups
+constexpr int kDzThreads = 2 * 128 + 32;            // and one producer warp
+
+struct DzArgs {
+  const float* dmn;  // [F]
+  bf16* dz;          // [N, F] contiguous
+  int N, F, E;
+};
+
+// grid: min(tiles, SMs); kNB: 64-column boxes of B per tile
+template <int kNB, int kStages>
+__global__ void __launch_bounds__(kDzThreads, 1)
+    tail_dz_wgmma_kernel(__grid_constant__ const CUtensorMap map_gp,
+                         __grid_constant__ const CUtensorMap map_z,
+                         __grid_constant__ const CUtensorMap map_wa,
+                         __grid_constant__ const CUtensorMap map_c, const DzArgs a) {
+  constexpr int kStageBytes = (2 + kNB) * kDzBoxBytes;  // A boxes, then B boxes
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int ke = (a.E + kDzBox - 1) / kDzBox;  // k steps on (gp, wa)
+  const int n_k = ke + (a.F + kDzBox - 1) / kDzBox;
+  const int n_nt = (a.F + kNB * kDzBox - 1) / (kNB * kDzBox);
+  const int n_tiles = ((a.N + kDzTileRows - 1) / kDzTileRows) * n_nt;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer
+    if (lane == 0) {
+      int i = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_nt) * kDzTileRows;
+        const int n0 = (tile % n_nt) * kNB * kDzBox;
+        for (int ks = 0; ks < n_k; ++ks, ++i) {
+          const int s = i % kStages;
+          if (i >= kStages) mbar_wait(empty + s, ((i / kStages) & 1) ^ 1);
+          unsigned char* st = ring + s * kStageBytes;
+          const bool lo = ks < ke;  // gp and wa, else z and c
+          const int k0 = (lo ? ks : ks - ke) * kDzBox;
+          const CUtensorMap* ma = lo ? &map_gp : &map_z;
+          const CUtensorMap* mb = lo ? &map_wa : &map_c;
+          mbar_expect_tx(full + s, kStageBytes);
+          tma_load(st, ma, full + s, k0, m0);
+          tma_load(st + kDzBoxBytes, ma, full + s, k0, m0 + kDzBox);
+#pragma unroll
+          for (int nb = 0; nb < kNB; ++nb)
+            tma_load(st + (2 + nb) * kDzBoxBytes, mb, full + s, n0 + nb * kDzBox, k0);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;  // this warpgroup's 64 rows of the tile
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  int i = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m0 = (tile / n_nt) * kDzTileRows;
+    const int n0 = (tile % n_nt) * kNB * kDzBox;
+    float acc[kNB][32];
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[nb][e] = 0.f;
+    for (int ks = 0; ks < n_k; ++ks, ++i) {
+      const int s = i % kStages;
+      const unsigned char* st = ring + s * kStageBytes;
+      mbar_wait(full + s, (i / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int nb = 0; nb < kNB; ++nb)
+          wgmma_ss<0, 1>(acc[nb], desc(st + wg * kDzBoxBytes + kk * 32),
+                         desc(st + (2 + nb) * kDzBoxBytes + kk * kDzSlice), ks > 0 || kk > 0);
+      wgmma_commit();
+      if (ks > 0) {  // the previous stage's products are done: release it
+        wgmma_wait_1();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + (i - 1) % kStages);
+      }
+    }
+    wgmma_wait();
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) fence_regs(acc[nb]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + (i - 1) % kStages);
+
+    // thread 32w + 4g + t of the warpgroup holds rows 16w + g (+8), columns
+    // 8j + 2t (+1) of each 64-column box
+    const int row = m0 + wg * kDzBox + 16 * (warp & 3) + g;
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + nb * kDzBox + 8 * j + 2 * t;
+        if (col >= a.F) continue;
+        const float d0 = __ldg(a.dmn + col);
+        const float d1 = __ldg(a.dmn + col + 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row + 8 * h;
+          if (r < a.N)
+            *reinterpret_cast<uint32_t*>(a.dz + static_cast<int64_t>(r) * a.F + col) =
+                pack2(acc[nb][4 * j + 2 * h] + d0, acc[nb][4 * j + 2 * h + 1] + d1);
+        }
+      }
+  }
+}
+
+constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+
+// A 2-D bf16 tensor map from ops/bottleneck_tail.py's dz_tensor_map_geometry:
+// dims (columns, rows), the row stride in bytes, box (64, 64)
+int encode_rows(CUtensorMap* map, const void* ptr, const int64_t* geo) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (geo[3] != kDzBox || geo[4] != kDzBox) return kInvalid;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(geo[0]), static_cast<cuuint64_t>(geo[1])};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(geo[2])};
+  const cuuint32_t box[2] = {kDzBox, kDzBox};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kInvalid;
+}
+
+template <int kNB, int kStages>
+int launch_dz_wgmma(const CUtensorMap (&maps)[4], const DzArgs& a, cudaStream_t st) {
+  auto kernel = tail_dz_wgmma_kernel<kNB, kStages>;
+  const int smem = 1024 + kStages * (2 + kNB) * kDzBoxBytes + 2 * kStages * 8;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_nt = (a.F + kNB * kDzBox - 1) / (kNB * kDzBox);
+  const int64_t tiles = static_cast<int64_t>((a.N + kDzTileRows - 1) / kDzTileRows) * n_nt;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  kernel<<<grid, kDzThreads, smem, st>>>(maps[0], maps[1], maps[2], maps[3], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The reduction and the sum of its chunks, one launch each on one stream.
 // chunk: rows per block (a multiple of kStep, from ops/bottleneck_tail.py's
 // chunk_rows); partial: fp32 [ceil(N / chunk), F + 1, n_b] scratch.
@@ -429,15 +612,14 @@ int launch_reduce(const void* z, int64_t ldz, const void* g, int64_t ldg, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_dz(const void* gp, int64_t ldgp, const void* z, int64_t ldz, const void* w,
               const float* dmn, void* dz, int N, int F, int E, cudaStream_t st) {
   const dim3 grid((N + kTile - 1) / kTile, (F + kTile - 1) / kTile);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  tail_dz_kernel<T><<<grid, kThreads, 0, st>>>(static_cast<const T*>(gp), ldgp,
-                                               static_cast<const T*>(z), ldz,
-                                               static_cast<const T*>(w), dmn,
-                                               static_cast<T*>(dz), N, F, E);
+  tail_dz_kernel<float><<<grid, kThreads, 0, st>>>(static_cast<const float*>(gp), ldgp,
+                                                   static_cast<const float*>(z), ldz,
+                                                   static_cast<const float*>(w), dmn,
+                                                   static_cast<float*>(dz), N, F, E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -484,16 +666,36 @@ extern "C" int pdt_tail_bwd_reduce(const void* z, int64_t ldz, const void* g, in
                                            F, E, true, st);
 }
 
-// dz [N, F] contiguous from gp [N, E], z [N, F], w = [wa ; c] [E + F, F]
-// (contiguous, in the dtype of z) and dmn [F] (fp32).
+// fp32 dz [N, F] contiguous from gp [N, E], z [N, F], w = [wa ; c] [E + F,
+// F] (contiguous) and dmn [F], on CUDA cores.
 extern "C" int pdt_tail_bwd_dz(const void* gp, int64_t ldgp, const void* z, int64_t ldz,
-                               const void* w, const void* dmn, void* dz, int dtype, int N,
-                               int F, int E, void* stream) {
-  if (bad_dims(dtype, N, F, E)) return static_cast<int>(cudaErrorInvalidValue);
+                               const void* w, const void* dmn, void* dz, int N, int F, int E,
+                               void* stream) {
+  if (bad_dims(0, N, F, E)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dz(gp, ldgp, z, ldz, w, static_cast<const float*>(dmn), dz, N, F, E,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// bf16 dz [N, F] contiguous from gp [N, E] and z [N, F] (row strides in the
+// geometry), wa [E, F] and c [F, F] (contiguous bf16) and dmn [F] (fp32),
+// on TMA and wgmma. geometry: 4 x 5 int64, the tensor maps of gp, z, wa
+// and c (ops/bottleneck_tail.py: dz_tensor_map_geometry).
+extern "C" int pdt_tail_bwd_dz_tc(const void* gp, const void* z, const void* wa, const void* c,
+                                  const int64_t* geometry, const void* dmn, void* dz, int N,
+                                  int F, int E, void* stream) {
+  const int64_t* g = geometry;
+  if (bad_dims(1, N, F, E) || g[0] != E || g[1] != N || g[5] != F || g[6] != N ||
+      g[10] != F || g[11] != E || g[15] != F || g[16] != F)
+    return kInvalid;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {gp, z, wa, c};
+  for (int m = 0; m < 4; ++m) {
+    const int err = encode_rows(&maps[m], ptrs[m], g + 5 * m);
+    if (err != 0) return err;
+  }
+  const DzArgs a{static_cast<const float*>(dmn), static_cast<bf16*>(dz), N, F, E};
   auto st = static_cast<cudaStream_t>(stream);
-  auto* d = static_cast<const float*>(dmn);
-  return dtype == 1 ? launch_dz<bf16>(gp, ldgp, z, ldz, w, d, dz, N, F, E, st)
-                    : launch_dz<float>(gp, ldgp, z, ldz, w, d, dz, N, F, E, st);
+  return F > kDzBox ? launch_dz_wgmma<2, 6>(maps, a, st) : launch_dz_wgmma<1, 8>(maps, a, st);
 }
 
 extern "C" const char* pdt_tail_error_string(int code) {

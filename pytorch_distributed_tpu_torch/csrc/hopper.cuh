@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks that the kernel sources share: mbarriers,
 // TMA tensor copies and the driver's tensor-map encoder, the consumer
-// warpgroup's named barrier, ex2 and bf16 packing. Each source includes it
-// and builds into a library of its own (ops/_build.py hashes this header
-// with the source).
+// warpgroup's named barrier, ex2 and bf16 packing, wgmma on shared-memory
+// operands. Each source includes it and builds into a library of its own
+// (ops/_build.py hashes this header with the source).
 
 #pragma once
 
@@ -47,6 +47,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// one box of a 2-D tensor map at coordinates (c0, c1), innermost first
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // one box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
                                          int c1, int c2) {
@@ -67,10 +77,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
-// the consumer warps alone (named barrier 1; the producer never joins)
-__device__ __forceinline__ void sync_consumers() {
-  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+// the consumer warps alone: named barrier 1 over kThreads threads (the
+// producer never joins)
+template <int kThreads>
+__device__ __forceinline__ void sync_warps() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
 }
+
+// a consumer warpgroup alone
+__device__ __forceinline__ void sync_consumers() { sync_warps<128>(); }
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -82,6 +97,63 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
+}
+
+// wgmma shared-memory descriptor of a 1024-byte-aligned swizzled box (plus
+// a k offset): 128-byte swizzle, 1024 bytes between 8-row groups. Both
+// offset fields hold 1024: K-major operands read only the 8-row-group
+// stride, and the MN-major operands here span a single 64-column atom, so
+// whichever field the mode reads holds the right stride.
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// returns once at most one committed group is still running
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads across a wgmma wait
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define PDT_D32                                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define PDT_D32_OPS(d)                                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),            \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),    \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory. kTA/kTB:
+// 0 = K-major (k contiguous), 1 = MN-major. Accumulator layout: thread
+// 32w + 4g + t holds D[16w + g (+8)][8j + 2t (+1)] in d[4j .. 4j + 3].
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PDT_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : PDT_D32_OPS(d)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTA), "n"(kTB));
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -33,9 +33,10 @@
 // where the tensor cores would be the limit, so the least time is the
 // visible chain's bytes over 3.35 TB/s.
 //
-// What the design does about it: the single sweep on bf16 pools with bf16
-// q is paged_sweep_tc_kernel, below (tensor cores, a TMA ring, 64-row
-// tiles). Every other sweep and the split are the CUDA-core walk:
+// What the design does about it: the single sweep and the split on bf16
+// pools with bf16 q are paged_sweep_tc_kernel and paged_split_tc_kernel,
+// below (tensor cores, a TMA ring, 64-row tiles). Every other sweep and
+// split is the CUDA-core walk:
 //   - One thread block per (row tile, KV head, batch row[, split worker])
 //     reads its own table entries; the TPU's sequential chain axis becomes
 //     a loop. Its 4 warps take every 4th pool block of the range, each with
@@ -53,8 +54,8 @@
 //     finish (an atomic ticket) merges the S fp32 partials and writes the
 //     output, so the merge costs no second launch.
 // The walk's row tile is kRows = 8 rows, so a prefill chunk of R = 32 rows
-// reads its chain four times; tensor cores and a TMA ring for the split and
-// the quantized pools are later work.
+// reads its chain four times; tensor cores and a TMA ring for the
+// quantized and fp32 pools are later work.
 
 #include <cuda_fp8.h>
 #include <math.h>
@@ -409,13 +410,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
 }
 
 // ---------------------------------------------------------------------------
-// The single sweep on bf16 pools with bf16 q, on tensor cores, fed by TMA.
+// The single sweep and the split on bf16 pools with bf16 q, on tensor
+// cores, fed by TMA: one body, paged_tc_body, and two kernels.
 //
-// One thread block per (row tile of up to 64 rows, KV head, batch row):
-// every R = G * C row of a KV head up to 64 shares one block, so a chain
-// byte is read from HBM once per (batch row, KV head) for R <= 64; rows
-// past 64 take further row tiles. Four consumer warps and one producer
-// warp.
+// One thread block per (row tile, KV head, batch row[, split worker]): the
+// sweep's four consumer warps take tiles of up to 64 rows, so every R = G *
+// C row of a KV head up to 64 shares one block and a chain byte is read
+// from HBM once per (batch row, KV head); rows past a tile take further
+// tiles (the split's two warps: 32 rows). One producer warp.
 //   - Loads: the producer walks the chain up to the tile's frontier in
 //     stages of 64 keys, a ring of kStages stages under full/empty
 //     mbarriers. Each stage is whole TMA boxes of the pool viewed as
@@ -434,22 +436,36 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
 //     64-row tile would waste 63 rows of each product, and the work is
 //     bound by the chain's bytes at any R <= 64, far from the tensor cores'
 //     rate, so mma.sync's 16-row tile serves every R.
-//   - Warps: with n16 = ceil(rows / 16) row groups, the 4 / n16 key groups
-//     (4 at R <= 16, 2 at R <= 32, 1 above) take every (4 / n16)-th stage,
-//     each with its own fp32 online softmax; at the end group 0 merges the
-//     others' states, passed through shared memory, into its registers and
-//     writes the rows. The ring's stage count is a multiple of
-//     4, so ring slot s belongs to key group s % (4 / n16) and a group
-//     meets its slots' phases in order: an mbarrier parity wait cannot tell
-//     a phase from the one two ahead, so a group running ahead must never
-//     wait on another group's slot.
+//   - Warps: with kCW consumer warps and n16 = ceil(rows / 16) row groups,
+//     the kCW / n16 key groups (the sweep's: 4 at R <= 16, 2 at R <= 32, 1
+//     above) take every (kCW / n16)-th stage, each with its own fp32 online
+//     softmax; at the end group 0 merges the others' states, passed through
+//     shared memory, into its registers and writes the rows. The ring's
+//     stage count is a multiple of kCW, so ring slot s belongs to key group
+//     s % (kCW / n16) and a group meets its slots' phases in order: an
+//     mbarrier parity wait cannot tell a phase from the one two ahead, so a
+//     group running ahead must never wait on another group's slot.
 // Semantics as the CUDA-core walk: q scaled in its dtype, S and (m, l, acc)
 // fp32, p rounded to bf16 before PV, a padding row (qpos = -1) 0.
+//
+// The split (paged_split_tc_kernel): worker s of S reads chain blocks
+// [s wc, min((s + 1) wc, W)), wc = ceil(W / S), cut at the tile's frontier,
+// in stages of 64 keys from its first key; workers whose span starts past
+// the frontier leave at once. A decode tick's longest chain (2,048 keys,
+// 512 KB of K/V for one block in the sweep) becomes S spans of 256 keys,
+// and its S x H_kv x B = 768 blocks are short-lived: their prologue and
+// epilogue latencies, not their bytes, set the time when they run in
+// rounds. So the split's blocks are small: two consumer warps (row tiles of
+// 32 rows) and a two-stage ring, 32 KB at D = 64, so six blocks share an SM
+// and all 768 are resident at once, 192 KB of K/V in flight an SM. Each
+// active worker writes fp32 partials (acc unnormalized, m, l), takes a
+// ticket, and the last of them merges the partials in worker order, so two
+// launches give the same bits, and resets the ticket, so the caller zeroes
+// the tickets once, not per launch.
 
 constexpr int kStageKeys = 64;  // chain keys per ring stage
-constexpr int kTcRows = 64;     // query rows per thread block
-constexpr int kTcConsumers = 32 * kWarps;
-constexpr int kTcThreads = kTcConsumers + 32;  // and one producer warp
+constexpr int kSplitWarps = 2;  // the split's consumer warps: row tiles of 32
+constexpr int kSplitStages = 2;
 constexpr int kBoxCols = 64;                   // 128 bytes: the swizzle's span
 constexpr int kBoxBytes = kStageKeys * kBoxCols * 2;
 
@@ -490,42 +506,91 @@ struct TcParams {
   const int* tables;  // [B, W]
   const int* qpos;    // [B, C]
   __nv_bfloat16* out;  // [B, C, H_kv * G, D]
-  int H_kv, G, C, bl, W, box_rows, pool_rows;
+  float* part_acc;     // split: [B, H_kv, S, R, D]
+  float* part_m;       // split: [B, H_kv, S, R]
+  float* part_l;
+  int* tickets;        // split: [B, H_kv, ceil(R / 32)], zero on entry and on exit
+  int H_kv, G, C, bl, W, box_rows, pool_rows, S, wc;  // the sweep: S = 1, wc = W
   float scale;
 };
 
-// grid (ceil(G * C / 64), H_kv, B); D = 64 * kBoxes
-template <int kBoxes, int kStages>
-__global__ void __launch_bounds__(kTcThreads, 1)
-    paged_sweep_tc_kernel(__grid_constant__ const CUtensorMap map_k,
-                          __grid_constant__ const CUtensorMap map_v, const TcParams p) {
+// The body of both tensor-core kernels: kCW consumer warps and a producer
+// warp, row tiles of kRowsT = 16 kCW rows; grid (ceil(G * C / kRowsT) * S,
+// H_kv, B), D = 64 * kBoxes.
+template <int kBoxes, int kStages, int kCW, bool kSplit>
+__device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CUtensorMap& map_v,
+                                              const TcParams& p) {
   constexpr int D = kBoxes * kBoxCols;
+  constexpr int kRowsT = 16 * kCW;
   constexpr int kTileBytes = kBoxes * kBoxBytes;  // 64 keys of K (or V)
   constexpr float kLog2e = 1.4426950408889634f;
-  static_assert(kStages % kWarps == 0, "each key group owns its own ring slots");
-  static_assert((kWarps - 1) * kTcRows * (D + 4) * 4 <= 2 * kStages * kTileBytes,
+  static_assert(kStages % kCW == 0, "each key group owns its own ring slots");
+  static_assert((kCW - 1) * kRowsT * (D + 4) * 4 <= 2 * kStages * kTileBytes,
                 "the ring holds the key groups' states at the end");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring =  // stage s: K at 2 s tiles, V after it
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + 2 * kStages * kTileBytes);
   uint64_t* empty = full + kStages;
-  __shared__ int qp_s[kTcRows];
-  __shared__ float m_s[(kWarps - 1) * kTcRows];  // key groups 1 .. 3 at the end
-  __shared__ float l_s[(kWarps - 1) * kTcRows];
+  __shared__ int qp_s[kRowsT];
+  __shared__ float m_s[(kCW - 1) * kRowsT];  // key groups 1 .. kCW - 1 at the end
+  __shared__ float l_s[(kCW - 1) * kRowsT];
+  __shared__ int is_last;
 
   const int R = p.G * p.C;
-  const int row0 = blockIdx.x * kTcRows;
-  const int nr = min(kTcRows, R - row0);
+  const int n_rt = (R + kRowsT - 1) / kRowsT;
+  const int rt = blockIdx.x % n_rt;
+  const int sw = blockIdx.x / n_rt;  // the split worker (0 for the sweep)
+  const int row0 = rt * kRowsT;
+  const int nr = min(kRowsT, R - row0);
   const int n16 = (nr + 15) / 16;  // row groups of 16
-  const int n_kg = kWarps / n16;   // key groups
+  const int n_kg = kCW / n16;      // key groups
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
-  if (tid < kTcRows)
+  const int span = p.wc * p.bl;    // keys of a worker's span of the chain
+  const int k_begin = sw * span;
+  const int k_end = min(p.W * p.bl, k_begin + span);
+  const int* table = p.tables + static_cast<int64_t>(b) * p.W;
+  // the pool row of the span's box 32 * batch + lane, or -1 past its end
+  auto box_row = [&](int batch) {
+    const int key0 = k_begin + (32 * batch + lane) * p.box_rows;
+    if (key0 >= k_end) return -1;
+    const int j = key0 / p.bl;
+    return __ldg(table + j) * p.bl + (key0 - j * p.bl);
+  };
+  const int rg = warp % n16;  // a consumer's rows: 16 rg .. 16 rg + 15 of the tile
+  const int kg = warp / n16;  // and its key group
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  // Loads that do not depend on the positions go out before the barrier,
+  // together with the positions': the producer's first 64 table entries,
+  // the consumers' q fragments (rows 16 rg + g and + 8; a row past nr reads
+  // row 0 and is zeroed below).
+  int cur = -1, nxt = -1;
+  uint32_t qa[D / 16][4];
+  if (warp == kCW) {
+    cur = box_row(0);
+    nxt = box_row(1);
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rl = 16 * rg + g + 8 * r;
+      const int row = row0 + (rl < nr ? rl : 0);
+      const int gq = row / p.C;
+      const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
+          p.q + b * p.q_sb + (row - gq * p.C) * p.q_sc + (h * p.G + gq) * p.q_sh);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) qa[kk][r + 2 * hf] = __ldg(qrow + 8 * kk + 4 * hf + t);
+    }
+  }
+  if (tid < kRowsT)
     qp_s[tid] = tid < nr ? p.qpos[static_cast<int64_t>(b) * p.C + (row0 + tid) % p.C] : -1;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -537,29 +602,31 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   __syncthreads();
   int frontier = -1;
   for (int r = 0; r < nr; ++r) frontier = max(frontier, qp_s[r]);
-  // keys [0, n_keys) are read; a block whose first key lies past every
-  // row's position is all masked
+  // keys [0, n_keys) are visible to some row of the tile; worker sw reads
+  // [k_begin, k_stop), its span cut at n_keys. Workers whose span starts
+  // past n_keys have nothing to read and leave at once; the n_active others
+  // (worker 0 always) write partials, and the last of them to finish merges
+  // those (one active worker writes the output).
   const int n_keys = frontier < 0 ? 0 : min(p.W * p.bl, frontier + 1);
-  const int n_st = (n_keys + kStageKeys - 1) / kStageKeys;
+  const int n_active = max(1, (n_keys + span - 1) / span);
+  if (sw >= n_active) return;
+  const int k_stop = min(n_keys, k_end);
+  const int n_st = (max(k_stop - k_begin, 0) + kStageKeys - 1) / kStageKeys;
 
-  if (warp == kWarps) {  // the producer
+  if (warp == kCW) {  // the producer
     const int n_copies = kStageKeys / p.box_rows;  // boxes per stage, a divisor of 32
-    const int* table = p.tables + static_cast<int64_t>(b) * p.W;
-    // the pool row of box 32 * batch + lane, or -1 past the frontier
-    auto box_row = [&](int batch) {
-      const int key0 = (32 * batch + lane) * p.box_rows;
-      if (key0 >= n_keys) return -1;
-      const int j = key0 / p.bl;
-      return __ldg(table + j) * p.bl + (key0 - j * p.bl);
+    // box 32 * batch + lane past the frontier: -1 (asked for out of bounds)
+    auto cut = [&](int row, int batch) {
+      return k_begin + (32 * batch + lane) * p.box_rows < k_stop ? row : -1;
     };
-    int cur = box_row(0);
-    int nxt = box_row(1);
+    cur = cut(cur, 0);
+    nxt = cut(nxt, 1);
     for (int i = 0; i < n_st; ++i) {
       const int s = i % kStages;
       const int c0 = i * n_copies;  // the stage's first box
       if (c0 > 0 && c0 % 32 == 0) {
         cur = nxt;
-        nxt = box_row(c0 / 32 + 1);
+        nxt = cut(box_row(c0 / 32 + 1), c0 / 32 + 1);
       }
       const int src = __shfl_sync(kFull, cur, (c0 % 32) + min(lane, n_copies - 1));
       if (lane == 0) {
@@ -580,36 +647,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     return;
   }
 
-  const int rt = warp % n16;  // this warp's rows: 16 rt .. 16 rt + 15 of the tile
-  const int kg = warp / n16;  // and its key group
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  // q of rows 16 rt + g and + 8, scaled in its dtype, as A fragments. Every
-  // pair is loaded before any is used (a row past nr reads row 0 and is
-  // zeroed), so the loads are in flight together.
-  uint32_t qa[D / 16][4];
+  // q scaled in its dtype, as A fragments
   int qp[2];
   {
     const float sc = __bfloat162float(__float2bfloat16(p.scale));
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int rl = 16 * rt + g + 8 * r;
-      qp[r] = qp_s[rl];
-      const int row = row0 + (rl < nr ? rl : 0);
-      const int gq = row / p.C;
-      const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-          p.q + b * p.q_sb + (row - gq * p.C) * p.q_sc + (h * p.G + gq) * p.q_sh);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) qa[kk][r + 2 * hf] = __ldg(qrow + 8 * kk + 4 * hf + t);
-    }
+    for (int r = 0; r < 2; ++r) qp[r] = qp_s[16 * rg + g + 8 * r];
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&qa[kk][i]);
-        const bool in = 16 * rt + g + 8 * (i & 1) < nr;
+        const bool in = 16 * rg + g + 8 * (i & 1) < nr;
         qa[kk][i] = in ? pack2(__low2float(x) * sc, __high2float(x) * sc) : 0u;
       }
   }
@@ -645,13 +694,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         mma(sc[2 * jp + 1], qa[kk], kb[2], kb[3]);
       }
 
-    const int k0 = i * kStageKeys;
+    const int k0 = k_begin + i * kStageKeys;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kpos = k0 + 8 * j + 2 * t + (e & 1);
-        if (!(kpos <= qp[e >> 1] && kpos < n_keys)) sc[j][e] = -INFINITY;
+        if (!(kpos <= qp[e >> 1] && kpos < k_stop)) sc[j][e] = -INFINITY;
       }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -706,7 +755,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   // row padded by 4 floats against bank conflicts), and group 0 merges
   // them into its own in registers and writes its rows
   constexpr int kAccLd = D + 4;
-  sync_consumers();
+  sync_warps<32 * kCW>();
   float* acc_s = reinterpret_cast<float*>(ring);
   float lt[2];  // the row sums
 #pragma unroll
@@ -718,7 +767,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   if (kg > 0 && kg < n_kg) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int slot = (kg - 1) * kTcRows + 16 * rt + g + 8 * r;
+      const int slot = (kg - 1) * kRowsT + 16 * rg + g + 8 * r;
       if (t == 0) {
         m_s[slot] = m[r];
         l_s[slot] = lt[r];
@@ -729,50 +778,119 @@ __global__ void __launch_bounds__(kTcThreads, 1)
             make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
     }
   }
-  sync_consumers();
-  if (kg > 0) return;
+  sync_warps<32 * kCW>();
   const int H = p.H_kv * p.G;
+  const bool partial = kSplit && n_active > 1;
+  const int64_t pb = (static_cast<int64_t>(b) * p.H_kv + h) * p.S;  // worker 0's partials
+  if (kg == 0) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rl = 16 * rt + g + 8 * r;
-    if (rl >= nr) continue;
-    float ms = m[r];
+    for (int r = 0; r < 2; ++r) {
+      const int rl = 16 * rg + g + 8 * r;
+      if (rl >= nr) continue;
+      float ms = m[r];
 #pragma unroll
-    for (int k = 1; k < kWarps; ++k)
-      if (k < n_kg) ms = fmaxf(ms, m_s[(k - 1) * kTcRows + rl]);
-    // a key group that saw no visible key (m = -inf) drops out
-    const float a0 = m[r] == -INFINITY ? 0.f : ex2((m[r] - ms) * kLog2e);
-    float al[kWarps];
-    float ls = lt[r] * a0;
+      for (int k = 1; k < kCW; ++k)
+        if (k < n_kg) ms = fmaxf(ms, m_s[(k - 1) * kRowsT + rl]);
+      // a key group that saw no visible key (m = -inf) drops out
+      const float a0 = m[r] == -INFINITY ? 0.f : ex2((m[r] - ms) * kLog2e);
+      float al[kCW];
+      float ls = lt[r] * a0;
 #pragma unroll
-    for (int k = 1; k < kWarps; ++k) {
-      al[k] = 0.f;
-      if (k < n_kg) {
-        const float mk = m_s[(k - 1) * kTcRows + rl];
-        al[k] = mk == -INFINITY ? 0.f : ex2((mk - ms) * kLog2e);
-        ls += l_s[(k - 1) * kTcRows + rl] * al[k];
+      for (int k = 1; k < kCW; ++k) {
+        al[k] = 0.f;
+        if (k < n_kg) {
+          const float mk = m_s[(k - 1) * kRowsT + rl];
+          al[k] = mk == -INFINITY ? 0.f : ex2((mk - ms) * kLog2e);
+          ls += l_s[(k - 1) * kRowsT + rl] * al[k];
+        }
+      }
+      const float lc = fmaxf(ls, 1e-37f);  // fully masked rows (ls == 0) come out 0
+      const int gq = (row0 + rl) / p.C;
+      const int c = row0 + rl - gq * p.C;
+      uint32_t* orow = reinterpret_cast<uint32_t*>(
+          p.out + ((static_cast<int64_t>(b) * p.C + c) * H + h * p.G + gq) * D);
+      const int64_t pr = (pb + sw) * R + row0 + rl;  // this worker's partial row
+      if (partial && t == 0) {
+        p.part_m[pr] = ms;  // -inf where the row saw no visible key here
+        p.part_l[pr] = ls;
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        float v0 = acc[n][2 * r] * a0;
+        float v1 = acc[n][2 * r + 1] * a0;
+#pragma unroll
+        for (int k = 1; k < kCW; ++k)
+          if (k < n_kg) {
+            const float2 x = *reinterpret_cast<const float2*>(
+                acc_s + ((k - 1) * kRowsT + rl) * kAccLd + 8 * n + 2 * t);
+            v0 += x.x * al[k];
+            v1 += x.y * al[k];
+          }
+        if (partial)
+          *reinterpret_cast<float2*>(p.part_acc + pr * D + 8 * n + 2 * t) = make_float2(v0, v1);
+        else
+          orow[4 * n + t] = pack2(v0 / lc, v1 / lc);
       }
     }
-    const float lc = fmaxf(ls, 1e-37f);  // fully masked rows (ls == 0) come out 0
+  }
+  if (!partial) return;
+
+  // the last active worker of this (b, h, row tile) to finish merges the
+  // partials of workers 0 .. n_active - 1, in that order: the same bits
+  // whichever worker is last
+  __threadfence();
+  sync_warps<32 * kCW>();
+  int* ticket = p.tickets + (static_cast<int64_t>(b) * p.H_kv + h) * n_rt + rt;
+  if (tid == 0) is_last = atomicAdd(ticket, 1) == n_active - 1;
+  sync_warps<32 * kCW>();
+  if (!is_last) return;
+  __threadfence();
+  // the loops are unrolled so that their loads are in flight together
+  for (int i = tid; i < nr * (D / 2); i += (32 * kCW)) {
+    const int rl = i / (D / 2);
+    const int d = 2 * (i - rl * (D / 2));
+    float ms = -INFINITY;
+#pragma unroll 8
+    for (int w = 0; w < n_active; ++w) ms = fmaxf(ms, __ldcg(p.part_m + (pb + w) * R + row0 + rl));
+    float v0 = 0.f, v1 = 0.f, ls = 0.f;
+#pragma unroll 8
+    for (int w = 0; w < n_active; ++w) {
+      const int64_t pr = (pb + w) * R + row0 + rl;
+      const float mw = __ldcg(p.part_m + pr);
+      const float al = mw == -INFINITY ? 0.f : ex2((mw - ms) * kLog2e);
+      const float2 x = __ldcg(reinterpret_cast<const float2*>(p.part_acc + pr * D + d));
+      v0 += x.x * al;
+      v1 += x.y * al;
+      ls += __ldcg(p.part_l + pr) * al;
+    }
+    const float lc = fmaxf(ls, 1e-37f);
     const int gq = (row0 + rl) / p.C;
     const int c = row0 + rl - gq * p.C;
-    uint32_t* orow = reinterpret_cast<uint32_t*>(
-        p.out + ((static_cast<int64_t>(b) * p.C + c) * H + h * p.G + gq) * D);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      float v0 = acc[n][2 * r] * a0;
-      float v1 = acc[n][2 * r + 1] * a0;
-#pragma unroll
-      for (int k = 1; k < kWarps; ++k)
-        if (k < n_kg) {
-          const float2 x = *reinterpret_cast<const float2*>(
-              acc_s + ((k - 1) * kTcRows + rl) * kAccLd + 8 * n + 2 * t);
-          v0 += x.x * al[k];
-          v1 += x.y * al[k];
-        }
-      orow[4 * n + t] = pack2(v0 / lc, v1 / lc);
-    }
+    *reinterpret_cast<uint32_t*>(
+        p.out + ((static_cast<int64_t>(b) * p.C + c) * H + h * p.G + gq) * D + d) =
+        pack2(v0 / lc, v1 / lc);
   }
+  if (tid == 0) *ticket = 0;  // zero again for the next launch on this stream
+}
+
+// The single sweep: grid (ceil(G * C / 64), H_kv, B), four consumer warps
+// and one block an SM with a deep ring (a decode tick's few blocks each
+// stream a whole chain).
+template <int kBoxes, int kStages>
+__global__ void __launch_bounds__(32 * kWarps + 32, 1)
+    paged_sweep_tc_kernel(__grid_constant__ const CUtensorMap map_k,
+                          __grid_constant__ const CUtensorMap map_v, const TcParams p) {
+  paged_tc_body<kBoxes, kStages, kWarps, false>(map_k, map_v, p);
+}
+
+// The split: grid (ceil(G * C / 32) * S, H_kv, B), two consumer warps and
+// a two-stage ring, so kMinBlocks blocks share an SM: at D = 64 all 768
+// blocks of a decode tick are resident at once.
+template <int kBoxes, int kMinBlocks>
+__global__ void __launch_bounds__(32 * kSplitWarps + 32, kMinBlocks)
+    paged_split_tc_kernel(__grid_constant__ const CUtensorMap map_k,
+                          __grid_constant__ const CUtensorMap map_v, const TcParams p) {
+  paged_tc_body<kBoxes, kSplitStages, kSplitWarps, true>(map_k, map_v, p);
 }
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
@@ -796,17 +914,38 @@ int encode_pool(CUtensorMap* map, const void* pool, const int64_t* geo) {
   return r == CUDA_SUCCESS ? 0 : kInvalid;
 }
 
-template <int kBoxes, int kStages>
-int launch_tc(const CUtensorMap& mk, const CUtensorMap& mv, const TcParams& p, int B,
-              cudaStream_t st) {
-  auto kernel = paged_sweep_tc_kernel<kBoxes, kStages>;
-  const size_t smem = 1024 + 2 * kStages * kBoxes * kBoxBytes + 2 * kStages * 8;
+// one launch of a tensor-core kernel with `warps` consumer warps (row
+// tiles of 16 warps rows) and a ring of `stages` stages of `boxes`
+// 64-column boxes: grid (ceil(G * C / (16 warps)) * S, H_kv, B)
+template <typename Kernel>
+int launch_tc(Kernel kernel, int boxes, int stages, int warps, const CUtensorMap& mk,
+              const CUtensorMap& mv, const TcParams& p, int B, cudaStream_t st) {
+  const size_t smem = 1024 + 2 * stages * boxes * kBoxBytes + 2 * stages * 8;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((p.G * p.C + kTcRows - 1) / kTcRows, p.H_kv, B);
-  kernel<<<grid, kTcThreads, smem, st>>>(mk, mv, p);
+  const int rows = 16 * warps;
+  const dim3 grid(((p.G * p.C + rows - 1) / rows) * p.S, p.H_kv, B);
+  kernel<<<grid, 32 * warps + 32, smem, st>>>(mk, mv, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Checks the tensor-core kernels' operands and encodes the pools' tensor
+// maps; returns 0 or a cudaError_t.
+int tc_prepare(CUtensorMap* mk, CUtensorMap* mv, const void* q, int64_t q_sb, int64_t q_sc,
+               int64_t q_sh, const void* k_pool, const void* v_pool, const int64_t* geometry,
+               int B, int C, int H_kv, int G, int bl, int W) {
+  const int64_t D = geometry[0];
+  const int64_t box = geometry[7];
+  const bool box_ok = bl < kStageKeys ? box == bl && box >= 8 && kStageKeys % bl == 0
+                                      : box == kStageKeys && bl % kStageKeys == 0;
+  if (B < 1 || B > 65535 || H_kv < 1 || H_kv > 65535 || G < 1 || C < 1 || W < 1 ||
+      reinterpret_cast<uintptr_t>(q) % 4 || q_sb % 2 || q_sc % 2 || q_sh % 2 ||
+      (D != 64 && D != 128) || geometry[1] != H_kv || geometry[2] % bl ||
+      geometry[2] > INT32_MAX || geometry[5] != kBoxCols || geometry[6] != 1 || !box_ok)
+    return kInvalid;
+  const int err = encode_pool(mk, k_pool, geometry);
+  return err != 0 ? err : encode_pool(mv, v_pool, geometry);
 }
 
 template <typename T, typename P, int kScale, bool kSplit, int kDpl>
@@ -1025,25 +1164,45 @@ extern "C" int pdt_paged_attention_sweep_tc(const void* q, int64_t q_sb, int64_t
                                             const int64_t* geometry, const void* tables,
                                             const void* qpos, void* out, int B, int C, int H_kv,
                                             int G, int bl, int W, float scale, void* stream) {
-  const int64_t D = geometry[0];
-  const int64_t box = geometry[7];
-  const bool box_ok = bl < kStageKeys ? box == bl && box >= 8 && kStageKeys % bl == 0
-                                      : box == kStageKeys && bl % kStageKeys == 0;
-  if (B < 1 || B > 65535 || H_kv < 1 || H_kv > 65535 || G < 1 || C < 1 || W < 1 ||
-      reinterpret_cast<uintptr_t>(q) % 4 || q_sb % 2 || q_sc % 2 || q_sh % 2 ||
-      (D != 64 && D != 128) || geometry[1] != H_kv || geometry[2] % bl ||
-      geometry[2] > INT32_MAX || geometry[5] != kBoxCols || geometry[6] != 1 || !box_ok)
-    return kInvalid;
   CUtensorMap mk, mv;
-  int err = encode_pool(&mk, k_pool, geometry);
-  if (err == 0) err = encode_pool(&mv, v_pool, geometry);
+  const int err = tc_prepare(&mk, &mv, q, q_sb, q_sc, q_sh, k_pool, v_pool, geometry, B, C, H_kv,
+                             G, bl, W);
   if (err != 0) return err;
   TcParams p{static_cast<const __nv_bfloat16*>(q), q_sb, q_sc, q_sh,
              static_cast<const int*>(tables), static_cast<const int*>(qpos),
-             static_cast<__nv_bfloat16*>(out), H_kv, G, C, bl, W, static_cast<int>(box),
-             static_cast<int>(geometry[2]), scale};
+             static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr, nullptr, H_kv, G, C,
+             bl, W, static_cast<int>(geometry[7]), static_cast<int>(geometry[2]), 1, W, scale};
   auto st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_tc<1, 8>(mk, mv, p, B, st) : launch_tc<2, 4>(mk, mv, p, B, st);
+  return geometry[0] == 64
+             ? launch_tc(paged_sweep_tc_kernel<1, 8>, 1, 8, kWarps, mk, mv, p, B, st)
+             : launch_tc(paged_sweep_tc_kernel<2, 4>, 2, 4, kWarps, mk, mv, p, B, st);
+}
+
+// The split on tensor cores: operands as pdt_paged_attention_sweep_tc, S
+// workers (1 <= S <= W); part_acc, part_m, part_l fp32 scratch [B, H_kv,
+// S, G * C, D], [B, H_kv, S, G * C] twice; tickets B * H_kv * ceil(G * C /
+// 32) int32, zero on entry (left zero).
+extern "C" int pdt_paged_attention_split_tc(
+    const void* q, int64_t q_sb, int64_t q_sc, int64_t q_sh, const void* k_pool,
+    const void* v_pool, const int64_t* geometry, const void* tables, const void* qpos, void* out,
+    void* part_acc, void* part_m, void* part_l, void* tickets, int B, int C, int H_kv, int G,
+    int bl, int W, int S, float scale, void* stream) {
+  if (S < 1 || S > W) return kInvalid;
+  CUtensorMap mk, mv;
+  const int err = tc_prepare(&mk, &mv, q, q_sb, q_sc, q_sh, k_pool, v_pool, geometry, B, C, H_kv,
+                             G, bl, W);
+  if (err != 0) return err;
+  TcParams p{static_cast<const __nv_bfloat16*>(q), q_sb, q_sc, q_sh,
+             static_cast<const int*>(tables), static_cast<const int*>(qpos),
+             static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_acc),
+             static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<int*>(tickets),
+             H_kv, G, C, bl, W, static_cast<int>(geometry[7]), static_cast<int>(geometry[2]), S,
+             (W + S - 1) / S, scale};
+  auto st = static_cast<cudaStream_t>(stream);
+  return geometry[0] == 64 ? launch_tc(paged_split_tc_kernel<1, 6>, 1, kSplitStages,
+                                       kSplitWarps, mk, mv, p, B, st)
+                           : launch_tc(paged_split_tc_kernel<2, 3>, 2, kSplitStages,
+                                       kSplitWarps, mk, mv, p, B, st);
 }
 
 extern "C" int pdt_paged_attention_rows_per_tile() { return kRows; }

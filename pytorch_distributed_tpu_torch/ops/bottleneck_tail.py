@@ -11,7 +11,10 @@ kernels of ``csrc/bottleneck_tail.cu`` that the fused expand tail of
 - ``tail_bwd_dz(gp, z, wa, c, dmn)``: ``gp @ wa + z @ c + dmn`` ``[..., F]``
   in z's dtype, one output write; wa ``[E, F]``, c ``[F, F]`` and dmn
   ``[F]`` are fp32 and are rounded to z's dtype for the product (on the
-  tensor cores in bf16), which the JAX kernel does not do.
+  tensor cores in bf16), which the JAX kernel does not do. On bf16 rows it
+  runs ``tail_dz_wgmma_kernel`` (TMA and wgmma, persistent blocks, gp and
+  z read through the tensor maps of ``dz_tensor_map_geometry``); on fp32
+  rows a CUDA-core kernel.
 
 Operands are NHWC ``[B, H, W, C]`` or ``[N, C]``, bf16 or fp32, read as
 ``[N, C]`` rows through their row stride: a ``channels_last`` NCHW
@@ -45,7 +48,7 @@ BWD_DZ = "tail_bwd_dz"
 launch_counts = {MOMENTS: 0, BWD_REDUCE: 0, BWD_DZ: 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64  # output tile edge of the reduction kernels
+TILE = 64  # output tile edge of the reduction kernels; the dz kernel's TMA box
 STEP = 32  # contraction rows a block takes per step
 TARGET_BLOCKS = 4 * 132  # about four blocks per SM of an H100
 MIN_CHUNK = 128  # rows
@@ -115,14 +118,30 @@ def reduce_grid(n: int, f: int, n_b: int, gated: bool) -> Tuple[int, int, Tuple[
     return n_tiles, chunk, (-(-n // chunk), f + 1, n_b)
 
 
+def dz_tensor_map_geometry(gp2: torch.Tensor, z2: torch.Tensor, wa: torch.Tensor,
+                           c: torch.Tensor) -> Tuple[Tuple[int, ...], ...]:
+    """The TMA tensor maps of the bf16 dz kernel, one per operand: gp
+    ``[N, E]`` and z ``[N, F]`` (A, read through their row strides, so a
+    channels-last activation's rows need no copy), wa ``[E, F]`` and c
+    ``[F, F]`` (B, contiguous). Each is ``(columns, rows, row stride in
+    bytes, box columns, box rows)`` with the box ``(64, 64)``: 64 rows of
+    128 bytes, the 128-byte swizzle's span; a box past an operand's edge
+    lands as zeros, so E and F need not be multiples of 64."""
+    return tuple((x.shape[1], x.shape[0], x.stride(0) * x.element_size(), TILE, TILE)
+                 for x in (gp2, z2, wa, c))
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.pdt_moments.argtypes = [p, i64, i, i, i, i, p, p, p, p]
     lib.pdt_moments.restype = i
     lib.pdt_tail_bwd_reduce.argtypes = [p, i64, p, i64, p, i64, p, i, p, p, p, i, i, i, i, p]
     lib.pdt_tail_bwd_reduce.restype = i
-    lib.pdt_tail_bwd_dz.argtypes = [p, i64, p, i64, p, p, p, i, i, i, i, p]
+    lib.pdt_tail_bwd_dz.argtypes = [p, i64, p, i64, p, p, p, i, i, i, p]
     lib.pdt_tail_bwd_dz.restype = i
+    # gp, z, wa, c, their tensor maps' geometry, dmn, dz; N, F, E; stream
+    lib.pdt_tail_bwd_dz_tc.argtypes = [p, p, p, p, ctypes.POINTER(i64), p, p, i, i, i, p]
+    lib.pdt_tail_bwd_dz_tc.restype = i
     lib.pdt_tail_error_string.argtypes = [i]
     lib.pdt_tail_error_string.restype = ctypes.c_char_p
 
@@ -234,12 +253,19 @@ def tail_bwd_dz(gp: torch.Tensor, z: torch.Tensor, wa: torch.Tensor, c: torch.Te
                          f"do not fit E={e}, F={f}")
     if any(x.device != z.device for x in (wa, c, dmn)):
         raise ValueError("wa, c and dmn must lie on z's device")
-    w = torch.cat([wa, c]).to(z.dtype)  # [E + F, F], rounded once for the tensor cores
     dz = torch.empty((n, f), dtype=z.dtype, device=z.device)
     lib = _library()
-    code = lib.pdt_tail_bwd_dz(
-        _ptr(gp2), gp2.stride(0), _ptr(z2), z2.stride(0), _ptr(w), _ptr(dmn), _ptr(dz),
-        _DTYPE_CODES[z.dtype], n, f, e, _stream(z))
+    if z.dtype == torch.bfloat16:
+        wa16, c16 = (x.to(torch.bfloat16).contiguous() for x in (wa, c))  # rounded once
+        geometry = dz_tensor_map_geometry(gp2, z2, wa16, c16)
+        code = lib.pdt_tail_bwd_dz_tc(
+            _ptr(gp2), _ptr(z2), _ptr(wa16), _ptr(c16),
+            (ctypes.c_int64 * 20)(*(v for g in geometry for v in g)), _ptr(dmn), _ptr(dz),
+            n, f, e, _stream(z))
+    else:
+        w = torch.cat([wa, c]).float()  # [E + F, F], contiguous
+        code = lib.pdt_tail_bwd_dz(_ptr(gp2), gp2.stride(0), _ptr(z2), z2.stride(0), _ptr(w),
+                                   _ptr(dmn), _ptr(dz), n, f, e, _stream(z))
     _check_launch(lib, BWD_DZ, code)
     launch_counts[BWD_DZ] += 1
     return dz.view(z.shape)

@@ -13,7 +13,12 @@ of ``csrc/paged_attention.cu``:
 - ``paged_attention_split`` (flash-decoding): the chain splits over S
   workers that write fp32 ``(acc, m, l)`` partials; the last worker of
   each row tile merges them by log-sum-exp inside the same launch (the
-  JAX package merges in jnp after its kernel);
+  JAX package merges in jnp after its kernel). The operands that the sweep
+  runs on tensor cores run ``paged_split_tc_kernel``: the same tensor-core
+  body over one worker's span of the chain, in small blocks (two consumer
+  warps, 32-row tiles, a two-stage ring) that all fit on the card at once;
+  others the CUDA-core walk. Its scratch (``split_buffers``) is kept per
+  card and stream, so a call is one launch;
 - ``paged_quantize_scatter``: writes a chunk's K/V rows into quantized
   pools, computing each row's per-head scale inside the write.
 
@@ -75,10 +80,13 @@ _QUANT_HEAD_DIMS = (64, 128)
 #: the single sweep's two kernels (``sweep_kernel``)
 TENSOR_CORES = "tensor_cores"
 CUDA_CORES = "cuda_cores"
-#: the tensor-core sweep: query rows of a thread block, chain keys of a
-#: ring stage, and its head dims (one or two 64-column TMA boxes, the
-#: 128-byte swizzle's span)
+#: the tensor-core sweep: query rows of a thread block; with the split,
+#: chain keys of a ring stage and the head dims (one or two 64-column TMA
+#: boxes, the 128-byte swizzle's span)
 TC_TILE_ROWS = 64
+#: the tensor-core split's row tile (two consumer warps: small blocks, six
+#: an SM)
+TC_SPLIT_TILE_ROWS = 32
 TC_STAGE_KEYS = 64
 TC_HEAD_DIMS = (64, 128)
 
@@ -90,7 +98,9 @@ def variant(kernel: str, pool_dtype: torch.dtype) -> str:
 
 def sweep_kernel(q_dtype: torch.dtype, pool_dtype: torch.dtype, d: int,
                  block_len: int) -> str:
-    """Which kernel runs the single sweep: ``TENSOR_CORES`` for bf16 q on
+    """Which kernel runs the single sweep, and the split (the same rule, at
+    every row count: rows past a row tile take further ones):
+    ``TENSOR_CORES`` for bf16 q on
     bf16 pools with D in ``TC_HEAD_DIMS`` and a block length that a 64-key
     stage takes in whole TMA boxes of at least 8 rows (8, 16, 32, or a
     multiple of 64); else ``CUDA_CORES``: fp32 pools, quantized pools (their
@@ -121,6 +131,43 @@ def pool_tensor_map_geometry(pool: torch.Tensor) -> Tuple[int, ...]:
     n_blocks, bl, h_kv, d = pool.shape
     e = pool.element_size()
     return (d, h_kv, n_blocks * bl, d * e, h_kv * d * e, 64, 1, min(bl, TC_STAGE_KEYS))
+
+
+def split_row_tiles(kernel: str, rows: int, walk_rows: int) -> int:
+    """Row tiles of the split per (batch row, KV head) for ``rows = G·C``:
+    ``TC_SPLIT_TILE_ROWS`` rows each on tensor cores, ``walk_rows`` (the
+    CUDA-core walk's tile, 8) on the walk. The split takes one ticket per
+    row tile."""
+    tile = TC_SPLIT_TILE_ROWS if kernel == TENSOR_CORES else walk_rows
+    return -(-rows // tile)
+
+
+#: the split's scratch, by (card, stream): see ``split_buffers``
+_split_scratch = {}
+
+
+def split_buffers(key, b: int, h_kv: int, s_workers: int, rows: int, d: int,
+                  row_tiles: int, device) -> Tuple[torch.Tensor, ...]:
+    """The scratch of one split launch: fp32 partials ``acc [B, H_kv, S,
+    R, D]``, ``m`` and ``l [B, H_kv, S, R]``, and int32 ``tickets [B·H_kv·
+    row_tiles]``, as views of two buffers kept per ``key`` (the card and
+    the stream). A kernel reads each partial only after its worker wrote
+    it in the same launch, so nothing needs clearing; the tickets are
+    zeroed once, when a buffer is allocated, and every launch leaves them
+    zero (the last worker of each row tile resets its own). Launches on one
+    stream run in order, so each finds them zero. A buffer that grows is
+    allocated anew on the caller's stream, and the caching allocator hands
+    the old one's memory only to work ordered after it on that stream."""
+    n = b * h_kv * s_workers * rows
+    bufs = _split_scratch.setdefault(key, {})
+    if bufs.get("partials") is None or bufs["partials"].numel() < n * (d + 2):
+        bufs["partials"] = torch.empty(n * (d + 2), dtype=torch.float32, device=device)
+    if bufs.get("tickets") is None or bufs["tickets"].numel() < b * h_kv * row_tiles:
+        bufs["tickets"] = torch.zeros(b * h_kv * row_tiles, dtype=torch.int32, device=device)
+    part = bufs["partials"]
+    shape = (b, h_kv, s_workers, rows)
+    return (part[:n * d].view(*shape, d), part[n * d:n * (d + 1)].view(shape),
+            part[n * (d + 1):n * (d + 2)].view(shape), bufs["tickets"][:b * h_kv * row_tiles])
 
 
 def reset_launch_counts() -> None:
@@ -154,6 +201,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pdt_paged_attention_sweep_tc.restype = i
     lib.pdt_paged_attention_split.argtypes = operands + [p, p, p, p] + dims + [i, f, p]
     lib.pdt_paged_attention_split.restype = i
+    # as the tensor-core sweep, then acc, m, l, tickets; B, C, H_kv, G,
+    # block_len, W, S; scale, stream
+    lib.pdt_paged_attention_split_tc.argtypes = (
+        [p, i64, i64, i64, p, p, ctypes.POINTER(i64), p, p, p, p, p, p, p] + [i] * 7 + [f, p])
+    lib.pdt_paged_attention_split_tc.restype = i
     lib.pdt_paged_attention_rows_per_tile.argtypes = []
     lib.pdt_paged_attention_rows_per_tile.restype = i
     # k, v + strides; blk, off; the four pools; dtype, pool, N, L, H_kv, D, block_len
@@ -302,6 +354,14 @@ def _count(kernel: str, k_pool: torch.Tensor, k_scale) -> None:
         quant_launch_counts[variant(kernel, k_pool.dtype)] += 1
 
 
+def _in_pairs(q: torch.Tensor) -> torch.Tensor:
+    """q as the tensor-core kernels read it, two bf16 values a load: 4-byte
+    aligned with even strides, else a contiguous copy."""
+    if q.data_ptr() % 4 or any(s % 2 for s in q.stride()[:3]):
+        return q.contiguous()
+    return q
+
+
 def launch_sweep(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  tables: torch.Tensor, qpos: torch.Tensor, scale: float, *,
                  k_scale: Optional[torch.Tensor] = None,
@@ -316,8 +376,7 @@ def launch_sweep(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     b, c, h, d = q.shape
     _, bl, h_kv, _ = k_pool.shape
     if sweep_kernel(q.dtype, k_pool.dtype, d, bl) == TENSOR_CORES:
-        if q.data_ptr() % 4 or any(s % 2 for s in q.stride()[:3]):  # q is read in pairs
-            q = q.contiguous()
+        q = _in_pairs(q)
         geometry = (ctypes.c_int64 * 8)(*pool_tensor_map_geometry(k_pool))
         code = lib.pdt_paged_attention_sweep_tc(
             _ptr(q), q.stride(0), q.stride(1), q.stride(2), _ptr(k_pool), _ptr(v_pool),
@@ -336,25 +395,35 @@ def launch_split(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  tables: torch.Tensor, qpos: torch.Tensor, s_workers: int,
                  scale: float, *, k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of the flash-decoding kernel (operands as
-    ``launch_sweep``, ``1 <= s_workers <= W``). Its fp32 partials go to
-    scratch, and the last worker of each row tile merges them into the
-    output. Returns ``[B, C, H, D]`` in q's dtype."""
+    """One launch of the flash-decoding kernel that ``sweep_kernel`` picks
+    (operands as ``launch_sweep``, ``1 <= s_workers <= W``). Its fp32
+    partials go to ``split_buffers``' scratch, and the last worker of each
+    row tile merges them into the output. Returns ``[B, C, H, D]`` in q's
+    dtype."""
     b, c, h, d = q.shape
-    h_kv = k_pool.shape[2]
+    _, bl, h_kv, _ = k_pool.shape
     rows = (h // h_kv) * c
     lib = _library()
-    row_tiles = -(-rows // lib.pdt_paged_attention_rows_per_tile())
-    f32 = dict(device=q.device, dtype=torch.float32)
-    acc = torch.empty((b, h_kv, s_workers, rows, d), **f32)
-    m = torch.empty((b, h_kv, s_workers, rows), **f32)
-    l = torch.empty((b, h_kv, s_workers, rows), **f32)
-    tickets = torch.zeros((b, h_kv, row_tiles), dtype=torch.int32, device=q.device)
+    kernel = sweep_kernel(q.dtype, k_pool.dtype, d, bl)
+    if kernel == TENSOR_CORES:
+        q = _in_pairs(q)
+    stream = _stream(q)
+    acc, m, l, tickets = split_buffers(
+        (q.device, stream.value), b, h_kv, s_workers, rows, d,
+        split_row_tiles(kernel, rows, lib.pdt_paged_attention_rows_per_tile()), q.device)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    code = lib.pdt_paged_attention_split(
-        *_operands(q, k_pool, v_pool, k_scale, v_scale, tables, qpos, out),
-        _ptr(acc), _ptr(m), _ptr(l), _ptr(tickets),
-        *_dims(q, k_pool, k_scale, tables), s_workers, float(scale), _stream(q))
+    if kernel == TENSOR_CORES:
+        geometry = (ctypes.c_int64 * 8)(*pool_tensor_map_geometry(k_pool))
+        code = lib.pdt_paged_attention_split_tc(
+            _ptr(q), q.stride(0), q.stride(1), q.stride(2), _ptr(k_pool), _ptr(v_pool),
+            geometry, _ptr(tables), _ptr(qpos), _ptr(out), _ptr(acc), _ptr(m), _ptr(l),
+            _ptr(tickets), b, c, h_kv, h // h_kv, bl, tables.shape[1], s_workers,
+            float(scale), stream)
+    else:
+        code = lib.pdt_paged_attention_split(
+            *_operands(q, k_pool, v_pool, k_scale, v_scale, tables, qpos, out),
+            _ptr(acc), _ptr(m), _ptr(l), _ptr(tickets),
+            *_dims(q, k_pool, k_scale, tables), s_workers, float(scale), stream)
     _check_launch(lib, SPLIT, code)
     _count(SPLIT, k_pool, k_scale)
     return out

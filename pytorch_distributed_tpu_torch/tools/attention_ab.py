@@ -1,5 +1,5 @@
-"""Kernel 6's split backward and kernel 7's single sweep of two checkouts,
-timed on one card in turns.
+"""Kernel 6's split backward, kernel 7's single sweep and kernel 8's split
+of two checkouts, timed on one card in turns.
 
     python -m pytorch_distributed_tpu_torch.tools.attention_ab --parent DIR [--rounds 2]
 
@@ -18,7 +18,11 @@ each):
   ``torch.profiler`` trace;
 - the single sweep (``paged_flash_attention(..., split_s=1)``) on bf16
   pools at the decode shape (B 8, C 1, H 12, W 128) and at the serve's
-  prefill chunk (B 4 x C 32, W 64).
+  prefill chunk (B 4 x C 32, W 64);
+- the flash-decoding split on bf16 pools at the decode shape with the
+  auto policy's S = 8, as every decode tick of the serve runs it: the call,
+  and its kernel's device time (``is_split_kernel``: the split's CUDA
+  function, either checkout's).
 
 The last line printed is the median of each (checkout, entry) over its
 runs, with the card's name and power limit.
@@ -64,7 +68,22 @@ def worker(checkout: str) -> dict:
                        ("prefill chunk", cs.prefill_inputs(torch, bf16))):
         out[f"sweep at {label}"] = cs.time_ms(
             torch, lambda: pf.paged_flash_attention(**inp, split_s=1)) * 1e3
+    decode = cs.decode_inputs(torch, bf16)
+
+    def paged_split():
+        return pf.paged_flash_attention(**decode)
+
+    out["split at decode (S = 8)"] = cs.time_ms(torch, paged_split) * 1e3
+    out["split kernel at decode (device)"] = cs.kernel_device_ms(
+        torch, paged_split, {"k": is_split_kernel})["k"] * 1e3
     return out
+
+
+def is_split_kernel(name: str) -> bool:
+    """Kernel 8's CUDA function in a profiler trace: ``paged_split_tc_kernel``
+    on bf16 pools, or before it the CUDA-core walk's split instantiation
+    (``paged_attention_kernel<..., true>``)."""
+    return "paged_split_tc" in name or ("paged_attention_kernel" in name and "true>" in name)
 
 
 def main(argv=None) -> dict:

@@ -8,7 +8,9 @@ under ``torch.profiler``, and prints:
 - wall, ticks and decode tokens/s of the profiled serve;
 - the device's busy share: the union of kernel intervals over the wall;
 - the top operators by device time and by host time;
-- the device kernels one decode tick launches (8 lanes armed);
+- the paged attention kernels' share of the serve's device time;
+- the device kernels one decode tick launches (8 lanes armed), its device
+  time and the paged attention kernels' share of it;
 - the time of the prefill and decode halves of a tick, by host clock.
 
     python -m pytorch_distributed_tpu_torch.tools.profile_serve \
@@ -81,9 +83,27 @@ class TickTimer:
         eng.run_chunks, eng.decode = timed_chunks, timed_decode
 
 
-def kernels_per_decode_tick(sched) -> int:
-    """Device kernels (and copies) of one decode tick with all 8 lanes
-    armed at position 64, under ``torch.profiler``."""
+PAGED_MARKS = ("paged_split_tc", "paged_sweep_tc", "paged_attention_kernel", "quantize_scatter")
+
+
+def paged_shares(prof) -> dict:
+    """Device time of the profiled kernels, and the share of it that each
+    paged attention kernel takes, by name (``PAGED_MARKS``: the bf16
+    split, the bf16 sweep, the CUDA-core walk, the quantizing scatter)."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.time_range.end - e.time_range.start for e in kernels)
+    paged = {}
+    for e in kernels:
+        for mark in PAGED_MARKS:
+            if mark in e.name:
+                paged[mark] = paged.get(mark, 0) + e.time_range.end - e.time_range.start
+    return {"kernels": len(kernels), "device_us": total,
+            "paged_share": {k: v / total for k, v in paged.items()}}
+
+
+def decode_tick(sched) -> dict:
+    """One decode tick with all 8 lanes armed at position 64, under
+    ``torch.profiler``: ``paged_shares`` of its kernels (and copies)."""
     eng = sched.engine
     for slot in range(8):
         eng.admit(slot, 64, 1)
@@ -94,7 +114,7 @@ def kernels_per_decode_tick(sched) -> int:
         eng.decode(*args)
         torch.cuda.synchronize()
     eng.release_all()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return paged_shares(prof)
 
 
 def main(argv=None) -> None:
@@ -130,6 +150,8 @@ def main(argv=None) -> None:
     print(f"profiled serve: wall {wall:.3f}s, {m['steps']} ticks, "
           f"{m['tokens_out'] / wall:.1f} tok/s (profiler on)")
     print(f"device busy share: {busy_share(prof, wall * 1e6):.3f}")
+    serve_shares = paged_shares(prof)
+    print(f"paged kernels' share of the serve's device time: {serve_shares}")
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25,
                                     max_name_column_width=60))
     print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=20,
@@ -157,7 +179,8 @@ def main(argv=None) -> None:
         "decode_s_total": float(np.sum(timer.decode)),
         "ttft_p50_s": m["ttft_p50_s"], "ttft_p95_s": m["ttft_p95_s"],
     }
-    summary["kernels_per_decode_tick"] = kernels_per_decode_tick(sched)
+    summary["serve_paged_share"] = serve_shares["paged_share"]
+    summary["decode_tick"] = decode_tick(sched)
     print(json.dumps(summary))
 
 

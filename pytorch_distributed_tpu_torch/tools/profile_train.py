@@ -64,7 +64,7 @@ def kind_of(kernel_name: str) -> str:
         return "tail_bwd_reduce" if "true" in name else "tail moments"
     if "tail_sum_kernel" in name:  # <kMirror>: true sums moments' chunks
         return "tail moments" if "true" in name else "tail_bwd_reduce"
-    if "tail_dz_kernel" in name:
+    if "tail_dz" in name:  # tail_dz_wgmma_kernel (bf16), tail_dz_kernel (fp32)
         return "tail_bwd_dz"
     if "copy" in name:
         return "copies and casts"

@@ -27,6 +27,8 @@ def chip_smoke(monkeypatch):
     monkeypatch.setattr(cs, "TAIL_DOWNSAMPLE",
                         ((2, 8, 64), (2, 4, 256), (2, 4, 512), (2, 2, 1024)))
     monkeypatch.setattr(cs, "time_ms", lambda torch, fn, iters=100, warmup=5: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "kernel_device_ms",
+                        lambda torch, fn, match, iters=10: (fn(), {k: 0.5 for k in match})[1])
     return cs
 
 
@@ -38,15 +40,22 @@ def test_tail_checks_and_timings_rehearse_on_cpu(chip_smoke, capsys):
     out = capsys.readouterr().out
     assert out.count("bit-equal") == 12  # 4 stages x 2 dtypes + 2 ragged x 2 dtypes
     # moments at 16 shapes (the 12 above and 4 downsample inputs),
-    # tail_bwd_reduce at 12, each launched twice and compared bit for bit
-    assert out.count("two launches bitwise equal") == 28
+    # tail_bwd_reduce and tail_bwd_dz at 12, each launched twice and
+    # compared bit for bit
+    assert out.count("two launches bitwise equal") == 40
+    assert "rows 16 bytes wider than their channels" in out
     assert "FAIL" not in out
     entries = chip_smoke.time_tail_kernels(torch, "CPU", dev="cpu")
     assert set(entries) == {bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ}
-    for entry in entries.values():
+    for name, entry in entries.items():
+        extra = {"kernel", "device_ms", "stages"} if name == bt.BWD_DZ else set()
         assert set(entry) == {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                              "spelling_ms"}
+                              "spelling_ms"} | extra
         assert entry["library_ms"] is None and entry["bound_ms"] > 0
+    # tail_bwd_dz at all four stages, each with its kernel's device time
+    assert sorted(entries[bt.BWD_DZ]["stages"]) == [f"stage {i}" for i in range(1, 5)]
+    assert all(st["device_ms"] == 0.5 for st in entries[bt.BWD_DZ]["stages"].values())
+    assert capsys.readouterr().out.count("tail_bwd_dz at stage") == 4
 
 
 def test_tail_bounds_at_resnet50_stage_shapes(chip_smoke):
@@ -243,6 +252,9 @@ def test_ring_phase_takes_its_ranks_from_the_cards(chip_smoke, cards, want):
     ("void (anonymous namespace)::tail_sum_kernel<false>(float const*, int, int, int, float*, "
      "float*)", "tail_bwd_reduce"),
     ("void (anonymous namespace)::tail_dz_kernel<__nv_bfloat16>(...)", "tail_bwd_dz"),
+    ("void (anonymous namespace)::tail_dz_kernel<float>(...)", "tail_bwd_dz"),
+    ("void (anonymous namespace)::tail_dz_wgmma_kernel<1, 8>(CUtensorMap, CUtensorMap, "
+     "CUtensorMap, CUtensorMap, (anonymous namespace)::DzArgs)", "tail_bwd_dz"),
 ])
 def test_profiles_name_every_kernel_of_the_port(chip_smoke, kernel, kind):
     """``profile_train.kind_of`` files each kernel of the flash and tail
