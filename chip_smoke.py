@@ -33,8 +33,10 @@ Phases, each of which fails the run:
       at the four downsample inputs, the stage shapes at B = 8 in fp32, and
       ragged shapes (N = 147, F = 40); two launches bitwise equal for
       moments, tail_bwd_reduce, tail_bwd_dz and both flash backwards at
-      every shape they are checked at; tail_bwd_dz (``tail_dz_wgmma_kernel``
-      in bf16) also on gp and z rows wider than their channels;
+      every shape they are checked at; all three also on rows 16 bytes wider
+      than their channels (z; out for tail_bwd_reduce, gp for tail_bwd_dz):
+      the bf16 kernels (``tail_reduce_wgmma_kernel``,
+      ``tail_dz_wgmma_kernel``) read them through tensor maps;
   (c) the port's main paths, each with the launch counters reset just
       before and read just after, on the full-width LM (32000 vocab, 12
       layers, 12 heads, width 768, 2048 positions, bf16, random weights
@@ -72,10 +74,10 @@ Phases, each of which fails the run:
       the prefill chunk where the serve runs it (B 4 x C 32, W 64), the
       scatter at the chunk and decode shapes, the flash kernels at the training shape
       (library: causal SDPA, forward, and its backward through autograd),
-      the tail kernels at ResNet-50's stage-1 and stage-4 shapes, and
-      tail_bwd_dz at all four (also by its kernel's device time), beside the
-      cuBLAS spelling of the XLA step (no single PyTorch call computes
-      them, so they have no library time);
+      the tail kernels at ResNet-50's four stage shapes and moments also at
+      the four downsample inputs, each also by its kernels' device time,
+      beside the cuBLAS spelling of the XLA step (no single PyTorch call
+      computes them, so they have no library time);
   (e) one JSON line listing every kernel;
   (f) the last line: ``{"ok": true, "device": {...}}``.
 
@@ -478,6 +480,17 @@ def is_dz_kernel(name: str) -> bool:
     return "tail_dz" in name
 
 
+def is_tail_kind(kind: str):
+    """A matcher for ``kernel_device_ms``: the kernels that
+    ``tools/profile_train.py``'s ``kind_of`` files under ``kind`` ("tail
+    moments": ``tail_reduce_wgmma_kernel<false, …>`` and
+    ``tail_merge_kernel<false>`` in bf16; "tail_bwd_reduce": the same with
+    ``true``; an older build's chunk sums too)."""
+    from pytorch_distributed_tpu_torch.tools.profile_train import kind_of
+
+    return lambda name: kind_of(name) == kind
+
+
 def is_split_kernel(name: str) -> bool:
     """Kernel 8 in a profiler trace (``paged_split_tc_kernel`` on bf16 pools)."""
     return "paged_split_tc" in name
@@ -742,30 +755,36 @@ def check_tail_kernels(torch, failures, dev="cuda") -> dict:
             failures.append(label)
         return err
 
-    def check_tail(label, dtype, b, hw, f, moments_only=False):
-        z, g, out, wa, c, dmn = tail_inputs(torch, dtype, b, hw, f, seed=hw + f, dev=dev)
-        shape = f"z [{b},{hw},{hw},{f}] E={4 * f} {str(dtype)[6:]}, {label}"
+    def check_moments(shape, z):
         got, want = bt.moments(z), bt.moments_reference(z)
         check_repeat(torch, failures, f"moments, {shape}", got, bt.moments(z), dev)
-        err = {bt.MOMENTS: max(check_rel(f"moments Σz, {shape}", got[0], want[0], TAIL_SUM_RTOL),
-                               check_rel(f"moments zᵀz, {shape}", got[1], want[1],
-                                         TAIL_SUM_RTOL))}
-        if moments_only:
-            return err
+        return max(check_rel(f"moments Σz, {shape}", got[0], want[0], TAIL_SUM_RTOL),
+                   check_rel(f"moments zᵀz, {shape}", got[1], want[1], TAIL_SUM_RTOL))
+
+    def check_reduce(shape, z, g, out):
+        """tail_bwd_reduce: gp bit-equal, P and Σgp relative to their largest
+        value, two launches bitwise equal. Returns (its error, the plain gp)."""
         (gp, p, sb), (rgp, rp, rsb) = (bt.tail_bwd_reduce(z, g, out),
                                        bt.tail_bwd_reduce_reference(z, g, out))
         check_repeat(torch, failures, f"tail_bwd_reduce, {shape}", (gp, p, sb),
                      bt.tail_bwd_reduce(z, g, out), dev)
         sync(torch, dev)
-        bits = torch.int16 if dtype == bf16 else torch.int32
+        bits = torch.int16 if g.dtype == bf16 else torch.int32
         n_diff = int((gp.view(bits) != rgp.view(bits)).sum())
         print(f"(b) tail_bwd_reduce gp, {shape}: "
               f"{'bit-equal' if n_diff == 0 else f'{n_diff} values DIFFER'}")
         if n_diff:
             failures.append(f"tail_bwd_reduce gp, {shape}")
-        err[bt.BWD_REDUCE] = max(check_rel(f"tail_bwd_reduce P, {shape}", p, rp, TAIL_SUM_RTOL),
-                                 check_rel(f"tail_bwd_reduce Σgp, {shape}", sb, rsb,
-                                           TAIL_SUM_RTOL))
+        return max(check_rel(f"tail_bwd_reduce P, {shape}", p, rp, TAIL_SUM_RTOL),
+                   check_rel(f"tail_bwd_reduce Σgp, {shape}", sb, rsb, TAIL_SUM_RTOL)), rgp
+
+    def check_tail(label, dtype, b, hw, f, moments_only=False):
+        z, g, out, wa, c, dmn = tail_inputs(torch, dtype, b, hw, f, seed=hw + f, dev=dev)
+        shape = f"z [{b},{hw},{hw},{f}] E={4 * f} {str(dtype)[6:]}, {label}"
+        err = {bt.MOMENTS: check_moments(shape, z)}
+        if moments_only:
+            return err
+        err[bt.BWD_REDUCE], rgp = check_reduce(shape, z, g, out)
         dz = bt.tail_bwd_dz(rgp, z, wa, c, dmn)
         check_repeat(torch, failures, f"tail_bwd_dz, {shape}", (dz,),
                      (bt.tail_bwd_dz(rgp, z, wa, c, dmn),), dev)
@@ -785,10 +804,15 @@ def check_tail_kernels(torch, failures, dev="cuda") -> dict:
     for dtype in (bf16, f32):  # ragged: N = 147 rows, and F = 40 (not a whole tile)
         for f in (64, 40):
             check_tail("ragged", dtype, 3, 7, f)
-    # dz through rows wider than their channels: gp and z column slices
+    # rows wider than their channels (column slices, read through the tensor
+    # maps' row strides): z for all three kernels, out for tail_bwd_reduce,
+    # gp for tail_bwd_dz
     z, g, out, wa, c, dmn = tail_inputs(torch, bf16, 8, 14, 256, seed=3, dev=dev)
     gp = bt.tail_bwd_reduce_reference(z, g, out)[0]
-    gpw, zw = (torch.cat([x, x[..., :8]], -1)[..., :x.shape[-1]] for x in (gp, z))
+    gpw, zw, ow = (torch.cat([x, x[..., :8]], -1)[..., :x.shape[-1]] for x in (gp, z, out))
+    check_moments("z rows 16 bytes wider than their channels, z [8,14,14,256] bf16", zw)
+    check_reduce("z and out rows 16 bytes wider than their channels, z [8,14,14,256] E=1024 "
+                 "bf16", zw, g, ow)
     check_rel("tail_bwd_dz, gp and z rows 16 bytes wider than their channels, z [8,14,14,256]"
               " bf16", bt.tail_bwd_dz(gpw, zw, wa, c, dmn),
               bt.tail_bwd_dz_reference(gp, z, wa, c, dmn), TAIL_DZ_RTOL[str(bf16)])
@@ -909,13 +933,31 @@ def resnet_runs(torch, card) -> dict:
     return launches
 
 
+TAIL_KINDS = {"moments": "tail moments", "tail_bwd_reduce": "tail_bwd_reduce",
+              "tail_bwd_dz": "tail_bwd_dz"}
+TAIL_KERNEL_NAMES = {
+    "moments": "tail_reduce_wgmma_kernel<false, ...> + tail_merge_kernel<false>",
+    "tail_bwd_reduce": "tail_reduce_wgmma_kernel<true, ...> + tail_merge_kernel<true>",
+    "tail_bwd_dz": "tail_dz_wgmma_kernel"}
+
+
+def tail_shapes():
+    """(label, (B, H, F), kernels) of phase (d): the four stage shapes for
+    all three tail kernels, the four downsample inputs for moments."""
+    return ([(f"stage {i + 1}", shape, ("moments", "tail_bwd_reduce", "tail_bwd_dz"))
+             for i, shape in enumerate(TAIL_STAGES)]
+            + [(f"downsample input of stage {i + 1}", shape, ("moments",))
+               for i, shape in enumerate(TAIL_DOWNSAMPLE)])
+
+
 def time_tail_kernels(torch, card, dev="cuda") -> dict:
-    """Phase (d) for the tail kernels at the stage-1 and stage-4 shapes, and
-    tail_bwd_dz at all four: each wrapper, its plain version and the cuBLAS
-    spelling of the XLA step (no single PyTorch call computes any of the
-    three), beside the bound; tail_bwd_dz's kernel also by its device time
-    (``kernel_device_ms``). Returns the stage-1 entries of the kernels
-    line, tail_bwd_dz's with its time at every stage."""
+    """Phase (d) for the tail kernels at every shape of ``tail_shapes``:
+    each wrapper by CUDA events, its kernels by their device time
+    (``kernel_device_ms``: the reduction and its merge for moments and
+    tail_bwd_reduce, the merge also alone), its plain version and the cuBLAS spelling of the XLA
+    step (no single PyTorch call computes any of the three), beside the
+    bound. Returns the kernels line's entries: stage 1's numbers, with every
+    shape's under "stages"."""
     from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
 
     bf16 = torch.bfloat16
@@ -923,9 +965,8 @@ def time_tail_kernels(torch, card, dev="cuda") -> dict:
                 bt.BWD_REDUCE: "torch.where(out > 0, g, 0), z2d.T @ gp, gp.sum(0): 4 kernels",
                 bt.BWD_DZ: "torch.addmm(dmn, torch.cat([gp, z], 1), torch.cat([wa, c]) in "
                            "bf16): 4 calls"}
-    entries, dz_stages = {}, {}
-    for i, (b, hw, f) in enumerate(TAIL_STAGES):
-        label = f"stage {i + 1}"
+    stages = {name: {} for name in TAIL_KINDS}
+    for label, (b, hw, f), names in tail_shapes():
         z, g, out, wa, c, dmn = tail_inputs(torch, bf16, b, hw, f, seed=11, dev=dev)
         e = 4 * f
         z2, g2, o2 = (x.view(-1, x.shape[-1]) for x in (z, g, out))
@@ -946,30 +987,37 @@ def time_tail_kernels(torch, card, dev="cuda") -> dict:
                         lambda: torch.addmm(dmn.to(bf16), torch.cat([gp2, z2], 1),
                                             torch.cat([wa, c]).to(bf16))),
         }
-        for name, fns in runs.items():
-            if name != bt.BWD_DZ and label not in ("stage 1", "stage 4"):
-                continue
+        for name in names:
+            fns = runs[name]
             t_k, t_p, t_s = (time_ms(torch, fn, iters=20) for fn in fns)
+            dev_ms = kernel_device_ms(torch, fns[0], {
+                name: is_tail_kind(TAIL_KINDS[name]), "merge": lambda k: "tail_merge" in k})
+            t_dev = dev_ms[name]
             bd = tail_bound(name, z2.shape[0], f, e, 2, bf16)
-            device = ""
-            if name == bt.BWD_DZ:
-                t_dev = kernel_device_ms(torch, fns[0], {name: is_dz_kernel})[name]
-                device = f" (the kernel {t_dev * 1e3:.1f} us device time)"
-                dz_stages[label] = {"ms": t_k, "device_ms": t_dev, "bound_ms": bd["bound_ms"],
-                                    "spelling_ms": t_s}
+            stages[name][label] = {"ms": t_k, "device_ms": t_dev, "plain_ms": t_p,
+                                   "spelling_ms": t_s, "bound_ms": bd["bound_ms"],
+                                   "bound_by": bd["bound_by"]}
+            merge = ""
+            if name != bt.BWD_DZ:
+                stages[name][label]["merge_ms"] = dev_ms["merge"]
+                merge = f", the merge {dev_ms['merge'] * 1e3:.1f} us of it"
             print(f"(d) {name} at {label} z [{b},{hw},{hw},{f}] E={e} bf16 on {card}: "
-                  f"{t_k * 1e3:.1f} us per call{device}, plain {t_p * 1e3:.1f} us, cuBLAS "
-                  f"spelling {t_s * 1e3:.1f} us ({spelling[name]}), bound "
-                  f"{bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']}: {bd['bytes'] / 1e6:.1f} MB, "
-                  f"{bd['flops'] / 1e9:.2f} GFLOP), {bd['bound_ms'] / t_k:.3f} of the bound")
-            if label == "stage 1":
-                entries[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bd["bound_ms"],
-                                 "bound_by": bd["bound_by"], "library_ms": None,
-                                 "spelling_ms": t_s}
+                  f"{t_k * 1e3:.1f} us per call (its kernels {t_dev * 1e3:.1f} us device time"
+                  f"{merge}), "
+                  f"plain {t_p * 1e3:.1f} us, cuBLAS spelling {t_s * 1e3:.1f} us "
+                  f"({spelling[name]}), bound {bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']}: "
+                  f"{bd['bytes'] / 1e6:.1f} MB, {bd['flops'] / 1e9:.2f} GFLOP), "
+                  f"{bd['bound_ms'] / t_k:.3f} of the bound")
         del runs, z, g, out, gp, gp2, z2, g2, o2
         empty_cache(torch, dev)
-    entries[bt.BWD_DZ].update(kernel="tail_dz_wgmma_kernel", device_ms=dz_stages["stage 1"][
-        "device_ms"], stages=dz_stages)
+    entries = {}
+    for name, by_shape in stages.items():
+        first = by_shape["stage 1"]
+        entries[name] = {"ms": first["ms"], "plain_ms": first["plain_ms"],
+                         "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                         "library_ms": None, "spelling_ms": first["spelling_ms"],
+                         "kernel": TAIL_KERNEL_NAMES[name], "device_ms": first["device_ms"],
+                         "stages": by_shape}
     return entries
 
 

@@ -13,43 +13,47 @@
 // N = B*H*W rows of the NHWC activations, read through a row stride with
 // unit stride along the channels.
 //
-// What bounds them on the H100: bytes. At ResNet-50's stage 1 (B 128, z
-// [401408, 64], E 256) moments reads 51 MB for 3.3 GFLOP, tail_bwd_reduce
-// moves 668 MB for 13 GFLOP and tail_bwd_dz 308 MB for 16 GFLOP: well under
-// the card's ~295 flops per byte. At stage 4 (z [6272, 512], E 2048) the
-// products are 3-16 GFLOP over 6-83 MB, near the line.
+// What bounds them on the H100 (3.35 TB/s, 989 bf16 TFLOP/s), at ResNet-50's
+// four expand-tail shapes (B 128: z [401408, 64], [100352, 128], [25088,
+// 256], [6272, 512], E = 4F), bf16:
+//   - moments: bytes at stages 1-3 (51, 26, 13 MB: 15.3, 7.7, 3.9 us),
+//     operations at stage 4 (3.3 GFLOP as the full square: 3.3 us); the
+//     downsample inputs (z [401408, 64], [100352, 256], [25088, 512], [6272,
+//     1024]) 15.3, 15.4, 13.3, 13.3 us;
+//   - tail_bwd_reduce: bytes at every stage (668, 334, 168, 88 MB: 199.4,
+//     99.8, 50.1, 26.2 us; 13 GFLOP each), g and out three quarters of them;
+//   - tail_bwd_dz: bytes at stages 1-3 (92.0, 46.1, 23.4 us), operations at
+//     stage 4 (16.6 us).
 //
 // What the design does about it:
 //   - The Pallas kernels walk the batch in order and carry the sums in VMEM
-//     from one grid step to the next. Here blocks run in parallel: a block
-//     owns one 64x64 tile of the F x F (or F x E) output and one chunk of
-//     rows, loops over the chunk 32 rows at a time, and writes its fp32
-//     tile, and its column sums, to a partial buffer [chunks, F + 1, n_b]
-//     (row F holds the column sums). A second small kernel, tail_sum_kernel,
-//     adds the chunks in ascending order, so two launches give the same
-//     bits: no atomics. There are enough chunks for about four blocks per SM
-//     whatever the tile count; the caller sizes the chunks (chunk_rows in
-//     ops/bottleneck_tail.py) and allocates the partial buffer.
-//   - moments computes the upper triangle of tiles only; the sum kernel
-//     writes each summed off-diagonal element at both places, so the two
-//     halves are equal bit for bit; a diagonal block reads its rows once
-//     for both operands.
-//   - tail_bwd_reduce forms gp on the load (out compared in fp32, as the
-//     Pallas body does), and only the blocks of the first F tile write it
-//     and sum it, so gp is written once.
+//     from one grid step to the next. Here blocks run in parallel, each on
+//     one chunk of rows, and write fp32 partial sums to a buffer [chunks,
+//     F + 1, n_b] (row F the column sums); tail_merge_kernel, wide enough to
+//     fill the card, adds the chunks in a fixed order, so two launches give
+//     the same bits: no atomics. The caller sizes the chunks (reduce_plan
+//     and reduce_grid in ops/bottleneck_tail.py) and allocates the buffer.
+//   - moments and tail_bwd_reduce on bf16 are one kernel,
+//     tail_reduce_wgmma_kernel (further down): a TMA ring fed by a producer
+//     warp, wgmma on operands that are both MN-major (the contraction runs
+//     over rows), gp gated in shared memory and stored from there by TMA.
+//     g and out, three quarters of tail_bwd_reduce's bytes, are read from
+//     device memory once: its tiles span F at stages 1, 2 and 4, and at
+//     stage 3 the two F tiles of a row range run side by side, the second
+//     reading g and out from L2; z, a quarter of g, is read once per tile of
+//     E, mostly from L2. moments computes the upper triangle of its tiles;
+//     a diagonal tile reads one set of boxes for both operands, and the
+//     merge writes each off-diagonal sum at both places, so the two halves
+//     are equal bit for bit. Σz and Σgp come out of the same pass.
 //   - tail_bwd_dz is one product of K = E + F: [gp | z] @ [wa ; c], plus
 //     dmn in the fp32 epilogue before the one rounding to z's dtype. wa and c
 //     come rounded to the operands' dtype for the tensor cores (bf16 for bf16
 //     activations), where the Pallas kernel multiplies bf16 by fp32. On bf16
-//     it is tail_dz_wgmma_kernel, further down: TMA and wgmma, a persistent
-//     stream of (row tile, k step) stages.
-//   - The reductions' bf16 products run on the tensor cores through mma.sync
-//     m16n8k16 with fp32 accumulators; fp32 inputs take the same code with
-//     the product on CUDA cores, for exact fp32 numerics, and fp32 dz the
-//     CUDA-core tail_dz_kernel.
-// The reductions' loads are synchronous 16-byte copies into padded
-// shared-memory tiles, from which ldmatrix gathers the bf16 fragments;
-// cp.async or TMA pipelines and wgmma for them are later work.
+//     it is tail_dz_wgmma_kernel: TMA and wgmma, a persistent stream of (row
+//     tile, k step) stages.
+//   - fp32 operands take CUDA-core kernels for exact fp32 numerics:
+//     tail_reduce_kernel<kGate> (64x64 tiles, synchronous loads into
+//     padded shared memory) with the same merge, and tail_dz_kernel<float>.
 
 #include "hopper.cuh"
 
@@ -58,12 +62,9 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 128;  // four warps, each a 32x32 quadrant of the tile
-constexpr int kTile = 64;      // output tile edge
+constexpr int kTile = 64;      // output tile edge; the bf16 reductions' unit and box width
 constexpr int kStep = 32;      // contraction rows per shared-memory step
 constexpr int kPad = 8;        // row padding of the shared-memory tiles
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -71,73 +72,14 @@ template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8x8 b16 matrices from shared memory, lanes 8j..8j+7 giving the row
-// addresses of matrix j; each lane receives (row l/4, columns 2(l%4), +1) of
-// every matrix transposed.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// acc += A B over k in [0, kStep) for the warp's 32x32 quadrant at rows m0
-// and columns n0 of the tile, from shared-memory tiles: B stored [k][n]
-// (row stride ldb); A stored [k][m] when kAKMajor (the reductions' z^T),
-// else [m][k] (row stride lda). acc[mi][ni] is the m16n8 C fragment of
-// rows m0 + 16 mi and columns n0 + 8 ni: lane 4g + t holds C[g][2t, 2t+1]
-// in elements 0, 1 and C[g+8][2t, 2t+1] in 2, 3 (mma.sync's layout).
-// bf16 (the reductions, A k-major only): the fragments come from
-// ldmatrix, transposed, the products from mma.sync m16n8k16.
-template <bool kAKMajor>
-__device__ __forceinline__ void warp_product(float (&acc)[2][4][4], const bf16* a, int lda,
-                                             const bf16* b, int ldb, int m0, int n0) {
-  static_assert(kAKMajor, "bf16 dz runs tail_dz_wgmma_kernel");
-  const int lane = threadIdx.x & 31;
-  const int j = lane >> 3;  // the matrix this lane addresses
-  const int r = lane & 7;   // and its row
-#pragma unroll
-  for (int k0 = 0; k0 < kStep; k0 += 16) {
-    uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int m = m0 + 16 * mi;
-      // matrices: (m, k), (m + 8, k), (m, k + 8), (m + 8, k + 8)
-      ldmatrix_x4_trans(af[mi], a + (k0 + r + ((j >> 1) << 3)) * lda + m + ((j & 1) << 3));
-    }
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      // matrices: (k, n), (k + 8, n), (k, n + 8), (k + 8, n + 8)
-      uint32_t q[4];
-      ldmatrix_x4_trans(q, b + (k0 + r + ((j & 1) << 3)) * ldb + n0 + 16 * np + ((j >> 1) << 3));
-      bfr[2 * np][0] = q[0];
-      bfr[2 * np][1] = q[1];
-      bfr[2 * np + 1][0] = q[2];
-      bfr[2 * np + 1][1] = q[3];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], af[mi], bfr[ni]);
-  }
-}
-
-// The same product in fp32 on CUDA cores, into the same fragment layout.
-// The k loop stays rolled to keep nvcc quick; the fp32 kernels serve
-// checks and fp32 models, not the bf16 training path.
+// acc += A B over k in [0, kStep) on CUDA cores for the warp's 32x32
+// quadrant at rows m0 and columns n0 of the tile, from shared-memory tiles:
+// B stored [k][n] (row stride ldb); A stored [k][m] when kAKMajor (the
+// reductions' z^T), else [m][k] (row stride lda). acc[mi][ni] holds rows
+// m0 + 16 mi + g (+8) and columns n0 + 8 ni + 2t (+1) for lane 4g + t, in
+// elements 0, 1 (and 2, 3). The k loop stays rolled to keep nvcc quick; the
+// fp32 kernels serve checks and fp32 models, not the bf16 training path.
 template <bool kAKMajor>
 __device__ __forceinline__ void warp_product(float (&acc)[2][4][4], const float* a, int lda,
                                              const float* b, int ldb, int m0, int n0) {
@@ -171,17 +113,18 @@ __device__ __forceinline__ void warp_product(float (&acc)[2][4][4], const float*
   }
 }
 
+
 // Rows [r0, r0 + kStep) and columns [c0, c0 + kTile) of a [n_rows, n_cols]
 // operand (row stride ld) into dst[kStep][kTile + kPad], 16 bytes a
 // thread at a time; rows and columns outside are zero. n_cols is a
 // multiple of the vector width. kGate: the tile is gp = src * [gate > 0]
 // (gate compared in fp32), also stored to gp_out (row stride n_cols) when
 // it is not null.
-template <typename T, bool kGate>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t ld, const T* gate,
-                                          int64_t ld_gate, T* gp_out, int r0, int c0,
-                                          int n_rows, int n_cols) {
-  constexpr int kVec = 16 / sizeof(T);
+template <bool kGate>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int64_t ld,
+                                          const float* gate, int64_t ld_gate, float* gp_out,
+                                          int r0, int c0, int n_rows, int n_cols) {
+  constexpr int kVec = 4;  // fp32 a 16-byte vector
   constexpr int kPerRow = kTile / kVec;
   constexpr int LD = kTile + kPad;
   for (int v = threadIdx.x; v < kStep * kPerRow; v += kThreads) {
@@ -194,11 +137,11 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t ld, cons
       val = *reinterpret_cast<const uint4*>(src + row * ld + col);
       if (kGate) {
         const uint4 gv = *reinterpret_cast<const uint4*>(gate + row * ld_gate + col);
-        T* x = reinterpret_cast<T*>(&val);
-        const T* o = reinterpret_cast<const T*>(&gv);
+        float* x = reinterpret_cast<float*>(&val);
+        const float* o = reinterpret_cast<const float*>(&gv);
 #pragma unroll
         for (int i = 0; i < kVec; ++i)
-          if (!(to_float(o[i]) > 0.f)) x[i] = from_float<T>(0.f);
+          if (!(o[i] > 0.f)) x[i] = 0.f;
         if (gp_out != nullptr)
           *reinterpret_cast<uint4*>(gp_out + static_cast<int64_t>(row) * n_cols + col) = val;
       }
@@ -207,20 +150,22 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t ld, cons
   }
 }
 
-// Shared by moments (kGate false: B is z itself) and tail_bwd_reduce
-// (kGate true: B is gp = g * [out > 0]). Block (tile, chunk) computes
-// A^T B over its rows for one 64x64 output tile, with A = z[:, i tile]
-// and B = z[:, j tile] or gp[:, j tile], and writes the tile, and the
-// column sums of B where the block owns them, into its chunk's slice of
-// partial [chunks, F + 1, n_b]: rows 0..F-1 the tile, row F the sums.
-template <typename T, bool kGate>
+// The fp32 reductions: moments (kGate false: B is z itself) and
+// tail_bwd_reduce (kGate true: B is gp = g * [out > 0]). Block (tile,
+// chunk) computes A^T B over its rows for one 64x64 output tile, with A =
+// z[:, i tile] and B = z[:, j tile] or gp[:, j tile], and writes the tile,
+// and the column sums of B where the block owns them, into its chunk's
+// slice of partial [chunks, F + 1, n_b]: rows 0..F-1 the tile, row F the
+// sums.
+template <bool kGate>
 __global__ void __launch_bounds__(kThreads)
-    tail_reduce_kernel(const T* __restrict__ z, int64_t ldz, const T* __restrict__ g, int64_t ldg,
-                  const T* __restrict__ gate, int64_t ld_gate, T* __restrict__ gp,
-                  float* __restrict__ partial, int N, int F, int n_b, int chunk) {
+    tail_reduce_kernel(const float* __restrict__ z, int64_t ldz, const float* __restrict__ g,
+                       int64_t ldg, const float* __restrict__ gate, int64_t ld_gate,
+                       float* __restrict__ gp, float* __restrict__ partial, int N, int F,
+                       int n_b, int chunk) {
   constexpr int LD = kTile + kPad;
-  __shared__ __align__(16) T a_s[kStep * LD];
-  __shared__ __align__(16) T b_s[kStep * LD];
+  __shared__ __align__(16) float a_s[kStep * LD];
+  __shared__ __align__(16) float b_s[kStep * LD];
 
   // moments: the upper triangle of (i, j) tile pairs; tail_bwd_reduce: all
   int ti, tj;
@@ -256,21 +201,21 @@ __global__ void __launch_bounds__(kThreads)
   const int c_col = threadIdx.x & (kTile - 1);
   const int c_half = threadIdx.x >> 6;  // rows [16 half, 16 half + 16) of a step
 
-  const T* b_src = kGate ? g : z;
+  const float* b_src = kGate ? g : z;
   const int64_t ld_b = kGate ? ldg : ldz;
-  const T* b_tile = diag ? a_s : b_s;
+  const float* b_tile = diag ? a_s : b_s;
   for (int r0 = r_begin; r0 < r_end; r0 += kStep) {
     __syncthreads();  // the previous step's reads are done
-    load_rows<T, false>(a_s, z, ldz, nullptr, 0, nullptr, r0, i0, r_end, F);
+    load_rows<false>(a_s, z, ldz, nullptr, 0, nullptr, r0, i0, r_end, F);
     if (!diag)
-      load_rows<T, kGate>(b_s, b_src, ld_b, gate, ld_gate, owner ? gp : nullptr, r0, j0,
-                          r_end, n_b);
+      load_rows<kGate>(b_s, b_src, ld_b, gate, ld_gate, owner ? gp : nullptr, r0, j0, r_end,
+                       n_b);
     __syncthreads();
     // A(m, k) = z[r0 + k][i0 + m]: the tile read down its columns
     warp_product<true>(acc, a_s, LD, b_tile, LD, m0, n0);
     if (owner) {
 #pragma unroll 4
-      for (int r = 16 * c_half; r < 16 * c_half + 16; ++r) csum += to_float(b_tile[r * LD + c_col]);
+      for (int r = 16 * c_half; r < 16 * c_half + 16; ++r) csum += b_tile[r * LD + c_col];
     }
   }
 
@@ -297,28 +242,66 @@ __global__ void __launch_bounds__(kThreads)
     mine[static_cast<int64_t>(F) * n_b + j0 + c_col] = csum + half_sums[c_col];
 }
 
-// out [F, n_b] and colsum [n_b] from partial [chunks, F + 1, n_b]: each
-// element the sum of its chunks in ascending order. kMirror (moments): only
-// the upper triangle of 64x64 tiles was computed; each element there is
-// written at (row, col) and, off the diagonal tiles, at (col, row).
-template <bool kMirror>
+// out [F, n_b] and colsum [n_b] from partial [chunks, F + 1, n_b] (row F
+// the column sums), wide enough to fill the card: the 256 threads of a block
+// split the chunks into n_runs runs (merge_runs: up to 8) and take 256 /
+// n_runs float4 of the output each; a run adds its chunks in ascending
+// order, then the runs are added in ascending order. The order is fixed by
+// the chunk count, so two launches give the same bits. kGate false
+// (moments): only the upper triangle of 64x64 tiles was computed; each
+// element there is written at (row, col) and, off the diagonal tiles, at
+// (col, row).
+__host__ __device__ __forceinline__ int merge_runs(int chunks) {
+  return chunks >= 8 ? 8 : chunks >= 4 ? 4 : chunks >= 2 ? 2 : 1;
+}
+
+template <bool kGate>
 __global__ void __launch_bounds__(256)
-    tail_sum_kernel(const float* __restrict__ partial, int chunks, int F, int n_b,
-                    float* __restrict__ out, float* __restrict__ colsum) {
+    tail_merge_kernel(const float* __restrict__ partial, int chunks, int F, int n_b,
+                      float* __restrict__ out, float* __restrict__ colsum) {
+  __shared__ float4 runs[256];
+  const int n_runs = merge_runs(chunks);
+  const int width = 256 / n_runs;  // float4 a block
+  const int q = threadIdx.x % width;
+  const int run = threadIdx.x / width;
   const int64_t per_chunk = static_cast<int64_t>(F + 1) * n_b;
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= per_chunk) return;
+  const int64_t idx = (static_cast<int64_t>(blockIdx.x) * width + q) * 4;
   const int row = static_cast<int>(idx / n_b);
   const int col = static_cast<int>(idx - static_cast<int64_t>(row) * n_b);
-  if (kMirror && row < F && row / kTile > col / kTile) return;
-  float s = 0.f;
-  for (int c = 0; c < chunks; ++c) s += partial[c * per_chunk + idx];
+  const bool live = idx < per_chunk && (kGate || row == F || row / kTile <= col / kTile);
+  const int per_run = (chunks + n_runs - 1) / n_runs;
+  const int c_end = min(chunks, (run + 1) * per_run);
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live) {
+#pragma unroll 4
+    for (int c = run * per_run; c < c_end; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(partial + c * per_chunk + idx);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+  }
+  runs[threadIdx.x] = s;
+  __syncthreads();
+  if (run != 0 || !live) return;
+  for (int r = 1; r < n_runs; ++r) {
+    const float4 v = runs[r * width + q];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
   if (row == F) {
-    colsum[col] = s;
+    *reinterpret_cast<float4*>(colsum + col) = s;
     return;
   }
-  out[idx] = s;
-  if (kMirror && row / kTile != col / kTile) out[static_cast<int64_t>(col) * n_b + row] = s;
+  *reinterpret_cast<float4*>(out + static_cast<int64_t>(row) * n_b + col) = s;
+  if (!kGate && row / kTile != col / kTile) {
+    const float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[static_cast<int64_t>(col + i) * n_b + row] = v[i];
+  }
 }
 
 // dz [N, F] = [gp | z] @ w + dmn on fp32 rows (CUDA cores): block (row
@@ -418,7 +401,7 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kDzBox = 64;                          // rows and columns of a box
 constexpr int kDzBoxBytes = kDzBox * kDzBox * 2;    // 8 KB
-constexpr int kDzSlice = 16 * 128;                  // 16 rows of a box: one k16 step
+constexpr int kSlice = 16 * 128;                    // 16 rows of a box: one k16 step
 constexpr int kDzTileRows = 128;                    // two consumer warpgroups
 constexpr int kDzThreads = 2 * 128 + 32;            // and one producer warp
 
@@ -506,7 +489,7 @@ __global__ void __launch_bounds__(kDzThreads, 1)
 #pragma unroll
         for (int nb = 0; nb < kNB; ++nb)
           wgmma_ss<0, 1>(acc[nb], desc(st + wg * kDzBoxBytes + kk * 32),
-                         desc(st + (2 + nb) * kDzBoxBytes + kk * kDzSlice), ks > 0 || kk > 0);
+                         desc(st + (2 + nb) * kDzBoxBytes + kk * kSlice), ks > 0 || kk > 0);
       wgmma_commit();
       if (ks > 0) {  // the previous stage's products are done: release it
         wgmma_wait_1();
@@ -542,17 +525,302 @@ __global__ void __launch_bounds__(kDzThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// moments and tail_bwd_reduce on bf16 rows, on Hopper's own units: TMA,
+// mbarriers, wgmma.
+//
+// The product is z^T B over the rows: M = F (z's channels), N = n_b (B's
+// channels: z's own for moments, gp's for tail_bwd_reduce), K = the rows.
+// Every operand arrives as boxes of kR rows x 64 channels through 2-D tensor
+// maps laid over its row stride (ops/bottleneck_tail.py's
+// reduce_tensor_map_geometry), so a channels-last activation's rows need no
+// copy; channels are contiguous in a box, with the 128-byte swizzle. So A =
+// z^T and B are both MN-major for wgmma (bf16 allows it from shared memory),
+// and a k16 step is 16 rows of a box, 2 KB on. A box past N or past the
+// channels lands as zeros: N and the channel counts need no padding.
+//   - Block (tile, chunk): a tile of kM x kN 64x64 units of the output, over
+//     one chunk of rows (a multiple of 64), tiles fastest and F tiles
+//     fastest among them, so that blocks at work together read the same
+//     rows. tail_bwd_reduce's plans (ops/bottleneck_tail.py REDUCE_TILES):
+//     F <= 64 in one 64 x 256 tile, F <= 256 in 128 x 128 tiles (at F = 256
+//     the two F tiles of a row range share g and out through L2, and read z
+//     half as often as 256 x 128 tiles would), wider F in 512 x 64 tiles
+//     (kM = 8 boxes, both warpgroups): each of g and out is read once, z
+//     once per tile of E, mostly from L2. moments' tiles are the
+//     upper triangle of square super-tiles of kM boxes; a diagonal one loads
+//     its kM boxes once for both operands.
+//   - One producer warp streams the chunk's stages through a ring of
+//     kStages: kM boxes of z, then kN of B (none on moments' diagonal), then
+//     kN of out (tail_bwd_reduce).
+//   - Two consumer warpgroups. tail_bwd_reduce: all 256 threads gate the
+//     stage's g boxes in place, gp = g * [float(out) > 0] position by
+//     position (g and out share the box geometry and swizzle; a select, so gp
+//     is bit-equal to the plain version and NaN or -0 in out give 0), each
+//     thread summing 8 columns of gp in fp32 as it goes; a proxy fence and a
+//     barrier, then one thread stores the gp boxes by TMA (blocks of the
+//     first F tile only: gp is written once) and the warpgroups multiply.
+//     moments' diagonal tiles sum z's columns the same way. Each warpgroup
+//     owns half of the tile's units (m64n64k16 wgmma); a one-unit tile
+//     (moments at F <= 64) is split by k16 steps instead, and warpgroup 1's
+//     half is added to warpgroup 0's at the end. A stage is released once its
+//     products are done and the gp stores have read it.
+//   - Epilogue: the fp32 units and the column sums (32 row groups a column,
+//     added in order) go to the chunk's slice of the partial buffer;
+//     tail_merge_kernel adds the chunks.
+
+constexpr int kRedThreads = 2 * 128 + 32;  // two consumer warpgroups, a producer warp
+
+struct ReduceArgs {
+  float* partial;  // [chunks, F + 1, n_b]
+  int N, F, n_b;
+  int chunk;       // rows a block, a multiple of 64
+  int n_ti;        // tiles along F (moments: super-tiles along each side)
+  int n_tiles;     // tiles of the output (moments: the upper triangle)
+};
+
+template <bool kGate, int kM, int kN, int kR, int kStages>
+__global__ void __launch_bounds__(kRedThreads, 1)
+    tail_reduce_wgmma_kernel(__grid_constant__ const CUtensorMap map_z,
+                             __grid_constant__ const CUtensorMap map_g,
+                             __grid_constant__ const CUtensorMap map_o,
+                             __grid_constant__ const CUtensorMap map_gp, const ReduceArgs a) {
+  static_assert(kGate || kM == kN, "moments' super-tiles are square");
+  static_assert(kR % 32 == 0 && kR <= 256, "a box is 32 to 256 rows, 32 at a time");
+  constexpr int kBoxBytes = kR * 128;
+  constexpr int kU = kM * kN;               // units of the tile
+  constexpr int kUW = kU > 1 ? kU / 2 : 1;  // units a warpgroup owns
+  constexpr int kKK = kR / 16;              // k16 steps a stage
+  constexpr int kBoxes = kM + (kGate ? 2 : 1) * kN;
+  constexpr int kStageBytes = kBoxes * kBoxBytes;
+  static_assert(kU == 1 || kU % 2 == 0, "the warpgroups share the units evenly");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int tile = blockIdx.x % a.n_tiles;
+  const int chunk = blockIdx.x / a.n_tiles;
+  int ti, tj;
+  if (kGate) {
+    ti = tile % a.n_ti;
+    tj = tile / a.n_ti;
+  } else {
+    int p = tile;
+    ti = 0;
+    while (p >= a.n_ti - ti) {
+      p -= a.n_ti - ti;
+      ++ti;
+    }
+    tj = ti + p;
+  }
+  const int i0 = ti * kM * kTile;  // the tile's first row of the output (z's channel)
+  const int j0 = tj * kN * kTile;  // and first column (B's channel)
+  const bool diag = !kGate && ti == tj;
+  // the blocks that write gp and the column sums: the first F tile
+  // (tail_bwd_reduce), the diagonal (moments)
+  const bool owner = kGate ? ti == 0 : diag;
+  const int r_begin = chunk * a.chunk;
+  const int n_steps = (min(r_begin + a.chunk, a.N) - r_begin + kR - 1) / kR;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer
+    if (lane == 0) {
+      const CUtensorMap* mb = kGate ? &map_g : &map_z;
+      for (int s = 0; s < n_steps; ++s) {
+        const int slot = s % kStages;
+        if (s >= kStages) mbar_wait(empty + slot, ((s / kStages) & 1) ^ 1);
+        unsigned char* st = ring + slot * kStageBytes;
+        const int r0 = r_begin + s * kR;
+        mbar_expect_tx(full + slot, (diag ? kM : kBoxes) * kBoxBytes);
+#pragma unroll
+        for (int m = 0; m < kM; ++m)
+          tma_load(st + m * kBoxBytes, &map_z, full + slot, i0 + m * kTile, r0);
+        if (!diag) {
+#pragma unroll
+          for (int n = 0; n < kN; ++n)
+            tma_load(st + (kM + n) * kBoxBytes, mb, full + slot, j0 + n * kTile, r0);
+        }
+        if (kGate) {
+#pragma unroll
+          for (int n = 0; n < kN; ++n)
+            tma_load(st + (kM + kN + n) * kBoxBytes, &map_o, full + slot, j0 + n * kTile, r0);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  // the 16-byte chunk (8 channels) of a box row that this thread gates and
+  // sums, and its rows rr + 32 h; the 128-byte swizzle keeps chunk c of row r
+  // at chunk c ^ (r % 8) of the row
+  const int cc = tid & 7;
+  const int rr = tid >> 3;
+  const int b_off = diag ? 0 : kM;  // B's first box in a stage
+  float acc[kUW][32];
+#pragma unroll
+  for (int u = 0; u < kUW; ++u)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[u][e] = 0.f;
+  float csum[kN][8];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) csum[n][e] = 0.f;
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int slot = s % kStages;
+    unsigned char* st = ring + slot * kStageBytes;
+    mbar_wait(full + slot, (s / kStages) & 1);
+    if (kGate) {
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int h = 0; h < kR / 32; ++h) {
+          const int r = rr + 32 * h;
+          const int off = r * 128 + ((cc ^ (r & 7)) << 4);
+          uint4* gq = reinterpret_cast<uint4*>(st + (kM + n) * kBoxBytes + off);
+          uint4 gv = *gq;
+          const uint4 ov = *reinterpret_cast<const uint4*>(st + (kM + kN + n) * kBoxBytes + off);
+          bf16* x = reinterpret_cast<bf16*>(&gv);
+          const bf16* o = reinterpret_cast<const bf16*>(&ov);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (!(__bfloat162float(o[e]) > 0.f)) x[e] = __float2bfloat16(0.f);
+            csum[n][e] += __bfloat162float(x[e]);
+          }
+          *gq = gv;
+        }
+      fence_async_smem();
+      sync_warps<256>();  // gp is in place for wgmma and the stores
+      if (owner && tid == 0) {
+#pragma unroll
+        for (int n = 0; n < kN; ++n)
+          tma_store(&map_gp, st + (kM + n) * kBoxBytes, j0 + n * kTile, r_begin + s * kR);
+        bulk_commit();
+      }
+    } else if (diag) {
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int h = 0; h < kR / 32; ++h) {
+          const int r = rr + 32 * h;
+          const uint4 zv = *reinterpret_cast<const uint4*>(st + n * kBoxBytes + r * 128 +
+                                                           ((cc ^ (r & 7)) << 4));
+          const bf16* x = reinterpret_cast<const bf16*>(&zv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) csum[n][e] += __bfloat162float(x[e]);
+        }
+    }
+    wgmma_fence();
+    if (kU == 1) {  // warpgroup wg takes half of the stage's k16 steps
+#pragma unroll
+      for (int kk = 0; kk < kKK / 2; ++kk) {
+        const int k = wg * (kKK / 2) + kk;
+        wgmma_ss<1, 1>(acc[0], desc(st + k * kSlice), desc(st + b_off * kBoxBytes + k * kSlice),
+                       s > 0 || kk > 0);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kUW; ++u) {
+        const int unit = wg * kUW + u;
+        const unsigned char* ab = st + (unit / kN) * kBoxBytes;
+        const unsigned char* bb = st + (b_off + unit % kN) * kBoxBytes;
+#pragma unroll
+        for (int kk = 0; kk < kKK; ++kk)
+          wgmma_ss<1, 1>(acc[u], desc(ab + kk * kSlice), desc(bb + kk * kSlice), s > 0 || kk > 0);
+      }
+    }
+    wgmma_commit();
+    if (s > 0) {  // the previous stage's products are done: release it
+      wgmma_wait_1();
+      if (kGate && owner && tid == 0) bulk_wait_read<1>();  // and its gp stores have read it
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + (s - 1) % kStages);
+    }
+  }
+  wgmma_wait();
+#pragma unroll
+  for (int u = 0; u < kUW; ++u) fence_regs(acc[u]);
+  if (kGate && owner && tid == 0) bulk_wait_read<0>();
+  sync_warps<256>();  // every product is done and every store has read: the ring is free
+
+  float* part = a.partial + static_cast<int64_t>(chunk) * (a.F + 1) * a.n_b;
+  float* xs = reinterpret_cast<float*>(ring);
+  if (owner) {  // the column sums: 32 row groups a column, added in order
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) xs[rr * (kN * kTile) + n * kTile + cc * 8 + e] = csum[n][e];
+    sync_warps<256>();
+    for (int c = tid; c < kN * kTile; c += 256) {
+      float v = 0.f;
+      for (int r = 0; r < 32; ++r) v += xs[r * (kN * kTile) + c];
+      if (j0 + c < a.n_b) part[static_cast<int64_t>(a.F) * a.n_b + j0 + c] = v;
+    }
+    sync_warps<256>();  // xs is free again
+  }
+  if (kU == 1) {  // warpgroup 1's k steps are added to warpgroup 0's
+    const int wt = tid & 127;
+    if (wg == 1) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) xs[e * 128 + wt] = acc[0][e];
+    }
+    sync_warps<256>();
+    if (wg == 1) return;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[0][e] += xs[e * 128 + wt];
+  }
+
+  // thread 32w + 4g + t of a warpgroup holds rows 16w + g (+8), columns
+  // 8j + 2t (+1) of each unit
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < kUW; ++u) {
+    const int unit = kU == 1 ? 0 : wg * kUW + u;
+    const int mi = unit / kN;
+    const int ni = unit % kN;
+    if (!kGate && ti * kM + mi > tj * kN + ni) continue;  // below moments' diagonal
+    const int row = i0 + mi * kTile + 16 * (warp & 3) + g;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j0 + ni * kTile + 8 * j + 2 * t;
+      if (col >= a.n_b) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row + 8 * h;
+        if (r < a.F)
+          *reinterpret_cast<float2*>(part + static_cast<int64_t>(r) * a.n_b + col) =
+              make_float2(acc[u][4 * j + 2 * h], acc[u][4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
-// A 2-D bf16 tensor map from ops/bottleneck_tail.py's dz_tensor_map_geometry:
-// dims (columns, rows), the row stride in bytes, box (64, 64)
-int encode_rows(CUtensorMap* map, const void* ptr, const int64_t* geo) {
+// A 2-D bf16 tensor map from ops/bottleneck_tail.py's geometry (columns,
+// rows, the row stride in bytes, box columns, box rows): box (64, box_rows),
+// the 128-byte swizzle
+int encode_rows(CUtensorMap* map, const void* ptr, const int64_t* geo, int box_rows = kDzBox) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  if (geo[3] != kDzBox || geo[4] != kDzBox) return kInvalid;
+  if (geo[3] != kDzBox || geo[4] != box_rows) return kInvalid;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(geo[0]), static_cast<cuuint64_t>(geo[1])};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(geo[2])};
-  const cuuint32_t box[2] = {kDzBox, kDzBox};
+  const cuuint32_t box[2] = {kDzBox, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -579,43 +847,72 @@ int launch_dz_wgmma(const CUtensorMap (&maps)[4], const DzArgs& a, cudaStream_t 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The reduction and the sum of its chunks, one launch each on one stream.
-// chunk: rows per block (a multiple of kStep, from ops/bottleneck_tail.py's
-// chunk_rows); partial: fp32 [ceil(N / chunk), F + 1, n_b] scratch.
-template <typename T>
-int launch_reduce(const void* z, int64_t ldz, const void* g, int64_t ldg, const void* out,
-                  int64_t ldo, void* gp, int chunk, float* partial, float* acc_out,
+// The chunks' merge into out [F, n_b] and colsum [n_b].
+int launch_merge(const float* partial, int chunks, int F, int n_b, float* out, float* colsum,
+                 bool gated, cudaStream_t st) {
+  const int64_t quads = static_cast<int64_t>(F + 1) * n_b / 4;
+  const int width = 256 / merge_runs(chunks);
+  const int64_t blocks = (quads + width - 1) / width;
+  if (blocks > 0x7fffffff) return kInvalid;
+  if (gated)
+    tail_merge_kernel<true><<<static_cast<unsigned>(blocks), 256, 0, st>>>(partial, chunks, F,
+                                                                           n_b, out, colsum);
+  else
+    tail_merge_kernel<false><<<static_cast<unsigned>(blocks), 256, 0, st>>>(partial, chunks, F,
+                                                                            n_b, out, colsum);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fp32 reduction (CUDA cores) and the merge of its chunks, one launch
+// each on one stream. chunk: rows per block (a multiple of kStep, from
+// ops/bottleneck_tail.py's reduce_grid); partial: fp32 [ceil(N / chunk),
+// F + 1, n_b] scratch.
+int launch_reduce(const float* z, int64_t ldz, const float* g, int64_t ldg, const float* out,
+                  int64_t ldo, float* gp, int chunk, float* partial, float* acc_out,
                   float* colsum, int N, int F, int n_b, bool gated, cudaStream_t st) {
   const int n_i = (F + kTile - 1) / kTile;
   const int n_j = (n_b + kTile - 1) / kTile;
   const int n_tiles = gated ? n_i * n_j : n_i * (n_i + 1) / 2;
-  if (chunk < kStep || chunk % kStep) return static_cast<int>(cudaErrorInvalidValue);
+  if (chunk < kStep || chunk % kStep) return kInvalid;
   const int chunks = (N + chunk - 1) / chunk;
   const dim3 grid(n_tiles, chunks);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const T* zt = static_cast<const T*>(z);
+  if (grid.y > 65535) return kInvalid;
   if (gated)
-    tail_reduce_kernel<T, true><<<grid, kThreads, 0, st>>>(
-        zt, ldz, static_cast<const T*>(g), ldg, static_cast<const T*>(out), ldo,
-        static_cast<T*>(gp), partial, N, F, n_b, chunk);
+    tail_reduce_kernel<true><<<grid, kThreads, 0, st>>>(z, ldz, g, ldg, out, ldo, gp, partial,
+                                                        N, F, n_b, chunk);
   else
-    tail_reduce_kernel<T, false><<<grid, kThreads, 0, st>>>(zt, ldz, nullptr, 0, nullptr, 0,
-                                                           nullptr, partial, N, F, n_b, chunk);
-  cudaError_t err = cudaGetLastError();
+    tail_reduce_kernel<false><<<grid, kThreads, 0, st>>>(z, ldz, nullptr, 0, nullptr, 0, nullptr,
+                                                         partial, N, F, n_b, chunk);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_out = static_cast<int64_t>(F + 1) * n_b;
-  const unsigned sum_blocks = static_cast<unsigned>((n_out + 255) / 256);
-  if (gated)
-    tail_sum_kernel<false><<<sum_blocks, 256, 0, st>>>(partial, chunks, F, n_b, acc_out, colsum);
-  else
-    tail_sum_kernel<true><<<sum_blocks, 256, 0, st>>>(partial, chunks, F, n_b, acc_out, colsum);
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge(partial, chunks, F, n_b, acc_out, colsum, gated, st);
+}
+
+// The bf16 reduction (TMA + wgmma) at one tile plan and the merge of its
+// chunks, one launch each on one stream.
+template <bool kGate, int kM, int kN, int kR, int kStages>
+int launch_reduce_wgmma(const CUtensorMap (&maps)[4], const ReduceArgs& a, float* acc_out,
+                        float* colsum, cudaStream_t st) {
+  auto kernel = tail_reduce_wgmma_kernel<kGate, kM, kN, kR, kStages>;
+  constexpr int kBoxes = kM + (kGate ? 2 : 1) * kN;
+  const int smem = 1024 + kStages * kBoxes * kR * 128 + 2 * kStages * 8;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int chunks = (a.N + a.chunk - 1) / a.chunk;
+  const int64_t grid = static_cast<int64_t>(a.n_tiles) * chunks;
+  if (grid > 0x7fffffff) return kInvalid;
+  kernel<<<static_cast<unsigned>(grid), kRedThreads, smem, st>>>(maps[0], maps[1], maps[2],
+                                                                 maps[3], a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_merge(a.partial, chunks, a.F, a.n_b, acc_out, colsum, kGate, st);
 }
 
 int launch_dz(const void* gp, int64_t ldgp, const void* z, int64_t ldz, const void* w,
               const float* dmn, void* dz, int N, int F, int E, cudaStream_t st) {
   const dim3 grid((N + kTile - 1) / kTile, (F + kTile - 1) / kTile);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (grid.y > 65535) return kInvalid;
   tail_dz_kernel<float><<<grid, kThreads, 0, st>>>(static_cast<const float*>(gp), ldgp,
                                                    static_cast<const float*>(z), ldz,
                                                    static_cast<const float*>(w), dmn,
@@ -624,46 +921,98 @@ int launch_dz(const void* gp, int64_t ldgp, const void* z, int64_t ldz, const vo
 }
 
 // F and E multiples of 8 (one 16-byte vector of bf16), N >= 1.
-bool bad_dims(int dtype, int N, int F, int E) {
-  return (dtype != 0 && dtype != 1) || N < 1 || F < 8 || E < 8 || F % 8 || E % 8;
-}
+bool bad_dims(int N, int F, int E) { return N < 1 || F < 8 || E < 8 || F % 8 || E % 8; }
+
+// The bf16 reductions' chunks: a whole number of 64-row boxes, and of stages, each.
+bool bad_chunk(int chunk, int rows) { return chunk < 64 || chunk % 64 || chunk % rows; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (z, g, out, gp, dz). Row strides in
-// elements, unit stride along the channels, rows 16-byte aligned. The fp32
-// outputs (s, m2, p, sb) are written once each, by the sum kernel. Each
-// returns the launches' cudaError_t (0 = launched).
+// Row strides in elements, unit stride along the channels, rows 16-byte
+// aligned. The fp32 outputs (s, m2, p, sb) are written once each, by the
+// merge kernel. Each returns the launches' cudaError_t (0 = launched).
 
-// s [F] and m2 [F, F] of z [N, F]; partial: fp32 [ceil(N / chunk), F + 1, F].
-extern "C" int pdt_moments(const void* z, int64_t ldz, int dtype, int N, int F, int chunk,
-                           void* partial, void* s, void* m2, void* stream) {
-  if (bad_dims(dtype, N, F, 8)) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto* part = static_cast<float*>(partial);
-  auto* m = static_cast<float*>(m2);
-  auto* sum = static_cast<float*>(s);
-  return dtype == 1 ? launch_reduce<bf16>(z, ldz, nullptr, 0, nullptr, 0, nullptr, chunk, part,
-                                          m, sum, N, F, F, false, st)
-                    : launch_reduce<float>(z, ldz, nullptr, 0, nullptr, 0, nullptr, chunk, part,
-                                           m, sum, N, F, F, false, st);
+// fp32 s [F] and m2 [F, F] of z [N, F] on CUDA cores; partial: fp32
+// [ceil(N / chunk), F + 1, F].
+extern "C" int pdt_moments(const void* z, int64_t ldz, int N, int F, int chunk, void* partial,
+                           void* s, void* m2, void* stream) {
+  if (bad_dims(N, F, 8)) return kInvalid;
+  return launch_reduce(static_cast<const float*>(z), ldz, nullptr, 0, nullptr, 0, nullptr, chunk,
+                       static_cast<float*>(partial), static_cast<float*>(m2),
+                       static_cast<float*>(s), N, F, F, false, static_cast<cudaStream_t>(stream));
 }
 
-// gp [N, E] contiguous, p [F, E] and sb [E] of z [N, F], g and out [N, E];
-// partial: fp32 [ceil(N / chunk), F + 1, E].
+// fp32 gp [N, E] contiguous, p [F, E] and sb [E] of z [N, F], g and out
+// [N, E] on CUDA cores; partial: fp32 [ceil(N / chunk), F + 1, E].
 extern "C" int pdt_tail_bwd_reduce(const void* z, int64_t ldz, const void* g, int64_t ldg,
                                    const void* out, int64_t ldo, void* gp, int chunk,
-                                   void* partial, void* p, void* sb, int dtype, int N, int F,
-                                   int E, void* stream) {
-  if (bad_dims(dtype, N, F, E)) return static_cast<int>(cudaErrorInvalidValue);
+                                   void* partial, void* p, void* sb, int N, int F, int E,
+                                   void* stream) {
+  if (bad_dims(N, F, E)) return kInvalid;
+  return launch_reduce(static_cast<const float*>(z), ldz, static_cast<const float*>(g), ldg,
+                       static_cast<const float*>(out), ldo, static_cast<float*>(gp), chunk,
+                       static_cast<float*>(partial), static_cast<float*>(p),
+                       static_cast<float*>(sb), N, F, E, true, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 s [F] and m2 [F, F] of z [N, F] on TMA and wgmma. geometry: z's
+// tensor map, 5 int64 (ops/bottleneck_tail.py: reduce_tensor_map_geometry);
+// (km, kn, rows): the tile plan, chunk the rows a block (reduce_plan);
+// partial: fp32 [ceil(N / chunk), F + 1, F].
+extern "C" int pdt_moments_tc(const void* z, const int64_t* geometry, int N, int F, int km,
+                              int kn, int rows, int chunk, void* partial, void* s, void* m2,
+                              void* stream) {
+  if (bad_dims(N, F, 8) || bad_chunk(chunk, rows) || geometry[0] != F || geometry[1] != N)
+    return kInvalid;
+  CUtensorMap maps[4];
+  const int err = encode_rows(&maps[0], z, geometry, rows);
+  if (err != 0) return err;
+  maps[1] = maps[2] = maps[3] = maps[0];  // moments reads z alone
+  const int n_ti = (F + km * kTile - 1) / (km * kTile);
+  const ReduceArgs a{static_cast<float*>(partial), N, F, F, chunk, n_ti, n_ti * (n_ti + 1) / 2};
+  auto* out = static_cast<float*>(m2);
+  auto* sum = static_cast<float*>(s);
   auto st = static_cast<cudaStream_t>(stream);
-  auto* part = static_cast<float*>(partial);
+  if (km == 1 && kn == 1 && rows == 64)
+    return launch_reduce_wgmma<false, 1, 1, 64, 12>(maps, a, out, sum, st);
+  if (km == 2 && kn == 2 && rows == 64)
+    return launch_reduce_wgmma<false, 2, 2, 64, 6>(maps, a, out, sum, st);
+  return kInvalid;
+}
+
+// bf16 gp [N, E] contiguous, p [F, E] and sb [E] of z [N, F], g and out
+// [N, E] on TMA and wgmma. geometry: 4 x 5 int64, the tensor maps of z, g,
+// out and gp (ops/bottleneck_tail.py: reduce_tensor_map_geometry); (km,
+// kn, rows): the tile plan, chunk the rows a block (reduce_plan); partial:
+// fp32 [ceil(N / chunk), F + 1, E].
+extern "C" int pdt_tail_bwd_reduce_tc(const void* z, const void* g, const void* out, void* gp,
+                                      const int64_t* geometry, int N, int F, int E, int km,
+                                      int kn, int rows, int chunk, void* partial, void* p,
+                                      void* sb, void* stream) {
+  const int64_t* geo = geometry;
+  if (bad_dims(N, F, E) || bad_chunk(chunk, rows) || geo[0] != F || geo[1] != N)
+    return kInvalid;
+  for (int m = 1; m < 4; ++m)
+    if (geo[5 * m] != E || geo[5 * m + 1] != N) return kInvalid;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {z, g, out, gp};
+  for (int m = 0; m < 4; ++m) {
+    const int err = encode_rows(&maps[m], ptrs[m], geo + 5 * m, rows);
+    if (err != 0) return err;
+  }
+  const int n_ti = (F + km * kTile - 1) / (km * kTile);
+  const int n_tj = (E + kn * kTile - 1) / (kn * kTile);
+  const ReduceArgs a{static_cast<float*>(partial), N, F, E, chunk, n_ti, n_ti * n_tj};
   auto* pp = static_cast<float*>(p);
-  auto* s = static_cast<float*>(sb);
-  return dtype == 1 ? launch_reduce<bf16>(z, ldz, g, ldg, out, ldo, gp, chunk, part, pp, s, N, F,
-                                          E, true, st)
-                    : launch_reduce<float>(z, ldz, g, ldg, out, ldo, gp, chunk, part, pp, s, N,
-                                           F, E, true, st);
+  auto* sum = static_cast<float*>(sb);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (km == 1 && kn == 4 && rows == 64)
+    return launch_reduce_wgmma<true, 1, 4, 64, 3>(maps, a, pp, sum, st);
+  if (km == 2 && kn == 2 && rows == 64)
+    return launch_reduce_wgmma<true, 2, 2, 64, 4>(maps, a, pp, sum, st);
+  if (km == 8 && kn == 1 && rows == 32)
+    return launch_reduce_wgmma<true, 8, 1, 32, 5>(maps, a, pp, sum, st);
+  return kInvalid;
 }
 
 // fp32 dz [N, F] contiguous from gp [N, E], z [N, F], w = [wa ; c] [E + F,
@@ -671,7 +1020,7 @@ extern "C" int pdt_tail_bwd_reduce(const void* z, int64_t ldz, const void* g, in
 extern "C" int pdt_tail_bwd_dz(const void* gp, int64_t ldgp, const void* z, int64_t ldz,
                                const void* w, const void* dmn, void* dz, int N, int F, int E,
                                void* stream) {
-  if (bad_dims(0, N, F, E)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_dims(N, F, E)) return kInvalid;
   return launch_dz(gp, ldgp, z, ldz, w, static_cast<const float*>(dmn), dz, N, F, E,
                    static_cast<cudaStream_t>(stream));
 }
@@ -684,7 +1033,7 @@ extern "C" int pdt_tail_bwd_dz_tc(const void* gp, const void* z, const void* wa,
                                   const int64_t* geometry, const void* dmn, void* dz, int N,
                                   int F, int E, void* stream) {
   const int64_t* g = geometry;
-  if (bad_dims(1, N, F, E) || g[0] != E || g[1] != N || g[5] != F || g[6] != N ||
+  if (bad_dims(N, F, E) || g[0] != E || g[1] != N || g[5] != F || g[6] != N ||
       g[10] != F || g[11] != E || g[15] != F || g[16] != F)
     return kInvalid;
   CUtensorMap maps[4];

@@ -636,11 +636,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// shared-memory writes of this thread made visible to wgmma's reads
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // this thread's global accesses ordered against its bulk copies' (the
 // async proxy's)
 __device__ __forceinline__ void fence_async_global() {
@@ -660,10 +655,6 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t 
     asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
                  "r"(smem_u32(src)), "r"(bytes)
                  : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
 // returns once this thread's bulk copies are complete, their writes made

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks that the kernel sources share: mbarriers,
-// TMA tensor copies and the driver's tensor-map encoder, the consumer
+// TMA tensor copies (loads, and stores in bulk groups), the proxy fence and
+// the tensor-map encoder (cuTensorMapEncodeTiled), the consumer
 // warpgroup's named barrier, ex2 and bf16 packing, wgmma on shared-memory
 // operands. Each source includes it and builds into a library of its own
 // (ops/_build.py hashes this header with the source).
@@ -75,6 +76,35 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// one box of a 2-D tensor map at coordinates (c0, c1) from shared memory,
+// in this thread's current bulk group; the map clips what lies past the
+// tensor's edges
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0,
+                                          int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// returns once at most kPending of this thread's bulk groups still read
+// shared memory
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+
+// shared-memory writes of this thread made visible to the async proxy's
+// reads (wgmma operands, TMA stores)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // the consumer warps alone: named barrier 1 over kThreads threads (the

@@ -7,7 +7,7 @@ kernels of ``csrc/bottleneck_tail.cu`` that the fused expand tail of
 - ``moments(z)``: ``(Σz [F], zᵀz [F, F])``, one read of z, fp32 sums;
 - ``tail_bwd_reduce(z, g, out)``: ``(gp, P, Σgp)`` with ``gp = g·[out > 0]``
   in g's dtype (written once), ``P = zᵀgp`` ``[F, E]`` and ``Σgp`` ``[E]``
-  fp32, one read of (z, g, out);
+  fp32, one read of g and out;
 - ``tail_bwd_dz(gp, z, wa, c, dmn)``: ``gp @ wa + z @ c + dmn`` ``[..., F]``
   in z's dtype, one output write; wa ``[E, F]``, c ``[F, F]`` and dmn
   ``[F]`` are fp32 and are rounded to z's dtype for the product (on the
@@ -25,17 +25,20 @@ sums in fp32. The wrappers run the plain version for tensors on the CPU;
 for CUDA tensors they launch the kernel or raise. ``launch_counts`` counts
 each kernel's launches and nothing else.
 
-The two reductions are deterministic: each block writes its fp32 tile of
-one chunk of rows to a partial buffer ``[chunks, F + 1, n_b]`` (row F the
-column sums), which a second small kernel sums in ascending chunk order,
-so two launches give the same bits, as the Pallas kernels' sequential
-grid does. ``reduce_grid`` sizes the chunks and the buffer.
+The two reductions run ``tail_reduce_wgmma_kernel`` on bf16 rows (a TMA
+ring, wgmma, gp gated in shared memory; ``reduce_plan`` picks its tiles
+and ``reduce_tensor_map_geometry`` its tensor maps) and a CUDA-core kernel
+on fp32 rows (``reduce_grid``). Both are deterministic: each block writes
+its fp32 tile of one chunk of rows to a partial buffer ``[chunks, F + 1,
+n_b]`` (row F the column sums), which a merge kernel as wide as the card
+adds in a fixed order, so two launches give the same bits, as the Pallas
+kernels' sequential grid does.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -47,11 +50,20 @@ BWD_DZ = "tail_bwd_dz"
 #: launches of each kernel since the last ``reset_launch_counts``
 launch_counts = {MOMENTS: 0, BWD_REDUCE: 0, BWD_DZ: 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 TILE = 64  # output tile edge of the reduction kernels; the dz kernel's TMA box
 STEP = 32  # contraction rows a block takes per step
 TARGET_BLOCKS = 4 * 132  # about four blocks per SM of an H100
 MIN_CHUNK = 128  # rows
+SMS = 132  # an H100's SMs: one block of the bf16 reductions on each
+# The bf16 reductions' tiles: (F up to, kM, kN, rows a stage) with the tile
+# kM x kN units of 64 x 64 (kM boxes of z's channels, kN of B's), the first
+# row whose bound covers F. tail_bwd_reduce's tiles span F, except at 128 <
+# F <= 256, where the F tiles of one row range run side by side and the
+# second reads g and out from L2; moments' square super-tiles take the upper
+# triangle. Each plan is one instantiation of tail_reduce_wgmma_kernel.
+REDUCE_TILES = ((64, 1, 4, 64), (256, 2, 2, 64), (None, 8, 1, 32))
+MOMENTS_TILES = ((64, 1, 1, 64), (None, 2, 2, 64))
 
 
 def reset_launch_counts() -> None:
@@ -107,8 +119,9 @@ def chunk_rows(n: int, n_tiles: int) -> int:
 
 
 def reduce_grid(n: int, f: int, n_b: int, gated: bool) -> Tuple[int, int, Tuple[int, int, int]]:
-    """``(output tiles, chunk rows, partial-buffer shape)`` of a reduction
-    ``zᵀB`` over ``n`` rows, z ``[n, f]`` and B ``[n, n_b]``: moments
+    """``(output tiles, chunk rows, partial-buffer shape)`` of the fp32
+    (CUDA-core) reduction ``zᵀB`` over ``n`` rows, z ``[n, f]`` and B
+    ``[n, n_b]``: moments
     (``gated=False``, B = z) computes the upper triangle of its 64x64 tiles,
     tail_bwd_reduce all of them. The fp32 partial buffer holds one
     ``[f + 1, n_b]`` slice per chunk of rows."""
@@ -116,6 +129,48 @@ def reduce_grid(n: int, f: int, n_b: int, gated: bool) -> Tuple[int, int, Tuple[
     n_tiles = n_i * n_j if gated else n_i * (n_i + 1) // 2
     chunk = chunk_rows(n, n_tiles)
     return n_tiles, chunk, (-(-n // chunk), f + 1, n_b)
+
+
+class ReducePlan(NamedTuple):
+    """How the bf16 kernel splits a reduction ``zᵀB``: tiles of ``km`` x
+    ``kn`` units of 64 x 64, ``rows`` rows a ring stage (and a TMA box),
+    ``n_tiles`` tiles (moments: the upper triangle of its super-tiles),
+    ``chunk`` rows a block, and the fp32 partial buffer's shape."""
+    km: int
+    kn: int
+    rows: int
+    n_tiles: int
+    chunk: int
+    part_shape: Tuple[int, int, int]
+
+
+def reduce_plan(n: int, f: int, n_b: int, gated: bool) -> ReducePlan:
+    """The bf16 reduction's plan over ``n`` rows, z ``[n, f]`` and B ``[n,
+    n_b]`` (``gated``: tail_bwd_reduce, else moments with ``n_b = f``): the
+    tile from ``REDUCE_TILES`` or ``MOMENTS_TILES``, and chunks of whole
+    64-row boxes (so of whole stages), about ``SMS`` blocks in all (one an
+    SM: each holds a ring of ~200 KB)."""
+    for limit, km, kn, rows in REDUCE_TILES if gated else MOMENTS_TILES:
+        if limit is None or f <= limit:
+            break
+    n_i = -(-f // (TILE * km))
+    n_tiles = n_i * -(-n_b // (TILE * kn)) if gated else n_i * (n_i + 1) // 2
+    per_block = -(-n // max(1, SMS // n_tiles))
+    chunk = -(-per_block // TILE) * TILE
+    return ReducePlan(km, kn, rows, n_tiles, chunk, (-(-n // chunk), f + 1, n_b))
+
+
+def reduce_tensor_map_geometry(box_rows: int, *xs: torch.Tensor) -> Tuple[Tuple[int, ...], ...]:
+    """The TMA tensor maps of the bf16 reductions, one per operand (z; or z,
+    g, out and gp), each read through its row stride, so a channels-last
+    activation's rows need no copy: ``(columns, rows, row stride in bytes,
+    box columns, box rows)`` with the box ``(64, box_rows)``, 128 bytes a
+    box row (the 128-byte swizzle's span). A box past N or the channels
+    lands as zeros (and a stored box is clipped), so neither need be a
+    multiple of 64. g and out share the box and the swizzle, so the gate is
+    applied position by position in shared memory."""
+    return tuple((x.shape[1], x.shape[0], x.stride(0) * x.element_size(), TILE, box_rows)
+                 for x in xs)
 
 
 def dz_tensor_map_geometry(gp2: torch.Tensor, z2: torch.Tensor, wa: torch.Tensor,
@@ -133,14 +188,25 @@ def dz_tensor_map_geometry(gp2: torch.Tensor, z2: torch.Tensor, wa: torch.Tensor
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.pdt_moments.argtypes = [p, i64, i, i, i, i, p, p, p, p]
+    geometry = ctypes.POINTER(i64)
+    # fp32: z, its row stride; N, F, chunk; partial, s, m2; stream
+    lib.pdt_moments.argtypes = [p, i64, i, i, i, p, p, p, p]
     lib.pdt_moments.restype = i
-    lib.pdt_tail_bwd_reduce.argtypes = [p, i64, p, i64, p, i64, p, i, p, p, p, i, i, i, i, p]
+    # bf16: z, its tensor map; N, F; km, kn, rows, chunk; partial, s, m2; stream
+    lib.pdt_moments_tc.argtypes = [p, geometry, i, i, i, i, i, i, p, p, p, p]
+    lib.pdt_moments_tc.restype = i
+    # fp32: z, g, out and their row strides, gp, chunk, partial, p, sb; N, F, E; stream
+    lib.pdt_tail_bwd_reduce.argtypes = [p, i64, p, i64, p, i64, p, i, p, p, p, i, i, i, p]
     lib.pdt_tail_bwd_reduce.restype = i
+    # bf16: z, g, out, gp, their tensor maps; N, F, E; km, kn, rows, chunk;
+    # partial, p, sb; stream
+    lib.pdt_tail_bwd_reduce_tc.argtypes = [p, p, p, p, geometry, i, i, i, i, i, i, i, p, p, p,
+                                           p]
+    lib.pdt_tail_bwd_reduce_tc.restype = i
     lib.pdt_tail_bwd_dz.argtypes = [p, i64, p, i64, p, p, p, i, i, i, p]
     lib.pdt_tail_bwd_dz.restype = i
     # gp, z, wa, c, their tensor maps' geometry, dmn, dz; N, F, E; stream
-    lib.pdt_tail_bwd_dz_tc.argtypes = [p, p, p, p, ctypes.POINTER(i64), p, p, i, i, i, p]
+    lib.pdt_tail_bwd_dz_tc.argtypes = [p, p, p, p, geometry, p, p, i, i, i, p]
     lib.pdt_tail_bwd_dz_tc.restype = i
     lib.pdt_tail_error_string.argtypes = [i]
     lib.pdt_tail_error_string.restype = ctypes.c_char_p
@@ -160,7 +226,7 @@ def _check_rows(*xs: torch.Tensor) -> None:
     """What the kernels take: one card, one dtype in {fp32, bf16}, unit
     channel stride, 16-byte aligned rows, channel counts multiples of 8."""
     first = xs[0]
-    if first.dtype not in _DTYPE_CODES:
+    if first.dtype not in _DTYPES:
         raise TypeError(f"the tail kernels take float32 or bfloat16, got {first.dtype}")
     for x in xs:
         if x.device != first.device or x.dtype != first.dtype:
@@ -182,6 +248,12 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _geometry(maps: Tuple[Tuple[int, ...], ...]):
+    """Tensor-map geometry as the C entry points take it: int64 in a row."""
+    flat = [v for m in maps for v in m]
+    return (ctypes.c_int64 * len(flat))(*flat)
+
+
 def _on(x: torch.Tensor, name: str) -> bool:
     """True for a CPU tensor (the plain version runs); False for CUDA."""
     if x.device.type == "cpu":
@@ -198,13 +270,20 @@ def moments(z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     z2 = rows(z)
     _check_rows(z2)
     n, f = z2.shape
-    _, chunk, part_shape = reduce_grid(n, f, f, gated=False)
-    partial = torch.empty(part_shape, dtype=torch.float32, device=z.device)
     s = torch.empty(f, dtype=torch.float32, device=z.device)
     m2 = torch.empty((f, f), dtype=torch.float32, device=z.device)
     lib = _library()
-    code = lib.pdt_moments(_ptr(z2), z2.stride(0), _DTYPE_CODES[z.dtype], n, f, chunk,
-                           _ptr(partial), _ptr(s), _ptr(m2), _stream(z))
+    if z.dtype == torch.bfloat16:
+        plan = reduce_plan(n, f, f, gated=False)
+        partial = torch.empty(plan.part_shape, dtype=torch.float32, device=z.device)
+        code = lib.pdt_moments_tc(
+            _ptr(z2), _geometry(reduce_tensor_map_geometry(plan.rows, z2)), n, f, plan.km,
+            plan.kn, plan.rows, plan.chunk, _ptr(partial), _ptr(s), _ptr(m2), _stream(z))
+    else:
+        _, chunk, part_shape = reduce_grid(n, f, f, gated=False)
+        partial = torch.empty(part_shape, dtype=torch.float32, device=z.device)
+        code = lib.pdt_moments(_ptr(z2), z2.stride(0), n, f, chunk, _ptr(partial), _ptr(s),
+                               _ptr(m2), _stream(z))
     _check_launch(lib, MOMENTS, code)
     launch_counts[MOMENTS] += 1
     return s, m2
@@ -223,14 +302,22 @@ def tail_bwd_reduce(z: torch.Tensor, g: torch.Tensor, out: torch.Tensor):
     n, f = z2.shape
     e = g2.shape[1]
     gp = torch.empty((n, e), dtype=g.dtype, device=g.device)
-    _, chunk, part_shape = reduce_grid(n, f, e, gated=True)
-    partial = torch.empty(part_shape, dtype=torch.float32, device=z.device)
     p = torch.empty((f, e), dtype=torch.float32, device=z.device)
     sb = torch.empty(e, dtype=torch.float32, device=z.device)
     lib = _library()
-    code = lib.pdt_tail_bwd_reduce(
-        _ptr(z2), z2.stride(0), _ptr(g2), g2.stride(0), _ptr(o2), o2.stride(0), _ptr(gp),
-        chunk, _ptr(partial), _ptr(p), _ptr(sb), _DTYPE_CODES[z.dtype], n, f, e, _stream(z))
+    if z.dtype == torch.bfloat16:
+        plan = reduce_plan(n, f, e, gated=True)
+        partial = torch.empty(plan.part_shape, dtype=torch.float32, device=z.device)
+        geometry = reduce_tensor_map_geometry(plan.rows, z2, g2, o2, gp)
+        code = lib.pdt_tail_bwd_reduce_tc(
+            _ptr(z2), _ptr(g2), _ptr(o2), _ptr(gp), _geometry(geometry), n, f, e, plan.km,
+            plan.kn, plan.rows, plan.chunk, _ptr(partial), _ptr(p), _ptr(sb), _stream(z))
+    else:
+        _, chunk, part_shape = reduce_grid(n, f, e, gated=True)
+        partial = torch.empty(part_shape, dtype=torch.float32, device=z.device)
+        code = lib.pdt_tail_bwd_reduce(
+            _ptr(z2), z2.stride(0), _ptr(g2), g2.stride(0), _ptr(o2), o2.stride(0), _ptr(gp),
+            chunk, _ptr(partial), _ptr(p), _ptr(sb), n, f, e, _stream(z))
     _check_launch(lib, BWD_REDUCE, code)
     launch_counts[BWD_REDUCE] += 1
     return gp.view(g.shape), p, sb
@@ -258,10 +345,9 @@ def tail_bwd_dz(gp: torch.Tensor, z: torch.Tensor, wa: torch.Tensor, c: torch.Te
     if z.dtype == torch.bfloat16:
         wa16, c16 = (x.to(torch.bfloat16).contiguous() for x in (wa, c))  # rounded once
         geometry = dz_tensor_map_geometry(gp2, z2, wa16, c16)
-        code = lib.pdt_tail_bwd_dz_tc(
-            _ptr(gp2), _ptr(z2), _ptr(wa16), _ptr(c16),
-            (ctypes.c_int64 * 20)(*(v for g in geometry for v in g)), _ptr(dmn), _ptr(dz),
-            n, f, e, _stream(z))
+        code = lib.pdt_tail_bwd_dz_tc(_ptr(gp2), _ptr(z2), _ptr(wa16), _ptr(c16),
+                                      _geometry(geometry), _ptr(dmn), _ptr(dz), n, f, e,
+                                      _stream(z))
     else:
         w = torch.cat([wa, c]).float()  # [E + F, F], contiguous
         code = lib.pdt_tail_bwd_dz(_ptr(gp2), gp2.stride(0), _ptr(z2), z2.stride(0), _ptr(w),

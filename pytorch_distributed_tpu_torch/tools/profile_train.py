@@ -60,9 +60,12 @@ def kind_of(kernel_name: str) -> str:
         return "flash forward"
     if "flash_bwd" in name:  # the wgmma backward, the fp32 and dQ kernels
         return "flash backward"
-    if "tail_reduce_kernel" in name:  # <T, kGate>: false is moments
+    # tail_reduce_wgmma_kernel<kGate, …> (bf16), tail_reduce_kernel<kGate> (an
+    # older build: <T, kGate>; fp32) and their merge, tail_merge_kernel<kGate>:
+    # kGate false is moments
+    if "tail_reduce" in name or "tail_merge_kernel" in name:
         return "tail_bwd_reduce" if "true" in name else "tail moments"
-    if "tail_sum_kernel" in name:  # <kMirror>: true sums moments' chunks
+    if "tail_sum_kernel" in name:  # an older build's merge, <kMirror>: true is moments
         return "tail moments" if "true" in name else "tail_bwd_reduce"
     if "tail_dz" in name:  # tail_dz_wgmma_kernel (bf16), tail_dz_kernel (fp32)
         return "tail_bwd_dz"

@@ -8,12 +8,15 @@ the parent, this checkout, this checkout again and the parent, each in a
 process of its own that imports the package from its checkout and builds
 that checkout's ``csrc/bottleneck_tail.cu``. Each process times
 ``moments``, ``tail_bwd_reduce`` and ``tail_bwd_dz`` through their public
-wrappers at ResNet-50's four expand-tail shapes (z ``[128, H, W, F]``, E =
-4F, bf16, the operands of ``chip_smoke.py``'s ``tail_inputs``) by CUDA
-events over 20 calls, with the L2 flushed before each (``chip_smoke.py``'s
-``time_ms``), and prints one JSON line. The last line printed is the
-median of each (checkout, kernel, stage) over its runs, with the card's
-name and power limit.
+wrappers at ResNet-50's four expand-tail shapes, and ``moments`` also at
+the four downsample inputs (``chip_smoke.py``'s ``tail_shapes``: z ``[128,
+H, W, F]``, E = 4F, bf16, the operands of its ``tail_inputs``), each by
+CUDA events over 20 calls with the L2 flushed before each (its
+``time_ms``) and by its kernels' device time in a profiler trace (its
+``kernel_device_ms``, the kernels matched as ``tools/profile_train.py``
+files them, an older build's too), and prints one JSON line. The last line
+printed is the median of each (checkout, entry) over its runs, with the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -26,8 +29,6 @@ import subprocess
 import sys
 from pathlib import Path
 
-STAGES = ((128, 56, 64), (128, 28, 128), (128, 14, 256), (128, 7, 512))
-KERNELS = ("moments", "tail_bwd_reduce", "tail_bwd_dz")
 THIS = Path(__file__).resolve().parents[2]
 
 
@@ -41,23 +42,28 @@ def _load_chip_smoke(root: Path):
 
 
 def worker(checkout: str) -> dict:
-    """Times, in µs, of each kernel at each stage, for the package of
-    ``checkout`` (this process imports it from there)."""
+    """Times, in µs, of each kernel at each of ``chip_smoke.py``'s
+    ``tail_shapes``: the call ("kernel label") and its kernels' device time
+    ("kernel label, device"), for the package of ``checkout`` (this process
+    imports it from there)."""
     sys.path.insert(0, checkout)
     import torch
 
     from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
 
-    cs = _load_chip_smoke(THIS)  # the timer and the operands: this checkout's
+    cs = _load_chip_smoke(THIS)  # the timer, the matchers, the operands: this checkout's
     out = {}
-    for b, hw, f in STAGES:
+    for label, (b, hw, f), names in cs.tail_shapes():
         z, g, o, wa, c, dmn = cs.tail_inputs(torch, torch.bfloat16, b, hw, f, seed=11)
         gp = bt.tail_bwd_reduce(z, g, o)[0]
         calls = {"moments": lambda: bt.moments(z),
                  "tail_bwd_reduce": lambda: bt.tail_bwd_reduce(z, g, o),
                  "tail_bwd_dz": lambda: bt.tail_bwd_dz(gp, z, wa, c, dmn)}
-        for name in KERNELS:
-            out[f"{name} z[{b},{hw},{hw},{f}]"] = cs.time_ms(torch, calls[name], iters=20) * 1e3
+        for name in names:
+            out[f"{name} {label}"] = cs.time_ms(torch, calls[name], iters=20) * 1e3
+            match = {name: cs.is_tail_kind(cs.TAIL_KINDS[name])}
+            out[f"{name} {label}, device"] = cs.kernel_device_ms(
+                torch, calls[name], match)[name] * 1e3
         del z, g, o, gp
         torch.cuda.empty_cache()
     return out

@@ -38,24 +38,37 @@ def test_tail_checks_and_timings_rehearse_on_cpu(chip_smoke, capsys):
     assert failures == []
     assert set(errs) == {bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ}
     out = capsys.readouterr().out
-    assert out.count("bit-equal") == 12  # 4 stages x 2 dtypes + 2 ragged x 2 dtypes
-    # moments at 16 shapes (the 12 above and 4 downsample inputs),
-    # tail_bwd_reduce and tail_bwd_dz at 12, each launched twice and
-    # compared bit for bit
-    assert out.count("two launches bitwise equal") == 40
-    assert "rows 16 bytes wider than their channels" in out
+    # gp: 4 stages x 2 dtypes + 2 ragged x 2 dtypes, and z and out rows wider
+    # than their channels
+    assert out.count("bit-equal") == 13
+    # moments at 17 shapes (the 12 above, 4 downsample inputs, wide z rows),
+    # tail_bwd_reduce at 13 (the 12 and wide rows) and tail_bwd_dz at 12,
+    # each launched twice and compared bit for bit
+    assert out.count("two launches bitwise equal") == 42
+    wide = [line for line in out.splitlines() if "rows 16 bytes wider than their channels" in line]
+    assert {line.split()[1].rstrip(",") for line in wide} == {bt.MOMENTS, bt.BWD_REDUCE,
+                                                              bt.BWD_DZ}
     assert "FAIL" not in out
     entries = chip_smoke.time_tail_kernels(torch, "CPU", dev="cpu")
     assert set(entries) == {bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ}
+    stages = [f"stage {i}" for i in range(1, 5)]
+    downsample = [f"downsample input of stage {i}" for i in range(1, 5)]
     for name, entry in entries.items():
-        extra = {"kernel", "device_ms", "stages"} if name == bt.BWD_DZ else set()
         assert set(entry) == {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                              "spelling_ms"} | extra
+                              "spelling_ms", "kernel", "device_ms", "stages"}
         assert entry["library_ms"] is None and entry["bound_ms"] > 0
-    # tail_bwd_dz at all four stages, each with its kernel's device time
-    assert sorted(entries[bt.BWD_DZ]["stages"]) == [f"stage {i}" for i in range(1, 5)]
-    assert all(st["device_ms"] == 0.5 for st in entries[bt.BWD_DZ]["stages"].values())
-    assert capsys.readouterr().out.count("tail_bwd_dz at stage") == 4
+        # every stage (moments also every downsample input), each with its
+        # kernels' device time beside the call, the plain version, the
+        # spelling and the bound
+        want = stages + downsample if name == bt.MOMENTS else stages
+        assert sorted(entry["stages"]) == sorted(want)
+        for st in entry["stages"].values():
+            assert st["device_ms"] == 0.5 and st["bound_ms"] > 0
+            assert {"ms", "plain_ms", "spelling_ms", "bound_by"} <= set(st)
+            assert ("merge_ms" in st) == (name != bt.BWD_DZ)
+    out = capsys.readouterr().out
+    assert out.count("tail_bwd_dz at stage") == out.count("tail_bwd_reduce at stage") == 4
+    assert out.count("moments at stage") == 4 and out.count("moments at downsample") == 4
 
 
 def test_tail_bounds_at_resnet50_stage_shapes(chip_smoke):
@@ -255,15 +268,38 @@ def test_ring_phase_takes_its_ranks_from_the_cards(chip_smoke, cards, want):
     ("void (anonymous namespace)::tail_dz_kernel<float>(...)", "tail_bwd_dz"),
     ("void (anonymous namespace)::tail_dz_wgmma_kernel<1, 8>(CUtensorMap, CUtensorMap, "
      "CUtensorMap, CUtensorMap, (anonymous namespace)::DzArgs)", "tail_bwd_dz"),
+    ("void (anonymous namespace)::tail_reduce_wgmma_kernel<false, 1, 1, 64, 12>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, CUtensorMap, (anonymous namespace)::ReduceArgs)", "tail moments"),
+    ("void (anonymous namespace)::tail_reduce_wgmma_kernel<false, 2, 2, 64, 6>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, CUtensorMap, (anonymous namespace)::ReduceArgs)", "tail moments"),
+    ("void (anonymous namespace)::tail_reduce_wgmma_kernel<true, 1, 4, 64, 3>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, CUtensorMap, (anonymous namespace)::ReduceArgs)",
+     "tail_bwd_reduce"),
+    ("void (anonymous namespace)::tail_reduce_wgmma_kernel<true, 8, 1, 32, 5>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, CUtensorMap, (anonymous namespace)::ReduceArgs)",
+     "tail_bwd_reduce"),
+    ("void (anonymous namespace)::tail_merge_kernel<false>(float const*, int, int, int, float*, "
+     "float*)", "tail moments"),
+    ("void (anonymous namespace)::tail_merge_kernel<true>(float const*, int, int, int, float*, "
+     "float*)", "tail_bwd_reduce"),
+    ("void (anonymous namespace)::tail_reduce_kernel<false>(float const*, long, float const*, "
+     "long, float const*, long, float*, float*, int, int, int, int)", "tail moments"),
+    ("void (anonymous namespace)::tail_reduce_kernel<true>(float const*, long, float const*, "
+     "long, float const*, long, float*, float*, int, int, int, int)", "tail_bwd_reduce"),
 ])
 def test_profiles_name_every_kernel_of_the_port(chip_smoke, kernel, kind):
     """``profile_train.kind_of`` files each kernel of the flash and tail
-    sources, the wgmma kernels and the tail's chunk sums included, under
-    its kernel, not under "other"; chip_smoke's device-time match for
-    kernel 6's dK/dV kernel picks the wgmma backward and not the dQ kernel."""
+    sources, the wgmma kernels and the tail's merges and chunk sums (an older
+    build's, as ``tools/tail_ab.py`` times a parent) included, under its
+    kernel, not under "other"; chip_smoke's device-time matches for the
+    tail kernels pick the same kernels, and its match for kernel 6's dK/dV
+    kernel picks the wgmma backward and not the dQ kernel."""
     from pytorch_distributed_tpu_torch.tools.profile_train import kind_of
 
     assert kind_of(kernel) == kind
+    for name, tail_kind in chip_smoke.TAIL_KINDS.items():
+        assert chip_smoke.is_tail_kind(tail_kind)(kernel) == (kind == tail_kind), name
+    assert chip_smoke.is_dz_kernel(kernel) == (kind == "tail_bwd_dz")
     assert chip_smoke.is_dkv_kernel(kernel) == ("flash_bwd_wgmma" in kernel
                                                  or "flash_bwd_kernel" in kernel)
     assert chip_smoke.is_dq_kernel(kernel) == ("flash_bwd_dq" in kernel)
@@ -310,16 +346,22 @@ def test_gathered_yardstick_repeats_kv_heads_for_gqa(chip_smoke):
 
 
 def test_tail_ab_times_the_main_paths_stage_shapes():
-    """``tools/tail_ab.py`` times the tail kernels of two checkouts at
-    ResNet-50's four expand-tail shapes, the ones ``chip_smoke.py`` checks
-    (B 128, E = 4F), through the three public wrappers."""
+    """``tools/tail_ab.py`` times the tail kernels of two checkouts at the
+    shapes ``chip_smoke.py`` times them (B 128, E = 4F): all three at
+    ResNet-50's four expand-tail shapes, moments also at the four
+    downsample inputs, through the three public wrappers."""
     from pytorch_distributed_tpu_torch.tools import tail_ab
 
-    spec = importlib.util.spec_from_file_location("chip_smoke_unpatched", REPO / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    assert tail_ab.STAGES == cs.TAIL_STAGES
-    assert set(tail_ab.KERNELS) == {bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ}
+    cs = tail_ab._load_chip_smoke(REPO)
+    entries = [(label, shape, name) for label, shape, names in cs.tail_shapes()
+               for name in names]
+    stages = [(f"stage {i + 1}", shape) for i, shape in enumerate(cs.TAIL_STAGES)]
+    for name in (bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ):
+        assert [(label, shape) for label, shape, n in entries
+                if n == name and label.startswith("stage")] == stages
+    assert [shape for label, shape, n in entries if label.startswith("downsample")
+            and n == bt.MOMENTS] == list(cs.TAIL_DOWNSAMPLE)
+    assert len(entries) == 16 and len({(label, n) for label, _, n in entries}) == 16
     assert (tail_ab.THIS / "chip_smoke.py").is_file()
 
 
