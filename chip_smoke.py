@@ -406,11 +406,12 @@ def tail_inputs(torch, dtype, b, hw, f, seed=0, dev="cuda"):
 def tail_bound(name, n, f, e, elem, dtype) -> dict:
     """Least time of each tail kernel for n rows: every input read once and
     every output written once; 2 flops per multiply-add of its product
-    (zᵀz as the full F x F square)."""
+    (zᵀz as its upper triangle with the diagonal, F(F+1)/2 sums: the other
+    half is the same numbers)."""
     from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
 
     n_bytes, flops = {
-        bt.MOMENTS: (n * f * elem + (f + f * f) * 4, 2 * n * f * f),
+        bt.MOMENTS: (n * f * elem + (f + f * f) * 4, 2 * n * (f * (f + 1) // 2)),
         bt.BWD_REDUCE: (n * f * elem + 3 * n * e * elem + (f * e + e) * 4, 2 * n * f * e),
         bt.BWD_DZ: (n * e * elem + 2 * n * f * elem + (e * f + f * f + f) * 4,
                     2 * n * (e + f) * f),
@@ -442,53 +443,56 @@ def time_ms(torch, fn, iters=100, warmup=5):
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def kernel_device_ms(torch, fn, match, iters=10) -> dict:
-    """Mean device time per call of ``fn`` of each kernel that
-    ``match[name](kernel_name)`` picks out, from a ``torch.profiler``
-    trace of ``iters`` calls with the L2 flushed before each: for kernels
-    that one call launches back to back, where CUDA events around the call
-    time them together."""
+def kernel_device_ms(torch, fn, match, iters=10, attempts=3) -> dict:
+    """Mean device time per call of ``fn`` of the kernels that each entry of
+    ``match`` picks out, from a ``torch.profiler`` trace of ``iters`` calls
+    with the L2 flushed before each: for kernels that one call launches back
+    to back, where CUDA events around the call time them together. Each
+    entry is ``name: (predicate on the kernel's name, launches one call
+    makes of the kernels it picks)``. The profiler can drop kernels from a
+    trace, so a trace counts only when it holds exactly ``iters`` times each
+    entry's launches; another is taken, up to ``attempts`` traces, and then
+    this raises: a missed launch never reads as a shorter time."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
+    want = {name: iters * launches for name, (_, launches) in match.items()}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        out, seen = matched_device_ms(prof.key_averages(), match, iters)
+        if seen == want:
+            return out
+        print(f"(d) the profiler's trace held {seen} launches, not {want}: taken again")
+    raise RuntimeError(f"kernel_device_ms: {attempts} traces of {iters} calls each held "
+                       f"{seen} launches of the matched kernels, not {want}")
+
+
+def matched_device_ms(events, match, iters):
+    """``(mean device ms per call, launches)`` of each entry of ``match``
+    over the averaged kernel events of a trace of ``iters`` calls."""
     out = {name: 0.0 for name in match}
-    for evt in prof.key_averages():
+    seen = {name: 0 for name in match}
+    for evt in events:
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        for name, pred in match.items():
+        for name, (pred, _) in match.items():
             if pred(evt.key):
                 out[name] += us / 1e3 / iters
-    return out
+                seen[name] += evt.count
+    return out, seen
 
 
 def is_dkv_kernel(name: str) -> bool:
     """Kernel 6's dK/dV kernel in a profiler trace: the flash backward that
     is not the dQ kernel (the wgmma backward in bf16)."""
     return "flash_bwd" in name and "flash_bwd_dq" not in name
-
-
-def is_dz_kernel(name: str) -> bool:
-    """Kernel 3 in a profiler trace (``tail_dz_wgmma_kernel`` in bf16)."""
-    return "tail_dz" in name
-
-
-def is_tail_kind(kind: str):
-    """A matcher for ``kernel_device_ms``: the kernels that
-    ``tools/profile_train.py``'s ``kind_of`` files under ``kind`` ("tail
-    moments": ``tail_reduce_wgmma_kernel<false, …>`` and
-    ``tail_merge_kernel<false>`` in bf16; "tail_bwd_reduce": the same with
-    ``true``; an older build's chunk sums too)."""
-    from pytorch_distributed_tpu_torch.tools.profile_train import kind_of
-
-    return lambda name: kind_of(name) == kind
 
 
 def is_split_kernel(name: str) -> bool:
@@ -933,8 +937,9 @@ def resnet_runs(torch, card) -> dict:
     return launches
 
 
-TAIL_KINDS = {"moments": "tail moments", "tail_bwd_reduce": "tail_bwd_reduce",
-              "tail_bwd_dz": "tail_bwd_dz"}
+# kernels one call of each tail function launches: the reduction and its
+# merge; dz alone
+TAIL_LAUNCHES = {"moments": 2, "tail_bwd_reduce": 2, "tail_bwd_dz": 1}
 TAIL_KERNEL_NAMES = {
     "moments": "tail_reduce_wgmma_kernel<false, ...> + tail_merge_kernel<false>",
     "tail_bwd_reduce": "tail_reduce_wgmma_kernel<true, ...> + tail_merge_kernel<true>",
@@ -965,7 +970,7 @@ def time_tail_kernels(torch, card, dev="cuda") -> dict:
                 bt.BWD_REDUCE: "torch.where(out > 0, g, 0), z2d.T @ gp, gp.sum(0): 4 kernels",
                 bt.BWD_DZ: "torch.addmm(dmn, torch.cat([gp, z], 1), torch.cat([wa, c]) in "
                            "bf16): 4 calls"}
-    stages = {name: {} for name in TAIL_KINDS}
+    stages = {name: {} for name in TAIL_LAUNCHES}
     for label, (b, hw, f), names in tail_shapes():
         z, g, out, wa, c, dmn = tail_inputs(torch, bf16, b, hw, f, seed=11, dev=dev)
         e = 4 * f
@@ -990,8 +995,10 @@ def time_tail_kernels(torch, card, dev="cuda") -> dict:
         for name in names:
             fns = runs[name]
             t_k, t_p, t_s = (time_ms(torch, fn, iters=20) for fn in fns)
-            dev_ms = kernel_device_ms(torch, fns[0], {
-                name: is_tail_kind(TAIL_KINDS[name]), "merge": lambda k: "tail_merge" in k})
+            match = {name: (lambda k: bt.kernel_of(k) == name, TAIL_LAUNCHES[name])}
+            if name != bt.BWD_DZ:
+                match["merge"] = (lambda k: "tail_merge" in k, 1)
+            dev_ms = kernel_device_ms(torch, fns[0], match)
             t_dev = dev_ms[name]
             bd = tail_bound(name, z2.shape[0], f, e, 2, bf16)
             stages[name][label] = {"ms": t_k, "device_ms": t_dev, "plain_ms": t_p,
@@ -1529,9 +1536,7 @@ def main(argv) -> int:
     }
     # the split's kernel alone, by its device time
     split_device_ms = kernel_device_ms(torch, lambda: paged_flash.paged_flash_attention(
-        **decode_bf16), {paged_flash.SPLIT: is_split_kernel})[paged_flash.SPLIT]
-    if not split_device_ms:
-        raise SystemExit("chip_smoke: the profiler recorded no paged_split_tc_kernel at decode")
+        **decode_bf16), {paged_flash.SPLIT: (is_split_kernel, 1)})[paged_flash.SPLIT]
     bd = bound(decode_bf16)
     for name in timed:
         device = (f"; the kernel {split_device_ms * 1e3:.1f} us device time"
@@ -1625,9 +1630,9 @@ def main(argv) -> int:
     # Delta, the row statistics' copy and the dQ cast as torch ops)
     flash_kernel_ms = {
         FWD: kernel_device_ms(torch, lambda: flash_attention.launch_forward(
-            q, k, v, True, sc, 0), {FWD: lambda key: "flash_fwd" in key})[FWD],
+            q, k, v, True, sc, 0), {FWD: (lambda key: "flash_fwd" in key, 1)})[FWD],
         BWD: kernel_device_ms(torch, lambda: flash_attention.launch_backward(
-            q, k, v, o, lse, do, True, sc, 0), {BWD: lambda key: "flash_bwd" in key})[BWD],
+            q, k, v, o, lse, do, True, sc, 0), {BWD: (lambda key: "flash_bwd" in key, 1)})[BWD],
     }
     for name, part in ((FWD, "fwd"), (BWD, "bwd")):
         print(f"(d) {name} at B, L, H, D = {tuple(q.shape)} causal bf16 on {card}: "
@@ -1647,10 +1652,7 @@ def main(argv) -> int:
         q, k, v, o, lse, do, True, sc, 0)
     split_pair_ms = time_ms(torch, split_call, iters=20)
     split_ms = kernel_device_ms(torch, split_call, {
-        DKV: is_dkv_kernel, DQ: is_dq_kernel})
-    if not all(split_ms.values()):
-        raise SystemExit(f"chip_smoke: the profiler recorded no device time for the split "
-                         f"kernels: {split_ms}")
+        DKV: (is_dkv_kernel, 1), DQ: (is_dq_kernel, 1)})
     for name, part in ((DKV, "bwd_dkv"), (DQ, "bwd_dq")):
         fb[name] = fb[part]
         print(f"(d) {name} at B, L, H, D = {tuple(q.shape)} causal bf16 on {card}: "

@@ -16,10 +16,11 @@
 // What bounds them on the H100 (3.35 TB/s, 989 bf16 TFLOP/s), at ResNet-50's
 // four expand-tail shapes (B 128: z [401408, 64], [100352, 128], [25088,
 // 256], [6272, 512], E = 4F), bf16:
-//   - moments: bytes at stages 1-3 (51, 26, 13 MB: 15.3, 7.7, 3.9 us),
-//     operations at stage 4 (3.3 GFLOP as the full square: 3.3 us); the
-//     downsample inputs (z [401408, 64], [100352, 256], [25088, 512], [6272,
-//     1024]) 15.3, 15.4, 13.3, 13.3 us;
+//   - moments: bytes at every stage (51, 26, 13, 7.5 MB: 15.3, 7.7, 3.9,
+//     2.2 us), its 1.65 GFLOP (the upper triangle of z^T z, F(F+1)/2 sums)
+//     taking 1.7 us; the downsample inputs (z [401408, 64], [100352, 256],
+//     [25088, 512], [6272, 1024]) 15.3, 15.4, 8.0 us (bytes) and 6.7 us
+//     (operations, 6.6 GFLOP);
 //   - tail_bwd_reduce: bytes at every stage (668, 334, 168, 88 MB: 199.4,
 //     99.8, 50.1, 26.2 us; 13 GFLOP each), g and out three quarters of them;
 //   - tail_bwd_dz: bytes at stages 1-3 (92.0, 46.1, 23.4 us), operations at
@@ -32,7 +33,9 @@
 //     F + 1, n_b] (row F the column sums); tail_merge_kernel, wide enough to
 //     fill the card, adds the chunks in a fixed order, so two launches give
 //     the same bits: no atomics. The caller sizes the chunks (reduce_plan
-//     and reduce_grid in ops/bottleneck_tail.py) and allocates the buffer.
+//     and reduce_grid in ops/bottleneck_tail.py, from the card's SM count)
+//     and allocates the buffer; reduce_plan picks the bf16 kernel's tile
+//     plan from tail_plans.cuh and passes its row's index.
 //   - moments and tail_bwd_reduce on bf16 are one kernel,
 //     tail_reduce_wgmma_kernel (further down): a TMA ring fed by a producer
 //     warp, wgmma on operands that are both MN-major (the contraction runs
@@ -541,7 +544,7 @@ __global__ void __launch_bounds__(kDzThreads, 1)
 //   - Block (tile, chunk): a tile of kM x kN 64x64 units of the output, over
 //     one chunk of rows (a multiple of 64), tiles fastest and F tiles
 //     fastest among them, so that blocks at work together read the same
-//     rows. tail_bwd_reduce's plans (ops/bottleneck_tail.py REDUCE_TILES):
+//     rows. tail_bwd_reduce's plans (tail_plans.cuh):
 //     F <= 64 in one 64 x 256 tile, F <= 256 in 128 x 128 tiles (at F = 256
 //     the two F tiles of a row range share g and out through L2, and read z
 //     half as often as 256 x 128 tiles would), wider F in 512 x 64 tiles
@@ -909,6 +912,26 @@ int launch_reduce_wgmma(const CUtensorMap (&maps)[4], const ReduceArgs& a, float
   return launch_merge(a.partial, chunks, a.F, a.n_b, acc_out, colsum, kGate, st);
 }
 
+// The tile plans (tail_plans.cuh): each row's numbers, and its launcher.
+struct TilePlan {
+  bool gated;
+  int f_max, km, kn, rows, stages;
+};
+constexpr TilePlan kTilePlans[] = {
+#define TAIL_PLAN(gated, f_max, km, kn, rows, stages) {gated != 0, f_max, km, kn, rows, stages},
+#include "tail_plans.cuh"
+#undef TAIL_PLAN
+};
+constexpr int kNumPlans = sizeof(kTilePlans) / sizeof(kTilePlans[0]);
+using ReduceLaunch = int (*)(const CUtensorMap (&)[4], const ReduceArgs&, float*, float*,
+                             cudaStream_t);
+constexpr ReduceLaunch kPlanLaunch[] = {
+#define TAIL_PLAN(gated, f_max, km, kn, rows, stages) \
+  &launch_reduce_wgmma<gated != 0, km, kn, rows, stages>,
+#include "tail_plans.cuh"
+#undef TAIL_PLAN
+};
+
 int launch_dz(const void* gp, int64_t ldgp, const void* z, int64_t ldz, const void* w,
               const float* dmn, void* dz, int N, int F, int E, cudaStream_t st) {
   const dim3 grid((N + kTile - 1) / kTile, (F + kTile - 1) / kTile);
@@ -957,62 +980,51 @@ extern "C" int pdt_tail_bwd_reduce(const void* z, int64_t ldz, const void* g, in
 
 // bf16 s [F] and m2 [F, F] of z [N, F] on TMA and wgmma. geometry: z's
 // tensor map, 5 int64 (ops/bottleneck_tail.py: reduce_tensor_map_geometry);
-// (km, kn, rows): the tile plan, chunk the rows a block (reduce_plan);
-// partial: fp32 [ceil(N / chunk), F + 1, F].
-extern "C" int pdt_moments_tc(const void* z, const int64_t* geometry, int N, int F, int km,
-                              int kn, int rows, int chunk, void* partial, void* s, void* m2,
-                              void* stream) {
-  if (bad_dims(N, F, 8) || bad_chunk(chunk, rows) || geometry[0] != F || geometry[1] != N)
+// plan: a moments row of tail_plans.cuh, chunk the rows a block
+// (reduce_plan); partial: fp32 [ceil(N / chunk), F + 1, F].
+extern "C" int pdt_moments_tc(const void* z, const int64_t* geometry, int N, int F, int plan,
+                              int chunk, void* partial, void* s, void* m2, void* stream) {
+  if (plan < 0 || plan >= kNumPlans || kTilePlans[plan].gated) return kInvalid;
+  const TilePlan& t = kTilePlans[plan];
+  if (bad_dims(N, F, 8) || bad_chunk(chunk, t.rows) || geometry[0] != F || geometry[1] != N)
     return kInvalid;
   CUtensorMap maps[4];
-  const int err = encode_rows(&maps[0], z, geometry, rows);
+  const int err = encode_rows(&maps[0], z, geometry, t.rows);
   if (err != 0) return err;
   maps[1] = maps[2] = maps[3] = maps[0];  // moments reads z alone
-  const int n_ti = (F + km * kTile - 1) / (km * kTile);
+  const int n_ti = (F + t.km * kTile - 1) / (t.km * kTile);
   const ReduceArgs a{static_cast<float*>(partial), N, F, F, chunk, n_ti, n_ti * (n_ti + 1) / 2};
-  auto* out = static_cast<float*>(m2);
-  auto* sum = static_cast<float*>(s);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (km == 1 && kn == 1 && rows == 64)
-    return launch_reduce_wgmma<false, 1, 1, 64, 12>(maps, a, out, sum, st);
-  if (km == 2 && kn == 2 && rows == 64)
-    return launch_reduce_wgmma<false, 2, 2, 64, 6>(maps, a, out, sum, st);
-  return kInvalid;
+  return kPlanLaunch[plan](maps, a, static_cast<float*>(m2), static_cast<float*>(s),
+                           static_cast<cudaStream_t>(stream));
 }
 
 // bf16 gp [N, E] contiguous, p [F, E] and sb [E] of z [N, F], g and out
 // [N, E] on TMA and wgmma. geometry: 4 x 5 int64, the tensor maps of z, g,
-// out and gp (ops/bottleneck_tail.py: reduce_tensor_map_geometry); (km,
-// kn, rows): the tile plan, chunk the rows a block (reduce_plan); partial:
-// fp32 [ceil(N / chunk), F + 1, E].
+// out and gp (ops/bottleneck_tail.py: reduce_tensor_map_geometry); plan: a
+// tail_bwd_reduce row of tail_plans.cuh, chunk the rows a block
+// (reduce_plan); partial: fp32 [ceil(N / chunk), F + 1, E].
 extern "C" int pdt_tail_bwd_reduce_tc(const void* z, const void* g, const void* out, void* gp,
-                                      const int64_t* geometry, int N, int F, int E, int km,
-                                      int kn, int rows, int chunk, void* partial, void* p,
-                                      void* sb, void* stream) {
+                                      const int64_t* geometry, int N, int F, int E, int plan,
+                                      int chunk, void* partial, void* p, void* sb,
+                                      void* stream) {
+  if (plan < 0 || plan >= kNumPlans || !kTilePlans[plan].gated) return kInvalid;
+  const TilePlan& t = kTilePlans[plan];
   const int64_t* geo = geometry;
-  if (bad_dims(N, F, E) || bad_chunk(chunk, rows) || geo[0] != F || geo[1] != N)
+  if (bad_dims(N, F, E) || bad_chunk(chunk, t.rows) || geo[0] != F || geo[1] != N)
     return kInvalid;
   for (int m = 1; m < 4; ++m)
     if (geo[5 * m] != E || geo[5 * m + 1] != N) return kInvalid;
   CUtensorMap maps[4];
   const void* ptrs[4] = {z, g, out, gp};
   for (int m = 0; m < 4; ++m) {
-    const int err = encode_rows(&maps[m], ptrs[m], geo + 5 * m, rows);
+    const int err = encode_rows(&maps[m], ptrs[m], geo + 5 * m, t.rows);
     if (err != 0) return err;
   }
-  const int n_ti = (F + km * kTile - 1) / (km * kTile);
-  const int n_tj = (E + kn * kTile - 1) / (kn * kTile);
+  const int n_ti = (F + t.km * kTile - 1) / (t.km * kTile);
+  const int n_tj = (E + t.kn * kTile - 1) / (t.kn * kTile);
   const ReduceArgs a{static_cast<float*>(partial), N, F, E, chunk, n_ti, n_ti * n_tj};
-  auto* pp = static_cast<float*>(p);
-  auto* sum = static_cast<float*>(sb);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (km == 1 && kn == 4 && rows == 64)
-    return launch_reduce_wgmma<true, 1, 4, 64, 3>(maps, a, pp, sum, st);
-  if (km == 2 && kn == 2 && rows == 64)
-    return launch_reduce_wgmma<true, 2, 2, 64, 4>(maps, a, pp, sum, st);
-  if (km == 8 && kn == 1 && rows == 32)
-    return launch_reduce_wgmma<true, 8, 1, 32, 5>(maps, a, pp, sum, st);
-  return kInvalid;
+  return kPlanLaunch[plan](maps, a, static_cast<float*>(p), static_cast<float*>(sb),
+                           static_cast<cudaStream_t>(stream));
 }
 
 // fp32 dz [N, F] contiguous from gp [N, E], z [N, F], w = [wa ; c] [E + F,

@@ -27,7 +27,8 @@ each kernel's launches and nothing else.
 
 The two reductions run ``tail_reduce_wgmma_kernel`` on bf16 rows (a TMA
 ring, wgmma, gp gated in shared memory; ``reduce_plan`` picks its tiles
-and ``reduce_tensor_map_geometry`` its tensor maps) and a CUDA-core kernel
+from ``csrc/tail_plans.cuh`` and ``reduce_tensor_map_geometry`` its tensor
+maps) and a CUDA-core kernel
 on fp32 rows (``reduce_grid``). Both are deterministic: each block writes
 its fp32 tile of one chunk of rows to a partial buffer ``[chunks, F + 1,
 n_b]`` (row F the column sums), which a merge kernel as wide as the card
@@ -38,7 +39,10 @@ kernels' sequential grid does.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+import functools
+import re
+from pathlib import Path
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,17 +57,33 @@ launch_counts = {MOMENTS: 0, BWD_REDUCE: 0, BWD_DZ: 0}
 _DTYPES = (torch.float32, torch.bfloat16)
 TILE = 64  # output tile edge of the reduction kernels; the dz kernel's TMA box
 STEP = 32  # contraction rows a block takes per step
-TARGET_BLOCKS = 4 * 132  # about four blocks per SM of an H100
+BLOCKS_PER_SM = 4  # of the fp32 reductions
 MIN_CHUNK = 128  # rows
-SMS = 132  # an H100's SMs: one block of the bf16 reductions on each
-# The bf16 reductions' tiles: (F up to, kM, kN, rows a stage) with the tile
-# kM x kN units of 64 x 64 (kM boxes of z's channels, kN of B's), the first
-# row whose bound covers F. tail_bwd_reduce's tiles span F, except at 128 <
-# F <= 256, where the F tiles of one row range run side by side and the
-# second reads g and out from L2; moments' square super-tiles take the upper
-# triangle. Each plan is one instantiation of tail_reduce_wgmma_kernel.
-REDUCE_TILES = ((64, 1, 4, 64), (256, 2, 2, 64), (None, 8, 1, 32))
-MOMENTS_TILES = ((64, 1, 1, 64), (None, 2, 2, 64))
+TILE_PLAN_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "tail_plans.cuh"
+
+
+class TilePlan(NamedTuple):
+    """A row of ``csrc/tail_plans.cuh``: the bf16 reduction's tile of ``km``
+    x ``kn`` units of 64 x 64 for ``gated`` (tail_bwd_reduce) or moments at
+    F up to ``f_max`` (0: any F), ``rows`` rows a ring stage of ``stages``."""
+    gated: bool
+    f_max: int
+    km: int
+    kn: int
+    rows: int
+    stages: int
+
+
+def _read_tile_plans() -> Tuple[TilePlan, ...]:
+    """The rows of ``csrc/tail_plans.cuh``, the table the kernel source
+    instantiates, in its order (a row's index names it to the kernel)."""
+    text = TILE_PLAN_SOURCE.read_text()
+    return tuple(TilePlan(bool(v[0]), *v[1:])
+                 for v in (tuple(int(x) for x in m.split(","))
+                           for m in re.findall(r"^TAIL_PLAN\(([^)]*)\)", text, re.M)))
+
+
+TILE_PLANS = _read_tile_plans()
 
 
 def reset_launch_counts() -> None:
@@ -109,33 +129,60 @@ def tail_bwd_dz_reference(gp, z, wa, c, dmn):
 
 # ---- the kernels ----
 
-def chunk_rows(n: int, n_tiles: int) -> int:
+@functools.lru_cache(maxsize=None)
+def card_sms(device: torch.device) -> int:
+    """The streaming multiprocessors of the card that holds ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def kernel_of(kernel_name: str) -> Optional[str]:
+    """The tail function (``MOMENTS``, ``BWD_REDUCE``, ``BWD_DZ``) that
+    launches the kernel of this (demangled) name in a profiler trace, else
+    None. The reductions are ``tail_reduce_wgmma_kernel<kGate, …>`` (bf16),
+    ``tail_reduce_kernel<kGate>`` (fp32; an older build's ``<T, kGate>``)
+    and their merge, ``tail_merge_kernel<kGate>``, kGate false for moments;
+    an older build merged in ``tail_sum_kernel<kMirror>``, kMirror true for
+    moments. dz is ``tail_dz_wgmma_kernel`` (bf16) or ``tail_dz_kernel``."""
+    name = kernel_name.lower()
+    if "tail_reduce" in name or "tail_merge_kernel" in name:
+        return BWD_REDUCE if "true" in name else MOMENTS
+    if "tail_sum_kernel" in name:
+        return MOMENTS if "true" in name else BWD_REDUCE
+    if "tail_dz" in name:
+        return BWD_DZ
+    return None
+
+
+def chunk_rows(n: int, n_tiles: int, sms: int) -> int:
     """Rows per block of a reduction over ``n`` rows with ``n_tiles``
-    output tiles: about ``TARGET_BLOCKS`` blocks in all, at least
-    ``MIN_CHUNK`` rows each, a multiple of ``STEP``."""
-    chunks = -(-TARGET_BLOCKS // n_tiles)
+    output tiles on a card of ``sms`` SMs: about ``BLOCKS_PER_SM`` blocks an
+    SM in all, at least ``MIN_CHUNK`` rows each, a multiple of ``STEP``."""
+    chunks = -(-BLOCKS_PER_SM * sms // n_tiles)
     rows = max(-(-n // chunks), MIN_CHUNK)
     return -(-rows // STEP) * STEP
 
 
-def reduce_grid(n: int, f: int, n_b: int, gated: bool) -> Tuple[int, int, Tuple[int, int, int]]:
+def reduce_grid(n: int, f: int, n_b: int, gated: bool,
+                sms: int) -> Tuple[int, int, Tuple[int, int, int]]:
     """``(output tiles, chunk rows, partial-buffer shape)`` of the fp32
     (CUDA-core) reduction ``zᵀB`` over ``n`` rows, z ``[n, f]`` and B
-    ``[n, n_b]``: moments
+    ``[n, n_b]``, on a card of ``sms`` SMs: moments
     (``gated=False``, B = z) computes the upper triangle of its 64x64 tiles,
     tail_bwd_reduce all of them. The fp32 partial buffer holds one
     ``[f + 1, n_b]`` slice per chunk of rows."""
     n_i, n_j = -(-f // TILE), -(-n_b // TILE)
     n_tiles = n_i * n_j if gated else n_i * (n_i + 1) // 2
-    chunk = chunk_rows(n, n_tiles)
+    chunk = chunk_rows(n, n_tiles, sms)
     return n_tiles, chunk, (-(-n // chunk), f + 1, n_b)
 
 
 class ReducePlan(NamedTuple):
-    """How the bf16 kernel splits a reduction ``zᵀB``: tiles of ``km`` x
-    ``kn`` units of 64 x 64, ``rows`` rows a ring stage (and a TMA box),
-    ``n_tiles`` tiles (moments: the upper triangle of its super-tiles),
-    ``chunk`` rows a block, and the fp32 partial buffer's shape."""
+    """How the bf16 kernel splits a reduction ``zᵀB``: row ``index`` of
+    ``TILE_PLANS``, its tiles of ``km`` x ``kn`` units of 64 x 64, ``rows``
+    rows a ring stage (and a TMA box), ``n_tiles`` tiles (moments: the upper
+    triangle of its super-tiles), ``chunk`` rows a block, and the fp32
+    partial buffer's shape."""
+    index: int
     km: int
     kn: int
     rows: int
@@ -144,20 +191,21 @@ class ReducePlan(NamedTuple):
     part_shape: Tuple[int, int, int]
 
 
-def reduce_plan(n: int, f: int, n_b: int, gated: bool) -> ReducePlan:
+def reduce_plan(n: int, f: int, n_b: int, gated: bool, sms: int) -> ReducePlan:
     """The bf16 reduction's plan over ``n`` rows, z ``[n, f]`` and B ``[n,
-    n_b]`` (``gated``: tail_bwd_reduce, else moments with ``n_b = f``): the
-    tile from ``REDUCE_TILES`` or ``MOMENTS_TILES``, and chunks of whole
-    64-row boxes (so of whole stages), about ``SMS`` blocks in all (one an
-    SM: each holds a ring of ~200 KB)."""
-    for limit, km, kn, rows in REDUCE_TILES if gated else MOMENTS_TILES:
-        if limit is None or f <= limit:
-            break
-    n_i = -(-f // (TILE * km))
-    n_tiles = n_i * -(-n_b // (TILE * kn)) if gated else n_i * (n_i + 1) // 2
-    per_block = -(-n // max(1, SMS // n_tiles))
+    n_b]`` (``gated``: tail_bwd_reduce, else moments with ``n_b = f``), on a
+    card of ``sms`` SMs: the first row of ``TILE_PLANS`` for the function
+    whose F bound covers ``f``, and chunks of whole 64-row boxes (so of whole
+    stages), about ``sms`` blocks in all (one an SM: each holds a ring of
+    ~200 KB)."""
+    index = next(i for i, t in enumerate(TILE_PLANS)
+                 if t.gated == gated and (not t.f_max or f <= t.f_max))
+    t = TILE_PLANS[index]
+    n_i = -(-f // (TILE * t.km))
+    n_tiles = n_i * -(-n_b // (TILE * t.kn)) if gated else n_i * (n_i + 1) // 2
+    per_block = -(-n // max(1, sms // n_tiles))
     chunk = -(-per_block // TILE) * TILE
-    return ReducePlan(km, kn, rows, n_tiles, chunk, (-(-n // chunk), f + 1, n_b))
+    return ReducePlan(index, t.km, t.kn, t.rows, n_tiles, chunk, (-(-n // chunk), f + 1, n_b))
 
 
 def reduce_tensor_map_geometry(box_rows: int, *xs: torch.Tensor) -> Tuple[Tuple[int, ...], ...]:
@@ -192,16 +240,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     # fp32: z, its row stride; N, F, chunk; partial, s, m2; stream
     lib.pdt_moments.argtypes = [p, i64, i, i, i, p, p, p, p]
     lib.pdt_moments.restype = i
-    # bf16: z, its tensor map; N, F; km, kn, rows, chunk; partial, s, m2; stream
-    lib.pdt_moments_tc.argtypes = [p, geometry, i, i, i, i, i, i, p, p, p, p]
+    # bf16: z, its tensor map; N, F; plan (a row of TILE_PLANS), chunk; partial,
+    # s, m2; stream
+    lib.pdt_moments_tc.argtypes = [p, geometry, i, i, i, i, p, p, p, p]
     lib.pdt_moments_tc.restype = i
     # fp32: z, g, out and their row strides, gp, chunk, partial, p, sb; N, F, E; stream
     lib.pdt_tail_bwd_reduce.argtypes = [p, i64, p, i64, p, i64, p, i, p, p, p, i, i, i, p]
     lib.pdt_tail_bwd_reduce.restype = i
-    # bf16: z, g, out, gp, their tensor maps; N, F, E; km, kn, rows, chunk;
-    # partial, p, sb; stream
-    lib.pdt_tail_bwd_reduce_tc.argtypes = [p, p, p, p, geometry, i, i, i, i, i, i, i, p, p, p,
-                                           p]
+    # bf16: z, g, out, gp, their tensor maps; N, F, E; plan, chunk; partial,
+    # p, sb; stream
+    lib.pdt_tail_bwd_reduce_tc.argtypes = [p, p, p, p, geometry, i, i, i, i, i, p, p, p, p]
     lib.pdt_tail_bwd_reduce_tc.restype = i
     lib.pdt_tail_bwd_dz.argtypes = [p, i64, p, i64, p, p, p, i, i, i, p]
     lib.pdt_tail_bwd_dz.restype = i
@@ -274,13 +322,13 @@ def moments(z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     m2 = torch.empty((f, f), dtype=torch.float32, device=z.device)
     lib = _library()
     if z.dtype == torch.bfloat16:
-        plan = reduce_plan(n, f, f, gated=False)
+        plan = reduce_plan(n, f, f, gated=False, sms=card_sms(z.device))
         partial = torch.empty(plan.part_shape, dtype=torch.float32, device=z.device)
         code = lib.pdt_moments_tc(
-            _ptr(z2), _geometry(reduce_tensor_map_geometry(plan.rows, z2)), n, f, plan.km,
-            plan.kn, plan.rows, plan.chunk, _ptr(partial), _ptr(s), _ptr(m2), _stream(z))
+            _ptr(z2), _geometry(reduce_tensor_map_geometry(plan.rows, z2)), n, f, plan.index,
+            plan.chunk, _ptr(partial), _ptr(s), _ptr(m2), _stream(z))
     else:
-        _, chunk, part_shape = reduce_grid(n, f, f, gated=False)
+        _, chunk, part_shape = reduce_grid(n, f, f, gated=False, sms=card_sms(z.device))
         partial = torch.empty(part_shape, dtype=torch.float32, device=z.device)
         code = lib.pdt_moments(_ptr(z2), z2.stride(0), n, f, chunk, _ptr(partial), _ptr(s),
                                _ptr(m2), _stream(z))
@@ -306,14 +354,14 @@ def tail_bwd_reduce(z: torch.Tensor, g: torch.Tensor, out: torch.Tensor):
     sb = torch.empty(e, dtype=torch.float32, device=z.device)
     lib = _library()
     if z.dtype == torch.bfloat16:
-        plan = reduce_plan(n, f, e, gated=True)
+        plan = reduce_plan(n, f, e, gated=True, sms=card_sms(z.device))
         partial = torch.empty(plan.part_shape, dtype=torch.float32, device=z.device)
         geometry = reduce_tensor_map_geometry(plan.rows, z2, g2, o2, gp)
         code = lib.pdt_tail_bwd_reduce_tc(
-            _ptr(z2), _ptr(g2), _ptr(o2), _ptr(gp), _geometry(geometry), n, f, e, plan.km,
-            plan.kn, plan.rows, plan.chunk, _ptr(partial), _ptr(p), _ptr(sb), _stream(z))
+            _ptr(z2), _ptr(g2), _ptr(o2), _ptr(gp), _geometry(geometry), n, f, e, plan.index,
+            plan.chunk, _ptr(partial), _ptr(p), _ptr(sb), _stream(z))
     else:
-        _, chunk, part_shape = reduce_grid(n, f, e, gated=True)
+        _, chunk, part_shape = reduce_grid(n, f, e, gated=True, sms=card_sms(z.device))
         partial = torch.empty(part_shape, dtype=torch.float32, device=z.device)
         code = lib.pdt_tail_bwd_reduce(
             _ptr(z2), z2.stride(0), _ptr(g2), g2.stride(0), _ptr(o2), o2.stride(0), _ptr(gp),

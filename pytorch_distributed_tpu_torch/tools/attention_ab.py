@@ -61,7 +61,8 @@ def worker(checkout: str) -> dict:
         return fa.flash_backward(q, k, v, o, lse, do, causal=True, scale=sc, bwd_impl="split")
 
     out = {"split backward call": cs.time_ms(torch, split, iters=20) * 1e3}
-    dev = cs.kernel_device_ms(torch, split, {"dQ": cs.is_dq_kernel, "dK/dV": cs.is_dkv_kernel})
+    dev = cs.kernel_device_ms(torch, split, {"dQ": (cs.is_dq_kernel, 1),
+                                             "dK/dV": (cs.is_dkv_kernel, 1)})
     out.update({f"{name} kernel (device)": ms * 1e3 for name, ms in dev.items()})
     del q, k, v, do, o, lse
     for label, inp in (("decode", cs.decode_inputs(torch, bf16)),
@@ -75,7 +76,7 @@ def worker(checkout: str) -> dict:
 
     out["split at decode (S = 8)"] = cs.time_ms(torch, paged_split) * 1e3
     out["split kernel at decode (device)"] = cs.kernel_device_ms(
-        torch, paged_split, {"k": is_split_kernel})["k"] * 1e3
+        torch, paged_split, {"k": (is_split_kernel, 1)})["k"] * 1e3
     return out
 
 

@@ -39,6 +39,7 @@ from pytorch_distributed_tpu_torch.data import (
     to_device,
 )
 from pytorch_distributed_tpu_torch.models.resnet import resnet50
+from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
 from pytorch_distributed_tpu_torch.recipes.serve_lm import full_config
 from pytorch_distributed_tpu_torch.tools.profile_serve import busy_share
 from pytorch_distributed_tpu_torch.train import (
@@ -52,6 +53,7 @@ from pytorch_distributed_tpu_torch.train import (
 GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 CONV_MARKS = ("conv", "fprop", "dgrad", "wgrad", "cudnn")
 TAIL_KINDS = ("tail moments", "tail_bwd_reduce", "tail_bwd_dz")
+_TAIL_KIND = dict(zip((bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ), TAIL_KINDS))
 
 
 def kind_of(kernel_name: str) -> str:
@@ -60,15 +62,9 @@ def kind_of(kernel_name: str) -> str:
         return "flash forward"
     if "flash_bwd" in name:  # the wgmma backward, the fp32 and dQ kernels
         return "flash backward"
-    # tail_reduce_wgmma_kernel<kGate, …> (bf16), tail_reduce_kernel<kGate> (an
-    # older build: <T, kGate>; fp32) and their merge, tail_merge_kernel<kGate>:
-    # kGate false is moments
-    if "tail_reduce" in name or "tail_merge_kernel" in name:
-        return "tail_bwd_reduce" if "true" in name else "tail moments"
-    if "tail_sum_kernel" in name:  # an older build's merge, <kMirror>: true is moments
-        return "tail moments" if "true" in name else "tail_bwd_reduce"
-    if "tail_dz" in name:  # tail_dz_wgmma_kernel (bf16), tail_dz_kernel (fp32)
-        return "tail_bwd_dz"
+    tail = bt.kernel_of(kernel_name)  # the three tail kernels, their merges
+    if tail is not None:
+        return _TAIL_KIND[tail]
     if "copy" in name:
         return "copies and casts"
     if any(m in name for m in CONV_MARKS):

@@ -13,8 +13,9 @@ the four downsample inputs (``chip_smoke.py``'s ``tail_shapes``: z ``[128,
 H, W, F]``, E = 4F, bf16, the operands of its ``tail_inputs``), each by
 CUDA events over 20 calls with the L2 flushed before each (its
 ``time_ms``) and by its kernels' device time in a profiler trace (its
-``kernel_device_ms``, the kernels matched as ``tools/profile_train.py``
-files them, an older build's too), and prints one JSON line. The last line
+``kernel_device_ms``, every launch of a call counted; the kernels named by
+this checkout's ``ops.bottleneck_tail.kernel_of``, which knows an older
+build's names too), and prints one JSON line. The last line
 printed is the median of each (checkout, entry) over its runs, with the
 card's name and power limit.
 """
@@ -32,13 +33,17 @@ from pathlib import Path
 THIS = Path(__file__).resolve().parents[2]
 
 
-def _load_chip_smoke(root: Path):
+def _load(name: str, path: Path):
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def _load_chip_smoke(root: Path):
+    return _load("chip_smoke", root / "chip_smoke.py")
 
 
 def worker(checkout: str) -> dict:
@@ -51,7 +56,10 @@ def worker(checkout: str) -> dict:
 
     from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
 
-    cs = _load_chip_smoke(THIS)  # the timer, the matchers, the operands: this checkout's
+    # the timer, the operands and the kernels' names: this checkout's
+    cs = _load_chip_smoke(THIS)
+    this_bt = _load("tail_kernel_names",
+                  THIS / "pytorch_distributed_tpu_torch" / "ops" / "bottleneck_tail.py")
     out = {}
     for label, (b, hw, f), names in cs.tail_shapes():
         z, g, o, wa, c, dmn = cs.tail_inputs(torch, torch.bfloat16, b, hw, f, seed=11)
@@ -61,7 +69,7 @@ def worker(checkout: str) -> dict:
                  "tail_bwd_dz": lambda: bt.tail_bwd_dz(gp, z, wa, c, dmn)}
         for name in names:
             out[f"{name} {label}"] = cs.time_ms(torch, calls[name], iters=20) * 1e3
-            match = {name: cs.is_tail_kind(cs.TAIL_KINDS[name])}
+            match = {name: (lambda k: this_bt.kernel_of(k) == name, cs.TAIL_LAUNCHES[name])}
             out[f"{name} {label}, device"] = cs.kernel_device_ms(
                 torch, calls[name], match)[name] * 1e3
         del z, g, o, gp

@@ -138,19 +138,21 @@ def test_reduce_grid_sizes_the_partial_buffer(b, hw, f):
     """The deterministic reductions' chunks and fp32 partial buffer at
     ResNet-50's four expand-tail shapes (B 128, E = 4F) and a ragged one:
     chunks of a multiple of 32 rows, at least 128, covering the N rows
-    exactly once; about four blocks per SM of an H100 where N allows; one
-    ``[F + 1, n_b]`` slice per chunk (row F the column sums), 8.7 to 14.7
-    MB at the stage shapes."""
+    exactly once; about four blocks per SM of an H100 (132 SMs) where N
+    allows; one ``[F + 1, n_b]`` slice per chunk (row F the column sums),
+    8.7 to 14.7 MB at the stage shapes."""
     n, e = b * hw * hw, 4 * f
+    target_blocks = 4 * 132
+    assert bt.BLOCKS_PER_SM == 4
     for gated, n_b in ((False, f), (True, e)):
-        n_tiles, chunk, shape = bt.reduce_grid(n, f, n_b, gated)
+        n_tiles, chunk, shape = bt.reduce_grid(n, f, n_b, gated, sms=132)
         n_i = -(-f // bt.TILE)
         assert n_tiles == (n_i * -(-e // bt.TILE) if gated else n_i * (n_i + 1) // 2)
         chunks = shape[0]
         assert chunk % bt.STEP == 0 and chunk >= bt.MIN_CHUNK
         assert (chunks - 1) * chunk < n <= chunks * chunk
         assert shape[1:] == (f + 1, n_b)
-        if n >= bt.TARGET_BLOCKS * bt.MIN_CHUNK:
-            assert bt.TARGET_BLOCKS * 0.9 <= n_tiles * chunks <= bt.TARGET_BLOCKS * 1.1
+        if n >= target_blocks * bt.MIN_CHUNK:
+            assert target_blocks * 0.9 <= n_tiles * chunks <= target_blocks * 1.1
         if b == 128:
             assert 8.7e6 <= 4 * np.prod(shape) <= 14.8e6

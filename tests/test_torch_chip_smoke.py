@@ -7,6 +7,7 @@ replaced; the bounds are checked against the shapes' arithmetic.
 """
 
 import importlib.util
+import types
 from pathlib import Path
 
 import numpy as np
@@ -72,8 +73,11 @@ def test_tail_checks_and_timings_rehearse_on_cpu(chip_smoke, capsys):
 
 
 def test_tail_bounds_at_resnet50_stage_shapes(chip_smoke):
-    """Stage 1 (z [401408, 64], E 256) is bound by bytes, stage 4's moments
-    and tail_bwd_dz (z [6272, 512], E 2048) by bf16 operations."""
+    """Stage 1 (z [401408, 64], E 256) is bound by bytes; at stage 4 (z
+    [6272, 512], E 2048) tail_bwd_dz by bf16 operations, moments by bytes:
+    its product is the upper triangle of zᵀz, F(F+1)/2 sums a row, which
+    bounds it by operations only at the widest downsample input (z [6272,
+    1024])."""
     bf16 = torch.bfloat16
     s1 = {k: chip_smoke.tail_bound(k, 401408, 64, 256, 2, bf16)
           for k in (bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ)}
@@ -82,10 +86,18 @@ def test_tail_bounds_at_resnet50_stage_shapes(chip_smoke):
     assert s1[bt.BWD_DZ]["flops"] == 2 * 401408 * 320 * 64
     assert all(v["bound_by"] == "bytes" for v in s1.values())
     assert s1[bt.BWD_REDUCE]["bound_ms"] == pytest.approx(0.1994, rel=1e-3)
+    assert s1[bt.MOMENTS]["flops"] == 2 * 401408 * (64 * 65 // 2)
     s4 = {k: chip_smoke.tail_bound(k, 6272, 512, 2048, 2, bf16)
           for k in (bt.MOMENTS, bt.BWD_DZ)}
-    assert all(v["bound_by"] == "operations" for v in s4.values())
+    assert s4[bt.BWD_DZ]["bound_by"] == "operations"
     assert s4[bt.BWD_DZ]["bound_ms"] == pytest.approx(2 * 6272 * 2560 * 512 / 989e12 * 1e3)
+    assert s4[bt.MOMENTS]["flops"] == 6272 * 512 * 513
+    assert s4[bt.MOMENTS]["bound_by"] == "bytes"
+    assert s4[bt.MOMENTS]["bound_ms"] == pytest.approx(
+        (6272 * 512 * 2 + (512 + 512 * 512) * 4) / 3.35e12 * 1e3)
+    widest = chip_smoke.tail_bound(bt.MOMENTS, 6272, 1024, 4096, 2, bf16)
+    assert widest["bound_by"] == "operations"
+    assert widest["bound_ms"] == pytest.approx(6272 * 1024 * 1025 / 989e12 * 1e3)
 
 
 def test_split_backward_checks_rehearse_on_cpu(chip_smoke, monkeypatch, capsys):
@@ -238,6 +250,81 @@ def test_ring_launch_expectations_follow_the_ring_schedule(chip_smoke, ranks):
         assert chip_smoke.ring_launches(layout, ranks) == scheduled
 
 
+class _FakeTrace:
+    """A ``torch.profiler.profile`` stand-in whose traces are given: each
+    ``with`` block yields the next list of (kernel name, launches, µs)."""
+
+    def __init__(self, traces):
+        self.traces, self.taken = list(traces), 0
+
+    def __call__(self, activities):
+        return self
+
+    def __enter__(self):
+        self.events = [types.SimpleNamespace(key=k, count=n, self_device_time_total=us)
+                       for k, n, us in self.traces[self.taken]]
+        self.taken += 1
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def key_averages(self):
+        return self.events
+
+
+def _unpatched_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def _fake_card():
+    flush = types.SimpleNamespace(zero_=lambda: None)
+    return types.SimpleNamespace(empty=lambda *a, **k: flush, uint8=None,
+                                 cuda=types.SimpleNamespace(synchronize=lambda: None))
+
+
+TAIL_MATCH = {"moments": (lambda k: bt.kernel_of(k) == bt.MOMENTS, 2),
+              "merge": (lambda k: "tail_merge" in k, 1)}
+FULL = [("tail_reduce_wgmma_kernel<false, 1, 1, 64, 12>", 10, 300.0),
+        ("tail_merge_kernel<false>", 10, 30.0), ("fill_kernel", 10, 5.0)]
+
+
+@pytest.mark.parametrize("traces, want_taken", [
+    ([FULL], 1),
+    # the profiler dropped the reduction (0.0 would read as time), then a merge
+    ([FULL[1:], [FULL[0], ("tail_merge_kernel<false>", 9, 27.0)], FULL], 3),
+])
+def test_device_times_count_every_launch(monkeypatch, traces, want_taken):
+    """``kernel_device_ms`` returns per-call means only from a trace that
+    holds every launch of the calls (10 calls of 2 kernels for moments: the
+    reduction and its merge), taking the trace again when launches are
+    missing."""
+    import torch.profiler
+
+    trace = _FakeTrace(traces)
+    monkeypatch.setattr(torch.profiler, "profile", trace)
+    got = _unpatched_chip_smoke().kernel_device_ms(_fake_card(), lambda: None, TAIL_MATCH)
+    assert trace.taken == want_taken
+    assert got == pytest.approx({"moments": 0.033, "merge": 0.003})
+
+
+def test_device_times_raise_when_launches_stay_missing(monkeypatch):
+    """Three traces short of launches (or with extra ones) raise, naming the
+    counts, and no time is returned."""
+    import torch.profiler
+
+    short = [FULL[0], ("tail_merge_kernel<false>", 9, 27.0)]
+    extra = [FULL[0], ("tail_merge_kernel<false>", 11, 33.0)]
+    trace = _FakeTrace([short, extra, short])
+    monkeypatch.setattr(torch.profiler, "profile", trace)
+    with pytest.raises(RuntimeError, match="not {'moments': 20, 'merge': 10}"):
+        _unpatched_chip_smoke().kernel_device_ms(_fake_card(), lambda: None, TAIL_MATCH)
+    assert trace.taken == 3
+
+
 @pytest.mark.parametrize("cards, want", [(0, (2, "gloo")), (1, (2, "gloo")), (2, (2, "nccl")),
                                          (4, (4, "nccl")), (8, (4, "nccl"))])
 def test_ring_phase_takes_its_ranks_from_the_cards(chip_smoke, cards, want):
@@ -291,15 +378,16 @@ def test_profiles_name_every_kernel_of_the_port(chip_smoke, kernel, kind):
     """``profile_train.kind_of`` files each kernel of the flash and tail
     sources, the wgmma kernels and the tail's merges and chunk sums (an older
     build's, as ``tools/tail_ab.py`` times a parent) included, under its
-    kernel, not under "other"; chip_smoke's device-time matches for the
-    tail kernels pick the same kernels, and its match for kernel 6's dK/dV
-    kernel picks the wgmma backward and not the dQ kernel."""
+    kernel, not under "other"; ``bottleneck_tail.kernel_of``, which both
+    it and chip_smoke's device-time matches read, names the same tail
+    function (and none for a flash kernel); chip_smoke's match for kernel
+    6's dK/dV kernel picks the wgmma backward and not the dQ kernel."""
     from pytorch_distributed_tpu_torch.tools.profile_train import kind_of
 
     assert kind_of(kernel) == kind
-    for name, tail_kind in chip_smoke.TAIL_KINDS.items():
-        assert chip_smoke.is_tail_kind(tail_kind)(kernel) == (kind == tail_kind), name
-    assert chip_smoke.is_dz_kernel(kernel) == (kind == "tail_bwd_dz")
+    tail = {"tail moments": bt.MOMENTS, "tail_bwd_reduce": bt.BWD_REDUCE,
+            "tail_bwd_dz": bt.BWD_DZ}.get(kind)
+    assert bt.kernel_of(kernel) == tail
     assert chip_smoke.is_dkv_kernel(kernel) == ("flash_bwd_wgmma" in kernel
                                                  or "flash_bwd_kernel" in kernel)
     assert chip_smoke.is_dq_kernel(kernel) == ("flash_bwd_dq" in kernel)

@@ -29,6 +29,8 @@ from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
 STAGES = [(128, 56, 64), (128, 28, 128), (128, 14, 256), (128, 7, 512)]
 DOWNSAMPLE = [(128, 56, 64), (128, 28, 256), (128, 14, 512), (128, 7, 1024)]
 BOX = 64
+H100_SMS = 132
+SMEM_PER_BLOCK = 227 * 1024  # Hopper's most dynamic shared memory a block
 
 
 def channels_last_rows(b, hw, c, dtype=torch.bfloat16, device="meta", pad=0):
@@ -56,9 +58,11 @@ def test_plan_tiles_and_chunks(b, hw, f, gated):
     the partial buffer holds one ``[F + 1, n_b]`` slice a chunk."""
     n = b * hw * hw
     n_b = 4 * f if gated else f
-    plan = bt.reduce_plan(n, f, n_b, gated)
+    plan = bt.reduce_plan(n, f, n_b, gated, H100_SMS)
     km, kn, rows = want_tiles(f, gated)
     assert (plan.km, plan.kn, plan.rows) == (km, kn, rows)
+    t = bt.TILE_PLANS[plan.index]
+    assert t.gated == gated and (t.km, t.kn, t.rows) == (km, kn, rows)
     n_i = -(-f // (BOX * km))
     want = n_i * -(-n_b // (BOX * kn)) if gated else n_i * (n_i + 1) // 2
     assert plan.n_tiles == want
@@ -67,9 +71,46 @@ def test_plan_tiles_and_chunks(b, hw, f, gated):
     assert (chunks - 1) * plan.chunk < n <= chunks * plan.chunk
     assert plan.part_shape[1:] == (f + 1, n_b)
     blocks = plan.n_tiles * chunks
-    assert blocks <= bt.SMS
-    if n >= bt.SMS * BOX * 4:
-        assert blocks >= 0.75 * bt.SMS
+    assert blocks <= H100_SMS
+    if n >= H100_SMS * BOX * 4:
+        assert blocks >= 0.75 * H100_SMS
+
+
+@pytest.mark.parametrize("sms", [78, 114, 132])
+def test_plan_chunks_follow_the_cards_sms(sms):
+    """The chunks are sized for the card the rows lie on: at stage 1 (one
+    tile) about one block an SM of an H100 PCIe (114), an H100 SXM (132) or
+    a smaller part (78), never more blocks than SMs."""
+    n = 128 * 56 * 56
+    for gated, n_b in ((False, 64), (True, 256)):
+        plan = bt.reduce_plan(n, 64, n_b, gated, sms)
+        assert plan.n_tiles == 1
+        assert 0.9 * sms <= plan.part_shape[0] <= sms
+
+
+def test_tile_plan_table_is_the_kernels():
+    """``TILE_PLANS`` is read from ``csrc/tail_plans.cuh``, the table the
+    kernel source instantiates (every bf16 reduction launch goes through
+    it, by row index): each function has rows ordered by F with a last row
+    for any F, every plan's chunk of rows is whole boxes, and each plan's
+    ring fits a block's shared memory."""
+    src = (bt.TILE_PLAN_SOURCE.parent / "bottleneck_tail.cu").read_text()
+    assert src.count('#include "tail_plans.cuh"') == 2
+    assert "tail_reduce_wgmma_kernel<" not in src.split("kPlanLaunch[] = {")[1].split("};")[0]
+    assert [(t.gated, t.km, t.kn, t.rows) for t in bt.TILE_PLANS] == [
+        (True, 1, 4, 64), (True, 2, 2, 64), (True, 8, 1, 32),
+        (False, 1, 1, 64), (False, 2, 2, 64)]
+    for gated in (True, False):
+        rows = [t for t in bt.TILE_PLANS if t.gated == gated]
+        assert [t.f_max for t in rows][-1] == 0
+        limits = [t.f_max for t in rows][:-1]
+        assert limits == sorted(limits) and all(limit % BOX == 0 for limit in limits)
+        for t in rows:
+            assert BOX % t.rows == 0 and t.rows % 32 == 0
+            assert gated or t.km == t.kn
+            boxes = t.km + (2 if gated else 1) * t.kn
+            assert 1024 + t.stages * (boxes * t.rows * 128 + 16) <= SMEM_PER_BLOCK
+            assert t.stages >= 3
 
 
 @pytest.mark.parametrize("b,hw,f", STAGES)
@@ -77,7 +118,7 @@ def test_reduce_tiles_read_g_and_out_once_at_the_stages(b, hw, f):
     """At ResNet-50's four stages g and out, three quarters of
     tail_bwd_reduce's bytes, go to one block a row range: the tile spans F,
     or (F = 256) the F tiles of a row range are neighbours in block order."""
-    plan = bt.reduce_plan(b * hw * hw, f, 4 * f, gated=True)
+    plan = bt.reduce_plan(b * hw * hw, f, 4 * f, gated=True, sms=H100_SMS)
     n_i = -(-f // (BOX * plan.km))
     assert n_i == (2 if f == 256 else 1)
 
@@ -94,7 +135,7 @@ def test_geometry_of_z_g_out_and_gp(b, hw, f, pad):
     g, out = channels_last_rows(b, hw, e), channels_last_rows(b, hw, e, pad=pad)
     gp = torch.empty((n, e), dtype=torch.bfloat16, device="meta")
     for gated in (False, True):
-        rows = bt.reduce_plan(n, f, e if gated else f, gated).rows
+        rows = bt.reduce_plan(n, f, e if gated else f, gated, H100_SMS).rows
         maps = bt.reduce_tensor_map_geometry(rows, z, g, out, gp) if gated else (
             bt.reduce_tensor_map_geometry(rows, z))
         want = [(f, n, 2 * (f + pad), BOX, rows)]
@@ -130,7 +171,7 @@ def emulate(z2, g2=None, o2=None, plan=None):
     gated = g2 is not None
     n, f = z2.shape
     n_b = g2.shape[1] if gated else f
-    plan = plan or bt.reduce_plan(n, f, n_b, gated)
+    plan = plan or bt.reduce_plan(n, f, n_b, gated, H100_SMS)
     km, kn, rows = plan.km, plan.kn, plan.rows
     gp = torch.zeros((n, n_b), dtype=torch.bfloat16) if gated else None
     maps = (bt.reduce_tensor_map_geometry(rows, z2, g2, o2, gp) if gated
@@ -271,13 +312,15 @@ class FakeLibrary:
                                         (torch.float32, "pdt_moments")])
 def test_moments_routes_bf16_to_the_wgmma_kernel_and_fp32_to_cuda_cores(dtype, want,
                                                                        monkeypatch):
-    """bf16 rows: the TMA + wgmma entry point with z's map and the plan;
-    fp32 rows: the CUDA-core entry point with z's row stride and the fp32
-    grid's chunk. One launch counted either way."""
+    """bf16 rows: the TMA + wgmma entry point with z's map and the plan's
+    row and chunk; fp32 rows: the CUDA-core entry point with z's row stride
+    and the fp32 grid's chunk; both sized for the card's SM count. One
+    launch counted either way."""
     lib = FakeLibrary()
     monkeypatch.setattr(bt, "_library", lambda: lib)
     monkeypatch.setattr(bt, "_on", lambda x, name: False)  # as a CUDA tensor is routed
     monkeypatch.setattr(bt, "_stream", lambda t: ctypes.c_void_p(None))
+    monkeypatch.setattr(bt, "card_sms", lambda device: 1)
     b, hw, f = 2, 7, 64
     n = b * hw * hw
     z = channels_last_rows(b, hw, f, dtype, "cpu", pad=8).view(b, hw, hw, f)
@@ -288,11 +331,14 @@ def test_moments_routes_bf16_to_the_wgmma_kernel_and_fp32_to_cuda_cores(dtype, w
     assert bt.launch_counts == {bt.MOMENTS: 1, bt.BWD_REDUCE: 0, bt.BWD_DZ: 0}
     args = lib.calls[0][1]
     if dtype == torch.bfloat16:
-        plan = bt.reduce_plan(n, f, f, gated=False)
+        plan = bt.reduce_plan(n, f, f, gated=False, sms=1)
+        assert plan.chunk != bt.reduce_plan(n, f, f, gated=False, sms=H100_SMS).chunk
         assert list(args[1]) == [f, n, 2 * (f + 8), BOX, plan.rows]
-        assert args[2:8] == (n, f, plan.km, plan.kn, plan.rows, plan.chunk)
+        assert args[2:6] == (n, f, plan.index, plan.chunk)
+        assert not bt.TILE_PLANS[plan.index].gated
     else:
-        assert args[1] == f + 8 and args[2:5] == (n, f, bt.reduce_grid(n, f, f, False)[1])
+        chunk = bt.reduce_grid(n, f, f, False, sms=1)[1]
+        assert args[1] == f + 8 and args[2:5] == (n, f, chunk)
 
 
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "pdt_tail_bwd_reduce_tc"),
@@ -300,12 +346,14 @@ def test_moments_routes_bf16_to_the_wgmma_kernel_and_fp32_to_cuda_cores(dtype, w
 def test_tail_bwd_reduce_routes_bf16_to_the_wgmma_kernel_and_fp32_to_cuda_cores(
         dtype, want, monkeypatch):
     """bf16 rows: the TMA + wgmma entry point with the maps of z, g, out and
-    gp and the plan; fp32 rows: the CUDA-core entry point with the row
-    strides. One launch counted either way; gp shaped as g."""
+    gp and the plan's row and chunk; fp32 rows: the CUDA-core entry point
+    with the row strides; both sized for the card's SM count. One launch
+    counted either way; gp shaped as g."""
     lib = FakeLibrary()
     monkeypatch.setattr(bt, "_library", lambda: lib)
     monkeypatch.setattr(bt, "_on", lambda x, name: False)
     monkeypatch.setattr(bt, "_stream", lambda t: ctypes.c_void_p(None))
+    monkeypatch.setattr(bt, "card_sms", lambda device: 1)
     b, hw, f = 2, 7, 128
     e, n = 4 * f, b * hw * hw
     z = channels_last_rows(b, hw, f, dtype, "cpu").view(b, hw, hw, f)
@@ -319,13 +367,15 @@ def test_tail_bwd_reduce_routes_bf16_to_the_wgmma_kernel_and_fp32_to_cuda_cores(
     assert bt.launch_counts == {bt.MOMENTS: 0, bt.BWD_REDUCE: 1, bt.BWD_DZ: 0}
     args = lib.calls[0][1]
     if dtype == torch.bfloat16:
-        plan = bt.reduce_plan(n, f, e, gated=True)
+        plan = bt.reduce_plan(n, f, e, gated=True, sms=1)
         r = plan.rows
         assert list(args[4]) == [f, n, 2 * f, BOX, r, e, n, 2 * e, BOX, r,
                                  e, n, 2 * (e + 8), BOX, r, e, n, 2 * e, BOX, r]
-        assert args[5:12] == (n, f, e, plan.km, plan.kn, plan.rows, plan.chunk)
+        assert args[5:10] == (n, f, e, plan.index, plan.chunk)
+        assert bt.TILE_PLANS[plan.index].gated
     else:
         assert (args[1], args[3], args[5]) == (f, e, e + 8)
+        assert args[7] == bt.reduce_grid(n, f, e, True, sms=1)[1]
         assert args[11:14] == (n, f, e)
 
 
