@@ -16,9 +16,13 @@ Phases, each of which fails the run:
       row tiles of the bf16 sweep's tensor-core kernel), the bf16 split
       (``paged_split_tc_kernel``) at every check that splits (decode, q a
       strided view, GQA R = 20 and R = 80 with S = 3, D = 128) and at a
-      forced S = 16, each split also bitwise over two launches; their
-      int8 / fp8 e4m3 / fp8 e5m2 dequantizing variants at the decode shape and on a
-      32-row chunk, with bf16 and fp32 q; the quantize-on-scatter kernel
+      forced S = 16, each split also bitwise over two launches; the
+      int8 / fp8 e4m3 / fp8 e5m2 pools at the decode shape and on a 32-row
+      chunk with bf16 q (the tensor-core kernels: codes widened in the
+      products, scales outside them) and fp32 q (the CUDA-core walk), and
+      with bf16 q at the bf16 route's other shapes (GQA R = 20 and R = 80
+      with padding and fully masked rows, D = 128), each split bitwise over
+      two launches; the quantize-on-scatter kernel
       bit-equal, in the three pool dtypes, at a chunk shape (8 jobs x 32
       rows) and the decode shape (8 rows), rows whose amax spans 1e-8 to
       1e4; the flash forward (O, LSE) and fused backward (dQ, dK, dV) at
@@ -43,7 +47,8 @@ Phases, each of which fails the run:
       from seed 0): ``Scheduler`` serves 16 requests, then the final prefill
       logits of the kernel path against a plain-attention run; the same 16
       requests on int8, fp8 and fp8_e5m2 pools of the bf16 pool's bytes
-      (more blocks), with their greedy match against the bf16 serve; a
+      (more blocks), with their greedy match against the bf16 serve, each
+      serve's sweep and split launches all on the tensor-core route; a
       prefix-sharing serve (16 requests on a 512-token shared prefix,
       staggered) against prefix off; an over-committed fp8 serve that
       preempts on OOM, by swap and by recompute, against the ample one;
@@ -69,9 +74,11 @@ Phases, each of which fails the run:
       (the flash calls also by their kernels' device time):
       the paged kernels at the decode shape (library: SDPA on pre-gathered
       K/V; no PyTorch call reads int8/fp8 K/V with per-row scales, so the
-      quantized variants and the scatter have none; the bf16 split also by
-      its kernel's device time), the bf16 sweep also at
-      the prefill chunk where the serve runs it (B 4 x C 32, W 64), the
+      quantized variants and the scatter have none, and the quantized
+      variants give the spelling's time instead: gather, dequantize, SDPA;
+      the splits and the quantized sweeps also by their kernel's device
+      time), the sweeps also at the prefill chunk where the serve runs them
+      (B 4 x C 32, W 64), the
       scatter at the chunk and decode shapes, the flash kernels at the training shape
       (library: causal SDPA, forward, and its backward through autograd),
       the tail kernels at ResNet-50's four stage shapes and moments also at
@@ -299,6 +306,33 @@ def quantized(torch, inp, kv):
     return dict(inp, k_pool=kq, v_pool=vq, k_scale=ks, v_scale=vs)
 
 
+def quant_spelling(torch, inp):
+    """The quantized paged call spelled in PyTorch calls, its yardstick (no
+    single PyTorch call reads int8/fp8 K/V with per-row scales): the codes
+    and scales gathered through the tables, dequantized to q's dtype, each
+    KV head repeated for its G query heads, then SDPA with the position
+    mask. Returns the call."""
+    import torch.nn.functional as F
+
+    from pytorch_distributed_tpu_torch.serving.kv_pool import scale_factors
+
+    q, kp = inp["q"], inp["k_pool"]
+    b, c, h, d = q.shape
+    bl, h_kv = kp.shape[1], kp.shape[2]
+    w = inp["block_tables"].shape[1]
+    idx = inp["block_tables"].long()
+    qt = q.transpose(1, 2)
+    mask = (torch.arange(w * bl, device=q.device)[None, None, None, :]
+            <= inp["q_positions"].long()[:, None, :, None])
+
+    def call():
+        kv = [(pool[idx].float() * scale_factors(sc)[idx][..., None]).to(q.dtype)
+              .reshape(b, w * bl, h_kv, d).repeat_interleave(h // h_kv, dim=2).transpose(1, 2)
+              for pool, sc in ((kp, inp["k_scale"]), (inp["v_pool"], inp["v_scale"]))]
+        return F.scaled_dot_product_attention(qt, *kv, attn_mask=mask)
+    return call
+
+
 def scatter_inputs(torch, kv, dtype, *, b, l, h=12, d=64, bl=16, n_blocks=1025, seed=0):
     """Quantize-on-scatter operands on the card: k, v ``[B, L, H, D]`` as
     views of a fused ``[B, L, 3, H, D]`` qkv, each (row, head) scaled so
@@ -452,10 +486,12 @@ def kernel_device_ms(torch, fn, match, iters=10, attempts=3) -> dict:
     makes of the kernels it picks)``. The profiler can drop kernels from a
     trace, so a trace counts only when it holds exactly ``iters`` times each
     entry's launches; another is taken, up to ``attempts`` traces, and then
-    this raises: a missed launch never reads as a shorter time."""
+    this raises: a missed launch never reads as a shorter time. A few
+    small unmatched kernels end each trace."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    pad = torch.empty(1, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
     want = {name: iters * launches for name, (_, launches) in match.items()}
@@ -464,6 +500,8 @@ def kernel_device_ms(torch, fn, match, iters=10, attempts=3) -> dict:
             for _ in range(iters):
                 flush.zero_()
                 fn()
+            for _ in range(4):
+                pad.zero_()
             torch.cuda.synchronize()
         out, seen = matched_device_ms(prof.key_averages(), match, iters)
         if seen == want:
@@ -496,8 +534,15 @@ def is_dkv_kernel(name: str) -> bool:
 
 
 def is_split_kernel(name: str) -> bool:
-    """Kernel 8 in a profiler trace (``paged_split_tc_kernel`` on bf16 pools)."""
+    """Kernel 8 in a profiler trace (``paged_split_tc_kernel``, bf16 q on
+    bf16, int8 and fp8 pools)."""
     return "paged_split_tc" in name
+
+
+def is_sweep_kernel(name: str) -> bool:
+    """Kernel 7 in a profiler trace (``paged_sweep_tc_kernel``, bf16 q on
+    bf16, int8 and fp8 pools)."""
+    return "paged_sweep_tc" in name
 
 
 def is_dq_kernel(name: str) -> bool:
@@ -1161,8 +1206,10 @@ def main(argv) -> int:
               paged_attention_reference(**wide), tol)
         check_split_repeat(f"D=128 {dtype}", wide, 2)
 
-    # the dequantizing variants: pools quantized by the plain quantize_kv
-    decode_q = {}
+    # the quantized pools, quantized by the plain quantize_kv: bf16 q runs
+    # the tensor-core kernels (codes widened in the products, scales outside
+    # them), fp32 q the CUDA-core walk, which dequantizes to fp32
+    decode_q, chunk_q = {}, {}
     for kv in QUANT:
         for dtype, tol in ((bf16, BF16_TOL), (f32, FP32_TOL)):
             for label, decode in (("decode B=8 C=1 H=12 D=64 W=128", True),
@@ -1172,14 +1219,36 @@ def main(argv) -> int:
                 inp = quantized(torch, raw, kv)
                 inp["q"] = inp["q"].to(dtype)
                 ref = paged_attention_reference(**inp)
+                route = paged_flash.sweep_kernel(dtype, inp["k_pool"].dtype, 64, 16)
                 for name, split_s in ((paged_flash.SWEEP, 1), (paged_flash.SPLIT, None)):
-                    err = check(f"{label} {kv} pools, {dtype} q, {name}",
+                    err = check(f"{label} {kv} pools, {dtype} q, {name} ({route})",
                                 paged_flash.paged_flash_attention(**inp, split_s=split_s),
                                 ref, tol)
                     if dtype == bf16 and decode:
                         errs[paged_flash.variant(name, inp["k_pool"].dtype)] = err
-                if dtype == bf16 and decode:
-                    decode_q[kv] = inp
+                if dtype == bf16:
+                    check_split_repeat(f"{label} {kv} pools, bf16 q, auto split", inp, None)
+                    (decode_q if decode else chunk_q)[kv] = inp
+        # the shapes the bf16 tensor-core route is held at: GQA with padding
+        # and fully masked rows (R = 20), R = 80 (two sweep row tiles, three
+        # split ones), D = 128
+        shapes = (
+            ("GQA H=8 H_kv=2 C=5 padding rows", (1, 3), dict(
+                b=3, c=5, h=8, h_kv=2, w=8, seed=3,
+                positions=np.array([[40, 41, 42, 43, 44], [3, 9, -1, -1, -1], [-1] * 5]))),
+            ("GQA H=8 H_kv=2 C=20 (R=80) padding rows", (1, 3), dict(
+                b=3, c=20, h=8, h_kv=2, w=16, seed=9,
+                positions=np.stack([180 + np.arange(20), np.r_[40 + np.arange(7), [-1] * 13],
+                                    np.full(20, -1)]))),
+            ("D=128", (1, 2), dict(b=2, c=2, h=2, h_kv=2, d=128, w=8, seed=4)))
+        for label, splits, shape in shapes:
+            inp = quantized(torch, decode_inputs(torch, f32, **shape), kv)
+            inp["q"] = inp["q"].to(bf16)
+            ref = paged_attention_reference(**inp)
+            for split_s in splits:
+                check(f"{label} {kv} pools, bf16 q, split_s={split_s}",
+                      paged_flash.paged_flash_attention(**inp, split_s=split_s), ref, BF16_TOL)
+            check_split_repeat(f"{label} {kv} pools, bf16 q", inp, splits[-1])
 
     # quantize-on-scatter: bit-equal to the plain version (the trash block,
     # where the dead lane's rows land in no fixed order, aside)
@@ -1262,8 +1331,19 @@ def main(argv) -> int:
 
     def all_launches():
         return {k: v for counts in (paged_flash.launch_counts,
-                                    paged_flash.quant_launch_counts)
+                                    paged_flash.quant_launch_counts,
+                                    paged_flash.route_launch_counts)
                 for k, v in counts.items() if v}
+
+    def on_tensor_cores(label, launches, sweep, split):
+        """Fails the run unless the serve launched the sweep and the split
+        (``sweep`` and ``split`` times) and every launch took the
+        tensor-core route."""
+        tc = [launches.get(paged_flash.route_key(k, paged_flash.TENSOR_CORES), 0)
+              for k in (paged_flash.SWEEP, paged_flash.SPLIT)]
+        if not (sweep > 0 and split > 0 and tc == [sweep, split]):
+            raise SystemExit(f"chip_smoke: {label}: the sweep and split launches did not all "
+                             f"take the tensor-core route: {launches}")
 
     def serve(label, reqs, *, stagger=0, **kw):
         """Serve ``reqs`` (``stagger`` steps between submissions) through
@@ -1315,12 +1395,8 @@ def main(argv) -> int:
         return all_launches()
 
     sched, bf16_streams, m, wall, launches = serve("bf16 pools", prompts)
-    if not all(launches.get(k, 0) > 0 for k in (paged_flash.SWEEP, paged_flash.SPLIT)):
-        raise SystemExit(f"chip_smoke: a kernel never ran on the main path: {launches}")
-    if paged_flash.sweep_kernel(bf16, bf16, cfg.head_dim, serve_kw["block_len"]) != (
-            paged_flash.TENSOR_CORES):
-        raise SystemExit("chip_smoke: the serve's bf16 pools do not route to the tensor-core "
-                         "sweep and split")
+    on_tensor_cores("bf16 pools", launches, launches.get(paged_flash.SWEEP, 0),
+                    launches.get(paged_flash.SPLIT, 0))
     print(f"(c) launches per decode tick: {per_tick(sched.engine)}")
     n_bf16 = sched.engine.allocator.n_blocks
     del sched
@@ -1387,6 +1463,7 @@ def main(argv) -> int:
                 tick.get(k, 0) == cfg.num_layers for k in names[1:]):
             raise SystemExit(f"chip_smoke: {kv}: a quantized kernel did not run on the "
                              f"main path: serve {lq}, tick {tick}")
+        on_tensor_cores(f"{kv} pools", lq, lq[names[0]], lq[names[1]])
         del sched
         torch.cuda.empty_cache()
 
@@ -1567,21 +1644,54 @@ def main(argv) -> int:
           f"{pbd['flops'] / 1e6:.1f} MFLOP)")
     del pqg, pkg, pvg, pmask
 
-    # the dequantizing variants at the decode shape (bf16 q) and the scatter
-    # at the chunk and decode shapes; no single PyTorch call reads int8/fp8
-    # K/V with per-row scales, so these have no library time
+    # the quantized pools with bf16 q (the tensor-core kernels) at the decode
+    # shape, the sweep also at the prefill chunk, where the serve runs it
+    # (its 276 launches a serve are all prefill calls), each also by its
+    # kernel's device time; the scatter at the chunk and decode shapes. No
+    # single PyTorch call reads int8/fp8 K/V with per-row scales, so these
+    # have no library time; the spelling (gather, dequantize, SDPA) stands
+    # beside them
+    quant_extra = {}
+    kernel_names = {paged_flash.SWEEP: "paged_sweep_tc_kernel",
+                    paged_flash.SPLIT: "paged_split_tc_kernel"}
+    matches = {paged_flash.SWEEP: is_sweep_kernel, paged_flash.SPLIT: is_split_kernel}
     for kv, inp in decode_q.items():
         bq = bound(inp)
         q_plain = time_ms(torch, lambda: paged_attention_reference(**inp))
+        q_spell = time_ms(torch, quant_spelling(torch, inp))
         for name, split_s in ((paged_flash.SWEEP, 1), (paged_flash.SPLIT, None)):
             key = paged_flash.variant(name, inp["k_pool"].dtype)
-            timed[key] = time_ms(torch, lambda: paged_flash.paged_flash_attention(
-                **inp, split_s=split_s))
+            call = lambda: paged_flash.paged_flash_attention(**inp, split_s=split_s)  # noqa: E731
+            timed[key] = time_ms(torch, call)
+            dev_ms = kernel_device_ms(torch, call, {key: (matches[name], 1)})[key]
             plains[key], bounds[key] = q_plain, bq
+            quant_extra[key] = {"kernel": f"{kernel_names[name]}[{kv}]", "device_ms": dev_ms,
+                                "spelling_ms": q_spell}
             print(f"(d) {key} at decode B=8 H=12 D=64 W=128, bf16 q, on {card}: "
-                  f"{timed[key] * 1e3:.1f} us per call, plain {q_plain * 1e3:.1f} us, bound "
+                  f"{timed[key] * 1e3:.1f} us per call ({kernel_names[name]} "
+                  f"{dev_ms * 1e3:.1f} us device time), plain {q_plain * 1e3:.1f} us, "
+                  f"spelling (gather, dequantize, SDPA) {q_spell * 1e3:.1f} us, bound "
                   f"{bq['bound_ms'] * 1e3:.2f} us ({bq['bound_by']}: {bq['bytes'] / 1e6:.2f} "
                   f"MB, {bq['bound_ms'] / bd['bound_ms']:.2f}x the bf16 bound)")
+        cinp = chunk_q[kv]
+        key = paged_flash.variant(paged_flash.SWEEP, cinp["k_pool"].dtype)
+        call = lambda: paged_flash.paged_flash_attention(**cinp, split_s=1)  # noqa: E731
+        cbd = bound(cinp)
+        extra = {
+            "prefill_ms": time_ms(torch, call),
+            "prefill_device_ms": kernel_device_ms(
+                torch, call, {key: (is_sweep_kernel, 1)})[key],
+            "prefill_plain_ms": time_ms(torch, lambda: paged_attention_reference(**cinp)),
+            "prefill_spelling_ms": time_ms(torch, quant_spelling(torch, cinp)),
+            "prefill_bound_ms": cbd["bound_ms"],
+        }
+        quant_extra[key].update(extra)
+        print(f"(d) {key} at prefill chunk B=4 C=32 H=12 D=64 W=64, bf16 q, on {card}: "
+              f"{extra['prefill_ms'] * 1e3:.1f} us per call (paged_sweep_tc_kernel "
+              f"{extra['prefill_device_ms'] * 1e3:.1f} us device time), plain "
+              f"{extra['prefill_plain_ms'] * 1e3:.1f} us, spelling "
+              f"{extra['prefill_spelling_ms'] * 1e3:.1f} us, bound {cbd['bound_ms'] * 1e3:.2f} us "
+              f"({cbd['bound_by']}: {cbd['bytes'] / 1e6:.2f} MB, {cbd['flops'] / 1e6:.1f} MFLOP)")
     for kv in QUANT:
         for label, (b_, l_) in (("chunk 8 jobs x 32 rows", (8, 32)), ("decode 8 rows", (8, 1))):
             args = scatter_inputs(torch, kv, bf16, b=b_, l=l_, seed=8)
@@ -1685,6 +1795,8 @@ def main(argv) -> int:
         **(pre if name == paged_flash.SWEEP else {}),
         **({"kernel": "paged_split_tc_kernel", "device_ms": split_device_ms}
            if name == paged_flash.SPLIT else {}),
+        **({"kernel": "paged_sweep_tc_kernel"} if name == paged_flash.SWEEP else {}),
+        **quant_extra.get(name, {}),
     } for name in timed]
     flash_replaces = {FWD: "pytorch_distributed_tpu/ops/flash_attention.py:138",
                       BWD: "pytorch_distributed_tpu/ops/flash_attention.py:375"}

@@ -22,21 +22,24 @@
 //
 // Pools are q's dtype, or quantized: int8 rows with an fp32 scale, or
 // fp8 (e4m3 / e5m2) rows with an int8 exponent e, one per (block, slot,
-// KV head) in scales [n_blocks, bl, H_kv]. A quantized row is dequantized
-// to fp32 as it is loaded, float(q) * scale or float(q) * 2^e, with 2^e
-// built exactly from its exponent bits. V is then fp32, so p stays fp32
-// for PV there.
+// KV head) in scales [n_blocks, bl, H_kv]. The reference dequantizes a
+// row to fp32, code * scale or code * 2^e (2^e built here exactly from its
+// exponent bits), and keeps p in fp32 for PV there.
 //
-// What bounds it on the H100: the bytes of the attended K/V chain. Each
-// pool element it reads feeds ~2 flops per query row (R = G * C rows share
-// a KV head; R = 1 for an MHA decode tick), far below the ~295 flops/byte
+// What bounds it on the H100: the bytes of the attended K/V chain (on a
+// quantized pool its one-byte codes plus a scale a row). Each pool
+// element it reads feeds ~2 flops per query row (R = G * C rows share a
+// KV head; R = 1 for an MHA decode tick), far below the ~295 flops/byte
 // where the tensor cores would be the limit, so the least time is the
 // visible chain's bytes over 3.35 TB/s.
 //
-// What the design does about it: the single sweep and the split on bf16
-// pools with bf16 q are paged_sweep_tc_kernel and paged_split_tc_kernel,
-// below (tensor cores, a TMA ring, 64-row tiles). Every other sweep and
-// split is the CUDA-core walk:
+// What the design does about it: the single sweep and the split with bf16
+// q on bf16, int8, fp8 e4m3 and fp8 e5m2 pools are paged_sweep_tc_kernel
+// and paged_split_tc_kernel, below (tensor cores, a TMA ring, 64-row
+// tiles; on a quantized pool the codes land as they are, half a bf16
+// stage's bytes, and the scales stay outside the products). fp32 q and
+// fp32 pools, and the head dims and block lengths the TMA boxes do not
+// take, run the CUDA-core walk:
 //   - One thread block per (row tile, KV head, batch row[, split worker])
 //     reads its own table entries; the TPU's sequential chain axis becomes
 //     a loop. Its 4 warps take every 4th pool block of the range, each with
@@ -53,9 +56,9 @@
 //     of few, long requests fills the 132 SMs; the last of the S blocks to
 //     finish (an atomic ticket) merges the S fp32 partials and writes the
 //     output, so the merge costs no second launch.
-// The walk's row tile is kRows = 8 rows, so a prefill chunk of R = 32 rows
-// reads its chain four times; tensor cores and a TMA ring for the
-// quantized and fp32 pools are later work.
+// The walk dequantizes a quantized row to fp32 as it loads it. Its row
+// tile is kRows = 8 rows, so a prefill chunk of R = 32 rows reads its
+// chain four times.
 
 #include <cuda_fp8.h>
 #include <math.h>
@@ -88,6 +91,13 @@ constexpr int kNoScale = 0;
 constexpr int kMultiplier = 1;
 constexpr int kExponent = 2;
 
+// Pool kinds, as the entry points' `pool` argument: pools in q's dtype, or
+// int8 / fp8 e4m3 / fp8 e5m2 codes.
+constexpr int kPoolFloat = 0;
+constexpr int kPoolInt8 = 1;
+constexpr int kPoolE4M3 = 2;
+constexpr int kPoolE5M2 = 3;
+
 // the dequantization factor of scales[i]
 template <int kScale>
 __device__ __forceinline__ float row_scale(const void* scales, int64_t i) {
@@ -95,6 +105,22 @@ __device__ __forceinline__ float row_scale(const void* scales, int64_t i) {
   if constexpr (kScale == kExponent)
     return pow2(__ldg(static_cast<const signed char*>(scales) + i));
   return 1.f;
+}
+
+// scales[i] as loaded, for the tensor-core producer's registers: the fp32
+// multiplier, or the int8 exponent's sign-extended bits (the load feeds no
+// instruction until scale_of, so the warp does not wait for it)
+template <int kScale>
+__device__ __forceinline__ float raw_scale(const void* scales, int64_t i) {
+  if constexpr (kScale == kMultiplier) return __ldg(static_cast<const float*>(scales) + i);
+  return __int_as_float(__ldg(static_cast<const signed char*>(scales) + i));
+}
+
+// the dequantization factor of a raw_scale
+template <int kScale>
+__device__ __forceinline__ float scale_of(float raw) {
+  if constexpr (kScale == kMultiplier) return raw;
+  return pow2(__float_as_int(raw));
 }
 
 template <typename T>
@@ -410,8 +436,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
 }
 
 // ---------------------------------------------------------------------------
-// The single sweep and the split on bf16 pools with bf16 q, on tensor
-// cores, fed by TMA: one body, paged_tc_body, and two kernels.
+// The single sweep and the split with bf16 q on bf16, int8 and fp8 pools,
+// on tensor cores, fed by TMA: one body, paged_tc_body, and two kernels,
+// templated on the pool kind.
 //
 // One thread block per (row tile, KV head, batch row[, split worker]): the
 // sweep's four consumer warps take tiles of up to 64 rows, so every R = G *
@@ -447,6 +474,41 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
 //     group running ahead must never wait on another group's slot.
 // Semantics as the CUDA-core walk: q scaled in its dtype, S and (m, l, acc)
 // fp32, p rounded to bf16 before PV, a padding row (qpos = -1) 0.
+//
+// Quantized pools (kPool int8, e4m3, e5m2): what bounds them is the chain's
+// one-byte codes and a scale a row, about half a bf16 chain's bytes.
+//   - The codes land by TMA as they are (box (D bytes, 1, min(bl, 64)),
+//     the 64-byte swizzle at D = 64, the 128-byte one at 128), so a stage
+//     holds 64 keys of K and V in half a bf16 stage's bytes. The producer
+//     also loads the stage's 128 scales, four stages ahead into fixed
+//     registers, from the pool rows it already holds for the boxes, so
+//     their latency hides behind the ring (a load whose address waited on
+//     a table load would stall the warp every stage), and writes them
+//     beside the ring. The stage's full barrier takes its bytes before the
+//     TMA copies go out and the producer's arrival after the scales are
+//     written, which releases them: the copies never wait on the scales.
+//   - Every int8, e4m3 and e5m2 value is exact in bf16, so the consumers
+//     widen the codes exactly, straight into mma.sync B fragments (widen4:
+//     integer and bf16 operations, none of the slower conversion pipe's):
+//     no converted copy in shared memory, so the split keeps its six
+//     blocks an SM, and no barrier beyond the ring's. The products work on
+//     the codes themselves, and the scales stay outside them:
+//       S[r, j]   = ks[j] * sum_d (q scale)[r, d] k_code[j, d]
+//       acc[r, d] = sum_j (p[r, j] vs[j]) v_code[j, d]
+//     with l summing the unscaled p. P' = p vs goes to the tensor cores as
+//     two bf16 terms, hi = bf16(P') and lo = bf16(P' - hi), in two products
+//     accumulated in fp32: ~16 bits of P' where the reference keeps fp32
+//     (the walk's fp32 p), at ~2 flops a byte, far from the tensor cores'
+//     rate. K's reduction index is permuted (lane t holds 16 contiguous
+//     columns of a key row, one 16-byte read, paired as widen4 pairs its
+//     codes), and so are the keys (lane t's four keys of a 16-key step are
+//     contiguous, 4 t .. 4 t + 3, as PV's B fragment needs them) and V's
+//     output columns (lane g holds columns g D/8 .. g D/8 + D/8 - 1): acc
+//     and the split's partials keep that fragment order, and the rows are
+//     written out through it.
+//   - The scales cost 4 bytes (int8) or 1 byte (fp8) a row, read once. A
+//     converted row costs ~2-3 instructions a code, once per warp that
+//     reads it (a key group's warps each widen the whole stage).
 //
 // The split (paged_split_tc_kernel): worker s of S reads chain blocks
 // [s wc, min((s + 1) wc, W)), wc = ceil(W / S), cut at the tile's frontier,
@@ -500,9 +562,72 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// byte offset of (key, column byte) in a stage's tile of one-byte codes,
+// kD bytes a key, as TMA lands it (1024-byte aligned): 16-byte chunk j of
+// row r at j ^ (r / 2 % 4) with the 64-byte swizzle (kD 64), j ^ (r % 8)
+// with the 128-byte one (kD 128)
+template <int kD>
+__device__ __forceinline__ int swizzled8(int key, int col) {
+  const int off = key * kD + col;
+  return off ^ ((off >> 3) & (kD == 64 ? 0x30 : 0x70));
+}
+
+// a * b on bf16x2 (+ -0, which changes no product)
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(0x80008000u));
+  return d;
+}
+
+// the four codes of w = [c0, c1, c2, c3] as two bf16x2, exactly (every
+// int8, e4m3 and e5m2 value is a bf16 value): lo = (c0, c2), hi = (c1, c3),
+// in integer and fp32/bf16 pipes alone (the conversion pipe is the slow one).
+//   - fp8: each code's sign, exponent and mantissa bits moved into a bf16's
+//     fields read as the value times 2^-(127 - bias) (subnormals too), and
+//     one exact bf16 multiply by 2^(127 - bias): 2^120 for e4m3, 2^112 e5m2;
+//   - int8: float(2^23 + code + 128) - (2^23 + 128) is the code, exactly,
+//     so its top 16 bits are its bf16.
+template <int kPool>
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  if constexpr (kPool == kPoolInt8) {
+    const uint32_t u = w ^ 0x80808080u;  // code + 128, in [0, 255]
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 | i)) - 8388736.f;
+    lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[2]), 0x7632);
+    hi = __byte_perm(__float_as_uint(f[1]), __float_as_uint(f[3]), 0x7632);
+  } else {
+    constexpr int kShift = kPool == kPoolE4M3 ? 4 : 3;  // exponent bits 8 - 4 or 8 - 5
+    constexpr uint32_t kBias = kPool == kPoolE4M3 ? 0x7B807B80u : 0x77807780u;  // 2^120, 2^112
+    // the codes in bytes 1 and 3 into the two bf16 halves
+    auto place = [](uint32_t x) { return (x & 0x80008000u) | ((x & 0x7F007F00u) >> kShift); };
+    lo = mul_bf16x2(place(w << 8), kBias);
+    hi = mul_bf16x2(place(w), kBias);
+  }
+}
+
+// raises the barrier's expected transaction bytes, without arriving
+__device__ __forceinline__ void mbar_expect_bytes(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// (a, b) as two bf16x2 terms: hi = bf16(a, b), lo = bf16(a - hi, b - hi);
+// each pair rounds in one conversion instruction
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(a - __uint_as_float(hi << 16), b - __uint_as_float(hi & 0xffff0000u));
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 struct TcParams {
   const __nv_bfloat16* q;  // q[b, c, h, :] at q + b*q_sb + c*q_sc + h*q_sh
   int64_t q_sb, q_sc, q_sh;
+  const void* k_scale;  // quantized pools: [n_blocks, bl, H_kv], else null
+  const void* v_scale;
   const int* tables;  // [B, W]
   const int* qpos;    // [B, C]
   __nv_bfloat16* out;  // [B, C, H_kv * G, D]
@@ -516,13 +641,14 @@ struct TcParams {
 
 // The body of both tensor-core kernels: kCW consumer warps and a producer
 // warp, row tiles of kRowsT = 16 kCW rows; grid (ceil(G * C / kRowsT) * S,
-// H_kv, B), D = 64 * kBoxes.
-template <int kBoxes, int kStages, int kCW, bool kSplit>
+// H_kv, B). kPool: bf16 pools (kPoolFloat) or int8 / e4m3 / e5m2 codes.
+template <int kPool, int D, int kStages, int kCW, bool kSplit>
 __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CUtensorMap& map_v,
                                               const TcParams& p) {
-  constexpr int D = kBoxes * kBoxCols;
+  constexpr bool kQuant = kPool != kPoolFloat;
+  constexpr int kScale = kPool == kPoolInt8 ? kMultiplier : kExponent;
   constexpr int kRowsT = 16 * kCW;
-  constexpr int kTileBytes = kBoxes * kBoxBytes;  // 64 keys of K (or V)
+  constexpr int kTileBytes = kStageKeys * D * (kQuant ? 1 : 2);  // 64 keys of K (or V)
   constexpr float kLog2e = 1.4426950408889634f;
   static_assert(kStages % kCW == 0, "each key group owns its own ring slots");
   static_assert((kCW - 1) * kRowsT * (D + 4) * 4 <= 2 * kStages * kTileBytes,
@@ -532,6 +658,9 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + 2 * kStages * kTileBytes);
   uint64_t* empty = full + kStages;
+  // quantized pools: stage s's K scales at ks_s[64 s ..], its V scales at vs_s
+  float* ks_s = reinterpret_cast<float*>(empty + kStages);
+  float* vs_s = ks_s + kStages * kStageKeys;
   __shared__ int qp_s[kRowsT];
   __shared__ float m_s[(kCW - 1) * kRowsT];  // key groups 1 .. kCW - 1 at the end
   __shared__ float l_s[(kCW - 1) * kRowsT];
@@ -570,12 +699,16 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
   // Loads that do not depend on the positions go out before the barrier,
   // together with the positions': the producer's first 64 table entries,
   // the consumers' q fragments (rows 16 rg + g and + 8; a row past nr reads
-  // row 0 and is zeroed below).
-  int cur = -1, nxt = -1;
+  // row 0 and is zeroed below). On quantized pools the reduction index is
+  // permuted: lane t's columns of 16-column step kk are 64 (kk / 4) + 16 t
+  // + 4 (kk % 4) + 0..3, as its K codes sit in a key row, and its two pairs
+  // are columns (0, 2) and (1, 3) of those four, as widen4 pairs codes.
+  int cur = -1, nxt = -1, nxt2 = -1;  // nxt2: quantized pools, for the scales
   uint32_t qa[D / 16][4];
   if (warp == kCW) {
     cur = box_row(0);
     nxt = box_row(1);
+    if constexpr (kQuant) nxt2 = box_row(2);
   } else {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -587,7 +720,9 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) qa[kk][r + 2 * hf] = __ldg(qrow + 8 * kk + 4 * hf + t);
+        for (int hf = 0; hf < 2; ++hf)
+          qa[kk][r + 2 * hf] = __ldg(qrow + (kQuant ? 32 * (kk / 4) + 8 * t + 2 * (kk % 4) + hf
+                                                    : 8 * kk + 4 * hf + t));
     }
   }
   if (tid < kRowsT)
@@ -621,28 +756,107 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
     };
     cur = cut(cur, 0);
     nxt = cut(nxt, 1);
-    for (int i = 0; i < n_st; ++i) {
+    if constexpr (kQuant) nxt2 = cut(nxt2, 2);
+    // quantized pools: the K and V scales of keys lane and lane + 32 of
+    // stage i go into register slot i % kAhead, as loaded (raw_scale),
+    // kAhead stages before the stage goes out, so their latency hides
+    // behind the ring. Nothing may wait on them before then (a warp issues
+    // in order: a load feeding an address or an instruction stalls it):
+    // their addresses come from registers, stage i's boxes' pool rows being
+    // lane c % 32 of `rows`, cur or nxt, whose table entries went out a
+    // batch of 32 boxes before (nxt2 holds the batch after nxt), and they
+    // become factors (scale_of) only as they are written. The loop is
+    // unrolled kAhead times, so that a slot is a fixed register and reusing
+    // it waits on no other slot's load. A key of a box past the frontier
+    // (its codes zeros) gets a raw 0, a finite factor.
+    constexpr int kAhead = kQuant ? 4 : 1;  // kAhead * n_copies <= 32
+    float ksr[kAhead][2], vsr[kAhead][2];
+    auto load_scales = [&](int i, int rows, float (&ks)[2], float (&vs)[2]) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int k = lane + 32 * u;
+        const int r0 = __shfl_sync(kFull, rows, (i * n_copies + k / p.box_rows) % 32);
+        ks[u] = vs[u] = 0.f;
+        if (r0 >= 0) {
+          const int64_t at = static_cast<int64_t>(r0 + k % p.box_rows) * p.H_kv + h;
+          ks[u] = raw_scale<kScale>(p.k_scale, at);
+          vs[u] = raw_scale<kScale>(p.v_scale, at);
+        }
+      }
+    };
+    if constexpr (kQuant) {
+#pragma unroll
+      for (int a = 0; a < kAhead; ++a)  // stages 0 .. kAhead - 1: boxes of batch 0
+        if (a < n_st) load_scales(a, cur, ksr[a], vsr[a]);
+    }
+    // stage i's boxes go out: returns its ring slot
+    auto issue = [&](int i) {
       const int s = i % kStages;
       const int c0 = i * n_copies;  // the stage's first box
       if (c0 > 0 && c0 % 32 == 0) {
         cur = nxt;
-        nxt = cut(box_row(c0 / 32 + 1), c0 / 32 + 1);
+        if constexpr (kQuant) {
+          nxt = nxt2;
+          nxt2 = cut(box_row(c0 / 32 + 2), c0 / 32 + 2);
+        } else {
+          nxt = cut(box_row(c0 / 32 + 1), c0 / 32 + 1);
+        }
       }
       const int src = __shfl_sync(kFull, cur, (c0 % 32) + min(lane, n_copies - 1));
       if (lane == 0) {
         if (i >= kStages) mbar_wait(empty + s, ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(full + s, 2 * kTileBytes);
+        // quantized pools: the bytes now, the arrival with the scales
+        if constexpr (kQuant) {
+          mbar_expect_bytes(full + s, 2 * kTileBytes);
+        } else {
+          mbar_expect_tx(full + s, 2 * kTileBytes);
+        }
       }
       __syncwarp();
       if (lane < n_copies) {
         const int row = src >= 0 ? src : p.pool_rows;  // out of bounds: zeros
-        unsigned char* k_st = ring + 2 * s * kTileBytes + lane * p.box_rows * 128;
+        // box `lane`'s first key row: D bytes a row of codes, 128 bytes a
+        // row of one 64-column bf16 box
+        unsigned char* k_st = ring + 2 * s * kTileBytes + lane * p.box_rows * (kQuant ? D : 128);
+        if constexpr (kQuant) {  // one box of D bytes a key row
+          tma_load(k_st, &map_k, full + s, 0, h, row);
+          tma_load(k_st + kTileBytes, &map_v, full + s, 0, h, row);
+        } else {
 #pragma unroll
-        for (int x = 0; x < kBoxes; ++x) {
-          tma_load(k_st + x * kBoxBytes, &map_k, full + s, x * kBoxCols, h, row);
-          tma_load(k_st + kTileBytes + x * kBoxBytes, &map_v, full + s, x * kBoxCols, h, row);
+          for (int x = 0; x < D / kBoxCols; ++x) {
+            tma_load(k_st + x * kBoxBytes, &map_k, full + s, x * kBoxCols, h, row);
+            tma_load(k_st + kTileBytes + x * kBoxBytes, &map_v, full + s, x * kBoxCols, h, row);
+          }
         }
       }
+      return s;
+    };
+    if constexpr (kQuant) {
+      for (int i0 = 0; i0 < n_st; i0 += kAhead) {
+#pragma unroll
+        for (int a = 0; a < kAhead; ++a) {
+          const int i = i0 + a;
+          if (i >= n_st) break;
+          const int s = issue(i);
+          // the stage's scales go into its slot (its consumers are done
+          // with it: issue's empty wait); __syncwarp orders the lanes'
+          // writes before lane 0's arrival, which completes the stage with
+          // its codes and releases them. Then slot a takes stage i + kAhead.
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            ks_s[s * kStageKeys + lane + 32 * u] = scale_of<kScale>(ksr[a][u]);
+            vs_s[s * kStageKeys + lane + 32 * u] = scale_of<kScale>(vsr[a][u]);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(full + s);
+          const int ia = i + kAhead;
+          if (ia < n_st)
+            load_scales(ia, (ia * n_copies) / 32 == (i * n_copies) / 32 ? cur : nxt, ksr[a],
+                        vsr[a]);
+        }
+      }
+    } else {
+      for (int i = 0; i < n_st; ++i) issue(i);
     }
     return;
   }
@@ -657,6 +871,11 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
     for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
+        if (kQuant && i < 2) {  // columns (0, 1), (2, 3) -> (0, 2), (1, 3)
+          const uint32_t a = qa[kk][i], c = qa[kk][i + 2];
+          qa[kk][i] = __byte_perm(a, c, 0x5410);
+          qa[kk][i + 2] = __byte_perm(a, c, 0x7632);
+        }
         __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&qa[kk][i]);
         const bool in = 16 * rg + g + 8 * (i & 1) < nr;
         qa[kk][i] = in ? pack2(__low2float(x) * sc, __high2float(x) * sc) : 0u;
@@ -673,7 +892,9 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
   const int mi = lane >> 3;  // the ldmatrix matrix this lane addresses
   for (int i = (kg < n_kg ? kg : n_st); i < n_st; i += n_kg) {
     const int s = i % kStages;
-    const uint32_t k_st = smem_u32(ring + 2 * s * kTileBytes);
+    const unsigned char* k_tile = ring + 2 * s * kTileBytes;
+    const unsigned char* v_tile = k_tile + kTileBytes;
+    const uint32_t k_st = smem_u32(k_tile);
     const uint32_t v_st = k_st + kTileBytes;
     mbar_wait(full + s, (i / kStages) & 1);
 
@@ -682,24 +903,72 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    if constexpr (kQuant) {
+      // key tile j, column g holds key 16 (j / 2) + 4 (g / 2) + 2 (j % 2) +
+      // g % 2: S's column pair 2t, 2t + 1 of tiles 2kk, 2kk + 1 are then
+      // keys 16 kk + 4 t .. + 3, PV's B fragment rows
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+      for (int j = 0; j < 8; ++j) {
+        const int key = 16 * (j >> 1) + 4 * (g >> 1) + 2 * (j & 1) + (g & 1);
+        uint4 c[D / 64];
+        if constexpr (D == 64) {
+          c[0] = *reinterpret_cast<const uint4*>(k_tile + swizzled8<D>(key, 16 * t));
+        } else {
+          // odd and even g read the row's halves in turns: the two rows of
+          // a phase's lanes then meet other banks
+          const int odd = g & 1;
+          const uint4 x0 = *reinterpret_cast<const uint4*>(k_tile + swizzled8<D>(key, 16 * t + 64 * odd));
+          const uint4 x1 =
+              *reinterpret_cast<const uint4*>(k_tile + swizzled8<D>(key, 16 * t + 64 * (odd ^ 1)));
+          c[0] = odd ? x1 : x0;
+          c[1] = odd ? x0 : x1;
+        }
 #pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        // matrix mi: keys 16 jp + 8 (mi / 2) .. + 7, columns 16 kk + 8 (mi % 2) .. + 7
-        uint32_t kb[4];
-        ldmatrix_x4(kb, swizzled(k_st, 16 * jp + 8 * (mi >> 1) + (lane & 7),
-                                 16 * kk + 8 * (mi & 1)));
-        mma(sc[2 * jp], qa[kk], kb[0], kb[1]);
-        mma(sc[2 * jp + 1], qa[kk], kb[2], kb[3]);
+        for (int y = 0; y < D / 64; ++y) {
+          const uint32_t w[4] = {c[y].x, c[y].y, c[y].z, c[y].w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            uint32_t b0, b1;
+            widen4<kPool>(w[kk], b0, b1);
+            mma(sc[j], qa[4 * y + kk], b0, b1);
+          }
+        }
       }
+      // S times each key's K scale
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 k4 = *reinterpret_cast<const float4*>(ks_s + s * kStageKeys + 16 * kk + 4 * t);
+        sc[2 * kk][0] *= k4.x;
+        sc[2 * kk][2] *= k4.x;
+        sc[2 * kk][1] *= k4.y;
+        sc[2 * kk][3] *= k4.y;
+        sc[2 * kk + 1][0] *= k4.z;
+        sc[2 * kk + 1][2] *= k4.z;
+        sc[2 * kk + 1][1] *= k4.w;
+        sc[2 * kk + 1][3] *= k4.w;
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          // matrix mi: keys 16 jp + 8 (mi / 2) .. + 7, columns 16 kk + 8 (mi % 2) .. + 7
+          uint32_t kb[4];
+          ldmatrix_x4(kb, swizzled(k_st, 16 * jp + 8 * (mi >> 1) + (lane & 7),
+                                   16 * kk + 8 * (mi & 1)));
+          mma(sc[2 * jp], qa[kk], kb[0], kb[1]);
+          mma(sc[2 * jp + 1], qa[kk], kb[2], kb[3]);
+        }
+    }
 
     const int k0 = k_begin + i * kStageKeys;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+        const int key = kQuant ? 16 * (j >> 1) + 4 * t + 2 * (j & 1) + (e & 1)
+                               : 8 * j + 2 * t + (e & 1);
+        const int kpos = k0 + key;
         if (!(kpos <= qp[e >> 1] && kpos < k_stop)) sc[j][e] = -INFINITY;
       }
 #pragma unroll
@@ -730,20 +999,69 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
       }
     }
 
+    if constexpr (kQuant) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // keys 16 kk .. 16 kk + 15
-      const uint32_t pa[4] = {pack2(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack2(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack2(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+      for (int kk = 0; kk < 4; ++kk) {  // keys 16 kk + 4 t .. + 3 of this lane
+        // P' = p times each key's V scale, as hi + lo bf16 terms
+        const float4 v4 = *reinterpret_cast<const float4*>(vs_s + s * kStageKeys + 16 * kk + 4 * t);
+        uint32_t ph[4], pl[4];
+        split2(sc[2 * kk][0] * v4.x, sc[2 * kk][1] * v4.y, ph[0], pl[0]);
+        split2(sc[2 * kk][2] * v4.x, sc[2 * kk][3] * v4.y, ph[1], pl[1]);
+        split2(sc[2 * kk + 1][0] * v4.z, sc[2 * kk + 1][1] * v4.w, ph[2], pl[2]);
+        split2(sc[2 * kk + 1][2] * v4.z, sc[2 * kk + 1][3] * v4.w, ph[3], pl[3]);
+        // V codes of those four keys at columns g D/8 .. + D/8 - 1: column
+        // tile n's B fragment takes column g D/8 + n
+        uint32_t v[4][D / 32];
 #pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        // matrix mi: keys 16 kk + 8 (mi % 2) .. + 7, columns 16 np + 8 (mi / 2) .. + 7
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, swizzled(v_st, 16 * kk + 8 * (mi & 1) + (lane & 7),
-                                       16 * np + 8 * (mi >> 1)));
-        mma(acc[2 * np], pa, vb[0], vb[1]);
-        mma(acc[2 * np + 1], pa, vb[2], vb[3]);
+        for (int x = 0; x < 4; ++x) {
+          const unsigned char* row = v_tile + swizzled8<D>(16 * kk + 4 * t + x, (D / 8) * g);
+          if constexpr (D == 64) {
+            const uint2 y = *reinterpret_cast<const uint2*>(row);
+            v[x][0] = y.x;
+            v[x][1] = y.y;
+          } else {
+            const uint4 y = *reinterpret_cast<const uint4*>(row);
+            v[x][0] = y.x;
+            v[x][1] = y.y;
+            v[x][2] = y.z;
+            v[x][3] = y.w;
+          }
+        }
+#pragma unroll
+        for (int wd = 0; wd < D / 32; ++wd) {
+          // a 4 x 4 byte transpose: x[e] = the four keys' codes of column
+          // tile 4 wd + e, as [k0, k2, k1, k3], so widen4 pairs (k0, k1), (k2, k3)
+          const uint32_t ac_lo = __byte_perm(v[0][wd], v[2][wd], 0x5140);
+          const uint32_t ac_hi = __byte_perm(v[0][wd], v[2][wd], 0x7362);
+          const uint32_t bd_lo = __byte_perm(v[1][wd], v[3][wd], 0x5140);
+          const uint32_t bd_hi = __byte_perm(v[1][wd], v[3][wd], 0x7362);
+          const uint32_t x[4] = {__byte_perm(ac_lo, bd_lo, 0x5410), __byte_perm(ac_lo, bd_lo, 0x7632),
+                                 __byte_perm(ac_hi, bd_hi, 0x5410), __byte_perm(ac_hi, bd_hi, 0x7632)};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            uint32_t b0, b1;
+            widen4<kPool>(x[e], b0, b1);
+            mma(acc[4 * wd + e], ph, b0, b1);
+            mma(acc[4 * wd + e], pl, b0, b1);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // keys 16 kk .. 16 kk + 15
+        const uint32_t pa[4] = {pack2(sc[2 * kk][0], sc[2 * kk][1]),
+                                pack2(sc[2 * kk][2], sc[2 * kk][3]),
+                                pack2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                                pack2(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          // matrix mi: keys 16 kk + 8 (mi % 2) .. + 7, columns 16 np + 8 (mi / 2) .. + 7
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, swizzled(v_st, 16 * kk + 8 * (mi & 1) + (lane & 7),
+                                         16 * np + 8 * (mi >> 1)));
+          mma(acc[2 * np], pa, vb[0], vb[1]);
+          mma(acc[2 * np + 1], pa, vb[2], vb[3]);
+        }
       }
     }
     __syncwarp();
@@ -753,8 +1071,10 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
   // every stage has landed and been read: key groups 1 .. n_kg - 1 hand
   // their states to group 0 through the ring (slot (kg - 1) * 64 + row, a
   // row padded by 4 floats against bank conflicts), and group 0 merges
-  // them into its own in registers and writes its rows
+  // them into its own in registers and writes its rows. acc's element
+  // 8 n + 2 t (+ 1) is output column out_col(8 n + 2 t (+ 1)).
   constexpr int kAccLd = D + 4;
+  auto out_col = [](int i) { return kQuant ? (i % 8) * (D / 8) + i / 8 : i; };
   sync_warps<32 * kCW>();
   float* acc_s = reinterpret_cast<float*>(ring);
   float lt[2];  // the row sums
@@ -807,8 +1127,7 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
       const float lc = fmaxf(ls, 1e-37f);  // fully masked rows (ls == 0) come out 0
       const int gq = (row0 + rl) / p.C;
       const int c = row0 + rl - gq * p.C;
-      uint32_t* orow = reinterpret_cast<uint32_t*>(
-          p.out + ((static_cast<int64_t>(b) * p.C + c) * H + h * p.G + gq) * D);
+      __nv_bfloat16* orow = p.out + ((static_cast<int64_t>(b) * p.C + c) * H + h * p.G + gq) * D;
       const int64_t pr = (pb + sw) * R + row0 + rl;  // this worker's partial row
       if (partial && t == 0) {
         p.part_m[pr] = ms;  // -inf where the row saw no visible key here
@@ -826,10 +1145,14 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
             v0 += x.x * al[k];
             v1 += x.y * al[k];
           }
-        if (partial)
+        if (partial) {
           *reinterpret_cast<float2*>(p.part_acc + pr * D + 8 * n + 2 * t) = make_float2(v0, v1);
-        else
-          orow[4 * n + t] = pack2(v0 / lc, v1 / lc);
+        } else if constexpr (kQuant) {
+          orow[out_col(8 * n + 2 * t)] = __float2bfloat16(v0 / lc);
+          orow[out_col(8 * n + 2 * t + 1)] = __float2bfloat16(v1 / lc);
+        } else {
+          reinterpret_cast<uint32_t*>(orow)[4 * n + t] = pack2(v0 / lc, v1 / lc);
+        }
       }
     }
   }
@@ -837,7 +1160,10 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
 
   // the last active worker of this (b, h, row tile) to finish merges the
   // partials of workers 0 .. n_active - 1, in that order: the same bits
-  // whichever worker is last
+  // whichever worker is last. A thread takes a float4 of a row's acc; the
+  // workers' loads go out together (each worker's max rescales the sums as
+  // it comes), so an iteration costs one round trip to L2 (at R = 32, 64
+  // threads take 8 iterations).
   __threadfence();
   sync_warps<32 * kCW>();
   int* ticket = p.tickets + (static_cast<int64_t>(b) * p.H_kv + h) * n_rt + rt;
@@ -845,30 +1171,40 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
   sync_warps<32 * kCW>();
   if (!is_last) return;
   __threadfence();
-  // the loops are unrolled so that their loads are in flight together
-  for (int i = tid; i < nr * (D / 2); i += (32 * kCW)) {
-    const int rl = i / (D / 2);
-    const int d = 2 * (i - rl * (D / 2));
-    float ms = -INFINITY;
-#pragma unroll 8
-    for (int w = 0; w < n_active; ++w) ms = fmaxf(ms, __ldcg(p.part_m + (pb + w) * R + row0 + rl));
-    float v0 = 0.f, v1 = 0.f, ls = 0.f;
+  for (int i = tid; i < nr * (D / 4); i += (32 * kCW)) {
+    const int rl = i / (D / 4);
+    const int d = 4 * (i - rl * (D / 4));
+    float ms = -INFINITY, ls = 0.f;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 8
     for (int w = 0; w < n_active; ++w) {
       const int64_t pr = (pb + w) * R + row0 + rl;
-      const float mw = __ldcg(p.part_m + pr);
-      const float al = mw == -INFINITY ? 0.f : ex2((mw - ms) * kLog2e);
-      const float2 x = __ldcg(reinterpret_cast<const float2*>(p.part_acc + pr * D + d));
-      v0 += x.x * al;
-      v1 += x.y * al;
-      ls += __ldcg(p.part_l + pr) * al;
+      const float mw = __ldcg(p.part_m + pr);  // -inf: the worker saw no visible key
+      const float lw = __ldcg(p.part_l + pr);
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(p.part_acc + pr * D + d));
+      const float mn = fmaxf(ms, mw);
+      const float corr = ms == -INFINITY ? 0.f : ex2((ms - mn) * kLog2e);
+      const float al = mw == -INFINITY ? 0.f : ex2((mw - mn) * kLog2e);
+      v.x = v.x * corr + x.x * al;
+      v.y = v.y * corr + x.y * al;
+      v.z = v.z * corr + x.z * al;
+      v.w = v.w * corr + x.w * al;
+      ls = ls * corr + lw * al;
+      ms = mn;
     }
     const float lc = fmaxf(ls, 1e-37f);
     const int gq = (row0 + rl) / p.C;
     const int c = row0 + rl - gq * p.C;
-    *reinterpret_cast<uint32_t*>(
-        p.out + ((static_cast<int64_t>(b) * p.C + c) * H + h * p.G + gq) * D + d) =
-        pack2(v0 / lc, v1 / lc);
+    __nv_bfloat16* orow = p.out + ((static_cast<int64_t>(b) * p.C + c) * H + h * p.G + gq) * D;
+    if constexpr (kQuant) {
+      orow[out_col(d)] = __float2bfloat16(v.x / lc);
+      orow[out_col(d + 1)] = __float2bfloat16(v.y / lc);
+      orow[out_col(d + 2)] = __float2bfloat16(v.z / lc);
+      orow[out_col(d + 3)] = __float2bfloat16(v.w / lc);
+    } else {
+      *reinterpret_cast<uint2*>(orow + d) = make_uint2(pack2(v.x / lc, v.y / lc),
+                                                      pack2(v.z / lc, v.w / lc));
+    }
   }
   if (tid == 0) *ticket = 0;  // zero again for the next launch on this stream
 }
@@ -876,28 +1212,30 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
 // The single sweep: grid (ceil(G * C / 64), H_kv, B), four consumer warps
 // and one block an SM with a deep ring (a decode tick's few blocks each
 // stream a whole chain).
-template <int kBoxes, int kStages>
+template <int kPool, int D, int kStages>
 __global__ void __launch_bounds__(32 * kWarps + 32, 1)
     paged_sweep_tc_kernel(__grid_constant__ const CUtensorMap map_k,
                           __grid_constant__ const CUtensorMap map_v, const TcParams p) {
-  paged_tc_body<kBoxes, kStages, kWarps, false>(map_k, map_v, p);
+  paged_tc_body<kPool, D, kStages, kWarps, false>(map_k, map_v, p);
 }
 
 // The split: grid (ceil(G * C / 32) * S, H_kv, B), two consumer warps and
 // a two-stage ring, so kMinBlocks blocks share an SM: at D = 64 all 768
 // blocks of a decode tick are resident at once.
-template <int kBoxes, int kMinBlocks>
+template <int kPool, int D, int kMinBlocks>
 __global__ void __launch_bounds__(32 * kSplitWarps + 32, kMinBlocks)
     paged_split_tc_kernel(__grid_constant__ const CUtensorMap map_k,
                           __grid_constant__ const CUtensorMap map_v, const TcParams p) {
-  paged_tc_body<kBoxes, kSplitStages, kSplitWarps, true>(map_k, map_v, p);
+  paged_tc_body<kPool, D, kSplitStages, kSplitWarps, true>(map_k, map_v, p);
 }
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
 // A pool's tensor map from ops/paged_flash.py's pool_tensor_map_geometry:
-// dims (D, H_kv, n_blocks * bl), byte strides (H_kv, row), box (64, 1, rows)
-int encode_pool(CUtensorMap* map, const void* pool, const int64_t* geo) {
+// dims (D, H_kv, n_blocks * bl), byte strides (H_kv, row), box (64, 1,
+// rows) of bf16 with the 128-byte swizzle, or (D, 1, rows) of one-byte
+// codes with the D-byte swizzle
+int encode_pool(CUtensorMap* map, const void* pool, const int64_t* geo, bool codes) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(geo[0]), static_cast<cuuint64_t>(geo[1]),
@@ -907,20 +1245,24 @@ int encode_pool(CUtensorMap* map, const void* pool, const int64_t* geo) {
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(geo[5]), static_cast<cuuint32_t>(geo[6]),
                              static_cast<cuuint32_t>(geo[7])};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(pool), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r =
+      fn(map, codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+         const_cast<void*>(pool), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         codes && geo[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kInvalid;
 }
 
 // one launch of a tensor-core kernel with `warps` consumer warps (row
-// tiles of 16 warps rows) and a ring of `stages` stages of `boxes`
-// 64-column boxes: grid (ceil(G * C / (16 warps)) * S, H_kv, B)
+// tiles of 16 warps rows) and a ring of `stages` stages of 64 key rows of
+// K and V, `row_bytes` a row (and 64 K and V scales a stage on quantized
+// pools): grid (ceil(G * C / (16 warps)) * S, H_kv, B)
 template <typename Kernel>
-int launch_tc(Kernel kernel, int boxes, int stages, int warps, const CUtensorMap& mk,
-              const CUtensorMap& mv, const TcParams& p, int B, cudaStream_t st) {
-  const size_t smem = 1024 + 2 * stages * boxes * kBoxBytes + 2 * stages * 8;
+int launch_tc(Kernel kernel, int row_bytes, int stages, int warps, bool quant,
+              const CUtensorMap& mk, const CUtensorMap& mv, const TcParams& p, int B,
+              cudaStream_t st) {
+  const size_t smem = 1024 + 2 * stages * kStageKeys * row_bytes + 2 * stages * 8 +
+                      (quant ? 2 * stages * kStageKeys * sizeof(float) : 0);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -930,22 +1272,62 @@ int launch_tc(Kernel kernel, int boxes, int stages, int warps, const CUtensorMap
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instances: per pool kind, D 64 and 128; the sweep's ring holds 8
+// stages (4 of bf16 at D 128: the same 128 KB), the split's 2, with six
+// blocks an SM at D 64 and three at 128.
+template <int kPool, bool kSplit>
+int launch_tc_d(int D, const CUtensorMap& mk, const CUtensorMap& mv, const TcParams& p, int B,
+                cudaStream_t st) {
+  constexpr int kElem = kPool == kPoolFloat ? 2 : 1;
+  constexpr bool kQuant = kPool != kPoolFloat;
+  if constexpr (kSplit) {
+    return D == 64 ? launch_tc(paged_split_tc_kernel<kPool, 64, 6>, 64 * kElem, kSplitStages,
+                               kSplitWarps, kQuant, mk, mv, p, B, st)
+                   : launch_tc(paged_split_tc_kernel<kPool, 128, 3>, 128 * kElem, kSplitStages,
+                               kSplitWarps, kQuant, mk, mv, p, B, st);
+  } else {
+    constexpr int kStages128 = kQuant ? 8 : 4;
+    return D == 64 ? launch_tc(paged_sweep_tc_kernel<kPool, 64, 8>, 64 * kElem, 8, kWarps, kQuant,
+                               mk, mv, p, B, st)
+                   : launch_tc(paged_sweep_tc_kernel<kPool, 128, kStages128>, 128 * kElem,
+                               kStages128, kWarps, kQuant, mk, mv, p, B, st);
+  }
+}
+
 // Checks the tensor-core kernels' operands and encodes the pools' tensor
-// maps; returns 0 or a cudaError_t.
+// maps; returns 0 or a cudaError_t. pool: kPoolFloat (bf16 pools, no
+// scales) or a quantized kind with both scale tables.
 int tc_prepare(CUtensorMap* mk, CUtensorMap* mv, const void* q, int64_t q_sb, int64_t q_sc,
-               int64_t q_sh, const void* k_pool, const void* v_pool, const int64_t* geometry,
-               int B, int C, int H_kv, int G, int bl, int W) {
+               int64_t q_sh, const void* k_pool, const void* v_pool, const void* k_scale,
+               const void* v_scale, int pool, const int64_t* geometry, int B, int C, int H_kv,
+               int G, int bl, int W) {
   const int64_t D = geometry[0];
   const int64_t box = geometry[7];
+  const bool quant = pool != kPoolFloat;
   const bool box_ok = bl < kStageKeys ? box == bl && box >= 8 && kStageKeys % bl == 0
                                       : box == kStageKeys && bl % kStageKeys == 0;
   if (B < 1 || B > 65535 || H_kv < 1 || H_kv > 65535 || G < 1 || C < 1 || W < 1 ||
-      reinterpret_cast<uintptr_t>(q) % 4 || q_sb % 2 || q_sc % 2 || q_sh % 2 ||
-      (D != 64 && D != 128) || geometry[1] != H_kv || geometry[2] % bl ||
-      geometry[2] > INT32_MAX || geometry[5] != kBoxCols || geometry[6] != 1 || !box_ok)
+      pool < kPoolFloat || pool > kPoolE5M2 || quant != (k_scale != nullptr) ||
+      quant != (v_scale != nullptr) || reinterpret_cast<uintptr_t>(q) % 4 || q_sb % 2 ||
+      q_sc % 2 || q_sh % 2 || (D != 64 && D != 128) || geometry[1] != H_kv ||
+      geometry[2] % bl || geometry[2] > INT32_MAX || geometry[3] != D * (quant ? 1 : 2) ||
+      geometry[5] != (quant ? D : kBoxCols) || geometry[6] != 1 || !box_ok)
     return kInvalid;
-  const int err = encode_pool(mk, k_pool, geometry);
-  return err != 0 ? err : encode_pool(mv, v_pool, geometry);
+  const int err = encode_pool(mk, k_pool, geometry, quant);
+  return err != 0 ? err : encode_pool(mv, v_pool, geometry, quant);
+}
+
+template <bool kSplit>
+int launch_tc_pool(int pool, int D, const CUtensorMap& mk, const CUtensorMap& mv,
+                   const TcParams& p, int B, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (pool) {
+    case kPoolFloat: return launch_tc_d<kPoolFloat, kSplit>(D, mk, mv, p, B, st);
+    case kPoolInt8: return launch_tc_d<kPoolInt8, kSplit>(D, mk, mv, p, B, st);
+    case kPoolE4M3: return launch_tc_d<kPoolE4M3, kSplit>(D, mk, mv, p, B, st);
+    case kPoolE5M2: return launch_tc_d<kPoolE5M2, kSplit>(D, mk, mv, p, B, st);
+    default: return kInvalid;
+  }
 }
 
 template <typename T, typename P, int kScale, bool kSplit, int kDpl>
@@ -1032,8 +1414,6 @@ struct QParams {
 
 constexpr float kAmaxFloor = 1e-8f;
 constexpr float kInt8Scale = static_cast<float>(1.0 / 127.0);  // jnp.float32(1/127)
-constexpr int kPoolInt8 = 1;
-constexpr int kPoolE4M3 = 2;
 
 template <typename T, int kPool, int kDpl>
 __global__ void __launch_bounds__(kThreads) quantize_scatter_kernel(const QParams p) {
@@ -1156,26 +1536,29 @@ extern "C" int pdt_paged_quantize_scatter(
 }
 
 // The single sweep on tensor cores: bf16 q [B, C, H, D] (4-byte aligned,
-// even strides in elements) on bf16 pools, D in {64, 128}; geometry: the pools' tensor map,
-// 8 int64 values (ops/paged_flash.py: pool_tensor_map_geometry), whose box
-// rows are bl (8, 16 or 32) or 64 (bl a multiple of 64).
+// even strides in elements) on pools of kind `pool` (0 = bf16 with null
+// scales; 1 = int8 codes with fp32 scales, 2 = fp8 e4m3 and 3 = fp8 e5m2
+// codes with int8 exponents, scales [n_blocks, bl, H_kv]), D in {64, 128};
+// geometry: the pools' tensor map, 8 int64 values (ops/paged_flash.py:
+// pool_tensor_map_geometry), whose box rows are bl (8, 16 or 32) or 64 (bl
+// a multiple of 64). A pool kind or D with no instance returns
+// cudaErrorInvalidValue.
 extern "C" int pdt_paged_attention_sweep_tc(const void* q, int64_t q_sb, int64_t q_sc,
                                             int64_t q_sh, const void* k_pool, const void* v_pool,
+                                            const void* k_scale, const void* v_scale,
                                             const int64_t* geometry, const void* tables,
-                                            const void* qpos, void* out, int B, int C, int H_kv,
-                                            int G, int bl, int W, float scale, void* stream) {
+                                            const void* qpos, void* out, int pool, int B, int C,
+                                            int H_kv, int G, int bl, int W, float scale,
+                                            void* stream) {
   CUtensorMap mk, mv;
-  const int err = tc_prepare(&mk, &mv, q, q_sb, q_sc, q_sh, k_pool, v_pool, geometry, B, C, H_kv,
-                             G, bl, W);
+  const int err = tc_prepare(&mk, &mv, q, q_sb, q_sc, q_sh, k_pool, v_pool, k_scale, v_scale,
+                             pool, geometry, B, C, H_kv, G, bl, W);
   if (err != 0) return err;
-  TcParams p{static_cast<const __nv_bfloat16*>(q), q_sb, q_sc, q_sh,
+  TcParams p{static_cast<const __nv_bfloat16*>(q), q_sb, q_sc, q_sh, k_scale, v_scale,
              static_cast<const int*>(tables), static_cast<const int*>(qpos),
              static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr, nullptr, H_kv, G, C,
              bl, W, static_cast<int>(geometry[7]), static_cast<int>(geometry[2]), 1, W, scale};
-  auto st = static_cast<cudaStream_t>(stream);
-  return geometry[0] == 64
-             ? launch_tc(paged_sweep_tc_kernel<1, 8>, 1, 8, kWarps, mk, mv, p, B, st)
-             : launch_tc(paged_sweep_tc_kernel<2, 4>, 2, 4, kWarps, mk, mv, p, B, st);
+  return launch_tc_pool<false>(pool, static_cast<int>(geometry[0]), mk, mv, p, B, stream);
 }
 
 // The split on tensor cores: operands as pdt_paged_attention_sweep_tc, S
@@ -1184,25 +1567,22 @@ extern "C" int pdt_paged_attention_sweep_tc(const void* q, int64_t q_sb, int64_t
 // 32) int32, zero on entry (left zero).
 extern "C" int pdt_paged_attention_split_tc(
     const void* q, int64_t q_sb, int64_t q_sc, int64_t q_sh, const void* k_pool,
-    const void* v_pool, const int64_t* geometry, const void* tables, const void* qpos, void* out,
-    void* part_acc, void* part_m, void* part_l, void* tickets, int B, int C, int H_kv, int G,
-    int bl, int W, int S, float scale, void* stream) {
+    const void* v_pool, const void* k_scale, const void* v_scale, const int64_t* geometry,
+    const void* tables, const void* qpos, void* out, void* part_acc, void* part_m, void* part_l,
+    void* tickets, int pool, int B, int C, int H_kv, int G, int bl, int W, int S, float scale,
+    void* stream) {
   if (S < 1 || S > W) return kInvalid;
   CUtensorMap mk, mv;
-  const int err = tc_prepare(&mk, &mv, q, q_sb, q_sc, q_sh, k_pool, v_pool, geometry, B, C, H_kv,
-                             G, bl, W);
+  const int err = tc_prepare(&mk, &mv, q, q_sb, q_sc, q_sh, k_pool, v_pool, k_scale, v_scale,
+                             pool, geometry, B, C, H_kv, G, bl, W);
   if (err != 0) return err;
-  TcParams p{static_cast<const __nv_bfloat16*>(q), q_sb, q_sc, q_sh,
+  TcParams p{static_cast<const __nv_bfloat16*>(q), q_sb, q_sc, q_sh, k_scale, v_scale,
              static_cast<const int*>(tables), static_cast<const int*>(qpos),
              static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_acc),
              static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<int*>(tickets),
              H_kv, G, C, bl, W, static_cast<int>(geometry[7]), static_cast<int>(geometry[2]), S,
              (W + S - 1) / S, scale};
-  auto st = static_cast<cudaStream_t>(stream);
-  return geometry[0] == 64 ? launch_tc(paged_split_tc_kernel<1, 6>, 1, kSplitStages,
-                                       kSplitWarps, mk, mv, p, B, st)
-                           : launch_tc(paged_split_tc_kernel<2, 3>, 2, kSplitStages,
-                                       kSplitWarps, mk, mv, p, B, st);
+  return launch_tc_pool<true>(pool, static_cast<int>(geometry[0]), mk, mv, p, B, stream);
 }
 
 extern "C" int pdt_paged_attention_rows_per_tile() { return kRows; }

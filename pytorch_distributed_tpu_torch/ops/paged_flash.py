@@ -6,10 +6,10 @@ of ``csrc/paged_attention.cu``:
 
 - ``paged_attention_sweep``: one thread block per (row tile, KV head,
   batch row) walks the whole chain with an fp32 online softmax. bf16 q on
-  bf16 pools runs ``paged_sweep_tc_kernel`` (``sweep_kernel`` decides):
-  its products on tensor cores, the pool blocks landed by TMA through a
-  ring of stages, a row tile holding all ``G·C`` rows of a KV head up to
-  64; other operands run the CUDA-core walk;
+  bf16, int8 and fp8 pools runs ``paged_sweep_tc_kernel`` (``sweep_kernel``
+  decides): its products on tensor cores, the pool blocks landed by TMA
+  through a ring of stages, a row tile holding all ``G·C`` rows of a KV
+  head up to 64; other operands run the CUDA-core walk;
 - ``paged_attention_split`` (flash-decoding): the chain splits over S
   workers that write fp32 ``(acc, m, l)`` partials; the last worker of
   each row tile merges them by log-sum-exp inside the same launch (the
@@ -23,8 +23,16 @@ of ``csrc/paged_attention.cu``:
   pools, computing each row's per-head scale inside the write.
 
 Both attention kernels read float pools (q's dtype) or quantized pools
-(int8 with fp32 scales, fp8 e4m3/e5m2 with int8 exponents), which they
-dequantize as they load each row. They read q ``[B, C, H, D]`` through its
+(int8 with fp32 scales, fp8 e4m3/e5m2 with int8 exponents). What bounds
+them is the attended chain's bytes over the card's 3.35 TB/s: on a
+quantized pool its one-byte codes and a scale a row, about half a bf16
+chain. On tensor cores (bf16 q) the codes land by TMA as they are, half a
+bf16 stage's bytes, and widen exactly to bf16 inside the products; the
+scales stay outside them: each key's K scale multiplies its column of S,
+and its V scale multiplies p, which goes to PV as two bf16 terms (hi =
+bf16(p·vs), lo = bf16(p·vs − hi)), ~16 bits where the reference keeps
+fp32. The walk (fp32 q) dequantizes each row to fp32 as it loads it and
+keeps p in fp32. They read q ``[B, C, H, D]`` through its
 strides (the fused qkv projection's view needs no copy) and fold GQA into
 rows themselves: query head ``kv·G + g`` at chunk index ``c`` is row
 ``g·C + c`` of KV head ``kv``, so a KV head's whole query group shares
@@ -35,7 +43,9 @@ For tensors on the CPU each wrapper runs its plain version
 ``paged_quantize_scatter_reference``); for CUDA tensors it launches a
 kernel or raises. ``launch_counts`` counts the attention kernels'
 launches on float pools, ``quant_launch_counts`` each kernel's launches on
-each quantized pool dtype; nothing else adds to them.
+each quantized pool dtype, ``route_launch_counts`` the sweep's and the
+split's launches by route (``route_key``: tensor cores or the walk),
+whatever the pool; nothing else adds to them.
 """
 
 from __future__ import annotations
@@ -80,6 +90,20 @@ _QUANT_HEAD_DIMS = (64, 128)
 #: the single sweep's two kernels (``sweep_kernel``)
 TENSOR_CORES = "tensor_cores"
 CUDA_CORES = "cuda_cores"
+#: the pool dtypes of the tensor-core kernels: bf16, and the quantized
+#: pools, whose codes are exact in bf16
+TC_POOL_DTYPES = (torch.bfloat16, torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def route_key(kernel: str, route: str) -> str:
+    """The ``route_launch_counts`` key of ``kernel`` (``SWEEP`` or
+    ``SPLIT``) on ``route`` (``TENSOR_CORES`` or ``CUDA_CORES``)."""
+    return f"{kernel}@{route}"
+
+
+#: launches of the sweep and the split by route, on any pool
+route_launch_counts = {route_key(k, r): 0 for k in (SWEEP, SPLIT)
+                       for r in (TENSOR_CORES, CUDA_CORES)}
 #: the tensor-core sweep: query rows of a thread block; with the split,
 #: chain keys of a ring stage and the head dims (one or two 64-column TMA
 #: boxes, the 128-byte swizzle's span)
@@ -100,15 +124,21 @@ def sweep_kernel(q_dtype: torch.dtype, pool_dtype: torch.dtype, d: int,
                  block_len: int) -> str:
     """Which kernel runs the single sweep, and the split (the same rule, at
     every row count: rows past a row tile take further ones):
-    ``TENSOR_CORES`` for bf16 q on
-    bf16 pools with D in ``TC_HEAD_DIMS`` and a block length that a 64-key
-    stage takes in whole TMA boxes of at least 8 rows (8, 16, 32, or a
-    multiple of 64); else ``CUDA_CORES``: fp32 pools, quantized pools (their
-    dequantized V and p are fp32 for PV, which bf16 tensor cores would not
-    reproduce), and the other head dims and block lengths."""
+    ``TENSOR_CORES`` for bf16 q on bf16, int8, fp8 e4m3 or fp8 e5m2 pools
+    (``TC_POOL_DTYPES``) with D in ``TC_HEAD_DIMS`` and a block length
+    that a 64-key stage takes in whole TMA boxes of at least 8 rows (8, 16,
+    32, or a multiple of 64); else ``CUDA_CORES``: fp32 q and fp32 pools,
+    and the other head dims and block lengths.
+
+    On quantized pools the tensor cores multiply the codes themselves,
+    each widened exactly to bf16, and keep the scales outside the
+    products: S takes each key's K scale after QKᵀ, and PV takes p times
+    each key's V scale as two bf16 terms, hi and lo. That is the
+    reference's ``(q·scale)·(k·ks)`` up to fp32 summation order, and its
+    fp32 ``p·(v·vs)`` to ~16 bits of p."""
     whole_boxes = (8 <= block_len and TC_STAGE_KEYS % block_len == 0
                    or block_len % TC_STAGE_KEYS == 0)
-    if (q_dtype == torch.bfloat16 and pool_dtype == torch.bfloat16
+    if (q_dtype == torch.bfloat16 and pool_dtype in TC_POOL_DTYPES
             and d in TC_HEAD_DIMS and whole_boxes):
         return TENSOR_CORES
     return CUDA_CORES
@@ -122,15 +152,18 @@ def tc_row_tiles(rows: int) -> int:
 
 
 def pool_tensor_map_geometry(pool: torch.Tensor) -> Tuple[int, ...]:
-    """The TMA tensor map of a contiguous bf16 pool ``[n_blocks, bl, H_kv,
-    D]`` as the tensor-core sweep reads it: the pool viewed as ``[n_blocks·bl,
+    """The TMA tensor map of a contiguous pool ``[n_blocks, bl, H_kv, D]``
+    as the tensor-core kernels read it: the pool viewed as ``[n_blocks·bl,
     H_kv, D]``, dims ``(D, H_kv, n_blocks·bl)`` innermost first, the byte
-    strides of H_kv and of a row, and the box ``(64, 1, min(bl, 64))``: one
-    pool block of one KV head (or 64 rows of one), 64 columns (D = 128 takes
-    two boxes)."""
+    strides of H_kv and of a row, and the box ``(cols, 1, min(bl, 64))``:
+    one pool block of one KV head (or 64 rows of one). A bf16 box is 64
+    columns (128 bytes; D = 128 takes two boxes); a box of one-byte codes
+    (int8, fp8) is all D columns, D bytes, which the kernel maps with the
+    64-byte swizzle at D 64 and the 128-byte one at D 128."""
     n_blocks, bl, h_kv, d = pool.shape
     e = pool.element_size()
-    return (d, h_kv, n_blocks * bl, d * e, h_kv * d * e, 64, 1, min(bl, TC_STAGE_KEYS))
+    cols = d if e == 1 else 64
+    return (d, h_kv, n_blocks * bl, d * e, h_kv * d * e, cols, 1, min(bl, TC_STAGE_KEYS))
 
 
 def split_row_tiles(kernel: str, rows: int, walk_rows: int) -> int:
@@ -171,7 +204,7 @@ def split_buffers(key, b: int, h_kv: int, s_workers: int, rows: int, d: int,
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, quant_launch_counts):
+    for counts in (launch_counts, quant_launch_counts, route_launch_counts):
         for k in counts:
             counts[k] = 0
 
@@ -194,17 +227,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     dims = [i, i, i, i, i, i, i, i, i]  # dtype, pool, B, C, H_kv, G, D, block_len, W
     lib.pdt_paged_attention_sweep.argtypes = operands + dims + [f, p]
     lib.pdt_paged_attention_sweep.restype = i
-    # q + strides, pools, their tensor map geometry, tables, qpos, out;
-    # B, C, H_kv, G, block_len, W; scale, stream
+    # q + strides, pools, scales, their tensor map geometry, tables, qpos,
+    # out; pool, B, C, H_kv, G, block_len, W; scale, stream
     lib.pdt_paged_attention_sweep_tc.argtypes = (
-        [p, i64, i64, i64, p, p, ctypes.POINTER(i64), p, p, p] + [i] * 6 + [f, p])
+        [p, i64, i64, i64, p, p, p, p, ctypes.POINTER(i64), p, p, p] + [i] * 7 + [f, p])
     lib.pdt_paged_attention_sweep_tc.restype = i
     lib.pdt_paged_attention_split.argtypes = operands + [p, p, p, p] + dims + [i, f, p]
     lib.pdt_paged_attention_split.restype = i
-    # as the tensor-core sweep, then acc, m, l, tickets; B, C, H_kv, G,
-    # block_len, W, S; scale, stream
+    # as the tensor-core sweep, then acc, m, l, tickets; pool, B, C, H_kv,
+    # G, block_len, W, S; scale, stream
     lib.pdt_paged_attention_split_tc.argtypes = (
-        [p, i64, i64, i64, p, p, ctypes.POINTER(i64), p, p, p, p, p, p, p] + [i] * 7 + [f, p])
+        [p, i64, i64, i64, p, p, p, p, ctypes.POINTER(i64), p, p, p, p, p, p, p]
+        + [i] * 8 + [f, p])
     lib.pdt_paged_attention_split_tc.restype = i
     lib.pdt_paged_attention_rows_per_tile.argtypes = []
     lib.pdt_paged_attention_rows_per_tile.restype = i
@@ -287,10 +321,12 @@ def paged_flash_attention(
 
     ``k_scale``/``v_scale`` ``[n_blocks, block_len, H_kv]``: the scales of
     quantized pools (``serving.kv_pool`` layout), None for float pools.
-    On quantized pools the kernels dequantize each row to fp32 as they
-    load it and keep p in fp32 for PV (V is fp32 there, and p takes V's
-    dtype, as in the Pallas body); on float pools p is rounded to the
-    pools' dtype.
+    On quantized pools the Pallas body dequantizes V to fp32 and keeps p
+    in fp32 for PV. The tensor-core kernels (bf16 q, ``sweep_kernel``)
+    multiply the codes, exact in bf16, and keep each key's scales outside
+    the products, with p·vs in two bf16 terms (~16 bits); the walk (fp32
+    q) dequantizes each row to fp32 and keeps p in fp32. On float pools p
+    is rounded to the pools' dtype.
 
     CPU tensors run ``paged_attention_reference``; CUDA tensors launch a
     kernel or raise. Returns ``[B, C, H, D]`` in q's dtype.
@@ -347,11 +383,12 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _count(kernel: str, k_pool: torch.Tensor, k_scale) -> None:
+def _count(kernel: str, route: str, k_pool: torch.Tensor, k_scale) -> None:
     if k_scale is None:
         launch_counts[kernel] += 1
     else:
         quant_launch_counts[variant(kernel, k_pool.dtype)] += 1
+    route_launch_counts[route_key(kernel, route)] += 1
 
 
 def _in_pairs(q: torch.Tensor) -> torch.Tensor:
@@ -375,19 +412,21 @@ def launch_sweep(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     lib = _library()
     b, c, h, d = q.shape
     _, bl, h_kv, _ = k_pool.shape
-    if sweep_kernel(q.dtype, k_pool.dtype, d, bl) == TENSOR_CORES:
+    route = sweep_kernel(q.dtype, k_pool.dtype, d, bl)
+    if route == TENSOR_CORES:
         q = _in_pairs(q)
         geometry = (ctypes.c_int64 * 8)(*pool_tensor_map_geometry(k_pool))
         code = lib.pdt_paged_attention_sweep_tc(
             _ptr(q), q.stride(0), q.stride(1), q.stride(2), _ptr(k_pool), _ptr(v_pool),
-            geometry, _ptr(tables), _ptr(qpos), _ptr(out), b, c, h_kv, h // h_kv, bl,
-            tables.shape[1], float(scale), _stream(q))
+            _ptr(k_scale), _ptr(v_scale), geometry, _ptr(tables), _ptr(qpos), _ptr(out),
+            _pool_code(k_pool, k_scale), b, c, h_kv, h // h_kv, bl, tables.shape[1],
+            float(scale), _stream(q))
     else:
         code = lib.pdt_paged_attention_sweep(
             *_operands(q, k_pool, v_pool, k_scale, v_scale, tables, qpos, out),
             *_dims(q, k_pool, k_scale, tables), float(scale), _stream(q))
     _check_launch(lib, SWEEP, code)
-    _count(SWEEP, k_pool, k_scale)
+    _count(SWEEP, route, k_pool, k_scale)
     return out
 
 
@@ -416,16 +455,16 @@ def launch_split(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         geometry = (ctypes.c_int64 * 8)(*pool_tensor_map_geometry(k_pool))
         code = lib.pdt_paged_attention_split_tc(
             _ptr(q), q.stride(0), q.stride(1), q.stride(2), _ptr(k_pool), _ptr(v_pool),
-            geometry, _ptr(tables), _ptr(qpos), _ptr(out), _ptr(acc), _ptr(m), _ptr(l),
-            _ptr(tickets), b, c, h_kv, h // h_kv, bl, tables.shape[1], s_workers,
-            float(scale), stream)
+            _ptr(k_scale), _ptr(v_scale), geometry, _ptr(tables), _ptr(qpos), _ptr(out),
+            _ptr(acc), _ptr(m), _ptr(l), _ptr(tickets), _pool_code(k_pool, k_scale), b, c,
+            h_kv, h // h_kv, bl, tables.shape[1], s_workers, float(scale), stream)
     else:
         code = lib.pdt_paged_attention_split(
             *_operands(q, k_pool, v_pool, k_scale, v_scale, tables, qpos, out),
             _ptr(acc), _ptr(m), _ptr(l), _ptr(tickets),
             *_dims(q, k_pool, k_scale, tables), s_workers, float(scale), stream)
     _check_launch(lib, SPLIT, code)
-    _count(SPLIT, k_pool, k_scale)
+    _count(SPLIT, kernel, k_pool, k_scale)
     return out
 
 

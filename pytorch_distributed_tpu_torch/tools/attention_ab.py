@@ -1,5 +1,6 @@
 """Kernel 6's split backward, kernel 7's single sweep and kernel 8's split
-of two checkouts, timed on one card in turns.
+(on bf16 pools, and on fp8 and int8 pools with bf16 q) of two checkouts,
+timed on one card in turns.
 
     python -m pytorch_distributed_tpu_torch.tools.attention_ab --parent DIR [--rounds 2]
 
@@ -22,7 +23,14 @@ each):
 - the flash-decoding split on bf16 pools at the decode shape with the
   auto policy's S = 8, as every decode tick of the serve runs it: the call,
   and its kernel's device time (``is_split_kernel``: the split's CUDA
-  function, either checkout's).
+  function, either checkout's);
+- the same sweep and split (the auto policy's S = 8, which a serve's
+  prefill chunks take too) at both shapes on fp8 e4m3 and int8 pools,
+  quantized by the plain ``quantize_kv`` from
+  ``chip_smoke.py``'s fp32 operands, with bf16 q: each call, and its
+  kernel's device time (``is_sweep_kernel``, ``is_split_kernel``: the
+  tensor-core kernel or the CUDA-core walk, whichever the checkout runs),
+  every launch of the traced calls counted.
 
 The last line printed is the median of each (checkout, entry) over its
 runs, with the card's name and power limit.
@@ -53,6 +61,16 @@ def worker(checkout: str) -> dict:
 
     cs = tail_ab._load_chip_smoke(tail_ab.THIS)  # operands and timers: this checkout's
     bf16 = torch.bfloat16
+
+    def device_us(call, match):
+        """The matched kernel's device time a call, or None (said on stderr)
+        when no trace held every launch."""
+        try:
+            return cs.kernel_device_ms(torch, call, {"k": (match, 1)})["k"] * 1e3
+        except RuntimeError as e:
+            print(f"attention_ab: no device time: {e}", file=sys.stderr)
+            return None
+
     q, k, v, do = cs.flash_inputs(torch, bf16, seed=7)
     sc = q.shape[-1] ** -0.5
     o, lse = fa.flash_forward(q, k, v, causal=True, scale=sc)
@@ -75,16 +93,38 @@ def worker(checkout: str) -> dict:
         return pf.paged_flash_attention(**decode)
 
     out["split at decode (S = 8)"] = cs.time_ms(torch, paged_split) * 1e3
-    out["split kernel at decode (device)"] = cs.kernel_device_ms(
-        torch, paged_split, {"k": (is_split_kernel, 1)})["k"] * 1e3
+    out["split kernel at decode (device)"] = device_us(paged_split, is_split_kernel)
+    for kv in ("fp8", "int8"):
+        for label, raw in (("decode", cs.decode_inputs(torch, torch.float32, seed=5)),
+                           ("prefill chunk", cs.prefill_inputs(torch, torch.float32, seed=5))):
+            inp = cs.quantized(torch, raw, kv)
+            inp["q"] = inp["q"].to(bf16)
+            for name, split_s, match in (("sweep", 1, is_sweep_kernel),
+                                         ("split", None, is_split_kernel)):
+                def call():
+                    return pf.paged_flash_attention(**inp, split_s=split_s)
+                at = f"{kv} {name} at {label}" + (" (S = 8)" if split_s is None else "")
+                out[at] = cs.time_ms(torch, call) * 1e3
+                out[f"{kv} {name} kernel at {label} (device)"] = device_us(call, match)
     return out
 
 
 def is_split_kernel(name: str) -> bool:
     """Kernel 8's CUDA function in a profiler trace: ``paged_split_tc_kernel``
-    on bf16 pools, or before it the CUDA-core walk's split instantiation
-    (``paged_attention_kernel<..., true>``)."""
-    return "paged_split_tc" in name or ("paged_attention_kernel" in name and "true>" in name)
+    (bf16 q on bf16 pools, and on int8 and fp8 pools in a checkout that
+    routes them there), or the CUDA-core walk's split instantiation
+    (``paged_attention_kernel<..., true>``; a trace may also give it
+    mangled, ``...Lb1EEE...``)."""
+    return "paged_split_tc" in name or ("paged_attention_kernel" in name
+                                        and ("true>" in name or "Lb1E" in name))
+
+
+def is_sweep_kernel(name: str) -> bool:
+    """Kernel 7's CUDA function in a profiler trace: ``paged_sweep_tc_kernel``
+    or the CUDA-core walk's sweep instantiation
+    (``paged_attention_kernel<..., false>``, or mangled ``...Lb0EEE...``)."""
+    return "paged_sweep_tc" in name or ("paged_attention_kernel" in name
+                                        and ("false>" in name or "Lb0E" in name))
 
 
 def main(argv=None) -> dict:

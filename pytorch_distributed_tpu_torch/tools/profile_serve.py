@@ -87,9 +87,10 @@ PAGED_MARKS = ("paged_split_tc", "paged_sweep_tc", "paged_attention_kernel", "qu
 
 
 def paged_shares(prof) -> dict:
-    """Device time of the profiled kernels, and the share of it that each
-    paged attention kernel takes, by name (``PAGED_MARKS``: the bf16
-    split, the bf16 sweep, the CUDA-core walk, the quantizing scatter)."""
+    """Device time of the profiled kernels, and the time (µs) and share of
+    it that each paged attention kernel takes, by name (``PAGED_MARKS``:
+    the tensor-core split and sweep, the CUDA-core walk, the quantizing
+    scatter)."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.time_range.end - e.time_range.start for e in kernels)
     paged = {}
@@ -97,7 +98,7 @@ def paged_shares(prof) -> dict:
         for mark in PAGED_MARKS:
             if mark in e.name:
                 paged[mark] = paged.get(mark, 0) + e.time_range.end - e.time_range.start
-    return {"kernels": len(kernels), "device_us": total,
+    return {"kernels": len(kernels), "device_us": total, "paged_us": paged,
             "paged_share": {k: v / total for k, v in paged.items()}}
 
 
@@ -180,6 +181,7 @@ def main(argv=None) -> None:
         "ttft_p50_s": m["ttft_p50_s"], "ttft_p95_s": m["ttft_p95_s"],
     }
     summary["serve_paged_share"] = serve_shares["paged_share"]
+    summary["serve_paged_us"] = serve_shares["paged_us"]
     summary["decode_tick"] = decode_tick(sched)
     print(json.dumps(summary))
 

@@ -77,6 +77,13 @@ def worker(checkout: str) -> dict:
     return out
 
 
+def median_of(values):
+    """The median of the values a worker measured (None where it could not
+    measure one), or None if no run measured it."""
+    got = [v for v in values if v is not None]
+    return statistics.median(got) if got else None
+
+
 def compare(script: str, parent: str, rounds: int) -> dict:
     """Run ``script --worker ROOT`` (a tool whose worker prints one JSON
     line of times) for the parent, this checkout, this checkout again and
@@ -90,16 +97,19 @@ def compare(script: str, parent: str, rounds: int) -> dict:
     runs = {name: [] for name in roots}
     for r in range(rounds):
         for name in ("parent", "change", "change", "parent"):
-            res = subprocess.run([sys.executable, script, "--parent", roots["parent"],
-                                  "--worker", roots[name]],
-                                 capture_output=True, text=True, check=True,
-                                 env=dict(os.environ, PYTHONPATH=""))
+            try:
+                res = subprocess.run([sys.executable, script, "--parent", roots["parent"],
+                                      "--worker", roots[name]],
+                                     capture_output=True, text=True, check=True,
+                                     env=dict(os.environ, PYTHONPATH=""))
+            except subprocess.CalledProcessError as e:  # the worker's own error first
+                print(f"{name} worker failed:\n{(e.stderr or '')[-6000:]}", file=sys.stderr)
+                raise
             times = json.loads(res.stdout.strip().splitlines()[-1])
             runs[name].append(times)
             print(json.dumps({"round": r, "checkout": name, "us": times}))
     summary = {"card": card, "median_us": {
-        name: {k: statistics.median(t[k] for t in ts) for k in ts[0]}
-        for name, ts in runs.items()}}
+        name: {k: median_of(t[k] for t in ts) for k in ts[0]} for name, ts in runs.items()}}
     print(json.dumps(summary))
     return summary
 

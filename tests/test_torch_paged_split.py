@@ -1,11 +1,12 @@
 """Kernel 8, the flash-decoding split: which kernel runs, what it is handed,
 and its scratch.
 
-bf16 q on bf16 pools (D 64 or 128, the block lengths the sweep's TMA boxes
-take) runs ``paged_split_tc_kernel``, the tensor-core sweep's body over one
-worker's span of the chain in blocks of two consumer warps, at every row
-count R = G·C (rows past 32 take further row tiles); fp32 and quantized pools, and other head dims and block
-lengths, run the CUDA-core walk. Both run only on the card
+bf16 q on bf16, int8 and fp8 pools (D 64 or 128, the block lengths the
+sweep's TMA boxes take) runs ``paged_split_tc_kernel``, the tensor-core
+sweep's body over one worker's span of the chain in blocks of two consumer
+warps, at every row count R = G·C (rows past 32 take further row tiles);
+fp32 q and pools, and other head dims and block lengths, run the CUDA-core
+walk. Both run only on the card
 (``chip_smoke.py`` holds them against the plain version there, and two
 launches bit for bit). Here: the routing, the row tiles, the scratch's
 sizing and its reuse from call to call (the tickets zeroed once), the
@@ -77,9 +78,13 @@ def lib(monkeypatch):
     (BF16, BF16, 64, 24, 1, 1, WALK),    # a 64-key stage would split a box
     (F32, F32, 64, 16, 1, 1, WALK),      # fp32 pools
     (F32, F32, 64, 16, 4, 20, WALK),
-    (BF16, torch.int8, 64, 16, 1, 1, WALK),  # quantized pools: fp32 p for PV
-    (BF16, torch.float8_e4m3fn, 64, 16, 4, 5, WALK),
-    (F32, torch.float8_e5m2, 128, 16, 1, 1, WALK),
+    (BF16, torch.int8, 64, 16, 1, 1, TC),  # quantized pools: codes exact in bf16
+    (BF16, torch.float8_e4m3fn, 64, 16, 4, 5, TC),
+    (F32, torch.float8_e5m2, 128, 16, 1, 1, WALK),  # fp32 q: the walk
+    (BF16, torch.float8_e5m2, 128, 16, 4, 20, TC),
+    (F32, torch.int8, 64, 16, 4, 5, WALK),
+    (BF16, torch.int8, 32, 16, 1, 1, WALK),   # head dims off the tensor-core instances
+    (BF16, torch.float8_e5m2, 96, 16, 1, 1, WALK),
 ])
 def test_launch_split_routes_by_dtypes_head_dim_block_len_and_rows(
         lib, q_dtype, pool_dtype, d, bl, g, c, want):
@@ -109,6 +114,8 @@ def test_launch_split_routes_by_dtypes_head_dim_block_len_and_rows(
         assert paged_flash.launch_counts == {paged_flash.SWEEP: 0, paged_flash.SPLIT: 1}
     kernel = paged_flash.sweep_kernel(q_dtype, pool_dtype, d, bl)
     assert kernel == (TENSOR_CORES if want == TC else CUDA_CORES)
+    assert {k: v for k, v in paged_flash.route_launch_counts.items() if v} == {
+        paged_flash.route_key(paged_flash.SPLIT, kernel): 1}
     tiles = math.ceil(rows / (32 if want == TC else WALK_ROWS))
     assert split_row_tiles(kernel, rows, WALK_ROWS) == tiles
     (bufs,) = paged_flash._split_scratch.values()
@@ -117,10 +124,13 @@ def test_launch_split_routes_by_dtypes_head_dim_block_len_and_rows(
     args = lib.calls[0][1]
     part, n = bufs["partials"].data_ptr(), b * h_kv * s_workers * rows
     scratch = [part, part + 4 * n * d, part + 4 * n * (d + 1), bufs["tickets"].data_ptr()]
-    if want == TC:  # after q, its strides, the pools, geometry, tables, qpos, out
-        assert tuple(args[6]) == pool_tensor_map_geometry(k_pool)
-        assert [a.value for a in args[10:14]] == scratch
-        assert args[14:21] == (b, c, h_kv, g, bl, w, s_workers)
+    if want == TC:  # after q, its strides, the pools, scales, geometry, tables, qpos, out
+        assert [a.value for a in args[6:8]] == [
+            scales[k].data_ptr() if scales else None for k in ("k_scale", "v_scale")]
+        assert tuple(args[8]) == pool_tensor_map_geometry(k_pool)
+        assert [a.value for a in args[12:16]] == scratch
+        pool = {BF16: 0, torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}[pool_dtype]
+        assert args[16:24] == (pool, b, c, h_kv, g, bl, w, s_workers)
     else:  # after q, its strides, the pools, the scales, tables, qpos, out
         assert [a.value for a in args[11:15]] == scratch
         assert args[17:24] == (b, c, h_kv, g, d, bl, w) and args[24] == s_workers

@@ -1,10 +1,10 @@
 """The single sweep's two kernels: which one runs, and what the tensor-core
 kernel's TMA boxes read.
 
-bf16 q on bf16 pools runs ``paged_sweep_tc_kernel`` (tensor cores, pool
-blocks landed by TMA in stages of 64 chain keys, up to 64 query rows a
-thread block); every other dtype pair, head dim and block length runs the
-CUDA-core walk. Both run only on the card (``chip_smoke.py`` holds them
+bf16 q on bf16, int8 and fp8 pools runs ``paged_sweep_tc_kernel`` (tensor
+cores, pool blocks landed by TMA in stages of 64 chain keys, up to 64 query
+rows a thread block); fp32 q and pools, and the other head dims and block
+lengths, run the CUDA-core walk. Both run only on the card (``chip_smoke.py`` holds them
 against the plain version there). Here: the routing, the row-tile count,
 the pool's tensor-map geometry (each box it names is the pool block the
 table points at), the wrapper's call into the library, and the plain
@@ -47,9 +47,16 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, BF16, 64, 24, CUDA_CORES),     # a stage would split a box
     (BF16, BF16, 64, 96, CUDA_CORES),
     (F32, F32, 64, 16, CUDA_CORES),       # fp32 pools
-    (BF16, torch.int8, 64, 16, CUDA_CORES),  # quantized pools: fp32 p for PV
-    (BF16, torch.float8_e4m3fn, 64, 16, CUDA_CORES),
-    (F32, torch.float8_e5m2, 128, 16, CUDA_CORES),
+    (BF16, torch.int8, 64, 16, TENSOR_CORES),  # quantized pools: codes exact in bf16
+    (BF16, torch.float8_e4m3fn, 64, 16, TENSOR_CORES),
+    (F32, torch.float8_e5m2, 128, 16, CUDA_CORES),  # fp32 q: the walk
+    (BF16, torch.float8_e5m2, 128, 16, TENSOR_CORES),
+    (BF16, torch.int8, 64, 256, TENSOR_CORES),
+    (F32, torch.int8, 64, 16, CUDA_CORES),
+    (F32, torch.float8_e4m3fn, 64, 16, CUDA_CORES),
+    (BF16, torch.int8, 32, 16, CUDA_CORES),    # head dims off the tensor-core instances
+    (BF16, torch.float8_e4m3fn, 96, 16, CUDA_CORES),
+    (BF16, torch.float8_e5m2, 64, 24, CUDA_CORES),  # a stage would split a box
 ])
 def test_sweep_kernel_routes_by_dtypes_head_dim_and_block_len(q_dtype, pool_dtype, d,
                                                               block_len, want):
@@ -146,10 +153,11 @@ def test_launch_sweep_calls_the_routed_entry_point(dtype, d, want, monkeypatch):
     assert out.shape == q.shape and out.dtype == dtype
     assert [name for name, _ in lib.calls] == [want]
     assert paged_flash.launch_counts[paged_flash.SWEEP] == 1
-    if want.endswith("_tc"):
+    if want.endswith("_tc"):  # after q, its strides, the pools and their (null) scales
         args = lib.calls[0][1]
-        assert tuple(args[6]) == pool_tensor_map_geometry(k_pool)
-        assert args[10:16] == (b, c, h_kv, h // h_kv, bl, w)
+        assert [a.value for a in args[6:8]] == [None, None]
+        assert tuple(args[8]) == pool_tensor_map_geometry(k_pool)
+        assert args[12:19] == (0, b, c, h_kv, h // h_kv, bl, w)
 
 
 def test_reference_matches_jax_pallas_sweep_at_many_rows_per_kv_head():
