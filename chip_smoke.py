@@ -25,7 +25,15 @@ Phases, each of which fails the run:
       two launches; the quantize-on-scatter kernel
       bit-equal, in the three pool dtypes, at a chunk shape (8 jobs x 32
       rows) and the decode shape (8 rows), rows whose amax spans 1e-8 to
-      1e4; the flash forward (O, LSE) and fused backward (dQ, dK, dV) at
+      1e4; the same rows written on the append route
+      (``paged_quantize_scatter_attention``, bf16 q: the tensor-core sweep
+      or split quantizes and stores them before it reads them, one launch)
+      in the three pool dtypes at the decode shape with an inactive lane,
+      the prefill chunk, D = 128 and GQA R = 80 with padding rows, split_s
+      1, 2 and auto: pools and scales bit-equal to the plain scatter's, the
+      output bit-equal to the two-launch route's (kernel 9, then the same
+      kernel) and near the plain version's, two launches bitwise equal;
+      the flash forward (O, LSE) and fused backward (dQ, dK, dV) at
       the training shape in bf16, at ragged lengths in fp32 (causal and
       not), at D = 128, and with fully masked rows; the split backward (dK/dV and dQ kernels, both TMA +
       wgmma in bf16) at the same shapes and at the ring's (a 1024-row
@@ -48,7 +56,9 @@ Phases, each of which fails the run:
       logits of the kernel path against a plain-attention run; the same 16
       requests on int8, fp8 and fp8_e5m2 pools of the bf16 pool's bytes
       (more blocks), with their greedy match against the bf16 serve, each
-      serve's sweep and split launches all on the tensor-core route; a
+      serve's sweep and split launches all on the tensor-core route and
+      all on the append route (every quantized serve: standalone kernel 9
+      launches no time); a
       prefix-sharing serve (16 requests on a 512-token shared prefix,
       staggered) against prefix off; an over-committed fp8 serve that
       preempts on OOM, by swap and by recompute, against the ample one;
@@ -79,7 +89,10 @@ Phases, each of which fails the run:
       the splits and the quantized sweeps also by their kernel's device
       time), the sweeps also at the prefill chunk where the serve runs them
       (B 4 x C 32, W 64), the
-      scatter at the chunk and decode shapes, the flash kernels at the training shape
+      scatter at the chunk and decode shapes (also by device time), kernel
+      9 on the append route (the split at decode, the sweep at the prefill
+      chunk) beside the two-launch route and the kernel alone, by CUDA
+      events and device time, the flash kernels at the training shape
       (library: causal SDPA, forward, and its backward through autograd),
       the tail kernels at ResNet-50's four stage shapes and moments also at
       the four downsample inputs, each also by its kernels' device time,
@@ -376,6 +389,101 @@ def scatter_bound(args) -> dict:
     return roofline(n_bytes, 2 * rows * k.shape[3] * 4, PEAK_FLOPS["torch.float32"])
 
 
+def new_rows(torch, inp, seed=0):
+    """A paged call's new K/V rows ``[B, C, H_kv, D]`` in q's dtype, as the
+    model hands them to ``paged_quantize_scatter_attention``: views of a
+    fused ``[B, C, 3, H_kv, D]`` projection, each (row, head) scaled so amax
+    spans 1e-3 to 1e2."""
+    rng = np.random.default_rng(seed)
+    b, c, _, d = inp["q"].shape
+    h_kv = inp["k_pool"].shape[2]
+    x = rng.standard_normal((b, c, 3, h_kv, d))
+    x *= np.exp(rng.uniform(np.log(1e-3), np.log(1e2), (b, c, 3, h_kv, 1)))
+    qkv = torch.from_numpy(x.astype(np.float32)).to(inp["q"].device, inp["q"].dtype)
+    return qkv[:, :, 1], qkv[:, :, 2]
+
+
+def append_shapes(torch, dev="cuda"):
+    """The append route's checks: (label, fp32 paged inputs) at the decode
+    shape with its last lane inactive (a trash-only table row at position
+    0, as the engine arms it), at the serve's prefill chunk, at D = 128
+    with GQA (G 2), and at GQA R = G·C = 80 rows (several row tiles write
+    the same rows) with padding rows (-1) and a fully masked batch row."""
+    decode = decode_inputs(torch, torch.float32, seed=12, dev=dev)
+    decode["block_tables"][-1] = 0
+    decode["q_positions"][-1] = 0
+    pos = np.full((3, 20), -1)
+    pos[0] = 180 + np.arange(20)
+    pos[1, :7] = 40 + np.arange(7)
+    return (
+        ("decode B=8 C=1 H=12 D=64 W=128, the last lane inactive", decode),
+        ("prefill chunk B=4 C=32 W=64", prefill_inputs(torch, torch.float32, dev=dev, seed=13)),
+        ("D=128 H=4 H_kv=2 C=2", decode_inputs(torch, torch.float32, b=2, c=2, h=4, h_kv=2,
+                                               d=128, w=8, seed=14, dev=dev)),
+        ("GQA H=8 H_kv=2 C=20 (R=80) padding rows", decode_inputs(
+            torch, torch.float32, b=3, c=20, h=8, h_kv=2, w=16, seed=15, positions=pos,
+            dev=dev)),
+    )
+
+
+def check_append_route(torch, failures, dev="cuda") -> dict:
+    """Kernel 9 on the append route: ``paged_quantize_scatter_attention``
+    with bf16 q and rows on int8, fp8 and fp8_e5m2 pools (one launch of the
+    tensor-core sweep or split that writes the new rows before it reads
+    them) at ``append_shapes``, split_s 1, 2 and auto: its pools and scales
+    bit-equal to the plain version's (the trash block aside, where the
+    two-launch route puts padding rows), its output bit-equal to the
+    two-launch route's (``scatter_then_attend``: kernel 9, then the same
+    tensor-core kernel) and within ``BF16_TOL`` times the output's largest
+    |value| (at least 1) of the plain version, and a second launch on
+    fresh pools equal bit for bit, pools and output.
+    Returns the largest output error against the plain version per pool
+    dtype's ``paged_quantize_scatter`` variant."""
+    from pytorch_distributed_tpu_torch.ops import paged_flash as pf
+
+    errs = {}
+    for kv in QUANT:
+        for label, raw in append_shapes(torch, dev):
+            inp = quantized(torch, raw, kv)
+            inp["q"] = inp["q"].to(torch.bfloat16)
+            k, v = new_rows(torch, inp, seed=len(label))
+            pools = [inp[n] for n in ("k_pool", "v_pool", "k_scale", "v_scale")]
+            where = (inp["block_tables"], inp["q_positions"])
+            for split_s in (1, 2, None):
+                runs = {}
+                for name, fn in (("append", pf.paged_quantize_scatter_attention),
+                                 ("again", pf.paged_quantize_scatter_attention),
+                                 ("two launches", pf.scatter_then_attend)):
+                    mine = [t.clone() for t in pools]
+                    runs[name] = (fn(inp["q"], k, v, *mine, *where, split_s=split_s), mine)
+                plain = [t.clone() for t in pools]
+                want = pf.paged_quantize_scatter_attention_reference(inp["q"], k, v, *plain,
+                                                                     *where)
+                sync(torch, dev)
+                out, mine = runs["append"]
+                at = f"append route {label} {kv} pools, split_s={split_s}"
+
+                def differ(xs, ys, first=0):
+                    return sum(int((x[first:].view(torch.uint8) != y[first:].view(torch.uint8))
+                                   .sum()) for x, y in zip(xs, ys))
+                n_pool = differ(mine, plain, first=1)
+                n_out = differ([out], [runs["two launches"][0]])
+                n_rep = differ([out, *mine], [runs["again"][0], *runs["again"][1]])
+                print(f"(b) {at}: pools {'bit-equal' if n_pool == 0 else f'{n_pool} bytes DIFFER'}"
+                      f" to the plain scatter's; output {'bit-equal' if n_out == 0 else 'DIFFERS'}"
+                      f" to the two-launch route's; two launches "
+                      f"{'bitwise equal' if n_rep == 0 else 'DIFFER'}")
+                if n_pool or n_out or n_rep:
+                    failures.append(at)
+                # the new rows reach |x| = 1e2, where one bf16 ulp of the
+                # output is 0.5: the tolerance scales with its largest |value|
+                tol = BF16_TOL * max(1.0, want.float().abs().max().item())
+                err = check_abs(torch, failures, f"{at}, output vs plain", out, want, tol, dev)
+                key = pf.variant(pf.QUANTIZE, mine[0].dtype)
+                errs[key] = max(errs.get(key, 0.0), err)
+    return errs
+
+
 def match_rate(a, b) -> float:
     """Share of equal tokens at equal places of two lists of streams."""
     return float(np.mean([x == y for s, t in zip(a, b) for x, y in zip(s, t)]))
@@ -543,6 +651,11 @@ def is_sweep_kernel(name: str) -> bool:
     """Kernel 7 in a profiler trace (``paged_sweep_tc_kernel``, bf16 q on
     bf16, int8 and fp8 pools)."""
     return "paged_sweep_tc" in name
+
+
+def is_quantize_kernel(name: str) -> bool:
+    """Kernel 9, standalone, in a profiler trace (``quantize_scatter_kernel``)."""
+    return "quantize_scatter" in name
 
 
 def is_dq_kernel(name: str) -> bool:
@@ -1099,6 +1212,7 @@ def main(argv) -> int:
     from pytorch_distributed_tpu_torch.recipes.serve_lm import full_config
     from pytorch_distributed_tpu_torch.serving import PagedEngine, Scheduler, pool_block_bytes
     from pytorch_distributed_tpu_torch.serving.engine import ChunkJob
+    from pytorch_distributed_tpu_torch.serving.kv_pool import kv_pool_dtype
     from pytorch_distributed_tpu_torch.train import (
         LMTrainer,
         LMTrainerConfig,
@@ -1269,6 +1383,9 @@ def main(argv) -> int:
                     failures.append(f"quantize-on-scatter {label} {dtype} {kv}")
                 if dtype == bf16 and l_ == 1:  # bit-equal, or the run stops below
                     errs[paged_flash.variant(paged_flash.QUANTIZE, mine[0].dtype)] = 0.0
+    # the same rows quantized and written by the tensor-core sweep and split
+    # themselves (the append route)
+    append_errs = check_append_route(torch, failures)
 
     FWD, BWD = flash_attention.FWD, flash_attention.BWD
 
@@ -1345,13 +1462,31 @@ def main(argv) -> int:
             raise SystemExit(f"chip_smoke: {label}: the sweep and split launches did not all "
                              f"take the tensor-core route: {launches}")
 
+    def appended(label, launches, dt):
+        """Fails the run unless a bf16-q serve on pools of the quantized
+        dtype ``dt`` wrote every layer's new rows on the append route:
+        standalone kernel 9 launched no time, and the append launches equal
+        the sweep and split launches. Returns the append launches plus the
+        standalone ones (kernel 9's launches)."""
+        sweep, split, scatter = (paged_flash.variant(k, dt) for k in
+                                 (paged_flash.SWEEP, paged_flash.SPLIT, paged_flash.QUANTIZE))
+        attn = launches.get(sweep, 0) + launches.get(split, 0)
+        app = sum(launches.get(paged_flash.append_key(k, dt), 0)
+                  for k in (paged_flash.SWEEP, paged_flash.SPLIT))
+        if launches.get(scatter, 0) or attn == 0 or app != attn:
+            raise SystemExit(f"chip_smoke: {label}: the new rows did not all go through the "
+                             f"append route (standalone kernel 9 {launches.get(scatter, 0)} "
+                             f"launches, append {app}, sweep + split {attn}): {launches}")
+        return app + launches.get(scatter, 0)
+
     def serve(label, reqs, *, stagger=0, **kw):
         """Serve ``reqs`` (``stagger`` steps between submissions) through
         the kernels, the launch counts reset just before and read just
         after; every request must complete its budget inside the
-        vocabulary and every block must come back. Returns the scheduler,
-        the streams in submit order, the metrics, the wall and the
-        launches."""
+        vocabulary and every block must come back, and on quantized pools
+        every layer's new rows must take the append route (``appended``).
+        Returns the scheduler, the streams in submit order, the metrics,
+        the wall and the launches."""
         sched = Scheduler(cfg, state, gather_impl="kernel", **{**serve_kw, **kw})
         torch.cuda.synchronize()
         paged_flash.reset_launch_counts()
@@ -1372,6 +1507,8 @@ def main(argv) -> int:
             raise SystemExit(f"chip_smoke: {label}: a request did not complete its budget")
         if any(not 0 <= t < cfg.vocab_size for r in rids for t in streams[r]):
             raise SystemExit(f"chip_smoke: {label}: a token outside the vocabulary")
+        if kw.get("kv_dtype"):
+            appended(label, launches, kv_pool_dtype(kw["kv_dtype"]))
         leaked = sched.engine.allocator.in_use - m["prefix_index_blocks"]
         if leaked or m["host_store_bytes"] or m["parked"]:
             raise SystemExit(f"chip_smoke: {label}: {leaked} blocks leaked, "
@@ -1452,17 +1589,20 @@ def main(argv) -> int:
                                                    kv_dtype=kv, n_blocks=n_blocks)
         tick = per_tick(sched.engine)
         dt = sched.engine.cache[0].key.dtype
-        names = [paged_flash.variant(k, dt) for k in
-                 (paged_flash.SWEEP, paged_flash.SPLIT, paged_flash.QUANTIZE)]
+        names = [paged_flash.variant(k, dt) for k in (paged_flash.SWEEP, paged_flash.SPLIT)]
         launches.update({k: lq.get(k, 0) for k in names})
+        # kernel 9: its launches are the append route's (standalone: none)
+        launches[paged_flash.variant(paged_flash.QUANTIZE, dt)] = appended(f"{kv} pools", lq, dt)
         print(f"(c) {kv}: {n_blocks} blocks in the bytes of {n_bf16} bf16 blocks "
               f"({n_blocks / n_bf16:.3f}x); greedy match with the bf16 serve "
               f"{match_rate(quant_streams[kv], bf16_streams):.3f}; launches per decode "
               f"tick {tick}")
-        if not all(lq.get(k, 0) > 0 for k in names) or not all(
-                tick.get(k, 0) == cfg.num_layers for k in names[1:]):
+        if (not all(lq.get(k, 0) > 0 for k in names)
+                or tick.get(names[1], 0) != cfg.num_layers
+                or tick.get(paged_flash.append_key(paged_flash.SPLIT, dt), 0) != cfg.num_layers
+                or tick.get(paged_flash.variant(paged_flash.QUANTIZE, dt), 0)):
             raise SystemExit(f"chip_smoke: {kv}: a quantized kernel did not run on the "
-                             f"main path: serve {lq}, tick {tick}")
+                             f"main path, or kernel 9 ran apart from it: serve {lq}, tick {tick}")
         on_tensor_cores(f"{kv} pools", lq, lq[names[0]], lq[names[1]])
         del sched
         torch.cuda.empty_cache()
@@ -1698,13 +1838,66 @@ def main(argv) -> int:
             sb = scatter_bound(args)
             key = paged_flash.variant(paged_flash.QUANTIZE, args[4].dtype)
             t_kernel = time_ms(torch, lambda: paged_flash.paged_quantize_scatter(*args))
+            t_dev = kernel_device_ms(torch, lambda: paged_flash.paged_quantize_scatter(*args),
+                                     {key: (is_quantize_kernel, 1)})[key]
             t_plain = time_ms(torch, lambda: paged_flash.paged_quantize_scatter_reference(
                 *args))
             print(f"(d) {key} at {label}, H=12 D=64 bf16, on {card}: {t_kernel * 1e3:.1f} us "
-                  f"per call, plain {t_plain * 1e3:.1f} us, bound {sb['bound_ms'] * 1e3:.3f} us "
-                  f"({sb['bound_by']}: {sb['bytes'] / 1e3:.1f} KB)")
+                  f"per call ({t_dev * 1e3:.2f} us device time), plain {t_plain * 1e3:.1f} us, "
+                  f"bound {sb['bound_ms'] * 1e3:.3f} us ({sb['bound_by']}: "
+                  f"{sb['bytes'] / 1e3:.1f} KB)")
+            extra = quant_extra.setdefault(key, {"kernel": f"quantize_scatter_kernel[{kv}]"})
             if l_ == 1:
                 timed[key], plains[key], bounds[key] = t_kernel, t_plain, sb
+                extra["device_ms"] = t_dev
+            else:
+                extra.update(chunk_ms=t_kernel, chunk_device_ms=t_dev)
+    # kernel 9 on the append route, one layer as the serve runs it: the
+    # split at decode, the sweep at the prefill chunk, each writing the
+    # layer's new rows itself; beside the two-launch route (kernel 9, then
+    # the same tensor-core kernel) and the kernel alone (no rows written),
+    # by CUDA events and by device time
+    for kv in QUANT:
+        for shape, inp, split_s, name, match in (
+                ("decode", decode_q[kv], None, "split", is_split_kernel),
+                ("prefill chunk", chunk_q[kv], 1, "sweep", is_sweep_kernel)):
+            k, v = new_rows(torch, inp, seed=16)
+            pools = (inp["k_pool"], inp["v_pool"], inp["k_scale"], inp["v_scale"])
+            where = (inp["block_tables"], inp["q_positions"])
+            # the destinations once, outside the timed call, as the model's
+            # PagedIndex computes them once a forward for every layer
+            blk, off = paged_flash.append_destinations(*where, inp["k_pool"].shape[1])
+
+            def append_call():
+                return paged_flash.paged_quantize_scatter_attention(inp["q"], k, v, *pools,
+                                                                    *where, split_s=split_s)
+
+            def two_launches():
+                paged_flash.paged_quantize_scatter(k, v, blk, off, *pools)
+                return paged_flash.paged_flash_attention(**inp, split_s=split_s)
+
+            def alone():
+                return paged_flash.paged_flash_attention(**inp, split_s=split_s)
+
+            t = {"alone": time_ms(torch, alone), "append": time_ms(torch, append_call),
+                 "two": time_ms(torch, two_launches)}
+            dev = {"alone": kernel_device_ms(torch, alone, {"k": (match, 1)})["k"],
+                   "append": kernel_device_ms(torch, append_call, {"k": (match, 1)})["k"]}
+            two = kernel_device_ms(torch, two_launches,
+                                   {"k": (match, 1), "scatter": (is_quantize_kernel, 1)})
+            dev["two"] = two["k"] + two["scatter"]
+            key = paged_flash.variant(paged_flash.QUANTIZE, inp["k_pool"].dtype)
+            tag = f"{name} {shape}".replace(" ", "_")
+            quant_extra[key].update({
+                f"append_{tag}_ms": t["append"], f"append_{tag}_device_ms": dev["append"],
+                f"scatter_then_{tag}_ms": t["two"], f"scatter_then_{tag}_device_ms": dev["two"],
+                f"{tag}_alone_ms": t["alone"], f"{tag}_alone_device_ms": dev["alone"]})
+            print(f"(d) {key} on the append route, the {name} at {shape}, {kv} pools, bf16 q, "
+                  f"on {card}: append {t['append'] * 1e3:.1f} us per call "
+                  f"({dev['append'] * 1e3:.1f} us device time); kernel 9 then the {name} "
+                  f"{t['two'] * 1e3:.1f} us ({two['scatter'] * 1e3:.2f} + {two['k'] * 1e3:.1f} us "
+                  f"device time); the {name} alone {t['alone'] * 1e3:.1f} us "
+                  f"({dev['alone'] * 1e3:.1f} us device time)")
 
     # flash kernels at the training shape; the backward's time is the
     # wrapper's (Delta, the kernel, the dQ cast), as the training step runs it
@@ -1797,6 +1990,7 @@ def main(argv) -> int:
            if name == paged_flash.SPLIT else {}),
         **({"kernel": "paged_sweep_tc_kernel"} if name == paged_flash.SWEEP else {}),
         **quant_extra.get(name, {}),
+        **({"append_out_max_abs_err": append_errs[name]} if name in append_errs else {}),
     } for name in timed]
     flash_replaces = {FWD: "pytorch_distributed_tpu/ops/flash_attention.py:138",
                       BWD: "pytorch_distributed_tpu/ops/flash_attention.py:375"}

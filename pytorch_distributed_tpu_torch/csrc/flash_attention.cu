@@ -636,12 +636,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// this thread's global accesses ordered against its bulk copies' (the
-// async proxy's)
-__device__ __forceinline__ void fence_async_global() {
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
-}
-
 // `bytes` of fp32 from shared to global memory (16-byte aligned, a
 // multiple of 16 bytes), stored or (kAdd) added at L2, as one bulk copy
 template <bool kAdd>

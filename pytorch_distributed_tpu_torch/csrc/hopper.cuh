@@ -107,6 +107,13 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// this thread's global accesses ordered against the async proxy's (bulk
+// and TMA copies): its writes before TMA loads that a barrier, completed
+// by its later arrival, lets go out
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // the consumer warps alone: named barrier 1 over kThreads threads (the
 // producer never joins)
 template <int kThreads>

@@ -10,8 +10,10 @@
 //     which the JAX package runs in jnp after its kernel (:444-459),
 //     both with their in-kernel dequantization of int8/fp8 pools
 //     (:119-130); and
-//   - paged_quantize_scatter (pallas_call at :563, body :532), further
-//     down this file.
+//   - paged_quantize_scatter (pallas_call at :563, body :532): with bf16 q
+//     written by the tensor-core sweep and split themselves, before they
+//     read the rows (the append route, paged_tc_body), else by
+//     quantize_scatter_kernel, further down this file.
 //
 // What it computes: each query head h = kv * G + g (GQA group G) at chunk
 // index c attends to pools [n_blocks, block_len, H_kv, D] through block
@@ -109,11 +111,17 @@ __device__ __forceinline__ float row_scale(const void* scales, int64_t i) {
 
 // scales[i] as loaded, for the tensor-core producer's registers: the fp32
 // multiplier, or the int8 exponent's sign-extended bits (the load feeds no
-// instruction until scale_of, so the warp does not wait for it)
-template <int kScale>
+// instruction until scale_of, so the warp does not wait for it). A
+// coherent load (kCoherent, through L2) sees a scale that this block wrote
+// earlier in the launch, where the non-coherent one may not.
+template <int kScale, bool kCoherent>
 __device__ __forceinline__ float raw_scale(const void* scales, int64_t i) {
-  if constexpr (kScale == kMultiplier) return __ldg(static_cast<const float*>(scales) + i);
-  return __int_as_float(__ldg(static_cast<const signed char*>(scales) + i));
+  if constexpr (kScale == kMultiplier) {
+    const float* s = static_cast<const float*>(scales) + i;
+    return kCoherent ? __ldcg(s) : __ldg(s);
+  }
+  const signed char* s = static_cast<const signed char*>(scales) + i;
+  return __int_as_float(kCoherent ? __ldcg(s) : __ldg(s));
 }
 
 // the dequantization factor of a raw_scale
@@ -510,6 +518,31 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
 //     converted row costs ~2-3 instructions a code, once per warp that
 //     reads it (a key group's warps each widen the whole stage).
 //
+// The append route (quantized pools, k_new set): the launch also writes the
+// chunk's new K/V rows into the pools, kernel 9's work (paged_quantize_
+// scatter, pallas_call at :563), so a layer's tick is one launch, not two.
+// Kernel 9 costs its launch, not its bytes (under 25 KB a decode layer);
+// what a fused write must not cost is the sweep's critical path.
+//   - Who writes: every block whose keys [k_begin, k_stop) hold a new row's
+//     position writes that row (for its KV head), before it reads it; blocks
+//     that read the same keys (the row tiles of G > 1) write the same bytes.
+//     Every row is written: its own row tile's frontier is at least its
+//     position, so one of that tile's active workers holds it.
+//   - The consumer warps write (append_rows) while the ring's first stages
+//     land: they are idle until then. Each thread fences its stores for the
+//     async proxy (fence.proxy.async.global) and arrives on `wrote`.
+//   - The producer issues the stages before i_new, the first stage holding
+//     a new row, at once, and waits on `wrote` (then fences) before stage
+//     i_new's TMA copies. The new rows sit at the frontier, so i_new is
+//     usually a span's last stage and the wait finds the writes done.
+//   - Scales are read by plain loads, not TMA, kAhead stages early and by
+//     the non-coherent path, which need not see this launch's writes: from
+//     stage i_new on, each stage's scales are loaded through L2 as it goes
+//     out (behind its TMA copies' own latency), never ahead. Each load site
+//     takes one path, fixed at compile time: a load chosen between the two
+//     at run time (a select of both) stalled the producer every stage (fp8
+//     sweep at decode 40 -> 62 us of device time).
+//
 // The split (paged_split_tc_kernel): worker s of S reads chain blocks
 // [s wc, min((s + 1) wc, W)), wc = ceil(W / S), cut at the tile's frontier,
 // in stages of 64 keys from its first key; workers whose span starts past
@@ -623,11 +656,62 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t&
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+constexpr float kAmaxFloor = 1e-8f;
+constexpr float kInt8Scale = static_cast<float>(1.0 / 127.0);  // jnp.float32(1/127)
+
+// Kernel 9's arithmetic (serving.kv_pool.quantize_rows) on one row of a
+// quantized pool kind, from the row's largest |x|: its step and stored
+// scale, then each value's code. quantize_scatter_kernel and the append
+// route share it, so their bytes agree. IEEE division, rint and exact
+// powers of two make it bit-identical to the plain PyTorch version:
+//   int8: s = amax * fp32(1/127); code = clip(rint(x / s), -127, 127)
+//   fp8:  e = clip(ceil(log2(amax / fmax)), -126, 126), taken exactly from
+//         frexp(amax) = (m, k): e = k - k_fmax + (m > 0.875), as fmax is
+//         0.875 * 2^k_fmax; code = cvt_rn_satfinite(x * 2^-e)
+// with amax floored at 1e-8.
+template <int kPool>
+struct RowQuant {
+  float step;  // int8: the scale s; fp8: 2^-e
+  int e;       // fp8: the exponent stored as the scale
+
+  __device__ __forceinline__ explicit RowQuant(float amax) {
+    amax = fmaxf(amax, kAmaxFloor);
+    if constexpr (kPool == kPoolInt8) {
+      step = amax * kInt8Scale;
+      e = 0;
+    } else {
+      constexpr int kFmaxExp = kPool == kPoolE4M3 ? 9 : 16;  // 448, 57344 = 0.875 * 2^k
+      int k;
+      const float m = frexpf(amax, &k);
+      e = min(max(k - kFmaxExp + (m > 0.875f ? 1 : 0), -126), 126);
+      step = pow2(-e);
+    }
+  }
+
+  __device__ __forceinline__ uint8_t code(float x) const {
+    if constexpr (kPool == kPoolInt8) {
+      return static_cast<uint8_t>(static_cast<int8_t>(fminf(fmaxf(rintf(x / step), -127.f), 127.f)));
+    } else {
+      constexpr __nv_fp8_interpretation_t kFmt = kPool == kPoolE4M3 ? __NV_E4M3 : __NV_E5M2;
+      return __nv_cvt_float_to_fp8(x * step, __NV_SATFINITE, kFmt);
+    }
+  }
+
+  // the row's scale at scales[row] (scales [n_blocks, bl, H_kv])
+  __device__ __forceinline__ void store_scale(void* scales, int64_t row) const {
+    if constexpr (kPool == kPoolInt8) {
+      static_cast<float*>(scales)[row] = step;
+    } else {
+      static_cast<int8_t*>(scales)[row] = static_cast<int8_t>(e);
+    }
+  }
+};
+
 struct TcParams {
   const __nv_bfloat16* q;  // q[b, c, h, :] at q + b*q_sb + c*q_sc + h*q_sh
   int64_t q_sb, q_sc, q_sh;
-  const void* k_scale;  // quantized pools: [n_blocks, bl, H_kv], else null
-  const void* v_scale;
+  void* k_scale;  // quantized pools: [n_blocks, bl, H_kv], else null
+  void* v_scale;
   const int* tables;  // [B, W]
   const int* qpos;    // [B, C]
   __nv_bfloat16* out;  // [B, C, H_kv * G, D]
@@ -637,7 +721,94 @@ struct TcParams {
   int* tickets;        // split: [B, H_kv, ceil(R / 32)], zero on entry and on exit
   int H_kv, G, C, bl, W, box_rows, pool_rows, S, wc;  // the sweep: S = 1, wc = W
   float scale;
+  // the append route (quantized pools; null k_new: none): the chunk's new
+  // rows k_new[b, c, h, :] at k_new + b*k_sb + c*k_sc + h*k_sh (elements;
+  // v_new likewise), bf16 or fp32 (new_f32), row (b, c) written into the
+  // pools [n_blocks, bl, H_kv, D] at position qpos[b, c]
+  const void* k_new;
+  const void* v_new;
+  int64_t k_sb, k_sc, k_sh, v_sb, v_sc, v_sh;
+  int new_f32;
+  unsigned char* k_pool;
+  unsigned char* v_pool;
 };
+
+// the append route: the positions of a chunk's first rows sit in shared
+// memory (a serve's prefill chunk is 32 or 64 rows), later ones are read
+// from qpos
+constexpr int kNewRowsCached = 64;
+
+__device__ __forceinline__ int new_position(const TcParams& p, const int* pos_s, int b, int c) {
+  return c < kNewRowsCached ? pos_s[c] : __ldg(p.qpos + static_cast<int64_t>(b) * p.C + c);
+}
+
+// The append route's writes, by the consumer warps before they read a
+// stage: the new K and V rows of batch row b and KV head h whose positions
+// lie in this block's keys [k_begin, k_stop), each quantized as kernel 9
+// does (RowQuant) into pool block tables[b, pos / bl] at slot pos % bl, its
+// scale beside it. A row with a negative position lies in no block's keys
+// and is not written. An octet of lanes holds a row (D / 8 values a lane,
+// one or two 16-byte loads; its amax in three shuffles), a pass of the kCW
+// warps 4 kCW rows, and 256 / D passes' loads go out together: a position
+// from shared memory, then the row and its table entry, one round trip for
+// up to 64 rows.
+template <int kPool, int D, int kCW>
+__device__ __forceinline__ void append_rows(const TcParams& p, const int* pos_s, int b, int h,
+                                            int k_begin, int k_stop, int warp, int lane) {
+  constexpr int kV = D / 8;
+  constexpr int kPass = 4 * kCW;
+  constexpr int kRound = 256 / D;
+  const int* table = p.tables + static_cast<int64_t>(b) * p.W;
+  const int e = lane & 7;
+  for (int t0 = 0; t0 < 2 * p.C; t0 += kRound * kPass) {
+    float x[kRound][kV];
+    int64_t row[kRound];  // the destination (block, slot, head) row, or -1
+#pragma unroll
+    for (int u = 0; u < kRound; ++u) {
+      const int task = t0 + u * kPass + 4 * warp + (lane >> 3);  // row task / 2, V if odd
+      const int c = task >> 1;
+      const int pos = task < 2 * p.C ? new_position(p, pos_s, b, c) : -1;
+      row[u] = -1;
+#pragma unroll
+      for (int i = 0; i < kV; ++i) x[u][i] = 0.f;
+      if (pos >= k_begin && pos < k_stop) {
+        const int j = pos / p.bl;
+        row[u] = (static_cast<int64_t>(__ldg(table + j)) * p.bl + pos - j * p.bl) * p.H_kv + h;
+        const int64_t at = (task & 1) ? b * p.v_sb + c * p.v_sc + h * p.v_sh + e * kV
+                                      : b * p.k_sb + c * p.k_sc + h * p.k_sh + e * kV;
+        const void* src = (task & 1) ? p.v_new : p.k_new;
+        if (p.new_f32) {
+          load_vec<kV>(x[u], static_cast<const float*>(src) + at);
+        } else {
+          load_vec<kV>(x[u], static_cast<const __nv_bfloat16*>(src) + at);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRound; ++u) {
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < kV; ++i) amax = fmaxf(amax, fabsf(x[u][i]));
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1) amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
+      if (row[u] < 0) continue;
+      const RowQuant<kPool> rq(amax);
+      uint32_t w[kV / 4];
+#pragma unroll
+      for (int i = 0; i < kV / 4; ++i)
+        w[i] = rq.code(x[u][4 * i]) | rq.code(x[u][4 * i + 1]) << 8 |
+               rq.code(x[u][4 * i + 2]) << 16 | static_cast<uint32_t>(rq.code(x[u][4 * i + 3])) << 24;
+      const bool is_v = (t0 + u * kPass + 4 * warp + (lane >> 3)) & 1;
+      unsigned char* dst = (is_v ? p.v_pool : p.k_pool) + row[u] * D + e * kV;
+      if constexpr (kV == 8) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      if (e == 0) rq.store_scale(is_v ? p.v_scale : p.k_scale, row[u]);
+    }
+  }
+}
 
 // The body of both tensor-core kernels: kCW consumer warps and a producer
 // warp, row tiles of kRowsT = 16 kCW rows; grid (ceil(G * C / kRowsT) * S,
@@ -665,6 +836,11 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
   __shared__ float m_s[(kCW - 1) * kRowsT];  // key groups 1 .. kCW - 1 at the end
   __shared__ float l_s[(kCW - 1) * kRowsT];
   __shared__ int is_last;
+  // the append route: the chunk's first positions, and the consumers'
+  // arrivals once their rows are stored
+  __shared__ int np_s[kQuant ? kNewRowsCached : 1];
+  __shared__ uint64_t wrote;
+  const bool append = kQuant && p.k_new != nullptr;
 
   const int R = p.G * p.C;
   const int n_rt = (R + kRowsT - 1) / kRowsT;
@@ -727,11 +903,14 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
   }
   if (tid < kRowsT)
     qp_s[tid] = tid < nr ? p.qpos[static_cast<int64_t>(b) * p.C + (row0 + tid) % p.C] : -1;
+  if (append && tid < min(p.C, kNewRowsCached))
+    np_s[tid] = __ldg(p.qpos + static_cast<int64_t>(b) * p.C + tid);
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, n16);  // lane 0 of each warp of the stage's key group
     }
+    if constexpr (kQuant) mbar_init(&wrote, 32 * kCW);  // every consumer thread
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -771,7 +950,7 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
     // (its codes zeros) gets a raw 0, a finite factor.
     constexpr int kAhead = kQuant ? 4 : 1;  // kAhead * n_copies <= 32
     float ksr[kAhead][2], vsr[kAhead][2];
-    auto load_scales = [&](int i, int rows, float (&ks)[2], float (&vs)[2]) {
+    auto load_scales = [&](int i, int rows, float (&ks)[2], float (&vs)[2], bool coherent) {
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int k = lane + 32 * u;
@@ -779,15 +958,37 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
         ks[u] = vs[u] = 0.f;
         if (r0 >= 0) {
           const int64_t at = static_cast<int64_t>(r0 + k % p.box_rows) * p.H_kv + h;
-          ks[u] = raw_scale<kScale>(p.k_scale, at);
-          vs[u] = raw_scale<kScale>(p.v_scale, at);
+          if (coherent) {  // a branch, never a select of both loads
+            ks[u] = raw_scale<kScale, true>(p.k_scale, at);
+            vs[u] = raw_scale<kScale, true>(p.v_scale, at);
+          } else {
+            ks[u] = raw_scale<kScale, false>(p.k_scale, at);
+            vs[u] = raw_scale<kScale, false>(p.v_scale, at);
+          }
         }
       }
     };
+    // The append route: stage i_new, the first to hold a new row of this
+    // block's keys, goes out only after every consumer thread stored its
+    // rows and fenced them for the TMA loads (the `wrote` barrier); the
+    // stages before it go out at once, while the consumers write. The
+    // scales of stages i_new and later are not loaded ahead: each is
+    // loaded, through L2, as its stage goes out (the new rows sit at the
+    // frontier, so that is a span's last stage or two).
+    [[maybe_unused]] int i_new = n_st;
     if constexpr (kQuant) {
+      if (append) {
+        int lo = k_stop;
+        for (int c = lane; c < p.C; c += 32) {
+          const int pos = new_position(p, np_s, b, c);
+          if (pos >= k_begin && pos < lo) lo = pos;
+        }
+        lo = __reduce_min_sync(kFull, lo);
+        if (lo < k_stop) i_new = (lo - k_begin) / kStageKeys;
+      }
 #pragma unroll
       for (int a = 0; a < kAhead; ++a)  // stages 0 .. kAhead - 1: boxes of batch 0
-        if (a < n_st) load_scales(a, cur, ksr[a], vsr[a]);
+        if (a < i_new) load_scales(a, cur, ksr[a], vsr[a], false);
     }
     // stage i's boxes go out: returns its ring slot
     auto issue = [&](int i) {
@@ -837,7 +1038,12 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
         for (int a = 0; a < kAhead; ++a) {
           const int i = i0 + a;
           if (i >= n_st) break;
+          if (i == i_new) {
+            mbar_wait(&wrote, 0);
+            fence_async_global();
+          }
           const int s = issue(i);
+          if (i >= i_new) load_scales(i, cur, ksr[a], vsr[a], true);
           // the stage's scales go into its slot (its consumers are done
           // with it: issue's empty wait); __syncwarp orders the lanes'
           // writes before lane 0's arrival, which completes the stage with
@@ -850,15 +1056,25 @@ __device__ __forceinline__ void paged_tc_body(const CUtensorMap& map_k, const CU
           __syncwarp();
           if (lane == 0) mbar_arrive(full + s);
           const int ia = i + kAhead;
-          if (ia < n_st)
+          if (ia < i_new)  // i_new <= n_st
             load_scales(ia, (ia * n_copies) / 32 == (i * n_copies) / 32 ? cur : nxt, ksr[a],
-                        vsr[a]);
+                        vsr[a], false);
         }
       }
     } else {
       for (int i = 0; i < n_st; ++i) issue(i);
     }
     return;
+  }
+
+  // the append route: this block's new rows, before the first stage is
+  // read (the stages before the producer's i_new land meanwhile)
+  if constexpr (kQuant) {
+    if (append) {
+      append_rows<kPool, D, kCW>(p, np_s, b, h, k_begin, k_stop, warp, lane);
+      fence_async_global();
+      mbar_arrive(&wrote);
+    }
   }
 
   // q scaled in its dtype, as A fragments
@@ -1317,6 +1533,36 @@ int tc_prepare(CUtensorMap* mk, CUtensorMap* mv, const void* q, int64_t q_sb, in
   return err != 0 ? err : encode_pool(mv, v_pool, geometry, quant);
 }
 
+// The append route's operands into p (null k_new: no append): the new rows
+// k_new, v_new [B, C, H_kv, D] in new_dtype (0 = float32, 1 = bfloat16)
+// with strides in elements, written into the quantized pools. Each row is
+// read in 16-byte vectors, so the pointers and the strides' bytes must be
+// multiples of 16. Returns 0 or cudaErrorInvalidValue.
+int tc_append(TcParams* p, int pool, void* k_pool, void* v_pool, const void* k_new,
+              int64_t k_sb, int64_t k_sc, int64_t k_sh, const void* v_new, int64_t v_sb,
+              int64_t v_sc, int64_t v_sh, int new_dtype) {
+  if (k_new == nullptr) return v_new == nullptr ? 0 : kInvalid;
+  const int64_t elem = new_dtype == 0 ? 4 : 2;
+  bool ok = pool != kPoolFloat && v_new != nullptr && (new_dtype == 0 || new_dtype == 1) &&
+            reinterpret_cast<uintptr_t>(k_new) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(v_new) % 16 == 0;
+  const int64_t strides[6] = {k_sb, k_sc, k_sh, v_sb, v_sc, v_sh};
+  for (int i = 0; i < 6; ++i) ok = ok && strides[i] * elem % 16 == 0;
+  if (!ok) return kInvalid;
+  p->k_new = k_new;
+  p->v_new = v_new;
+  p->k_sb = k_sb;
+  p->k_sc = k_sc;
+  p->k_sh = k_sh;
+  p->v_sb = v_sb;
+  p->v_sc = v_sc;
+  p->v_sh = v_sh;
+  p->new_f32 = new_dtype == 0;
+  p->k_pool = static_cast<unsigned char*>(k_pool);
+  p->v_pool = static_cast<unsigned char*>(v_pool);
+  return 0;
+}
+
 template <bool kSplit>
 int launch_tc_pool(int pool, int D, const CUtensorMap& mk, const CUtensorMap& mv,
                    const TcParams& p, int B, void* stream) {
@@ -1381,17 +1627,15 @@ int launch(Params p, int dtype, int pool, int B, int D, void* stream) {
 //
 // What it computes: each written K/V row [D] of each KV head goes into the
 // quantized pool at (blk, off) with its scale beside it, in place, with
-// the arithmetic of serving.kv_pool.quantize_rows:
-//   int8: s = amax * fp32(1/127); q = clip(rint(x / s), -127, 127)
-//   fp8:  e = clip(ceil(log2(amax / fmax)), -126, 126), taken exactly from
-//         frexp(amax) = (m, k): e = k - k_fmax + (m > 0.875), as fmax is
-//         0.875 * 2^k_fmax; q = cvt_rn_satfinite(x * 2^-e)
-// with amax = max(max |x|, 1e-8). IEEE division, rint and exact powers of
-// two make it bit-identical to the plain PyTorch version.
+// the arithmetic of serving.kv_pool.quantize_rows (RowQuant, above),
+// bit-identical to the plain PyTorch version.
 //
 // What bounds it on the H100: neither bytes nor operations. A decode tick
 // writes 8 rows x 12 heads x 2 of 64 values per layer, under 25 KB; the
-// plain version costs ~15 launches per layer. The kernel is one launch.
+// plain version costs ~15 launches per layer. The kernel is one launch, and
+// that launch is its whole cost: with bf16 q the tensor-core sweep and
+// split write the new rows themselves (the append route, paged_tc_body),
+// so this kernel runs only for fp32 q and the walk's shapes.
 //
 // Design: one warp per (row, KV head, K or V): each lane holds D/32 values
 // read through the strides of the fused qkv view, the row's amax is a warp
@@ -1411,9 +1655,6 @@ struct QParams {
   void* v_scale;
   int N, L, H_kv, bl;
 };
-
-constexpr float kAmaxFloor = 1e-8f;
-constexpr float kInt8Scale = static_cast<float>(1.0 / 127.0);  // jnp.float32(1/127)
 
 template <typename T, int kPool, int kDpl>
 __global__ void __launch_bounds__(kThreads) quantize_scatter_kernel(const QParams p) {
@@ -1437,29 +1678,12 @@ __global__ void __launch_bounds__(kThreads) quantize_scatter_kernel(const QParam
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
-  amax = fmaxf(amax, kAmaxFloor);
+  const RowQuant<kPool> rq(amax);
   const int64_t row = (p.blk[n] * p.bl + p.off[n]) * p.H_kv + h;
   uint8_t* dst = static_cast<uint8_t*>(is_v ? p.v_pool : p.k_pool) + row * D + lane * kDpl;
-  void* scales = is_v ? p.v_scale : p.k_scale;
-  if constexpr (kPool == kPoolInt8) {
-    const float s = amax * kInt8Scale;
 #pragma unroll
-    for (int i = 0; i < kDpl; ++i)
-      dst[i] = static_cast<uint8_t>(
-          static_cast<int8_t>(fminf(fmaxf(rintf(x[i] / s), -127.f), 127.f)));
-    if (lane == 0) static_cast<float*>(scales)[row] = s;
-  } else {
-    constexpr __nv_fp8_interpretation_t kFmt = kPool == kPoolE4M3 ? __NV_E4M3 : __NV_E5M2;
-    constexpr int kFmaxExp = kPool == kPoolE4M3 ? 9 : 16;  // 448, 57344 = 0.875 * 2^k
-    int k;
-    const float m = frexpf(amax, &k);
-    const int e = min(max(k - kFmaxExp + (m > 0.875f ? 1 : 0), -126), 126);
-    const float inv = pow2(-e);
-#pragma unroll
-    for (int i = 0; i < kDpl; ++i)
-      dst[i] = __nv_cvt_float_to_fp8(x[i] * inv, __NV_SATFINITE, kFmt);
-    if (lane == 0) static_cast<int8_t*>(scales)[row] = static_cast<int8_t>(e);
-  }
+  for (int i = 0; i < kDpl; ++i) dst[i] = rq.code(x[i]);
+  if (lane == 0) rq.store_scale(is_v ? p.v_scale : p.k_scale, row);
 }
 
 template <typename T, int kPool>
@@ -1542,39 +1766,47 @@ extern "C" int pdt_paged_quantize_scatter(
 // geometry: the pools' tensor map, 8 int64 values (ops/paged_flash.py:
 // pool_tensor_map_geometry), whose box rows are bl (8, 16 or 32) or 64 (bl
 // a multiple of 64). A pool kind or D with no instance returns
-// cudaErrorInvalidValue.
-extern "C" int pdt_paged_attention_sweep_tc(const void* q, int64_t q_sb, int64_t q_sc,
-                                            int64_t q_sh, const void* k_pool, const void* v_pool,
-                                            const void* k_scale, const void* v_scale,
-                                            const int64_t* geometry, const void* tables,
-                                            const void* qpos, void* out, int pool, int B, int C,
-                                            int H_kv, int G, int bl, int W, float scale,
-                                            void* stream) {
+// cudaErrorInvalidValue. The append route (quantized pools): k_new, v_new
+// [B, C, H_kv, D] (strides in elements; new_dtype 0 = float32, 1 =
+// bfloat16; 16-byte aligned rows) are quantized as paged_quantize_scatter
+// does and written into the pools and scales at position qpos[b, c]
+// (tables[b, pos / bl], slot pos % bl; a negative position writes
+// nothing) before the launch reads them; null k_new and v_new: none.
+extern "C" int pdt_paged_attention_sweep_tc(
+    const void* q, int64_t q_sb, int64_t q_sc, int64_t q_sh, void* k_pool, void* v_pool,
+    void* k_scale, void* v_scale, const int64_t* geometry, const void* tables, const void* qpos,
+    void* out, int pool, int B, int C, int H_kv, int G, int bl, int W, float scale,
+    const void* k_new, int64_t k_sb, int64_t k_sc, int64_t k_sh, const void* v_new, int64_t v_sb,
+    int64_t v_sc, int64_t v_sh, int new_dtype, void* stream) {
   CUtensorMap mk, mv;
-  const int err = tc_prepare(&mk, &mv, q, q_sb, q_sc, q_sh, k_pool, v_pool, k_scale, v_scale,
-                             pool, geometry, B, C, H_kv, G, bl, W);
+  int err = tc_prepare(&mk, &mv, q, q_sb, q_sc, q_sh, k_pool, v_pool, k_scale, v_scale, pool,
+                       geometry, B, C, H_kv, G, bl, W);
   if (err != 0) return err;
   TcParams p{static_cast<const __nv_bfloat16*>(q), q_sb, q_sc, q_sh, k_scale, v_scale,
              static_cast<const int*>(tables), static_cast<const int*>(qpos),
              static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr, nullptr, H_kv, G, C,
              bl, W, static_cast<int>(geometry[7]), static_cast<int>(geometry[2]), 1, W, scale};
+  err = tc_append(&p, pool, k_pool, v_pool, k_new, k_sb, k_sc, k_sh, v_new, v_sb, v_sc, v_sh,
+                  new_dtype);
+  if (err != 0) return err;
   return launch_tc_pool<false>(pool, static_cast<int>(geometry[0]), mk, mv, p, B, stream);
 }
 
-// The split on tensor cores: operands as pdt_paged_attention_sweep_tc, S
-// workers (1 <= S <= W); part_acc, part_m, part_l fp32 scratch [B, H_kv,
-// S, G * C, D], [B, H_kv, S, G * C] twice; tickets B * H_kv * ceil(G * C /
-// 32) int32, zero on entry (left zero).
+// The split on tensor cores: operands (and the append route) as
+// pdt_paged_attention_sweep_tc, S workers (1 <= S <= W); part_acc, part_m,
+// part_l fp32 scratch [B, H_kv, S, G * C, D], [B, H_kv, S, G * C] twice;
+// tickets B * H_kv * ceil(G * C / 32) int32, zero on entry (left zero).
 extern "C" int pdt_paged_attention_split_tc(
-    const void* q, int64_t q_sb, int64_t q_sc, int64_t q_sh, const void* k_pool,
-    const void* v_pool, const void* k_scale, const void* v_scale, const int64_t* geometry,
-    const void* tables, const void* qpos, void* out, void* part_acc, void* part_m, void* part_l,
-    void* tickets, int pool, int B, int C, int H_kv, int G, int bl, int W, int S, float scale,
-    void* stream) {
+    const void* q, int64_t q_sb, int64_t q_sc, int64_t q_sh, void* k_pool, void* v_pool,
+    void* k_scale, void* v_scale, const int64_t* geometry, const void* tables, const void* qpos,
+    void* out, void* part_acc, void* part_m, void* part_l, void* tickets, int pool, int B, int C,
+    int H_kv, int G, int bl, int W, int S, float scale, const void* k_new, int64_t k_sb,
+    int64_t k_sc, int64_t k_sh, const void* v_new, int64_t v_sb, int64_t v_sc, int64_t v_sh,
+    int new_dtype, void* stream) {
   if (S < 1 || S > W) return kInvalid;
   CUtensorMap mk, mv;
-  const int err = tc_prepare(&mk, &mv, q, q_sb, q_sc, q_sh, k_pool, v_pool, k_scale, v_scale,
-                             pool, geometry, B, C, H_kv, G, bl, W);
+  int err = tc_prepare(&mk, &mv, q, q_sb, q_sc, q_sh, k_pool, v_pool, k_scale, v_scale, pool,
+                       geometry, B, C, H_kv, G, bl, W);
   if (err != 0) return err;
   TcParams p{static_cast<const __nv_bfloat16*>(q), q_sb, q_sc, q_sh, k_scale, v_scale,
              static_cast<const int*>(tables), static_cast<const int*>(qpos),
@@ -1582,6 +1814,9 @@ extern "C" int pdt_paged_attention_split_tc(
              static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<int*>(tickets),
              H_kv, G, C, bl, W, static_cast<int>(geometry[7]), static_cast<int>(geometry[2]), S,
              (W + S - 1) / S, scale};
+  err = tc_append(&p, pool, k_pool, v_pool, k_new, k_sb, k_sc, k_sh, v_new, v_sb, v_sc, v_sh,
+                  new_dtype);
+  if (err != 0) return err;
   return launch_tc_pool<true>(pool, static_cast<int>(geometry[0]), mk, mv, p, B, stream);
 }
 

@@ -244,7 +244,10 @@ class Attention(nn.Module):
         Paged (``cache`` given): writes the chunk's K/V into the pools in
         place at ``(index.blk, index.off)``, then attends through the
         tables; the chunk just written is visible to itself through the
-        same frontier mask. Training (no cache): causal self-attention over
+        same frontier mask. On quantized pools with ``gather_impl="kernel"``
+        the two are one op, ``paged_quantize_scatter_attention`` (one
+        launch with bf16 q), which derives the same places from the tables
+        and positions. Training (no cache): causal self-attention over
         the L tokens by ``cfg.attention``; the flash kernel masks from
         position 0, which is exact for equal q/k offsets, and the rings
         take their causal structure from the ring positions (the contiguous
@@ -271,15 +274,21 @@ class Attention(nn.Module):
             return self.proj(out.reshape(b, l, h * d))
         k_pool, v_pool, k_scale, v_scale = cache
         # inactive lanes write to the trash block, where clashes are harmless
+        if k_scale is not None and cfg.gather_impl == "kernel":
+            # the scatter and the attention as one op: with bf16 q one launch,
+            # the tensor-core kernel writing the rows before it reads them
+            from pytorch_distributed_tpu_torch.ops import paged_flash
+
+            out = paged_flash.paged_quantize_scatter_attention(
+                q, k, v, *cache, index.tables, index.positions, split_s=cfg.split_s)
+            return self.proj(out.reshape(b, l, h * d))
         if k_scale is None:
             k_pool[index.blk, index.off] = k.to(k_pool.dtype)
             v_pool[index.blk, index.off] = v.to(v_pool.dtype)
         else:
             from pytorch_distributed_tpu_torch.ops import paged_flash
 
-            scatter = (paged_flash.paged_quantize_scatter if cfg.gather_impl == "kernel"
-                       else paged_flash.paged_quantize_scatter_reference)
-            scatter(k, v, index.blk, index.off, *cache)
+            paged_flash.paged_quantize_scatter_reference(k, v, index.blk, index.off, *cache)
         out = paged_attention(q, k_pool, v_pool, index.tables, index.positions,
                               gather_impl=cfg.gather_impl, split_s=cfg.split_s,
                               k_scale=k_scale, v_scale=v_scale)

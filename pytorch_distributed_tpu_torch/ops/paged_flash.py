@@ -20,7 +20,10 @@ of ``csrc/paged_attention.cu``:
   others the CUDA-core walk. Its scratch (``split_buffers``) is kept per
   card and stream, so a call is one launch;
 - ``paged_quantize_scatter``: writes a chunk's K/V rows into quantized
-  pools, computing each row's per-head scale inside the write.
+  pools, computing each row's per-head scale inside the write. With bf16
+  q the tensor-core sweep and split do this work themselves, before they
+  read the rows: ``paged_quantize_scatter_attention`` (the append route),
+  one launch a layer where the scatter and the attention took two.
 
 Both attention kernels read float pools (q's dtype) or quantized pools
 (int8 with fp32 scales, fp8 e4m3/e5m2 with int8 exponents). What bounds
@@ -45,7 +48,8 @@ kernel or raises. ``launch_counts`` counts the attention kernels'
 launches on float pools, ``quant_launch_counts`` each kernel's launches on
 each quantized pool dtype, ``route_launch_counts`` the sweep's and the
 split's launches by route (``route_key``: tensor cores or the walk),
-whatever the pool; nothing else adds to them.
+whatever the pool, and among them those that also wrote the new rows
+(``append_key``, per pool dtype); nothing else adds to them.
 """
 
 from __future__ import annotations
@@ -101,9 +105,22 @@ def route_key(kernel: str, route: str) -> str:
     return f"{kernel}@{route}"
 
 
-#: launches of the sweep and the split by route, on any pool
-route_launch_counts = {route_key(k, r): 0 for k in (SWEEP, SPLIT)
-                       for r in (TENSOR_CORES, CUDA_CORES)}
+#: the append route: a tensor-core sweep or split that also quantizes the
+#: chunk's new K/V rows into the pools before it reads them (kernel 9's work)
+APPEND = "append"
+
+
+def append_key(kernel: str, pool_dtype: torch.dtype) -> str:
+    """The ``route_launch_counts`` key of ``kernel`` (``SWEEP`` or
+    ``SPLIT``) on the append route, on a quantized pool dtype."""
+    return f"{kernel}@{APPEND}[{POOL_NAMES[pool_dtype]}]"
+
+
+#: launches of the sweep and the split by route, on any pool, and those of
+#: them on the append route by pool dtype
+route_launch_counts = {**{route_key(k, r): 0 for k in (SWEEP, SPLIT)
+                          for r in (TENSOR_CORES, CUDA_CORES)},
+                       **{append_key(k, dt): 0 for k in (SWEEP, SPLIT) for dt in POOL_NAMES}}
 #: the tensor-core sweep: query rows of a thread block; with the split,
 #: chain keys of a ring stage and the head dims (one or two 64-column TMA
 #: boxes, the 128-byte swizzle's span)
@@ -227,18 +244,21 @@ def _declare(lib: ctypes.CDLL) -> None:
     dims = [i, i, i, i, i, i, i, i, i]  # dtype, pool, B, C, H_kv, G, D, block_len, W
     lib.pdt_paged_attention_sweep.argtypes = operands + dims + [f, p]
     lib.pdt_paged_attention_sweep.restype = i
+    # the append route's new rows: k + strides, v + strides, their dtype
+    append = [p, i64, i64, i64, p, i64, i64, i64, i]
     # q + strides, pools, scales, their tensor map geometry, tables, qpos,
-    # out; pool, B, C, H_kv, G, block_len, W; scale, stream
+    # out; pool, B, C, H_kv, G, block_len, W; scale; the new rows; stream
     lib.pdt_paged_attention_sweep_tc.argtypes = (
-        [p, i64, i64, i64, p, p, p, p, ctypes.POINTER(i64), p, p, p] + [i] * 7 + [f, p])
+        [p, i64, i64, i64, p, p, p, p, ctypes.POINTER(i64), p, p, p] + [i] * 7 + [f]
+        + append + [p])
     lib.pdt_paged_attention_sweep_tc.restype = i
     lib.pdt_paged_attention_split.argtypes = operands + [p, p, p, p] + dims + [i, f, p]
     lib.pdt_paged_attention_split.restype = i
     # as the tensor-core sweep, then acc, m, l, tickets; pool, B, C, H_kv,
-    # G, block_len, W, S; scale, stream
+    # G, block_len, W, S; scale; the new rows; stream
     lib.pdt_paged_attention_split_tc.argtypes = (
         [p, i64, i64, i64, p, p, p, p, ctypes.POINTER(i64), p, p, p, p, p, p, p]
-        + [i] * 8 + [f, p])
+        + [i] * 8 + [f] + append + [p])
     lib.pdt_paged_attention_split_tc.restype = i
     lib.pdt_paged_attention_rows_per_tile.argtypes = []
     lib.pdt_paged_attention_rows_per_tile.restype = i
@@ -341,6 +361,15 @@ def paged_flash_attention(
                                          k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_attention runs on cuda or cpu, not {q.device}")
+    return _launch(q, k_pool, v_pool, block_tables, q_positions, scale, split_s,
+                   k_scale, v_scale)
+
+
+def _launch(q, k_pool, v_pool, block_tables, q_positions, scale, split_s, k_scale,
+            v_scale, new=None) -> torch.Tensor:
+    """One launch of the sweep or the split for CUDA operands (checked
+    and prepared here), with the append route's new rows ``new = (k, v)``
+    or without (None)."""
     _check_cuda_operands(q, k_pool, v_pool, block_tables, q_positions,
                          k_scale, v_scale)
     b, _, _, d = q.shape
@@ -353,9 +382,9 @@ def paged_flash_attention(
     qpos = q_positions.to(torch.int32).contiguous()
     if s_workers == 1:
         return launch_sweep(q, k_pool, v_pool, tables, qpos, scale,
-                            k_scale=k_scale, v_scale=v_scale)
+                            k_scale=k_scale, v_scale=v_scale, new=new)
     return launch_split(q, k_pool, v_pool, tables, qpos, s_workers, scale,
-                        k_scale=k_scale, v_scale=v_scale)
+                        k_scale=k_scale, v_scale=v_scale, new=new)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -383,12 +412,39 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _count(kernel: str, route: str, k_pool: torch.Tensor, k_scale) -> None:
+def _count(kernel: str, route: str, k_pool: torch.Tensor, k_scale, appended: bool) -> None:
     if k_scale is None:
         launch_counts[kernel] += 1
     else:
         quant_launch_counts[variant(kernel, k_pool.dtype)] += 1
     route_launch_counts[route_key(kernel, route)] += 1
+    if appended:
+        route_launch_counts[append_key(kernel, k_pool.dtype)] += 1
+
+
+def _new_rows(new) -> List:
+    """The tensor-core entry points' append operands: the new rows ``k``,
+    ``v`` with their (batch, chunk, head) strides and dtype code, or nulls
+    when ``new`` is None (no append)."""
+    if new is None:
+        return [_ptr(None), 0, 0, 0, _ptr(None), 0, 0, 0, _DTYPE_CODES[torch.bfloat16]]
+    k, v = new
+    return [_ptr(k), *k.stride()[:3], _ptr(v), *v.stride()[:3], _DTYPE_CODES[k.dtype]]
+
+
+def _check_append_route(route: str, new) -> None:
+    if new is not None and route != TENSOR_CORES:
+        raise ValueError("the append route runs on the tensor-core kernels only "
+                         "(bf16 q on quantized pools, sweep_kernel)")
+
+
+def _in_rows(x: torch.Tensor) -> torch.Tensor:
+    """A new-rows operand as the append route reads it, 16 bytes a load:
+    unit stride in D, 16-byte aligned rows, else a contiguous copy."""
+    e = x.element_size()
+    if x.stride(-1) != 1 or x.data_ptr() % 16 or any(s * e % 16 for s in x.stride()[:3]):
+        return x.contiguous()
+    return x
 
 
 def _in_pairs(q: torch.Tensor) -> torch.Tensor:
@@ -402,17 +458,22 @@ def _in_pairs(q: torch.Tensor) -> torch.Tensor:
 def launch_sweep(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  tables: torch.Tensor, qpos: torch.Tensor, scale: float, *,
                  k_scale: Optional[torch.Tensor] = None,
-                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 v_scale: Optional[torch.Tensor] = None,
+                 new: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """One launch of the single-sweep kernel that ``sweep_kernel`` picks.
     ``q [B, C, H, D]`` may be a strided view with unit stride in D; int32
     ``tables [B, W]`` and ``qpos [B, C]`` are contiguous; all on one card
-    (``paged_flash_attention`` checks and prepares them). Returns
-    ``[B, C, H, D]`` in q's dtype."""
+    (``paged_flash_attention`` checks and prepares them). ``new = (k, v)``
+    (``[B, C, H_kv, D]``, 16-byte aligned rows: ``_in_rows``) takes the
+    append route: the launch first writes row ``(b, c)`` into the quantized
+    pools at position ``qpos[b, c]``. Returns ``[B, C, H, D]`` in q's
+    dtype."""
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = _library()
     b, c, h, d = q.shape
     _, bl, h_kv, _ = k_pool.shape
     route = sweep_kernel(q.dtype, k_pool.dtype, d, bl)
+    _check_append_route(route, new)
     if route == TENSOR_CORES:
         q = _in_pairs(q)
         geometry = (ctypes.c_int64 * 8)(*pool_tensor_map_geometry(k_pool))
@@ -420,30 +481,32 @@ def launch_sweep(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
             _ptr(q), q.stride(0), q.stride(1), q.stride(2), _ptr(k_pool), _ptr(v_pool),
             _ptr(k_scale), _ptr(v_scale), geometry, _ptr(tables), _ptr(qpos), _ptr(out),
             _pool_code(k_pool, k_scale), b, c, h_kv, h // h_kv, bl, tables.shape[1],
-            float(scale), _stream(q))
+            float(scale), *_new_rows(new), _stream(q))
     else:
         code = lib.pdt_paged_attention_sweep(
             *_operands(q, k_pool, v_pool, k_scale, v_scale, tables, qpos, out),
             *_dims(q, k_pool, k_scale, tables), float(scale), _stream(q))
     _check_launch(lib, SWEEP, code)
-    _count(SWEEP, route, k_pool, k_scale)
+    _count(SWEEP, route, k_pool, k_scale, new is not None)
     return out
 
 
 def launch_split(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  tables: torch.Tensor, qpos: torch.Tensor, s_workers: int,
                  scale: float, *, k_scale: Optional[torch.Tensor] = None,
-                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 v_scale: Optional[torch.Tensor] = None,
+                 new: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """One launch of the flash-decoding kernel that ``sweep_kernel`` picks
-    (operands as ``launch_sweep``, ``1 <= s_workers <= W``). Its fp32
-    partials go to ``split_buffers``' scratch, and the last worker of each
-    row tile merges them into the output. Returns ``[B, C, H, D]`` in q's
-    dtype."""
+    (operands, and the append route, as ``launch_sweep``, ``1 <= s_workers
+    <= W``). Its fp32 partials go to ``split_buffers``' scratch, and the
+    last worker of each row tile merges them into the output. Returns
+    ``[B, C, H, D]`` in q's dtype."""
     b, c, h, d = q.shape
     _, bl, h_kv, _ = k_pool.shape
     rows = (h // h_kv) * c
     lib = _library()
     kernel = sweep_kernel(q.dtype, k_pool.dtype, d, bl)
+    _check_append_route(kernel, new)
     if kernel == TENSOR_CORES:
         q = _in_pairs(q)
     stream = _stream(q)
@@ -457,14 +520,15 @@ def launch_split(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
             _ptr(q), q.stride(0), q.stride(1), q.stride(2), _ptr(k_pool), _ptr(v_pool),
             _ptr(k_scale), _ptr(v_scale), geometry, _ptr(tables), _ptr(qpos), _ptr(out),
             _ptr(acc), _ptr(m), _ptr(l), _ptr(tickets), _pool_code(k_pool, k_scale), b, c,
-            h_kv, h // h_kv, bl, tables.shape[1], s_workers, float(scale), stream)
+            h_kv, h // h_kv, bl, tables.shape[1], s_workers, float(scale), *_new_rows(new),
+            stream)
     else:
         code = lib.pdt_paged_attention_split(
             *_operands(q, k_pool, v_pool, k_scale, v_scale, tables, qpos, out),
             _ptr(acc), _ptr(m), _ptr(l), _ptr(tickets),
             *_dims(q, k_pool, k_scale, tables), s_workers, float(scale), stream)
     _check_launch(lib, SPLIT, code)
-    _count(SPLIT, kernel, k_pool, k_scale)
+    _count(SPLIT, kernel, k_pool, k_scale, new is not None)
     return out
 
 
@@ -545,3 +609,120 @@ def launch_quantize_scatter(k, v, blk, off, k_pool, v_pool, k_scale,
         b * l, l, h_kv, d, k_pool.shape[1], _stream(k))
     _check_launch(lib, QUANTIZE, code)
     quant_launch_counts[variant(QUANTIZE, k_pool.dtype)] += 1
+
+
+# ---------------------------------------------------------------------------
+# the scatter, then the attention: the append route
+# ---------------------------------------------------------------------------
+
+
+def append_destinations(block_tables: torch.Tensor, q_positions: torch.Tensor,
+                        block_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where row ``(b, c)`` of a chunk goes: pool block ``blk = tables[b,
+    pos // block_len]`` at slot ``off = pos % block_len``, ``pos =
+    q_positions[b, c]``, as ``models.transformer.PagedIndex.build`` derives
+    them (the kernels compute the same in place). A negative position
+    (a padding row) reads as 0 here: no route writes such a row where
+    this points. Returns int64 ``(blk, off)``, each ``[B, C]``."""
+    pos = q_positions.long().clamp_min(0)
+    blk = torch.gather(block_tables.to(pos.device).long(), 1, pos // block_len)
+    return blk, pos % block_len
+
+
+def paged_quantize_scatter_attention_reference(q, k, v, k_pool, v_pool, k_scale, v_scale,
+                                               block_tables, q_positions, *,
+                                               scale: Optional[float] = None) -> torch.Tensor:
+    """The plain version: each row with a non-negative position written by
+    ``paged_quantize_scatter_reference`` at ``append_destinations``, then
+    ``paged_attention_reference`` over the pools (in place, as the
+    kernels)."""
+    blk, off = append_destinations(block_tables, q_positions, k_pool.shape[1])
+    keep = q_positions >= 0
+    paged_quantize_scatter_reference(k[keep], v[keep], blk[keep], off[keep], k_pool, v_pool,
+                                     k_scale, v_scale)
+    return paged_attention_reference(q, k_pool, v_pool, block_tables, q_positions,
+                                     scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_quantize_scatter_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,
+    q_positions: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    split_s: Optional[int] = None,
+) -> torch.Tensor:
+    """The scatter, then the attention, as a quantized layer's serving
+    step runs them: the chunk's new rows ``k, v [B, C, H_kv, D]`` (float32
+    or bfloat16, strided views welcome) quantized into the pools in place,
+    row ``(b, c)`` at its position ``q_positions[b, c]``
+    (``append_destinations``), with ``paged_quantize_scatter``'s bits;
+    then ``paged_flash_attention`` of ``q`` over the pools, the new rows
+    included. A row with a negative position (a padding row) comes out 0
+    and writes nothing (on the two-launch route: into the trash block).
+
+    CPU tensors run the plain version. CUDA tensors take one route:
+    - bf16 q on the tensor-core kernels' pools and shapes
+      (``sweep_kernel``): the append route, ONE launch of the tensor-core
+      sweep (``split_s`` 1) or split, whose blocks quantize and store the
+      rows of their keys before they read them; counted under its kernel,
+      its route and ``append_key``;
+    - else (fp32 q, the walk's shapes): ``scatter_then_attend``, kernel 9
+      then the attention kernel.
+    A failed build or launch raises; nothing falls back to another route.
+    Returns ``[B, C, H, D]`` in q's dtype."""
+    from pytorch_distributed_tpu_torch.serving.kv_pool import is_quantized_pool
+
+    check_paged_shapes(q, k_pool, v_pool, block_tables, q_positions)
+    check_scales(k_pool, k_scale, v_scale)
+    if not is_quantized_pool(k_pool.dtype):
+        raise ValueError(f"paged_quantize_scatter_attention writes quantized pools "
+                         f"(int8/fp8), got {k_pool.dtype}")
+    b, c, _, d = q.shape
+    want = (b, c, k_pool.shape[2], d)
+    if tuple(k.shape) != want or tuple(v.shape) != want:
+        raise ValueError(f"k, v must be [B, C, H_kv, D] = {want}, got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if split_s is not None and split_s < 1:
+        raise ValueError(f"split_s must be >= 1, got {split_s}")
+    if q.device.type == "cpu":
+        return paged_quantize_scatter_attention_reference(
+            q, k, v, k_pool, v_pool, k_scale, v_scale, block_tables, q_positions, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_quantize_scatter_attention runs on cuda or cpu, not {q.device}")
+    if sweep_kernel(q.dtype, k_pool.dtype, d, k_pool.shape[1]) != TENSOR_CORES:
+        return scatter_then_attend(q, k, v, k_pool, v_pool, k_scale, v_scale, block_tables,
+                                   q_positions, scale=scale, split_s=split_s)
+    if k.dtype not in _DTYPE_CODES or v.dtype != k.dtype:
+        raise TypeError(f"k and v must share float32 or bfloat16, got {k.dtype}, {v.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+    return _launch(q, k_pool, v_pool, block_tables, q_positions, scale, split_s, k_scale,
+                   v_scale, new=(_in_rows(k), _in_rows(v)))
+
+
+def scatter_then_attend(q, k, v, k_pool, v_pool, k_scale, v_scale, block_tables,
+                        q_positions, *, scale: Optional[float] = None,
+                        split_s: Optional[int] = None) -> torch.Tensor:
+    """The two-launch spelling of ``paged_quantize_scatter_attention``:
+    ``paged_quantize_scatter`` (kernel 9) at ``append_destinations``, then
+    ``paged_flash_attention``. It is that op's route for fp32 q and the
+    walk's shapes, and the append route's yardstick. A padding row
+    (negative position) is written into the trash block's slot 0, where
+    clashes are harmless (the engine's inactive lanes write there too),
+    so the route stays on the device, never waiting for the card."""
+    from pytorch_distributed_tpu_torch.serving.kv_pool import TRASH_BLOCK
+
+    blk, off = append_destinations(block_tables, q_positions, k_pool.shape[1])
+    pad = q_positions.to(blk.device) < 0
+    paged_quantize_scatter(k, v, blk.masked_fill(pad, TRASH_BLOCK), off.masked_fill(pad, 0),
+                           k_pool, v_pool, k_scale, v_scale)
+    return paged_flash_attention(q, k_pool, v_pool, block_tables, q_positions, scale=scale,
+                                 split_s=split_s, k_scale=k_scale, v_scale=v_scale)

@@ -30,7 +30,11 @@ each):
   ``chip_smoke.py``'s fp32 operands, with bf16 q: each call, and its
   kernel's device time (``is_sweep_kernel``, ``is_split_kernel``: the
   tensor-core kernel or the CUDA-core walk, whichever the checkout runs),
-  every launch of the traced calls counted.
+  every launch of the traced calls counted;
+- on those fp8 and int8 pools, a layer's step with its new rows
+  (``with_new_rows``): kernel 9 then the split at decode or the sweep at
+  the prefill chunk, and the append route (``paged_quantize_scatter_
+  attention``, one launch) where the checkout has it.
 
 The last line printed is the median of each (checkout, entry) over its
 runs, with the card's name and power limit.
@@ -106,6 +110,48 @@ def worker(checkout: str) -> dict:
                 at = f"{kv} {name} at {label}" + (" (S = 8)" if split_s is None else "")
                 out[at] = cs.time_ms(torch, call) * 1e3
                 out[f"{kv} {name} kernel at {label} (device)"] = device_us(call, match)
+            out.update(with_new_rows(torch, pf, cs, kv, label, inp, device_us))
+    return out
+
+
+def with_new_rows(torch, pf, cs, kv, label, inp, device_us) -> dict:
+    """A quantized layer's serving step on ``inp``, its new rows (``chip_
+    smoke.new_rows``) written at the call's positions, then the attention
+    the serve runs there (the split, S = 8, at decode; the sweep at the
+    prefill chunk): kernel 9 then that kernel, in either checkout, and the
+    append route (one launch) where the checkout has it (None where not).
+    Each call, and the device time of its kernels (kernel 9's also alone)."""
+    name, split_s, match = (("split", None, is_split_kernel) if label == "decode"
+                            else ("sweep", 1, is_sweep_kernel))
+    k, v = cs.new_rows(torch, inp, seed=16)
+    pools = (inp["k_pool"], inp["v_pool"], inp["k_scale"], inp["v_scale"])
+    pos = inp["q_positions"].long()
+    bl = inp["k_pool"].shape[1]
+    blk = torch.gather(inp["block_tables"].long(), 1, pos // bl)
+
+    def two_launches():
+        pf.paged_quantize_scatter(k, v, blk, pos % bl, *pools)
+        return pf.paged_flash_attention(**inp, split_s=split_s)
+
+    two = f"{kv} kernel 9 then {name} at {label}"
+    out = {two: cs.time_ms(torch, two_launches) * 1e3}
+    try:
+        dev = cs.kernel_device_ms(torch, two_launches, {"k": (match, 1), "q": (
+            lambda n: "quantize_scatter" in n, 1)})
+        out[f"{two} (device)"] = (dev["k"] + dev["q"]) * 1e3
+        out[f"{kv} kernel 9 at {label} (device)"] = dev["q"] * 1e3
+    except RuntimeError as e:
+        print(f"attention_ab: no device time: {e}", file=sys.stderr)
+        out[f"{two} (device)"] = out[f"{kv} kernel 9 at {label} (device)"] = None
+    op = getattr(pf, "paged_quantize_scatter_attention", None)
+    at = f"{kv} append {name} at {label}"
+    out[at] = out[f"{at} (device)"] = None
+    if op is not None:
+        def append():
+            return op(inp["q"], k, v, *pools, inp["block_tables"], inp["q_positions"],
+                      split_s=split_s)
+        out[at] = cs.time_ms(torch, append) * 1e3
+        out[f"{at} (device)"] = device_us(append, match)
     return out
 
 

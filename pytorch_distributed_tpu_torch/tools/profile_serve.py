@@ -9,8 +9,8 @@ under ``torch.profiler``, and prints:
 - the device's busy share: the union of kernel intervals over the wall;
 - the top operators by device time and by host time;
 - the paged attention kernels' share of the serve's device time;
-- the device kernels one decode tick launches (8 lanes armed), its device
-  time and the paged attention kernels' share of it;
+- the device kernels one decode tick launches (8 lanes armed), by name,
+  its device time and the paged attention kernels' share of it;
 - the time of the prefill and decode halves of a tick, by host clock.
 
     python -m pytorch_distributed_tpu_torch.tools.profile_serve \
@@ -23,6 +23,7 @@ import argparse
 import json
 import subprocess
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -104,7 +105,8 @@ def paged_shares(prof) -> dict:
 
 def decode_tick(sched) -> dict:
     """One decode tick with all 8 lanes armed at position 64, under
-    ``torch.profiler``: ``paged_shares`` of its kernels (and copies)."""
+    ``torch.profiler``: ``paged_shares`` of its kernels (and copies), and
+    their launches by name (``by_name``)."""
     eng = sched.engine
     for slot in range(8):
         eng.admit(slot, 64, 1)
@@ -115,7 +117,9 @@ def decode_tick(sched) -> dict:
         eng.decode(*args)
         torch.cuda.synchronize()
     eng.release_all()
-    return paged_shares(prof)
+    by_name = Counter(e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {**paged_shares(prof), "by_name": dict(by_name)}
 
 
 def main(argv=None) -> None:
