@@ -5,6 +5,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU (an H100):
     python3 chip_smoke.py                  # everything
     python3 chip_smoke.py --kernels-only   # (a) and (b), then stop
 
+With 2-4 cards (a ``--chips 4`` machine) the same script runs the ring
+and the data-parallel phases a rank a card over NCCL and times the DP
+step at 1, 2 and 4 cards.
+
 Phases, each of which fails the run:
 
   (a) the card's name and power limit; the CUDA kernels build from
@@ -42,8 +46,10 @@ Phases, each of which fails the run:
       fused kernel (dK, dV bitwise equal);
       the bottleneck tail's moments, tail_bwd_reduce (gp bit-equal) and
       tail_bwd_dz at ResNet-50's four stage shapes (B = 128, bf16), moments
-      at the four downsample inputs, the stage shapes at B = 8 in fp32, and
-      ragged shapes (N = 147, F = 40); two launches bitwise equal for
+      at the four downsample inputs, the stage shapes at B = 8 in fp32,
+      the stage shapes and downsample inputs at each batch the DP phase
+      runs them at (B = 32 in bf16 and fp32, and the concatenated batch of
+      its ranks in fp32), and ragged shapes (N = 147, F = 40); two launches bitwise equal for
       moments, tail_bwd_reduce, tail_bwd_dz and both flash backwards at
       every shape they are checked at; all three also on rows 16 bytes wider
       than their channels (z; out for tail_bwd_reduce, gp for tail_bwd_dz):
@@ -70,7 +76,22 @@ Phases, each of which fails the run:
       16 / 16 tail launches a step, then the first step's loss and grad
       norm of the fused model against the plain-block one from the same
       weights (B = 64, fp32 and bf16), then ``recipes/resnet_single.py``
-      (fp32, plain blocks: no tail launch) for 4 steps of B = 64; the ring,
+      (fp32, plain blocks: no tail launch) for 4 steps of B = 64; data
+      parallelism, spawned by ``tools/dp_check.py`` on the ring's ranks (2
+      gloo ranks sharing one card, the all-reduces staged through the host,
+      or a rank a card over NCCL with 2-4 cards): 3 DP steps of B = 32 a
+      rank of the fused bf16 and the plain fp32 ResNet-50 against a
+      one-process emulation on the card (each replica's rows in turn,
+      gradients and BatchNorm statistics averaged), with 20 / 16 / 16 tail
+      launches a step on each rank of the fused one; sync-BN (fused and
+      plain, fp32) against one rank on the concatenated batch; the fp16
+      scaler (fp32 compute) with an inf on rank 1, every rank skipping the
+      update and halving the scale; ``recipes/resnet_dp.py``,
+      ``resnet_ddp.py`` and ``resnet_ddp_amp.py`` for 2 steps (a world of
+      one on one card, a rank a card on more); with 2-4 cards the fused
+      bf16 (B = 128 a card) and plain fp32 (B = 64) step p50, img/s and
+      scaling at 1, 2 and 4 cards over NCCL and back, with each rank's busy
+      share and its device time a step in NCCL kernels and the rest; the ring,
       spawned by ``tools/ring_check.py``: on one card 2 ranks over gloo
       with the P2P traffic staged through the host (a correctness run, not
       a speed run), with 2 or more cards one rank a card, up to 4, over
@@ -222,6 +243,56 @@ RESNET = dict(batch=128, steps=8, compare_batch=64, recipe_batch=64, recipe_step
 #: launches of (moments, tail_bwd_reduce, tail_bwd_dz) per ResNet-50 train
 #: step: 16 expand tails plus 4 downsamples; 16; 16
 RESNET_TAIL_LAUNCHES = (20, 16, 16)
+
+# the data-parallel phase (PR 12): ResNet-50 (bench.py's model, its dtype and
+# blocks set per case) at 224^2, B = 32 a rank, 3 steps at lr 0.1 from the
+# seed-0 weights, on the ranks of ring_ranks
+DP = dict(batch=32, steps=3, recipe_batch=32, recipe_steps=2, timeout_s=600)
+DP_MODEL = dict(stage_sizes=(3, 4, 6, 3), block="bottleneck", num_classes=1000, num_filters=64)
+DP_SIZE = 224
+DP_SCHEDULE = (0.1, 1, 30, 0.1)  # step_lr: lr 0.1 throughout
+DP_PLANT = (1, 1)  # the fp16 case: an inf in rank 1's rows at step 1
+#: the ranks against their references on the same card, relative error of
+#: each step's loss and grad norm, of the combined step-0 gradient, and of
+#: the parameters and BatchNorm statistics after the first step and the
+#: last (||ranks - reference|| / ||reference|| over all of them). Measured
+#: on the H100 (2 gloo ranks on one card; 4 NCCL ranks on 4 cards, the
+#: emulation on card 0). The card does not repeat fp32 ResNet-50's step-0
+#: gradient bit for bit: the same input twice differs by 4.8e-6, in the
+#: convolutions' weight gradients, the loss not at all
+#: (tools/dp_sensitivity.py). Against the emulation, which runs the ranks'
+#: shapes and kernels, step 0 differs by that and the gradients'
+#: summation order: loss <= 6.5e-8, grad norm <= 1.6e-7, gradient 4.0e-6
+#: (fp32; bf16 <= 8.2e-9), parameters <= 2.8e-7, statistics <= 4.1e-8.
+#: Against the concatenated batch (cuDNN at 2-4x the batch, another
+#: order): step 0 loss <= 5.2e-7, grad norm 1.6e-5 to 4.5e-4, statistics
+#: <= 7.8e-7, gradient 2.5e-2 to 3.0e-2, because ResNet-50's step-0
+#: gradient at random weights moves that much for rounding-level changes
+#: (input noise of 1e-7 relative moved it by 2.3e-2 to 2.5e-2, of 1e-6 by
+#: 3.5e-2), while per-replica statistics (a sum left out) move it 1.38-1.39:
+#: the sync-BN check holds the gradient at 6e-2, 23x below that (checked
+#: in the run). Its parameters after step 0 follow the gradient: SGD's
+#: first step from the same p0 gives lr·||Δg|| / ||p1||, 1.3e-3 to 2.2e-3.
+#: Later steps amplify what step 0 left at lr 0.1 (gradient norm 135-195
+#: at step 0), bf16 most, where a parameter 1.6e-9 off re-rounds
+#: activations: against the emulation at steps 1 and 2, fp32 loss <=
+#: 2.8e-6 and 2.8e-3, grad norm <= 1.8e-4 and 5.9e-3; bf16 loss 1.3e-5 and
+#: 3.9e-3, grad norm 1.4e-3 and 9.9e-3; against the concatenated batch
+#: loss <= 4.0e-3 and 7.8e-3, grad norm <= 5.8e-3 and 5.0e-2; parameters
+#: <= 2.8e-2 (emulation) and 6.4e-2 (concatenated) after 3 steps. The
+#: tolerances are about 10x those (the gradient: 10x the card's own
+#: repeat difference against the emulation). Step 0 is the tight check (a
+#: summed rather than averaged gradient would double its grad norm)
+DP_EMULATION_RTOL = {
+    "float32": dict(loss=(1e-5, 1e-4, 3e-2), grad_norm=(1e-5, 2e-3, 5e-2), grad_first=5e-5,
+                    params_first=1e-5, buffers_first=1e-5, params_last=0.2, buffers_last=0.1),
+    "bfloat16": dict(loss=(1e-5, 2e-4, 4e-2), grad_norm=(1e-5, 2e-2, 0.1), grad_first=5e-5,
+                     params_first=1e-5, buffers_first=1e-5, params_last=0.2, buffers_last=0.1)}
+DP_SYNC_RTOL = dict(loss=(1e-5, 3e-2, 5e-2), grad_norm=(5e-3, 5e-2, 0.3), grad_first=6e-2,
+                    buffers_first=1e-5, params_last=0.5, buffers_last=0.1)
+#: the NCCL timing: a rank a card, B a card, ranks 1, 2, 4 (as many as there
+#: are cards) and back, each rank profiled over ``profiled`` more steps
+DP_TIMING = dict(fused=128, plain=64, warmup=3, steps=20, profiled=3)
 
 
 def card_line() -> str:
@@ -893,10 +964,24 @@ def ring_runs(torch, card, tmp, dev="cuda") -> dict:
     return {"split_launches": split_launches, "trainer_launches": trainer_launches}
 
 
+def dp_tail_batches(torch, dev="cuda") -> list:
+    """``(label, dtype, B)`` of the tail kernels' launches in the DP phase
+    beyond B = 128 bf16: the fused bf16 ranks and their emulation at
+    ``DP["batch"]``, the sync-BN fused fp32 ranks at ``DP["batch"]``, and
+    its reference on the concatenated batch of ``ring_ranks``' ranks."""
+    ranks = ring_ranks(torch.cuda.device_count() if dev == "cuda" else 0)[0]
+    bs = DP["batch"]
+    return [(f"DP B={bs}", torch.bfloat16, bs), (f"DP B={bs}", torch.float32, bs),
+            (f"DP concatenated B={bs * ranks}", torch.float32, bs * ranks)]
+
+
 def check_tail_kernels(torch, failures, dev="cuda") -> dict:
     """Phase (b) for the bottleneck tail: each kernel against its plain
     version at ResNet-50's stage shapes (bf16, B = 128), the downsample
-    inputs (moments), B = 8 in fp32, and ragged shapes; fp32 sums relative
+    inputs (moments), B = 8 in fp32, the stage shapes and downsample inputs
+    at the batches the DP phase runs (``dp_tail_batches``: the grid of
+    blocks follows N, so each B is a plan of its own), and ragged shapes;
+    fp32 sums relative
     to their largest value, gp bit-equal (a select), dz within a bf16 ulp
     or two of its largest value; moments and tail_bwd_reduce bitwise equal
     over two launches (their chunks are summed in a fixed order). Returns
@@ -956,13 +1041,26 @@ def check_tail_kernels(torch, failures, dev="cuda") -> dict:
         return err
 
     errs = {}
-    for i, (b, hw, f) in enumerate(TAIL_STAGES):
-        for k, v in check_tail(f"stage {i + 1}", bf16, b, hw, f).items():
+
+    def keep(err):
+        for k, v in err.items():
             errs[k] = max(errs.get(k, 0.0), v)
+
+    for i, (b, hw, f) in enumerate(TAIL_STAGES):
+        keep(check_tail(f"stage {i + 1}", bf16, b, hw, f))
         check_tail(f"stage {i + 1}, B=8", f32, 8, hw, f)
     for i, (b, hw, f) in enumerate(TAIL_DOWNSAMPLE):
-        err = check_tail(f"downsample input of stage {i + 1}", bf16, b, hw, f, moments_only=True)
-        errs[bt.MOMENTS] = max(errs[bt.MOMENTS], err[bt.MOMENTS])
+        keep(check_tail(f"downsample input of stage {i + 1}", bf16, b, hw, f, moments_only=True))
+    for label, dtype, b in dp_tail_batches(torch, dev):
+        for i, (_, hw, f) in enumerate(TAIL_STAGES):
+            err = check_tail(f"stage {i + 1}, {label}", dtype, b, hw, f)
+            if dtype == bf16:
+                keep(err)
+        for i, (_, hw, f) in enumerate(TAIL_DOWNSAMPLE):
+            err = check_tail(f"downsample input of stage {i + 1}, {label}", dtype, b, hw, f,
+                             moments_only=True)
+            if dtype == bf16:
+                keep(err)
     for dtype in (bf16, f32):  # ragged: N = 147 rows, and F = 40 (not a whole tile)
         for f in (64, 40):
             check_tail("ragged", dtype, 3, 7, f)
@@ -1093,6 +1191,276 @@ def resnet_runs(torch, card) -> dict:
         raise SystemExit(f"chip_smoke: the fp32 recipe run failed: {summary}, "
                          f"{bt.launch_counts}")
     return launches
+
+
+def emulate_dp(torch, spec, batches, ranks, dev="cuda") -> dict:
+    """The DP step in one process, the reference for the ranks: from the
+    seed-0 weights, each replica's rows (``tools/dp_check.rows``) through
+    the model in turn from the same BatchNorm statistics, the gradients
+    summed by autograd and divided by ``ranks``, the replicas' running
+    statistics averaged, then SGD at ``DP_SCHEDULE``'s lr. ``ranks=1`` is
+    one rank on the whole batch. Returns each step's global loss and
+    gradient norm, the combined gradient of the first step, and the state
+    dict after the first step and the last."""
+    from pytorch_distributed_tpu_torch.ops.losses import cross_entropy_loss
+    from pytorch_distributed_tpu_torch.ops.optim import global_norm
+    from pytorch_distributed_tpu_torch.ops.schedules import step_lr
+    from pytorch_distributed_tpu_torch.tools import dp_check
+    from pytorch_distributed_tpu_torch.train import create_resnet_state
+
+    state = create_resnet_state(dp_check.build_model(spec), lr_schedule=step_lr(*DP_SCHEDULE),
+                                device=dev)
+    model, opt = state.model, state.optimizer
+    model.train()
+    out = {"loss": [], "grad_norm": []}
+    for i, batch in enumerate(batches):
+        opt.zero_grad(set_to_none=True)
+        old = [b.clone() for b in model.buffers()]
+        new = []
+        loss_sum = torch.zeros((), device=dev)
+        for r in range(ranks):
+            with torch.no_grad():
+                for b, o in zip(model.buffers(), old):
+                    b.copy_(o)
+            local = {k: v.to(dev) for k, v in dp_check.rows(batch, r, ranks).items()}
+            logits = model(local["image"])
+            cross_entropy_loss(logits, local["label"]).backward()
+            with torch.no_grad():
+                loss_sum += cross_entropy_loss(logits, local["label"], reduction="sum")
+            new.append([b.clone() for b in model.buffers()])
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        with torch.no_grad():
+            torch._foreach_div_(grads, float(ranks))
+            for j, b in enumerate(model.buffers()):
+                b.copy_(sum(n[j] for n in new) / ranks)
+        for group in opt.param_groups:
+            group["lr"] = state.lr_schedule(i)
+        opt.step()
+        out["loss"].append((loss_sum / len(batch["label"])).item())
+        out["grad_norm"].append(global_norm(grads).item())
+        if i == 0:
+            out["first"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            out["grad_first"] = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                                 if p.grad is not None}
+    out["last"] = {k: v.detach() for k, v in model.state_dict().items()}
+    return out
+
+
+def rel_err(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def state_rel_err(torch, got: dict, want: dict, buffers: bool = False) -> float:
+    """||got - want|| / ||want|| over the parameters (``buffers``: the
+    BatchNorm running statistics) of state dict ``want``, or over every
+    tensor of a gradient dict."""
+    keys = [k for k in want if k.endswith(("running_mean", "running_var")) == buffers]
+    diff = sum(float((got[k].to(want[k].device).float() - want[k].float()).norm()) ** 2
+               for k in keys)
+    return (diff / sum(float(want[k].float().norm()) ** 2 for k in keys)) ** 0.5
+
+
+def dp_runs(torch, card, tmp, dev="cuda") -> dict:
+    """Phase (c) for data parallelism, the ranks of ``ring_ranks`` spawned
+    through ``tools/dp_check.py`` (the kernels are built already, so the
+    ranks only load them): DP steps of the fused bf16 and the plain fp32
+    ResNet-50 against ``emulate_dp`` on the same card, with 20 / 16 / 16
+    tail launches a step on each rank of the fused one; sync-BN (fused and
+    plain, fp32) against one rank on the concatenated batch; the fp16
+    scaler skipping a step on every rank for an inf on rank 1; the three
+    recipes; with 2-4 cards (NCCL) the step times at 1, 2 and 4 cards and
+    back, each rank's device time split into NCCL kernels and the rest.
+    Returns what was measured. With ``dev="cpu"`` (a rehearsal) the ranks
+    meet over gloo on the CPU, where the plain versions launch nothing."""
+    import importlib
+
+    from pytorch_distributed_tpu_torch.data import SyntheticImageClassification
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+    from pytorch_distributed_tpu_torch.tools import dp_check
+
+    ranks, backend = ring_ranks(torch.cuda.device_count() if dev == "cuda" else 0)
+    on_card = 1 if dev == "cuda" else 0
+    where = (f"{ranks} ranks on {ranks} cards" if backend == "nccl" else
+             f"{ranks} ranks on 1 card, the all-reduces staged through the host")
+    print(f"(c) data parallel: backend {backend}, {where}")
+    bs, steps = DP["batch"], DP["steps"]
+    plain = dict(DP_MODEL, dtype="float32")
+    cases = {
+        "fused bf16": dict(model=dict(DP_MODEL, dtype="bfloat16", fused=True)),
+        "plain fp32": dict(model=plain),
+        "sync-BN fused fp32": dict(model=dict(plain, fused=True, sync_bn=True)),
+        "sync-BN plain fp32": dict(model=dict(plain, sync_bn=True)),
+        "fp16 scaler (fp32 compute)": dict(model=plain, scaler={}, plant=DP_PLANT),
+    }
+    cases = {k: dict(c, schedule=DP_SCHEDULE) for k, c in cases.items()}
+    data = dict(n=steps, batch=bs * ranks, size=DP_SIZE, classes=DP_MODEL["num_classes"],
+                seed=3)
+    job = dict(task="steps", backend=backend, rendezvous=f"file://{tmp}/rendezvous-dp",
+               out=f"{tmp}/dp", device=dev, timeout_s=DP["timeout_s"], cases=cases, data=data)
+    empty_cache(torch, dev)
+    t0 = time.perf_counter()
+    dp_check.run(job, ranks)
+    results = dp_check.load(job, ranks)
+    print(f"(c) DP steps: {len(cases)} cases x {steps} steps of B={bs} a rank x {DP_SIZE}^2 "
+          f"in {time.perf_counter() - t0:.1f}s of spawned ranks")
+    batches = dp_check.global_batches(job)
+    failures = []
+    measured = {}
+    for name, case in cases.items():
+        runs = [r[name] for r in results]
+        got = runs[0]["metrics"]
+        spec = case["model"]
+        step_ms = [round(x * 1e3, 1) for x in got["step_s"]]
+        launches = [r["metrics"]["launches"] for r in runs]
+        want_launches = (list(RESNET_TAIL_LAUNCHES) if spec.get("fused") else [0, 0, 0])
+        launches_ok = all(per_step == [n * on_card for n in want_launches]
+                          for rank in launches for per_step in rank)
+        same = all(np.array_equal(r["metrics"]["loss"], got["loss"], equal_nan=True)
+                   for r in runs)
+        print(f"(c) DP {name}: losses {[round(x, 5) for x in got['loss']]}, grad norms "
+              f"{[round(x, 5) for x in got['grad_norm']]}; step times {step_ms} ms "
+              f"({backend}{'-staged: not a speed figure' if backend == 'gloo' else ''}); "
+              f"tail launches a step per rank {[rank[0] for rank in launches]} "
+              f"{'ok' if launches_ok else 'FAIL'}")
+        if not (launches_ok and same):
+            failures.append(f"{name}: launches {launches} or metrics differ between ranks")
+        if name.startswith("fp16"):
+            scale = got["scale"]
+            ok = (all(r["metrics"]["grads_finite"] == [1.0, 0.0, 1.0] for r in runs)
+                  and all(r["metrics"]["param_change"][DP_PLANT[0]] == 0.0
+                          and r["metrics"]["momentum_change"][DP_PLANT[0]] == 0.0
+                          and r["updates"] == steps - 1 for r in runs)
+                  and scale[DP_PLANT[0]] == scale[0] / 2 == 2.0 ** 15)
+            moved = [(r["metrics"]["param_change"][DP_PLANT[0]],
+                      r["metrics"]["momentum_change"][DP_PLANT[0]]) for r in runs]
+            print(f"(c) DP {name}: an inf on rank {DP_PLANT[1]} at step {DP_PLANT[0]}: "
+                  f"grads_finite {got['grads_finite']}, scale {scale}, largest parameter / "
+                  f"momentum change at that step on each rank {moved}, "
+                  f"updates {[r['updates'] for r in runs]} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(name)
+            continue
+        synced = spec.get("sync_bn", False)
+        ref = emulate_dp(torch, dict(spec, sync_bn=False), batches, 1 if synced else ranks, dev)
+        per_step = {k: [rel_err(a, b) for a, b in zip(got[k], ref[k])]
+                    for k in ("loss", "grad_norm")}
+        errs = dict(per_step, grad_first=state_rel_err(torch, runs[0]["grad_first"],
+                                                       ref["grad_first"]))
+        for when, key in (("first", "first"), ("last", "params")):
+            for part in ("params", "buffers"):
+                errs[f"{part}_{when}"] = state_rel_err(torch, runs[0][key], ref[when],
+                                                       part == "buffers")
+        tol = DP_SYNC_RTOL if synced else DP_EMULATION_RTOL[spec["dtype"]]
+        ok = all(e <= t for k in per_step for e, t in zip(errs[k], tol[k])) and all(
+            errs[k] <= tol[k] for k in tol if k not in per_step)
+        against = "one rank on the concatenated batch" if synced else "the one-process emulation"
+        print(f"(c) DP {name} vs {against}: relative error by step, loss "
+              f"{[f'{x:.2e}' for x in errs['loss']]} (tol {list(tol['loss'])}), grad norm "
+              f"{[f'{x:.2e}' for x in errs['grad_norm']]} (tol {list(tol['grad_norm'])}); "
+              f"step-0 gradient {errs['grad_first']:.2e} (tol {tol['grad_first']}); "
+              f"parameters and BatchNorm statistics after step 0 {errs['params_first']:.2e}, "
+              f"{errs['buffers_first']:.2e} (tol {tol.get('params_first', 'the gradient')}, "
+              f"{tol['buffers_first']}), after {steps} steps {errs['params_last']:.2e}, "
+              f"{errs['buffers_last']:.2e} (tol {tol['params_last']}, {tol['buffers_last']}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(name)
+        if name == "plain fp32":  # per-replica statistics, for the sync-BN check's yardstick
+            per_replica_grad = ref["grad_first"]
+        elif name == "sync-BN plain fp32":
+            # what a sum left out (each rank its own statistics) would give
+            # against the concatenated batch: the tolerance must tell it apart
+            errs["per_replica_grad_first"] = state_rel_err(torch, per_replica_grad,
+                                                           ref["grad_first"])
+            apart = errs["per_replica_grad_first"] > 2 * tol["grad_first"]
+            print(f"(c) DP per-replica statistics (the plain fp32 emulation) vs one rank on the "
+                  f"concatenated batch: step-0 gradient {errs['per_replica_grad_first']:.2e}, "
+                  f"more than twice the sync-BN tolerance {tol['grad_first']} "
+                  f"{'ok' if apart else 'FAIL'}")
+            if not apart:
+                failures.append("the sync-BN gradient tolerance does not tell a missing sum")
+        measured[name] = dict(errs, step_ms=step_ms)
+        del ref
+        empty_cache(torch, dev)
+    del results
+    if failures:
+        raise SystemExit(f"chip_smoke: data parallel disagrees: {failures}")
+
+    # the recipes: a world of one on one card, a rank a card on more
+    world = ranks if backend == "nccl" else 1
+    rb, rsteps = DP["recipe_batch"], DP["recipe_steps"]
+    classes = DP_MODEL["num_classes"]
+    extra = ["--device", "cpu", "--tiny"] if dev == "cpu" else []
+    for recipe in ("resnet_dp", "resnet_ddp", "resnet_ddp_amp"):
+        mod = importlib.import_module(f"pytorch_distributed_tpu_torch.recipes.{recipe}")
+        bt.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = mod.main(["--synthetic", "--epochs", "1", "--batch-size", str(rb)] + extra,
+                           datasets=(SyntheticImageClassification(rsteps * rb * world, DP_SIZE,
+                                                                  classes),
+                                     SyntheticImageClassification(rb * world, DP_SIZE, classes,
+                                                                  seed=1), DP_SIZE, classes))
+        sync(torch, dev)
+        ok = np.isfinite(summary.get("loss", np.nan)) and summary.get("count") == rb * world
+        print(f"(c) recipes/{recipe}.py on {world} rank(s), {rsteps} steps of B={rb} a rank and "
+              f"a validation batch: {time.perf_counter() - t0:.1f} s, val loss "
+              f"{summary.get('loss', float('nan')):.4f} over {summary.get('count', 0):.0f} "
+              f"images {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: recipes/{recipe}.py failed: {summary}")
+        empty_cache(torch, dev)
+
+    if backend != "nccl":
+        print("(c) DP step times across cards: need 2-4 cards (NCCL); not measured here")
+        return {"cases": measured, "timing": None}
+    return {"cases": measured, "timing": dp_timing(torch, card, tmp, ranks, dev)}
+
+
+def dp_timing(torch, card, tmp, ranks, dev="cuda") -> dict:
+    """The DP phase's NCCL times: ``tools/dp_check.py``'s ``"timing"`` task
+    on 1, 2 and 4 ranks (up to ``ranks``) and back. Returns, by model and
+    rank count, each run's rank-0 step p50, img/s and every rank's device
+    split."""
+    from pytorch_distributed_tpu_torch.tools import dp_check
+
+    # 1, 2, 4 cards, then back (4, 2, 1): a drift of the card or the host
+    # over the run shows as two readings of one count that disagree
+    counts = [n for n in (1, 2, 4) if n <= ranks]
+    timing = {}
+    for run, n in enumerate(counts + counts[::-1]):
+        job = dict(task="timing", backend="nccl",
+                   rendezvous=f"file://{tmp}/rendezvous-time{run}", out=f"{tmp}/time{run}",
+                   device=dev, timeout_s=DP["timeout_s"], size=DP_SIZE,
+                   warmup=DP_TIMING["warmup"], steps=DP_TIMING["steps"],
+                   profiled=DP_TIMING["profiled"],
+                   models={"fused bf16": dict(model=dict(DP_MODEL, dtype="bfloat16", fused=True),
+                                              batch=DP_TIMING["fused"]),
+                           "plain fp32": dict(model=dict(DP_MODEL, dtype="float32"),
+                                              batch=DP_TIMING["plain"])})
+        dp_check.run(job, n)
+        by_rank = dp_check.load(job, n)
+        for name in by_rank[0]:
+            rs = [r[name] for r in by_rank]
+            p50 = float(np.median(rs[0]["step_s"]))
+            timing.setdefault(name, {}).setdefault(n, []).append(dict(
+                p50_ms=p50 * 1e3, img_s=n * rs[0]["batch"] / p50,
+                steps_ms=[round(x * 1e3, 2) for x in rs[0]["step_s"]],
+                busy=[r["busy"] for r in rs], nccl_ms=[r["nccl_ms"] for r in rs],
+                compute_ms=[r["compute_ms"] for r in rs], peak_gib=rs[0]["peak_gib"]))
+    for name, by_n in timing.items():
+        one = float(np.mean([t["img_s"] for t in by_n[1]]))
+        for n, runs in by_n.items():
+            for i, t in enumerate(runs):
+                print(f"(c) DP timing {name}, {n} card(s) over NCCL, "
+                      f"{'first' if i == 0 else 'second'} run, B={DP_TIMING[name.split()[0]]} a "
+                      f"card on {card}: step p50 {t['p50_ms']:.2f} ms (rank 0's steps "
+                      f"{t['steps_ms']} ms), {t['img_s']:.1f} img/s, {t['img_s'] / one:.3f}x "
+                      f"one card (the mean of its two runs); profiled, by rank: busy share "
+                      f"{[round(x, 3) for x in t['busy']]}, device ms a step under NCCL kernels "
+                      f"{[round(x, 2) for x in t['nccl_ms']]} and under the others "
+                      f"{[round(x, 2) for x in t['compute_ms']]}; peak memory "
+                      f"{t['peak_gib']:.1f} GiB")
+    return timing
 
 
 # kernels one call of each tail function launches: the reduction and its
@@ -1720,6 +2088,11 @@ def main(argv) -> int:
 
     # ---- (c) ResNet-50: the fused bf16 trainer, the first step, the recipe ----
     resnet_launches = resnet_runs(torch, card)
+    torch.cuda.empty_cache()
+
+    # ---- (c) data-parallel ResNet-50: the ranks, sync-BN, fp16, the recipes ----
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_runs(torch, card, tmp)
     torch.cuda.empty_cache()
 
     # ---- (c) the ring: ring_flash_attention and LMTrainer over 2 ranks ----

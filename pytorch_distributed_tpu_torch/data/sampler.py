@@ -52,6 +52,12 @@ class DistributedSampler:
         """This replica's shard, ``indices[rank::num_replicas]``."""
         return self._global_indices()[self.rank::self.num_replicas]
 
+    def local_padding_mask(self) -> np.ndarray:
+        """Bool ``[num_samples]``: True where this replica's position holds
+        a wrap-padding duplicate (``local_padding_mask``:88), so metric
+        code can zero its weight."""
+        return np.arange(self.rank, self.total_size, self.num_replicas) >= self.dataset_size
+
     def __iter__(self):
         return iter(self.local_indices().tolist())
 

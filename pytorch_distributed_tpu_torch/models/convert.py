@@ -23,6 +23,10 @@ and of ``pytorch_distributed_tpu/models/resnet.py`` (``{"params",
 kernel ``[in, out]`` and bias, BatchNorm ``scale``/``bias`` with
 ``batch_stats`` ``mean``/``var`` (the port's ``weight``, ``bias``,
 ``running_mean``, ``running_var``).
+
+The fp16 loss scaler's state (``ops/precision.py`` ``DynamicLossScaler``:
+``scale`` fp32, ``growth_tracker`` int32 and its three constants) crosses
+with ``scaler_from_jax``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 
 from pytorch_distributed_tpu_torch.models.resnet import Conv, Dense, ResNet, _Kernel1x1
 from pytorch_distributed_tpu_torch.models.transformer import LayerCache, TransformerConfig
+from pytorch_distributed_tpu_torch.ops.precision import DynamicLossScaler
 
 #: fp8 dtypes by their numpy (ml_dtypes) name
 _FP8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
@@ -320,3 +325,15 @@ def init_resnet_params(model: ResNet, seed: int = 0) -> Dict:
             one = key.endswith(".weight") or key.endswith("running_var")
             sd[key] = torch.ones(v.shape) if one else torch.zeros(v.shape)
     return resnet_params_to_jax(sd)
+
+
+def scaler_from_jax(scaler, device=None) -> DynamicLossScaler:
+    """The port's ``DynamicLossScaler`` with a JAX one's state: ``scale``
+    and ``growth_tracker`` (read as numpy, on ``device``) and its growth
+    and backoff constants."""
+    return DynamicLossScaler(
+        scale=torch.tensor(np.asarray(scaler.scale), dtype=torch.float32, device=device),
+        growth_tracker=torch.tensor(np.asarray(scaler.growth_tracker), dtype=torch.int32,
+                                    device=device),
+        growth_factor=float(scaler.growth_factor), backoff_factor=float(scaler.backoff_factor),
+        growth_interval=int(scaler.growth_interval))

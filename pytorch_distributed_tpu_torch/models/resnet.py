@@ -26,8 +26,23 @@ name for name.
   ``ops.bottleneck_tail`` (their plain versions on the CPU); the downsample
   branch takes its statistics from the same ``moments`` kernel.
 
-``space_to_depth_stem``, ``use_dot_1x1``, ``remat_blocks``, ``int8_trunk``
-and ``bn_cross_replica_axis`` are not ported and raise.
+- ``bn_cross_replica_axis``: sync-BN over the data group that
+  ``parallel.mesh.make_mesh`` registered under that name (resolved at each
+  training forward, as the ring resolves ``seq_axis``; a group of one
+  rank is local BatchNorm). A plain BatchNorm sums its per-channel
+  ``[mean, mean of squares]`` over the group and divides by its size
+  before var = E[x²] − E[x]² (flax's ``axis_name``); the fused block's
+  moment statistics sum Σz, zᵀz and n over the group
+  (``_moments_nhwc``:292). The differentiable sum is
+  ``parallel.collectives.psum``, whose backward sums the cotangents as
+  JAX's transpose of ``psum`` does; the fused tail's own backward keeps
+  local cotangents for its parameters and sums (dmean, dvar) over the
+  group before kernel 3's ``dm``, ``dm2``. Every sum sits outside the
+  kernels. Without the option each replica normalizes with its own
+  batch's statistics (DDP's unsynced BatchNorm).
+
+``space_to_depth_stem``, ``use_dot_1x1``, ``remat_blocks`` and
+``int8_trunk`` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -39,6 +54,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_distributed_tpu_torch.ops import bottleneck_tail
+from pytorch_distributed_tpu_torch.parallel.collectives import all_reduce_, psum
+from pytorch_distributed_tpu_torch.parallel.mesh import AxisGroup, axis_group
 
 CL = torch.channels_last
 MOMENTUM = 0.9
@@ -57,6 +74,15 @@ def from_rows(r: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return r.view(b, h, w, r.shape[1]).permute(0, 3, 1, 2)
 
 
+def sync_axis(name: Optional[str]) -> Optional[AxisGroup]:
+    """The sync-BN group registered under ``name``, or None for local
+    statistics (no name, or a group of one rank)."""
+    if name is None:
+        return None
+    axis = axis_group(name)
+    return axis if axis.size > 1 else None
+
+
 def update_running(running: torch.Tensor, batch: torch.Tensor) -> None:
     """``ra = 0.9·ra + 0.1·batch`` in flax's order of operations."""
     with torch.no_grad():
@@ -64,13 +90,17 @@ def update_running(running: torch.Tensor, batch: torch.Tensor) -> None:
 
 
 def batch_norm(x: torch.Tensor, weight, bias, running_mean, running_var,
-               training: bool, eps: float = EPSILON) -> torch.Tensor:
+               training: bool, eps: float = EPSILON,
+               axis: Optional[AxisGroup] = None) -> torch.Tensor:
     """flax ``nn.BatchNorm`` over (N, H, W) of NCHW ``x``, output in x's
-    dtype; in training the batch statistics update the running ones."""
+    dtype; in training the batch statistics (over ``axis``'s group when
+    given) update the running ones."""
     xf = x.float()
     if training:
-        mean = xf.mean((0, 2, 3))
-        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        mean, mean2 = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+        if axis is not None:
+            mean, mean2 = psum(torch.stack([mean, mean2]), axis.group) / axis.size
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         update_running(running_mean, mean)
         update_running(running_var, var)
     else:
@@ -84,8 +114,9 @@ class _BNParams(nn.Module):
     """scale and bias (``weight``, ``bias``) and the running statistics
     (``running_mean``, ``running_var``) of one flax BatchNorm."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, axis_name: Optional[str] = None):
         super().__init__()
+        self.axis_name = axis_name
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -95,7 +126,8 @@ class _BNParams(nn.Module):
 class BatchNorm(_BNParams):
     def forward(self, x):
         return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
-                          self.training)
+                          self.training,
+                          axis=sync_axis(self.axis_name) if self.training else None)
 
 
 class Conv(nn.Module):
@@ -129,17 +161,18 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, cin: int, filters: int, strides: int = 1):
+    def __init__(self, cin: int, filters: int, strides: int = 1,
+                 bn_axis: Optional[str] = None):
         super().__init__()
         out = filters * self.expansion
         self.Conv_0 = Conv(cin, filters, 3, strides, 1)
-        self.BatchNorm_0 = BatchNorm(filters)
+        self.BatchNorm_0 = BatchNorm(filters, bn_axis)
         self.Conv_1 = Conv(filters, filters, 3, 1, 1)
-        self.BatchNorm_1 = BatchNorm(filters)
+        self.BatchNorm_1 = BatchNorm(filters, bn_axis)
         self.has_downsample = cin != out or strides != 1
         if self.has_downsample:
             self.downsample_conv = Conv(cin, out, 1, strides)
-            self.downsample_bn = BatchNorm(out)
+            self.downsample_bn = BatchNorm(out, bn_axis)
 
     def forward(self, x):
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -153,19 +186,20 @@ class BottleneckBlock(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin: int, filters: int, strides: int = 1):
+    def __init__(self, cin: int, filters: int, strides: int = 1,
+                 bn_axis: Optional[str] = None):
         super().__init__()
         out = filters * self.expansion
         self.Conv_0 = Conv(cin, filters, 1)
-        self.BatchNorm_0 = BatchNorm(filters)
+        self.BatchNorm_0 = BatchNorm(filters, bn_axis)
         self.Conv_1 = Conv(filters, filters, 3, strides, 1)
-        self.BatchNorm_1 = BatchNorm(filters)
+        self.BatchNorm_1 = BatchNorm(filters, bn_axis)
         self.Conv_2 = Conv(filters, out, 1)
-        self.BatchNorm_2 = BatchNorm(out)
+        self.BatchNorm_2 = BatchNorm(out, bn_axis)
         self.has_downsample = cin != out or strides != 1
         if self.has_downsample:
             self.downsample_conv = Conv(cin, out, 1, strides)
-            self.downsample_bn = BatchNorm(out)
+            self.downsample_bn = BatchNorm(out, bn_axis)
 
     def forward(self, x):
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -204,12 +238,19 @@ class _Moments(torch.autograd.Function):
         return acc.expand(z.shape).to(z.dtype)
 
 
-def expand_bn_stats(zr: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def expand_bn_stats(zr: torch.Tensor, w: torch.Tensor,
+                    axis: Optional[AxisGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact batch mean and variance of ``zr @ w`` from the moments of the
     rows ``zr`` (``_expand_bn_stats``): E[y] = m·w, E[y²] = wᵀ·M2·w per
-    column, var = E[y²] − E[y]². Differentiable in zr and w."""
+    column, var = E[y²] − E[y]². Differentiable in zr and w. With ``axis``
+    the moments and the row count are summed over its group (one
+    differentiable sum of ``[Σz, zᵀz]``)."""
     s, m2 = _Moments.apply(zr)
     n = zr.shape[0]
+    if axis is not None:
+        f = s.shape[0]
+        flat = psum(torch.cat([s, m2.reshape(-1)]), axis.group)
+        s, m2, n = flat[:f], flat[f:].view(f, f), n * axis.size
     mean = (s / n) @ w
     ey2 = torch.sum((m2 / n) @ w * w, dim=0)
     return mean, ey2 - mean * mean
@@ -233,10 +274,14 @@ class _FusedExpandTail(torch.autograd.Function):
     z2·(2 dM) + dm/n."""
 
     @staticmethod
-    def forward(ctx, z2, residual, w, gamma, beta, eps):
+    def forward(ctx, z2, residual, w, gamma, beta, eps, axis=None):
         dt = z2.dtype
         n = z2.shape[0]
         s, m2 = bottleneck_tail.moments(z2)
+        if axis is not None:  # sync-BN: the moments and n over the group
+            f = s.shape[0]
+            flat = all_reduce_(torch.cat([s, m2.reshape(-1)]), group=axis.group)
+            s, m2, n = flat[:f], flat[f:].view(f, f), n * axis.size
         m = s / n
         m2n = m2 / n
         mean = m @ w
@@ -248,13 +293,13 @@ class _FusedExpandTail(torch.autograd.Function):
         y3 = z2 @ w.to(dt)
         out = F.relu(y3 * a.to(dt) + b.to(dt) + residual.to(dt))
         ctx.save_for_backward(z2, w, gamma, m, m2n, mean, sigma_inv, a, out)
-        ctx.residual_dtype = residual.dtype
+        ctx.residual_dtype, ctx.n, ctx.axis = residual.dtype, n, axis
         return out, mean, var
 
     @staticmethod
     def backward(ctx, g, g_mean, g_var):
         z2, w, gamma, m, m2n, mean, sigma_inv, a, out = ctx.saved_tensors
-        n = z2.shape[0]
+        n = ctx.n
         gp, p, sb = bottleneck_tail.tail_bwd_reduce(z2, g.to(out.dtype).contiguous(), out)
         sa = torch.sum(p * w, dim=0)  # Σ g·y
         a_grad = sa - mean * sb
@@ -267,10 +312,17 @@ class _FusedExpandTail(torch.autograd.Function):
         if g_mean is not None:
             dmean = dmean + g_mean
         dw = p * a + torch.outer(m, dmean) + 2.0 * m2n @ w * dvar
+        if ctx.axis is not None:
+            # the parameters keep local cotangents (the step's gradient
+            # mean completes them); z2's gradient takes every replica's
+            # (dmean, dvar), as autodiff transposes the moments' psum
+            e = dmean.shape[0]
+            both = all_reduce_(torch.cat([dmean, dvar]), group=ctx.axis.group)
+            dmean, dvar = both[:e], both[e:]
         dm = w @ dmean
         dm2 = (w * dvar) @ w.T / n
         dz = bottleneck_tail.tail_bwd_dz(gp, z2, a[:, None] * w.T, 2.0 * dm2, dm / n)
-        return dz, gp.to(ctx.residual_dtype), dw, dgamma, dbeta, None
+        return dz, gp.to(ctx.residual_dtype), dw, dgamma, dbeta, None, None
 
 
 class _TailBatchNorm(_BNParams):
@@ -282,7 +334,8 @@ class _TailBatchNorm(_BNParams):
     def forward(self, z2r, residual_r, w):
         if self.training:
             out, mean, var = _FusedExpandTail.apply(z2r, residual_r, w, self.weight,
-                                                    self.bias, EPSILON)
+                                                    self.bias, EPSILON,
+                                                    sync_axis(self.axis_name))
             update_running(self.running_mean, mean)
             update_running(self.running_var, var)
             return out
@@ -315,20 +368,21 @@ class FusedBottleneckBlock(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin: int, filters: int, strides: int = 1):
+    def __init__(self, cin: int, filters: int, strides: int = 1,
+                 bn_axis: Optional[str] = None):
         super().__init__()
         out = filters * self.expansion
         self.strides = strides
         self.Conv_0 = Conv(cin, filters, 1)
-        self.BatchNorm_0 = BatchNorm(filters)
+        self.BatchNorm_0 = BatchNorm(filters, bn_axis)
         self.Conv_1 = Conv(filters, filters, 3, strides, 1)
-        self.BatchNorm_1 = BatchNorm(filters)
+        self.BatchNorm_1 = BatchNorm(filters, bn_axis)
         self.Conv_2 = _Kernel1x1(filters, out)
-        self.BatchNorm_2 = _TailBatchNorm(out)
+        self.BatchNorm_2 = _TailBatchNorm(out, bn_axis)
         self.has_downsample = cin != out or strides != 1
         if self.has_downsample:
             self.downsample_conv = _Kernel1x1(cin, out)
-            self.downsample_bn = _MomentBatchNorm(out)
+            self.downsample_bn = _MomentBatchNorm(out, bn_axis)
 
     def forward(self, x):
         dt = x.dtype
@@ -344,7 +398,7 @@ class FusedBottleneckBlock(nn.Module):
             wd = self.downsample_conv.weight
             mean = var = None
             if self.training:
-                mean, var = expand_bn_stats(xr, wd)
+                mean, var = expand_bn_stats(xr, wd, sync_axis(self.downsample_bn.axis_name))
             scale, bias = self.downsample_bn(mean, var)
             residual = xr @ wd.to(dt) * scale.to(dt) + bias.to(dt)
         else:
@@ -352,8 +406,7 @@ class FusedBottleneckBlock(nn.Module):
         return from_rows(self.BatchNorm_2(z2r, residual, self.Conv_2.weight), z2)
 
 
-_UNPORTED = ("space_to_depth_stem", "use_dot_1x1", "remat_blocks", "int8_trunk",
-             "bn_cross_replica_axis")
+_UNPORTED = ("space_to_depth_stem", "use_dot_1x1", "remat_blocks", "int8_trunk")
 
 
 class ResNet(nn.Module):
@@ -371,8 +424,7 @@ class ResNet(nn.Module):
                  int8_trunk: bool = False, bn_cross_replica_axis: Optional[str] = None):
         super().__init__()
         options = dict(space_to_depth_stem=space_to_depth_stem, use_dot_1x1=use_dot_1x1,
-                       remat_blocks=remat_blocks, int8_trunk=int8_trunk,
-                       bn_cross_replica_axis=bn_cross_replica_axis)
+                       remat_blocks=remat_blocks, int8_trunk=int8_trunk)
         for name in _UNPORTED:
             if options[name]:
                 raise NotImplementedError(
@@ -382,14 +434,15 @@ class ResNet(nn.Module):
         self.fused = bool(fused_bottleneck) and block_cls is BottleneckBlock
         block = FusedBottleneckBlock if self.fused else block_cls
         self.conv_init = Conv(3, num_filters, 7, 2, 3)
-        self.bn_init = BatchNorm(num_filters)
+        self.bn_init = BatchNorm(num_filters, bn_cross_replica_axis)
         self.block_names = []
         cin = num_filters
         for i, size in enumerate(self.stage_sizes):
             for j in range(size):
                 filters = num_filters * 2 ** i
                 name = f"stage{i + 1}_block{j + 1}"
-                self.add_module(name, block(cin, filters, 2 if i > 0 and j == 0 else 1))
+                self.add_module(name, block(cin, filters, 2 if i > 0 and j == 0 else 1,
+                                            bn_cross_replica_axis))
                 self.block_names.append(name)
                 cin = filters * block.expansion
         self.fc = Dense(cin, num_classes, dtype)

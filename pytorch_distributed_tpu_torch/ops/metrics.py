@@ -14,10 +14,12 @@ import torch
 def topk_correct(logits: torch.Tensor, labels: torch.Tensor,
                  ks: Sequence[int] = (1, 5)) -> Dict[str, torch.Tensor]:
     """Number of examples whose label is among the top-k logits, per k,
-    as fp32 0-dim tensors; k past the class count always hits."""
+    as fp32 0-dim tensors; k past the class count always hits. Ties, and
+    the NaN logits of a non-finite step, rank lower index first, as
+    ``lax.top_k`` does (``torch.topk`` leaves their order open)."""
     num_classes = logits.shape[-1]
     max_k = min(max(ks), num_classes)
-    pred = torch.topk(logits, max_k, dim=-1).indices
+    pred = torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :max_k]
     hit = pred == labels[:, None].to(pred.dtype)
     return {f"correct{k}": hit[:, :min(k, num_classes)].sum().float() for k in ks}
 

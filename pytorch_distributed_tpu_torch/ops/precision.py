@@ -4,13 +4,18 @@
 compute (convs, matrix products, activations) fp32 or bf16, the logits and
 loss fp32. bf16 keeps fp32's exponent range, so the bf16 path needs no loss
 scaling: ``NoOpLossScaler`` keeps the scaler's interface and does nothing.
-The fp16 ``DynamicLossScaler`` comes with the AMP recipe.
+``DynamicLossScaler`` is torch ``GradScaler``'s algorithm for the fp16
+recipe (``DynamicLossScaler``:85): scale the loss, unscale the gradients,
+skip the update on a non-finite one and halve the scale, double it after
+``growth_interval`` finite steps in a row. Its state is two 0-dim device
+tensors and ``update`` is ``torch.where`` arithmetic in the JAX order, so
+it reads nothing on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterable
 
 import torch
 
@@ -41,9 +46,68 @@ def bf16_policy() -> Policy:
     return Policy(compute_dtype=torch.bfloat16)
 
 
+def all_finite(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """0-dim bool tensor: every float tensor is finite (``all_finite``:71;
+    True for none)."""
+    flags = [torch.isfinite(t).all() for t in tensors if t.is_floating_point()]
+    if not flags:
+        return torch.ones((), dtype=torch.bool)
+    return torch.stack(flags).all()
+
+
+@dataclasses.dataclass(frozen=True)
+class DynamicLossScaler:
+    """``scale`` fp32 and ``growth_tracker`` int32, 0-dim tensors on the
+    model's device; ``update`` returns the next scaler, as the JAX pytree
+    does."""
+
+    scale: torch.Tensor
+    growth_tracker: torch.Tensor
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    growth_interval: int = 2000
+
+    @classmethod
+    def create(cls, init_scale: float = 2.0 ** 16, device=None,
+               **kwargs) -> "DynamicLossScaler":
+        return cls(scale=torch.tensor(init_scale, dtype=torch.float32, device=device),
+                   growth_tracker=torch.zeros((), dtype=torch.int32, device=device),
+                   **kwargs)
+
+    def to(self, device) -> "DynamicLossScaler":
+        return dataclasses.replace(self, scale=self.scale.to(device),
+                                   growth_tracker=self.growth_tracker.to(device))
+
+    def scale_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        return loss * self.scale.to(loss.dtype)
+
+    def unscale_grads(self, grads):
+        """Multiply each gradient in place by 1 / scale (fp32, then cast to
+        the gradient's dtype); returns ``grads``."""
+        inv = 1.0 / self.scale
+        for g in grads:
+            g.mul_(inv.to(g.dtype))
+        return grads
+
+    def update(self, grads_finite: torch.Tensor) -> "DynamicLossScaler":
+        grew = self.growth_tracker + 1 >= self.growth_interval
+        scale = torch.where(
+            grads_finite, torch.where(grew, self.scale * self.growth_factor, self.scale),
+            self.scale * self.backoff_factor)
+        zero = torch.zeros_like(self.growth_tracker)
+        tracker = torch.where(grads_finite,
+                              torch.where(grew, zero, self.growth_tracker + 1), zero)
+        return dataclasses.replace(self, scale=scale, growth_tracker=tracker)
+
+
 class NoOpLossScaler:
     """The bf16 and fp32 scaler: the loss and the gradients pass unchanged
     and every step counts as finite."""
+
+    scale = 1.0
+
+    def to(self, device) -> "NoOpLossScaler":
+        return self
 
     def scale_loss(self, loss: torch.Tensor) -> torch.Tensor:
         return loss

@@ -3,7 +3,12 @@
 
 - ``all_reduce_`` and ``all_reduce_grads``: the sum all-reduce of one
   tensor, and of a list of gradients flattened into buckets (the JAX step's
-  ``psum`` of the gradient tree, DDP's bucketed reducer);
+  ``psum`` of the gradient tree, DDP's bucketed reducer); ``pmean_``
+  divides the bucketed sums by the group's size once (``pmean``), ``pmin``
+  is the min of a flag (the finite gates' ``pmin``);
+- ``psum``: a differentiable sum over a group for sync-BN, whose backward
+  sums the cotangents over the group, as JAX transposes ``psum`` under
+  ``shard_map`` (every rank's loss depends on every rank's input);
 - ``broadcast_from_primary``: every rank gets rank 0's tensors;
 - ``start_ring_permute`` and ``ring_permute``: the ring's collective
   permutation (JAX's ``ppermute`` with ``perm = [(i, (i + 1) % s)]``): send
@@ -54,6 +59,32 @@ def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM,
     return t
 
 
+def pmin(t: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """The min of ``t`` (e.g. an int flag) over ``group``, in place."""
+    return all_reduce_(t, dist.ReduceOp.MIN, group)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        # a new tensor: the input stays as autograd saved it
+        return all_reduce_(t.detach().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.detach().clone(), group=ctx.group), None
+
+
+def psum(t: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """Differentiable sum of ``t`` over ``group``; its backward sums the
+    cotangents over the group. Every rank must reach it, and its backward,
+    in the same order."""
+    if group is None or group_size(group) == 1:
+        return t
+    return _PSum.apply(t, group)
+
+
 def _buckets(tensors: Sequence[torch.Tensor], bucket_bytes: int) -> List[List[torch.Tensor]]:
     out: List[List[torch.Tensor]] = []
     size, key = 0, None
@@ -79,6 +110,17 @@ def all_reduce_grads(grads: Sequence[torch.Tensor], group: Optional[dist.Process
         for g in bucket:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
             offset += g.numel()
+
+
+def pmean_(tensors: Sequence[torch.Tensor],
+           group: Optional[dist.ProcessGroup] = None) -> None:
+    """Every tensor in place: its mean over ``group`` (bucketed sums, then
+    one division each)."""
+    n = group_size(group)
+    if n == 1:
+        return
+    all_reduce_grads(tensors, group)
+    torch._foreach_div_(list(tensors), float(n))
 
 
 def broadcast_from_primary(tensors: Sequence[torch.Tensor]) -> None:

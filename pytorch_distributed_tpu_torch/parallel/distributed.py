@@ -28,6 +28,8 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 DEFAULT_TIMEOUT_S = 600.0
+# ranks a node holds in the process group this process joined (None: none)
+_ranks_per_node = None
 
 
 def env_rendezvous(local_rank: int = 0, procs_per_node: int = 1):
@@ -45,13 +47,24 @@ def env_rendezvous(local_rank: int = 0, procs_per_node: int = 1):
 
 def init_process_group(backend: str, *, init_method: Optional[str] = None,
                        world_size: Optional[int] = None, rank: Optional[int] = None,
-                       local_rank: int = 0, procs_per_node: int = 1,
+                       local_rank: int = 0, procs_per_node: Optional[int] = None,
                        timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
     """Join the job's process group. ``init_method``/``world_size``/``rank``
-    given (``file://`` or ``tcp://``) are used as they are; otherwise they
-    come from the environment contract with this process's ``local_rank``
-    of ``procs_per_node``. Raises when neither says where to meet."""
+    given are used as they are: a ``file://`` rendezvous holds every rank
+    on this node unless ``procs_per_node`` says otherwise, any other (a
+    ``tcp://`` address may join nodes) needs ``procs_per_node``. Otherwise
+    they come from the environment contract with this process's
+    ``local_rank`` of ``procs_per_node`` (default 1). Raises when neither
+    says where to meet. The trainers lay a node's batch over its ranks by
+    ``ranks_per_node``, which this records."""
+    global _ranks_per_node
+    if init_method is not None and procs_per_node is None:
+        if not init_method.startswith("file://"):
+            raise ValueError(f"init_method {init_method!r} does not say how many ranks a node "
+                             "holds: pass procs_per_node")
+        procs_per_node = world_size
     if init_method is None:
+        procs_per_node = procs_per_node or 1
         found = env_rendezvous(local_rank, procs_per_node)
         if found is None:
             raise RuntimeError(
@@ -62,6 +75,7 @@ def init_process_group(backend: str, *, init_method: Optional[str] = None,
         raise ValueError("init_method given without world_size and rank")
     dist.init_process_group(backend, init_method=init_method, world_size=world_size,
                             rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    _ranks_per_node = procs_per_node
 
 
 def spawn(fn: Callable, nprocs: int, args: Sequence = ()) -> None:
@@ -95,9 +109,41 @@ def barrier() -> None:
         dist.barrier()
 
 
+def ranks_per_node() -> int:
+    """Processes on each node of the job: 1 without a process group; as
+    ``init_process_group`` recorded it; for a group joined another way,
+    ``LOCAL_WORLD_SIZE`` (which ``torchrun`` sets). Raises when none of
+    these says."""
+    if not dist.is_initialized():
+        return 1
+    if _ranks_per_node:
+        return _ranks_per_node
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    if not local:
+        raise RuntimeError(
+            "ranks per node unknown: join through parallel.distributed.init_process_group, "
+            "or set LOCAL_WORLD_SIZE")
+    if dist.get_world_size() % int(local):
+        raise RuntimeError(f"LOCAL_WORLD_SIZE {local} does not divide the world "
+                           f"{dist.get_world_size()}")
+    return int(local)
+
+
+def node_index() -> int:
+    """This process's node (``RANK`` of the environment contract)."""
+    return get_rank() // ranks_per_node()
+
+
+def node_count() -> int:
+    """Nodes in the job (``WORLD_SIZE`` of the environment contract)."""
+    return get_world_size() // ranks_per_node()
+
+
 def destroy_process_group() -> None:
+    global _ranks_per_node
     if dist.is_initialized():
         dist.destroy_process_group()
+    _ranks_per_node = None
 
 
 def rank_device(device: str, local_rank: int) -> torch.device:

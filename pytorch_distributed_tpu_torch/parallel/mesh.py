@@ -17,6 +17,8 @@ from typing import Dict, Optional
 
 import torch.distributed as dist
 
+from pytorch_distributed_tpu_torch.parallel.distributed import ranks_per_node
+
 DATA_AXIS = "data"
 SEQ_AXIS = "seq"
 
@@ -90,3 +92,18 @@ def as_axis(group) -> AxisGroup:
 def global_batch_size(mesh: Mesh, per_replica_batch: int) -> int:
     """Per-replica batch × the data axis's size."""
     return per_replica_batch * mesh.data.size
+
+
+def local_replica_count(mesh: Optional[Mesh]) -> int:
+    """Data replicas this node feeds (``local_replica_count``:165): its
+    ranks over the seq axis's size. A node's loader batches this many
+    per-replica batches; 1 without a mesh."""
+    if mesh is None:
+        return 1
+    return max(ranks_per_node() // mesh.seq.size, 1)
+
+
+def local_replica_index(mesh: Optional[Mesh]) -> int:
+    """This rank's replica among its node's (rows ``[i·bs, (i+1)·bs)`` of
+    the node batch)."""
+    return 0 if mesh is None else mesh.data.index % local_replica_count(mesh)

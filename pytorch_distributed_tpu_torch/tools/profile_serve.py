@@ -40,22 +40,25 @@ def workload(cfg, seed=0, n=16, lo=64, hi=1024):
             for k in rng.integers(lo, hi + 1, size=n)]
 
 
-def busy_share(prof, wall_us: float) -> float:
-    """Union of device-kernel intervals over the wall."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
+def union_us(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
         if cur_e is None or s > cur_e:
             if cur_e is not None:
-                busy += cur_e - cur_s
+                total += cur_e - cur_s
             cur_s, cur_e = s, e
         else:
             cur_e = max(cur_e, e)
     if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / wall_us
+        total += cur_e - cur_s
+    return total
+
+
+def busy_share(prof, wall_us: float) -> float:
+    """Union of device-kernel intervals over the wall."""
+    return union_us((e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / wall_us
 
 
 class TickTimer:

@@ -17,8 +17,10 @@ and ``gather`` puts a sharded array together. The tasks:
   ``job["batches"]`` from the weights of ``job["params"]``, with each
   step's metrics and rank 0's final parameters;
 - ``"trainer"``: for each model config of ``job["models"]``, ``LMTrainer``
-  for one epoch and a validation pass on synthetic tokens, with its
-  history, the validation summary and the flash launches of each.
+  (from ``job["params"]`` when given) for one epoch and a validation pass
+  on synthetic tokens (``job["n_train"]`` and ``job["n_val"]`` sequences,
+  by default ``steps`` batches and one), with its history, the validation
+  summary and the flash launches of each.
 
 This module imports no JAX: a spawned rank imports its target's module.
 """
@@ -165,12 +167,15 @@ def _trainer(job: dict, mesh: Mesh, device) -> Dict[str, dict]:
     out = {}
     for name, spec in job["models"].items():
         cfg = _model_config(spec)
-        bsz, seq, steps = job["batch"], job["seq"], job["steps"]
-        trainer = LMTrainer(cfg, SyntheticTokens(steps * bsz, seq, cfg.vocab_size),
-                            SyntheticTokens(bsz, seq, cfg.vocab_size, seed=1),
+        bsz, seq = job["batch"], job["seq"]
+        n_train, n_val = job.get("n_train", job.get("steps", 1) * bsz), job.get("n_val", bsz)
+        trainer = LMTrainer(cfg, SyntheticTokens(n_train, seq, cfg.vocab_size),
+                            SyntheticTokens(n_val, seq, cfg.vocab_size, seed=1),
                             LMTrainerConfig(batch_size=bsz, lr=3e-4, warmup_steps=0,
                                             log_every=1, grad_clip_norm=1.0),
                             device=device, mesh=mesh)
+        if job.get("params") is not None:  # in place of the seed's initialisation
+            trainer.state.model.load_state_dict(job["params"])
         if device.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)

@@ -15,10 +15,12 @@ exactly:
   then clipped, then passed to AdamW; the ``loss`` metric is the sum of
   the local losses;
 - the update: optional global-norm clipping (the pre-clip norm is the
-  ``grad_norm`` metric), the lr from the schedule at the pre-update step,
-  AdamW, and with ``nan_guard`` a non-finite loss or gradient skips the
-  update while ``step`` still advances (``step_good`` metric), every
-  rank's verdict combined by a min as the JAX ``pmin`` does;
+  ``grad_norm`` metric), the lr from the schedule at ``state.updates``,
+  the updates applied so far (optax's count inside ``opt_state``), AdamW,
+  and with ``nan_guard`` a non-finite loss or gradient skips the update
+  while ``step`` still advances and ``updates`` does not (``step_good``
+  metric), every rank's verdict combined by a min as the JAX ``pmin``
+  does;
 - a seq-sharded mesh needs ring attention (``check_seq_parallel_attention``),
   and a zigzag shard's wpe positions follow the chunk map
   (``shard_positions``).
@@ -158,16 +160,17 @@ def make_lm_train_step(*, grad_clip_norm: float = 0.0, fused_ce: bool = True,
         metrics = {"loss": _over_mesh(mesh, loss.detach().clone()), "tokens": count}
         if grad_clip_norm:
             metrics["grad_norm"] = clip_grads_by_global_norm(grads, grad_clip_norm)
-        lr = state.lr_schedule(state.step)
+        lr = state.lr_schedule(state.updates)
         for group in opt.param_groups:
             group["lr"] = lr
         if nan_guard:
             good = _over_mesh(mesh, finite_ok(metrics["loss"], grads).int(),
                               torch.distributed.ReduceOp.MIN) > 0
-            guarded_step(good, opt)
+            state.updates += int(guarded_step(good, opt))
             metrics["step_good"] = good.float()
         else:
             opt.step()
+            state.updates += 1
         state.step += 1
         return state, metrics
 

@@ -4,9 +4,14 @@ The epoch loop of the JAX trainer: the sampler's ``set_epoch`` reshuffle,
 the warmup-cosine AdamW (``LMTrainerConfig`` has the JAX defaults),
 optional global-norm clipping and ``nan_guard``, and a validation pass per
 epoch reporting token perplexity. On one device, or as one rank of a
-data × seq ``parallel.mesh.Mesh``: the sampler shards rows over the data
-axis, ``shard_lm_batch`` gives the rank its sequence columns, the steps
-all-reduce over every rank, and only rank 0 prints. Checkpoints, best and
+data × seq ``parallel.mesh.Mesh``: as in JAX (``train/lm_trainer.py``
+:203-210) the sampler splits the data by node and the node's loader
+batches its local data replicas together; the rank collates its replica's
+rows of each node batch (``data.loader.rank_rows``), ``shard_lm_batch``
+gives it its sequence columns, the steps all-reduce over every rank, and
+only rank 0 prints. Validation zero-weights the sampler's wrap-padding
+duplicates and pads a partial node batch with zero-weight rows (:519-545),
+so each sequence counts once. Checkpoints, best and
 suspend/resume, the compile cache, the watchdog, metrics JSONL and
 telemetry come with a later slice; the trainer keeps its logged records in
 ``history`` instead.
@@ -24,9 +29,14 @@ import torch
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.data import DataLoader, DistributedSampler, to_device
 from pytorch_distributed_tpu_torch.ops.schedules import warmup_cosine
+from pytorch_distributed_tpu_torch.parallel import distributed
 from pytorch_distributed_tpu_torch.parallel.collectives import broadcast_from_primary
 from pytorch_distributed_tpu_torch.parallel.distributed import is_primary
-from pytorch_distributed_tpu_torch.parallel.mesh import Mesh
+from pytorch_distributed_tpu_torch.parallel.mesh import (
+    Mesh,
+    local_replica_count,
+    local_replica_index,
+)
 from pytorch_distributed_tpu_torch.parallel.sequence import zigzag_shard
 from pytorch_distributed_tpu_torch.train.lm import (
     create_lm_state,
@@ -92,17 +102,19 @@ class LMTrainer:
         self.mesh = mesh
         self.device = resolve_device(device)
         pin = self.device.type == "cuda"
-        dp, d = (mesh.data.size, mesh.data.index) if mesh is not None else (1, 0)
-        self.train_sampler = DistributedSampler(len(train_dataset), num_replicas=dp, rank=d,
-                                                shuffle=True, seed=config.seed)
-        self.val_sampler = DistributedSampler(len(val_dataset), num_replicas=dp, rank=d,
+        part = (local_replica_index(mesh), local_replica_count(mesh))
+        nodes, node = ((distributed.node_count(), distributed.node_index())
+                       if mesh is not None else (1, 0))
+        self.train_sampler = DistributedSampler(len(train_dataset), num_replicas=nodes,
+                                                rank=node, shuffle=True, seed=config.seed)
+        self.val_sampler = DistributedSampler(len(val_dataset), num_replicas=nodes, rank=node,
                                               shuffle=False, seed=config.seed)
-        self.train_loader = DataLoader(train_dataset, config.batch_size, lm_collate,
+        self.train_loader = DataLoader(train_dataset, config.batch_size * part[1], lm_collate,
                                        sampler=self.train_sampler, drop_last=True,
-                                       pin_memory=pin)
-        self.val_loader = DataLoader(val_dataset, config.batch_size, lm_collate,
+                                       pin_memory=pin, part=part)
+        self.val_loader = DataLoader(val_dataset, config.batch_size * part[1], lm_collate,
                                      sampler=self.val_sampler, drop_last=False,
-                                     pin_memory=pin)
+                                     pin_memory=pin, part=part)
         schedule = warmup_cosine(
             config.lr, total_steps=max(len(self.train_loader) * config.epochs, 1),
             warmup_steps=config.warmup_steps, final_lr=config.lr * config.min_lr_ratio)
@@ -145,9 +157,23 @@ class LMTrainer:
     def _shard(self, host_batch: dict) -> dict:
         return shard_lm_batch(self.mesh, host_batch, self.model_config.ring_layout)
 
+    def _val_batch(self, indices: np.ndarray, duplicate: np.ndarray) -> dict:
+        """A validation batch of ``batch_size`` rows: the sequences at
+        ``indices``, those marked ``duplicate`` weighing nothing, then
+        zero-weight padding rows (sequence 0's tokens; a rank whose rows
+        of a partial node batch ran out still steps with the others)."""
+        pad = self.config.batch_size - len(indices)
+        batch = self.val_loader.collate(np.concatenate([indices, np.zeros(pad, np.int64)]))
+        keep = np.concatenate([~duplicate, np.zeros(pad, bool)])
+        batch["weights"] = batch["weights"] * torch.from_numpy(keep)[:, None]
+        return batch
+
     def validate(self) -> dict:
         acc = empty_lm_metrics(self.device)
-        for host_batch in self.val_loader.iter_batches(0):
+        indices = self.val_sampler.local_indices()
+        duplicate = self.val_sampler.local_padding_mask()
+        for rows in self.val_loader.iter_rows(0):
+            host_batch = self._val_batch(indices[rows], duplicate[rows])
             acc = self.eval_step(self.state, to_device(self._shard(host_batch), self.device),
                                  acc)
         tokens = float(acc["tokens"])

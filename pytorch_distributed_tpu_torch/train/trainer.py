@@ -1,24 +1,33 @@
-"""The image-classification trainer on one card
+"""The image-classification trainer
 (``pytorch_distributed_tpu/train/trainer.py``: ``TrainerConfig``:50,
 ``Trainer``:147 with ``train_epoch``:362, ``validate``:436, ``fit``:464).
 
-The JAX trainer's epoch loop with a one-device mesh: the sampler's
-``set_epoch`` reshuffle, ``step_lr`` SGD with momentum and weight decay at
-the reference's hyperparameters (``TrainerConfig`` defaults), optional
-label smoothing, global-norm clipping and ``nan_guard``, a validation pass
-per epoch with top-1/5 accuracy accumulated on the device, and the best
-top-1 tracked across epochs. Not ported yet (ROADMAP.md queue 1, item 6):
-checkpoints with ``best``/``latest``, suspend/resume, rollback after bad
-steps, the compile cache, telemetry and the metrics JSONL, the loader's
-worker threads and prefetch, and the fp16 loss scaler; the trainer keeps
-its logged records in ``history`` instead.
+The JAX trainer's epoch loop on one device, or as one rank of a data
+``parallel.mesh.Mesh``, which is how the reference's recipes differ:
+one card (``resnet_single``), a rank a local card (``resnet_dp``), a rank
+a card on every node (``resnet_ddp``), the same in bf16 (``resnet_ddp_amp``)
+or with fp16's dynamic loss scaler (``precision="fp16"``). As in JAX the
+sampler splits the data by node and the node's loader batches its local
+replicas together; each rank collates its rows ``[i·bs, (i+1)·bs)`` of the
+node batch (``data.loader.rank_rows``), and a partial validation batch is
+wrap-padded to the local replicas, its duplicates counted. The rest: the
+sampler's ``set_epoch`` reshuffle, ``step_lr`` SGD with momentum and
+weight decay at the reference's hyperparameters (``TrainerConfig``
+defaults), optional label smoothing, global-norm clipping and
+``nan_guard``, a validation pass per epoch with top-1/5 accuracy
+accumulated on the device and summed over the replicas, the best top-1
+across epochs; only rank 0 prints. Not ported yet (ROADMAP.md queue 1,
+item 6): checkpoints with ``best``/``latest``, suspend/resume, rollback
+after bad steps, the compile cache, telemetry and the metrics JSONL, and
+the loader's worker threads and prefetch; the trainer keeps its logged
+records in ``history`` instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List
+from typing import List, Optional
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.data import (
@@ -28,9 +37,22 @@ from pytorch_distributed_tpu_torch.data import (
     to_device,
 )
 from pytorch_distributed_tpu_torch.ops.metrics import ClassificationMetrics
+from pytorch_distributed_tpu_torch.ops.precision import DynamicLossScaler
 from pytorch_distributed_tpu_torch.ops.schedules import step_lr
+from pytorch_distributed_tpu_torch.parallel import distributed
+from pytorch_distributed_tpu_torch.parallel.collectives import broadcast_from_primary
+from pytorch_distributed_tpu_torch.parallel.mesh import (
+    Mesh,
+    local_replica_count,
+    local_replica_index,
+)
 from pytorch_distributed_tpu_torch.train.state import create_resnet_state
 from pytorch_distributed_tpu_torch.train.step import make_eval_step, make_train_step
+
+
+def _print(text: str) -> None:
+    if distributed.is_primary():
+        print(text)
 
 
 @dataclasses.dataclass
@@ -44,7 +66,8 @@ class TrainerConfig:
     weight_decay: float = 1e-4
     lr_step_epochs: int = 30
     lr_gamma: float = 0.1
-    precision: str = "fp32"  # fp32 | bf16 (the model's dtype); fp16 is not ported
+    # fp32 | bf16 (the model's compute dtype) | fp16 (the dynamic loss scaler)
+    precision: str = "fp32"
     label_smoothing: float = 0.0
     log_every: int = 100
     seed: int = 0
@@ -54,37 +77,47 @@ class TrainerConfig:
 
 class Trainer:
     """Drives a ``models.ResNet`` over image datasets on one device (CUDA
-    unless ``device="cpu"``), from the flax-scale initialisation of
-    ``config.seed``."""
+    unless ``device="cpu"``), or as this process's rank of ``mesh``, from
+    the flax-scale initialisation of ``config.seed`` (rank 0's, broadcast).
+    ``config.batch_size`` is per data replica."""
 
     def __init__(self, model, train_dataset, val_dataset, config: TrainerConfig,
-                 device=None):
-        if config.precision not in ("fp32", "bf16"):
-            raise NotImplementedError(
-                f"precision {config.precision!r}: the fp16 loss scaler is not ported yet")
+                 device=None, mesh: Optional[Mesh] = None):
+        if config.precision not in ("fp32", "bf16", "fp16"):
+            raise ValueError(f"precision {config.precision!r}: fp32, bf16 or fp16")
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(device)
         pin = self.device.type == "cuda"
-        self.train_sampler = DistributedSampler(len(train_dataset), shuffle=True,
-                                                seed=config.seed)
-        self.val_sampler = DistributedSampler(len(val_dataset), shuffle=False,
-                                              seed=config.seed)
-        self.train_loader = DataLoader(train_dataset, config.batch_size, image_collate,
+        # the sampler splits by node; the node's loader batches its local
+        # replicas and this rank collates its rows of each node batch
+        part = (local_replica_index(mesh), local_replica_count(mesh))
+        node_batch = config.batch_size * part[1]
+        nodes, node = ((distributed.node_count(), distributed.node_index())
+                       if mesh is not None else (1, 0))
+        self.train_sampler = DistributedSampler(len(train_dataset), num_replicas=nodes,
+                                                rank=node, shuffle=True, seed=config.seed)
+        self.val_sampler = DistributedSampler(len(val_dataset), num_replicas=nodes,
+                                              rank=node, shuffle=False, seed=config.seed)
+        self.train_loader = DataLoader(train_dataset, node_batch, image_collate,
                                        sampler=self.train_sampler, drop_last=True,
-                                       pin_memory=pin)
-        self.val_loader = DataLoader(val_dataset, config.batch_size, image_collate,
+                                       pin_memory=pin, part=part)
+        self.val_loader = DataLoader(val_dataset, node_batch, image_collate,
                                      sampler=self.val_sampler, drop_last=False,
-                                     pin_memory=pin)
+                                     pin_memory=pin, part=part, wrap_partial=True)
         schedule = step_lr(config.lr, len(self.train_loader),
                            step_size_epochs=config.lr_step_epochs, gamma=config.lr_gamma)
+        scaler = DynamicLossScaler.create() if config.precision == "fp16" else None
         self.state = create_resnet_state(model, lr_schedule=schedule,
                                          momentum=config.momentum,
                                          weight_decay=config.weight_decay, seed=config.seed,
-                                         device=self.device)
-        self.train_step = make_train_step(label_smoothing=config.label_smoothing,
+                                         device=self.device, scaler=scaler)
+        if mesh is not None:  # DDP's broadcast of rank 0's weights at construction
+            broadcast_from_primary(list(self.state.model.state_dict().values()))
+        self.train_step = make_train_step(mesh, label_smoothing=config.label_smoothing,
                                           grad_clip_norm=config.grad_clip_norm,
                                           nan_guard=config.nan_guard)
-        self.eval_step = make_eval_step()
+        self.eval_step = make_eval_step(mesh)
         self.best_acc = 0.0
         #: one record per logged step: its metrics, epoch, step, the mean
         #: wall time of the steps since the previous record (``step_s``)
@@ -113,11 +146,12 @@ class Trainer:
                                          data_s=data_s / since))
                 t_prev, since, data_s = now, 0, 0.0
                 acc1 = 100.0 * last["correct1"] / max(last["count"], 1.0)
-                print(f"epoch {epoch} step {step}: loss {last['loss']:.4f} acc1 {acc1:.2f}")
+                _print(f"epoch {epoch} step {step}: loss {last['loss']:.4f} acc1 {acc1:.2f}")
         return last
 
     def validate(self) -> dict:
-        """A validation epoch: device-resident sums, one readout."""
+        """A validation epoch: device-resident sums over every replica, one
+        readout."""
         metrics = ClassificationMetrics.empty(self.device)
         for host_batch in self.val_loader.iter_batches(0):
             metrics = self.eval_step(self.state, to_device(host_batch, self.device), metrics)
@@ -130,11 +164,11 @@ class Trainer:
             self.train_sampler.set_epoch(epoch)
             self.train_epoch(epoch)
             summary = self.validate()
-            print(f"epoch {epoch}: val loss {summary['loss']:.4f} acc1 {summary['acc1']:.2f} "
-                  f"acc5 {summary['acc5']:.2f}")
+            _print(f"epoch {epoch}: val loss {summary['loss']:.4f} acc1 {summary['acc1']:.2f} "
+                   f"acc5 {summary['acc5']:.2f}")
             if summary["acc1"] > self.best_acc:
                 self.best_acc = summary["acc1"]
-                print(f"new best acc1 {self.best_acc:.2f}")
-            print(f"epoch {epoch} cost time: {time.time() - t0:.1f} s")
+                _print(f"new best acc1 {self.best_acc:.2f}")
+            _print(f"epoch {epoch} cost time: {time.time() - t0:.1f} s")
         summary["best_acc"] = self.best_acc
         return summary

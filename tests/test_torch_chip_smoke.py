@@ -39,13 +39,17 @@ def test_tail_checks_and_timings_rehearse_on_cpu(chip_smoke, capsys):
     assert failures == []
     assert set(errs) == {bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ}
     out = capsys.readouterr().out
-    # gp: 4 stages x 2 dtypes + 2 ragged x 2 dtypes, and z and out rows wider
-    # than their channels
-    assert out.count("bit-equal") == 13
-    # moments at 17 shapes (the 12 above, 4 downsample inputs, wide z rows),
-    # tail_bwd_reduce at 13 (the 12 and wide rows) and tail_bwd_dz at 12,
-    # each launched twice and compared bit for bit
-    assert out.count("two launches bitwise equal") == 42
+    # gp: 4 stages x 2 dtypes + 2 ragged x 2 dtypes, the 4 stages at the DP
+    # phase's 3 batches (B = 32 bf16 and fp32, the concatenated 64 fp32), and
+    # z and out rows wider than their channels
+    assert out.count("bit-equal") == 25
+    # moments at 33 shapes (the 24 above, 4 downsample inputs at B = 128 and
+    # at the 3 DP batches, wide z rows), tail_bwd_reduce at 25 (the 24 and
+    # wide rows) and tail_bwd_dz at 24, each launched twice and compared bit
+    # for bit
+    assert out.count("two launches bitwise equal") == 90
+    for dp in ("DP B=32", "DP concatenated B=64"):
+        assert f"stage 4, {dp}" in out and f"downsample input of stage 4, {dp}" in out
     wide = [line for line in out.splitlines() if "rows 16 bytes wider than their channels" in line]
     assert {line.split()[1].rstrip(",") for line in wide} == {bt.MOMENTS, bt.BWD_REDUCE,
                                                               bt.BWD_DZ}
@@ -485,3 +489,115 @@ def test_ab_driver_runs_parent_change_change_parent(monkeypatch, capsys, tmp_pat
     assert summary["median_us"]["parent"]["k"] == np.median([5.0 + i for i in (2, 5, 6, 9)])
     assert len(capsys.readouterr().out.strip().splitlines()) == 9
 
+
+
+def _small_dp(chip_smoke, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DP", dict(batch=2, steps=3, recipe_batch=2, recipe_steps=2,
+                                               timeout_s=120))
+    monkeypatch.setattr(chip_smoke, "DP_MODEL", dict(stage_sizes=(1, 1), block="bottleneck",
+                                                     num_classes=10, num_filters=8))
+    monkeypatch.setattr(chip_smoke, "DP_SIZE", 16)
+
+
+def test_dp_phase_rehearses_on_cpu(chip_smoke, monkeypatch, tmp_path, capsys):
+    """The data-parallel phase end to end with two CPU ranks over gloo at
+    a small size (the tiny Bottleneck ResNet, 16^2, B = 2 a rank): the
+    five step cases against the emulation or the concatenated batch, the
+    fp16 skip, and the three recipes (``--tiny``); no timing on gloo."""
+    _small_dp(chip_smoke, monkeypatch)
+    out = chip_smoke.dp_runs(torch, "CPU", str(tmp_path), dev="cpu")
+    text = capsys.readouterr().out
+    assert "backend gloo, 2 ranks on 1 card" in text and "FAIL" not in text
+    assert text.count("-staged: not a speed figure") == 5
+    assert text.count(" vs the one-process emulation") == 2
+    assert text.count("sync-BN fused fp32 vs one rank on the concatenated batch") == 1
+    assert text.count("sync-BN plain fp32 vs one rank on the concatenated batch") == 1
+    assert text.count("recipes/resnet_") == 3 and "not measured here" in text
+    assert out["timing"] is None
+    # on the CPU the ranks and the one-process references agree to fp32
+    # summation order, far inside the card's tolerances
+    for name, errs in out["cases"].items():
+        assert max(max(errs["loss"]), max(errs["grad_norm"]), errs["grad_first"],
+                   errs["params_first"], errs["buffers_first"], errs["params_last"],
+                   errs["buffers_last"]) < 1e-5, name
+    # and per-replica statistics sit far from the concatenated batch
+    assert out["cases"]["sync-BN plain fp32"]["per_replica_grad_first"] > 0.1
+    assert "more than twice the sync-BN tolerance" in text
+
+
+def test_dp_emulation_tells_per_replica_from_whole_batch_statistics(chip_smoke, monkeypatch):
+    """The emulation runs each replica's rows with its own BatchNorm
+    statistics: on the same batches it differs from one rank on the whole
+    batch by far more than the tolerance it is held to, so the comparison
+    would catch ranks that synced their statistics, or swapped rows."""
+    from pytorch_distributed_tpu_torch.tools import dp_check
+
+    _small_dp(chip_smoke, monkeypatch)
+    spec = dict(chip_smoke.DP_MODEL, dtype="float32")
+    batches = dp_check.global_batches(dict(data=dict(n=2, batch=4, size=16, classes=10)))
+    two = chip_smoke.emulate_dp(torch, spec, batches, 2, dev="cpu")
+    one = chip_smoke.emulate_dp(torch, spec, batches, 1, dev="cpu")
+    # interleaved rows (indices[r::2], the sampler the ResNet must not use)
+    mixed = [{k: v[[0, 2, 1, 3]] for k, v in b.items()} for b in batches]
+    again = chip_smoke.emulate_dp(torch, spec, mixed, 2, dev="cpu")
+    tol = chip_smoke.DP_EMULATION_RTOL["float32"]
+    for other in (one, again):  # step 0 is where the tight check sits
+        for k in ("loss", "grad_norm"):
+            assert chip_smoke.rel_err(two[k][0], other[k][0]) > 10 * tol[k][0], k
+        for part in ("params", "buffers"):
+            err = chip_smoke.state_rel_err(torch, two["first"], other["first"], part == "buffers")
+            assert err > 10 * tol[f"{part}_first"], part
+
+
+def test_dp_device_split_parts_nccl_from_the_other_kernels():
+    """``device_split`` over a profiled window: busy is the union of every
+    kernel over the wall; NCCL kernels and the rest each as their own
+    union a step (overlaps counted once)."""
+    from types import SimpleNamespace
+
+    from pytorch_distributed_tpu_torch.tools import dp_check, profile_serve
+
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def ev(name, s, e, kind=cuda):
+        return SimpleNamespace(name=name, device_type=kind,
+                               time_range=SimpleNamespace(start=s, end=e))
+
+    prof = SimpleNamespace(events=lambda: [
+        ev("conv_fwd", 0, 400), ev("bn_fwd", 300, 600), ev("ncclDevKernel_AllReduce", 700, 1000),
+        ev("conv_fwd", 1200, 1600), ev("ncclDevKernel_AllReduce", 1700, 2000),
+        ev("aten::conv2d", 0, 2000, torch.autograd.DeviceType.CPU)])
+    got = dp_check.device_split(prof, 2500.0, 2)
+    assert got == {"busy": (600 + 300 + 400 + 300) / 2500, "nccl_ms": 0.3,
+                   "compute_ms": 0.5}
+    assert profile_serve.busy_share(prof, 2500.0) == got["busy"]
+
+
+def test_dp_timing_runs_the_counts_and_back(chip_smoke, monkeypatch, tmp_path, capsys):
+    """The NCCL timing, with the spawned ranks stood in for: 1, 2, 4 ranks
+    and back, each count read twice, the scaling against the mean of the
+    two one-card runs, every rank's split printed."""
+    from pytorch_distributed_tpu_torch.tools import dp_check
+
+    calls = []
+
+    def fake_run(job, n):
+        calls.append(n)
+
+    def fake_load(job, n):
+        step = 0.1 + 0.01 * (n - 1) + 0.001 * len(calls)
+        return [{name: dict(step_s=[step] * 3, batch=b, busy=0.5, nccl_ms=1.0 * (n > 1),
+                            compute_ms=60.0, peak_gib=1.0)
+                 for name, b in (("fused bf16", 128), ("plain fp32", 64))} for _ in range(n)]
+
+    monkeypatch.setattr(dp_check, "run", fake_run)
+    monkeypatch.setattr(dp_check, "load", fake_load)
+    timing = chip_smoke.dp_timing(torch, "CARD", str(tmp_path), 4, dev="cpu")
+    assert calls == [1, 2, 4, 4, 2, 1]
+    one = timing["fused bf16"][1]
+    assert [t["p50_ms"] for t in one] == pytest.approx([101.0, 106.0])
+    assert timing["fused bf16"][4][0]["nccl_ms"] == [1.0] * 4
+    text = capsys.readouterr().out
+    assert text.count("(c) DP timing") == 12 and "second run" in text
+    mean_one = np.mean([128 / 0.101, 128 / 0.106])
+    assert f"{4 * 128 / 0.133 / mean_one:.3f}x one card" in text

@@ -241,8 +241,6 @@ def test_unported_options_raise():
     for option in ("space_to_depth_stem", "use_dot_1x1", "remat_blocks", "int8_trunk"):
         with pytest.raises(NotImplementedError, match=option):
             resnet.resnet50(**{option: True})
-    with pytest.raises(NotImplementedError, match="bn_cross_replica_axis"):
-        resnet.resnet50(bn_cross_replica_axis="data")
 
 
 def test_batch_norm_has_flax_semantics():
