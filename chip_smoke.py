@@ -91,7 +91,24 @@ Phases, each of which fails the run:
       one on one card, a rank a card on more); with 2-4 cards the fused
       bf16 (B = 128 a card) and plain fp32 (B = 64) step p50, img/s and
       scaling at 1, 2 and 4 cards over NCCL and back, with each rank's busy
-      share and its device time a step in NCCL kernels and the rest; the ring,
+      share and its device time a step in NCCL kernels and the rest;
+      suspend, resume, fallback and rollback (``resume_runs``, cuDNN on its
+      deterministic algorithms): the fused bf16 ResNet-50 ``Trainer``, 6
+      steps of B = 128, run twice uninterrupted (the card's own repeat
+      difference), suspended before step 3 and resumed by a fresh trainer
+      (20 / 16 / 16 tail launches a resumed step), with interval saves every
+      2 steps and the newest one truncated (the resume falls back to the
+      one before), and with NaN batches at steps 2 and 3, ``nan_guard`` and
+      ``max_bad_steps`` 2 (one rollback, against the same run skipping
+      only); the full-width LM, 4 steps of B = 8 x 2048, twice, and
+      suspended at step 2 and resumed (12 flash forward and 12 fused
+      backward launches a resumed step); the ranks of the ring phase
+      (``tools/resume_check.py``, B = 32 a rank) with SIGUSR1 to rank 1
+      alone: every rank saves at the same step and exits 0, and a resume
+      on the same ranks; each resumed state bitwise equal to the
+      uninterrupted run where two uninterrupted runs are, else within twice
+      their difference; the save's stages and the restore timed, in ms and
+      GB/s, beside the card's name and power limit; the ring,
       spawned by ``tools/ring_check.py``: on one card 2 ranks over gloo
       with the P2P traffic staged through the host (a correctness run, not
       a speed run), with 2 or more cards one rank a card, up to 4, over
@@ -293,6 +310,20 @@ DP_SYNC_RTOL = dict(loss=(1e-5, 3e-2, 5e-2), grad_norm=(5e-3, 5e-2, 0.3), grad_f
 #: the NCCL timing: a rank a card, B a card, ranks 1, 2, 4 (as many as there
 #: are cards) and back, each rank profiled over ``profiled`` more steps
 DP_TIMING = dict(fused=128, plain=64, warmup=3, steps=20, profiled=3)
+
+# the resume phase: the fused bf16 ResNet-50 (as bench.py builds it)
+# at B = 128 for 6 steps, suspended at step 3 (the train.step fault site's
+# suspend latches the watcher, as SIGTERM's handler does), interval saves
+# every 2 steps, NaN batches at steps 2 and 3; the full-width LM at B = 8 x
+# 2048 for 4 steps, suspended at step 2; the ranks of ring_ranks at B = 32 a
+# rank for 4 steps, SIGUSR1 to rank 1 alone before step 1. Every run from
+# the seed-0 weights and the same synthetic data, its save_dir in a
+# temporary directory
+RESUME = dict(batch=128, steps=6, suspend_at=3, every=2, nan_at=2, size=224,
+              lm_batch=8, lm_seq=2048, lm_steps=4, lm_suspend_at=2,
+              dp_batch=32, dp_steps=4, dp_signal=1, timeout_s=600)
+RESUME_RESNET = dict(DP_MODEL, dtype="bfloat16", fused=True)
+RESUME_LM = dict(vocab_size=32000, num_layers=12, num_heads=12, embed_dim=768)
 
 
 def card_line() -> str:
@@ -1179,9 +1210,10 @@ def resnet_runs(torch, card) -> dict:
     nb, nsteps = RESNET["recipe_batch"], RESNET["recipe_steps"]
     bt.reset_launch_counts()
     t0 = time.perf_counter()
-    summary = resnet_single.main(
-        ["--synthetic", "--epochs", "1", "--batch-size", str(nb), "--device", "cuda"],
-        datasets=(data(nsteps * nb), data(nb, seed=1), 224, 1000))
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = resnet_single.main(
+            ["--synthetic", "--epochs", "1", "--batch-size", str(nb), "--device", "cuda",
+             "--save-dir", tmp], datasets=(data(nsteps * nb), data(nb, seed=1), 224, 1000))
     torch.cuda.synchronize()
     print(f"(c) recipes/resnet_single.py, fp32 plain blocks, {nsteps} steps of B={nb} and a "
           f"validation batch: {time.perf_counter() - t0:.1f} s, val loss {summary['loss']:.4f} "
@@ -1191,6 +1223,332 @@ def resnet_runs(torch, card) -> dict:
         raise SystemExit(f"chip_smoke: the fp32 recipe run failed: {summary}, "
                          f"{bt.launch_counts}")
     return launches
+
+
+def state_copy(torch, trainer) -> dict:
+    """The trainer's checkpoint leaves, cloned where they live."""
+    from pytorch_distributed_tpu_torch.train.state import state_payload
+
+    return {k: (v.detach().clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in state_payload(trainer.state).items()}
+
+
+def leaf_group(path: str) -> str:
+    """A checkpoint leaf's group in the resume checks."""
+    if path.startswith("state/optimizer/"):
+        return "optimizer"
+    if path.startswith("state/model/"):
+        return "bn stats" if "/running_" in path else "params"
+    return "counts"
+
+
+def state_diff(torch, got: dict, want: dict) -> dict:
+    """Largest |got - want| of each leaf group (``leaf_group``); a leaf
+    missing, of another shape, or a count that differs is inf."""
+    out: dict = {}
+    for k in set(got) | set(want):
+        g = leaf_group(k)
+        a, b = got.get(k), want.get(k)
+        if a is None or b is None:
+            d = float("inf")
+        elif isinstance(b, torch.Tensor):
+            d = (float((a.double() - b.double()).abs().max()) if a.shape == b.shape
+                 else float("inf")) if b.numel() else 0.0
+        else:
+            d = 0.0 if a == b else float("inf")
+        out[g] = max(out.get(g, 0.0), d)
+    return out
+
+
+def check_resumed(failures, label, repeat: dict, resumed: dict) -> None:
+    """Each leaf group of a resumed run against the uninterrupted one:
+    bitwise where two uninterrupted runs are bitwise equal, else within
+    twice their difference."""
+    for g in sorted(repeat):
+        r, d = repeat[g], resumed.get(g, float("inf"))
+        ok = d == 0.0 if r == 0.0 else d <= 2 * r
+        verdict = ("bitwise" if d == 0.0 else "within 2x the repeat") if ok else "FAIL"
+        print(f"(c) {label}: {g} max |resumed - uninterrupted| {d:.3g}, two uninterrupted "
+              f"runs {r:.3g}: {verdict}")
+        if not ok:
+            failures.append(f"{label}: {g} {d:.3g} against a repeat of {r:.3g}")
+
+
+def save_line(card, label, save: dict, restore_s: float) -> str:
+    gb = save["bytes"] / 1e9
+    stages = ", ".join(f"{k} {save[k] * 1e3:.1f} ms" for k in ("snapshot", "copy", "write",
+                                                              "commit"))
+    total = sum(save[k] for k in ("snapshot", "copy", "write", "commit"))
+    return (f"(c) {label} checkpoint {gb:.3f} GB: save {stages} ({total * 1e3:.1f} ms, "
+            f"{gb / max(total, 1e-9):.2f} GB/s); restore {restore_s * 1e3:.1f} ms "
+            f"({gb / max(restore_s, 1e-9):.2f} GB/s); {card}")
+
+
+def resume_runs(torch, card, tmp, dev="cuda") -> dict:
+    """Phase (c) for suspend, resume, fallback and rollback, through
+    ``Trainer.fit`` / ``LMTrainer.fit`` with ``save_dir`` under ``tmp``,
+    cuDNN set to its deterministic algorithms for the phase:
+
+    - the fused bf16 ResNet-50 (RESUME): two uninterrupted runs (their
+      difference is the card's own repeat difference), a run suspended at
+      ``suspend_at`` (``go_suspend``'s SystemExit caught here) that a fresh
+      trainer resumes, its resumed steps' tail launches counted; a run with
+      interval saves, whose newest step checkpoint is truncated, that a
+      fresh trainer resumes from the one before; a run with two NaN
+      batches, ``nan_guard`` and ``max_bad_steps`` 2, which rolls back once
+      and must end where the same run ends skipping only;
+    - the full-width LM: two uninterrupted runs, a suspend at
+      ``lm_suspend_at`` and its resume, the resumed steps' flash launches;
+    - the ranks of ``ring_ranks`` (``tools/resume_check.py``): SIGUSR1 to
+      rank 1 alone, both ranks save at the same step and exit 0, and a
+      resume on the same ranks;
+    - the save's stages and the restore timed for both checkpoints.
+
+    Each resumed state is held against the uninterrupted run by
+    ``check_resumed``. With ``dev="cpu"`` (a rehearsal) the plain versions
+    launch nothing."""
+    import gc
+    import shutil
+
+    from pytorch_distributed_tpu_torch.data import SyntheticImageClassification, SyntheticTokens
+    from pytorch_distributed_tpu_torch.models.transformer import TransformerConfig
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_tpu_torch.resilience import faults
+    from pytorch_distributed_tpu_torch.resilience.faults import FaultPlan, FaultSpec
+    from pytorch_distributed_tpu_torch.tools import dp_check, resume_check
+    from pytorch_distributed_tpu_torch.train import (
+        LMTrainer,
+        LMTrainerConfig,
+        Trainer,
+        TrainerConfig,
+    )
+    from pytorch_distributed_tpu_torch.utils.suspend import SuspendWatcher
+
+    t_phase = time.perf_counter()
+    on_card = 1 if dev == "cuda" else 0
+    failures: list = []
+    out: dict = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def release(*dirs):
+        for d in dirs:
+            shutil.rmtree(os.path.join(tmp, d), ignore_errors=True)
+        gc.collect()
+        empty_cache(torch, dev)
+
+    def fit(trainer, plan=()):
+        """Fit under ``plan`` with the launch counters reset; the exit code
+        of a suspend (else None), the launches, the restore's seconds."""
+        faults.install_plan(FaultPlan([FaultSpec(**f) for f in plan]) if plan else None)
+        restore, try_resume = [0.0], trainer.try_resume
+
+        def timed():
+            t0 = time.perf_counter()
+            found = try_resume()
+            restore[0] = time.perf_counter() - t0
+            return found
+
+        trainer.try_resume = timed
+        bt.reset_launch_counts()
+        fa.reset_launch_counts()
+        code = None
+        try:
+            trainer.fit()
+        except SystemExit as e:
+            code = e.code
+        finally:
+            faults.clear_plan()
+        sync(torch, dev)
+        return code, {**bt.launch_counts, **fa.launch_counts}, restore[0]
+
+    def suspend_plan(at):
+        return [dict(site="train.step", kind="suspend", at=at)]
+
+    try:
+        # ---- ResNet-50, fused bf16 ----
+        rb, rsteps, k = RESUME["batch"], RESUME["steps"], RESUME["suspend_at"]
+        size, classes = RESUME["size"], RESUME_RESNET["num_classes"]
+        train = SyntheticImageClassification(rsteps * rb, size, classes)
+        val = SyntheticImageClassification(rb, size, classes, seed=1)
+
+        def resnet(d, watcher=None, **over):
+            cfg = TrainerConfig(epochs=1, batch_size=rb, lr=0.1, precision="bf16", log_every=0,
+                                save_dir=os.path.join(tmp, d), **over)
+            return Trainer(dp_check.build_model(RESUME_RESNET), train, val, cfg, device=dev,
+                           suspend_watcher=watcher)
+
+        runs = {}
+        for name in ("a1", "a2"):
+            t = resnet(name)
+            fit(t)
+            runs[name] = state_copy(torch, t)
+            del t
+            release(name)
+        repeat = state_diff(torch, runs["a1"], runs["a2"])
+        t = resnet("s", SuspendWatcher(install_handlers=False))
+        code, _, _ = fit(t, suspend_plan(k))
+        suspend_save = t.ckpt.last_save
+        if code != 0 or t.state.step != k + 1 or not t.ckpt.has_latest():
+            failures.append(f"ResNet-50 suspend at step {k}: exit {code}, step {t.state.step}")
+        del t
+        t = resnet("s")
+        _, launches, restore_s = fit(t)
+        tail = [launches[n] for n in (bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ)]
+        want = [n * (rsteps - k - 1) * on_card for n in RESNET_TAIL_LAUNCHES]
+        print(f"(c) ResNet-50 fused bf16, B={rb}, {rsteps} steps, suspended at step {k} and "
+              f"resumed by a fresh Trainer: resumed steps' tail launches {tail} (want {want}: "
+              f"{RESNET_TAIL_LAUNCHES} a step)")
+        if tail != want:
+            failures.append(f"ResNet-50 resumed tail launches {tail}, want {want}")
+        check_resumed(failures, "ResNet-50 suspend/resume", repeat,
+                      state_diff(torch, state_copy(torch, t), runs["a1"]))
+        del t
+        release("s")
+
+        # interval saves; the newest one torn; the fallback
+        t = resnet("e", save_every_n_steps=RESUME["every"])
+        fit(t)
+        interval_save = t.ckpt.last_save
+        print(save_line(card, "ResNet-50 suspend (blocking)", suspend_save, restore_s))
+        print(save_line(card, "ResNet-50 non-blocking", interval_save, restore_s))
+        out["resnet"] = dict(suspend_save=suspend_save, interval_save=interval_save,
+                             restore_s=restore_s, tail_launches=tail, repeat=repeat)
+        check_resumed(failures, "ResNet-50 with interval saves", repeat,
+                      state_diff(torch, state_copy(torch, t), runs["a1"]))
+        saved = [p for _s, p in t.ckpt.step_checkpoints()]
+        del t
+        shard = next(os.path.join(saved[-1], n) for n in os.listdir(saved[-1])
+                     if n.endswith(".npz"))
+        with open(shard, "r+b") as f:
+            f.truncate(os.path.getsize(shard) // 2)
+        t = resnet("e", save_every_n_steps=RESUME["every"])
+        found = t.ckpt.newest_restorable()
+        fit(t)
+        print(f"(c) ResNet-50 interval saves {[os.path.basename(p) for p in saved]}, the newest "
+              f"truncated: resumed from {os.path.basename(found or 'nothing')}")
+        if found != saved[-2]:
+            failures.append(f"the fallback resumed from {found}, not {saved[-2]}")
+        check_resumed(failures, "ResNet-50 fallback past a torn checkpoint", repeat,
+                      state_diff(torch, state_copy(torch, t), runs["a1"]))
+        del t
+        release("e")
+
+        # two NaN batches: skip only, and rollback after 2 bad steps
+        nan = [dict(site="train.step", kind="nan", at=RESUME["nan_at"], times=2)]
+        t = resnet("k", nan_guard=True)
+        fit(t, nan)
+        skipped = state_copy(torch, t)
+        del t
+        release("k")
+        t = resnet("n", nan_guard=True, max_bad_steps=2, save_every_n_steps=RESUME["every"])
+        fit(t, nan)
+        print(f"(c) ResNet-50 NaN batches at steps {RESUME['nan_at']} and "
+              f"{RESUME['nan_at'] + 1}, nan_guard, max_bad_steps 2: {t.rollbacks} rollback(s), "
+              f"{t.guard.bad_total} skipped steps, updates {t.state.updates} of {t.state.step}")
+        if t.rollbacks != 1:
+            failures.append(f"the NaN run rolled back {t.rollbacks} times, not once")
+        check_resumed(failures, "ResNet-50 rollback against the skip-only run", repeat,
+                      state_diff(torch, state_copy(torch, t), skipped))
+        del t, runs, skipped
+        release("n")
+
+        parts = {"ResNet-50": time.perf_counter() - t_phase}
+
+        # ---- the full-width LM, bf16 on fp32 parameters, AdamW ----
+        lb, lseq, lsteps, lk = (RESUME[n] for n in ("lm_batch", "lm_seq", "lm_steps",
+                                                    "lm_suspend_at"))
+        cfg = TransformerConfig(**RESUME_LM, max_seq_len=lseq, dtype=torch.bfloat16,
+                                attention="flash")
+        ltrain = SyntheticTokens(lsteps * lb, lseq, cfg.vocab_size)
+        lval = SyntheticTokens(lb, lseq, cfg.vocab_size, seed=1)
+
+        def lm(d, watcher=None):
+            return LMTrainer(cfg, ltrain, lval, LMTrainerConfig(
+                batch_size=lb, lr=3e-4, warmup_steps=0, grad_clip_norm=1.0, log_every=0,
+                save_dir=os.path.join(tmp, d)), device=dev, suspend_watcher=watcher)
+
+        lruns = {}
+        for name in ("l1", "l2"):
+            t = lm(name)
+            fit(t)
+            lruns[name], lm_best = state_copy(torch, t), t.ckpt.last_save
+            del t
+            release(name)
+        lrepeat = state_diff(torch, lruns["l1"], lruns["l2"])
+        t = lm("ls", SuspendWatcher(install_handlers=False))
+        code, _, _ = fit(t, suspend_plan(lk))
+        lm_suspend = t.ckpt.last_save
+        if code != 0 or t.state.step != lk + 1:
+            failures.append(f"LM suspend at step {lk}: exit {code}, step {t.state.step}")
+        del t
+        t = lm("ls")
+        _, launches, lm_restore = fit(t)
+        val_batches = len(t.val_loader)
+        n = cfg.num_layers
+        got = [launches[fa.FWD], launches[fa.BWD]]
+        want = [n * (lsteps - lk - 1 + val_batches) * on_card, n * (lsteps - lk - 1) * on_card]
+        print(f"(c) LM {n} layers x {cfg.embed_dim}, B={lb} x {lseq}, {lsteps} steps, suspended "
+              f"at step {lk} and resumed: flash forward / fused backward launches {got} (want "
+              f"{want}: {n} each a resumed step, {n} forwards a validation batch)")
+        if got != want:
+            failures.append(f"LM resumed flash launches {got}, want {want}")
+        check_resumed(failures, "LM suspend/resume", lrepeat,
+                      state_diff(torch, state_copy(torch, t), lruns["l1"]))
+        print(save_line(card, "LM suspend (blocking)", lm_suspend, lm_restore))
+        print(save_line(card, "LM best (non-blocking)", lm_best, lm_restore))
+        out["lm"] = dict(suspend_save=lm_suspend, best_save=lm_best, restore_s=lm_restore,
+                         flash_launches=got, repeat=lrepeat)
+        del t, lruns
+        release("ls")
+
+        parts["LM"] = time.perf_counter() - t_phase - sum(parts.values())
+
+        # ---- ranks: only rank 1 is signalled ----
+        ranks, backend = ring_ranks(torch.cuda.device_count() if dev == "cuda" else 0)
+        db, dsteps = RESUME["dp_batch"], RESUME["dp_steps"]
+        job = dict(backend=backend, device=dev, timeout_s=RESUME["timeout_s"],
+                   cudnn_deterministic=True, model=RESUME_RESNET,
+                   data=dict(n_train=dsteps * db * ranks, n_val=db * ranks, size=size,
+                             classes=classes),
+                   config=dict(epochs=1, batch_size=db, lr=0.1, precision="bf16", log_every=0),
+                   rendezvous=f"file://{tmp}/rendezvous-resume1", out=f"{tmp}/resume1",
+                   runs=[dict(name="full", dir=f"{tmp}/dp-full"),
+                         dict(name="repeat", dir=f"{tmp}/dp-repeat"),
+                         dict(name="suspend", dir=f"{tmp}/dp-suspend",
+                              signal=[1, RESUME["dp_signal"]])])
+        resume_check.run(job, ranks)
+        first = resume_check.load(job, ranks)
+        job = dict(job, rendezvous=f"file://{tmp}/rendezvous-resume2", out=f"{tmp}/resume2",
+                   runs=[dict(name="resume", dir=f"{tmp}/dp-suspend")])
+        resume_check.run(job, ranks)
+        second = resume_check.load(job, ranks)
+        at = [r["suspend"]["suspended_at"] for r in first]
+        codes = [r["suspend"]["exit"] for r in first]
+        print(f"(c) {ranks} ranks ({backend}), B={db} a rank: SIGUSR1 to rank 1 alone before "
+              f"step {RESUME['dp_signal']}: each rank saved at (epoch, step) {at}, exit codes "
+              f"{codes}; resumed steps {[r['resume']['step'] for r in second]}")
+        if len(set(at)) != 1 or at[0] != (0, RESUME["dp_signal"] + 1) or codes != [0] * ranks:
+            failures.append(f"the ranks did not agree on the suspend: {at}, exits {codes}")
+        if any(r["resume"]["checksums"] != second[0]["resume"]["checksums"] for r in second):
+            failures.append("the resumed ranks' states differ")
+        full = first[0]["full"]["state"]
+        check_resumed(failures, f"{ranks}-rank suspend/resume", state_diff(
+            torch, first[0]["repeat"]["state"], full),
+            state_diff(torch, second[0]["resume"]["state"], full))
+        out["ranks"] = dict(ranks=ranks, backend=backend, suspended_at=at)
+        parts["ranks"] = time.perf_counter() - t_phase - sum(parts.values())
+        del first, second, full
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        faults.clear_plan()
+    if failures:
+        raise SystemExit(f"chip_smoke: the resume phase failed: {failures}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"(c) resume phase: {out['wall_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return out
 
 
 def emulate_dp(torch, spec, batches, ranks, dev="cuda") -> dict:
@@ -1395,7 +1753,8 @@ def dp_runs(torch, card, tmp, dev="cuda") -> dict:
         mod = importlib.import_module(f"pytorch_distributed_tpu_torch.recipes.{recipe}")
         bt.reset_launch_counts()
         t0 = time.perf_counter()
-        summary = mod.main(["--synthetic", "--epochs", "1", "--batch-size", str(rb)] + extra,
+        summary = mod.main(["--synthetic", "--epochs", "1", "--batch-size", str(rb),
+                            "--save-dir", f"{tmp}/{recipe}"] + extra,
                            datasets=(SyntheticImageClassification(rsteps * rb * world, DP_SIZE,
                                                                   classes),
                                      SyntheticImageClassification(rb * world, DP_SIZE, classes,
@@ -2093,6 +2452,11 @@ def main(argv) -> int:
     # ---- (c) data-parallel ResNet-50: the ranks, sync-BN, fp16, the recipes ----
     with tempfile.TemporaryDirectory() as tmp:
         dp_runs(torch, card, tmp)
+    torch.cuda.empty_cache()
+
+    # ---- (c) suspend, resume, fallback and rollback in both trainers ----
+    with tempfile.TemporaryDirectory() as tmp:
+        resume_runs(torch, card, tmp)
     torch.cuda.empty_cache()
 
     # ---- (c) the ring: ring_flash_attention and LMTrainer over 2 ranks ----

@@ -27,6 +27,19 @@ kernel ``[in, out]`` and bias, BatchNorm ``scale``/``bias`` with
 The fp16 loss scaler's state (``ops/precision.py`` ``DynamicLossScaler``:
 ``scale`` fp32, ``growth_tracker`` int32 and its three constants) crosses
 with ``scaler_from_jax``.
+
+A whole JAX checkpoint crosses with ``resnet_payload_from_jax`` /
+``lm_payload_from_jax``: its leaves (``utils.checkpoint.ManifestReader``
+reads them from a directory the JAX ``Trainer`` / ``LMTrainer`` wrote:
+``state/params``, ``state/batch_stats``, ``state/opt_state``,
+``state/step``, ``state/scaler``, ``epoch``, ``step``, ``best_*``) become
+the port's (``train.state.state_payload``'s paths). The parameters and
+statistics go through ``resnet_params_from_jax`` / ``params_from_jax``;
+optax's ``trace`` (SGD) and ``mu``/``nu`` (AdamW) through the same name
+map onto torch's ``momentum_buffer`` and ``exp_avg``/``exp_avg_sq``, the
+Adam count onto AdamW's ``step``; the schedule's count
+(``scale_by_learning_rate``'s) becomes ``updates``; the scaler's leaves
+keep their paths.
 """
 
 from __future__ import annotations
@@ -337,3 +350,92 @@ def scaler_from_jax(scaler, device=None) -> DynamicLossScaler:
                                     device=device),
         growth_factor=float(scaler.growth_factor), backoff_factor=float(scaler.backoff_factor),
         growth_interval=int(scaler.growth_interval))
+
+
+def _numpy(x) -> np.ndarray:
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _subtree(flat: Mapping, prefix: str) -> Dict:
+    """The nested dict of the ``/``-joined leaves under ``prefix``."""
+    tree: Dict = {}
+    for path, leaf in flat.items():
+        if path.startswith(prefix):
+            *parents, name = path[len(prefix):].split("/")
+            node = tree
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[name] = _numpy(leaf)
+    return tree
+
+
+def _optax_parts(flat: Mapping) -> Dict:
+    """The parts of a JAX ``state/opt_state``: ``trace`` (SGD's
+    momentum), ``mu``, ``nu`` and ``adam_count`` (AdamW's moments and
+    count), and ``updates``, the count of ``scale_by_learning_rate``'s
+    schedule state (the entry holding a count and nothing else)."""
+    fields: Dict[str, set] = {}
+    for path in flat:
+        if path.startswith("state/opt_state/"):
+            i, field = path.split("/")[2:4]
+            fields.setdefault(i, set()).add(field)
+    parts: Dict = {}
+    for i, names in fields.items():
+        pre = f"state/opt_state/{i}/"
+        if "trace" in names:
+            parts["trace"] = _subtree(flat, pre + "trace/")
+        if "mu" in names:
+            parts["mu"] = _subtree(flat, pre + "mu/")
+            parts["nu"] = _subtree(flat, pre + "nu/")
+            parts["adam_count"] = _numpy(flat[pre + "count"])
+        if names == {"count"}:
+            parts["updates"] = _numpy(flat[pre + "count"])
+    if "updates" not in parts:
+        raise KeyError("the JAX opt_state has no schedule count")
+    return parts
+
+
+def _model_leaves(state_dict: Mapping[str, torch.Tensor], key: str = "") -> Dict:
+    """``state/model/...`` (or, with ``key``, ``state/optimizer/.../key``)
+    paths of a state dict."""
+    if key:
+        return {f"state/optimizer/{k.replace('.', '/')}/{key}": v
+                for k, v in state_dict.items()}
+    return {"state/model/" + k.replace(".", "/"): v for k, v in state_dict.items()}
+
+
+def _common_leaves(flat: Mapping, parts: Dict) -> Dict:
+    """The leaves both trainers carry: ``state/step``, ``updates``, the
+    scaler's, and the top level (``epoch``, ``step``, ``best_*``)."""
+    out = {p: flat[p] for p in flat if "/" not in p or p.startswith("state/scaler/")}
+    out["state/step"] = torch.as_tensor(_numpy(flat["state/step"]).astype(np.int64))
+    out["state/updates"] = torch.as_tensor(parts["updates"].astype(np.int64))
+    return out
+
+
+def resnet_payload_from_jax(flat: Mapping, fused: bool = False) -> Dict:
+    """The port's checkpoint leaves of a JAX image ``Trainer``'s (module
+    docstring); ``fused`` as ``resnet_params_from_jax`` takes it."""
+    parts = _optax_parts(flat)
+    out = _common_leaves(flat, parts)
+    out.update(_model_leaves(resnet_params_from_jax(
+        {"params": _subtree(flat, "state/params/"),
+         "batch_stats": _subtree(flat, "state/batch_stats/")}, fused=fused)))
+    if "trace" in parts:
+        out.update(_model_leaves(resnet_params_from_jax({"params": parts["trace"]},
+                                                        fused=fused), "momentum_buffer"))
+    return out
+
+
+def lm_payload_from_jax(flat: Mapping) -> Dict:
+    """The port's checkpoint leaves of a JAX ``LMTrainer``'s (AdamW)."""
+    parts = _optax_parts(flat)
+    out = _common_leaves(flat, parts)
+    out.update(_model_leaves(params_from_jax(_subtree(flat, "state/params/"))))
+    if "mu" in parts:
+        mu = params_from_jax(parts["mu"])
+        step = torch.tensor(float(parts["adam_count"]), dtype=torch.float32)
+        out.update(_model_leaves({k: step for k in mu}, "step"))
+        out.update(_model_leaves(mu, "exp_avg"))
+        out.update(_model_leaves(params_from_jax(parts["nu"]), "exp_avg_sq"))
+    return out

@@ -19,8 +19,13 @@ process. The parent builds the tail kernels before it spawns, so the
 ranks only load them.
 
 Only synthetic data is ported (``--synthetic``, or ``--tiny`` for a CPU
-smoke run); the ImageNet record readers, checkpoints and the telemetry
-flags come with later slices.
+smoke run); the ImageNet record readers and the telemetry flags come with
+later slices. Each run (each rank) watches for a suspend
+(``utils.suspend.SuspendWatcher``: SIGTERM, SIGUSR1 or the file named by
+``SUSPEND_FLAG_FILE``), saves ``<--save-dir>/latest.ckpt`` and exits 0;
+run again with the same ``--save-dir``, it resumes there. The JAX
+recipe's resilience flags: ``--nan-guard``, ``--max-bad-steps``,
+``--watchdog-timeout``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,23 @@ from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.parallel import distributed
 from pytorch_distributed_tpu_torch.parallel.mesh import Mesh, global_batch_size, make_mesh
 from pytorch_distributed_tpu_torch.train import Trainer, TrainerConfig
+from pytorch_distributed_tpu_torch.utils.suspend import SuspendWatcher
+
+
+def add_resilience_flags(p: argparse.ArgumentParser, save_dir: str) -> None:
+    """The checkpoint and guard flags the JAX recipes share
+    (``recipes/common.py``:59-80 of the JAX package)."""
+    p.add_argument("--save-dir", default=save_dir,
+                   help="checkpoint directory: latest.ckpt on a suspend, best.ckpt on "
+                        "a better validation metric; a run resumes from it")
+    p.add_argument("--nan-guard", action="store_true",
+                   help="skip a step whose loss or gradient is not finite")
+    p.add_argument("--max-bad-steps", type=int, default=0,
+                   help="with --nan-guard: after this many skipped steps in a row, "
+                        "roll back to the last good checkpoint (0 = skip only)")
+    p.add_argument("--watchdog-timeout", type=float, default=0.0,
+                   help="seconds without a completed step before the watchdog dumps "
+                        "every thread's stack and latches the suspend (0 = off)")
 
 
 def parse_args(description: str, argv: Optional[List[str]] = None,
@@ -56,6 +78,7 @@ def parse_args(description: str, argv: Optional[List[str]] = None,
                    help="batch size per replica (reference default 400)")
     p.add_argument("--device", default=None,
                    help="cuda (the default, which needs a card) or cpu")
+    add_resilience_flags(p, "output")
     if replicas:
         p.add_argument("--cpu-replicas", type=int, default=1,
                        help="with --device cpu: data replicas, one gloo rank each "
@@ -100,15 +123,24 @@ def run(args, mesh: Optional[Mesh] = None, precision: str = "fp32", datasets=Non
         lr_step_epochs=30,
         lr_gamma=0.1,
         precision=precision,
+        save_dir=args.save_dir,
+        nan_guard=args.nan_guard,
+        max_bad_steps=args.max_bad_steps,
+        watchdog_timeout_s=args.watchdog_timeout,
     )
+    watcher = SuspendWatcher()
     trainer = Trainer(model, train_ds, val_ds, cfg,
-                      device=device if device is not None else args.device, mesh=mesh)
+                      device=device if device is not None else args.device, mesh=mesh,
+                      suspend_watcher=watcher)
     if distributed.is_primary():
         grid = (f", {mesh.data.size} replicas ({distributed.node_count()} node(s)), global "
                 f"batch {global_batch_size(mesh, cfg.batch_size)}" if mesh else "")
         print(f"device {trainer.device}, {trainer.state.param_count()} parameters, batch "
               f"{cfg.batch_size} x {image_size}^2 per replica{grid}, precision {precision}")
-    summary = trainer.fit()
+    try:
+        summary = trainer.fit()
+    finally:
+        watcher.uninstall()  # the caller's handlers again, also after a suspend
     if distributed.is_primary():
         print(f"done: best acc1 {summary.get('best_acc', 0.0):.2f}")
     return summary

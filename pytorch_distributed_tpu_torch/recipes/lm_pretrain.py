@@ -27,6 +27,16 @@ recipe); gradients are summed over every rank. The ranks rendezvous where
 each node spawns its share of the ranks), else through a file in a
 temporary directory. ``--seq-parallel`` defaults to 1 where the JAX recipe
 has 2: the port's default run is one card. Tensor parallelism is refused.
+
+Checkpoints go to ``--save-dir`` (``output_lm``): ``latest.ckpt`` when a
+suspend arrives (SIGTERM, SIGUSR1, the file named by ``SUSPEND_FLAG_FILE``;
+every rank watches, and the ranks agree at the next step), then the run
+exits 0 and a second run with the same ``--save-dir`` resumes there;
+``step-<N>.ckpt`` every ``--save-every-n-steps`` (the newest
+``--keep-last-ckpts`` kept); ``best.ckpt`` on a lower validation
+perplexity. ``--nan-guard --max-bad-steps K`` rolls back to the newest
+checkpoint after K skipped steps in a row; ``--watchdog-timeout`` dumps
+the stacks of a stalled run and suspends it.
 """
 
 from __future__ import annotations
@@ -49,7 +59,9 @@ from pytorch_distributed_tpu_torch.models.transformer import (
 from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.parallel import distributed
 from pytorch_distributed_tpu_torch.parallel.mesh import global_batch_size, make_mesh
+from pytorch_distributed_tpu_torch.recipes.common import add_resilience_flags
 from pytorch_distributed_tpu_torch.train import LMTrainer, LMTrainerConfig
+from pytorch_distributed_tpu_torch.utils.suspend import SuspendWatcher
 
 
 def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -80,8 +92,12 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--grad-clip-norm", type=float, default=0.0,
                    help="global-norm gradient clip (0 = off)")
-    p.add_argument("--nan-guard", action="store_true",
-                   help="skip a step whose loss or gradient is not finite")
+    add_resilience_flags(p, "output_lm")
+    p.add_argument("--save-every-n-steps", type=int, default=0,
+                   help="a non-blocking step-<N>.ckpt every N steps (0 = off, the "
+                        "reference's suspend and best saves only)")
+    p.add_argument("--keep-last-ckpts", type=int, default=3,
+                   help="step checkpoints kept with --save-every-n-steps")
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--seq-parallel", type=int, default=1,
@@ -137,8 +153,12 @@ def train(args, device=None, mesh=None) -> dict:
         epochs=args.epochs if args.epochs is not None else (2 if args.tiny else 1),
         batch_size=batch_size, lr=args.lr, warmup_steps=0 if args.tiny else 2000,
         log_every=args.log_every, seed=args.seed, grad_clip_norm=args.grad_clip_norm,
-        nan_guard=args.nan_guard)
-    trainer = LMTrainer(model_cfg, train_ds, val_ds, cfg, device=device, mesh=mesh)
+        save_dir=args.save_dir, save_every_n_steps=args.save_every_n_steps,
+        keep_last_ckpts=args.keep_last_ckpts, nan_guard=args.nan_guard,
+        max_bad_steps=args.max_bad_steps, watchdog_timeout_s=args.watchdog_timeout)
+    watcher = SuspendWatcher()
+    trainer = LMTrainer(model_cfg, train_ds, val_ds, cfg, device=device, mesh=mesh,
+                        suspend_watcher=watcher)
     if distributed.is_primary():
         grid = (f", grid {mesh.data.size} x {mesh.seq.size} (data x seq), global "
                 f"batch {global_batch_size(mesh, batch_size)}, ring layout "
@@ -146,7 +166,10 @@ def train(args, device=None, mesh=None) -> dict:
         print(f"device {trainer.device}, {trainer.state.param_count()} parameters, "
               f"batch {batch_size} x {seq_len} tokens per replica, attention "
               f"{model_cfg.attention}{grid}")
-    summary = trainer.fit()
+    try:
+        summary = trainer.fit()
+    finally:
+        watcher.uninstall()  # the caller's handlers again, also after a suspend
     if distributed.is_primary():
         print(json.dumps(summary))
     return summary
@@ -212,6 +235,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
         raise SystemExit(
             "--model-parallel > 1 is not ported yet: tensor parallelism comes "
             "with a later slice (ROADMAP.md)")
+    if args.save_every_n_steps < 0:
+        raise SystemExit(f"--save-every-n-steps must be >= 0 (0 = off), got "
+                         f"{args.save_every_n_steps}")
+    if args.keep_last_ckpts < 1:
+        raise SystemExit(f"--keep-last-ckpts must be >= 1, got {args.keep_last_ckpts}")
     dp, per_node = grid(args)
     if dp * args.seq_parallel == 1:
         return train(args, device=args.device)

@@ -11,33 +11,36 @@ rows of each node batch (``data.loader.rank_rows``), ``shard_lm_batch``
 gives it its sequence columns, the steps all-reduce over every rank, and
 only rank 0 prints. Validation zero-weights the sampler's wrap-padding
 duplicates and pads a partial node batch with zero-weight rows (:519-545),
-so each sequence counts once. Checkpoints, best and
-suspend/resume, the compile cache, the watchdog, metrics JSONL and
-telemetry come with a later slice; the trainer keeps its logged records in
-``history`` instead.
+so each sequence counts once. The checkpoint contract is
+``train.base.SuspendableTrainer``'s, as in ``train.Trainer``, with
+``best.ckpt`` on a lower validation perplexity (``best_ppl``; JAX
+:416-420, :568-627). The compile cache, metrics JSONL and telemetry come
+with later slices (ROADMAP.md queue 1, items 8 and 9); the trainer keeps
+its logged records in ``history`` instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.data import DataLoader, DistributedSampler, to_device
+from pytorch_distributed_tpu_torch.models.convert import lm_payload_from_jax
 from pytorch_distributed_tpu_torch.ops.schedules import warmup_cosine
 from pytorch_distributed_tpu_torch.parallel import distributed
 from pytorch_distributed_tpu_torch.parallel.collectives import broadcast_from_primary
-from pytorch_distributed_tpu_torch.parallel.distributed import is_primary
 from pytorch_distributed_tpu_torch.parallel.mesh import (
     Mesh,
     local_replica_count,
     local_replica_index,
 )
 from pytorch_distributed_tpu_torch.parallel.sequence import zigzag_shard
+from pytorch_distributed_tpu_torch.train.base import SuspendableTrainer
 from pytorch_distributed_tpu_torch.train.lm import (
     create_lm_state,
     empty_lm_metrics,
@@ -45,6 +48,9 @@ from pytorch_distributed_tpu_torch.train.lm import (
     make_lm_train_step,
     shift_labels,
 )
+from pytorch_distributed_tpu_torch.utils.checkpoint import Checkpointer
+from pytorch_distributed_tpu_torch.utils.logging import rank0_print
+from pytorch_distributed_tpu_torch.utils.suspend import NullSuspendWatcher, SuspendWatcher
 
 
 def lm_collate(samples) -> dict:
@@ -83,24 +89,33 @@ class LMTrainerConfig:
     weight_decay: float = 0.1
     warmup_steps: int = 0
     min_lr_ratio: float = 0.1
+    save_dir: str = "output_lm"
     log_every: int = 100
     seed: int = 0
+    suspend_sync_every: int = 1  # see TrainerConfig
     grad_clip_norm: float = 0.0
+    save_every_n_steps: int = 0  # see TrainerConfig
+    keep_last_ckpts: int = 3
     nan_guard: bool = False
+    max_bad_steps: int = 0
+    watchdog_timeout_s: float = 0.0
 
 
-class LMTrainer:
+class LMTrainer(SuspendableTrainer):
     """Drives a ``TransformerConfig`` over token datasets on one device
     (CUDA unless ``device="cpu"``), or as this process's rank of ``mesh``,
     from the seeded initialisation (rank 0's, broadcast).
     ``config.batch_size`` is per data replica."""
 
     def __init__(self, model_config, train_dataset, val_dataset,
-                 config: LMTrainerConfig, device=None, mesh: Optional[Mesh] = None):
+                 config: LMTrainerConfig, device=None, mesh: Optional[Mesh] = None,
+                 suspend_watcher: Optional[SuspendWatcher] = None):
         self.config = config
         self.model_config = model_config
         self.mesh = mesh
         self.device = resolve_device(device)
+        self.watcher = suspend_watcher or NullSuspendWatcher()
+        self.ckpt = Checkpointer(config.save_dir, device=self.device)
         pin = self.device.type == "cuda"
         part = (local_replica_index(mesh), local_replica_count(mesh))
         nodes, node = ((distributed.node_count(), distributed.node_index())
@@ -128,21 +143,43 @@ class LMTrainer:
                                              config=model_config)
         self.eval_step = make_lm_eval_step(mesh=mesh, config=model_config)
         self.best_ppl = float("inf")
+        self.start_epoch = 0
+        self.start_step = 0
+        self._init_resilience()
         #: one record per logged step: its metrics, epoch, step, and the
         #: mean wall time of the steps since the previous record
         self.history: List[dict] = []
 
+    def _extra_payload(self) -> dict:
+        return {"best_ppl": self.best_ppl}
+
+    def _restore_extra(self, leaves: Dict[str, torch.Tensor]) -> None:
+        self.best_ppl = float(leaves["best_ppl"])
+
+    def _from_jax(self, leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return lm_payload_from_jax(leaves)
+
+    def _report_epoch(self, epoch: int, summary: dict, seconds: float) -> bool:
+        rank0_print(f"epoch {epoch}: val loss {summary['loss']:.4f} ppl {summary['ppl']:.3f}")
+        better = summary["ppl"] < self.best_ppl
+        if better:
+            self.best_ppl = summary["ppl"]
+            rank0_print(f"new best ppl {self.best_ppl:.3f}, saved best.ckpt")
+        return better
+
     def train_epoch(self, epoch: int, start_step: int = 0) -> dict:
-        """One epoch from batch ``start_step``; every ``log_every`` steps
-        the metrics are read (a device sync) and recorded. Returns the last
-        record's metrics."""
+        """One epoch from batch ``start_step``, each step bracketed as in
+        ``Trainer.train_epoch``; every ``log_every`` steps the metrics are
+        read (a device sync) and recorded. Returns the last record's
+        metrics."""
         cfg = self.config
         last: dict = {}
         t_prev, since = time.perf_counter(), 0
         for step, host_batch in enumerate(self.train_loader.iter_batches(start_step),
                                           start=start_step):
-            batch = to_device(self._shard(host_batch), self.device)
+            batch = to_device(self._shard(self._pre_step(host_batch)), self.device)
             self.state, metrics = self.train_step(self.state, batch)
+            self._post_step(metrics)
             since += 1
             if cfg.log_every and step % cfg.log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
@@ -150,8 +187,10 @@ class LMTrainer:
                 self.history.append(dict(last, epoch=epoch, step=step,
                                          step_s=(now - t_prev) / since))
                 t_prev, since = now, 0
-                if is_primary():
-                    print(f"epoch {epoch} step {step}: loss {last['loss']:.4f}")
+                rank0_print(f"epoch {epoch} step {step}: loss {last['loss']:.4f}")
+            self._maybe_save_step(epoch, step)
+            self._maybe_suspend(epoch, step)
+        self._epoch_end_guard()
         return last
 
     def _shard(self, host_batch: dict) -> dict:
@@ -182,16 +221,3 @@ class LMTrainer:
                              "empty or its sequences have length 1")
         mean = float(acc["loss_sum"]) / tokens
         return {"loss": mean, "ppl": float(np.exp(min(mean, 30.0))), "tokens": tokens}
-
-    def fit(self) -> dict:
-        summary: dict = {}
-        for epoch in range(self.config.epochs):
-            self.train_sampler.set_epoch(epoch)
-            self.train_epoch(epoch)
-            summary = self.validate()
-            if is_primary():
-                print(f"epoch {epoch}: val loss {summary['loss']:.4f} "
-                      f"ppl {summary['ppl']:.3f}")
-            self.best_ppl = min(self.best_ppl, summary["ppl"])
-        summary["best_ppl"] = self.best_ppl
-        return summary

@@ -16,18 +16,25 @@ weight decay at the reference's hyperparameters (``TrainerConfig``
 defaults), optional label smoothing, global-norm clipping and
 ``nan_guard``, a validation pass per epoch with top-1/5 accuracy
 accumulated on the device and summed over the replicas, the best top-1
-across epochs; only rank 0 prints. Not ported yet (ROADMAP.md queue 1,
-item 6): checkpoints with ``best``/``latest``, suspend/resume, rollback
-after bad steps, the compile cache, telemetry and the metrics JSONL, and
-the loader's worker threads and prefetch; the trainer keeps its logged
-records in ``history`` instead.
+across epochs; only rank 0 prints. And the checkpoint contract of
+``train.base.SuspendableTrainer``: ``fit`` resumes from the newest
+restorable checkpoint in ``save_dir`` (a JAX ``Trainer``'s too), saves
+``latest.ckpt`` and yields on a suspend (``suspend_watcher``), a
+``step-*.ckpt`` every ``save_every_n_steps`` steps and ``best.ckpt`` on a
+better top-1, and rolls back after ``max_bad_steps`` skipped steps in a
+row. Not ported yet: the compile cache, telemetry and the metrics JSONL
+(ROADMAP.md queue 1, items 8 and 9), and the loader's worker threads and
+prefetch (item 4); the trainer keeps its logged records in ``history``
+instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
+
+import torch
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.data import (
@@ -46,13 +53,13 @@ from pytorch_distributed_tpu_torch.parallel.mesh import (
     local_replica_count,
     local_replica_index,
 )
+from pytorch_distributed_tpu_torch.models.convert import resnet_payload_from_jax
+from pytorch_distributed_tpu_torch.train.base import SuspendableTrainer
 from pytorch_distributed_tpu_torch.train.state import create_resnet_state
 from pytorch_distributed_tpu_torch.train.step import make_eval_step, make_train_step
-
-
-def _print(text: str) -> None:
-    if distributed.is_primary():
-        print(text)
+from pytorch_distributed_tpu_torch.utils.checkpoint import Checkpointer
+from pytorch_distributed_tpu_torch.utils.logging import rank0_print
+from pytorch_distributed_tpu_torch.utils.suspend import NullSuspendWatcher, SuspendWatcher
 
 
 @dataclasses.dataclass
@@ -69,25 +76,43 @@ class TrainerConfig:
     # fp32 | bf16 (the model's compute dtype) | fp16 (the dynamic loss scaler)
     precision: str = "fp32"
     label_smoothing: float = 0.0
+    save_dir: str = "output"
     log_every: int = 100
     seed: int = 0
+    # ranks agree on a suspend every this many steps (1: every step, one
+    # tiny all-reduce a step with more than one rank); 0: each rank polls
+    # alone, the reference's semantics, unsafe across ranks
+    suspend_sync_every: int = 1
     grad_clip_norm: float = 0.0
+    # a non-blocking step-<state.step>.ckpt every N steps (0: off, the
+    # reference's suspend and best saves only), the newest keep_last_ckpts kept
+    save_every_n_steps: int = 0
+    keep_last_ckpts: int = 3
+    # nan_guard skips a non-finite step; after max_bad_steps of them in a
+    # row (0: never) the trainer rolls back to the newest checkpoint;
+    # watchdog_timeout_s > 0 dumps every thread's stack after a step that
+    # long and latches the suspend
     nan_guard: bool = False
+    max_bad_steps: int = 0
+    watchdog_timeout_s: float = 0.0
 
 
-class Trainer:
+class Trainer(SuspendableTrainer):
     """Drives a ``models.ResNet`` over image datasets on one device (CUDA
     unless ``device="cpu"``), or as this process's rank of ``mesh``, from
     the flax-scale initialisation of ``config.seed`` (rank 0's, broadcast).
     ``config.batch_size`` is per data replica."""
 
     def __init__(self, model, train_dataset, val_dataset, config: TrainerConfig,
-                 device=None, mesh: Optional[Mesh] = None):
+                 device=None, mesh: Optional[Mesh] = None,
+                 suspend_watcher: Optional[SuspendWatcher] = None):
         if config.precision not in ("fp32", "bf16", "fp16"):
             raise ValueError(f"precision {config.precision!r}: fp32, bf16 or fp16")
         self.config = config
         self.mesh = mesh
         self.device = resolve_device(device)
+        self.watcher = suspend_watcher or NullSuspendWatcher()
+        self.ckpt = Checkpointer(config.save_dir, device=self.device)
         pin = self.device.type == "cuda"
         # the sampler splits by node; the node's loader batches its local
         # replicas and this rank collates its rows of each node batch
@@ -119,14 +144,38 @@ class Trainer:
                                           nan_guard=config.nan_guard)
         self.eval_step = make_eval_step(mesh)
         self.best_acc = 0.0
+        self.start_epoch = 0
+        self.start_step = 0
+        self._init_resilience()
         #: one record per logged step: its metrics, epoch, step, the mean
         #: wall time of the steps since the previous record (``step_s``)
         #: and the part of it spent making and copying batches (``data_s``)
         self.history: List[dict] = []
 
+    def _extra_payload(self) -> dict:
+        return {"best_acc": self.best_acc}
+
+    def _restore_extra(self, leaves: Dict[str, torch.Tensor]) -> None:
+        self.best_acc = float(leaves["best_acc"])
+
+    def _from_jax(self, leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return resnet_payload_from_jax(leaves, fused=self.state.model.fused)
+
+    def _report_epoch(self, epoch: int, summary: dict, seconds: float) -> bool:
+        rank0_print(f"epoch {epoch}: val loss {summary['loss']:.4f} acc1 "
+                    f"{summary['acc1']:.2f} acc5 {summary['acc5']:.2f}")
+        better = summary["acc1"] > self.best_acc
+        if better:
+            self.best_acc = summary["acc1"]
+            rank0_print(f"new best acc1 {self.best_acc:.2f}, saved best.ckpt")
+        rank0_print(f"epoch {epoch} cost time: {seconds:.1f} s")
+        return better
+
     def train_epoch(self, epoch: int, start_step: int = 0) -> dict:
-        """One epoch from batch ``start_step``; every ``log_every`` steps
-        the metrics are read (a device sync) and recorded. Returns the last
+        """One epoch from batch ``start_step``, each step bracketed by the
+        fault site, the watchdog and the guard, and followed by the
+        interval save and the suspend poll; every ``log_every`` steps the
+        metrics are read (a device sync) and recorded. Returns the last
         record's metrics."""
         cfg = self.config
         last: dict = {}
@@ -134,9 +183,10 @@ class Trainer:
         batches = self.train_loader.iter_batches(start_step)
         for step in range(start_step, len(self.train_loader)):
             t0 = time.perf_counter()
-            batch = to_device(next(batches), self.device)
+            batch = to_device(self._pre_step(next(batches)), self.device)
             data_s += time.perf_counter() - t0
             self.state, metrics = self.train_step(self.state, batch)
+            self._post_step(metrics)
             since += 1
             if cfg.log_every and step % cfg.log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
@@ -146,7 +196,11 @@ class Trainer:
                                          data_s=data_s / since))
                 t_prev, since, data_s = now, 0, 0.0
                 acc1 = 100.0 * last["correct1"] / max(last["count"], 1.0)
-                _print(f"epoch {epoch} step {step}: loss {last['loss']:.4f} acc1 {acc1:.2f}")
+                rank0_print(f"epoch {epoch} step {step}: loss {last['loss']:.4f} "
+                            f"acc1 {acc1:.2f}")
+            self._maybe_save_step(epoch, step)
+            self._maybe_suspend(epoch, step)
+        self._epoch_end_guard()
         return last
 
     def validate(self) -> dict:
@@ -156,19 +210,3 @@ class Trainer:
         for host_batch in self.val_loader.iter_batches(0):
             metrics = self.eval_step(self.state, to_device(host_batch, self.device), metrics)
         return metrics.summary()
-
-    def fit(self) -> dict:
-        summary: dict = {}
-        for epoch in range(self.config.epochs):
-            t0 = time.time()
-            self.train_sampler.set_epoch(epoch)
-            self.train_epoch(epoch)
-            summary = self.validate()
-            _print(f"epoch {epoch}: val loss {summary['loss']:.4f} acc1 {summary['acc1']:.2f} "
-                   f"acc5 {summary['acc5']:.2f}")
-            if summary["acc1"] > self.best_acc:
-                self.best_acc = summary["acc1"]
-                _print(f"new best acc1 {self.best_acc:.2f}")
-            _print(f"epoch {epoch} cost time: {time.time() - t0:.1f} s")
-        summary["best_acc"] = self.best_acc
-        return summary

@@ -601,3 +601,52 @@ def test_dp_timing_runs_the_counts_and_back(chip_smoke, monkeypatch, tmp_path, c
     assert text.count("(c) DP timing") == 12 and "second run" in text
     mean_one = np.mean([128 / 0.101, 128 / 0.106])
     assert f"{4 * 128 / 0.133 / mean_one:.3f}x one card" in text
+
+
+def _small_resume(chip_smoke, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "RESUME", dict(
+        batch=4, steps=6, suspend_at=3, every=2, nan_at=2, size=16, lm_batch=2, lm_seq=16,
+        lm_steps=4, lm_suspend_at=2, dp_batch=2, dp_steps=4, dp_signal=1, timeout_s=120))
+    monkeypatch.setattr(chip_smoke, "RESUME_RESNET", dict(
+        stage_sizes=(1, 1), block="bottleneck", num_classes=4, num_filters=8,
+        dtype="bfloat16", fused=True))
+    monkeypatch.setattr(chip_smoke, "RESUME_LM", dict(vocab_size=128, num_layers=2,
+                                                      num_heads=2, embed_dim=32))
+
+
+def test_resume_phase_rehearses_on_cpu(chip_smoke, monkeypatch, tmp_path, capsys):
+    """The resume phase end to end at a small size (the tiny fused bf16
+    Bottleneck ResNet at 16^2, a 2-layer bf16 LM, 2 gloo ranks): every
+    resumed, fallen-back and rolled-back run bitwise equal to its
+    reference on the CPU, one rollback, the ranks agreeing on rank 1's
+    signal, the save and restore lines; the plain versions launch
+    nothing."""
+    _small_resume(chip_smoke, monkeypatch)
+    out = chip_smoke.resume_runs(torch, "CPU", str(tmp_path), dev="cpu")
+    text = capsys.readouterr().out
+    assert "FAIL" not in text
+    checks = [line for line in text.splitlines() if "max |resumed - uninterrupted|" in line]
+    # 5 ResNet checks (suspend, interval saves, fallback, rollback), the LM,
+    # the ranks; 3 groups each but the LM's (no BatchNorm) and the counts
+    assert len(checks) == 4 * 4 + 3 + 4
+    assert all(line.endswith("bitwise") for line in checks)
+    assert "1 rollback(s), 2 skipped steps, updates 4 of 6" in text
+    assert "the newest truncated: resumed from step-00000004.ckpt" in text
+    assert "each rank saved at (epoch, step) [(0, 2), (0, 2)], exit codes [0, 0]" in text
+    assert text.count("checkpoint") >= 4 and text.count("; CPU") == 4
+    assert out["resnet"]["tail_launches"] == [0, 0, 0] and out["lm"]["flash_launches"] == [0, 0]
+    assert out["lm"]["suspend_save"]["bytes"] > out["resnet"]["suspend_save"]["bytes"] > 0
+    assert not any((tmp_path / d).exists() for d in ("a1", "a2", "s", "e", "k", "n", "l1", "ls"))
+
+
+def test_resume_check_fails_a_resume_that_is_not_exact(chip_smoke, capsys):
+    failures = []
+    chip_smoke.check_resumed(failures, "x", {"params": 0.0, "optimizer": 1e-3},
+                             {"params": 1e-7, "optimizer": 1.5e-3})
+    chip_smoke.check_resumed(failures, "y", {"params": 1e-3}, {"params": 3e-3})
+    assert len(failures) == 2 and "x: params" in failures[0] and "y: params" in failures[1]
+    assert capsys.readouterr().out.count("within 2x the repeat") == 1
+    assert chip_smoke.leaf_group("state/model/bn_init/running_var") == "bn stats"
+    assert chip_smoke.leaf_group("state/optimizer/fc/weight/momentum_buffer") == "optimizer"
+    assert chip_smoke.state_diff(torch, {"state/step": 3}, {"state/step": 4}) == {
+        "counts": float("inf")}

@@ -119,12 +119,13 @@ def test_three_ring_train_steps_match_jax(port_runs, grid, attention, layout):
         np.testing.assert_allclose(np.asarray(x), np.asarray(y), rtol=1e-4, atol=2e-5)
 
 
-def test_seq_parallel_recipe_runs_on_the_cpu():
+def test_seq_parallel_recipe_runs_on_the_cpu(tmp_path):
     """``python -m ...lm_pretrain --device cpu --tiny --seq-parallel 2``:
     two gloo ranks train the tiny model for two epochs and validate."""
     env = {k: v for k, v in os.environ.items() if k not in ("MASTER_IP", "MASTER_PORT")}
     r = subprocess.run([sys.executable, "-m", "pytorch_distributed_tpu_torch.recipes.lm_pretrain",
-                        "--device", "cpu", "--tiny", "--seq-parallel", "2"],
+                        "--device", "cpu", "--tiny", "--seq-parallel", "2",
+                        "--save-dir", str(tmp_path)],
                        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "attention ring_flash, grid 1 x 2" in r.stdout

@@ -348,9 +348,9 @@ def test_eval_step_accumulates_the_weighted_loss():
     np.testing.assert_allclose(acc["loss_sum"].item(), plain["loss_sum"].item(), rtol=1e-5)
 
 
-def test_trainer_fits_on_the_cpu():
+def test_trainer_fits_on_the_cpu(tmp_path):
     cfg = LMTrainerConfig(epochs=2, batch_size=4, lr=3e-3, log_every=1, grad_clip_norm=1.0,
-                          nan_guard=True)
+                          nan_guard=True, save_dir=str(tmp_path))
     trainer = LMTrainer(tiny_config(attention="flash", max_seq_len=16),
                         SyntheticTokens(16, 16, 128), SyntheticTokens(6, 16, 128, seed=1),
                         cfg, device="cpu")
@@ -362,9 +362,9 @@ def test_trainer_fits_on_the_cpu():
     assert trainer.history[-1]["loss"] < trainer.history[0]["loss"]
 
 
-def test_recipe_trains_tiny_on_the_cpu():
+def test_recipe_trains_tiny_on_the_cpu(tmp_path):
     summary = lm_pretrain.main(["--device", "cpu", "--tiny", "--steps", "3", "--epochs", "1",
-                                "--log-every", "1"])
+                                "--log-every", "1", "--save-dir", str(tmp_path)])
     assert np.isfinite(summary["loss"]) and summary["tokens"] == 8 * 31
     with pytest.raises(SystemExit, match="not ported"):
         lm_pretrain.main(["--device", "cpu", "--tiny", "--model-parallel", "2"])

@@ -272,12 +272,13 @@ def test_recipes_refuse_what_they_cannot_run(monkeypatch, recipe):
 
 
 @pytest.mark.parametrize("recipe", ["resnet_dp", "resnet_ddp", "resnet_ddp_amp"])
-def test_recipes_run_two_cpu_ranks_to_the_end(recipe):
+def test_recipes_run_two_cpu_ranks_to_the_end(recipe, tmp_path):
     """``python -m ...<recipe> --device cpu --tiny --synthetic
     --cpu-replicas 2``: two gloo ranks, two epochs and their validation."""
     env = {k: v for k, v in os.environ.items() if k not in ("MASTER_IP", "MASTER_PORT")}
     r = subprocess.run([sys.executable, "-m", f"pytorch_distributed_tpu_torch.recipes.{recipe}",
-                        "--device", "cpu", "--tiny", "--synthetic", "--cpu-replicas", "2"],
+                        "--device", "cpu", "--tiny", "--synthetic", "--cpu-replicas", "2",
+                        "--save-dir", str(tmp_path)],
                        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     precision = "bf16" if recipe.endswith("amp") else "fp32"

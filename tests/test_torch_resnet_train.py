@@ -199,10 +199,10 @@ def test_synthetic_images_equal_the_jax_package_sample_for_sample():
         SyntheticImageClassification(3, 8, 2)[3]
 
 
-def test_trainer_fit_runs_to_the_end_on_cpu():
+def test_trainer_fit_runs_to_the_end_on_cpu(tmp_path):
     model = resnet.ResNet(stage_sizes=(1, 1), block_cls=resnet.BottleneckBlock, num_classes=4,
                           num_filters=8, fused_bottleneck=True)
-    cfg = TrainerConfig(epochs=2, batch_size=8, lr=0.05, log_every=1)
+    cfg = TrainerConfig(epochs=2, batch_size=8, lr=0.05, log_every=1, save_dir=str(tmp_path))
     trainer = Trainer(model, SyntheticImageClassification(32, 16, 4),
                       SyntheticImageClassification(12, 16, 4, seed=1), cfg, device="cpu")
     summary = trainer.fit()
@@ -216,8 +216,9 @@ def test_trainer_fit_runs_to_the_end_on_cpu():
     assert trainer.state.lr_schedule(7) == pytest.approx(0.05)
 
 
-def test_recipe_runs_to_the_end_on_cpu():
-    summary = resnet_single.main(["--tiny", "--synthetic", "--device", "cpu", "--epochs", "1"])
+def test_recipe_runs_to_the_end_on_cpu(tmp_path):
+    summary = resnet_single.main(["--tiny", "--synthetic", "--device", "cpu", "--epochs", "1",
+                                  "--save-dir", str(tmp_path)])
     assert summary["count"] == 64 and np.isfinite(summary["loss"])
     with pytest.raises(SystemExit):
         resnet_single.main(["--device", "cpu"])  # only synthetic data is ported
