@@ -871,6 +871,7 @@ def ring_runs(torch, card, tmp, dev="cuda") -> dict:
     trainer's flash launches. With ``dev="cpu"`` (a rehearsal) the ranks
     meet over gloo on the CPU, where the plain versions launch nothing."""
     from pytorch_distributed_tpu_torch.data import DataLoader, DistributedSampler, to_device
+    from pytorch_distributed_tpu_torch.compilecache import serving_registry
     from pytorch_distributed_tpu_torch.data import SyntheticTokens
     from pytorch_distributed_tpu_torch.models.transformer import TransformerConfig
     from pytorch_distributed_tpu_torch.ops import flash_attention as fa
@@ -1913,6 +1914,169 @@ def time_tail_kernels(torch, card, dev="cuda") -> dict:
     return entries
 
 
+def profiled_busy(torch, cfg, state, prompts, max_new, kw) -> float:
+    """The device's busy share of one warmed-up serve of ``prompts``
+    (``Scheduler(**kw)``, ``warmup(background=False)`` first): the union of
+    the kernels' intervals in a ``torch.profiler`` trace of the CUDA
+    activity alone, over the serve's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_distributed_tpu_torch.serving import Scheduler
+    from pytorch_distributed_tpu_torch.tools.profile_serve import busy_share
+
+    sched = Scheduler(cfg, state, gather_impl="kernel", **kw)
+    sched.warmup(background=False)
+    for q in prompts:
+        sched.submit(q, max_new)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return busy_share(prof, wall * 1e6)
+
+
+def _busy_child(cfg, prompts, max_new, kws) -> list:
+    """``profiled_busy`` of each serve of ``kws`` in this (spawned)
+    process, on the seed-0 weights."""
+    import torch
+
+    from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
+
+    state = params_from_jax(init_params(cfg, seed=0))
+    return [profiled_busy(torch, cfg, state, prompts, max_new, kw) for kw in kws]
+
+
+def busy_shares(cfg, prompts, max_new, kws_by_path) -> dict:
+    """``profiled_busy`` of the serves of each path (``{path: [kw, ...]}``),
+    each path's in a process of its own, one after the other. Profiled in
+    turns in one process (eager, graphs, eager, graphs), the serves left
+    later traces of that process short of launches, every one, so the
+    paths stay apart, and away from phase (d)'s device times."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=ctx, max_tasks_per_child=1) as ex:
+        futures = {path: ex.submit(_busy_child, cfg, prompts, max_new, kws)
+                   for path, kws in kws_by_path.items()}
+        return {path: f.result() for path, f in futures.items()}
+
+
+def graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, n_blocks,
+               dev="cuda") -> dict:
+    """(c) the serve's CUDA graphs. The 16 requests on bf16 pools and on
+    fp8 pools (``n_blocks`` of them) through the eager path
+    (``cuda_graphs=False``) and through the graphs, each after
+    ``warmup(background=False)`` (``serve(warm=True)``: no capture, no cold
+    request, the registry covering the engine): greedy streams and every
+    launch counter bit-equal; tick p50, tok/s, TTFT and the busy share of
+    a profiled serve of each path (``busy_shares``). The warmup's capture
+    seconds a program and in all, the graphs and their pool's bytes. A
+    serve at temperature 0.8, top-k 50, from a seeded generator: it
+    completes after a warmup (the generator registered with the decode
+    graph), and two replays of its decode tick on the same logits draw
+    differently; the sampler draws as ``torch.multinomial`` on the card.
+    Fails the run on any difference."""
+    from pytorch_distributed_tpu_torch.compilecache import serving_registry
+    from pytorch_distributed_tpu_torch.models.generate import _sample
+    from pytorch_distributed_tpu_torch.ops.attention import NEG_INF
+    from pytorch_distributed_tpu_torch.serving import Scheduler
+
+    max_new = 32
+    kinds = (("bf16", {}), ("fp8", {"kv_dtype": "fp8", "n_blocks": n_blocks}))
+    busy = busy_shares(cfg, prompts, max_new, {
+        path: [{**serve_kw, **extra, "cuda_graphs": path == "graphs"} for _, extra in kinds]
+        for path in ("eager", "graphs")})
+    out = {}
+    for i, (kind, extra) in enumerate(kinds):
+        runs = {}
+        for path in ("eager", "graphs"):
+            sched, streams, m, wall, launches = serve(
+                f"{kind} pools, {path}, warmed up", prompts, warm=True,
+                cuda_graphs=path == "graphs", **extra)
+            runs[path] = {"streams": streams, "launches": launches, "wall_s": wall,
+                          "tok_per_s": m["tokens_out"] / wall, "tick_p50_s": m["tick_p50_s"],
+                          "ttft_p50_s": m["ttft_p50_s"], "ttft_p95_s": m["ttft_p95_s"],
+                          "graphs": sched.engine.captures}
+            if path == "graphs":
+                runs[path]["pool_bytes"] = sched.engine.graph_pool_bytes()
+            del sched
+            torch.cuda.empty_cache()
+        for path in ("eager", "graphs"):
+            runs[path]["busy"] = busy[path][i]
+        e, g = runs["eager"], runs["graphs"]
+        print(f"(c) {kind} pools on {card}, eager vs CUDA graphs (both warmed up): tick p50 "
+              f"{e['tick_p50_s'] * 1e3:.3f} vs {g['tick_p50_s'] * 1e3:.3f} ms, "
+              f"{e['tok_per_s']:.1f} vs {g['tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{e['ttft_p50_s'] * 1e3:.1f} vs {g['ttft_p50_s'] * 1e3:.1f} ms, p95 "
+              f"{e['ttft_p95_s'] * 1e3:.1f} vs {g['ttft_p95_s'] * 1e3:.1f} ms, busy share "
+              f"{e['busy']:.3f} vs {g['busy']:.3f}; {g['graphs']} graphs, pool "
+              f"{g['pool_bytes']} bytes")
+        if e["streams"] != g["streams"] or e["launches"] != g["launches"]:
+            raise SystemExit(f"chip_smoke: {kind} pools: the graphs' serve differs from the "
+                             f"eager one (streams equal: {e['streams'] == g['streams']}; "
+                             f"launches {e['launches']} vs {g['launches']})")
+        out[kind] = {k: v for path, r in runs.items() for k, v in
+                     ((f"{path}_{name}", x) for name, x in r.items()
+                      if name not in ("streams", "launches"))}
+
+    # the warmup itself, its captures program by program
+    sched = Scheduler(cfg, state, gather_impl="kernel", **serve_kw)
+    runner = sched.warmup(background=False)
+    summary = runner.summary()
+    reg = serving_registry(sched.engine)
+    per = {r["program"]: r["backend_compile_s"] for r in runner.records}
+    out["warmup"] = {"programs": summary["programs"], "total_s": summary["total_s"],
+                     "capture_s": summary["backend_compile_s"],
+                     "graphs": sched.engine.captures,
+                     "pool_bytes": sched.engine.graph_pool_bytes(),
+                     "capture_s_min": min(per.values()), "capture_s_max": max(per.values()),
+                     "decode_capture_s": per[sched.engine.DECODE_PROGRAM]}
+    print(f"(c) warmup on {card}: {summary['programs']} programs ({len(reg)} in the "
+          f"registry; the buckets narrower than one chunk are never reached and not "
+          f"captured), {sched.engine.captures} graphs in {summary['total_s']:.2f}s, "
+          f"{summary['backend_compile_s']:.2f}s of it capture (a program "
+          f"{out['warmup']['capture_s_min'] * 1e3:.1f}-{out['warmup']['capture_s_max'] * 1e3:.1f}"
+          f" ms, the decode tick {out['warmup']['decode_capture_s'] * 1e3:.1f} ms); graph pool "
+          f"{out['warmup']['pool_bytes']} bytes; per program {per}")
+    names = sched.engine.compiled_program_names()
+    reg.assert_covers(names)
+    if (summary["programs"] != len(reg) or sched.engine.DECODE_PROGRAM not in names
+            or sched.engine.captures != (len(names) if sched.engine.cuda_graphs else 0)):
+        raise SystemExit(f"chip_smoke: warmup of {len(reg)} registry programs made "
+                         f"{summary['programs']} records, {sched.engine.captures} graphs, "
+                         f"programs {names}")
+    del sched, runner
+    torch.cuda.empty_cache()
+
+    # sampling: the generator registered with the decode graph
+    sched, streams, m, _, _ = serve("bf16 pools, temperature 0.8, top-k 50, seed 7, warmed up",
+                                    prompts, warm=True, temperature=0.8, top_k=50, seed=7)
+    eng = sched.engine
+    idle = (np.zeros(eng.n_slots, np.int64), np.zeros(eng.n_slots, bool))
+    first, second = eng.decode(*idle)[0], eng.decode(*idle)[0]  # the logits stay as they are
+    z = torch.randn(8, cfg.vocab_size, device=dev,
+                    generator=torch.Generator(dev).manual_seed(3)) * 4
+    ours = _sample(z, 0.8, 50, torch.Generator(dev).manual_seed(5))
+    z = z / 0.8
+    z = z.masked_fill(z < torch.sort(z, dim=-1).values[:, -50][:, None], NEG_INF)
+    theirs = torch.multinomial(torch.softmax(z, dim=-1), 1,
+                               generator=torch.Generator(dev).manual_seed(5))[:, 0]
+    print(f"(c) sampled serve: {m['tokens_out']} tokens, {m['graphs']} graphs; two replays "
+          f"of the decode tick on the same logits drew {first.tolist()} and {second.tolist()}; "
+          f"the sampler against torch.multinomial on the card: {ours.tolist()} vs "
+          f"{theirs.tolist()}")
+    if np.array_equal(first, second) or not torch.equal(ours.long(), theirs):
+        raise SystemExit("chip_smoke: the captured sampling tick replayed frozen draws, or "
+                         "the sampler drew otherwise than torch.multinomial")
+    out["sampled"] = {"tokens": m["tokens_out"], "graphs": m["graphs"]}
+    del sched, eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def sync(torch, dev):
     if dev == "cuda":
         torch.cuda.synchronize()
@@ -1931,6 +2095,7 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pytorch_distributed_tpu_torch.compilecache import serving_registry
     from pytorch_distributed_tpu_torch.data import SyntheticTokens
     from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
     from pytorch_distributed_tpu_torch.models.transformer import Dense
@@ -2206,15 +2371,20 @@ def main(argv) -> int:
                              f"launches, append {app}, sweep + split {attn}): {launches}")
         return app + launches.get(scatter, 0)
 
-    def serve(label, reqs, *, stagger=0, **kw):
+    def serve(label, reqs, *, stagger=0, warm=False, **kw):
         """Serve ``reqs`` (``stagger`` steps between submissions) through
         the kernels, the launch counts reset just before and read just
         after; every request must complete its budget inside the
         vocabulary and every block must come back, and on quantized pools
         every layer's new rows must take the append route (``appended``).
-        Returns the scheduler, the streams in submit order, the metrics,
-        the wall and the launches."""
+        With ``warm``, ``Scheduler.warmup(background=False)`` first, and
+        the serve must capture no graph, hold no program the registry did
+        not predict and count no cold request. Returns the scheduler, the
+        streams in submit order, the metrics, the wall and the launches."""
         sched = Scheduler(cfg, state, gather_impl="kernel", **{**serve_kw, **kw})
+        if warm:
+            sched.warmup(background=False)
+        captures = sched.engine.captures
         torch.cuda.synchronize()
         paged_flash.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2240,12 +2410,18 @@ def main(argv) -> int:
         if leaked or m["host_store_bytes"] or m["parked"]:
             raise SystemExit(f"chip_smoke: {label}: {leaked} blocks leaked, "
                              f"{m['host_store_bytes']} host bytes, {m['parked']} parked")
+        serving_registry(sched.engine).assert_covers(sched.engine.compiled_program_names())
+        if warm and (sched.engine.captures != captures or m["cold_requests"]):
+            raise SystemExit(f"chip_smoke: {label}: after warmup the serve captured "
+                             f"{sched.engine.captures - captures} graphs and counted "
+                             f"{m['cold_requests']} cold requests")
         print(f"(c) {label}: {len(rids)} requests x {max_new} tokens on {card}: wall "
               f"{wall:.3f}s, {m['tokens_out'] / wall:.1f} tok/s, {m['steps']} ticks, TTFT "
               f"p50 {m['ttft_p50_s'] * 1e3:.1f} ms p95 {m['ttft_p95_s'] * 1e3:.1f} ms, "
               f"token gap p50 {m['token_lat_p50_s'] * 1e3:.2f} ms, tick p50 "
-              f"{m['tick_p50_s'] * 1e3:.2f} ms, {m['pool_blocks']} pool blocks; "
-              f"launches {launches}")
+              f"{m['tick_p50_s'] * 1e3:.2f} ms, {m['pool_blocks']} pool blocks, "
+              f"{m['graphs']} graphs ({m['compile_s']:.2f}s of capture), "
+              f"{m['cold_requests']} cold requests; launches {launches}")
         return sched, [streams[r] for r in rids], m, wall, launches
 
     def per_tick(eng):
@@ -2333,6 +2509,9 @@ def main(argv) -> int:
         on_tensor_cores(f"{kv} pools", lq, lq[names[0]], lq[names[1]])
         del sched
         torch.cuda.empty_cache()
+
+    # the serve's CUDA graphs against the eager path, warmup, a sampled serve
+    graphs = graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, n_blocks=n_blocks)
 
     # prefix sharing: 16 requests on one 512-token prefix, submitted 4 steps apart
     prng = np.random.default_rng(1)

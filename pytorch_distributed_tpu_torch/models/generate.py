@@ -16,7 +16,15 @@ def _sample(logits: torch.Tensor, temperature: float, top_k: Optional[int],
     greedy: argmax, which takes the first of equal maxima in torch as in
     jnp. Otherwise the logits divide by the temperature, ``top_k`` keeps
     the k largest (ties with the k-th stay), and ``generator`` draws. The
-    draws differ from ``jax.random``'s for the same seed."""
+    draws differ from ``jax.random``'s for the same seed.
+
+    The draw is ``torch.multinomial(probs, 1, generator)``'s own one-sample
+    path written out, argmax of ``probs / q`` with ``q ~ Exp(1)`` from the
+    generator: the same numbers from the same generator state, without
+    multinomial's checks of the probabilities, which read them on the host
+    and so cannot enter a CUDA graph. Inside a graph, ``generator`` must be
+    registered with it (``CUDAGraph.register_generator_state``) so that
+    each replay draws anew."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     logits = logits / max(temperature, 1e-6)
@@ -24,7 +32,8 @@ def _sample(logits: torch.Tensor, temperature: float, top_k: Optional[int],
         kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
         logits = logits.masked_fill(logits < kth, NEG_INF)
     probs = torch.softmax(logits.float(), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
 def _validate_sampling(config, temperature: float, top_k: Optional[int]) -> None:

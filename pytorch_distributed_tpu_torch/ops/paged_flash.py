@@ -49,7 +49,10 @@ launches on float pools, ``quant_launch_counts`` each kernel's launches on
 each quantized pool dtype, ``route_launch_counts`` the sweep's and the
 split's launches by route (``route_key``: tensor cores or the walk),
 whatever the pool, and among them those that also wrote the new rows
-(``append_key``, per pool dtype); nothing else adds to them.
+(``append_key``, per pool dtype); nothing else adds to them but a CUDA
+graph's replay, which adds the launches its capture recorded
+(``launch_snapshot``, ``launches_since``, ``add_launches``: the serving
+engine keeps them true under replay).
 """
 
 from __future__ import annotations
@@ -210,9 +213,14 @@ def split_buffers(key, b: int, h_kv: int, s_workers: int, rows: int, d: int,
     the old one's memory only to work ordered after it on that stream."""
     n = b * h_kv * s_workers * rows
     bufs = _split_scratch.setdefault(key, {})
-    if bufs.get("partials") is None or bufs["partials"].numel() < n * (d + 2):
+    grow = [bufs.get("partials") is None or bufs["partials"].numel() < n * (d + 2),
+            bufs.get("tickets") is None or bufs["tickets"].numel() < b * h_kv * row_tiles]
+    if any(grow) and torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the split's scratch must be sized before a CUDA graph capture "
+                           "(reserve_split_buffers), not allocated inside it")
+    if grow[0]:
         bufs["partials"] = torch.empty(n * (d + 2), dtype=torch.float32, device=device)
-    if bufs.get("tickets") is None or bufs["tickets"].numel() < b * h_kv * row_tiles:
+    if grow[1]:
         bufs["tickets"] = torch.zeros(b * h_kv * row_tiles, dtype=torch.int32, device=device)
     part = bufs["partials"]
     shape = (b, h_kv, s_workers, rows)
@@ -220,10 +228,57 @@ def split_buffers(key, b: int, h_kv: int, s_workers: int, rows: int, d: int,
             part[n * (d + 1):n * (d + 2)].view(shape), bufs["tickets"][:b * h_kv * row_tiles])
 
 
+def reserve_split_buffers(stream: int, device, q_dtype: torch.dtype, pool: torch.Tensor,
+                          calls) -> None:
+    """Size the split's scratch of ``(device, stream)`` for every call in
+    ``calls``, each ``(B, C, H, W, split_s)`` of q ``[B, C, H, D]`` over
+    ``pool``'s geometry with a ``[B, W]`` table, before a CUDA graph is
+    captured on ``stream`` (``cuda_stream``), so no buffer is allocated
+    inside the capture: the graphs then share the largest."""
+    lib = _library()
+    _, bl, h_kv, d = pool.shape
+    kernel = sweep_kernel(q_dtype, pool.dtype, d, bl)
+    walk_rows = lib.pdt_paged_attention_rows_per_tile()
+    for b, c, h, w, split_s in calls:
+        s_workers = split_workers(w, b, split_s)
+        if s_workers > 1:
+            rows = (h // h_kv) * c
+            split_buffers((device, stream), b, h_kv, s_workers, rows, d,
+                          split_row_tiles(kernel, rows, walk_rows), device)
+
+
+_COUNTERS = (launch_counts, quant_launch_counts, route_launch_counts)
+
+
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, quant_launch_counts, route_launch_counts):
+    for counts in _COUNTERS:
         for k in counts:
             counts[k] = 0
+
+
+def launch_snapshot() -> Tuple[dict, ...]:
+    """Copies of the three launch counters."""
+    return tuple(dict(c) for c in _COUNTERS)
+
+
+def launches_since(snapshot: Tuple[dict, ...]) -> Tuple[dict, ...]:
+    """What each counter gained since ``snapshot`` (nonzero keys only)."""
+    return tuple({k: v - s[k] for k, v in c.items() if v != s[k]}
+                 for c, s in zip(_COUNTERS, snapshot))
+
+
+def restore_launches(snapshot: Tuple[dict, ...]) -> None:
+    """Set the counters back to ``snapshot``: launches made since are
+    not counted (a capture, an inert warm run)."""
+    for c, s in zip(_COUNTERS, snapshot):
+        c.update(s)
+
+
+def add_launches(delta: Tuple[dict, ...]) -> None:
+    """Add ``launches_since``'s gains, e.g. a graph replay's launches."""
+    for c, d in zip(_COUNTERS, delta):
+        for k, v in d.items():
+            c[k] += v
 
 
 def auto_split_s(w: int, b: int, *, threshold: int = SPLIT_THRESHOLD,
@@ -235,6 +290,12 @@ def auto_split_s(w: int, b: int, *, threshold: int = SPLIT_THRESHOLD,
     if w // max(b, 1) < threshold:
         return 1
     return min(max_split, w)
+
+
+def split_workers(w: int, b: int, split_s: Optional[int]) -> int:
+    """The worker count of a call with a ``[B, W]`` table: ``split_s``,
+    or ``auto_split_s`` when it is None, clipped to W (1 = the sweep)."""
+    return min(split_s if split_s is not None else auto_split_s(w, b), w)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -375,7 +436,7 @@ def _launch(q, k_pool, v_pool, block_tables, q_positions, scale, split_s, k_scal
     b, _, _, d = q.shape
     w = block_tables.shape[1]
     scale = scale if scale is not None else d ** -0.5
-    s_workers = min(split_s if split_s is not None else auto_split_s(w, b), w)
+    s_workers = split_workers(w, b, split_s)
     if q.stride(-1) != 1:
         q = q.contiguous()
     tables = block_tables.to(torch.int32).contiguous()

@@ -16,7 +16,10 @@ quantize-on-scatter and dequantizing attention kernels),
 ``--prefix-cache`` shares full prompt blocks between requests, and
 ``--preempt`` arms the pressure tier: pool OOM preempts the least
 recently served request (swap to host RAM or recompute,
-``--swap-policy``) instead of waiting for a retirement.
+``--swap-policy``) instead of waiting for a retirement. ``--warmup``
+captures every program of the registry (the decode tick and every
+prefill bucket, each as a CUDA graph) before the first request, so no
+request is cold.
 
 Without ``--device`` it runs on CUDA and fails where there is none.
 """
@@ -80,6 +83,9 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    default="auto",
                    help="preemption path: 'auto' takes the measured "
                         "swap-vs-recompute crossover per request")
+    p.add_argument("--warmup", action="store_true",
+                   help="capture every registry program (decode tick + all prefill "
+                        "buckets) before admitting traffic: zero cold requests")
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
 
@@ -103,6 +109,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
         offload=args.preempt, preempt_on_oom=args.preempt,
         swap_policy=args.swap_policy, device=args.device,
     )
+    if args.warmup:
+        # everything in the foreground, each run inert first: every
+        # request that follows is warm
+        ws = s.warmup(background=False).summary()
+        print(f"warmup: {ws['programs']} programs in {ws['total_s']:.2f}s "
+              f"({ws['backend_compile_s']:.2f}s of capture)")
     for prompt in _prompts(args, cfg):
         s.submit(prompt, args.max_new)
     streams = s.drain()

@@ -27,6 +27,12 @@ Policy (continuous batching with chunked prefill):
   every step, before admissions, token-identical either way.
   ``preempt_on_oom`` preempts one least-recently-served victim per stuck
   queue head.
+- **warmup** (``warmup``): every program the engine can run
+  (``compilecache.serving_registry``) captured before traffic. A request
+  whose chunk bucket or decode tick was captured (on the CPU or eager:
+  first run) inside its lifetime is **cold**; ``metrics()`` counts them
+  (``cold_requests``), the capture seconds (``compile_s``) and the TTFT of
+  the warm ones alone (``ttft_warm_*``).
 
 Metrics are exact host-side counters and latency series. Tracing, the
 fleet hooks, deadlines and cancel are not ported yet.
@@ -41,7 +47,6 @@ from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from pytorch_distributed_tpu_torch.serving.engine import ChunkJob, PagedEngine
 from pytorch_distributed_tpu_torch.serving.kv_pool import HostBlockStore
@@ -77,6 +82,9 @@ class Request:
     preempts: int = 0
     # a just-restored request is not a victim again before this step
     protect_until: int = -1
+    # a program it rode (its chunk bucket, the decode tick) was captured
+    # (on the CPU or eager: first run) inside its lifetime
+    cold: bool = False
 
     @property
     def length(self) -> int:
@@ -88,7 +96,9 @@ class Scheduler:
     returns ``[(rid, token)]`` for the tokens it produced, ``drain`` runs
     to empty. Runs on CUDA unless ``device="cpu"`` is passed; raises
     without a card. ``seed`` seeds the sampling generator (unused when
-    greedy). ``host_store_max_bytes`` bounds the host tier."""
+    greedy). ``host_store_max_bytes`` bounds the host tier.
+    ``cuda_graphs=False`` runs the engine's programs eagerly (a switch for
+    comparisons)."""
 
     def __init__(self, config, params, n_slots: int, *,
                  n_blocks: Optional[int] = None, block_len: int = 16,
@@ -101,7 +111,8 @@ class Scheduler:
                  offload: bool = False, preempt_on_oom: bool = False,
                  swap_policy: str = "auto", protect_ticks: int = 2,
                  host_store_max_bytes: Optional[int] = None,
-                 split_s: Optional[int] = None, device=None):
+                 split_s: Optional[int] = None, cuda_graphs: bool = True,
+                 device=None):
         if swap_policy not in SWAP_POLICIES:
             raise ValueError(f"swap_policy {swap_policy!r} must be auto|swap|recompute")
         if preempt_on_oom and not offload:
@@ -115,7 +126,8 @@ class Scheduler:
             config, params, n_slots, n_blocks=n_blocks, block_len=block_len,
             prefill_chunk=prefill_chunk, temperature=temperature, top_k=top_k,
             gather_impl=gather_impl, kv_dtype=kv_dtype, prefix_cache=prefix_cache,
-            split_s=split_s, device=device,
+            swap=offload, split_s=split_s, seed=seed, cuda_graphs=cuda_graphs,
+            device=device,
         )
         # the engine may have replaced gather_impl/split_s into the config
         self.config = self.engine.config
@@ -128,8 +140,6 @@ class Scheduler:
         self.swap_policy = swap_policy
         self.protect_ticks = protect_ticks
         self.host_store = HostBlockStore(max_bytes=host_store_max_bytes)
-        self._generator = torch.Generator(device=self.engine.device)
-        self._generator.manual_seed(seed)
         self._next_rid = 0
         self._step_count = 0
         self.queue: deque = deque()
@@ -158,20 +168,35 @@ class Scheduler:
         self._swap_bytes = 0
         self._decision_swap = 0
         self._decision_recompute = 0
-        # host wall of run_chunks calls after the first (which loads the
-        # kernels and warms the allocator): the recompute side of the
+        # host wall of run_chunks calls on warm buckets (a cold call
+        # captures, or loads the kernels): the recompute side of the
         # swap-vs-recompute decision
-        self._chunk_runs = 0
         self._chunk_calls = 0
         self._chunk_wall_s = 0.0
+        self._cold_requests = 0
         self._start_time: Optional[float] = None
         self.ttft = LatencySeries("ttft")
+        # TTFT of the requests no capture stalled: the honest SLO series
+        self.ttft_warm = LatencySeries("ttft_warm")
         self.token_lat = LatencySeries("token_lat")
         self.queue_wait = LatencySeries("queue_wait")
         self.tick_lat = LatencySeries("tick")
         self.swap_lat = LatencySeries("swap")
 
     # ---- API ----
+
+    def warmup(self, background: bool = True):
+        """Capture every program this scheduler can run
+        (``compilecache.serving_registry``) before traffic. The registry's
+        priority-0 programs (the decode tick, the smallest prefill bucket)
+        run inert, then are captured, now; with ``background=True`` the
+        other buckets are captured at their first use or by the runner's
+        ``wait()``, which the serving thread calls between steps. ``background=False`` prepares everything now,
+        each run inert first: no request is cold. Returns the
+        ``compilecache.WarmupRunner`` (``records``, ``summary()``)."""
+        from pytorch_distributed_tpu_torch.compilecache import WarmupRunner, serving_registry
+
+        return WarmupRunner(serving_registry(self.engine)).run(background=background)
 
     def submit(self, prompt, max_new_tokens: int, *,
                rid: Optional[int] = None) -> int:
@@ -439,9 +464,12 @@ class Scheduler:
         self._admit()
         jobs = self._chunk_jobs()
         if jobs:
+            cold_bucket = not self.engine.has_chunk_program(*self.engine.bucket_for(jobs))
+            if cold_bucket:  # this call captures the bucket's program
+                for j in jobs:
+                    self.resident[j.slot].cold = True
             wall = self.engine.run_chunks(jobs)
-            self._chunk_runs += 1
-            if self._chunk_runs > 1:  # the first call loads kernels: not a sample
+            if not cold_bucket:  # a cold call's wall is the capture's: not a sample
                 self._chunk_calls += 1
                 self._chunk_wall_s += wall
             for j in jobs:
@@ -462,9 +490,11 @@ class Scheduler:
         self._step_count += 1
         if not active.any():
             return []
-        tokens, positions = self.engine.decode(self.positions, active,
-                                               self._generator)
         lanes = np.nonzero(active)[0]
+        if not self.engine.has_decode_program:  # this tick captures it
+            for slot in lanes.tolist():
+                self.resident[slot].cold = True
+        tokens, positions = self.engine.decode(self.positions, active)
         self.positions[lanes] = positions[lanes]
         now = time.perf_counter()  # tokens are on the host: delivery time
         out: List[Tuple[int, int]] = []
@@ -475,6 +505,8 @@ class Scheduler:
             if req.produced == 0:
                 req.first_token_time = now
                 self.ttft.observe(now - req.submit_time)
+                if not req.cold:
+                    self.ttft_warm.observe(now - req.submit_time)
             else:
                 gap = now - req.last_token_time
                 req.token_gaps.append(gap)
@@ -490,6 +522,7 @@ class Scheduler:
                 del self.resident[slot]
                 self.engine.release(slot)
                 self._completed += 1
+                self._cold_requests += req.cold
             else:
                 self.remaining[slot] -= 1
         self.tick_lat.observe(now - t0)
@@ -555,11 +588,18 @@ class Scheduler:
             "decision_swap": self._decision_swap,
             "decision_recompute": self._decision_recompute,
             "host_store_bytes": self.host_store.bytes_used,
+            # retired requests that rode a capture; the capture seconds,
+            # warmup's included
+            "cold_requests": self._cold_requests,
+            "compile_s": self.engine.capture_s,
+            "cuda_graphs": self.engine.cuda_graphs,
+            "graphs": self.engine.captures,
             **self.engine.prefix_metrics(),
             "prefix_covered_tokens": self._prefix_covered_tokens,
             "admitted_prefill_tokens": self._admitted_prefill_tokens,
             **self.swap_lat.summary("swap"),
             **self.ttft.summary("ttft"),
+            **self.ttft_warm.summary("ttft_warm"),
             **self.token_lat.summary("token_lat"),
             **self.queue_wait.summary("queue_wait"),
             **self.tick_lat.summary("tick"),

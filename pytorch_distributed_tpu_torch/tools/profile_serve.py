@@ -3,7 +3,9 @@
 Serves the ``chip_smoke.py`` workload (the full-width LM, random weights
 from seed 0, 8 slots, block_len 16, prefill chunk 32, 16 requests of
 64-1024 prompt tokens, 32 new tokens each) once to warm up, then again
-under ``torch.profiler``, and prints:
+under ``torch.profiler`` after ``Scheduler.warmup(background=False)`` (every
+program captured as a CUDA graph, or with ``--eager`` run inert once), and
+prints:
 
 - wall, ticks and decode tokens/s of the profiled serve;
 - the device's busy share: the union of kernel intervals over the wall;
@@ -14,7 +16,11 @@ under ``torch.profiler``, and prints:
 - the time of the prefill and decode halves of a tick, by host clock.
 
     python -m pytorch_distributed_tpu_torch.tools.profile_serve \
-        [--gather-impl kernel|dense] [--kv-dtype int8|fp8|fp8_e5m2]
+        [--gather-impl kernel|dense] [--kv-dtype int8|fp8|fp8_e5m2] [--eager]
+
+``--eager`` runs the engine's programs without CUDA graphs, one launch at
+a time: run the tool with and without it on one card, one after the
+other, to compare the two paths.
 """
 
 from __future__ import annotations
@@ -109,34 +115,43 @@ def paged_shares(prof) -> dict:
 def decode_tick(sched) -> dict:
     """One decode tick with all 8 lanes armed at position 64, under
     ``torch.profiler``: ``paged_shares`` of its kernels (and copies), and
-    their launches by name (``by_name``)."""
+    their launches by name (``by_name``); and the wall of such a tick
+    unprofiled, tokens on the host (``wall_ms``, the median of 20)."""
     eng = sched.engine
     for slot in range(8):
         eng.admit(slot, 64, 1)
     args = (np.full(8, 64), np.ones(8, bool))
     eng.decode(*args)  # warm
     torch.cuda.synchronize()
+    walls = []
+    for _ in range(20):
+        t = time.perf_counter()
+        eng.decode(*args)
+        walls.append(time.perf_counter() - t)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.decode(*args)
         torch.cuda.synchronize()
     eng.release_all()
     by_name = Counter(e.name for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA)
-    return {**paged_shares(prof), "by_name": dict(by_name)}
+    return {**paged_shares(prof), "by_name": dict(by_name),
+            "wall_ms": 1e3 * float(np.median(walls))}
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--gather-impl", choices=("kernel", "dense"), default="kernel")
     p.add_argument("--kv-dtype", choices=("int8", "fp8", "fp8_e5m2"), default=None)
+    p.add_argument("--eager", action="store_true",
+                   help="run the programs eagerly, without CUDA graphs")
     args = p.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     cfg = full_config()
     state = params_from_jax(init_params(cfg, seed=0))
-    kw = dict(n_slots=8, block_len=16, prefill_chunk=32,
-              gather_impl=args.gather_impl, kv_dtype=args.kv_dtype, device="cuda")
+    kw = dict(n_slots=8, block_len=16, prefill_chunk=32, gather_impl=args.gather_impl,
+              kv_dtype=args.kv_dtype, cuda_graphs=not args.eager, device="cuda")
     prompts = workload(cfg)
     warm = Scheduler(cfg, state, **kw)
     for q in prompts[:4]:
@@ -145,6 +160,7 @@ def main(argv=None) -> None:
     del warm
 
     sched = Scheduler(cfg, state, **kw)
+    warmup = sched.warmup(background=False).summary()
     for q in prompts:
         sched.submit(q, 32)
     torch.cuda.synchronize()
@@ -154,7 +170,10 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     m = sched.metrics()
-    print(f"card: {card}; gather_impl={args.gather_impl}, kv_dtype={args.kv_dtype}")
+    print(f"card: {card}; gather_impl={args.gather_impl}, kv_dtype={args.kv_dtype}, "
+          f"{'eager' if args.eager else 'CUDA graphs'}; warmup {warmup['programs']} programs "
+          f"in {warmup['total_s']:.2f}s ({warmup['backend_compile_s']:.2f}s of capture), "
+          f"{sched.engine.captures} graphs")
     print(f"profiled serve: wall {wall:.3f}s, {m['steps']} ticks, "
           f"{m['tokens_out'] / wall:.1f} tok/s (profiler on)")
     print(f"device busy share: {busy_share(prof, wall * 1e6):.3f}")
@@ -167,6 +186,7 @@ def main(argv=None) -> None:
 
     # an unprofiled serve, its ticks split by host clock
     sched = Scheduler(cfg, state, **kw)
+    sched.warmup(background=False)
     timer = TickTimer(sched)
     for q in prompts:
         sched.submit(q, 32)
@@ -177,7 +197,7 @@ def main(argv=None) -> None:
     m = sched.metrics()
     summary = {
         "card": card, "gather_impl": args.gather_impl, "kv_dtype": args.kv_dtype,
-        "wall_s": wall,
+        "cuda_graphs": not args.eager, "wall_s": wall,
         "ticks": m["steps"], "tok_per_s": m["tokens_out"] / wall,
         "prefill_calls": len(timer.prefill),
         "prefill_ms_mean": 1e3 * float(np.mean(timer.prefill)),
@@ -186,6 +206,7 @@ def main(argv=None) -> None:
         "decode_ms_mean": 1e3 * float(np.mean(timer.decode)),
         "decode_s_total": float(np.sum(timer.decode)),
         "ttft_p50_s": m["ttft_p50_s"], "ttft_p95_s": m["ttft_p95_s"],
+        "tick_p50_s": m["tick_p50_s"], "cold_requests": m["cold_requests"],
     }
     summary["serve_paged_share"] = serve_shares["paged_share"]
     summary["serve_paged_us"] = serve_shares["paged_us"]
