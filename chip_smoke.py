@@ -13,7 +13,8 @@ Phases, each of which fails the run:
 
   (a) the card's name and power limit; the CUDA kernels build from
       ``pytorch_distributed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
-      nvcc per source, all started together;
+      nvcc per source, all started together; the native record reader
+      (``csrc/recordio.cpp``, host code) with g++;
   (b) each kernel against the plain PyTorch version on the card: the paged
       kernels at the full-width serving shapes and at small GQA /
       padding-row shapes, one with R = G·C = 80 rows per KV head (two
@@ -76,8 +77,23 @@ Phases, each of which fails the run:
       16 / 16 tail launches a step, then the first step's loss and grad
       norm of the fused model against the plain-block one from the same
       weights (B = 64, fp32 and bf16), then ``recipes/resnet_single.py``
-      (fp32, plain blocks: no tail launch) for 4 steps of B = 64; data
-      parallelism, spawned by ``tools/dp_check.py`` on the ring's ranks (2
+      (fp32, plain blocks: no tail launch) for 4 steps of B = 64; the
+      input pipeline (``data_runs``, in a spawned process of its own,
+      ``data_phase``): raw splits of seeded 256^2 uint8
+      images packed without PIL (2048 train and 256 val records), each
+      opened with the native reader; the loader's img/s for the random
+      crop on the native whole-batch path and the per-sample path at 0 and
+      8 threads, the validation center crop, the JPEG split and ``rrc``
+      where PIL imports, an epoch with each batch copied to the card and
+      one batch's copy (uint8 and float32), the first native batch
+      bit-equal to the per-sample one; the fused bf16 ``Trainer`` for 16
+      steps of B = 128 from the raw split (8 loader threads, 2 batches
+      ahead) and a validation pass, 20 / 16 / 16 tail launches a step and
+      none in validation, every batch from the native crop, no loader
+      thread left, its step p50 beside the synthetic run's; then
+      ``recipes/resnet_single.py`` and ``recipes/resnet_ddp.py`` with
+      ``--raw --raw-aug crop`` (a rank a card over NCCL with 2-4 cards);
+      data parallelism, spawned by ``tools/dp_check.py`` on the ring's ranks (2
       gloo ranks sharing one card, the all-reduces staged through the host,
       or a rank a card over NCCL with 2-4 cards): 3 DP steps of B = 32 a
       rank of the fused bf16 and the plain fp32 ResNet-50 against a
@@ -324,6 +340,13 @@ RESUME = dict(batch=128, steps=6, suspend_at=3, every=2, nan_at=2, size=224,
               dp_batch=32, dp_steps=4, dp_signal=1, timeout_s=600)
 RESUME_RESNET = dict(DP_MODEL, dtype="bfloat16", fused=True)
 RESUME_LM = dict(vocab_size=32000, num_layers=12, num_heads=12, embed_dim=768)
+
+# the data phase: raw uint8 splits packed from seeded images at the
+# stored size (no PIL), the loader's rates, bench.py's fused bf16 ResNet-50
+# (DATA_MODEL) in Trainer fed from the records, then the recipes from raw splits
+DATA = dict(train=2048, val=256, size=256, crop=224, batch=128, workers=8, prefetch=2,
+            jpeg=256, recipe_batch=64, recipe_steps=4, dp_batch=32, dp_steps=3)
+DATA_MODEL = dict(RESUME_RESNET)
 
 
 def card_line() -> str:
@@ -1116,7 +1139,10 @@ def resnet_runs(torch, card) -> dict:
     builds the model) for ``RESNET["steps"]`` steps and a validation pass,
     with the tail kernels' launches counted; the first step of the fused
     and the plain-block model from the same weights; the fp32 recipe path.
-    Returns the tail launches of the fused training run."""
+    Returns the fused training run's step times, medians from the second
+    step on: ``step_s`` (a step's wall, making its batch included),
+    ``data_s`` (making and copying the batch) and ``net_s`` (the step
+    without it)."""
     from pytorch_distributed_tpu_torch.data import (
         SyntheticImageClassification,
         image_collate,
@@ -1142,7 +1168,11 @@ def resnet_runs(torch, card) -> dict:
     rb, steps = RESNET["batch"], RESNET["steps"]
     trainer = Trainer(resnet50(dtype=bf16, fused_bottleneck=True), data(steps * rb),
                       data(rb, seed=1),
-                      TrainerConfig(epochs=1, batch_size=rb, precision="bf16", log_every=1),
+                      # each batch made on this thread before its step and kept out
+                      # of the step time, as in the earlier readings: threads making
+                      # float noise would slow the step they overlap
+                      TrainerConfig(epochs=1, batch_size=rb, precision="bf16", log_every=1,
+                                    num_workers=0, prefetch=1),
                       device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1169,11 +1199,11 @@ def resnet_runs(torch, card) -> dict:
           f"{val['loss']:.4f} over {val['count']:.0f} images, tail launches {val_launches}")
     if len(losses) != steps or not all(np.isfinite(losses)) or not np.isfinite(val["loss"]):
         raise SystemExit(f"chip_smoke: a non-finite or missing ResNet loss: {losses}")
-    if [launches[k] for k in tail] != [n * steps for n in RESNET_TAIL_LAUNCHES]:
-        raise SystemExit(f"chip_smoke: expected {RESNET_TAIL_LAUNCHES} tail launches per "
-                         f"step, got {launches} in {steps} steps")
-    if any(val_launches.values()):
-        raise SystemExit(f"chip_smoke: validation launched tail kernels: {val_launches}")
+    wrong = launch_problems(launches, val_launches, steps, RESNET_TAIL_LAUNCHES)
+    if wrong:
+        raise SystemExit(f"chip_smoke: the fused ResNet-50's tail launches: {wrong}")
+    synthetic = {"step_s": float(np.median([r["step_s"] for r in hist[1:]])),
+                 "data_s": float(np.median([r["data_s"] for r in hist[1:]])), "net_s": p50}
     del trainer
     torch.cuda.empty_cache()
 
@@ -1223,7 +1253,263 @@ def resnet_runs(torch, card) -> dict:
     if not np.isfinite(summary["loss"]) or any(bt.launch_counts.values()):
         raise SystemExit(f"chip_smoke: the fp32 recipe run failed: {summary}, "
                          f"{bt.launch_counts}")
-    return launches
+    return synthetic
+
+
+def launch_problems(launches: dict, val_launches: dict, steps: int, per_step) -> list:
+    """What is wrong with a ResNet run's tail launches: each kernel
+    ``per_step`` times a step over ``steps`` steps, none in validation."""
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+
+    tail = (bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ)
+    wrong = [f"{k}: {launches.get(k, 0)} launches in {steps} steps, want {n * steps}"
+             for k, n in zip(tail, per_step) if launches.get(k, 0) != n * steps]
+    if any(val_launches.values()):
+        wrong.append(f"validation launched tail kernels: {val_launches}")
+    return wrong
+
+
+def loader_threads() -> list:
+    """Names of the loader's threads still alive (producers, workers)."""
+    import threading
+
+    from pytorch_distributed_tpu_torch.data.loader import PRODUCER_THREAD
+
+    return [t.name for t in threading.enumerate() if t.name.startswith(PRODUCER_THREAD)]
+
+
+def data_runs(torch, card, tmp, synthetic, dev="cuda") -> dict:
+    """Phase (c) for the input pipeline, every split under ``tmp``:
+
+    - packs raw splits (``DATA``: train and val records of seeded uint8
+      images at the stored size, no PIL) and opens each with the native
+      reader (fails a split opened without it);
+    - (i) the loader's img/s: the random crop on the native whole-batch
+      path and on the per-sample path at 0 and ``workers`` threads, the
+      validation center crop, and the first batch of the two crop paths
+      bit-equal; an epoch with each batch copied to the card, one batch's
+      copy alone (uint8, and the same pixels as float32); where PIL
+      imports, also the JPEG split and ``rrc`` (it never fails for want
+      of PIL);
+    - (ii) ``DATA_MODEL`` (bench.py's fused bf16 ResNet-50) in ``Trainer``
+      for an epoch of the train split (``workers`` threads, ``prefetch``)
+      and a validation pass: losses finite, 20 / 16 / 16 tail launches a
+      step and none in validation, every batch made by the native crop,
+      no loader thread left; step p50, img/s, the wait for a batch and the
+      peak memory beside ``synthetic`` (``resnet_runs``' timing);
+    - (iii) ``recipes/resnet_single.py --raw --raw-aug crop`` (fp32, plain
+      blocks) and (iv) ``recipes/resnet_ddp.py`` from raw splits, on the
+      ranks of ``ring_ranks`` over NCCL with 2-4 cards, else a world of
+      one.
+
+    Returns what was measured and the fused run's tail launches. With
+    ``dev="cpu"`` (a rehearsal) the plain versions launch nothing."""
+    import importlib
+
+    from pytorch_distributed_tpu_torch.data import (
+        DataLoader,
+        ImageNet,
+        RawImageNet,
+        write_imagenet_raw_split,
+    )
+    from pytorch_distributed_tpu_torch.data import transforms as T
+    from pytorch_distributed_tpu_torch.data.imagenet import write_imagenet_split
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+    from pytorch_distributed_tpu_torch.tools import bench_data, dp_check
+    from pytorch_distributed_tpu_torch.train import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    parts = {}
+    on_card = 1 if dev == "cuda" else 0
+    host = f"{card}; host {os.cpu_count()} cores"
+    d = DATA
+    bs, workers, prefetch = d["batch"], d["workers"], d["prefetch"]
+
+    def pack(name, n_train, n_val, seed):
+        root = os.path.join(tmp, name)
+        os.makedirs(root)
+        for split, n, s in (("train", n_train, seed), ("val", n_val, seed + 1)):
+            write_imagenet_raw_split(os.path.join(root, f"{split}.rawtprc"),
+                                     bench_data.raw_images(n, d["size"], s), d["size"])
+        return root
+
+    def opened(ds):
+        if ds.reader._native is None:
+            raise SystemExit(f"chip_smoke: {ds.path} was opened without the native reader")
+        return ds
+
+    main_dir = pack("raw", d["train"], d["val"], 0)
+    mb = sum(os.path.getsize(os.path.join(main_dir, f)) for f in os.listdir(main_dir)) / 1e6
+    parts["pack"] = time.perf_counter() - t_phase
+    print(f"(c) data: packed {d['train']} train and {d['val']} val raw records of "
+          f"{d['size']}^2 uint8 images ({mb:.1f} MB) in {parts['pack']:.1f} s")
+
+    # (i) the loader's rates
+    t0 = time.perf_counter()
+    crop = opened(RawImageNet("train", main_dir, d["crop"], aug="crop"))
+    plain = RawImageNet("train", main_dir, d["crop"], aug="crop", use_native=False)
+    val = opened(RawImageNet("val", main_dir, d["crop"], aug="none"))
+    first = DataLoader(crop, bs).collate(range(bs))
+    first_plain = DataLoader(plain, bs).collate(range(bs))
+    equal = crop.native_batches == 1 and all(torch.equal(first[k], first_plain[k])
+                                             for k in first)
+    print(f"(c) data: the first batch of the native crop bit-equal to the per-sample path's "
+          f"{'ok' if equal else 'FAIL'}")
+    if not equal:
+        raise SystemExit("chip_smoke: the native crop disagrees with the per-sample path")
+    rates = {}
+    for label, ds, counts in (("raw crop, native", crop, (0, workers)),
+                              ("raw crop, per sample", plain, (0, workers)),
+                              ("raw val center crop, native", val, (workers,))):
+        want = len(ds) // bs if ds.reader._native is not None else 0
+        for w in counts:
+            before = ds.native_batches
+            rates[f"{label}, {w} workers"] = bench_data.loader_rate(
+                label, ds, w, prefetch, bs)["img_s"]
+            if ds.native_batches - before != want:
+                raise SystemExit(f"chip_smoke: {label}: {ds.native_batches - before} of "
+                                 f"{len(ds) // bs} batches made by the native crop, want {want}")
+    have_pil = bench_data.have_pil()
+    if have_pil:
+        jpeg_dir = os.path.join(tmp, "jpeg")
+        os.makedirs(jpeg_dir)
+        write_imagenet_split(os.path.join(jpeg_dir, "train.tprc"),
+                             bench_data.jpeg_images(d["jpeg"], d["size"]))
+        jpeg = opened(ImageNet("train", T.train_transform(d["crop"]), jpeg_dir))
+        rates[f"jpeg rrc, {workers} workers"] = bench_data.loader_rate(
+            "jpeg rrc", jpeg, workers, prefetch, bs)["img_s"]
+        rates[f"raw rrc, {workers} workers"] = bench_data.loader_rate(
+            "raw rrc", opened(RawImageNet("train", main_dir, d["crop"], aug="rrc")), workers,
+            prefetch, bs)["img_s"]
+    e2e = bench_data.end_to_end(crop, workers, dev, prefetch, bs)
+    copies = {"uint8": e2e["copy_ms"]}
+    if dev == "cuda":
+        f32 = {"image": first["image"].float().pin_memory(), "label": first["label"]}
+        copies["float32"] = bench_data.copy_ms(f32, dev)
+    parts["rates"] = time.perf_counter() - t0
+    print(f"(c) data: loader img/s at B={bs}, prefetch {prefetch} ({host}): "
+          + "; ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+    print(f"(c) data: {'PIL present: the JPEG split and rrc ran' if have_pil else 'PIL not installed: the JPEG split and rrc were not run'}")
+    print(f"(c) data: an epoch of the native crop with each batch copied to {dev}: "
+          f"{e2e['img_s']:.1f} img/s; one batch's copy {e2e['batch_mb']:.1f} MB uint8 "
+          f"{copies['uint8']:.3f} ms" + (f", the same pixels as float32 "
+                                          f"{copies['float32']:.3f} ms" if "float32" in copies
+                                          else "") + f" ({host})")
+
+    # (ii) the fused bf16 ResNet-50 fed from the raw split
+    t0 = time.perf_counter()
+    train_ds = opened(RawImageNet("train", main_dir, d["crop"], aug="crop"))
+    val_ds = opened(RawImageNet("val", main_dir, d["crop"], aug="none"))
+    steps = d["train"] // bs
+    trainer = Trainer(dp_check.build_model(DATA_MODEL), train_ds, val_ds,
+                      TrainerConfig(epochs=1, batch_size=bs, precision="bf16", log_every=1,
+                                    num_workers=workers, prefetch=prefetch,
+                                    save_dir=os.path.join(tmp, "trainer")), device=dev)
+    sync(torch, dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    bt.reset_launch_counts()
+    trainer.train_epoch(0)
+    sync(torch, dev)
+    launches = dict(bt.launch_counts)
+    bt.reset_launch_counts()
+    summary = trainer.validate()
+    val_launches = dict(bt.launch_counts)
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    step_s = float(np.median([r["step_s"] for r in hist[1:]]))
+    data_s = float(np.median([r["data_s"] for r in hist[1:]]))
+    net_s = float(np.median([r["step_s"] - r["data_s"] for r in hist[1:]]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda" else 0.0
+    left = loader_threads()
+    wrong = launch_problems(launches, val_launches, steps,
+                            [n * on_card for n in RESNET_TAIL_LAUNCHES])
+    native_ok = (train_ds.native_batches == steps
+                 and val_ds.native_batches == len(trainer.val_loader))
+    print(f"(c) data: fused bf16 ResNet-50 from the raw split, {steps} steps of B={bs} "
+          f"x {d['crop']}^2 (random crop and flip, {workers} loader threads, {prefetch} "
+          f"batches ahead): losses {[round(x, 4) for x in losses]}; step p50 "
+          f"{step_s * 1e3:.1f} ms ({bs / step_s:.1f} img/s), of which waiting for and copying "
+          f"a batch {data_s * 1e3:.2f} ms, without it {net_s * 1e3:.1f} ms; first step "
+          f"{hist[0]['step_s']:.2f} s; peak memory "
+          f"{peak:.1f} GiB; the synthetic run's step p50 without making its batch "
+          f"{synthetic['net_s'] * 1e3:.1f} ms (making and copying it on this thread "
+          f"{synthetic['data_s'] * 1e3:.1f} ms) ({host})")
+    print(f"(c) data: tail launches per step "
+          f"{ {k: v / steps for k, v in launches.items()} }, in validation {val_launches}; "
+          f"native batches {train_ds.native_batches} train, {val_ds.native_batches} val; "
+          f"validation loss {summary['loss']:.4f} over {summary['count']:.0f} images; loader "
+          f"threads alive after the runs {left} "
+          f"{'ok' if not (wrong or left) and native_ok else 'FAIL'}")
+    if (len(losses) != steps or not all(np.isfinite(losses))
+            or not np.isfinite(summary["loss"])):
+        raise SystemExit(f"chip_smoke: a non-finite or missing loss fed from records: {losses}")
+    if wrong or left or not native_ok:
+        raise SystemExit(f"chip_smoke: the record-fed run: {wrong}, threads {left}, native "
+                         f"batches {train_ds.native_batches} / {val_ds.native_batches}")
+    del trainer
+    empty_cache(torch, dev)
+    parts["trainer"] = time.perf_counter() - t0
+
+    # (iii), (iv) the recipes from raw splits (fp32 plain blocks: no tail launch)
+    t0 = time.perf_counter()
+    ranks, backend = ring_ranks(torch.cuda.device_count() if dev == "cuda" else 0)
+    world = ranks if backend == "nccl" else 1
+    extra = ["--device", "cpu"] if dev == "cpu" else []
+    recipes = {}
+    for recipe, b, n_steps, w in (("resnet_single", d["recipe_batch"], d["recipe_steps"], 1),
+                                  ("resnet_ddp", d["dp_batch"], d["dp_steps"], world)):
+        root = pack(recipe, b * n_steps * w, b * w, len(recipes) + 10)
+        mod = importlib.import_module(f"pytorch_distributed_tpu_torch.recipes.{recipe}")
+        bt.reset_launch_counts()
+        t1 = time.perf_counter()
+        summary = mod.main(["--data-dir", root, "--raw", "--raw-aug", "crop", "--epochs", "1",
+                            "--batch-size", str(b), "--save-dir", os.path.join(root, "out")]
+                           + extra)
+        sync(torch, dev)
+        ok = (np.isfinite(summary.get("loss", np.nan)) and summary.get("count") == b * w
+              and not any(bt.launch_counts.values()))
+        recipes[recipe] = dict(seconds=time.perf_counter() - t1, ranks=w, **summary)
+        print(f"(c) data: recipes/{recipe}.py --raw --raw-aug crop on {w} rank(s), {n_steps} "
+              f"steps of B={b} a rank and a validation batch: {recipes[recipe]['seconds']:.1f} "
+              f"s, val loss {summary.get('loss', float('nan')):.4f} over "
+              f"{summary.get('count', 0):.0f} images, tail launches {dict(bt.launch_counts)} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: recipes/{recipe}.py from a raw split failed: "
+                             f"{summary}")
+        empty_cache(torch, dev)
+    parts["recipes"] = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    print(f"(c) data phase: {wall:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    return {"rates": rates, "end_to_end": e2e, "copy_ms": copies, "pil": have_pil,
+            "step_s": step_s, "data_s": data_s, "net_s": net_s, "peak_gib": peak,
+            "losses": losses,
+            "tail_launches": launches, "recipes": recipes, "wall_s": wall}
+
+
+def _data_child(card, synthetic) -> dict:
+    """``data_runs`` on the card in this (spawned) process, under a
+    temporary directory, with main's numerics settings."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        return data_runs(torch, card, tmp, synthetic)
+
+
+def data_phase(card, synthetic) -> dict:
+    """``data_runs`` in a process of its own, which ends with it: run in
+    this process, it left every later ``torch.profiler`` trace of it short
+    of launches, so phase (d)'s device times failed (PERF.md §7)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=ctx, max_tasks_per_child=1) as ex:
+        return ex.submit(_data_child, card, synthetic).result()
 
 
 def state_copy(torch, trainer) -> dict:
@@ -2096,7 +2382,7 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pytorch_distributed_tpu_torch.compilecache import serving_registry
-    from pytorch_distributed_tpu_torch.data import SyntheticTokens
+    from pytorch_distributed_tpu_torch.data import SyntheticTokens, native
     from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
     from pytorch_distributed_tpu_torch.models.transformer import Dense
     from pytorch_distributed_tpu_torch.ops import _build, flash_attention, paged_flash
@@ -2124,6 +2410,9 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     paths = _build.build(_build.kernel_sources())
     print(f"(a) built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    print(f"(a) built the native record reader {native.build().name} with g++ in "
+          f"{time.perf_counter() - t0:.1f}s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
@@ -2625,8 +2914,11 @@ def main(argv) -> int:
         raise SystemExit("chip_smoke: the flash training step disagrees with the dense one")
 
     # ---- (c) ResNet-50: the fused bf16 trainer, the first step, the recipe ----
-    resnet_launches = resnet_runs(torch, card)
+    synthetic = resnet_runs(torch, card)
     torch.cuda.empty_cache()
+
+    # ---- (c) the input pipeline: raw splits, the loader, ResNet-50 fed from records ----
+    data = data_phase(card, synthetic)
 
     # ---- (c) data-parallel ResNet-50: the ranks, sync-BN, fp16, the recipes ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -2937,7 +3229,7 @@ def main(argv) -> int:
     kernels += [{
         "name": name, "route": "cuda",
         "source": "pytorch_distributed_tpu_torch/csrc/bottleneck_tail.cu",
-        "replaces": tail_replaces[name], "launches": resnet_launches[name],
+        "replaces": tail_replaces[name], "launches": data["tail_launches"][name],
         "max_abs_err": tail_errs[name], **tail_times[name],
     } for name in (bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ)]
     print(f"total {time.perf_counter() - t_start:.1f}s")

@@ -18,9 +18,15 @@ devices), which the recipes refuse on CUDA. A world of one runs in this
 process. The parent builds the tail kernels before it spawns, so the
 ranks only load them.
 
-Only synthetic data is ported (``--synthetic``, or ``--tiny`` for a CPU
-smoke run); the ImageNet record readers and the telemetry flags come with
-later slices. Each run (each rank) watches for a suspend
+The data, as in JAX (``recipes/common.py``:149-197): ``--synthetic`` (or
+``--tiny``, a CPU smoke run) images, else the packed ImageNet splits in
+``--data-dir`` (default ``$PDT_IMAGENET_DIR``): ``{train,val}.tprc``
+(JPEG, decoded and normalized on the host) or with ``--raw``
+``{train,val}.rawtprc`` (uint8, normalized on the device; ``--raw-aug
+rrc|crop`` for training, the center crop for validation). Pack them with
+``tools/pack_imagenet.py``. The loaders fetch on 8 worker threads (0 with
+``--tiny``), two batches ahead. The telemetry flags come with a later
+slice. Each run (each rank) watches for a suspend
 (``utils.suspend.SuspendWatcher``: SIGTERM, SIGUSR1 or the file named by
 ``SUSPEND_FLAG_FILE``), saves ``<--save-dir>/latest.ckpt`` and exits 0;
 run again with the same ``--save-dir``, it resumes there. The JAX
@@ -39,7 +45,12 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from pytorch_distributed_tpu_torch.data import SyntheticImageClassification
+from pytorch_distributed_tpu_torch.data import (
+    ImageNet,
+    RawImageNet,
+    SyntheticImageClassification,
+)
+from pytorch_distributed_tpu_torch.data.imagenet import DEFAULT_DATA_DIR
 from pytorch_distributed_tpu_torch.models.resnet import BasicBlock, ResNet, resnet50
 from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.parallel import distributed
@@ -69,8 +80,7 @@ def parse_args(description: str, argv: Optional[List[str]] = None,
     """The image recipes' flags; ``replicas`` adds the multi-card recipes'
     ``--cpu-replicas``."""
     p = argparse.ArgumentParser(description=description)
-    p.add_argument("--synthetic", action="store_true",
-                   help="synthetic data (the only data ported so far)")
+    p.add_argument("--synthetic", action="store_true", help="synthetic data")
     p.add_argument("--tiny", action="store_true",
                    help="tiny model and data, a smoke run on the CPU")
     p.add_argument("--epochs", type=int, default=None)
@@ -78,6 +88,16 @@ def parse_args(description: str, argv: Optional[List[str]] = None,
                    help="batch size per replica (reference default 400)")
     p.add_argument("--device", default=None,
                    help="cuda (the default, which needs a card) or cpu")
+    p.add_argument("--data-dir", default=None,
+                   help="packed ImageNet directory (default $PDT_IMAGENET_DIR)")
+    p.add_argument("--raw", action="store_true",
+                   help="read the decode-free raw split (<data-dir>/{train,val}.rawtprc; "
+                        "pack with tools/pack_imagenet.py --raw)")
+    p.add_argument("--raw-aug", default="rrc", choices=["rrc", "crop"],
+                   help="raw-split train augmentation: rrc keeps the reference's "
+                        "RandomResizedCrop semantics (on the stored 256px image, PIL); "
+                        "crop is the classic random crop and flip (no PIL), a different "
+                        "training distribution")
     add_resilience_flags(p, "output")
     if replicas:
         p.add_argument("--cpu-replicas", type=int, default=1,
@@ -87,15 +107,19 @@ def parse_args(description: str, argv: Optional[List[str]] = None,
 
 
 def build_datasets(args):
-    """(train, val, image size, classes): the JAX recipe's synthetic sets."""
-    if not (args.synthetic or args.tiny):
-        raise SystemExit("only --synthetic data is ported: the ImageNet record "
-                         "readers come with a later slice (ROADMAP.md)")
-    size = 16 if args.tiny else 224
-    n_train, n_val = (256, 64) if args.tiny else (8192, 1024)
-    classes = 10 if args.tiny else 1000
-    return (SyntheticImageClassification(n_train, size, classes),
-            SyntheticImageClassification(n_val, size, classes, seed=1), size, classes)
+    """(train, val, image size, classes): the JAX recipe's synthetic sets,
+    or the packed splits of ``--data-dir``."""
+    if args.synthetic or args.tiny:
+        size = 16 if args.tiny else 224
+        n_train, n_val = (256, 64) if args.tiny else (8192, 1024)
+        classes = 10 if args.tiny else 1000
+        return (SyntheticImageClassification(n_train, size, classes),
+                SyntheticImageClassification(n_val, size, classes, seed=1), size, classes)
+    data_dir = args.data_dir or DEFAULT_DATA_DIR
+    if args.raw:
+        return (RawImageNet("train", data_dir=data_dir, aug=args.raw_aug),
+                RawImageNet("val", data_dir=data_dir, aug="none"), 224, 1000)
+    return ImageNet("train", data_dir=data_dir), ImageNet("val", data_dir=data_dir), 224, 1000
 
 
 def build_model(args, num_classes: int, precision: str) -> ResNet:
@@ -124,6 +148,7 @@ def run(args, mesh: Optional[Mesh] = None, precision: str = "fp32", datasets=Non
         lr_gamma=0.1,
         precision=precision,
         save_dir=args.save_dir,
+        num_workers=0 if args.tiny else 8,
         nan_guard=args.nan_guard,
         max_bad_steps=args.max_bad_steps,
         watchdog_timeout_s=args.watchdog_timeout,

@@ -7,6 +7,7 @@ and their BatchNorm statistics each step, and sample the data by node:
 
     MASTER_IP=... MASTER_PORT=... WORLD_SIZE=<nodes> RANK=<node> \
         python -m pytorch_distributed_tpu_torch.recipes.resnet_ddp --synthetic
+    python -m pytorch_distributed_tpu_torch.recipes.resnet_ddp --data-dir D --raw --raw-aug crop
 
 Without ``MASTER_IP``/``MASTER_PORT`` it runs on this node's cards (the
 DDP recipe, a world of one node). fp32, the reference's hyperparameters

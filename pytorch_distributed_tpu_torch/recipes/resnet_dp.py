@@ -9,6 +9,7 @@ step: fp32, SGD(0.1, momentum 0.9, weight decay 1e-4), StepLR(30, 0.1),
 batch 400 a card, through ``Trainer`` (``recipes.common.launch``):
 
     python -m pytorch_distributed_tpu_torch.recipes.resnet_dp --synthetic
+    python -m pytorch_distributed_tpu_torch.recipes.resnet_dp --data-dir D --raw
     python -m pytorch_distributed_tpu_torch.recipes.resnet_dp --device cpu --tiny \
         --synthetic --cpu-replicas 2
 

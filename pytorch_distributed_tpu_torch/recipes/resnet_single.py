@@ -4,6 +4,7 @@ fp32, SGD(0.1, momentum 0.9, weight decay 1e-4), StepLR(30, 0.1), 100
 epochs at batch 400 and a validation pass per epoch, through ``Trainer``:
 
     python -m pytorch_distributed_tpu_torch.recipes.resnet_single --synthetic
+    python -m pytorch_distributed_tpu_torch.recipes.resnet_single --data-dir D --raw --raw-aug crop
     python -m pytorch_distributed_tpu_torch.recipes.resnet_single --device cpu --tiny --synthetic
 
 Without ``--device`` it runs on CUDA and fails where there is none.

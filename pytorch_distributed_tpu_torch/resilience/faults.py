@@ -9,6 +9,8 @@ a JAX child and a port child alike (same JSON, same windows).
 The sites of the port so far:
 
 ====================  =====================================================
+``data.fetch``        ``data/loader.py`` ``_fetch``: a batch read, under the
+                      loader's bounded retry
 ``ckpt.shard_write``  ``utils/checkpoint.py``: the shard's tmp file is
                       written, not yet published by its rename
 ``ckpt.pre_commit``   just before rank 0's atomic manifest replace (the
@@ -29,7 +31,8 @@ Configuration: ``install_plan(plan)`` in-process, or ``PDT_FAULT_PLAN``,
 inline JSON or ``@/path/to/plan.json``::
 
     {"faults": [{"site": "ckpt.shard_write", "kind": "kill", "at": 2},
-                {"site": "train.step", "kind": "nan", "at": 1, "times": 2}]}
+                {"site": "train.step", "kind": "nan", "at": 1, "times": 2},
+                {"site": "data.fetch", "kind": "raise", "at": 1, "times": 2}]}
 
 Without a plan ``fault_point`` returns None after one attribute check.
 """

@@ -19,8 +19,9 @@ the JAX ``shard_batch`` lays a batch over a mesh. The tasks:
   kernels' launches, then rank 0's combined gradient of the first step,
   its state dict after the first step and the last, and its momenta;
 - ``"trainer"``: ``Trainer(mesh=)`` (from ``job["params"]`` when given)
-  for one epoch and a validation pass on synthetic images, with its
-  history, the validation summary and the tail launches;
+  for one epoch and a validation pass on synthetic images, or on
+  ``job["datasets"]`` (train, val), which cross to the ranks pickled,
+  with its history, the validation summary and the tail launches;
 - ``"timing"``: on CUDA, for each case of ``job["models"]`` (a model
   spec and a ``batch`` a rank), ``job["steps"]`` timed steps (host clock
   after a sync) after ``job["warmup"]``, then ``job["profiled"]`` steps
@@ -189,11 +190,14 @@ def _steps(job: dict, mesh: Mesh, device) -> Dict[str, dict]:
 def _trainer(job: dict, mesh: Mesh, device) -> dict:
     from pytorch_distributed_tpu_torch.train import Trainer, TrainerConfig
 
-    d = job["data"]
-    trainer = Trainer(build_model(job["model"]),
-                      SyntheticImageClassification(d["n_train"], d["size"], d["classes"]),
-                      SyntheticImageClassification(d["n_val"], d["size"], d["classes"], seed=1),
-                      TrainerConfig(**job["config"]), device=device, mesh=mesh)
+    if "datasets" in job:
+        datasets = job["datasets"]
+    else:
+        d = job["data"]
+        datasets = (SyntheticImageClassification(d["n_train"], d["size"], d["classes"]),
+                    SyntheticImageClassification(d["n_val"], d["size"], d["classes"], seed=1))
+    trainer = Trainer(build_model(job["model"]), *datasets, TrainerConfig(**job["config"]),
+                      device=device, mesh=mesh)
     if job.get("params") is not None:  # in place of the seed's initialisation
         trainer.state.model.load_state_dict(job["params"])
     trainer.train_sampler.set_epoch(0)
@@ -202,7 +206,8 @@ def _trainer(job: dict, mesh: Mesh, device) -> dict:
     launches = dict(bt.launch_counts)
     val = trainer.validate()
     return {"history": trainer.history, "val": val, "launches": launches,
-            "steps_per_epoch": len(trainer.train_loader)}
+            "steps_per_epoch": len(trainer.train_loader),
+            "native_batches": [getattr(ds, "native_batches", None) for ds in datasets]}
 
 
 def device_split(prof, wall_us: float, steps: int) -> Dict[str, float]:

@@ -21,6 +21,7 @@ its logged records in ``history`` instead.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -91,6 +92,8 @@ class LMTrainerConfig:
     min_lr_ratio: float = 0.1
     save_dir: str = "output_lm"
     log_every: int = 100
+    num_workers: int = 0  # see TrainerConfig
+    prefetch: int = 2
     seed: int = 0
     suspend_sync_every: int = 1  # see TrainerConfig
     grad_clip_norm: float = 0.0
@@ -124,12 +127,12 @@ class LMTrainer(SuspendableTrainer):
                                                 rank=node, shuffle=True, seed=config.seed)
         self.val_sampler = DistributedSampler(len(val_dataset), num_replicas=nodes, rank=node,
                                               shuffle=False, seed=config.seed)
+        feed = dict(pin_memory=pin, part=part, num_workers=config.num_workers,
+                    prefetch=config.prefetch, seed=config.seed)
         self.train_loader = DataLoader(train_dataset, config.batch_size * part[1], lm_collate,
-                                       sampler=self.train_sampler, drop_last=True,
-                                       pin_memory=pin, part=part)
+                                       sampler=self.train_sampler, drop_last=True, **feed)
         self.val_loader = DataLoader(val_dataset, config.batch_size * part[1], lm_collate,
-                                     sampler=self.val_sampler, drop_last=False,
-                                     pin_memory=pin, part=part)
+                                     sampler=self.val_sampler, drop_last=False, **feed)
         schedule = warmup_cosine(
             config.lr, total_steps=max(len(self.train_loader) * config.epochs, 1),
             warmup_steps=config.warmup_steps, final_lr=config.lr * config.min_lr_ratio)
@@ -170,13 +173,16 @@ class LMTrainer(SuspendableTrainer):
     def train_epoch(self, epoch: int, start_step: int = 0) -> dict:
         """One epoch from batch ``start_step``, each step bracketed as in
         ``Trainer.train_epoch``; every ``log_every`` steps the metrics are
-        read (a device sync) and recorded. Returns the last record's
-        metrics."""
+        read (a device sync) and recorded; the loader's iterator is closed
+        on every way out. Returns the last record's metrics."""
+        with contextlib.closing(self.train_loader.iter_batches(start_step)) as batches:
+            return self._train_steps(epoch, start_step, batches)
+
+    def _train_steps(self, epoch: int, start_step: int, batches) -> dict:
         cfg = self.config
         last: dict = {}
         t_prev, since = time.perf_counter(), 0
-        for step, host_batch in enumerate(self.train_loader.iter_batches(start_step),
-                                          start=start_step):
+        for step, host_batch in enumerate(batches, start=start_step):
             batch = to_device(self._shard(self._pre_step(host_batch)), self.device)
             self.state, metrics = self.train_step(self.state, batch)
             self._post_step(metrics)

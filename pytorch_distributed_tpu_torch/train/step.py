@@ -36,9 +36,9 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
+from pytorch_distributed_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from pytorch_distributed_tpu_torch.ops.losses import cross_entropy_loss
 from pytorch_distributed_tpu_torch.ops.metrics import ClassificationMetrics
 from pytorch_distributed_tpu_torch.ops.optim import clip_grads_by_global_norm
@@ -53,8 +53,6 @@ from pytorch_distributed_tpu_torch.resilience.stepguard import finite_ok, guarde
 from pytorch_distributed_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
-IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 
 
 def prepare_image(image: torch.Tensor) -> torch.Tensor:

@@ -22,14 +22,16 @@ restorable checkpoint in ``save_dir`` (a JAX ``Trainer``'s too), saves
 ``latest.ckpt`` and yields on a suspend (``suspend_watcher``), a
 ``step-*.ckpt`` every ``save_every_n_steps`` steps and ``best.ckpt`` on a
 better top-1, and rolls back after ``max_bad_steps`` skipped steps in a
-row. Not ported yet: the compile cache, telemetry and the metrics JSONL
-(ROADMAP.md queue 1, items 8 and 9), and the loader's worker threads and
-prefetch (item 4); the trainer keeps its logged records in ``history``
-instead.
+row. The loaders fetch on ``num_workers`` threads, ``prefetch`` batches
+ahead, their augmentation drawn from ``seed``; a raw split's batches are
+uint8, normalized on the device. Not ported yet: the compile cache,
+telemetry and the metrics JSONL (ROADMAP.md queue 1, items 8 and 9); the
+trainer keeps its logged records in ``history`` instead.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -40,7 +42,6 @@ from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.data import (
     DataLoader,
     DistributedSampler,
-    image_collate,
     to_device,
 )
 from pytorch_distributed_tpu_torch.ops.metrics import ClassificationMetrics
@@ -78,6 +79,9 @@ class TrainerConfig:
     label_smoothing: float = 0.0
     save_dir: str = "output"
     log_every: int = 100
+    # the loaders' worker threads and the batches the producer runs ahead
+    num_workers: int = 8
+    prefetch: int = 2
     seed: int = 0
     # ranks agree on a suspend every this many steps (1: every step, one
     # tiny all-reduce a step with more than one rank); 0: each rank polls
@@ -124,12 +128,12 @@ class Trainer(SuspendableTrainer):
                                                 rank=node, shuffle=True, seed=config.seed)
         self.val_sampler = DistributedSampler(len(val_dataset), num_replicas=nodes,
                                               rank=node, shuffle=False, seed=config.seed)
-        self.train_loader = DataLoader(train_dataset, node_batch, image_collate,
-                                       sampler=self.train_sampler, drop_last=True,
-                                       pin_memory=pin, part=part)
-        self.val_loader = DataLoader(val_dataset, node_batch, image_collate,
-                                     sampler=self.val_sampler, drop_last=False,
-                                     pin_memory=pin, part=part, wrap_partial=True)
+        feed = dict(pin_memory=pin, part=part, num_workers=config.num_workers,
+                    prefetch=config.prefetch, seed=config.seed)
+        self.train_loader = DataLoader(train_dataset, node_batch, sampler=self.train_sampler,
+                                       drop_last=True, **feed)
+        self.val_loader = DataLoader(val_dataset, node_batch, sampler=self.val_sampler,
+                                     drop_last=False, wrap_partial=True, **feed)
         schedule = step_lr(config.lr, len(self.train_loader),
                            step_size_epochs=config.lr_step_epochs, gamma=config.lr_gamma)
         scaler = DynamicLossScaler.create() if config.precision == "fp16" else None
@@ -175,12 +179,17 @@ class Trainer(SuspendableTrainer):
         """One epoch from batch ``start_step``, each step bracketed by the
         fault site, the watchdog and the guard, and followed by the
         interval save and the suspend poll; every ``log_every`` steps the
-        metrics are read (a device sync) and recorded. Returns the last
-        record's metrics."""
+        metrics are read (a device sync) and recorded. The loader's
+        iterator is closed on every way out (a suspend's exit, a rollback,
+        an error), which stops its threads. Returns the last record's
+        metrics."""
+        with contextlib.closing(self.train_loader.iter_batches(start_step)) as batches:
+            return self._train_steps(epoch, start_step, batches)
+
+    def _train_steps(self, epoch: int, start_step: int, batches) -> dict:
         cfg = self.config
         last: dict = {}
         t_prev, since, data_s = time.perf_counter(), 0, 0.0
-        batches = self.train_loader.iter_batches(start_step)
         for step in range(start_step, len(self.train_loader)):
             t0 = time.perf_counter()
             batch = to_device(self._pre_step(next(batches)), self.device)
@@ -207,6 +216,8 @@ class Trainer(SuspendableTrainer):
         """A validation epoch: device-resident sums over every replica, one
         readout."""
         metrics = ClassificationMetrics.empty(self.device)
-        for host_batch in self.val_loader.iter_batches(0):
-            metrics = self.eval_step(self.state, to_device(host_batch, self.device), metrics)
+        with contextlib.closing(self.val_loader.iter_batches(0)) as batches:
+            for host_batch in batches:
+                metrics = self.eval_step(self.state, to_device(host_batch, self.device),
+                                         metrics)
         return metrics.summary()

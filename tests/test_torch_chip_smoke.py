@@ -701,3 +701,75 @@ def test_graph_phase_rehearses_on_cpu(chip_smoke, monkeypatch, capsys):
     assert out["bf16"]["eager_busy"] == out["fp8"]["graphs_busy"] == 0.5
     assert out["warmup"]["programs"] == 13 and out["warmup"]["graphs"] == 0
     assert out["sampled"]["tokens"] == 4 * 32 and "sampled serve" in text
+
+
+def _small_data(chip_smoke, monkeypatch):
+    from pytorch_distributed_tpu_torch.models.resnet import BasicBlock, ResNet
+    from pytorch_distributed_tpu_torch.recipes import common
+
+    monkeypatch.setattr(chip_smoke, "DATA", dict(
+        train=16, val=8, size=24, crop=16, batch=4, workers=2, prefetch=2, jpeg=8,
+        recipe_batch=2, recipe_steps=2, dp_batch=2, dp_steps=2))
+    monkeypatch.setattr(chip_smoke, "DATA_MODEL", dict(
+        stage_sizes=(1, 1), block="bottleneck", num_classes=1000, num_filters=8,
+        dtype="bfloat16", fused=True))
+    # the recipes' ResNet-50 at the tiny width (they run in this process)
+    monkeypatch.setattr(common, "build_model", lambda args, classes, precision: ResNet(
+        stage_sizes=(1, 1), block_cls=BasicBlock, num_classes=classes, num_filters=8))
+
+
+@pytest.mark.parametrize("pil", [True, False])
+def test_data_phase_rehearses_on_cpu(chip_smoke, monkeypatch, tmp_path, capsys, pil):
+    """The data phase end to end at a small size: the raw splits packed,
+    every split opened natively, the first native batch bit-equal to the
+    per-sample path's, the loader's rates (the JPEG split and rrc only
+    where PIL imports), the record-fed fused trainer with every batch from
+    the native crop and no loader thread left, both recipes from raw
+    splits; the plain versions launch nothing."""
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+    from pytorch_distributed_tpu_torch.tools import bench_data
+
+    _small_data(chip_smoke, monkeypatch)
+    monkeypatch.setattr(bench_data, "have_pil", lambda: pil)
+    out = chip_smoke.data_runs(torch, "CPU", str(tmp_path),
+                               {"step_s": 0.1, "data_s": 0.01, "net_s": 0.09}, dev="cpu")
+    text = capsys.readouterr().out
+    assert "FAIL" not in text
+    assert "the first batch of the native crop bit-equal to the per-sample path's ok" in text
+    assert "native batches 4 train, 2 val" in text and "loader threads alive" in text
+    assert text.count("--raw --raw-aug crop on 1 rank(s)") == 2
+    assert ("PIL present: the JPEG split and rrc ran" in text) == pil
+    rates = {"raw crop, native, 0 workers", "raw crop, native, 2 workers",
+             "raw crop, per sample, 0 workers", "raw crop, per sample, 2 workers",
+             "raw val center crop, native, 2 workers"}
+    if pil:
+        rates |= {"jpeg rrc, 2 workers", "raw rrc, 2 workers"}
+    assert set(out["rates"]) == rates and all(v > 0 for v in out["rates"].values())
+    assert out["tail_launches"] == {bt.MOMENTS: 0, bt.BWD_REDUCE: 0, bt.BWD_DZ: 0}
+    assert len(out["losses"]) == 4 and set(out["recipes"]) == {"resnet_single", "resnet_ddp"}
+    assert "host " in text and "cores" in text
+
+
+def test_data_phase_fails_a_split_opened_without_the_native_reader(chip_smoke, monkeypatch,
+                                                                   tmp_path):
+    from pytorch_distributed_tpu_torch.data import native
+
+    _small_data(chip_smoke, monkeypatch)
+    monkeypatch.setattr(native, "available", lambda: False)
+    with pytest.raises(SystemExit, match="without the native reader"):
+        chip_smoke.data_runs(torch, "CPU", str(tmp_path), {}, dev="cpu")
+
+
+def test_data_phase_launch_check_reads_the_counters(chip_smoke):
+    """The record-fed run's tail launches against a fake counter: 20 / 16 /
+    16 a step over the steps and none in validation."""
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+
+    good = {bt.MOMENTS: 320, bt.BWD_REDUCE: 256, bt.BWD_DZ: 256}
+    none = dict.fromkeys(good, 0)
+    assert chip_smoke.launch_problems(good, none, 16, (20, 16, 16)) == []
+    wrong = chip_smoke.launch_problems(dict(good, **{bt.BWD_DZ: 255}), none, 16, (20, 16, 16))
+    assert len(wrong) == 1 and "tail_bwd_dz: 255 launches in 16 steps, want 256" in wrong[0]
+    wrong = chip_smoke.launch_problems(good, dict(none, **{bt.MOMENTS: 1}), 16, (20, 16, 16))
+    assert wrong == [f"validation launched tail kernels: {dict(none, **{bt.MOMENTS: 1})}"]
+    assert chip_smoke.launch_problems(none, none, 16, (0, 0, 0)) == []

@@ -220,5 +220,7 @@ def test_recipe_runs_to_the_end_on_cpu(tmp_path):
     summary = resnet_single.main(["--tiny", "--synthetic", "--device", "cpu", "--epochs", "1",
                                   "--save-dir", str(tmp_path)])
     assert summary["count"] == 64 and np.isfinite(summary["loss"])
-    with pytest.raises(SystemExit):
-        resnet_single.main(["--device", "cpu"])  # only synthetic data is ported
+    # without --synthetic the recipe reads the packed splits of --data-dir,
+    # and a directory without them names the tool that packs them
+    with pytest.raises(FileNotFoundError, match="pack_imagenet"):
+        resnet_single.main(["--device", "cpu", "--data-dir", str(tmp_path / "none")])
