@@ -69,6 +69,17 @@ Phases, each of which fails the run:
       prefix-sharing serve (16 requests on a 512-token shared prefix,
       staggered) against prefix off; an over-committed fp8 serve that
       preempts on OOM, by swap and by recompute, against the ample one;
+      the request lifecycle (``lifecycle_runs``): the warmed-up bf16 graph
+      serve by ``step()`` and by the lagged loop (``collect_tick();
+      dispatch_tick()``), streams and launches bit-equal, tick, tok/s,
+      TTFT and busy share side by side; the swap pressure serve by the
+      lagged loop, and under a fault raised once at each ``kv.*`` site
+      (every site fires, >= 3 swap aborts, the fault-free streams); cancels
+      in every state and deadlines at fixed ticks by both loops, survivors
+      bit-equal, nothing left behind; ``drain_graceful`` and ``abandon``;
+      ``ContinuousBatcher`` dense against paged (logits, greedy match, tick
+      p50), ``generate_ragged`` against ``generate``, and ``serve_lm
+      --dense`` run to its end;
       ``LMTrainer`` takes 8 steps at batch 8 x 2048 tokens and one
       validation pass, then the first step's loss and grad norm with flash
       attention against dense attention (batch 2); ResNet-50 (random weights
@@ -191,6 +202,8 @@ LSE_TOL = 1e-4  # fp32 statistics in another summation order
 TRAIN_LOSS_TOL = 2e-2
 TRAIN_GRAD_NORM_RTOL = 5e-2
 TRAIN = dict(batch=8, seq=2048, steps=8)
+# the pressure tier: 200 fp8 blocks for the 16 requests (about 590 at once)
+PRESSURE = dict(kv_dtype="fp8", n_blocks=200, offload=True, preempt_on_oom=True)
 # kernel 6, the split backward, against its plain version, the fused kernel
 # and itself: (label, dtype, causal, shift, flash_inputs shape); a shape
 # with ``view=(q half, kv half)`` checks a zigzag ring visit: the two halves
@@ -2202,7 +2215,8 @@ def time_tail_kernels(torch, card, dev="cuda") -> dict:
 
 def profiled_busy(torch, cfg, state, prompts, max_new, kw) -> float:
     """The device's busy share of one warmed-up serve of ``prompts``
-    (``Scheduler(**kw)``, ``warmup(background=False)`` first): the union of
+    (``Scheduler(**kw)``, ``warmup(background=False)`` first; driven by
+    ``step()``, or by ``lagged_drain`` where ``kw["lagged"]``): the union of
     the kernels' intervals in a ``torch.profiler`` trace of the CUDA
     activity alone, over the serve's wall."""
     from torch.profiler import ProfilerActivity, profile
@@ -2210,6 +2224,8 @@ def profiled_busy(torch, cfg, state, prompts, max_new, kw) -> float:
     from pytorch_distributed_tpu_torch.serving import Scheduler
     from pytorch_distributed_tpu_torch.tools.profile_serve import busy_share
 
+    kw = dict(kw)
+    lagged = kw.pop("lagged", False)
     sched = Scheduler(cfg, state, gather_impl="kernel", **kw)
     sched.warmup(background=False)
     for q in prompts:
@@ -2217,7 +2233,7 @@ def profiled_busy(torch, cfg, state, prompts, max_new, kw) -> float:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sched.drain()
+        lagged_drain(sched) if lagged else sched.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return busy_share(prof, wall * 1e6)
@@ -2264,7 +2280,9 @@ def graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, n_blocks,
     completes after a warmup (the generator registered with the decode
     graph), and two replays of its decode tick on the same logits draw
     differently; the sampler draws as ``torch.multinomial`` on the card.
-    Fails the run on any difference."""
+    Fails the run on any difference. The bf16 serve's busy share is also
+    taken by the lagged loop (``lagged_drain``), a third path, for
+    ``lifecycle_runs``."""
     from pytorch_distributed_tpu_torch.compilecache import serving_registry
     from pytorch_distributed_tpu_torch.models.generate import _sample
     from pytorch_distributed_tpu_torch.ops.attention import NEG_INF
@@ -2273,8 +2291,9 @@ def graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, n_blocks,
     max_new = 32
     kinds = (("bf16", {}), ("fp8", {"kv_dtype": "fp8", "n_blocks": n_blocks}))
     busy = busy_shares(cfg, prompts, max_new, {
-        path: [{**serve_kw, **extra, "cuda_graphs": path == "graphs"} for _, extra in kinds]
-        for path in ("eager", "graphs")})
+        **{path: [{**serve_kw, **extra, "cuda_graphs": path == "graphs"}
+                  for _, extra in kinds] for path in ("eager", "graphs")},
+        "lagged": [{**serve_kw, "cuda_graphs": True, "lagged": True}]})
     out = {}
     for i, (kind, extra) in enumerate(kinds):
         runs = {}
@@ -2307,6 +2326,7 @@ def graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, n_blocks,
         out[kind] = {k: v for path, r in runs.items() for k, v in
                      ((f"{path}_{name}", x) for name, x in r.items()
                       if name not in ("streams", "launches"))}
+    out["bf16"]["lagged_busy"] = busy["lagged"][0]
 
     # the warmup itself, its captures program by program
     sched = Scheduler(cfg, state, gather_impl="kernel", **serve_kw)
@@ -2360,6 +2380,410 @@ def graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, n_blocks,
     out["sampled"] = {"tokens": m["tokens_out"], "graphs": m["graphs"]}
     del sched, eng
     torch.cuda.empty_cache()
+    return out
+
+
+def lagged_drain(sched, max_ticks=100_000) -> dict:
+    """Drive ``sched`` by its lagged loop, ``collect_tick();
+    dispatch_tick()`` each iteration (one tick in flight between them),
+    until it is idle after a collect; returns ``{rid: [tokens]}``."""
+    streams = {}
+    for _ in range(max_ticks):
+        for rid, tok in sched.collect_tick():
+            streams.setdefault(rid, []).append(tok)
+        if sched.idle:
+            return streams
+        sched.dispatch_tick()
+    raise SystemExit(f"chip_smoke: the lagged loop did not converge: {sched.stuck_rids()}")
+
+
+def scripted_serve(sched, reqs, max_new, script, picks, lagged):
+    """Serve ``reqs`` by ``step()`` or by the lagged loop and act on them
+    along ``script``, a list of ``(choose, act)``: after each tick
+    (lagged: with it in flight) the next entry's ``choose(stuck_rids())``
+    names the rids to act on, or None to wait, and ``act(sched, rids)``
+    acts. Where ``picks`` is empty (the ``step()`` run) the ticks and rids
+    are recorded there; otherwise they are replayed from it, so both loops
+    act on the same requests at the same ticks. Returns the rids, the
+    streams and each action's results."""
+    record = not picks
+    rids = [sched.submit(p, max_new) for p in reqs]
+    streams, results = {}, []
+    for tick in range(1, 100_000):
+        if lagged:
+            got = sched.collect_tick()
+        elif sched.idle:
+            break
+        else:
+            got = sched.step()
+        for rid, tok in got:
+            streams.setdefault(rid, []).append(tok)
+        if lagged:
+            if sched.idle:
+                break
+            sched.dispatch_tick()
+        i = len(results)
+        if i == len(script):
+            continue
+        if record:
+            chosen = script[i][0](sched.stuck_rids())
+            if chosen is None:
+                continue
+            picks[i] = (tick, chosen)
+        elif picks[i][0] != tick:
+            continue
+        results.append(script[i][1](sched, picks[i][1]))
+    if len(results) != len(script):
+        raise SystemExit(f"chip_smoke: a scripted serve took {len(results)} of its "
+                         f"{len(script)} actions")
+    return rids, streams, results
+
+
+def swap_faults_exact(torch, cfg, state, serve_kw, prompt, kv_dtype, dev="cuda") -> dict:
+    """Each ``kv.*`` site raised once on one prefilled chain, compared bit
+    for bit: a swap-out failing at ``kv.swap_out_d2h`` or ``kv.host_write``
+    leaves the chain resident with every pool tensor (scales included) and
+    the logits row unchanged and the host store empty; a swap-in failing
+    at ``kv.swap_in_h2d`` frees the fresh chain and keeps the host copy,
+    and the retry restores every block and the logits row exactly.
+    Returns ``{check: passed}``."""
+    from pytorch_distributed_tpu_torch.resilience import faults
+    from pytorch_distributed_tpu_torch.serving import ChunkJob, HostBlockStore, PagedEngine
+
+    c = serve_kw["prefill_chunk"]
+    eng = PagedEngine(cfg, state, n_slots=2, block_len=serve_kw["block_len"],
+                      prefill_chunk=c, kv_dtype=kv_dtype, swap=True, device=dev)
+    eng.admit(0, len(prompt), 32)
+    for start in range(0, len(prompt), c):
+        seg = np.zeros(c, np.int32)
+        seg[:len(prompt[start:start + c])] = prompt[start:start + c]
+        last = start + c >= len(prompt)
+        eng.run_chunks([ChunkJob(0, seg, start, last, len(prompt) - 1 - start if last else 0)])
+
+    def contents(slot):
+        idx = torch.tensor(eng.allocator.chain(slot), dtype=torch.long, device=eng.device)
+        return [t[idx].clone() for layer in eng.cache for t in layer if t is not None] + [
+            eng.logits[slot].clone()]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def raising(site, fn):
+        faults.install_plan(faults.FaultPlan([faults.FaultSpec(site=site, kind="raise")]))
+        try:
+            fn()
+        except OSError:
+            return True
+        finally:
+            faults.clear_plan()
+        return False
+
+    store, chain, before = HostBlockStore(), eng.allocator.chain(0), contents(0)
+    out = {}
+    for site in ("kv.swap_out_d2h", "kv.host_write"):
+        pending = eng.swap_out_begin(0)
+        raised = raising(site, lambda: eng.swap_out_finish(pending, store, 0))
+        out[site] = (raised and eng.allocator.chain(0) == chain and not eng.allocator.swapping()
+                     and len(store) == 0 and same(contents(0), before))
+    host = eng.swap_out_finish(eng.swap_out_begin(0), store, 0)
+    in_use = eng.allocator.in_use
+    raised = raising("kv.swap_in_h2d", lambda: eng.swap_in_chain(1, store.get(0)))
+    freed = eng.allocator.in_use == in_use == 0 and 0 in store
+    restored = eng.swap_in_chain(1, store.pop(0))
+    out["kv.swap_in_h2d"] = (raised and freed and restored
+                             and same(contents(1), before) and host.n_blocks == len(chain))
+    eng.release_all()
+    return out
+
+
+def lifecycle_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, pressure_kw,
+                   pressure_streams, busy, recipe_argv, dev="cuda") -> dict:
+    """(c) the request lifecycle and the dense decode path. The warmed-up
+    bf16 graph serve by ``step()`` and by the lagged loop (``lagged_drain``):
+    streams and every launch counter bit-equal, tick p50, tok/s, TTFT and
+    the busy share (``busy``: ``graph_runs``'s, the lagged loop a path of
+    its own) side by side. The over-committed fp8 serve (``pressure_kw``,
+    preempting on OOM by swap) by the lagged loop against its ``step()``
+    streams (``pressure_streams``), and under a plan raising once at each
+    ``kv.*`` site: every site fires, at least 3 swap aborts, nothing left
+    behind. Cancels in every state and deadlines at fixed ticks
+    (``scripted_serve``), by ``step()`` and by the lagged loop: queued,
+    mid-prefill and decoding cancels and a queued and a decoding deadline
+    on the bf16 graph serve, mid swap-out and parked cancels on the fp8
+    one; survivors' streams and launches bit-equal between the loops, the
+    counters as scripted, every block free and every table row trash
+    after. ``drain_graceful`` with requests queued returns exactly them;
+    ``abandon`` with a tick in flight frees every block and refuses the
+    next ``submit``. The dense path: ``ContinuousBatcher`` dense against
+    paged at 8 slots (the paged one's sweep and split launches counted,
+    the first tokens' logits within 0.25, greedy match, each tick's p50),
+    ``generate_ragged`` against per-request ``generate`` on 4 prompts,
+    and ``recipe_argv`` (``serve_lm --dense``) run to its end in a process
+    of its own. Fails the run on any difference."""
+    from pytorch_distributed_tpu_torch.models.generate import (
+        ContinuousBatcher,
+        generate,
+        generate_ragged,
+    )
+    from pytorch_distributed_tpu_torch.ops import paged_flash
+    from pytorch_distributed_tpu_torch.resilience import faults
+    from pytorch_distributed_tpu_torch.serving import TRASH_BLOCK, Scheduler
+
+    t_phase = time.perf_counter()
+    max_new = 32
+    out = {}
+    problems = []
+
+    # the lagged loop against step(), the bf16 graph serve warmed up
+    runs = {}
+    for loop in ("step", "lagged"):
+        _, streams, m, wall, launches = serve(f"bf16 pools, graphs, {loop} loop, warmed up",
+                                              prompts, warm=True, lagged=loop == "lagged")
+        runs[loop] = {"streams": streams, "launches": launches, "tok_per_s":
+                      m["tokens_out"] / wall, "tick_p50_s": m["tick_p50_s"],
+                      "ttft_p50_s": m["ttft_p50_s"], "ttft_p95_s": m["ttft_p95_s"]}
+        empty_cache(torch, dev)
+    s, g = runs["step"], runs["lagged"]
+    print(f"(c) lifecycle: step() vs the lagged loop, bf16 graphs, warmed up, on {card}: tick "
+          f"p50 {s['tick_p50_s'] * 1e3:.3f} vs {g['tick_p50_s'] * 1e3:.3f} ms, "
+          f"{s['tok_per_s']:.1f} vs {g['tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{s['ttft_p50_s'] * 1e3:.1f} vs {g['ttft_p50_s'] * 1e3:.1f} ms, p95 "
+          f"{s['ttft_p95_s'] * 1e3:.1f} vs {g['ttft_p95_s'] * 1e3:.1f} ms, busy share "
+          f"{busy['graphs_busy']:.3f} vs {busy['lagged_busy']:.3f}")
+    if s["streams"] != g["streams"] or s["launches"] != g["launches"]:
+        problems.append(f"the lagged loop's serve differs from step()'s (streams equal: "
+                        f"{s['streams'] == g['streams']}; launches {s['launches']} vs "
+                        f"{g['launches']})")
+    out["loops"] = {f"{loop}_{k}": v for loop, r in runs.items() for k, v in r.items()
+                    if k not in ("streams", "launches")}
+    out["loops"].update(step_busy=busy["graphs_busy"], lagged_busy=busy["lagged_busy"])
+
+    # the pressure tier by the lagged loop, then under a fault at every kv.* site
+    _, lag_pressure, mp, _, _ = serve("pressure, fp8 pools, swap, lagged loop", prompts,
+                                      lagged=True, **pressure_kw)
+    if lag_pressure != pressure_streams:
+        problems.append("the lagged pressure serve's streams differ from step()'s")
+    sites = ("kv.swap_out_d2h", "kv.host_write", "kv.swap_in_h2d")
+    faulted = {}
+    for loop in ("step", "lagged"):
+        plan = faults.install_plan(faults.FaultPlan(
+            [faults.FaultSpec(site=site, kind="raise", at=0) for site in sites]))
+        try:
+            _, faulted[loop], m, _, _ = serve(
+                f"pressure, fp8 pools, swap, a fault at each kv.* site, {loop} loop", prompts,
+                lagged=loop == "lagged", **pressure_kw)
+        finally:
+            faults.clear_plan()
+        if loop == "step":
+            mf, fired = m, sorted(site for site, _, _ in plan.fired)
+    fault_streams, fault_lagged = faulted["step"], faulted["lagged"]
+    same = fault_streams == pressure_streams
+    match = match_rate(fault_streams, pressure_streams)
+    exact = swap_faults_exact(torch, cfg, state, serve_kw, prompts[0], pressure_kw["kv_dtype"],
+                              dev)
+    print(f"(c) lifecycle: pressure serve lagged: {mp['preempts']} preempts, streams equal "
+          f"to step()'s: {lag_pressure == pressure_streams}; under the fault plan: "
+          f"{mf['swap_aborts']} swap aborts, {mf['preempts']} preempts, {mf['restores']} "
+          f"restores, fired {fired}, streams equal between the loops: "
+          f"{fault_lagged == fault_streams}, to the fault-free serve's: {same} (greedy match "
+          f"{match:.3f}: the reverted and retried swaps change which prompts share a prefill "
+          f"bucket, whose shapes set the rounding); one chain through each site, bit for bit: "
+          f"{exact}")
+    if (fired != sorted(sites) or mf["swap_aborts"] < 3 or fault_lagged != fault_streams
+            or match < 0.9 or not all(exact.values())):
+        problems.append(f"the kv.* faults: fired {fired}, {mf['swap_aborts']} swap aborts, "
+                        f"loops equal {fault_lagged == fault_streams}, greedy match with the "
+                        f"fault-free serve {match:.3f}, exact {exact}")
+    out["faults"] = {"swap_aborts": mf["swap_aborts"], "preempts": mf["preempts"],
+                     "restores": mf["restores"], "streams_equal": same, "greedy_match": match,
+                     "exact": exact}
+
+    # cancels and deadlines at fixed ticks, by step() and by the lagged loop
+    def lapse(sched, *rids):
+        for req in sched.harvest_requests():
+            if req.rid in rids:
+                req.deadline = 0.0  # long past on the perf_counter clock
+
+    def need(state, n):
+        """``choose``: the first and the last rid in ``state`` once it
+        holds ``n``."""
+        return lambda stuck: ((stuck[state][0], stuck[state][-1])
+                              if len(stuck.get(state, ())) >= n else None)
+
+    def bf16_queued(sched, rids):  # a queued cancel and deadline, a mid-prefill cancel
+        (q_first, q_last), p_last = rids
+        lapse(sched, q_first)
+        return sched.cancel(q_last), sched.cancel(p_last)
+
+    def bf16_decoding(sched, rids):  # a decoding cancel and deadline
+        first, last = rids
+        lapse(sched, last)
+        return sched.cancel(first), sched.cancel(10_000)
+
+    def fp8_preempted(policy):
+        """Preempt a decoding request by ``policy`` and cancel it: mid
+        swap-out (``"swap"``) or parked (``"recompute"``)."""
+        def act(sched, rids):
+            sched.swap_policy = policy
+            choice = sched.preempt(rids[0], reason="chip-smoke").choice
+            sched.swap_policy = "swap"
+            return choice, sorted(sched.stuck_rids()), sched.cancel(rids[0])
+        return act
+
+    def queued_and_prefill(stuck):
+        queued, prefill = need("queued", 2)(stuck), need("prefill", 1)(stuck)
+        return (queued, prefill[1]) if queued and prefill else None
+
+    scripts = {"bf16": ({}, [(queued_and_prefill, bf16_queued),
+                             (need("decoding", 2), bf16_decoding)], (3, 2)),
+               "fp8": (pressure_kw, [(need("decoding", 1), fp8_preempted("swap")),
+                                     (need("decoding", 1), fp8_preempted("recompute"))],
+                       (2, 0))}
+    kept = {}
+    for kind, (kw, script, (n_cancel, n_deadline)) in scripts.items():
+        picks, got = {}, {}
+        for loop in ("step", "lagged"):
+            sched = Scheduler(cfg, state, gather_impl="kernel", **{**serve_kw, **kw})
+            sync(torch, dev)
+            paged_flash.reset_launch_counts()
+            rids, streams, results = scripted_serve(sched, prompts, max_new, script, picks,
+                                                    loop == "lagged")
+            sync(torch, dev)
+            m = sched.metrics()
+            launches = {k: v for counts in (paged_flash.launch_counts,
+                                            paged_flash.quant_launch_counts,
+                                            paged_flash.route_launch_counts)
+                        for k, v in counts.items() if v}
+            left = (sched.engine.allocator.in_use, len(sched.host_store),
+                    int((np.asarray(sched.engine.tables) != TRASH_BLOCK).sum()))
+            got[loop] = (streams, results, launches, m["cancelled"], m["deadline_misses"])
+            print(f"(c) lifecycle: {kind} serve, {loop} loop: cancelled {m['cancelled']}, "
+                  f"deadline misses {m['deadline_misses']}, completed {m['completed']}, "
+                  f"actions {results}; blocks in use, host chains, live table entries "
+                  f"after: {left}")
+            survivors = [r for r in rids if len(streams.get(r, [])) == max_new]
+            if (left != (0, 0, 0) or (m["cancelled"], m["deadline_misses"]) != (
+                    n_cancel, n_deadline)
+                    or len(survivors) != len(rids) - n_cancel - n_deadline
+                    or m["completed"] != len(survivors)):
+                problems.append(f"{kind} lifecycle serve, {loop} loop: cancelled "
+                                f"{m['cancelled']}, deadline misses {m['deadline_misses']}, "
+                                f"{len(survivors)} survivors, left behind {left}")
+            if kind == "bf16":
+                kept[loop] = sched
+        if got["step"] != got["lagged"]:
+            problems.append(f"{kind} lifecycle serve: the lagged loop differs from step() "
+                            f"(streams equal: {got['step'][0] == got['lagged'][0]})")
+
+    # drain and abandon, on two of the idle schedulers above
+    sched = kept["step"]
+    for p in prompts:
+        sched.submit(p, max_new)
+    for _ in range(3):
+        sched.step()
+    queued = sched.stuck_rids().get("queued", [])
+    produced, requeued = sched.drain_graceful()
+    drained = (sched.engine.allocator.in_use, [r.rid for r in requeued] == queued)
+    sched = kept["lagged"]
+    for p in prompts:
+        sched.submit(p, max_new)
+    sched.step()
+    sched.dispatch_tick()  # a tick in flight
+    sched.abandon()
+    try:
+        sched.submit(prompts[0], max_new)
+        refused = False
+    except RuntimeError:
+        refused = True
+    abandoned = (sched.engine.allocator.in_use, refused)
+    print(f"(c) lifecycle: drain_graceful with {len(queued)} queued: requeued exactly them "
+          f"{drained[1]}, blocks in use after {drained[0]}; abandon with a tick in flight: "
+          f"blocks in use after {abandoned[0]}, the next submit refused {abandoned[1]}")
+    if drained != (0, True) or not queued or abandoned != (0, True):
+        problems.append(f"drain_graceful {drained} ({len(queued)} queued), abandon "
+                        f"{abandoned}")
+    del kept, sched
+    empty_cache(torch, dev)
+
+    # the dense path: the batcher in both layouts, generate_ragged, the recipe
+    slots = serve_kw["n_slots"]
+    batch, first_rows = {}, {}
+    for layout in ("dense", "paged"):
+        kw = {"block_len": serve_kw["block_len"]} if layout == "paged" else {}
+        b = ContinuousBatcher(cfg, state, n_slots=slots,
+                              prefill_bucket=serve_kw["prefill_chunk"], cache_layout=layout,
+                              device=dev, **kw)
+        sync(torch, dev)
+        paged_flash.reset_launch_counts()
+        owner, streams, ticks, pending = {}, {}, [], list(range(len(prompts)))
+        while pending or (b.remaining > 0).any():
+            while pending and b.free_slots():
+                i = pending.pop(0)
+                owner[b.submit(prompts[i], max_new)] = i
+            if layout not in first_rows:
+                first_rows[layout] = b.logits.float().clone()
+            t0 = time.perf_counter()
+            events = b.step()  # the tokens are on the host when it returns
+            ticks.append(time.perf_counter() - t0)
+            for slot, tok in events:
+                streams.setdefault(owner[slot], []).append(tok)
+        launches = dict(paged_flash.launch_counts)
+        cache_bytes = sum(t.numel() * t.element_size() for layer in b.cache for t in layer
+                          if t is not None)
+        batch[layout] = ([streams[i] for i in range(len(prompts))], float(np.median(ticks)),
+                         launches, cache_bytes)
+        del b
+        empty_cache(torch, dev)
+    row_err = (first_rows["dense"] - first_rows["paged"]).abs().max().item()
+    d, p = batch["dense"], batch["paged"]
+    print(f"(c) lifecycle: ContinuousBatcher dense vs paged, {slots} slots, {len(prompts)} "
+          f"requests x {max_new} tokens on {card}: tick p50 {d[1] * 1e3:.3f} vs "
+          f"{p[1] * 1e3:.3f} ms, the first tokens' logits max_abs_err {row_err:.4f}, greedy "
+          f"match {match_rate(d[0], p[0]):.3f}, dense cache {d[3]} bytes, paged launches "
+          f"{p[2]}")
+    # the kernels launch on the card; on the CPU the wrappers run the plain version
+    sweep, split = p[2].get(paged_flash.SWEEP, 0), p[2].get(paged_flash.SPLIT, 0)
+    if (not np.isfinite(row_err) or row_err > 0.25 or (dev == "cuda" and 0 in (sweep, split))
+            or any(len(x) != max_new for x in d[0] + p[0])):
+        problems.append(f"the batcher: logits max_abs_err {row_err}, paged sweep {sweep} "
+                        f"and split {split} launches")
+    out["batcher"] = {"dense_tick_p50_s": d[1], "paged_tick_p50_s": p[1],
+                      "logits_max_abs_err": row_err, "greedy_match": match_rate(d[0], p[0]),
+                      "dense_cache_bytes": d[3]}
+    four = prompts[:4]
+    lengths = [len(q) for q in four]
+    padded = np.zeros((4, max(lengths)), np.int32)
+    for i, q in enumerate(four):
+        padded[i, :len(q)] = q
+    ragged = generate_ragged(cfg, state, padded, lengths, 16, device=dev).cpu().numpy()
+    alone = [generate(cfg, state, q[None], 16, device=dev)[0, len(q):].cpu().numpy()
+             for q in four]
+    ragged_match = match_rate([list(r) for r in ragged], [list(a) for a in alone])
+    print(f"(c) lifecycle: generate_ragged vs per-request generate, prompts {lengths} x 16 "
+          f"tokens: greedy match {ragged_match:.3f}")
+    if ragged.shape != (4, 16) or not ((ragged >= 0) & (ragged < cfg.vocab_size)).all():
+        problems.append(f"generate_ragged gave {ragged.shape}")
+    out["ragged_match"] = ragged_match
+    empty_cache(torch, dev)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "pytorch_distributed_tpu_torch.recipes.serve_lm",
+                        *recipe_argv], capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    recipe_s = time.perf_counter() - t0
+    try:
+        recipe = json.loads(r.stdout[r.stdout.index("{"):])
+    except ValueError:
+        recipe = {}
+    print(f"(c) lifecycle: serve_lm {' '.join(recipe_argv)}: exit {r.returncode} in "
+          f"{recipe_s:.1f}s, layout {recipe.get('layout')}, {recipe.get('completed')} "
+          f"requests, {recipe.get('tokens_out')} tokens, serve wall {recipe.get('wall_s')}")
+    if r.returncode != 0 or recipe.get("layout") != "dense" or not recipe.get("tokens_out"):
+        problems.append(f"serve_lm --dense: exit {r.returncode}: {r.stderr[-2000:]}")
+    out["recipe"] = {k: recipe.get(k) for k in ("completed", "tokens_out", "wall_s")}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"(c) lifecycle phase: {out['wall_s']:.1f} s")
+    if problems:
+        raise SystemExit(f"chip_smoke: the lifecycle phase failed: {problems}")
     return out
 
 
@@ -2660,9 +3084,10 @@ def main(argv) -> int:
                              f"launches, append {app}, sweep + split {attn}): {launches}")
         return app + launches.get(scatter, 0)
 
-    def serve(label, reqs, *, stagger=0, warm=False, **kw):
+    def serve(label, reqs, *, stagger=0, warm=False, lagged=False, **kw):
         """Serve ``reqs`` (``stagger`` steps between submissions) through
-        the kernels, the launch counts reset just before and read just
+        the kernels by ``step()`` (``lagged``: by the lagged loop,
+        ``lagged_drain``), the launch counts reset just before and read just
         after; every request must complete its budget inside the
         vocabulary and every block must come back, and on quantized pools
         every layer's new rows must take the append route (``appended``).
@@ -2683,7 +3108,8 @@ def main(argv) -> int:
             for _ in range(stagger):
                 for rid, tok in sched.step():
                     streams.setdefault(rid, []).append(tok)
-        for rid, toks in sched.drain().items():
+        drained = lagged_drain(sched) if lagged else sched.drain()
+        for rid, toks in drained.items():
             streams.setdefault(rid, []).extend(toks)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2828,10 +3254,11 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # the pressure tier: 200 fp8 blocks for the 16 requests (about 590 at once)
+    pressure_streams = {}
     for policy in ("swap", "recompute"):
         sched, st, mp, _, _ = serve(f"pressure, fp8 pools, 200 blocks, {policy}", prompts,
-                                    kv_dtype="fp8", n_blocks=200, offload=True,
-                                    preempt_on_oom=True, swap_policy=policy)
+                                    **PRESSURE, swap_policy=policy)
+        pressure_streams[policy] = st
         print(f"(c) pressure {policy}: {mp['preempts']} preempts, {mp['restores']} restores "
               f"(swap {mp['swap_outs']} out / {mp['swap_ins']} in, {mp['swap_bytes']} bytes, "
               f"wall mean {mp.get('swap_mean_s', 0.0) * 1e3:.2f} ms max "
@@ -2842,6 +3269,12 @@ def main(argv) -> int:
                              f"restores {mp['restores']}")
         del sched
         torch.cuda.empty_cache()
+
+    # the request lifecycle and the dense decode path
+    lifecycle_runs(
+        torch, card, serve, cfg, state, prompts, serve_kw,
+        pressure_kw={**PRESSURE, "swap_policy": "swap"}, pressure_streams=pressure_streams["swap"],
+        busy=graphs["bf16"], recipe_argv=["--dense"])
 
     # ---- (c) the training path: LMTrainer on the full-width model ----
     torch.cuda.empty_cache()

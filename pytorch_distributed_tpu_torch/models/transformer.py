@@ -4,6 +4,13 @@ The port of ``pytorch_distributed_tpu/models/transformer.py`` along two
 paths: learned token and position embeddings, pre-LN blocks (attention,
 GELU MLP), a final LayerNorm and an untied LM head with fp32 logits.
 
+- Dense decoding (``cache=`` a list of ``DenseCache``, no block tables;
+  ``models.generate``): one ``[B, max_seq_len, H, D]`` K and V per
+  layer, written in place. Prefill (``decode=False``) writes the prompt's
+  K/V at a scalar ``position_offset`` and attends causally over the
+  prompt; decode (``decode=True``, one token a request) writes at a
+  scalar or per-request ``[B]`` ``position_offset`` and attends in fp32
+  to the whole row under the ``<= position`` mask.
 - Paged serving (``cache=`` given): each layer's attention writes the
   chunk's K/V into the block pool and attends through the block tables
   (``ops.attention.paged_attention``). One forward serves chunked prefill
@@ -56,6 +63,7 @@ from torch import nn
 
 from pytorch_distributed_tpu_torch.ops.attention import (
     GATHER_IMPLS,
+    NEG_INF,
     dense_attention,
     paged_attention,
 )
@@ -82,6 +90,14 @@ class LayerCache(NamedTuple):
     value: torch.Tensor
     key_scale: Optional[torch.Tensor] = None
     value_scale: Optional[torch.Tensor] = None
+
+
+class DenseCache(NamedTuple):
+    """One layer's dense decode cache, ``key``/``value`` ``[B, max_seq_len,
+    H, D]`` in ``config.dtype`` (``models.generate.init_cache``)."""
+
+    key: torch.Tensor
+    value: torch.Tensor
 
 
 def _later(what: str) -> str:
@@ -237,9 +253,14 @@ class Attention(nn.Module):
         self.proj = Dense(cfg, h * d, e, bias=False)
 
     def forward(self, x: torch.Tensor, index: Optional["PagedIndex"] = None,
-                cache: Optional[LayerCache] = None,
-                position_offset: int = 0) -> torch.Tensor:
+                cache=None, position_offset=0, decode: bool = False) -> torch.Tensor:
         """``x [B, L, E]`` (LayerNorm output).
+
+        Dense (``cache`` a ``DenseCache``): the K/V rows are written at
+        ``position_offset`` (a scalar, or ``[B]`` for a one-token decode),
+        then prefill attends causally over the L tokens and decode in fp32
+        to the whole cache row, positions past each request's own masked
+        out (JAX ``transformer.py:422-505``).
 
         Paged (``cache`` given): writes the chunk's K/V into the pools in
         place at ``(index.blk, index.off)``, then attends through the
@@ -257,6 +278,9 @@ class Attention(nn.Module):
         b, l, _ = x.shape
         h, d = cfg.num_heads, cfg.head_dim
         q, k, v = self.qkv(x).view(b, l, 3, h, d).unbind(dim=2)
+        if isinstance(cache, DenseCache):
+            out = self._dense_cached(q, k, v, cache, position_offset, decode)
+            return self.proj(out.reshape(b, l, h * d))
         if cache is None:
             if cfg.attention == "flash":
                 out = flash_attention(q, k, v, causal=True)
@@ -295,6 +319,32 @@ class Attention(nn.Module):
         return self.proj(out.reshape(b, l, h * d))
 
 
+    def _dense_cached(self, q, k, v, cache: DenseCache, position_offset,
+                      decode: bool) -> torch.Tensor:
+        ck, cv = cache
+        b, l = q.shape[:2]
+        if torch.is_tensor(position_offset) and position_offset.dim() == 1:
+            # one token a request, each at its own row position
+            pos_b = position_offset.to(q.device).long()
+            rows = torch.arange(b, device=q.device)
+            ck[rows, pos_b] = k[:, 0].to(ck.dtype)
+            cv[rows, pos_b] = v[:, 0].to(cv.dtype)
+        else:
+            p0 = int(position_offset)
+            ck[:, p0:p0 + l] = k.to(ck.dtype)
+            cv[:, p0:p0 + l] = v.to(cv.dtype)
+            pos_b = torch.full((b,), p0, dtype=torch.long, device=q.device)
+        if not decode:  # prefill: a scalar offset (TransformerLM checks)
+            return dense_attention(q, k, v, causal=True, q_offset=p0, k_offset=p0)
+        # one layer's cache cast to fp32 at a time, as the JAX module does
+        scale = self.cfg.head_dim ** -0.5
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, ck.float())
+        mask = (torch.arange(ck.shape[1], device=q.device)[None, None, None, :]
+                <= pos_b[:, None, None, None])
+        p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, cv.float()).to(self.cfg.dtype)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -307,14 +357,20 @@ class Block(nn.Module):
         self.mlp_down = Dense(cfg, e * cfg.mlp_ratio, e, bias=False)
 
     def forward(self, x, index: Optional["PagedIndex"] = None,
-                cache: Optional[LayerCache] = None, position_offset: int = 0):
-        x = x + self.attn(self.ln1(x), index, cache, position_offset)
+                cache=None, position_offset=0, decode: bool = False):
+        x = x + self.attn(self.ln1(x), index, cache, position_offset, decode)
         hdn = F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh")
         return x + self.mlp_down(hdn)
 
 
 class TransformerLM(nn.Module):
-    """Decoder-only LM, for training or over a block-pooled KV cache.
+    """Decoder-only LM, for training, over a dense decode cache or over a
+    block-pooled KV cache.
+
+    Dense: ``forward(tokens [B, L], position_offset, cache=[DenseCache,
+    ...], decode=False)`` prefills (a scalar offset), ``decode=True``
+    steps one token a request (``position_offset`` a scalar or ``[B]``);
+    logits ``[B, L, vocab]`` fp32, the cache written in place.
 
     Paged: ``forward(tokens [B, L], position_offset [B], block_tables
     [B, W], cache)`` → logits ``[B, L, vocab]`` fp32, with ``cache`` a list
@@ -347,9 +403,11 @@ class TransformerLM(nn.Module):
                 cache: Optional[List[LayerCache]] = None,
                 logits_index: Optional[torch.Tensor] = None, *,
                 positions: Optional[torch.Tensor] = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False, decode: bool = False) -> torch.Tensor:
         if cache is None:
             return self._forward_train(tokens, position_offset, positions, return_hidden)
+        if block_tables is None:
+            return self._forward_dense(tokens, position_offset, cache, decode)
         if len(cache) != self.cfg.num_layers:
             raise ValueError(
                 f"cache has {len(cache)} layers, the model {self.cfg.num_layers}")
@@ -362,6 +420,31 @@ class TransformerLM(nn.Module):
             x = blk(x, index, layer_cache)
         if logits_index is not None:
             x = x[torch.arange(b, device=x.device), logits_index.long()][:, None]
+        return self.lm_head(self.ln_f(x)).float()
+
+    def _forward_dense(self, tokens: torch.Tensor, position_offset,
+                       cache: List[DenseCache], decode: bool) -> torch.Tensor:
+        if self.cfg.attention != "dense":
+            raise ValueError(
+                f"the dense decode cache needs attention='dense', got "
+                f"{self.cfg.attention!r}")
+        if len(cache) != self.cfg.num_layers:
+            raise ValueError(
+                f"cache has {len(cache)} layers, the model {self.cfg.num_layers}")
+        b, l = tokens.shape
+        if torch.is_tensor(position_offset) and position_offset.dim() == 1:
+            if not (decode and l == 1):
+                raise ValueError(
+                    "a [B] position_offset vector is the ragged decode convention "
+                    "(decode=True, one token a request); prefill takes a scalar")
+            positions = position_offset.to(tokens.device).long()[:, None]
+        else:
+            if decode and l != 1:
+                raise ValueError(f"decode processes one token a step, got {l}")
+            positions = int(position_offset) + torch.arange(l, device=tokens.device)
+        x = self.wte(tokens) + self.wpe(positions)
+        for blk, layer_cache in zip(self.blocks, cache):
+            x = blk(x, None, layer_cache, position_offset, decode)
         return self.lm_head(self.ln_f(x)).float()
 
     def _forward_train(self, tokens: torch.Tensor, position_offset,

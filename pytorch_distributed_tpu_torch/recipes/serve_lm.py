@@ -10,6 +10,7 @@ positions, learned positions, bf16) with random weights made from
     python -m pytorch_distributed_tpu_torch.recipes.serve_lm --device cpu --tiny
     python -m pytorch_distributed_tpu_torch.recipes.serve_lm --kv-dtype fp8 \
         --prefix-cache --preempt --n-blocks 600
+    python -m pytorch_distributed_tpu_torch.recipes.serve_lm --dense
 
 ``--kv-dtype`` quantizes the KV pool (int8 or fp8, with the
 quantize-on-scatter and dequantizing attention kernels),
@@ -19,7 +20,10 @@ recently served request (swap to host RAM or recompute,
 ``--swap-policy``) instead of waiting for a retirement. ``--warmup``
 captures every program of the registry (the decode tick and every
 prefill bucket, each as a CUDA graph) before the first request, so no
-request is cold.
+request is cold. ``--dense`` serves the same prompts through
+``models.generate.ContinuousBatcher(cache_layout="dense")`` instead: one
+``max_seq_len`` cache row per slot, a request submitted when a slot frees
+(no queue, no block pool), so the block-pool flags are refused with it.
 
 Without ``--device`` it runs on CUDA and fails where there is none.
 """
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
+from pytorch_distributed_tpu_torch.models.generate import ContinuousBatcher
 from pytorch_distributed_tpu_torch.models.transformer import (
     TransformerConfig,
     tiny_config,
@@ -64,9 +69,9 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "max_seq_len, plus the trash block)")
     p.add_argument("--prefill-chunk", type=int, default=32)
     p.add_argument("--admit-per-step", type=int, default=4)
-    p.add_argument("--gather-impl", choices=("kernel", "dense"), default="kernel",
-                   help="paged attention: the CUDA kernels, or the plain "
-                        "PyTorch version")
+    p.add_argument("--gather-impl", choices=("kernel", "dense"), default=None,
+                   help="paged attention: the CUDA kernels (the default), or "
+                        "the plain PyTorch version")
     p.add_argument("--split-s", type=int, default=None,
                    help="flash-decoding workers (default: auto)")
     p.add_argument("--kv-dtype", choices=("int8", "fp8", "fp8_e5m2"), default=None,
@@ -86,8 +91,22 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--warmup", action="store_true",
                    help="capture every registry program (decode tick + all prefill "
                         "buckets) before admitting traffic: zero cold requests")
+    p.add_argument("--dense", action="store_true",
+                   help="serve through the dense-cache ContinuousBatcher (one "
+                        "max_seq_len row per slot) instead of the paged scheduler")
     p.add_argument("--seed", type=int, default=0)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.dense:
+        pool_flags = [flag for flag, on in (
+            ("--warmup", args.warmup), ("--kv-dtype", args.kv_dtype),
+            ("--prefix-cache", args.prefix_cache), ("--preempt", args.preempt),
+            ("--split-s", args.split_s is not None),
+            ("--n-blocks", args.n_blocks is not None),
+            ("--gather-impl", args.gather_impl is not None)) if on]
+        if pool_flags:
+            p.error(f"{', '.join(pool_flags)}: block-pool knobs (the dense layout has "
+                    "no program registry, block pool or chain sweep); drop --dense")
+    return args
 
 
 def _prompts(args, cfg) -> List[np.ndarray]:
@@ -96,15 +115,41 @@ def _prompts(args, cfg) -> List[np.ndarray]:
     return [rng.integers(1, cfg.vocab_size, size=l).astype(np.int32) for l in lens]
 
 
+def _serve_dense(args, cfg, t0: float) -> dict:
+    """The prompts through the dense-cache batcher: submitted as slots free,
+    one decode tick for every active slot at a time."""
+    b = ContinuousBatcher(cfg, params_from_jax(init_params(cfg, args.seed)),
+                          n_slots=args.slots, prefill_bucket=args.prefill_chunk,
+                          seed=args.seed, cache_layout="dense", device=args.device)
+    waiting = _prompts(args, cfg)
+    tokens_out = completed = ticks = 0
+    while waiting or (b.remaining > 0).any():
+        while waiting and b.free_slots():
+            b.submit(waiting.pop(0), args.max_new)
+        out = b.step()
+        ticks += 1
+        tokens_out += len(out)
+        completed += sum(int(b.remaining[slot] == 0) for slot, _ in out)
+    wall = time.perf_counter() - t0
+    return {"layout": "dense", "device": str(b.device), "completed": completed,
+            "tokens_out": tokens_out, "ticks": ticks, "wall_s": wall}
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     args = _parse(argv)
     cfg = tiny_config(max_seq_len=128) if args.tiny else full_config()
     t0 = time.perf_counter()
+    if args.dense:
+        metrics = _serve_dense(args, cfg, t0)
+        if metrics["completed"] != args.requests:
+            raise RuntimeError(f"served {metrics['completed']} of {args.requests} requests")
+        print(json.dumps(metrics, indent=2))
+        return metrics
     s = Scheduler(
         cfg, params_from_jax(init_params(cfg, args.seed)), n_slots=args.slots,
         block_len=args.block_len, prefill_chunk=args.prefill_chunk,
         n_blocks=args.n_blocks, admit_per_step=args.admit_per_step,
-        seed=args.seed, gather_impl=args.gather_impl, split_s=args.split_s,
+        seed=args.seed, gather_impl=args.gather_impl or "kernel", split_s=args.split_s,
         kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
         offload=args.preempt, preempt_on_oom=args.preempt,
         swap_policy=args.swap_policy, device=args.device,

@@ -18,6 +18,15 @@ The sites of the port so far:
 ``ckpt.post_commit``  just after it: the new checkpoint is live, the
                       stale shard files not yet removed
 ``train.step``        the trainers' loop, once a step before the step runs
+``serve.dispatch``    ``serving/scheduler.py`` ``dispatch_tick``, before any
+                      tick work
+``serve.collect``     ``collect_tick``, before the pending tick is collected
+``kv.swap_out_d2h``   ``serving/engine.py`` ``swap_out_finish``, before the
+                      wait for the chain's copy to the host (the swap-out
+                      reverts: the chain stays resident)
+``kv.host_write``     the same, before the commit to the host store
+``kv.swap_in_h2d``    ``swap_in_chain``, before any write to the card (the
+                      fresh chain is freed; the request stays parked)
 ====================  =====================================================
 
 Kinds: ``raise`` (``InjectedFault``, an ``OSError``, so the bounded retry

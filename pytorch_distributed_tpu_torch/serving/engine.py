@@ -18,7 +18,10 @@ block-pooled KV cache (``pytorch_distributed_tpu/serving/engine.py``).
   reference and prefills only the rest; a full-cover hit copies the
   boundary block first (copy-on-write).
 - **swap** (``swap_out_begin``/``swap_out_finish``, ``swap_in_chain``): a
-  chain moves to host RAM through pinned buffers and back.
+  chain moves to host RAM through pinned buffers and back. Fault sites
+  (``resilience.faults``): ``kv.swap_out_d2h`` before the wait for the
+  copy to the host, ``kv.host_write`` before the commit to the host
+  store, ``kv.swap_in_h2d`` before any write to the card.
 
 **Programs.** The JAX engine runs each decode tick and each prefill
 bucket as one compiled XLA program. Here each is one CUDA graph, captured
@@ -62,6 +65,7 @@ import torch
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.ops import paged_flash
+from pytorch_distributed_tpu_torch.resilience.faults import fault_point
 from pytorch_distributed_tpu_torch.models.generate import (
     _sample,
     _validate_sampling,
@@ -473,10 +477,12 @@ class PagedEngine:
                         rid: int) -> HostChain:
         """Wait for the copies, commit the chain to ``store`` under ``rid``,
         then free the device chain. A failure before the commit (a full
-        store raises ``OSError``) closes the window with the chain still
-        resident."""
+        store raises ``OSError``, as do the ``kv.swap_out_d2h`` and
+        ``kv.host_write`` fault sites) closes the window with the chain
+        still resident."""
         slot = pending.slot
         try:
+            fault_point("kv.swap_out_d2h")
             if pending.event is not None:
                 pending.event.synchronize()
             nbytes = pending.logits_row.numel() * pending.logits_row.element_size() + sum(
@@ -485,6 +491,7 @@ class PagedEngine:
             chain = HostChain(blocks=pending.blocks, logits_row=pending.logits_row,
                               n_blocks=pending.chain_len, block_len=self.block_len,
                               nbytes=nbytes)
+            fault_point("kv.host_write")
             if not store.put(rid, chain):
                 raise OSError(f"host store rejected rid {rid}'s chain "
                               f"({nbytes} bytes over budget)")
@@ -498,7 +505,9 @@ class PagedEngine:
         the chain and its logits row from host RAM, scatter them in place
         and write the table row. False (state unchanged) when the pool
         cannot supply the blocks: the caller keeps the host copy and
-        retries."""
+        retries. A failure while copying (the ``kv.swap_in_h2d`` fault
+        site fires before any write) frees the fresh chain and raises,
+        the host copy intact."""
         self._require_swap()
         if chain.block_len != self.block_len:
             raise ValueError(f"cannot swap block_len={chain.block_len} blocks into "
@@ -508,6 +517,7 @@ class PagedEngine:
             return False
         self.allocator.set_state(slot, SWAPPING_IN)
         try:
+            fault_point("kv.swap_in_h2d")
             self._scatter_from_host(ids, chain.blocks, slot, chain.logits_row)
         except BaseException:
             self.allocator.clear_state(slot)

@@ -34,8 +34,38 @@ Policy (continuous batching with chunked prefill):
   (``cold_requests``), the capture seconds (``compile_s``) and the TTFT of
   the warm ones alone (``ttft_warm_*``).
 
-Metrics are exact host-side counters and latency series. Tracing, the
-fleet hooks, deadlines and cancel are not ported yet.
+- **the tick as two halves** (``dispatch_tick`` / ``collect_tick``):
+  dispatch runs the deadline sweep, the swap finalizations and restores,
+  admissions, the prefill chunk and *launches* the decode tick; collect
+  waits for its tokens and does the per-token work (latencies,
+  retirement). ``step()`` is ``collect_tick(); dispatch_tick(sync=True);
+  collect_tick()``. A driver may run them lagged, ``collect_tick();
+  dispatch_tick()`` per iteration, leaving one tick in flight between
+  iterations (never two: dispatch raises while one is pending). On one
+  scheduler collect(N-1) then dispatch(N) is the synchronous order, so
+  the streams are the same; the overlap it allows comes from
+  interleaving schedulers. Every mutation from outside the tick
+  (``preempt``, ``preempt_lru``, ``cancel``, ``begin_drain``) collects
+  the pending tick first and keeps its tokens for the next
+  ``collect_tick``.
+- **the request lifecycle**: ``cancel(rid)`` frees a request wherever it
+  is (queued, mid-prefill, decoding, parked, mid swap-out); a
+  ``deadline`` (``submit(deadline_s=)`` or an absolute
+  ``time.perf_counter()`` ``deadline=``) expires it through the same path
+  at the top of a dispatch. ``begin_drain`` / ``drain_graceful`` stop
+  admission, run the admitted requests out and hand the queue back;
+  ``harvest_requests`` / ``abandon`` tear a scheduler down with no block
+  left behind. ``on_retire(rid, outcome)`` is called as a request leaves
+  (``"complete"``, ``"cancelled"``, ``"deadline"``).
+
+Fault sites (``resilience.faults``): ``serve.dispatch`` before any tick
+work, ``serve.collect`` before a collect; the engine's ``kv.*`` sites in
+the swaps. A failed swap-out reverts the preemption; a failed swap-in
+leaves the request parked with its host copy, retried the next tick.
+
+Metrics are exact host-side counters and latency series. The flight
+recorder, request tracing, the block sanitizer and the fleet's handoff
+states are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,10 +74,11 @@ import dataclasses
 import math
 import time
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from pytorch_distributed_tpu_torch.resilience.faults import fault_point
 from pytorch_distributed_tpu_torch.serving.engine import ChunkJob, PagedEngine
 from pytorch_distributed_tpu_torch.serving.kv_pool import HostBlockStore
 from pytorch_distributed_tpu_torch.telemetry.costmodel import (
@@ -85,15 +116,35 @@ class Request:
     # a program it rode (its chunk bucket, the decode tick) was captured
     # (on the CPU or eager: first run) inside its lifetime
     cold: bool = False
+    # absolute time.perf_counter() instant after which the request expires
+    # (outcome "deadline"); absolute, so a re-submission keeps the clock
+    deadline: float = float("inf")
 
     @property
     def length(self) -> int:
         return int(len(self.tokens))
 
 
+class TickHandle(NamedTuple):
+    """A dispatched tick not yet collected. ``tokens``: the launched
+    decode's ``TickTokens`` (its pinned host buffer lives until the
+    collect), the tokens themselves on the synchronous path, or None when
+    no lane decoded. ``lanes``: the slots that decoded, the only ones the
+    collect writes back; every one is still resident at the collect,
+    because each mutation from outside the tick collects first."""
+
+    tokens: object
+    positions: Optional[np.ndarray]
+    lanes: Tuple[int, ...]
+    t_step0: float
+    cold_decode: bool
+    sync: bool
+
+
 class Scheduler:
     """``submit`` enqueues, ``step`` advances the system one tick and
-    returns ``[(rid, token)]`` for the tokens it produced, ``drain`` runs
+    returns ``[(rid, token)]`` for the tokens it produced (or
+    ``dispatch_tick`` / ``collect_tick``, the two halves), ``drain`` runs
     to empty. Runs on CUDA unless ``device="cpu"`` is passed; raises
     without a card. ``seed`` seeds the sampling generator (unused when
     greedy). ``host_store_max_bytes`` bounds the host tier.
@@ -182,6 +233,19 @@ class Scheduler:
         self.queue_wait = LatencySeries("queue_wait")
         self.tick_lat = LatencySeries("tick")
         self.swap_lat = LatencySeries("swap")
+        # the lifecycle: admission stops while draining; cancels and
+        # deadline expiries are counted apart
+        self.draining = False
+        self._cancelled = 0
+        self._deadline_misses = 0
+        # the dispatched, not yet collected tick, and the tokens an early
+        # collect (from preempt, cancel, begin_drain) took, delivered by
+        # the next collect_tick
+        self._pending_tick: Optional[TickHandle] = None
+        self._collected: List[Tuple[int, int]] = []
+        #: ``on_retire(rid, outcome)``, called as a request leaves for good:
+        #: ``"complete"``, ``"cancelled"`` or ``"deadline"``
+        self.on_retire: Optional[Callable[[int, str], None]] = None
 
     # ---- API ----
 
@@ -199,9 +263,16 @@ class Scheduler:
         return WarmupRunner(serving_registry(self.engine)).run(background=background)
 
     def submit(self, prompt, max_new_tokens: int, *,
-               rid: Optional[int] = None) -> int:
-        """Enqueue one request; returns its id. Raises only for a request
-        that can never fit ``max_seq_len``."""
+               rid: Optional[int] = None, deadline_s: Optional[float] = None,
+               deadline: Optional[float] = None) -> int:
+        """Enqueue one request; returns its id. Raises for a request that
+        can never fit ``max_seq_len``, and while draining. ``deadline_s``
+        (seconds from now) or ``deadline`` (an absolute
+        ``time.perf_counter()`` instant) arms its expiry: the sweep at the
+        top of each dispatch cancels it with outcome ``"deadline"``,
+        whatever its state."""
+        if self.draining:
+            raise RuntimeError("this scheduler is draining: submit elsewhere")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         l = len(prompt)
         if l < 1:
@@ -221,10 +292,13 @@ class Scheduler:
         if rid is None:
             rid = self._next_rid
         self._next_rid = max(self._next_rid, rid + 1)
+        now = time.perf_counter()
+        if deadline is None:
+            deadline = now + deadline_s if deadline_s is not None else float("inf")
         self.queue.append(Request(
             rid=rid, tokens=prompt, max_new_tokens=max_new_tokens,
-            submit_step=self._step_count, submit_time=time.perf_counter(),
-            generated=[] if self.offload else None,
+            submit_step=self._step_count, submit_time=now,
+            generated=[] if self.offload else None, deadline=deadline,
         ))
         return rid
 
@@ -256,7 +330,10 @@ class Scheduler:
 
     def _admit(self) -> None:
         """Admit up to ``admit_per_step`` queue-head requests; the first
-        that cannot get a slot or a chain stops admission this step."""
+        that cannot get a slot or a chain stops admission this step.
+        Nothing is admitted while draining."""
+        if self.draining:
+            return
         free = self._free_slots()
         admitted = 0
         now = time.perf_counter()
@@ -271,7 +348,7 @@ class Scheduler:
                 # carousel chains through the host store.
                 if (self.preempt_on_oom and not self.parked and not self._swapping
                         and self._oom_preempted_for != req.rid):
-                    if self.preempt_lru() is not None:
+                    if self.preempt_lru(reason="admission-oom") is not None:
                         self._oom_preempted_for = req.rid
                 break
             self.queue.popleft()
@@ -332,20 +409,25 @@ class Scheduler:
                                            reason="host-store-full")
         return decision
 
-    def preempt_lru(self) -> Optional[int]:
+    def preempt_lru(self, reason: str = "pressure") -> Optional[int]:
         """Preempt the least recently served preemptible request; its rid,
         or None when nothing is preemptible."""
+        # a tick in flight may be decoding the victim: collect it first
+        self._collect_pending_tick()
         for _, rid, _slot in self._victims():
-            if self.preempt(rid) is not None:
+            if self.preempt(rid, reason=reason) is not None:
                 return rid
         return None
 
-    def preempt(self, rid: int) -> Optional[SwapDecision]:
+    def preempt(self, rid: int, reason: str = "pressure") -> Optional[SwapDecision]:
         """Park decoding request ``rid``: swap its chain out (freed when
         the copy commits, at the next step) or drop it to be recomputed.
         Either way its lane stops now, and it is restored, before its next
-        decode, once there is room. Returns the decision, None when the
-        request cannot be preempted now."""
+        decode, once there is room. ``reason`` (the JAX signature's) would
+        label the preemption in the flight recorder and the request trace,
+        which are not ported. Returns the decision, None when the request
+        cannot be preempted now."""
+        self._collect_pending_tick()
         slot = next((s for s, r in self.resident.items() if r.rid == rid), None)
         if slot is None:
             raise ValueError(f"rid {rid} is not resident")
@@ -398,7 +480,8 @@ class Scheduler:
         at its position with its logits row. Recompute: the streamed
         tokens join the prompt and the request is prefilled again, whose
         last chunk writes the same logits row. A restore that cannot
-        proceed leaves the request parked for the next step."""
+        proceed (no slot, no chain, a failed host-to-device copy) leaves
+        the request parked for the next step."""
         for rid in list(self.parked):
             req, path = self.parked[rid]
             free = self._free_slots()
@@ -408,7 +491,13 @@ class Scheduler:
             if path == "swap":
                 t0 = time.perf_counter()
                 chain = self.host_store.get(rid)
-                if not self.engine.swap_in_chain(slot, chain):
+                try:
+                    restored = self.engine.swap_in_chain(slot, chain)
+                except OSError:
+                    # the engine freed the fresh chain; the host copy is intact
+                    self._swap_aborts += 1
+                    break
+                if not restored:
                     break  # no room yet
                 self.host_store.pop(rid)
                 self._swap_ins += 1
@@ -451,13 +540,23 @@ class Scheduler:
             ))
         return jobs
 
-    def step(self) -> List[Tuple[int, int]]:
-        """One tick: finished swap-outs and restores (under offload),
-        admissions, one prefill chunk for every unfinished prompt, one
-        decode token for every armed lane, retirements."""
+    def dispatch_tick(self, sync: bool = False) -> None:
+        """The first half of a tick: the deadline sweep, finished
+        swap-outs and restores (under offload), admissions, one prefill
+        chunk for every unfinished prompt, and the decode tick launched
+        for every armed lane, not waited for. ``sync=True`` (``step``)
+        waits for the tokens here. Leaves the tick pending for
+        ``collect_tick``; raises if one is pending already."""
+        if self._pending_tick is not None:
+            raise RuntimeError("collect_tick() must collect the pending tick before "
+                               "another dispatch (one tick in flight)")
+        # before any tick work: a fault here leaves the state the last
+        # collect left
+        fault_point("serve.dispatch")
         if self._start_time is None:
             self._start_time = time.perf_counter()
         t0 = time.perf_counter()
+        self._expire_deadlines()
         if self.offload:
             self._finalize_swaps()
             self._restore_parked()
@@ -489,16 +588,66 @@ class Scheduler:
         self._occupancy_sum += len(self.resident) / self.n_slots
         self._step_count += 1
         if not active.any():
-            return []
-        lanes = np.nonzero(active)[0]
-        if not self.engine.has_decode_program:  # this tick captures it
-            for slot in lanes.tolist():
+            # only prefill ran: its host effects are applied above, and its
+            # device work is queued on the stream every later program, copy
+            # and swap runs on. The next dispatch may restage the chunk
+            # programs at once: PagedEngine._stage waits for a program's
+            # last upload before writing its pinned inputs again, and a
+            # graph replay reads the device vector that upload fills, as
+            # the eager body does.
+            self._pending_tick = TickHandle(None, None, (), t0, False, sync)
+            return
+        lanes = tuple(int(s) for s in np.nonzero(active)[0])
+        cold_decode = not self.engine.has_decode_program
+        if cold_decode:  # this tick captures it
+            for slot in lanes:
                 self.resident[slot].cold = True
-        tokens, positions = self.engine.decode(self.positions, active)
+        if sync:
+            tokens, positions = self.engine.decode(self.positions, active)
+        else:
+            tokens, positions = self.engine.decode_launch(self.positions, active)
+        self._pending_tick = TickHandle(tokens, positions, lanes, t0, cold_decode, sync)
+
+    def collect_tick(self) -> List[Tuple[int, int]]:
+        """The second half: wait for the pending tick's tokens and do the
+        per-token work (latencies, retirement). Returns ``[(rid, token)]``,
+        the tokens an early collect kept first. Without a pending tick it
+        returns only those."""
+        fault_point("serve.collect")
+        self._collect_pending_tick()
+        out, self._collected = self._collected, []
+        return out
+
+    @property
+    def has_uncollected(self) -> bool:
+        """A tick with decode lanes is in flight, or collected tokens wait
+        for delivery: a driver keeps collecting while this holds."""
+        h = self._pending_tick
+        return bool(self._collected) or (h is not None and h.tokens is not None)
+
+    def _collect_pending_tick(self) -> None:
+        h = self._pending_tick
+        if h is None:
+            return
+        self._pending_tick = None
+        if h.tokens is None:
+            return
+        if h.sync:
+            tokens, positions = h.tokens, h.positions
+        else:
+            tokens, positions = self.engine.decode_collect(h.tokens, h.positions)
+        lanes = np.asarray(h.lanes, np.int64)
+        # only the lanes this tick decoded: a row armed since (a restore)
+        # keeps its own position
         self.positions[lanes] = positions[lanes]
         now = time.perf_counter()  # tokens are on the host: delivery time
+        self._process_collected(h, tokens, now)
+
+    def _process_collected(self, h: TickHandle, tokens: np.ndarray, now: float) -> None:
+        """Per-token work of one collected tick: latencies, the stream,
+        retirement (the chain freed at once)."""
         out: List[Tuple[int, int]] = []
-        for slot in lanes.tolist():
+        for slot in h.lanes:
             req = self.resident[slot]
             token = int(tokens[slot])
             out.append((req.rid, token))
@@ -523,16 +672,45 @@ class Scheduler:
                 self.engine.release(slot)
                 self._completed += 1
                 self._cold_requests += req.cold
+                if self.on_retire is not None:
+                    self.on_retire(req.rid, "complete")
             else:
                 self.remaining[slot] -= 1
-        self.tick_lat.observe(now - t0)
-        return out
+        if out:
+            self.tick_lat.observe(now - h.t_step0)
+        self._collected.extend(out)
+
+    def step(self) -> List[Tuple[int, int]]:
+        """One synchronous tick: a pending tick collected, then dispatch
+        and collect. Returns ``[(rid, token)]``."""
+        out = self.collect_tick()
+        self.dispatch_tick(sync=True)
+        return out + self.collect_tick()
 
     @property
     def idle(self) -> bool:
         """Nothing queued, resident, parked or mid swap-out."""
         return (not self.queue and not self.resident and not self.parked
                 and not self._swapping)
+
+    def stuck_rids(self) -> Dict[str, List[int]]:
+        """Every live rid by state (``queued``, ``prefill``, ``decoding``,
+        ``parked``, ``swapping``); empty when idle."""
+        out: Dict[str, List[int]] = {}
+        if self.queue:
+            out["queued"] = [r.rid for r in self.queue]
+        prefill, decoding = [], []
+        for req in self.resident.values():
+            (prefill if req.prefill_done < req.length else decoding).append(req.rid)
+        if prefill:
+            out["prefill"] = sorted(prefill)
+        if decoding:
+            out["decoding"] = sorted(decoding)
+        if self.parked:
+            out["parked"] = sorted(self.parked)
+        if self._swapping:
+            out["swapping"] = sorted(e[0] for e in self._swapping)
+        return out
 
     def drain(self, max_steps: int = 100_000) -> Dict[int, List[int]]:
         """Step until idle; returns ``{rid: [tokens]}``."""
@@ -542,11 +720,139 @@ class Scheduler:
                 return produced
             for rid, tok in self.step():
                 produced.setdefault(rid, []).append(tok)
-        raise RuntimeError(
-            f"drain did not converge within {max_steps} steps: "
-            f"{len(self.queue)} queued, resident rids "
-            f"{sorted(r.rid for r in self.resident.values())}, parked "
-            f"{sorted(self.parked)}")
+        raise RuntimeError(f"drain did not converge within {max_steps} steps; "
+                           f"stuck rids by state: {self.stuck_rids()}")
+
+    # ---- the lifecycle: drain, cancel, deadlines, abandon ----
+
+    def begin_drain(self) -> None:
+        """Stop admitting: ``submit`` raises and no dispatch admits. The
+        pending tick is collected (its tokens kept for the next
+        ``collect_tick``) and open swap-out windows are closed (committed
+        or reverted), so what follows starts from settled state."""
+        self._collect_pending_tick()
+        if self.offload:
+            self._finalize_swaps()
+        self.draining = True
+
+    def drain_graceful(self, max_steps: int = 100_000
+                       ) -> Tuple[Dict[int, List[int]], List[Request]]:
+        """``begin_drain``, then run every admitted request (parked ones
+        included) to retirement. Returns ``(produced, requeued)``: their
+        tokens, and the queued requests, never admitted, for the caller
+        to submit elsewhere. Every pool block is free afterwards."""
+        self.begin_drain()
+        requeued = list(self.queue)
+        self.queue.clear()
+        produced: Dict[int, List[int]] = {}
+        for _ in range(max_steps):
+            if not self.resident and not self.parked and not self._swapping:
+                return produced, requeued
+            for rid, tok in self.step():
+                produced.setdefault(rid, []).append(tok)
+        raise RuntimeError(f"drain_graceful did not converge within {max_steps} steps; "
+                           f"stuck rids by state: {self.stuck_rids()}")
+
+    def cancel(self, rid: int, reason: str = "client-cancel",
+               outcome: str = "cancelled") -> bool:
+        """Abort request ``rid`` wherever it is (queued, mid-prefill,
+        decoding, parked on either path, mid swap-out), freeing its slot,
+        its device chain and its host copy. True when found; False when
+        it already left or never was (cancelling is idempotent). The
+        deadline sweep passes ``outcome="deadline"``. ``reason``, as in
+        ``preempt``, is the JAX signature's label for records not ported."""
+        # a tick in flight may be decoding it: collect first, so no release
+        # happens under a launched tick and its tokens are kept
+        self._collect_pending_tick()
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                del self.queue[i]
+                self._finish_cancel(req, outcome)
+                return True
+        if any(entry[0] == rid for entry in self._swapping):
+            # close the window first: the chain commits (cancel the host
+            # copy below) or reverts (release it below), never freed mid-copy
+            self._finalize_swaps()
+        if rid in self.parked:
+            req, path = self.parked.pop(rid)
+            if path == "swap":
+                self.host_store.pop(rid)
+            self._finish_cancel(req, outcome)
+            return True
+        slot = next((s for s, r in self.resident.items() if r.rid == rid), None)
+        if slot is None:
+            return False
+        req = self.resident.pop(slot)
+        self.remaining[slot] = 0
+        self.engine.release(slot)
+        self._finish_cancel(req, outcome)
+        return True
+
+    def _expire_deadlines(self) -> None:
+        """Cancel every live request whose deadline has passed, before the
+        restores and admissions, so an expired request takes no slot."""
+        now = time.perf_counter()
+        expired = [req.rid
+                   for bucket in (self.queue, self.resident.values(),
+                                  (r for r, _ in self.parked.values()),
+                                  (entry[1] for entry in self._swapping))
+                   for req in bucket if req.deadline <= now]
+        for rid in expired:
+            self.cancel(rid, reason="deadline-exceeded", outcome="deadline")
+
+    def _finish_cancel(self, req: Request, outcome: str) -> None:
+        if outcome == "deadline":
+            self._deadline_misses += 1
+        else:
+            self._cancelled += 1
+        if self.on_retire is not None:
+            self.on_retire(req.rid, outcome)
+
+    def harvest_requests(self) -> List[Request]:
+        """Every live request (queued, resident, parked, mid swap-out) in
+        rid order: what a caller tearing this scheduler down resubmits
+        elsewhere. Reads only."""
+        reqs: Dict[int, Request] = {}
+        for req in self.queue:
+            reqs[req.rid] = req
+        for req in self.resident.values():
+            reqs[req.rid] = req
+        for rid, (req, _path) in self.parked.items():
+            reqs[rid] = req
+        for entry in self._swapping:
+            reqs[entry[0]] = entry[1]
+        return [reqs[rid] for rid in sorted(reqs)]
+
+    def abandon(self) -> None:
+        """Tear this scheduler down for good: a tick in flight is dropped
+        uncollected (its tokens are lost, never its blocks), open swap-out
+        windows close without committing, and every device chain, host
+        copy and queue entry goes. ``submit`` raises afterwards."""
+        self._pending_tick = None
+        self._collected.clear()
+        self.draining = True
+        for entry in self._swapping:
+            slot = entry[2].slot
+            self.engine.allocator.clear_state(slot)
+            self._swap_slots.discard(slot)
+            self.engine.release(slot)
+        self._swapping.clear()
+        for rid, (_req, path) in self.parked.items():
+            if path == "swap":
+                self.host_store.pop(rid)
+        self.parked.clear()
+        for slot in list(self.resident):
+            del self.resident[slot]
+            self.engine.release(slot)
+        self.queue.clear()
+        self.positions[:] = 0
+        self.remaining[:] = 0
+
+    def live_requests(self) -> int:
+        """Requests this scheduler holds: queued, resident, parked, mid
+        swap-out."""
+        return (len(self.queue) + len(self.resident) + len(self.parked)
+                + len(self._swapping))
 
     def metrics(self) -> dict:
         """Exact host-side accounting; no device sync."""
@@ -568,8 +874,11 @@ class Scheduler:
             "padding_waste_frac": (1.0 - used_tokens / alloc_tokens
                                    if alloc_tokens else 0.0),
             "kv_dtype": self.engine.kv_dtype,
+            "draining": self.draining,
             "admitted": self._admitted,
             "completed": self._completed,
+            "cancelled": self._cancelled,
+            "deadline_misses": self._deadline_misses,
             "tokens_out": self._tokens_out,
             "tokens_per_s": self._tokens_out / elapsed if elapsed else 0.0,
             "admission_latency_steps_mean": (
