@@ -70,8 +70,8 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--prefill-chunk", type=int, default=32)
     p.add_argument("--admit-per-step", type=int, default=4)
     p.add_argument("--gather-impl", choices=("kernel", "dense"), default=None,
-                   help="paged attention: the CUDA kernels (the default), or "
-                        "the plain PyTorch version")
+                   help="paged attention: the CUDA kernels (unset: the "
+                        "config's, 'kernel'), or the plain PyTorch version")
     p.add_argument("--split-s", type=int, default=None,
                    help="flash-decoding workers (default: auto)")
     p.add_argument("--kv-dtype", choices=("int8", "fp8", "fp8_e5m2"), default=None,
@@ -149,7 +149,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         cfg, params_from_jax(init_params(cfg, args.seed)), n_slots=args.slots,
         block_len=args.block_len, prefill_chunk=args.prefill_chunk,
         n_blocks=args.n_blocks, admit_per_step=args.admit_per_step,
-        seed=args.seed, gather_impl=args.gather_impl or "kernel", split_s=args.split_s,
+        seed=args.seed, gather_impl=args.gather_impl, split_s=args.split_s,
         kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
         offload=args.preempt, preempt_on_oom=args.preempt,
         swap_policy=args.swap_policy, device=args.device,

@@ -38,7 +38,7 @@ Policy (continuous batching with chunked prefill):
   dispatch runs the deadline sweep, the swap finalizations and restores,
   admissions, the prefill chunk and *launches* the decode tick; collect
   waits for its tokens and does the per-token work (latencies,
-  retirement). ``step()`` is ``collect_tick(); dispatch_tick(sync=True);
+  retirement). ``step()`` is ``collect_tick(); dispatch_tick();
   collect_tick()``. A driver may run them lagged, ``collect_tick();
   dispatch_tick()`` per iteration, leaving one tick in flight between
   iterations (never two: dispatch raises while one is pending). On one
@@ -128,17 +128,16 @@ class Request:
 class TickHandle(NamedTuple):
     """A dispatched tick not yet collected. ``tokens``: the launched
     decode's ``TickTokens`` (its pinned host buffer lives until the
-    collect), the tokens themselves on the synchronous path, or None when
-    no lane decoded. ``lanes``: the slots that decoded, the only ones the
-    collect writes back; every one is still resident at the collect,
-    because each mutation from outside the tick collects first."""
+    collect), or None when no lane decoded. ``lanes``: the slots that
+    decoded, the only ones the collect writes back; every one is still
+    resident at the collect, because each mutation from outside the tick
+    collects first."""
 
     tokens: object
     positions: Optional[np.ndarray]
     lanes: Tuple[int, ...]
     t_step0: float
     cold_decode: bool
-    sync: bool
 
 
 class Scheduler:
@@ -540,12 +539,11 @@ class Scheduler:
             ))
         return jobs
 
-    def dispatch_tick(self, sync: bool = False) -> None:
+    def dispatch_tick(self) -> None:
         """The first half of a tick: the deadline sweep, finished
         swap-outs and restores (under offload), admissions, one prefill
         chunk for every unfinished prompt, and the decode tick launched
-        for every armed lane, not waited for. ``sync=True`` (``step``)
-        waits for the tokens here. Leaves the tick pending for
+        for every armed lane, not waited for. Leaves the tick pending for
         ``collect_tick``; raises if one is pending already."""
         if self._pending_tick is not None:
             raise RuntimeError("collect_tick() must collect the pending tick before "
@@ -595,18 +593,15 @@ class Scheduler:
             # last upload before writing its pinned inputs again, and a
             # graph replay reads the device vector that upload fills, as
             # the eager body does.
-            self._pending_tick = TickHandle(None, None, (), t0, False, sync)
+            self._pending_tick = TickHandle(None, None, (), t0, False)
             return
         lanes = tuple(int(s) for s in np.nonzero(active)[0])
         cold_decode = not self.engine.has_decode_program
         if cold_decode:  # this tick captures it
             for slot in lanes:
                 self.resident[slot].cold = True
-        if sync:
-            tokens, positions = self.engine.decode(self.positions, active)
-        else:
-            tokens, positions = self.engine.decode_launch(self.positions, active)
-        self._pending_tick = TickHandle(tokens, positions, lanes, t0, cold_decode, sync)
+        tokens, positions = self.engine.decode_launch(self.positions, active)
+        self._pending_tick = TickHandle(tokens, positions, lanes, t0, cold_decode)
 
     def collect_tick(self) -> List[Tuple[int, int]]:
         """The second half: wait for the pending tick's tokens and do the
@@ -632,10 +627,7 @@ class Scheduler:
         self._pending_tick = None
         if h.tokens is None:
             return
-        if h.sync:
-            tokens, positions = h.tokens, h.positions
-        else:
-            tokens, positions = self.engine.decode_collect(h.tokens, h.positions)
+        tokens, positions = self.engine.decode_collect(h.tokens, h.positions)
         lanes = np.asarray(h.lanes, np.int64)
         # only the lanes this tick decoded: a row armed since (a restore)
         # keeps its own position
@@ -684,7 +676,7 @@ class Scheduler:
         """One synchronous tick: a pending tick collected, then dispatch
         and collect. Returns ``[(rid, token)]``."""
         out = self.collect_tick()
-        self.dispatch_tick(sync=True)
+        self.dispatch_tick()
         return out + self.collect_tick()
 
     @property
@@ -753,14 +745,12 @@ class Scheduler:
         raise RuntimeError(f"drain_graceful did not converge within {max_steps} steps; "
                            f"stuck rids by state: {self.stuck_rids()}")
 
-    def cancel(self, rid: int, reason: str = "client-cancel",
-               outcome: str = "cancelled") -> bool:
+    def cancel(self, rid: int, outcome: str = "cancelled") -> bool:
         """Abort request ``rid`` wherever it is (queued, mid-prefill,
         decoding, parked on either path, mid swap-out), freeing its slot,
         its device chain and its host copy. True when found; False when
         it already left or never was (cancelling is idempotent). The
-        deadline sweep passes ``outcome="deadline"``. ``reason``, as in
-        ``preempt``, is the JAX signature's label for records not ported."""
+        deadline sweep passes ``outcome="deadline"``."""
         # a tick in flight may be decoding it: collect first, so no release
         # happens under a launched tick and its tokens are kept
         self._collect_pending_tick()
@@ -798,7 +788,7 @@ class Scheduler:
                                   (entry[1] for entry in self._swapping))
                    for req in bucket if req.deadline <= now]
         for rid in expired:
-            self.cancel(rid, reason="deadline-exceeded", outcome="deadline")
+            self.cancel(rid, outcome="deadline")
 
     def _finish_cancel(self, req: Request, outcome: str) -> None:
         if outcome == "deadline":

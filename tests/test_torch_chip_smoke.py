@@ -711,7 +711,9 @@ def test_lifecycle_phase_rehearses_on_cpu(chip_smoke, capsys):
     every ``kv.*`` site keeps its streams, the scripted cancels and
     deadlines act on the same requests in both loops and leave nothing
     behind, the drain and the abandon free every block, the dense batcher
-    agrees with the paged one and ``serve_lm --dense`` runs."""
+    agrees with the paged one and both with the full forward, the planted
+    fault shows in the retried request alone, and ``serve_lm --dense``
+    runs."""
     from pytorch_distributed_tpu_torch.models import init_params, params_from_jax, tiny_config
     from pytorch_distributed_tpu_torch.serving import Scheduler
 
@@ -723,10 +725,12 @@ def test_lifecycle_phase_rehearses_on_cpu(chip_smoke, capsys):
     serve_kw = dict(n_slots=4, block_len=8, prefill_chunk=8, device="cpu")
     served = []
 
-    def serve(label, reqs, *, warm=False, lagged=False, **kw):
+    def serve(label, reqs, *, warm=False, lagged=False, hook=None, **kw):
         sched = Scheduler(cfg, state, gather_impl="kernel", **{**serve_kw, **kw})
         if warm:
             sched.warmup(background=False)
+        if hook is not None:
+            hook(sched)
         rids = [sched.submit(p, 32) for p in reqs]
         out = chip_smoke.lagged_drain(sched) if lagged else sched.drain()
         assert sched.engine.allocator.in_use == 0 and not sched.has_uncollected
@@ -747,8 +751,13 @@ def test_lifecycle_phase_rehearses_on_cpu(chip_smoke, capsys):
                           "bf16 pools, graphs, lagged loop, warmed up",
                           "pressure, fp8 pools, swap, lagged loop",
                           "pressure, fp8 pools, swap, a fault at each kv.* site, step loop",
-                          "pressure, fp8 pools, swap, a fault at each kv.* site, lagged loop"]
+                          "pressure, fp8 pools, swap, a fault at each kv.* site, lagged loop",
+                          "pressure, fp8 pools, swap, a fault at each kv.* site, planted loop"]
     assert out["faults"]["swap_aborts"] >= 3 and out["faults"]["streams_equal"]
+    assert out["faults"]["differ"] == [] and len(out["faults"]["planted_differ"]) == 1
+    assert set(out["faults"]["faulted"]) <= set(out["faults"]["same_buckets"])
+    assert out["ragged_fp32"]["drawn"] and out["ragged_fp32"]["equal_to_generate"]
+    assert max(out["batcher"]["dense_max_abs_err"], out["batcher"]["paged_max_abs_err"]) < 1e-4
     assert out["faults"]["exact"] == dict.fromkeys(
         ("kv.swap_out_d2h", "kv.host_write", "kv.swap_in_h2d"), True)
     assert out["loops"]["lagged_busy"] == 0.5
