@@ -79,7 +79,21 @@ Phases, each of which fails the run:
       bit-equal, nothing left behind; ``drain_graceful`` and ``abandon``;
       ``ContinuousBatcher`` dense against paged (logits, greedy match, tick
       p50), ``generate_ragged`` against ``generate``, and ``serve_lm
-      --dense`` run to its end;
+      --dense`` run to its end; the serving fleet (``fleet_runs``, in a
+      spawned process of its own, ``fleet_phase``): one replica and two
+      mixed ones on the card, sharing its weights, by the synchronous and
+      the lagged loop in turns (streams, placement and decisions
+      bit-equal, step and tick p50, tok/s, TTFT, busy by CUDA events and
+      profiled a process each, host syncs a step: none), disaggregated 1 +
+      1 with every handoff byte-equal on bf16 and fp8 pools, a seeded
+      64-request trace that spills and sheds (each loop's decisions its
+      CPU twin's), a replica killed mid-serve and revived (no capture by
+      the survivor), a hang past the tick deadline, a fault at each
+      handoff site, the HTTP/SSE gateway (streams equal to the in-process
+      fleet's, 429, a disconnect's cancel), and ``serve_lm --replicas 2
+      --disaggregate --async-host`` and ``--http-port 0`` run to their
+      end; the kernels line also counts kernels 7-9 in this phase
+      (``fleet_launches``);
       ``LMTrainer`` takes 8 steps at batch 8 x 2048 tokens and one
       validation pass, then the first step's loss and grad norm with flash
       attention against dense attention (batch 2); ResNet-50 (random weights
@@ -172,6 +186,7 @@ the repository. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -179,6 +194,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 import weakref
 
 import numpy as np
@@ -210,6 +227,23 @@ PRESSURE = dict(kv_dtype="fp8", n_blocks=200, offload=True, preempt_on_oom=True)
 # the bf16 batchers as served (read at 0.047 dense, 0.055 paged on an H100),
 # generate_ragged's steps in fp32 with TF32 off (read at 7.4e-6)
 DECODE_TOL = {"bf16": 0.1, "fp32": 1e-3}
+# the fleet phase's seeded trace (fleet.generate_trace, its first 64
+# requests, clamped to 2048 positions) replayed at 0.1 s a tick under
+# depth-only SLOs: on the serving geometry (8 slots a replica, blocks of
+# 16, chunk 32) it spills and sheds
+FLEET_TRACE = dict(seed=0, duration_s=60.0, base_rate=4.0, burst_rate_mult=6.0,
+                   burst_every_s=5.0, burst_len_s=1.0, sessions=16, prompt_median=256,
+                   prompt_sigma=0.8, max_new_median=16, max_new_sigma=0.5)
+FLEET_TRACE_N = 64
+FLEET_TICK_S = 0.1
+FLEET_SLO = dict(spill_queue_depth=3, shed_queue_depth=8)
+# the hang at a tick: past the tick deadline, which is far above a warmed
+# tick's wall
+FLEET_HANG = dict(tick_deadline_s=0.5, seconds=0.75)
+# the fleet phase's recipe runs, each in a process of its own
+FLEET_RECIPES = {"disaggregated": ["--replicas", "2", "--disaggregate", "--async-host"],
+                 "gateway": ["--replicas", "2", "--http-port", "0", "--http-duration", "5"]}
+
 # kernel 6, the split backward, against its plain version, the fused kernel
 # and itself: (label, dtype, causal, shift, flash_inputs shape); a shape
 # with ``view=(q half, kv half)`` checks a zigzag ring visit: the two halves
@@ -2222,26 +2256,38 @@ def time_tail_kernels(torch, card, dev="cuda") -> dict:
 def profiled_busy(torch, cfg, state, prompts, max_new, kw) -> float:
     """The device's busy share of one warmed-up serve of ``prompts``
     (``Scheduler(**kw)``, ``warmup(background=False)`` first; driven by
-    ``step()``, or by ``lagged_drain`` where ``kw["lagged"]``): the union of
-    the kernels' intervals in a ``torch.profiler`` trace of the CUDA
-    activity alone, over the serve's wall."""
+    ``step()``, or by ``lagged_drain`` where ``kw["lagged"]``; or, where
+    ``kw["fleet"]`` holds ``FleetRouter`` arguments, a fleet of such
+    replicas, the requests in 4 sessions): the union of the kernels'
+    intervals in a ``torch.profiler`` trace of the CUDA activity alone, over
+    the serve's wall."""
     from torch.profiler import ProfilerActivity, profile
 
+    from pytorch_distributed_tpu_torch.fleet import FleetRouter
     from pytorch_distributed_tpu_torch.serving import Scheduler
     from pytorch_distributed_tpu_torch.tools.profile_serve import busy_share
 
     kw = dict(kw)
     lagged = kw.pop("lagged", False)
-    sched = Scheduler(cfg, state, gather_impl="kernel", **kw)
-    sched.warmup(background=False)
-    for q in prompts:
-        sched.submit(q, max_new)
+    fleet = kw.pop("fleet", None)
+    if fleet is not None:
+        sched = FleetRouter(cfg, state, gather_impl="kernel", **fleet, **kw)
+        sched.warmup()
+        for i, q in enumerate(prompts):
+            sched.submit(q, max_new, session=i % 4)
+    else:
+        sched = Scheduler(cfg, state, gather_impl="kernel", **kw)
+        sched.warmup(background=False)
+        for q in prompts:
+            sched.submit(q, max_new)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         lagged_drain(sched) if lagged else sched.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if fleet is not None:
+        sched.close()
     return busy_share(prof, wall * 1e6)
 
 
@@ -2959,6 +3005,647 @@ def lifecycle_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, pressur
     return out
 
 
+@contextlib.contextmanager
+def counted_syncs(torch, dev, syncs: list):
+    """The host syncs PyTorch's sync debug mode reports inside the block
+    (``.item()``, ``.cpu()``, ``.tolist()`` of a device tensor, a blocking
+    copy, ``torch.cuda.synchronize()``; an event's own wait is not one),
+    appended to ``syncs``, each as the innermost ``file:line`` of the port
+    or this script on its stack; on the CPU none."""
+    if dev != "cuda":
+        yield
+        return
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]  # not this frame
+                if "pytorch_distributed_tpu_torch" in f.filename or "chip_smoke" in f.filename]
+        where = ours[-1] if ours else None
+        syncs.append(f"{os.path.basename(filename)}:{lineno}" if where is None else
+                     f"{os.path.basename(where.filename)}:{where.lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def record_prefill(torch, router, timed=False):
+    """Per rid, the ``(bucket, start)`` of every prefill chunk it rode on
+    any replica (``serve_record``'s rule: two serves of a request whose
+    chunks rode the same buckets agree bit for bit); and with ``timed``, on
+    the card, a pair of CUDA events around every program's replay
+    (``PagedEngine._run``, after its inputs are staged), on the stream the
+    programs run on, so the pairs never overlap: summed after a sync, the
+    card's busy time, less its input and token copies, plus the few
+    microseconds between an event on an idle stream and the replay after
+    it. Returns ``(record, pairs)``. The wrappers hold the schedulers
+    weakly."""
+    rec, pairs = {}, []
+    timed = timed and router.replicas[0].engine.device.type == "cuda"
+
+    def timing(fn, *args):
+        if not timed:
+            return fn(*args)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*args)
+        e1.record()
+        pairs.append((e0, e1))
+        return out
+
+    for sched in router.replicas:
+        cls, ref = type(sched.engine), weakref.ref(sched)
+
+        def chunks(jobs, ref=ref, cls=cls):
+            s = ref()
+            bucket = s.engine.bucket_for(jobs)
+            for j in jobs:
+                rec.setdefault(s.resident[j.slot].rid, []).append((bucket, j.start))
+            return cls.run_chunks(s.engine, jobs)
+
+        sched.engine.run_chunks = chunks
+        if timed:
+            def run(prog, body, ref=ref, cls=cls):
+                return timing(cls._run, ref().engine, prog, body)
+
+            sched.engine._run = run
+    return rec, pairs
+
+
+def record_handoffs(torch, router) -> list:
+    """Hold every handoff byte for byte: each export's blocks (every pool
+    tensor, scales included) and logits row against the source pool's
+    chain as it stands, and each import's chain and logits row in the
+    target pool against the export. Appends one bool a handoff
+    (export and import both equal)."""
+    checks, pending = [], {}
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8),
+                                                  b.contiguous().view(torch.uint8))
+
+    def rows(eng, slot):
+        idx = torch.as_tensor(eng.allocator.chain(slot), dtype=torch.long, device=eng.device)
+        return [t[idx] for layer in eng.cache for t in layer if t is not None]
+
+    def flat(export):
+        return [b for layer in export.blocks for b in layer if b is not None]
+
+    for sched in router.replicas:
+        cls, ref = type(sched.engine), weakref.ref(sched.engine)
+        if sched.prefill_only:
+            def export(slot, ref=ref, cls=cls):
+                eng = ref()
+                ex = cls.export_chain(eng, slot)
+                pending[id(ex)] = (all(same(a, b) for a, b in zip(rows(eng, slot), flat(ex)))
+                                   and same(eng.logits[slot], ex.logits_row))
+                return ex
+
+            sched.engine.export_chain = export
+        else:
+            def imp(slot, ex, ref=ref, cls=cls):
+                eng = ref()
+                ok = cls.import_chain(eng, slot, ex)
+                if ok:
+                    checks.append(pending.pop(id(ex)) and all(
+                        same(a, b) for a, b in zip(rows(eng, slot), flat(ex)))
+                        and same(eng.logits[slot], ex.logits_row))
+                return ok
+
+            sched.engine.import_chain = imp
+    return checks
+
+
+def fleet_runs(torch, card, cfg, state, prompts, serve_kw, *, kill_tick=40, recipes,
+               dev="cuda") -> dict:
+    """(c) the serving fleet (``fleet.FleetRouter``, two replicas on the
+    card sharing its weights, each warmed up, kernels 7-9 in every
+    replica's graphs) and its HTTP front door. Fails the run on any
+    difference.
+
+    1. The requests in 4 sessions through two mixed replicas by the
+       synchronous loop and the lagged one (``async_host``): streams,
+       placement and decisions bit-equal, every allocator empty after,
+       no graph captured; each loop's fleet step and tick p50, tok/s and
+       TTFT, and the host syncs a fleet step (PyTorch's sync debug mode:
+       none in the lagged loop, or it waits for the other replica); the
+       launch counts of the synchronous serve (``launches``).
+    2. Disaggregated, 1 prefill + 1 decode, on bf16 and on fp8 pools: every
+       handoff byte-equal (``record_handoffs``), one a request, their p50;
+       on bf16 the streams against the colocated fleet's, bit-equal for
+       every request whose chunks rode the same buckets, a match rate over
+       all; on fp8 the append route's launches (``fp8_launches``).
+    3. A seeded trace (``FLEET_TRACE``, ``FLEET_TRACE_N`` requests clamped
+       to ``max_seq_len``) replayed at ``FLEET_TICK_S`` under depth-only
+       SLOs (``FLEET_SLO``) by both loops: spills and at least one shed,
+       each loop's decisions those of its CPU twin, the same sheds in both,
+       and bit-equal streams where the chunks rode the same buckets.
+    4. The failure plane: ``serve.dispatch`` raising on replica 1 at its
+       ``kill_tick``-th and next tick (``fail_threshold`` 2) condemns it;
+       it is left with no block, its requests are re-dispatched and finish
+       with the tokens delivered before its death unchanged, the others
+       bit-equal to the fault-free serve where their chunks rode the same
+       buckets; then ``revive(1)`` behind warmup, and the survivor captures
+       no graph while both serve new requests. A ``hang`` past
+       ``tick_deadline_s`` condemns its replica and every request
+       finishes. ``serve.handoff_export`` and ``serve.handoff_import`` fire
+       once each in a disaggregated fleet: nothing fails, nothing leaks.
+    5. ``gateway.Gateway`` on 127.0.0.1 over a lagged 2-replica fleet: 4
+       requests streamed one after another equal to the in-process
+       fleet's, a lapsed deadline a 429 with ``Retry-After``, a mid-stream
+       disconnect a cancel with no block left, ``/v1/health`` and
+       ``/metrics``; then ``recipes`` (``{label: argv}``) of ``serve_lm``
+       each in a process of its own to exit 0, the ``--http-port`` one
+       answering one request through ``gateway.client``."""
+    from pytorch_distributed_tpu_torch.fleet import (
+        FleetRouter,
+        SLOConfig,
+        clamp_trace,
+        generate_trace,
+        prompt_for,
+        replay_trace,
+    )
+    from pytorch_distributed_tpu_torch.gateway import (
+        Gateway,
+        generate,
+        health,
+        metrics_text,
+        open_stream,
+    )
+    from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
+    from pytorch_distributed_tpu_torch.ops import paged_flash
+    from pytorch_distributed_tpu_torch.resilience import faults
+    from pytorch_distributed_tpu_torch.serving.kv_pool import kv_pool_dtype
+
+    t_phase = time.perf_counter()
+    max_new = 32
+    out, problems = {}, []
+
+    def fleet(**over):
+        router = FleetRouter(cfg, state, gather_impl="kernel",
+                             **{"n_replicas": 2, **serve_kw, **over})
+        router.warmup()
+        return router
+
+    def launches():
+        return {k: v for counts in (paged_flash.launch_counts, paged_flash.quant_launch_counts,
+                                    paged_flash.route_launch_counts)
+                for k, v in counts.items() if v}
+
+    def left(router):
+        return [s.engine.allocator.in_use for s in router.replicas]
+
+    def done(router):
+        router.close()
+        del router
+        empty_cache(torch, dev)
+
+    def drive(router, reqs, sessions=4, after_step=None, syncs=None):
+        """Submit ``reqs`` (session i % ``sessions``) and step to idle:
+        rids, the serve's wall and each step's wall; with ``syncs`` (a
+        list), the host syncs of the steps appended to it."""
+        rids = [router.submit(p, max_new, session=i % sessions) for i, p in enumerate(reqs)]
+        walls = []
+        t0 = time.perf_counter()
+        with counted_syncs(torch, dev, [] if syncs is None else syncs):
+            while not router.idle:
+                t = time.perf_counter()
+                router.step()
+                walls.append(time.perf_counter() - t)
+                if after_step is not None:
+                    after_step(router)
+            router.drain()
+        sync(torch, dev)
+        return rids, time.perf_counter() - t0, walls
+
+    def decisions(router):
+        m = router.metrics()
+        return (dict(router.placement), dict(router.rejected),
+                {k: m[k] for k in ("submitted", "shed", "spilled", "handoffs", "preempt_routes",
+                                   "completed")})
+
+    def complete(router, rids, budget=max_new):
+        return all(len(router.results.get(r, ())) == budget for r in rids)
+
+    # 1. one replica and two mixed replicas by the synchronous loop and the
+    # lagged one, in turns (one, sync, async, async, sync, one) after a
+    # throwaway serve (the process's first serve pays one-off costs)
+    runs = {}
+    for loop in ("warm", "one", "sync", "async", "async", "sync", "one"):
+        router = fleet(n_replicas=1 if loop == "one" else 2, async_host=loop == "async")
+        rec, pairs = record_prefill(torch, router, timed=True)
+        captures = [s.engine.captures for s in router.replicas]
+        sync(torch, dev)
+        paged_flash.reset_launch_counts()
+        syncs = []
+        rids, wall, walls = drive(router, prompts, syncs=syncs)
+        m = router.metrics()
+        ticks = [v for s in router.replicas for v in s.tick_lat.values]
+        busy = sum(e0.elapsed_time(e1) for e0, e1 in pairs) / 1e3 / wall if pairs else None
+        r = {
+            "streams": [router.results[r] for r in rids], "decisions": decisions(router),
+            "launches": launches(), "left": left(router), "record": rec,
+            "captured": sum(s.engine.captures for s in router.replicas) - sum(captures),
+            "complete": complete(router, rids), "step_p50_s": float(np.median(walls)),
+            "tick_p50_s": float(np.median(ticks)), "tok_per_s": m["tokens_out"] / wall,
+            "ttft_p50_s": m["ttft_p50_s"], "ttft_p95_s": m["ttft_p95_s"], "steps": len(walls),
+            "syncs_per_step": len(syncs) / len(walls), "sync_sites": sorted(set(syncs)),
+            "busy_events": busy,
+            "replica_tokens": [m[f"r{i}_tokens_out"] for i in range(len(router.replicas))]}
+        runs.setdefault(loop, []).append(r)
+        done(router)
+        busy = "not measured" if busy is None else f"{busy:.3f}"
+        print(f"(c) fleet: {'1 replica' if loop == 'one' else '2 mixed replicas'}, "
+              f"{'lagged' if loop == 'async' else 'synchronous'} loop"
+              f"{', the throwaway serve' if loop == 'warm' else ''}, on {card}: "
+              f"{len(prompts)} requests x {max_new} tokens in 4 sessions: {r['steps']} steps, "
+              f"step p50 {r['step_p50_s'] * 1e3:.3f} ms, replica tick p50 "
+              f"{r['tick_p50_s'] * 1e3:.3f} ms, {r['tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{r['ttft_p50_s'] * 1e3:.1f} ms p95 {r['ttft_p95_s'] * 1e3:.1f} ms, busy (CUDA "
+              f"events around every replay) {busy}; host syncs a step "
+              f"{r['syncs_per_step']:.4f} at {r['sync_sites']}; tokens by replica "
+              f"{r['replica_tokens']}; blocks left {r['left']}; graphs captured while serving "
+              f"{r['captured']}")
+    del runs["warm"]
+    flat = [r for rs in runs.values() for r in rs]
+    o_, s_, a_ = runs["one"][0], runs["sync"][0], runs["async"][0]
+    print(f"(c) fleet: synchronous vs lagged loop: streams equal "
+          f"{all(r['streams'] == s_['streams'] for r in runs['sync'] + runs['async'])}, "
+          f"placement and decisions equal "
+          f"{all(r['decisions'] == s_['decisions'] for r in runs['sync'] + runs['async'])}; "
+          f"launches {s_['launches']}")
+    bf16 = (paged_flash.SWEEP, paged_flash.SPLIT)
+    if (any(r["streams"] != s_["streams"] or r["decisions"] != s_["decisions"]
+            for r in runs["sync"] + runs["async"])
+            or any(r["streams"] != o_["streams"] for r in runs["one"])
+            or any(any(r["left"]) or r["captured"] or not r["complete"] for r in flat)
+            or any(r["syncs_per_step"] for r in flat)
+            or (dev == "cuda" and not all(s_["launches"].get(k, 0) for k in bf16))
+            or 0 in s_["replica_tokens"]):
+        problems.append(f"the 2-replica fleet: loops equal {s_['streams'] == a_['streams']}, "
+                        f"decisions equal {s_['decisions'] == a_['decisions']}, left "
+                        f"{[r['left'] for r in flat]}, captured {[r['captured'] for r in flat]}, "
+                        f"syncs {[r['sync_sites'] for r in flat]}, launches {s_['launches']}")
+    out["loops"] = {f"{loop}_{k}": [r[k] for r in rs] for loop, rs in runs.items()
+                    for k in ("step_p50_s", "tick_p50_s", "tok_per_s", "ttft_p50_s", "ttft_p95_s",
+                              "syncs_per_step", "steps", "busy_events")}
+    out["launches"] = s_["launches"]
+
+    # 2. disaggregated, 1 prefill + 1 decode, against the colocated fleet of
+    # one replica above (which prefills on the same schedule until its
+    # decoding lanes hold slots the prefill replica has freed): bf16 pools
+    # timed, then bf16 and fp8 pools with every handoff checked
+    col_rec, colocated = o_["record"], o_["streams"]
+    disagg = {}
+    for label, kv in (("bf16", None), ("bf16, checked", None), ("fp8, checked", "fp8")):
+        router = fleet(disaggregate=True, kv_dtype=kv)
+        rec = record_prefill(torch, router)[0]
+        checks = record_handoffs(torch, router) if "checked" in label else None
+        sync(torch, dev)
+        paged_flash.reset_launch_counts()
+        rids, _, _ = drive(router, prompts)
+        m = router.metrics()
+        disagg[label] = {"streams": [router.results[r] for r in rids], "record": rec,
+                         "checks": checks, "handoffs": m["handoffs"],
+                         "handoff_p50_s": m.get("handoff_p50_s"),
+                         "handoff_p95_s": m.get("handoff_p95_s"), "left": left(router),
+                         "complete": complete(router, rids), "launches": launches()}
+        done(router)
+    disagg["fp8"] = disagg.pop("fp8, checked")
+    d = disagg["bf16"]
+    same = [i for i in range(len(prompts)) if d["record"].get(i) == col_rec.get(i)]
+    differ = [i for i in same if d["streams"][i] != colocated[i]]
+    match = match_rate(d["streams"], colocated)
+    dt8 = kv_pool_dtype("fp8")
+    fp8_keys = [paged_flash.variant(k, dt8) for k in bf16]
+    fp8_append = sum(disagg["fp8"]["launches"].get(paged_flash.append_key(k, dt8), 0) for k in bf16)
+    for label, r in disagg.items():
+        checked = ("unchecked" if r["checks"] is None else
+                   f"{sum(r['checks'])} of {len(r['checks'])} byte-equal (blocks, scales and "
+                   f"logits row, export and import; the checks inside the timed handoff)")
+        print(f"(c) fleet: disaggregated 1 prefill + 1 decode, {label} pools, on {card}: "
+              f"{r['handoffs']} handoffs, {checked}, handoff p50 "
+              f"{(r['handoff_p50_s'] or 0.0) * 1e3:.3f} ms p95 "
+              f"{(r['handoff_p95_s'] or 0.0) * 1e3:.3f} ms; blocks left {r['left']}")
+        if (r["handoffs"] != len(prompts) or any(r["left"]) or not r["complete"]
+                or (r["checks"] is not None
+                    and (len(r["checks"]) != len(prompts) or not all(r["checks"])))):
+            problems.append(f"disaggregated {label}: {r['handoffs']} handoffs, checks "
+                            f"{r['checks']}, left {r['left']}")
+    print(f"(c) fleet: disaggregated vs colocated (one mixed replica) streams, bf16: rids on "
+          f"the same prefill "
+          f"buckets {same}, of which differ {differ}; greedy match over all {match:.3f}; fp8 "
+          f"launches {disagg['fp8']['launches']}")
+    if differ or not same or (dev == "cuda" and not (
+            all(disagg["fp8"]["launches"].get(k, 0) for k in fp8_keys) and fp8_append)):
+        problems.append(f"disaggregated vs colocated: same buckets {same}, differ {differ}; fp8 "
+                        f"launches {disagg['fp8']['launches']}")
+    checked_streams = disagg["bf16, checked"]["streams"]
+    if checked_streams != d["streams"]:
+        problems.append("the checked disaggregated serve's streams differ from the timed one's")
+    out["disagg"] = {"handoffs": d["handoffs"], "handoff_p50_s": d["handoff_p50_s"],
+                     "handoff_p95_s": d["handoff_p95_s"], "same_buckets": same, "match": match}
+    out["fp8_launches"] = disagg["fp8"]["launches"]
+
+    # 3. a seeded trace under depth-only SLOs, both loops. Routing reads
+    # queue depths and occupancy, step-domain counts, so each loop's
+    # decisions are those of a CPU twin of its fleet (a narrow model of the
+    # same serving geometry). The lagged loop reads each replica's
+    # occupancy before its last tick is collected, so its decisions may
+    # differ from the synchronous loop's (so do the JAX package's): the
+    # sheds, every stream whole, and the streams of the requests whose
+    # chunks rode the same buckets in both loops are held between them
+    trace = clamp_trace(generate_trace(**FLEET_TRACE)[:FLEET_TRACE_N], cfg.max_seq_len,
+                        serve_kw["prefill_chunk"])
+    twin_cfg = dataclasses.replace(cfg, num_layers=1, embed_dim=32, num_heads=2,
+                                   dtype=torch.float32)
+    twin_state = params_from_jax(init_params(twin_cfg, seed=0))
+
+    def replay(router, rec=None):
+        budgets = {}
+
+        def submit(r):
+            budgets[router.submit(prompt_for(r, cfg.vocab_size), r.max_new,
+                                  session=r.session)] = r.max_new
+
+        ticks = replay_trace(trace, submit, router.step, lambda: router.idle,
+                             tick_s=FLEET_TICK_S)
+        router.drain()
+        served = [rid for rid in budgets if rid not in router.rejected]
+        return {"streams": {rid: router.results.get(rid) for rid in budgets},
+                "decisions": decisions(router), "ticks": ticks, "left": left(router),
+                "record": rec,
+                "complete": all(len(router.results.get(rid, ())) == budgets[rid]
+                                for rid in served)}
+
+    traced, twins = {}, {}
+    for loop in ("sync", "async"):
+        router = fleet(slo=SLOConfig(**FLEET_SLO), async_host=loop == "async")
+        traced[loop] = replay(router, record_prefill(torch, router)[0])
+        done(router)
+        twin = FleetRouter(twin_cfg, twin_state, n_replicas=2, slo=SLOConfig(**FLEET_SLO),
+                           async_host=loop == "async", **{**serve_kw, "device": "cpu"})
+        twins[loop] = replay(twin)["decisions"]
+        twin.close()
+    ts, ta = traced["sync"], traced["async"]
+    counts = ts["decisions"][2]
+    moved = sorted(rid for rid, rep in ts["decisions"][0].items()
+                   if ta["decisions"][0].get(rid) != rep)
+    same = sorted(rid for rid, shapes in ts["record"].items()
+                  if shapes == ta["record"].get(rid))
+    differ = [rid for rid in same if ts["streams"][rid] != ta["streams"][rid]]
+    served = [rid for rid, st in ts["streams"].items() if st is not None]
+    print(f"(c) fleet: trace of {len(trace)} requests (seed {FLEET_TRACE['seed']}, prompts up to "
+          f"{max(r.prompt_len for r in trace)} tokens) at {FLEET_TICK_S} s a tick, SLO "
+          f"{FLEET_SLO}, on {card}: synchronous loop {ts['ticks']} ticks, {counts}; lagged loop "
+          f"{ta['ticks']} ticks, {ta['decisions'][2]}; each loop's decisions equal to its CPU "
+          f"twin's {ts['decisions'] == twins['sync']} {ta['decisions'] == twins['async']}; "
+          f"sheds equal between the loops {ts['decisions'][1] == ta['decisions'][1]} (reasons "
+          f"{sorted(set(ts['decisions'][1].values()))}), rids placed apart {moved}; rids on the "
+          f"same buckets in both {len(same)}, of which streams differ {differ}; greedy match "
+          f"{match_rate(*([st[r] for r in served] for st in (ts['streams'], ta['streams']))):.3f}; "
+          f"blocks left {ts['left']} {ta['left']}")
+    if (ts["decisions"] != twins["sync"] or ta["decisions"] != twins["async"]
+            or ts["decisions"][1] != ta["decisions"][1] or differ or not same
+            or counts["spilled"] < 1 or counts["shed"] < 1 or any(ts["left"] + ta["left"])
+            or not (ts["complete"] and ta["complete"])):
+        problems.append(f"the trace: counts {counts} {ta['decisions'][2]}, twins equal "
+                        f"{ts['decisions'] == twins['sync']} {ta['decisions'] == twins['async']}"
+                        f", differ {differ}, left {ts['left']} {ta['left']}, every stream "
+                        f"whole {ts['complete']} {ta['complete']}")
+    out["trace"] = {**counts, "ticks": ts["ticks"], "lagged": ta["decisions"][2],
+                    "placed_apart": moved}
+
+    # 4. the failure plane: a replica killed mid-serve, revived; a hang; handoff faults
+    router = fleet(fail_threshold=2, redispatch_base_delay_s=0.0)
+    rec = record_prefill(torch, router)[0]
+    death = {}
+
+    def watch(router):
+        if not death and router.health[1]["state"] == "dead":
+            harvested = sorted(router._origin)
+            death.update(step=router._tick, harvested=harvested,
+                         delivered={r: list(router.results.get(r, ())) for r in harvested},
+                         left=router.replicas[1].engine.allocator.in_use)
+
+    # replica 1 dispatches the odd occurrences while both live
+    plan = faults.install_plan(faults.FaultPlan([
+        faults.FaultSpec(site="serve.dispatch", kind="raise", at=2 * kill_tick + 1),
+        faults.FaultSpec(site="serve.dispatch", kind="raise", at=2 * kill_tick + 3)]))
+    try:
+        rids, _, _ = drive(router, prompts, after_step=watch)
+    finally:
+        faults.clear_plan()
+    m = router.metrics()
+    streams = [router.results[r] for r in rids]
+    moved = death.get("harvested", [])
+    kept = [i for i in range(len(prompts))
+            if i not in moved and rec.get(i) == s_["record"].get(i)]
+    prefix_ok = all(streams[r][:len(death["delivered"][r])] == death["delivered"][r]
+                    and death["delivered"][r] == s_["streams"][r][:len(death["delivered"][r])]
+                    for r in moved)
+    kept_differ = [i for i in kept if streams[i] != s_["streams"][i]]
+    fault_match = match_rate(streams, s_["streams"])
+    print(f"(c) fleet: serve.dispatch raised on replica 1 at its ticks {kill_tick} and "
+          f"{kill_tick + 1} (fired {len(plan.fired)}): health "
+          f"{[h['state'] for h in router.health]}, condemned at step {death.get('step')} "
+          f"with {death.get('left')} blocks left, rids "
+          f"{moved} re-dispatched ({m['redispatched']}) after "
+          f"{[len(death['delivered'][r]) for r in moved]} delivered tokens, every stream whole "
+          f"{complete(router, rids)}, delivered prefixes unchanged {prefix_ok}; rids never moved "
+          f"on the same buckets {kept}, of which differ {kept_differ}; greedy match with the "
+          f"fault-free serve {fault_match:.3f}")
+    if (len(plan.fired) != 2 or m["replica_deaths"] != 1 or router.health[1]["state"] != "dead"
+            or death.get("left") != 0 or not moved or not prefix_ok or kept_differ
+            or not complete(router, rids) or m["failed"] or any(left(router))):
+        problems.append(f"the killed replica: fired {plan.fired}, deaths {m['replica_deaths']}, "
+                        f"death {death.get('step')} left {death.get('left')}, moved {moved}, "
+                        f"prefixes {prefix_ok}, differ {kept_differ}")
+    survivor = router.replicas[0].engine.captures
+    router.revive(1)
+    revived = router.replicas[1].engine.captures
+    more = [router.submit(p, max_new, session=100 + i) for i, p in enumerate(prompts[:4])]
+    router.drain()
+    counts_after = (router.replicas[0].engine.captures - survivor,
+                    router.replicas[1].engine.captures - revived)
+    revived_served = router.replicas[1].metrics()["completed"]
+    router.assert_registry_covers()
+    print(f"(c) fleet: revive(1) behind warmup: health {[h['state'] for h in router.health]}, "
+          f"{revived} graphs on the revived replica, graphs captured since by the survivor and "
+          f"the revived one {counts_after}, requests the revived one served {revived_served}, "
+          f"new streams whole {complete(router, more)}; blocks left {left(router)}")
+    if (counts_after != (0, 0) or revived_served < 1 or not complete(router, more)
+            or any(left(router)) or router.health[1]["state"] != "healthy"):
+        problems.append(f"revive: captured {counts_after}, served {revived_served}")
+    done(router)
+    router = fleet(tick_deadline_s=FLEET_HANG["tick_deadline_s"], redispatch_base_delay_s=0.0)
+    plan = faults.install_plan(faults.FaultPlan([faults.FaultSpec(
+        site="serve.dispatch", kind="hang", at=2, seconds=FLEET_HANG["seconds"])]))
+    try:
+        rids, _, _ = drive(router, prompts[:8])
+    finally:
+        faults.clear_plan()
+    hang = ([h["state"] for h in router.health], complete(router, rids), left(router))
+    print(f"(c) fleet: a {FLEET_HANG['seconds']} s hang at replica 0's second tick, tick "
+          f"deadline {FLEET_HANG['tick_deadline_s']} s: health {hang[0]}, every stream whole "
+          f"{hang[1]}, blocks left {hang[2]}")
+    if len(plan.fired) != 1 or hang[0] != ["dead", "healthy"] or not hang[1] or any(hang[2]):
+        problems.append(f"the hang: fired {plan.fired}, {hang}")
+    done(router)
+    router = fleet(disaggregate=True)
+    sites = ("serve.handoff_export", "serve.handoff_import")
+    plan = faults.install_plan(faults.FaultPlan([faults.FaultSpec(site=site, kind="raise")
+                                                 for site in sites]))
+    try:
+        rids, _, _ = drive(router, prompts[:8])
+    finally:
+        faults.clear_plan()
+    hf = (sorted(site for site, _, _ in plan.fired), [h["state"] for h in router.health],
+          sum(h["failures"] for h in router.health), complete(router, rids), left(router))
+    print(f"(c) fleet: serve.handoff_export and serve.handoff_import raised once each in the "
+          f"disaggregated fleet: fired {hf[0]}, health {hf[1]}, failures {hf[2]}, every stream "
+          f"whole {hf[3]}, blocks left {hf[4]}")
+    if (hf[0] != sorted(sites) or hf[1] != ["healthy", "healthy"] or hf[2] != 2 or not hf[3]
+            or any(hf[4])):
+        problems.append(f"the handoff faults: {hf}")
+    done(router)
+    out["faults"] = {"moved": moved, "fault_match": fault_match, "revive_captured": counts_after}
+
+    # 5. the gateway, then the recipes
+    four = prompts[:4]
+    router = fleet()
+    ref = []
+    for p in four:
+        rid = router.submit(p, max_new)
+        ref.append(router.drain()[rid])
+    done(router)
+    router = fleet(async_host=True, retain_results=False)
+    with Gateway(router, port=0) as gw:
+        base = f"http://127.0.0.1:{gw.port}"
+        got = [generate(base, p, max_new) for p in four]
+        lapsed = generate(base, four[0], max_new, deadline_ms=0)
+        stream = open_stream(base, prompts[4][:64], 1024)
+        first = next(stream.events())
+        stream.close()
+        t0 = time.perf_counter()
+        while gw.metrics()["gateway_cancels"] < 1 and time.perf_counter() - t0 < 60:
+            time.sleep(0.01)
+        cancels = gw.metrics()["gateway_cancels"]
+        routable = health(base)["routable"]
+        text = metrics_text(base)
+    router.drain()
+    gleft = left(router)
+    done(router)
+    equal = [g["status"] == 200 and g["outcome"] == "complete" and g["tokens"] == r
+             for g, r in zip(got, ref)]
+    print(f"(c) fleet: the gateway over a lagged 2-replica fleet on {card}: {len(four)} streams "
+          f"equal to the in-process fleet's {equal}; deadline 0 ms: {lapsed['status']} "
+          f"Retry-After {lapsed.get('retry_after')} ({lapsed.get('reason')}); a disconnect "
+          f"after the first event {first[0]}: cancels {cancels}; health routable {routable}; "
+          f"/metrics {len(text.splitlines())} lines; blocks left {gleft}")
+    if (not all(equal) or lapsed["status"] != 429 or lapsed.get("retry_after") != "1"
+            or cancels < 1 or routable != 2 or "pdt_gateway_open_streams" not in text
+            or any(gleft)):
+        problems.append(f"the gateway: equal {equal}, lapsed {lapsed}, cancels {cancels}, "
+                        f"routable {routable}, left {gleft}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out["recipes"] = {}
+    for label, argv in recipes.items():
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m",
+                                 "pytorch_distributed_tpu_torch.recipes.serve_lm", *argv],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                cwd=root)
+        answered = None
+        try:
+            if "--http-port" in argv:
+                for line in proc.stdout:
+                    if line.startswith("gateway: "):
+                        url = line.split()[1].rsplit("/v1/", 1)[0]
+                        answered = generate(url, [5, 6, 7, 8], 3)
+                        break
+            text, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        try:
+            metrics = json.loads(text[text.index("{\n"):])
+        except ValueError:
+            metrics = {}
+        out["recipes"][label] = {"exit": proc.returncode, "s": time.perf_counter() - t0,
+                                 "completed": metrics.get("completed"),
+                                 "handoffs": metrics.get("handoffs")}
+        print(f"(c) fleet: serve_lm {' '.join(argv)}: exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f}s, layout {metrics.get('layout')}, "
+              f"{metrics.get('completed')} completed, {metrics.get('handoffs')} handoffs"
+              + (f", its gateway answered {answered and answered.get('outcome')}"
+                 if "--http-port" in argv else ""))
+        if (proc.returncode != 0 or metrics.get("layout") != "fleet"
+                or ("--http-port" in argv and (answered or {}).get("outcome") != "complete")):
+            problems.append(f"serve_lm {argv}: exit {proc.returncode}: {text[-2000:]}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"(c) fleet phase: {out['wall_s']:.1f} s")
+    if problems:
+        raise SystemExit(f"chip_smoke: the fleet phase failed: {problems}")
+    return out
+
+
+def _fleet_child(card, cfg, prompts, serve_kw, recipes) -> dict:
+    """``fleet_runs`` on the card in this (spawned) process, on the seed-0
+    weights, with main's numerics settings."""
+    import torch
+
+    from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return fleet_runs(torch, card, cfg, params_from_jax(init_params(cfg, seed=0)), prompts,
+                      serve_kw, recipes=recipes)
+
+
+def fleet_phase(card, cfg, prompts, serve_kw, recipes) -> dict:
+    """``fleet_runs`` in a process of its own, as the data phase runs (its
+    profiled serves would otherwise share this process's traces)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=ctx, max_tasks_per_child=1) as ex:
+        return ex.submit(_fleet_child, card, cfg, prompts, serve_kw, recipes).result()
+
+
+def fleet_line(card, fleet: dict, busy: dict) -> str:
+    """The fleet's loops beside one replica's, all in the same call:
+    ``fleet["loops"]`` (``fleet_runs``' host-clock and CUDA-event figures
+    of one replica and of two by each loop, each run twice, in turns) and
+    ``busy``, the profiled busy shares a process each (``one_step``,
+    ``one_lagged``: ``graph_runs``' one-scheduler serves; ``fleet_sync``,
+    ``fleet_async``)."""
+    f = fleet["loops"]
+
+    def each(key, scale=1e3, fmt=".3f"):
+        return " / ".join(
+            ", ".join("not measured" if v is None else format(v * scale, fmt)
+                      for v in f[f"{loop}_{key}"]) for loop in ("one", "sync", "async"))
+
+    return (f"(c) fleet vs one replica on {card}, the same 16 requests x 32 tokens in 4 "
+            f"sessions, warmed-up graphs, one replica / two synchronous / two lagged (two runs "
+            f"each): step p50 {each('step_p50_s')} ms, replica tick p50 {each('tick_p50_s')} "
+            f"ms, tok/s {each('tok_per_s', 1, '.1f')}, TTFT p50 {each('ttft_p50_s', 1e3, '.1f')}"
+            f" ms, p95 {each('ttft_p95_s', 1e3, '.1f')} ms, busy by CUDA events "
+            f"{each('busy_events', 1)}, host syncs a step {each('syncs_per_step', 1, '.4f')}; "
+            f"busy profiled (a process each) one replica {busy['one_step']:.3f} (lagged "
+            f"{busy['one_lagged']:.3f}), fleet {busy['fleet_sync']:.3f} / "
+            f"{busy['fleet_async']:.3f}")
+
+
 def sync(torch, dev):
     if dev == "cuda":
         torch.cuda.synchronize()
@@ -3451,6 +4138,23 @@ def main(argv) -> int:
         pressure_kw={**PRESSURE, "swap_policy": "swap"}, pressure_streams=pressure_streams["swap"],
         busy=graphs["bf16"], recipe_argv=["--dense"])
 
+    # the serving fleet and its gateway, in a process of its own; the
+    # fleets' busy shares a process each, beside one replica's
+    torch.cuda.empty_cache()
+    fleet = fleet_phase(card, cfg, prompts, serve_kw, FLEET_RECIPES)
+    fleet_busy = busy_shares(cfg, prompts, max_new, {
+        path: [dict(serve_kw, fleet=dict(n_replicas=2, async_host=path == "fleet_async"))]
+        for path in ("fleet_sync", "fleet_async")})
+    print(fleet_line(card, fleet, {
+        "one_step": graphs["bf16"]["graphs_busy"], "one_lagged": graphs["bf16"]["lagged_busy"],
+        "fleet_sync": fleet_busy["fleet_sync"][0], "fleet_async": fleet_busy["fleet_async"][0]}))
+    dt8 = kv_pool_dtype("fp8")
+    fleet_launches = {**fleet["launches"], **fleet["fp8_launches"]}
+    fleet_launches[paged_flash.variant(paged_flash.QUANTIZE, dt8)] = sum(
+        fleet["fp8_launches"].get(k, 0) for k in (
+            paged_flash.variant(paged_flash.QUANTIZE, dt8),
+            *(paged_flash.append_key(k, dt8) for k in (paged_flash.SWEEP, paged_flash.SPLIT))))
+
     # ---- (c) the training path: LMTrainer on the full-width model ----
     torch.cuda.empty_cache()
     bsz, seq, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
@@ -3798,7 +4502,8 @@ def main(argv) -> int:
         "name": name, "route": "cuda",
         "source": "pytorch_distributed_tpu_torch/csrc/paged_attention.cu",
         "replaces": replaces[name.split("[")[0]], "launches": launches[name],
-        "max_abs_err": errs[name], "ms": timed[name], "plain_ms": plains[name],
+        "fleet_launches": fleet_launches.get(name, 0), "max_abs_err": errs[name],
+        "ms": timed[name], "plain_ms": plains[name],
         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
         "library_ms": sdpa_ms if "[" not in name else None,
         **(pre if name == paged_flash.SWEEP else {}),

@@ -4,7 +4,10 @@ Its paths, each through hand-written CUDA kernels for Hopper:
 
 - paged LM serving with float or int8/fp8 pools, prefix sharing and
   preemption: ``serving.Scheduler`` → ``serving.PagedEngine`` →
-  ``models.TransformerLM`` (``csrc/paged_attention.cu``);
+  ``models.TransformerLM`` (``csrc/paged_attention.cu``); over N such
+  replicas the fleet, ``fleet.FleetRouter`` (affinity, the SLO gate, the
+  prefill-to-decode handoff, the failure plane), behind the HTTP/SSE
+  front door ``gateway.Gateway``;
 - LM training: ``train.LMTrainer`` → ``models.TransformerLM`` with flash
   attention (``csrc/flash_attention.cu``), on one card or on a data × seq
   grid of ranks (``parallel``) with ring attention over the same kernels

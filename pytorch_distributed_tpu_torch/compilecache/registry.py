@@ -5,7 +5,8 @@ The JAX package compiles one XLA program per decode tick and per
 chunk-prefill bucket. The port's counterpart of a compiled program is a
 captured CUDA graph (``serving.PagedEngine``): one per bucket, replayed
 with one launch. The registry lists every such program from the
-engine's own geometry (``chunk_buckets``, ``swap_buckets``) so that
+engine's own geometry (``chunk_buckets``, ``handoff_buckets``,
+``swap_buckets``) so that
 
 - the warmup runtime (``compilecache.warmup``) can capture them before
   traffic, in priority order;
@@ -137,9 +138,10 @@ def serving_registry(engine, extra: Iterable = ()) -> ProgramRegistry:
     """Every program a ``serving.PagedEngine`` can run: one chunk-prefill
     program per (padded job count, table-slice width) bucket, read from
     ``engine.chunk_buckets()`` so registry and engine cannot drift, the
-    decode tick, the copy-on-write block copy under ``prefix_cache`` and
-    the swap pair per chain-length bucket under ``swap``. The engine has
-    no handoff programs (``handoff_buckets()`` is empty).
+    decode tick, the handoff's export and import per chain-length bucket
+    under ``handoff`` (the fleet's disaggregated replicas), the
+    copy-on-write block copy under ``prefix_cache`` and the swap pair per
+    chain-length bucket under ``swap``.
 
     Priority: the decode tick and the smallest prefill bucket are 0
     (serve-critical: with them ready the scheduler can admit and stream
@@ -174,6 +176,17 @@ def serving_registry(engine, extra: Iterable = ()) -> ProgramRegistry:
             warm=(lambda execute, k=k_pad, w=wp:
                   engine.warm_chunk(k, w, execute=execute)),
             priority=0 if (k_pad, wp) == smallest else 1,
+        ))
+    for n_pad in engine.handoff_buckets():
+        reg.add(ProgramSpec(
+            name=engine.export_program_name(n_pad),
+            warm=(lambda execute, n=n_pad:
+                  engine.warm_export(n, execute=execute)),
+        ))
+        reg.add(ProgramSpec(
+            name=engine.import_program_name(n_pad),
+            warm=(lambda execute, n=n_pad:
+                  engine.warm_import(n, execute=execute)),
         ))
     if engine.prefix_cache:
         reg.add(ProgramSpec(

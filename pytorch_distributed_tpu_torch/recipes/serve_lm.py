@@ -25,6 +25,28 @@ request is cold. ``--dense`` serves the same prompts through
 ``max_seq_len`` cache row per slot, a request submitted when a slot frees
 (no queue, no block pool), so the block-pool flags are refused with it.
 
+The fleet (``fleet.FleetRouter``) serves when ``--replicas`` is above 1 or
+any of ``--disaggregate``, ``--trace``, ``--async-host`` or
+``--http-port`` is given; the replicas sit round-robin on the visible
+cards (all on the one card of a one-card machine, sharing its weights):
+
+    python -m pytorch_distributed_tpu_torch.recipes.serve_lm --replicas 2 --async-host
+    python -m pytorch_distributed_tpu_torch.recipes.serve_lm --replicas 2 --disaggregate
+    python -m pytorch_distributed_tpu_torch.recipes.serve_lm --replicas 2 --trace T.jsonl \
+        --slo-shed-depth 8
+    python -m pytorch_distributed_tpu_torch.recipes.serve_lm --replicas 2 --http-port 8000 \
+        --http-duration 60
+
+``--disaggregate`` splits them into ``--prefill-replicas`` prefill
+replicas and decode replicas that take each request's KV over;
+``--async-host`` collects every replica's tick lagged; ``--trace`` replays
+a trace file (``fleet.save_trace``) in the step domain instead of the
+synthetic prompts; ``--slo-ttft-ms`` and ``--slo-shed-depth`` set the
+admission gate's targets (the spill depth is a quarter of the shed
+depth). ``--http-port`` serves the HTTP/SSE gateway for
+``--http-duration`` seconds instead (the lagged loop, results dropped as
+they stream; port 0 picks a free one, printed on the ``gateway:`` line).
+
 Without ``--device`` it runs on CUDA and fails where there is none.
 """
 
@@ -45,6 +67,8 @@ from pytorch_distributed_tpu_torch.models.transformer import (
     tiny_config,
 )
 from pytorch_distributed_tpu_torch.serving import Scheduler
+
+FLEET_FLAGS = ("--replicas", "--disaggregate", "--async-host", "--trace", "--http-port")
 
 
 def full_config(**overrides) -> TransformerConfig:
@@ -95,7 +119,37 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="serve through the dense-cache ContinuousBatcher (one "
                         "max_seq_len row per slot) instead of the paged scheduler")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--replicas", type=int, default=1,
+                   help="serve through a FleetRouter with this many replicas (session "
+                        "affinity, the SLO gate); 1 without another fleet flag keeps the "
+                        "single scheduler")
+    p.add_argument("--disaggregate", action="store_true",
+                   help="prefill and decode replicas with the KV handoff between them "
+                        "(2 replicas at least)")
+    p.add_argument("--prefill-replicas", type=int, default=1,
+                   help="prefill replicas with --disaggregate")
+    p.add_argument("--async-host", action="store_true",
+                   help="collect every replica's tick lagged (collect, then dispatch, "
+                        "replica after replica); the same streams as the synchronous loop")
+    p.add_argument("--slo-ttft-ms", type=float, default=None,
+                   help="the gate's TTFT p95 target: a replica past it is spilled around")
+    p.add_argument("--slo-shed-depth", type=int, default=None,
+                   help="the gate's shed queue depth (the spill depth is a quarter of it)")
+    p.add_argument("--trace", default=None, metavar="JSONL",
+                   help="replay this traffic trace (fleet.save_trace) instead of the "
+                        "synthetic prompts")
+    p.add_argument("--http-port", type=int, default=None, metavar="PORT",
+                   help="serve the HTTP/SSE gateway on PORT (0: a free one) for "
+                        "--http-duration seconds instead of the synthetic prompts")
+    p.add_argument("--http-duration", type=float, default=10.0,
+                   help="seconds the gateway stays up (--http-port)")
     args = p.parse_args(argv)
+    args.fleet = (args.replicas > 1 or args.disaggregate or args.async_host
+                  or args.trace is not None or args.http_port is not None)
+    if args.replicas < 1:
+        p.error("--replicas must be >= 1")
+    if args.dense and args.fleet:
+        p.error(f"{'/'.join(FLEET_FLAGS)} need the paged layout; drop --dense")
     if args.dense:
         pool_flags = [flag for flag, on in (
             ("--warmup", args.warmup), ("--kv-dtype", args.kv_dtype),
@@ -135,10 +189,81 @@ def _serve_dense(args, cfg, t0: float) -> dict:
             "tokens_out": tokens_out, "ticks": ticks, "wall_s": wall}
 
 
+def _serve_fleet(args, cfg, t0: float) -> dict:
+    """The prompts (or the trace, or the gateway's clients) through a
+    ``FleetRouter``: every synthetic or traced request must stream its
+    whole budget or be shed by the gate."""
+    from pytorch_distributed_tpu_torch.fleet import (
+        FleetRouter,
+        SLOConfig,
+        clamp_trace,
+        load_trace,
+        prompt_for,
+        replay_trace,
+    )
+
+    slo_kw = {}
+    if args.slo_ttft_ms is not None:
+        slo_kw["ttft_p95_ms"] = args.slo_ttft_ms
+    if args.slo_shed_depth is not None:
+        slo_kw.update(shed_queue_depth=args.slo_shed_depth,
+                      spill_queue_depth=max(1, args.slo_shed_depth // 4))
+    http = args.http_port is not None
+    router = FleetRouter(
+        cfg, params_from_jax(init_params(cfg, args.seed)),
+        n_replicas=max(args.replicas, 2) if args.disaggregate else args.replicas,
+        disaggregate=args.disaggregate, n_prefill=args.prefill_replicas,
+        slo=SLOConfig(**slo_kw), seed=args.seed, device=args.device,
+        # the gateway streams: the lagged loop, results dropped at retire
+        async_host=args.async_host or http, retain_results=not http,
+        n_slots=args.slots, block_len=args.block_len, prefill_chunk=args.prefill_chunk,
+        n_blocks=args.n_blocks, admit_per_step=args.admit_per_step,
+        gather_impl=args.gather_impl, split_s=args.split_s, kv_dtype=args.kv_dtype,
+        prefix_cache=args.prefix_cache, offload=args.preempt, preempt_on_oom=args.preempt,
+        swap_policy=args.swap_policy)
+    try:
+        if args.warmup:
+            router.warmup()
+        budgets = {}
+        if http:
+            from pytorch_distributed_tpu_torch.gateway import Gateway
+
+            with Gateway(router, port=args.http_port) as gw:
+                print(f"gateway: http://127.0.0.1:{gw.port}/v1/generate (health /v1/health, "
+                      f"metrics /metrics; up for {args.http_duration:g}s)", flush=True)
+                time.sleep(args.http_duration)
+            router.drain()
+        elif args.trace is not None:
+            trace = clamp_trace(load_trace(args.trace), cfg.max_seq_len, args.prefill_chunk)
+
+            def submit(r):
+                budgets[router.submit(prompt_for(r, cfg.vocab_size), r.max_new,
+                                      session=r.session)] = r.max_new
+
+            replay_trace(trace, submit, router.step, lambda: router.idle)
+            router.drain()
+        else:
+            for i, prompt in enumerate(_prompts(args, cfg)):
+                budgets[router.submit(prompt, args.max_new, session=i % 8)] = args.max_new
+            router.drain()
+    finally:
+        router.close()
+    short = [rid for rid, n in budgets.items()
+             if rid not in router.rejected and len(router.results.get(rid, ())) != n]
+    if short:
+        raise RuntimeError(f"requests {short} did not stream their budget")
+    return {"layout": "fleet", "device": str(router.replicas[0].engine.device),
+            **router.metrics(), "wall_s": time.perf_counter() - t0}
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     args = _parse(argv)
     cfg = tiny_config(max_seq_len=128) if args.tiny else full_config()
     t0 = time.perf_counter()
+    if args.fleet:
+        metrics = _serve_fleet(args, cfg, t0)
+        print(json.dumps(metrics, indent=2))
+        return metrics
     if args.dense:
         metrics = _serve_dense(args, cfg, t0)
         if metrics["completed"] != args.requests:

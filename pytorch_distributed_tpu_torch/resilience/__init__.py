@@ -1,7 +1,7 @@
 """Resilience: deterministic fault injection (``faults``), the step guard
 that skips a non-finite update and asks for a rollback after K in a row
-(``stepguard``), the per-step deadline watchdog (``watchdog``) and
-bounded retry (``retry``)."""
+(``stepguard``), the per-step and per-replica deadline watchdogs
+(``watchdog``) and bounded retry (``retry``)."""
 
 from pytorch_distributed_tpu_torch.resilience.faults import (
     FaultPlan,
@@ -19,8 +19,8 @@ from pytorch_distributed_tpu_torch.resilience.stepguard import (
     finite_ok,
     guarded_step,
 )
-from pytorch_distributed_tpu_torch.resilience.watchdog import Watchdog
+from pytorch_distributed_tpu_torch.resilience.watchdog import FleetWatchdog, Watchdog
 
-__all__ = ["FaultPlan", "FaultSpec", "InjectedFault", "RollbackRequested", "StepGuard",
-           "Watchdog", "clear_plan", "fault_point", "finite_ok", "guarded_step",
+__all__ = ["FaultPlan", "FaultSpec", "FleetWatchdog", "InjectedFault", "RollbackRequested",
+           "StepGuard", "Watchdog", "clear_plan", "fault_point", "finite_ok", "guarded_step",
            "install_plan", "poison_batch", "retry_call", "retrying"]

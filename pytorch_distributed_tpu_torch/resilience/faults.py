@@ -27,6 +27,14 @@ The sites of the port so far:
 ``kv.host_write``     the same, before the commit to the host store
 ``kv.swap_in_h2d``    ``swap_in_chain``, before any write to the card (the
                       fresh chain is freed; the request stays parked)
+``serve.handoff_export``
+                      ``serving/engine.py`` ``export_chain``, before the
+                      prefill replica's chain is read out (the fleet
+                      router counts a failure of the source replica)
+``serve.handoff_import``
+                      ``import_chain``, before any block is allocated on
+                      the decode replica (a failure of the target; the
+                      source chain stays intact and exportable again)
 ====================  =====================================================
 
 Kinds: ``raise`` (``InjectedFault``, an ``OSError``, so the bounded retry

@@ -22,6 +22,10 @@ block-pooled KV cache (``pytorch_distributed_tpu/serving/engine.py``).
   (``resilience.faults``): ``kv.swap_out_d2h`` before the wait for the
   copy to the host, ``kv.host_write`` before the commit to the host
   store, ``kv.swap_in_h2d`` before any write to the card.
+- **handoff** (``handoff=True``; ``export_chain``/``import_chain``): the
+  fleet's prefill-to-decode move of one request's chain and logits row
+  into another engine's pool, on the same card or across cards. Fault
+  sites ``serve.handoff_export`` and ``serve.handoff_import``.
 
 **Programs.** The JAX engine runs each decode tick and each prefill
 bucket as one compiled XLA program. Here each is one CUDA graph, captured
@@ -37,11 +41,15 @@ slot ``n_slots`` is dropped) and the tick's tokens. ``chunk_buckets`` and
 the decode tick enumerate the programs ahead of traffic
 (``compilecache.serving_registry``); ``warm_*`` prepares one, after an
 inert run when ``execute=True``; a program not yet prepared is captured
-at its first use. Graphs replay in order on one stream and share one
+at its first use. Graphs replay in order on the current stream of the
+engine's card (made the current device for every launch) and share one
 pool. On the CPU, or with ``cuda_graphs=False``, the same body runs
 eagerly over the same static buffers. On CUDA a capture that fails
-raises: nothing falls back to the eager path. Block copies and swaps
-are one or two copies each and stay eager.
+raises: nothing falls back to the eager path. Block copies, swaps and
+the handoff's gather and scatter are one or two copies each and stay
+eager. Nothing on the serving path waits for the card but the tick's own
+event (``decode_collect``) and a program's last upload (``_stage``), so
+engines sharing a card do not wait for each other's work.
 
 The JAX engine donates the pool and the logits buffer to its programs;
 here the model writes the pools in place and the engine writes new
@@ -54,6 +62,7 @@ admit and when to decode.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -92,6 +101,13 @@ def _pow2_bucket(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
+def _card(device: torch.device) -> torch.device:
+    """``device`` with its index filled in (``cuda`` is the current card)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class ChunkJob(NamedTuple):
     """One prompt chunk to prefill: ``tokens`` is the chunk (zero-padded to
     the engine's chunk length), ``start`` its absolute position,
@@ -116,6 +132,24 @@ class PendingSwap(NamedTuple):
     chain_len: int
     blocks: List[LayerCache]  # host tensors [chain_len, block_len, ...]
     logits_row: torch.Tensor  # host [vocab_size]
+    event: Optional[torch.cuda.Event]
+
+
+class KVExport(NamedTuple):
+    """One request's KV detached from its source pool, the unit of the
+    fleet's prefill-to-decode handoff (``export_chain``): ``blocks`` holds
+    each layer's pool tensors (scales included) gathered to the chain,
+    ``[n_blocks, block_len, ...]`` in chain order on the source's card, and
+    ``logits_row`` the final chunk's logits, which the importer's first
+    decode tick samples from; ``event`` is recorded after the gather (None
+    on the CPU). Block ids do not travel: the importer allocates its own
+    chain and remaps its table, so the two pools need only agree on
+    geometry."""
+
+    blocks: List[LayerCache]
+    logits_row: torch.Tensor  # [vocab_size] fp32
+    n_blocks: int
+    block_len: int
     event: Optional[torch.cuda.Event]
 
 
@@ -178,12 +212,17 @@ class PagedEngine:
     (the plain PyTorch version, a switch for comparisons). ``kv_dtype``
     picks the pool dtype (``serving.kv_pool.KV_DTYPES``);
     ``prefix_cache`` arms the prefix index; ``swap`` the swap to host RAM
-    and its programs. ``seed`` seeds the engine's sampling generator.
+    and its programs; ``handoff`` the chain export and import of the
+    fleet's disaggregated serve. ``params`` may instead be a
+    ``TransformerLM`` of this config on this device, shared as it is (the
+    fleet's replicas on one card share one copy of the weights).
+    ``seed`` seeds the engine's sampling generator.
     ``cuda_graphs=False`` runs the programs eagerly on CUDA too: a switch
     for comparisons, like ``gather_impl="dense"``.
 
     Every program the engine can run is enumerable ahead of traffic
-    (``chunk_buckets``, the decode tick, ``swap_buckets``):
+    (``chunk_buckets``, the decode tick, ``handoff_buckets``,
+    ``swap_buckets``):
     ``compilecache.serving_registry`` builds its registry from them, and
     the coverage guard (``ProgramRegistry.assert_covers`` over
     ``compiled_program_names()``) fails on a program it did not predict."""
@@ -200,7 +239,7 @@ class PagedEngine:
                  gather_impl: Optional[str] = None,
                  kv_dtype: Optional[str] = None,
                  prefix_cache: bool = False, swap: bool = False,
-                 split_s: Optional[int] = None, seed: int = 0,
+                 handoff: bool = False, split_s: Optional[int] = None, seed: int = 0,
                  cuda_graphs: bool = True, device=None):
         _validate_serving_config(config)
         _validate_sampling(config, temperature, top_k)
@@ -244,6 +283,9 @@ class PagedEngine:
             PrefixIndex(block_len, self.allocator) if prefix_cache else None)
         self._cow_copies = 0
         self.swap = bool(swap)
+        self.handoff = bool(handoff)
+        self._export_ran: set = set()
+        self._import_ran: set = set()
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
         self._chunk_progs: Dict[Tuple[int, int], _Program] = {}
         self._decode_prog: Optional[_Program] = None
@@ -255,10 +297,35 @@ class PagedEngine:
         #: graphs captured, and the seconds their captures took
         self.captures = 0
         self.capture_s = 0.0
-        with torch.device(self.device):
-            model = TransformerLM(config)
-        model.load_state_dict(params)
-        self.model = model.eval().requires_grad_(False)
+        if isinstance(params, TransformerLM):
+            weights = next(params.parameters())
+            if params.cfg != config or _card(weights.device) != _card(self.device):
+                raise ValueError(
+                    f"a shared model must be built from this engine's config on "
+                    f"{self.device}; got one on {weights.device} with "
+                    f"{'the same' if params.cfg == config else 'another'} config")
+            self.model = params
+        else:
+            with torch.device(self.device):
+                model = TransformerLM(config)
+            model.load_state_dict(params)
+            self.model = model.eval().requires_grad_(False)
+
+    def _on_card(self):
+        """The engine's card as the current device, so its graphs replay and
+        its events record on that card's current stream; nothing on the
+        CPU."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _index(self, ids: List[int]) -> torch.Tensor:
+        """Block ids as a device index, uploaded from pinned memory without
+        waiting for the card."""
+        idx = torch.as_tensor(ids, dtype=torch.long)
+        if self.device.type == "cuda":
+            idx = idx.pin_memory().to(self.device, non_blocking=True)
+        return idx
 
     # ---- slot-level operations ----
 
@@ -422,7 +489,7 @@ class PagedEngine:
         """Blocks ``ids`` of every pool tensor and logits row ``row`` into
         pinned host buffers by asynchronous copies: ``(blocks, row, event
         after the copies or None on the CPU)``."""
-        idx = torch.tensor(ids, dtype=torch.long).to(self.device)
+        idx = self._index(ids)
         blocks = []
         for layer in self.cache:
             host = []
@@ -442,15 +509,16 @@ class PagedEngine:
             event.record()
         return blocks, logits_row, event
 
-    def _scatter_from_host(self, ids: List[int], blocks: List[LayerCache], row: int,
-                           logits_row: torch.Tensor) -> None:
-        """Host ``blocks`` into pool blocks ``ids`` of every pool tensor and
-        ``logits_row`` into logits row ``row``, in place."""
-        idx = torch.tensor(ids, dtype=torch.long).to(self.device)
-        for layer, host in zip(self.cache, blocks):
-            for t, h in zip(layer, host):
+    def _scatter(self, ids: List[int], blocks: List[LayerCache], row: int,
+                 logits_row: torch.Tensor) -> None:
+        """``blocks`` into pool blocks ``ids`` of every pool tensor and
+        ``logits_row`` into logits row ``row``, in place, copied first where
+        they lie elsewhere (host RAM, another card)."""
+        idx = self._index(ids)
+        for layer, src in zip(self.cache, blocks):
+            for t, b in zip(layer, src):
                 if t is not None:
-                    t[idx] = h.to(self.device, non_blocking=True)
+                    t[idx] = b.to(self.device, non_blocking=True)
         self._logits_buf[row] = logits_row.to(self.device, non_blocking=True)
 
     def swap_out_begin(self, slot: int) -> PendingSwap:
@@ -466,7 +534,8 @@ class PagedEngine:
             raise ValueError(f"slot {slot} holds no block chain to swap")
         self.allocator.set_state(slot, SWAPPING_OUT)
         try:
-            blocks, row, event = self._gather_to_host(chain, slot)
+            with self._on_card():
+                blocks, row, event = self._gather_to_host(chain, slot)
         except BaseException:
             self.allocator.clear_state(slot)
             raise
@@ -518,7 +587,8 @@ class PagedEngine:
         self.allocator.set_state(slot, SWAPPING_IN)
         try:
             fault_point("kv.swap_in_h2d")
-            self._scatter_from_host(ids, chain.blocks, slot, chain.logits_row)
+            with self._on_card():
+                self._scatter(ids, chain.blocks, slot, chain.logits_row)
         except BaseException:
             self.allocator.clear_state(slot)
             self.allocator.free(slot)
@@ -528,6 +598,78 @@ class PagedEngine:
         self._swap_in_ran.add(self._chain_bucket(chain.n_blocks))
         return True
 
+    # ---- the fleet's prefill-to-decode handoff ----
+
+    def _require_handoff(self) -> None:
+        if not self.handoff:
+            raise RuntimeError(
+                "this engine was built without handoff=True: its registry does not "
+                "predict kv_export/kv_import (fleet routers enable it on every replica "
+                "they own)")
+
+    def export_chain(self, slot: int) -> KVExport:
+        """Detach ``slot``'s KV for another engine's pool: gather the chain's
+        blocks from every pool tensor (K and V, and the scales of a
+        quantized pool) and the slot's logits row, then record an event.
+        A pure read: the slot stays resident until ``release``, so an
+        import that fails leaves this export valid for a retry."""
+        self._require_handoff()
+        # before the chain is read: the fleet counts the source as failed
+        fault_point("serve.handoff_export")
+        chain = self.allocator.chain(slot)
+        if not chain:
+            raise ValueError(f"slot {slot} holds no block chain to export")
+        with self._on_card():
+            blocks, row = self._gather(chain, slot)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+        self._export_ran.add(self._chain_bucket(len(chain)))
+        return KVExport(blocks, row, len(chain), self.block_len, event)
+
+    def _gather(self, ids: List[int], row: int):
+        """Blocks ``ids`` of every pool tensor and logits row ``row``, copied
+        out on the card."""
+        idx = self._index(ids)
+        return ([LayerCache(*(None if t is None else t[idx] for t in layer))
+                 for layer in self.cache], self._logits_buf[row].clone())
+
+    def import_chain(self, slot: int, export: KVExport) -> bool:
+        """Adopt an exported chain into ``slot``: allocate a fresh chain
+        (evicting index blocks if need be), copy the blocks and the logits
+        row in (across cards, a copy ordered after the export's gather by
+        its event), and remap the slot's table row. False, state
+        unchanged, when the pool cannot supply the chain: the caller keeps
+        the export and retries. A failure after the allocation frees the
+        fresh chain and raises, the export still valid."""
+        self._require_handoff()
+        # before any block is allocated here: the source stays exportable
+        fault_point("serve.handoff_import")
+        if export.block_len != self.block_len:
+            raise ValueError(f"cannot import block_len={export.block_len} blocks into "
+                             f"a block_len={self.block_len} pool")
+        for layer, src in zip(self.cache, export.blocks):
+            for t, b in zip(layer, src):
+                if (t is None) != (b is None) or (t is not None and (
+                        b.dtype != t.dtype or b.shape[1:] != t.shape[1:])):
+                    raise ValueError("the export's pool layout differs from this pool's")
+        chain = self._alloc_evict(slot, [], export.n_blocks)
+        if chain is None:
+            return False
+        try:
+            with self._on_card():
+                if export.event is not None and _card(export.logits_row.device) != _card(
+                        self.device):
+                    torch.cuda.current_stream().wait_event(export.event)
+                self._scatter(chain, export.blocks, slot, export.logits_row)
+        except BaseException:
+            self.allocator.free(slot)
+            self.tables[slot] = TRASH_BLOCK
+            raise
+        self._set_row(slot, chain)
+        self._import_ran.add(self._chain_bucket(export.n_blocks))
+        return True
 
     # ---- program enumeration (compilecache.serving_registry) ----
 
@@ -535,6 +677,14 @@ class PagedEngine:
     def chunk_program_name(k_pad: int, wp: int) -> str:
         """Stable registry identity of one chunk-prefill bucket."""
         return f"chunk_prefill[k={k_pad},w={wp}]"
+
+    @staticmethod
+    def export_program_name(n_pad: int) -> str:
+        return f"kv_export[n={n_pad}]"
+
+    @staticmethod
+    def import_program_name(n_pad: int) -> str:
+        return f"kv_import[n={n_pad}]"
 
     @staticmethod
     def swap_out_program_name(n_pad: int) -> str:
@@ -575,8 +725,8 @@ class PagedEngine:
         return [(k, w) for k in ks for w in self._widths()]
 
     def _chain_bucket(self, n: int) -> int:
-        """A chain's swap bucket: its length's power of two, clipped to
-        ``table_width``."""
+        """A chain's swap or handoff bucket: its length's power of two,
+        clipped to ``table_width``."""
         return min(_pow2_bucket(n), self.table_width)
 
     def swap_buckets(self) -> List[int]:
@@ -586,9 +736,10 @@ class PagedEngine:
         return self._widths() if self.swap else []
 
     def handoff_buckets(self) -> List[int]:
-        """The prefill-to-decode handoff programs of the fleet are not
-        ported: none."""
-        return []
+        """Every chain-length bucket of the handoff's export and import
+        (a chain never outgrows the table). Empty unless the engine was
+        built with ``handoff=True``."""
+        return self._widths() if self.handoff else []
 
     def has_chunk_program(self, k_pad: int, wp: int) -> bool:
         """True when the bucket is ready: captured (graphs), or run or
@@ -602,12 +753,14 @@ class PagedEngine:
 
     def compiled_program_names(self) -> List[str]:
         """Live program inventory for the registry coverage guard: every
-        captured (eager: run) program, each once, and the swap and block
-        copies that have run."""
+        captured (eager: run) program, each once, and the handoff, swap and
+        block copies that have run."""
         names = [self.chunk_program_name(k, w) for (k, w), prog in
                  sorted(self._chunk_progs.items()) if prog.ready]
         if self.has_decode_program:
             names.append(self.DECODE_PROGRAM)
+        names += [self.export_program_name(n) for n in sorted(self._export_ran)]
+        names += [self.import_program_name(n) for n in sorted(self._import_ran)]
         names += [self.swap_out_program_name(n) for n in sorted(self._swap_out_ran)]
         names += [self.swap_in_program_name(n) for n in sorted(self._swap_in_ran)]
         if self._copy_ran:
@@ -644,8 +797,9 @@ class PagedEngine:
         prog = self._chunk_program(k_pad, wp)
         if prog.ready:
             return 0.0
-        self._stage_chunk(prog, [])
-        return self._prepare(prog, self._chunk_body, execute)
+        with self._on_card():
+            self._stage_chunk(prog, [])
+            return self._prepare(prog, self._chunk_body, execute)
 
     def warm_decode(self, execute: bool = True) -> float:
         """The decode tick's ``warm_chunk``: the inert run decodes with
@@ -654,9 +808,10 @@ class PagedEngine:
         prog = self._decode_program()
         if prog.ready:
             return 0.0
-        self._stage_decode(prog, np.zeros(self.n_slots, np.int64),
-                           np.zeros(self.n_slots, bool))
-        return self._prepare(prog, self._decode_body, execute)
+        with self._on_card():
+            self._stage_decode(prog, np.zeros(self.n_slots, np.int64),
+                               np.zeros(self.n_slots, bool))
+            return self._prepare(prog, self._decode_body, execute)
 
     def warm_block_copy(self, execute: bool = True) -> float:
         """Run the copy-on-write block copy inertly (the trash block onto
@@ -667,13 +822,40 @@ class PagedEngine:
             self._copy_block(TRASH_BLOCK, TRASH_BLOCK)
         return 0.0
 
+    def warm_export(self, n_pad: int, execute: bool = True) -> float:
+        """Run one export bucket inertly when ``execute``: ``n_pad`` reads of
+        the trash block from every pool tensor and slot 0's logits row,
+        mutating nothing. Eager: nothing to capture."""
+        self._require_handoff()
+        if execute:
+            with self._on_card():
+                self._gather([TRASH_BLOCK] * n_pad, 0)
+            self._export_ran.add(n_pad)
+        return 0.0
+
+    def warm_import(self, n_pad: int, execute: bool = True) -> float:
+        """Run one import bucket inertly when ``execute``: zeros into the
+        trash block ``n_pad`` times and into the dump logits row."""
+        self._require_handoff()
+        if execute:
+            blocks = [LayerCache(*(None if t is None else
+                                   torch.zeros((n_pad,) + tuple(t.shape[1:]), dtype=t.dtype,
+                                               device=self.device) for t in layer))
+                      for layer in self.cache]
+            with self._on_card():
+                self._scatter([TRASH_BLOCK] * n_pad, blocks, self.n_slots,
+                              torch.zeros_like(self.logits[0]))
+            self._import_ran.add(n_pad)
+        return 0.0
+
     def warm_swap_out(self, n_pad: int, execute: bool = True) -> float:
         """Run one swap-out bucket inertly when ``execute``: ``n_pad``
         copies of the trash block and slot 0's logits row to host RAM,
         mutating nothing. Eager: nothing to capture."""
         self._require_swap()
         if execute:
-            _, _, event = self._gather_to_host([TRASH_BLOCK] * n_pad, 0)
+            with self._on_card():
+                _, _, event = self._gather_to_host([TRASH_BLOCK] * n_pad, 0)
             if event is not None:
                 event.synchronize()
             self._swap_out_ran.add(n_pad)
@@ -689,7 +871,8 @@ class PagedEngine:
                                    for t in layer))
                       for layer in self.cache]
             row = self._host_empty(self.logits, self.logits.shape[1:]).zero_()
-            self._scatter_from_host([TRASH_BLOCK] * n_pad, blocks, self.n_slots, row)
+            with self._on_card():
+                self._scatter([TRASH_BLOCK] * n_pad, blocks, self.n_slots, row)
             self._swap_in_ran.add(n_pad)
         return 0.0
 
@@ -881,8 +1064,9 @@ class PagedEngine:
                     f"chunk job for slot {j.slot} has {len(j.tokens)} tokens; "
                     f"engine chunk length is {c}")
         prog = self._chunk_program(*self.bucket_for(jobs))
-        self._stage_chunk(prog, jobs)
-        self._run(prog, self._chunk_body)
+        with self._on_card():
+            self._stage_chunk(prog, jobs)
+            self._run(prog, self._chunk_body)
         return time.perf_counter() - t0
 
     # ---- decode ----
@@ -895,15 +1079,16 @@ class PagedEngine:
         positions = np.asarray(positions, np.int64)
         active = np.asarray(active, bool)
         prog = self._decode_program()
-        self._stage_decode(prog, positions, active)
-        self._run(prog, self._decode_body)
-        host = torch.empty(self.n_slots, dtype=torch.int32,
-                           pin_memory=self.device.type == "cuda")
-        host.copy_(self._tick_tokens, non_blocking=True)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
+        with self._on_card():
+            self._stage_decode(prog, positions, active)
+            self._run(prog, self._decode_body)
+            host = torch.empty(self.n_slots, dtype=torch.int32,
+                               pin_memory=self.device.type == "cuda")
+            host.copy_(self._tick_tokens, non_blocking=True)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
         return TickTokens(host, event), np.where(active, positions + 1, positions)
 
     def decode_collect(self, tokens: TickTokens,

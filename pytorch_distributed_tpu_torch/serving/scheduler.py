@@ -58,20 +58,34 @@ Policy (continuous batching with chunked prefill):
   left behind. ``on_retire(rid, outcome)`` is called as a request leaves
   (``"complete"``, ``"cancelled"``, ``"deadline"``).
 
+- **a fleet replica** (``fleet.FleetRouter``): ``replica_id`` names it;
+  ``submit(rid=, session=)`` takes the fleet's rid and the request's
+  affinity session. A ``prefill_only`` replica parks a request whose prompt is in
+  the pool in ``ready`` (slot and chain held, not preemptible) instead of
+  arming its decode lane; the router exports it (``peek_ready``), a
+  decode replica takes it over (``adopt``; ``handoff=True`` engines) and
+  ``complete_handoff`` frees the source. A handoff-ready request is
+  cancelled or expires like any other. ``gate_metrics()`` is the SLO
+  gate's view: ``metrics()``, or with ``host_pool`` (the router's lagged
+  loop) a percentile snapshot refreshed on a worker thread under live
+  queue and occupancy counters.
+
 Fault sites (``resilience.faults``): ``serve.dispatch`` before any tick
 work, ``serve.collect`` before a collect; the engine's ``kv.*`` sites in
-the swaps. A failed swap-out reverts the preemption; a failed swap-in
-leaves the request parked with its host copy, retried the next tick.
+the swaps and ``serve.handoff_*`` in the handoff. A failed swap-out
+reverts the preemption; a failed swap-in leaves the request parked with
+its host copy, retried the next tick.
 
 Metrics are exact host-side counters and latency series. The flight
-recorder, request tracing, the block sanitizer and the fleet's handoff
-states are not ported yet.
+recorder, request tracing, the block sanitizer and the anomaly sentinel
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -85,7 +99,7 @@ from pytorch_distributed_tpu_torch.telemetry.costmodel import (
     SwapDecision,
     swap_vs_recompute,
 )
-from pytorch_distributed_tpu_torch.telemetry.latency import LatencySeries
+from pytorch_distributed_tpu_torch.telemetry.latency import LatencySeries, percentiles
 
 SWAP_POLICIES = ("auto", "swap", "recompute")
 
@@ -119,6 +133,10 @@ class Request:
     # absolute time.perf_counter() instant after which the request expires
     # (outcome "deadline"); absolute, so a re-submission keeps the clock
     deadline: float = float("inf")
+    # the fleet's: the affinity session, and the prompt's length at submit
+    # (a re-dispatch rebuilds the original prompt from it)
+    session: Optional[int] = None
+    orig_len: int = 0
 
     @property
     def length(self) -> int:
@@ -148,7 +166,8 @@ class Scheduler:
     without a card. ``seed`` seeds the sampling generator (unused when
     greedy). ``host_store_max_bytes`` bounds the host tier.
     ``cuda_graphs=False`` runs the engine's programs eagerly (a switch for
-    comparisons)."""
+    comparisons). ``replica_id``, ``prefill_only``, ``handoff`` and
+    ``host_pool`` are the fleet router's (module docstring)."""
 
     def __init__(self, config, params, n_slots: int, *,
                  n_blocks: Optional[int] = None, block_len: int = 16,
@@ -162,7 +181,8 @@ class Scheduler:
                  swap_policy: str = "auto", protect_ticks: int = 2,
                  host_store_max_bytes: Optional[int] = None,
                  split_s: Optional[int] = None, cuda_graphs: bool = True,
-                 device=None):
+                 device=None, replica_id: int = 0, prefill_only: bool = False,
+                 handoff: bool = False, host_pool=None):
         if swap_policy not in SWAP_POLICIES:
             raise ValueError(f"swap_policy {swap_policy!r} must be auto|swap|recompute")
         if preempt_on_oom and not offload:
@@ -176,8 +196,8 @@ class Scheduler:
             config, params, n_slots, n_blocks=n_blocks, block_len=block_len,
             prefill_chunk=prefill_chunk, temperature=temperature, top_k=top_k,
             gather_impl=gather_impl, kv_dtype=kv_dtype, prefix_cache=prefix_cache,
-            swap=offload, split_s=split_s, seed=seed, cuda_graphs=cuda_graphs,
-            device=device,
+            swap=offload, handoff=handoff or prefill_only, split_s=split_s, seed=seed,
+            cuda_graphs=cuda_graphs, device=device,
         )
         # the engine may have replaced gather_impl/split_s into the config
         self.config = self.engine.config
@@ -245,6 +265,21 @@ class Scheduler:
         #: ``on_retire(rid, outcome)``, called as a request leaves for good:
         #: ``"complete"``, ``"cancelled"`` or ``"deadline"``
         self.on_retire: Optional[Callable[[int, str], None]] = None
+        # the fleet: rid -> the slot here holding a prefill-complete request
+        # until complete_handoff (recorded here: adopt re-points req.slot at
+        # the decode replica's slot)
+        self.replica_id = replica_id
+        self.prefill_only = prefill_only
+        self.ready: Dict[int, int] = {}
+        self._handoffs = 0
+        self._adopted = 0
+        # the lagged fleet loop's gate snapshot: percentiles computed on a
+        # host worker every gate_refresh_ticks ticks, under _gate_lock
+        self.host_pool = host_pool
+        self._gate_cache: Optional[dict] = None
+        self._gate_lock = threading.Lock()
+        self.gate_refresh_ticks = 32
+        self._gate_refreshed_step = -(10 ** 9)
 
     # ---- API ----
 
@@ -263,9 +298,10 @@ class Scheduler:
 
     def submit(self, prompt, max_new_tokens: int, *,
                rid: Optional[int] = None, deadline_s: Optional[float] = None,
-               deadline: Optional[float] = None) -> int:
+               deadline: Optional[float] = None, session: Optional[int] = None) -> int:
         """Enqueue one request; returns its id. Raises for a request that
-        can never fit ``max_seq_len``, and while draining. ``deadline_s``
+        can never fit ``max_seq_len``, and while draining. ``rid`` and
+        ``session`` are the fleet router's. ``deadline_s``
         (seconds from now) or ``deadline`` (an absolute
         ``time.perf_counter()`` instant) arms its expiry: the sweep at the
         top of each dispatch cancels it with outcome ``"deadline"``,
@@ -298,6 +334,7 @@ class Scheduler:
             rid=rid, tokens=prompt, max_new_tokens=max_new_tokens,
             submit_step=self._step_count, submit_time=now,
             generated=[] if self.offload else None, deadline=deadline,
+            session=session, orig_len=l,
         ))
         return rid
 
@@ -364,14 +401,16 @@ class Scheduler:
 
     def _victims(self) -> List[Tuple[float, int, int]]:
         """``(last token time, rid, slot)`` of the preemptible requests,
-        least recently served first: decoding, not mid swap-out, and out
-        of their post-restore protection."""
+        least recently served first: decoding (not handoff-ready), not mid
+        swap-out, and out of their post-restore protection."""
         if not self.offload:
             return []
         out = []
         for slot, req in self.resident.items():
             if req.prefill_done < req.length or slot in self._swap_slots:
                 continue
+            if req.rid in self.ready:
+                continue  # held for the fleet's handoff
             if self._step_count < req.protect_until:
                 continue
             last = req.last_token_time
@@ -578,10 +617,15 @@ class Scheduler:
                     self.engine.prefix_insert(j.slot, req.tokens,
                                               upto=min(req.prefill_done, req.length))
                 if req.prefill_done >= req.length:
-                    # arm the decode lane at the prompt's true frontier; after
-                    # a recompute restore only the rest of the budget is left
+                    # arm the decode lane at the prompt's true frontier (after
+                    # a recompute restore only the rest of the budget is
+                    # left), or on a prefill-only replica park the request
+                    # for the fleet's handoff
                     self.positions[j.slot] = req.length
-                    self.remaining[j.slot] = req.max_new_tokens - req.produced
+                    if self.prefill_only:
+                        self.ready[req.rid] = j.slot
+                    else:
+                        self.remaining[j.slot] = req.max_new_tokens - req.produced
         active = self.remaining > 0
         self._occupancy_sum += len(self.resident) / self.n_slots
         self._step_count += 1
@@ -671,6 +715,10 @@ class Scheduler:
         if out:
             self.tick_lat.observe(now - h.t_step0)
         self._collected.extend(out)
+        if (self.host_pool is not None and out
+                and self._step_count - self._gate_refreshed_step >= self.gate_refresh_ticks):
+            self._gate_refreshed_step = self._step_count
+            self._queue_gate_refresh()
 
     def step(self) -> List[Tuple[int, int]]:
         """One synchronous tick: a pending tick collected, then dispatch
@@ -687,12 +735,14 @@ class Scheduler:
 
     def stuck_rids(self) -> Dict[str, List[int]]:
         """Every live rid by state (``queued``, ``prefill``, ``decoding``,
-        ``parked``, ``swapping``); empty when idle."""
+        ``parked``, ``swapping``, ``handoff-ready``); empty when idle."""
         out: Dict[str, List[int]] = {}
         if self.queue:
             out["queued"] = [r.rid for r in self.queue]
         prefill, decoding = [], []
         for req in self.resident.values():
+            if req.rid in self.ready:
+                continue
             (prefill if req.prefill_done < req.length else decoding).append(req.rid)
         if prefill:
             out["prefill"] = sorted(prefill)
@@ -702,6 +752,8 @@ class Scheduler:
             out["parked"] = sorted(self.parked)
         if self._swapping:
             out["swapping"] = sorted(e[0] for e in self._swapping)
+        if self.ready:
+            out["handoff-ready"] = sorted(self.ready)
         return out
 
     def drain(self, max_steps: int = 100_000) -> Dict[int, List[int]]:
@@ -732,13 +784,16 @@ class Scheduler:
         """``begin_drain``, then run every admitted request (parked ones
         included) to retirement. Returns ``(produced, requeued)``: their
         tokens, and the queued requests, never admitted, for the caller
-        to submit elsewhere. Every pool block is free afterwards."""
+        to submit elsewhere. Every pool block is free afterwards, but on a
+        ``prefill_only`` replica, whose admitted requests end parked in
+        ``ready``, chains held for the router's handoffs."""
         self.begin_drain()
         requeued = list(self.queue)
         self.queue.clear()
         produced: Dict[int, List[int]] = {}
         for _ in range(max_steps):
-            if not self.resident and not self.parked and not self._swapping:
+            if not self.parked and not self._swapping and all(
+                    r.rid in self.ready for r in self.resident.values()):
                 return produced, requeued
             for rid, tok in self.step():
                 produced.setdefault(rid, []).append(tok)
@@ -747,7 +802,8 @@ class Scheduler:
 
     def cancel(self, rid: int, outcome: str = "cancelled") -> bool:
         """Abort request ``rid`` wherever it is (queued, mid-prefill,
-        decoding, parked on either path, mid swap-out), freeing its slot,
+        decoding, handoff-ready, parked on either path, mid swap-out),
+        freeing its slot,
         its device chain and its host copy. True when found; False when
         it already left or never was (cancelling is idempotent). The
         deadline sweep passes ``outcome="deadline"``."""
@@ -773,6 +829,7 @@ class Scheduler:
         if slot is None:
             return False
         req = self.resident.pop(slot)
+        self.ready.pop(rid, None)
         self.remaining[slot] = 0
         self.engine.release(slot)
         self._finish_cancel(req, outcome)
@@ -834,13 +891,107 @@ class Scheduler:
         for slot in list(self.resident):
             del self.resident[slot]
             self.engine.release(slot)
+        self.ready.clear()
         self.queue.clear()
         self.positions[:] = 0
         self.remaining[:] = 0
 
+    # ---- the fleet's prefill-to-decode handoff ----
+
+    def ready_rids(self) -> List[int]:
+        """Prefill-complete requests awaiting their handoff, in rid order."""
+        return sorted(self.ready)
+
+    def peek_ready(self, rid: int):
+        """``(request, KVExport)`` of a ready request, which stays here: the
+        router has a decode replica ``adopt`` it first and only then calls
+        ``complete_handoff``, so a full decode pool leaves it intact for
+        the next tick."""
+        slot = self.ready[rid]
+        return self.resident[slot], self.engine.export_chain(slot)
+
+    def complete_handoff(self, rid: int) -> None:
+        """A decode replica adopted the request: free its slot and chain
+        here."""
+        slot = self.ready.pop(rid)
+        del self.resident[slot]
+        self.engine.release(slot)
+        self.remaining[slot] = 0
+        self._handoffs += 1
+
+    def adopt(self, req: Request, export) -> bool:
+        """Take over a request prefilled on another replica: a slot, a chain
+        with the exported blocks (``PagedEngine.import_chain``) and its
+        decode lane armed at the prompt's frontier. False, nothing changed
+        and the export still valid, when no slot or chain is free (or this
+        replica is draining). The request keeps its rid and its submit and
+        admission times, so its TTFT here runs from its submit."""
+        if self.prefill_only:
+            raise RuntimeError("a prefill_only replica cannot adopt")
+        if self.draining:
+            return False
+        free = self._free_slots()
+        if not free:
+            return False
+        slot = free[0]
+        if not self.engine.import_chain(slot, export):
+            return False
+        req.slot = slot
+        req.prefill_done = req.length
+        if math.isnan(req.admit_time):  # adopted without an admission
+            req.admit_time = time.perf_counter()
+            self.queue_wait.observe(req.admit_time - req.submit_time)
+        self.resident[slot] = req
+        self.positions[slot] = req.length
+        self.remaining[slot] = req.max_new_tokens
+        self._admitted += 1
+        self._adopted += 1
+        return True
+
+    # ---- the SLO gate's view ----
+
+    def _queue_gate_refresh(self) -> None:
+        """Recompute the gate snapshot's percentiles on a host worker: the
+        series' values are copied here, the math runs there."""
+        vals = {"ttft": list(self.ttft.values),
+                "queue_wait": list(self.queue_wait.values)}
+
+        def work():
+            snap = {}
+            for name, v in vals.items():
+                for q, val in percentiles(v, qs=(95,)).items():
+                    snap[f"{name}_{q}_s"] = val
+            with self._gate_lock:
+                self._gate_cache = snap
+
+        self.host_pool.submit(work)
+
+    def gate_metrics(self) -> dict:
+        """What the SLO gate routes on. Without ``host_pool``: ``metrics()``.
+        With it: the worker-refreshed TTFT and queue-wait p95 under the
+        live queue depth, occupancy, draining, offload, preemptible and
+        prefix-cache counters, so every depth-bound decision is the one
+        ``metrics()`` would give and only the latency rungs may be stale."""
+        if self.host_pool is None:
+            return self.metrics()
+        with self._gate_lock:
+            snap = dict(self._gate_cache) if self._gate_cache else {}
+        snap.update(
+            replica_id=self.replica_id,
+            queue_depth=len(self.queue),
+            occupancy=len(self.resident) / self.n_slots,
+            occupancy_mean=(self._occupancy_sum / self._step_count
+                            if self._step_count else 0.0),
+            draining=self.draining,
+            offload=self.offload,
+            preemptible=len(self._victims()),
+            prefix_cache=self.prefix_cache,
+        )
+        return snap
+
     def live_requests(self) -> int:
-        """Requests this scheduler holds: queued, resident, parked, mid
-        swap-out."""
+        """Requests this scheduler holds: queued, resident (handoff-ready
+        included), parked, mid swap-out."""
         return (len(self.queue) + len(self.resident) + len(self.parked)
                 + len(self._swapping))
 
@@ -853,6 +1004,10 @@ class Scheduler:
         elapsed = (time.perf_counter() - self._start_time
                    if self._start_time is not None else 0.0)
         return {
+            "replica_id": self.replica_id,
+            "handoffs": self._handoffs,
+            "adopted": self._adopted,
+            "ready": len(self.ready),
             "steps": self._step_count,
             "queue_depth": len(self.queue),
             "occupancy": len(self.resident) / self.n_slots,

@@ -652,121 +652,6 @@ def test_resume_check_fails_a_resume_that_is_not_exact(chip_smoke, capsys):
         "counts": float("inf")}
 
 
-def test_graph_phase_rehearses_on_cpu(chip_smoke, monkeypatch, capsys):
-    """Phase (c)'s graph step at a small size on the CPU (no graphs there:
-    both paths run the static-buffer programs eagerly): the warmed-up
-    serves of both paths agree, the warmup prepares every reachable
-    program, the sampled serve's two decode ticks draw differently and
-    the sampler draws as ``torch.multinomial``."""
-    from pytorch_distributed_tpu_torch.compilecache import serving_registry
-    from pytorch_distributed_tpu_torch.models import init_params, params_from_jax, tiny_config
-    from pytorch_distributed_tpu_torch.serving import Scheduler
-
-    cfg = tiny_config(max_seq_len=64)
-    state = params_from_jax(init_params(cfg, 0))
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, 128, size=int(n)).astype(np.int32)
-               for n in rng.integers(3, 25, size=4)]
-    serve_kw = dict(n_slots=3, block_len=8, prefill_chunk=8, device="cpu")
-    served = []
-
-    def serve(label, reqs, *, warm=False, **kw):
-        sched = Scheduler(cfg, state, gather_impl="kernel", **{**serve_kw, **kw})
-        if warm:
-            sched.warmup(background=False)
-        rids = [sched.submit(p, 32) for p in reqs]
-        out = sched.drain()
-        m = sched.metrics()
-        serving_registry(sched.engine).assert_covers(sched.engine.compiled_program_names())
-        served.append((label, m["cold_requests"]))
-        return sched, [out[r] for r in rids], m, 1.0, {}
-
-    def busy(cfg_, prompts_, max_new, kws_by_path):
-        assert max_new == 32 and list(kws_by_path) == ["eager", "graphs", "lagged"]
-        assert [[kw["cuda_graphs"] for kw in kws] for kws in kws_by_path.values()] == [
-            [False, False], [True, True], [True]]
-        assert kws_by_path["lagged"][0]["lagged"]
-        return {path: [0.5] * len(kws) for path, kws in kws_by_path.items()}
-
-    monkeypatch.setattr(chip_smoke, "busy_shares", busy)
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    out = chip_smoke.graph_runs(torch, "CPU", serve, cfg, state, prompts, serve_kw,
-                                n_blocks=40, dev="cpu")
-    text = capsys.readouterr().out
-    assert [label for label, _ in served] == [
-        "bf16 pools, eager, warmed up", "bf16 pools, graphs, warmed up",
-        "fp8 pools, eager, warmed up", "fp8 pools, graphs, warmed up",
-        "bf16 pools, temperature 0.8, top-k 50, seed 7, warmed up"]
-    assert all(cold == 0 for _, cold in served)
-    assert text.count("eager vs CUDA graphs (both warmed up)") == 2
-    assert out["bf16"]["eager_busy"] == out["fp8"]["graphs_busy"] == 0.5
-    assert out["bf16"]["lagged_busy"] == 0.5
-    assert out["warmup"]["programs"] == 13 and out["warmup"]["graphs"] == 0
-    assert out["sampled"]["tokens"] == 4 * 32 and "sampled serve" in text
-
-
-def test_lifecycle_phase_rehearses_on_cpu(chip_smoke, capsys):
-    """Phase (c)'s lifecycle step at a small size on the CPU: the lagged
-    loop's serves equal ``step()``'s, the pressure serve under a fault at
-    every ``kv.*`` site keeps its streams, the scripted cancels and
-    deadlines act on the same requests in both loops and leave nothing
-    behind, the drain and the abandon free every block, the dense batcher
-    agrees with the paged one and both with the full forward, the planted
-    fault shows in the retried request alone, and ``serve_lm --dense``
-    runs."""
-    from pytorch_distributed_tpu_torch.models import init_params, params_from_jax, tiny_config
-    from pytorch_distributed_tpu_torch.serving import Scheduler
-
-    cfg = tiny_config(max_seq_len=128)
-    state = params_from_jax(init_params(cfg, 0))
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, 128, size=int(n)).astype(np.int32)
-               for n in rng.integers(8, 80, size=10)]
-    serve_kw = dict(n_slots=4, block_len=8, prefill_chunk=8, device="cpu")
-    served = []
-
-    def serve(label, reqs, *, warm=False, lagged=False, hook=None, **kw):
-        sched = Scheduler(cfg, state, gather_impl="kernel", **{**serve_kw, **kw})
-        if warm:
-            sched.warmup(background=False)
-        if hook is not None:
-            hook(sched)
-        rids = [sched.submit(p, 32) for p in reqs]
-        out = chip_smoke.lagged_drain(sched) if lagged else sched.drain()
-        assert sched.engine.allocator.in_use == 0 and not sched.has_uncollected
-        served.append(label)
-        return sched, [out[r] for r in rids], sched.metrics(), 1.0, {}
-
-    pressure_kw = dict(kv_dtype="fp8", n_blocks=30, offload=True, preempt_on_oom=True,
-                       swap_policy="swap")
-    _, streams, m, _, _ = serve("pressure", prompts, **pressure_kw)
-    assert m["preempts"] >= 1
-    out = chip_smoke.lifecycle_runs(
-        torch, "CPU", serve, cfg, state, prompts, serve_kw, pressure_kw=pressure_kw,
-        pressure_streams=streams, busy={"graphs_busy": 0.5, "lagged_busy": 0.5},
-        recipe_argv=["--dense", "--device", "cpu", "--tiny", "--requests", "3",
-                     "--max-new", "3"], dev="cpu")
-    text = capsys.readouterr().out
-    assert served[1:] == ["bf16 pools, graphs, step loop, warmed up",
-                          "bf16 pools, graphs, lagged loop, warmed up",
-                          "pressure, fp8 pools, swap, lagged loop",
-                          "pressure, fp8 pools, swap, a fault at each kv.* site, step loop",
-                          "pressure, fp8 pools, swap, a fault at each kv.* site, lagged loop",
-                          "pressure, fp8 pools, swap, a fault at each kv.* site, planted loop"]
-    assert out["faults"]["swap_aborts"] >= 3 and out["faults"]["streams_equal"]
-    assert out["faults"]["differ"] == [] and len(out["faults"]["planted_differ"]) == 1
-    assert set(out["faults"]["faulted"]) <= set(out["faults"]["same_buckets"])
-    assert out["ragged_fp32"]["drawn"] and out["ragged_fp32"]["equal_to_generate"]
-    assert max(out["batcher"]["dense_max_abs_err"], out["batcher"]["paged_max_abs_err"]) < 1e-4
-    assert out["faults"]["exact"] == dict.fromkeys(
-        ("kv.swap_out_d2h", "kv.host_write", "kv.swap_in_h2d"), True)
-    assert out["loops"]["lagged_busy"] == 0.5
-    assert out["batcher"]["greedy_match"] == 1.0 and out["ragged_match"] == 1.0
-    assert out["recipe"]["tokens_out"] == 9
-    assert text.count("blocks in use, host chains, live table entries after: (0, 0, 0)") == 4
-    assert "requeued exactly them True" in text and "the next submit refused True" in text
-
-
 def _small_data(chip_smoke, monkeypatch):
     from pytorch_distributed_tpu_torch.models.resnet import BasicBlock, ResNet
     from pytorch_distributed_tpu_torch.recipes import common

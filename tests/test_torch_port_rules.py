@@ -80,6 +80,36 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert s.engine.device.type == "cpu"
 
 
+def test_fleet_entry_points_raise_without_a_card(monkeypatch):
+    """The router, the gateway's fleet and the recipe's fleet path: CUDA
+    unless asked for the CPU, every visible card by default."""
+    from pytorch_distributed_tpu_torch.fleet import FleetRouter
+    from pytorch_distributed_tpu_torch.fleet.router import fleet_devices
+    from pytorch_distributed_tpu_torch.recipes import serve_lm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, state = _state()
+    kw = dict(n_slots=2, block_len=8, prefill_chunk=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FleetRouter(cfg, state, **kw)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FleetRouter(cfg, state, device="cuda", **kw)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FleetRouter(cfg, state, devices=["cuda:0", "cuda:1"], **kw)
+    for flags in (["--replicas", "2"], ["--replicas", "2", "--disaggregate"],
+                  ["--async-host"], ["--http-port", "0", "--http-duration", "0"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve_lm.main(["--tiny", "--requests", "1", *flags])
+    with pytest.raises(ValueError, match="not both"):
+        fleet_devices(devices=["cpu"], device="cpu")
+    r = FleetRouter(cfg, state, device="cpu", **kw)
+    assert [s.engine.device.type for s in r.replicas] == ["cpu", "cpu"]
+    assert r.replicas[0].engine.model is r.replicas[1].engine.model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    assert fleet_devices() == [torch.device("cuda", i) for i in range(3)]
+
+
 def test_resolve_device_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device() == torch.device("cuda")
