@@ -394,6 +394,15 @@ RESUME = dict(batch=128, steps=6, suspend_at=3, every=2, nan_at=2, size=224,
 RESUME_RESNET = dict(DP_MODEL, dtype="bfloat16", fused=True)
 RESUME_LM = dict(vocab_size=32000, num_layers=12, num_heads=12, embed_dim=768)
 
+# the model-branches phase (slice 18): the JAX recipe's full-width LM with
+# --kv-heads 4 --pos-embedding rope (H 12 over H_kv 4, G = 3, head_dim 64,
+# rope_theta 10000), random weights from seed 0; its MoE variant (8
+# experts in every second block, capacity 1.25, top-1 and top-2); dropout
+# 0.1 runs of 6 steps (a suspend at step 4); the MoE runs 4 steps
+BRANCH_MODEL = dict(num_kv_heads=4, pos_embedding="rope")
+BRANCH = dict(dropout=0.1, dropout_steps=6, suspend_at=4, moe_experts=8, moe_steps=4)
+BRANCH_RECIPE = ["--synthetic", "--kv-heads", "4", "--pos-embedding", "rope", "--dropout",
+                 "0.1", "--steps", "3", "--log-every", "1"]
 # the data phase: raw uint8 splits packed from seeded images at the
 # stored size (no PIL), the loader's rates, bench.py's fused bf16 ResNet-50
 # (DATA_MODEL) in Trainer fed from the records, then the recipes from raw splits
@@ -434,12 +443,13 @@ def decode_inputs(torch, dtype, *, b=8, c=1, h=12, h_kv=12, d=64, bl=16, w=128,
                 q_positions=torch.from_numpy(positions).to(dev, torch.int32))
 
 
-def prefill_inputs(torch, dtype, dev="cuda", seed=2):
+def prefill_inputs(torch, dtype, dev="cuda", seed=2, h_kv=12):
     """A prefill chunk as the serve runs the single sweep on it: 4 jobs x
     32 rows (the serve's prefill chunk) at chain starts 0, 32, 480 and 992,
-    W = 64 blocks of 16; R = G·C = 32 rows per KV head."""
+    W = 64 blocks of 16; R = G·C = 32 rows per KV head (96 at ``h_kv`` 4,
+    the GQA model's G = 3)."""
     starts = np.array([0, 32, 480, 992])
-    return decode_inputs(torch, dtype, b=4, c=32, w=64, seed=seed, dev=dev,
+    return decode_inputs(torch, dtype, b=4, c=32, w=64, seed=seed, dev=dev, h_kv=h_kv,
                          positions=starts[:, None] + np.arange(32))
 
 
@@ -585,8 +595,9 @@ def append_shapes(torch, dev="cuda"):
     """The append route's checks: (label, fp32 paged inputs) at the decode
     shape with its last lane inactive (a trash-only table row at position
     0, as the engine arms it), at the serve's prefill chunk, at D = 128
-    with GQA (G 2), and at GQA R = G·C = 80 rows (several row tiles write
-    the same rows) with padding rows (-1) and a fully masked batch row."""
+    with GQA (G 2), at GQA R = G·C = 80 rows (several row tiles write
+    the same rows) with padding rows (-1) and a fully masked batch row, and
+    at the GQA + RoPE model's G = 3 decode and prefill chunk."""
     decode = decode_inputs(torch, torch.float32, seed=12, dev=dev)
     decode["block_tables"][-1] = 0
     decode["q_positions"][-1] = 0
@@ -601,6 +612,12 @@ def append_shapes(torch, dev="cuda"):
         ("GQA H=8 H_kv=2 C=20 (R=80) padding rows", decode_inputs(
             torch, torch.float32, b=3, c=20, h=8, h_kv=2, w=16, seed=15, positions=pos,
             dev=dev)),
+        # the GQA + RoPE model's geometry (H 12 over H_kv 4): decode R = 3,
+        # the prefill chunk R = 96
+        ("GQA H=12 H_kv=4 decode (R=3)", decode_inputs(torch, torch.float32, h_kv=4, seed=17,
+                                                       dev=dev)),
+        ("GQA H=12 H_kv=4 prefill chunk (R=96)", prefill_inputs(torch, torch.float32, dev=dev,
+                                                               seed=18, h_kv=4)),
     )
 
 
@@ -2435,6 +2452,313 @@ def graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, n_blocks,
     return out
 
 
+def branches_runs(torch, card, serve, per_tick, mha, prompts, serve_kw, tmp, recipe_argv,
+                  dev="cuda") -> dict:
+    """(c) the LM's model branches on the card. ``mha``: the MHA serve's
+    launches (``launches``) and warmed graph serves (``warm_bf16``,
+    ``warm_fp8``) and its train step p50 (``step_s``), for comparison.
+
+    - The serve: ``Scheduler`` on the full-width GQA + RoPE LM (``serve``
+      with ``model=``), warmed CUDA graphs, bf16 and fp8 pools of the MHA
+      serve's block count (a third of its bytes, checked); kernels 7 and 8
+      launched as often as in the MHA serve, every launch on the tensor
+      cores, the fp8 serve's new rows all on the append route (kernel 9);
+      12 split launches a decode tick; the final prefill logits against a
+      ``gather_impl="dense"`` engine (within 0.25, as the MHA serve's), the
+      greedy match with a dense-gather serve and the fp8 serve's with the
+      bf16 one; tick p50, tok/s and TTFT p50 beside the MHA serve's.
+    - The dense path: ``generate_ragged`` in fp32 (``ragged_fp32``): its
+      tokens the argmax of its steps' logits, those within
+      ``DECODE_TOL["fp32"]`` of the full causal forward, equal to
+      per-request ``generate``'s; bf16 ``generate`` inside the vocabulary.
+    - Training: ``LMTrainer`` on flash, ``TRAIN`` steps, 12 forward and 12
+      fused backward launches a step; the first step against dense
+      attention (B 2, ``TRAIN_LOSS_TOL`` / ``TRAIN_GRAD_NORM_RTOL``);
+      dropout 0.1: two runs from one seed bit-equal (losses and state), and
+      a suspend at step 4 then a resume bit-equal to them
+      (``check_resumed``); the step p50 beside the MHA step's.
+    - MoE: 8 experts top-1 and top-2, ``moe_steps`` steps on flash, finite
+      losses and ``moe_dropped_frac``; each first step against dense.
+    - Blockwise: the first step against dense at B 2, each step's peak
+      memory.
+    - The recipe: ``lm_pretrain`` with ``recipe_argv`` (on the card
+      ``--synthetic --kv-heads 4 --pos-embedding rope --dropout 0.1``) to
+      its end in a process of its own.
+
+    Returns the kernels' launches in the phase (``launches``: the paged
+    kernels' from both serves, ``flash``: kernels 4 and 5 from the GQA
+    trainer) and the figures. Fails the run on any problem."""
+    import gc
+    import shutil
+
+    from pytorch_distributed_tpu_torch.data import SyntheticTokens
+    from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
+    from pytorch_distributed_tpu_torch.models.generate import generate
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_tpu_torch.ops import paged_flash as pf
+    from pytorch_distributed_tpu_torch.recipes.serve_lm import full_config
+    from pytorch_distributed_tpu_torch.resilience import faults
+    from pytorch_distributed_tpu_torch.resilience.faults import FaultPlan, FaultSpec
+    from pytorch_distributed_tpu_torch.serving import Scheduler, pool_block_bytes
+    from pytorch_distributed_tpu_torch.train import (
+        LMTrainer,
+        LMTrainerConfig,
+        create_lm_state,
+        lm_collate,
+        make_lm_train_step,
+    )
+    from pytorch_distributed_tpu_torch.utils.suspend import SuspendWatcher
+
+    t_phase = time.perf_counter()
+    problems: list = []
+    out: dict = {"launches": {}}
+    max_new = 32
+    gcfg = full_config(**BRANCH_MODEL)
+    mha_cfg = full_config()
+    gstate = params_from_jax(init_params(gcfg, seed=0))
+    model = (gcfg, gstate)
+
+    # ---- the serve, bf16 and fp8 pools, warmed CUDA graphs ----
+    serves = {}
+    for kind, kw in (("bf16", {}), ("fp8", {"kv_dtype": "fp8"})):
+        sched, streams, m, wall, launches = serve(
+            f"GQA + RoPE (H 12 over H_kv 4), {kind} pools, warmed up", prompts, warm=True,
+            model=model, **kw)
+        n = sched.engine.allocator.n_blocks
+        dt = sched.engine.cache[0].key.dtype
+        gqa_bytes = n * pool_block_bytes(gcfg, 16, kw.get("kv_dtype"))
+        mha_bytes = n * pool_block_bytes(mha_cfg, 16, kw.get("kv_dtype"))
+        tick = per_tick(sched.engine)
+        sweep, split = ((pf.variant(k, dt) if kw else k) for k in (pf.SWEEP, pf.SPLIT))
+        want = [mha["launches"].get(pf.SWEEP, 0), mha["launches"].get(pf.SPLIT, 0)]
+        got = [launches.get(sweep, 0), launches.get(split, 0)]
+        tc = [launches.get(pf.route_key(k, pf.TENSOR_CORES), 0) for k in (pf.SWEEP, pf.SPLIT)]
+        appended = sum(launches.get(pf.append_key(k, dt), 0) for k in (pf.SWEEP, pf.SPLIT)
+                       ) if kw else 0
+        w = mha[f"warm_{kind}"]
+        serves[kind] = dict(streams=streams, tick_p50_s=m["tick_p50_s"],
+                            tok_per_s=m["tokens_out"] / wall, ttft_p50_s=m["ttft_p50_s"],
+                            pool_bytes=gqa_bytes, mha_pool_bytes=mha_bytes, n_blocks=n,
+                            launches=got, append_launches=appended, tick_launches=tick)
+        print(f"(c) branches: GQA + RoPE serve, {kind} pools, warmed graphs, on {card}: tick "
+              f"p50 {m['tick_p50_s'] * 1e3:.3f} ms (MHA {w['graphs_tick_p50_s'] * 1e3:.3f}), "
+              f"{m['tokens_out'] / wall:.1f} tok/s (MHA {w['graphs_tok_per_s']:.1f}), TTFT p50 "
+              f"{m['ttft_p50_s'] * 1e3:.1f} ms (MHA {w['graphs_ttft_p50_s'] * 1e3:.1f}); pool "
+              f"{n} blocks {gqa_bytes} bytes against the MHA pool's {mha_bytes} "
+              f"({gqa_bytes / mha_bytes:.4f}x); kernel 7 / 8 launches {got} (the MHA serve "
+              f"{want}), on the tensor cores {tc}, append route {appended}; a decode tick "
+              f"{tick}")
+        if got != want or tc != got or gqa_bytes * 3 != mha_bytes:
+            problems.append(f"GQA {kind} serve: launches {got} (tensor cores {tc}) against the "
+                            f"MHA serve's {want}; pool bytes {gqa_bytes} vs {mha_bytes}")
+        if tick.get(split, 0) != gcfg.num_layers:
+            problems.append(f"GQA {kind} decode tick launches {tick}")
+        if kind == "fp8" and appended != sum(got):
+            problems.append(f"GQA fp8 serve: {appended} append launches, {got} attention")
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        if kind == "fp8":  # kernel 9's launches are the append route's
+            q9 = pf.variant(pf.QUANTIZE, dt)
+            out["launches"][q9] = out["launches"].get(q9, 0) + appended
+        del sched
+        empty_cache(torch, dev)
+
+    pair = [prompts[1], prompts[2]]
+    rows = {impl: final_prefill_logits(torch, gcfg, gstate, pair, max_new, impl, dev)
+            for impl in ("kernel", "dense")}
+    logit_err = (rows["kernel"] - rows["dense"]).abs().max().item()
+    s = Scheduler(gcfg, gstate, gather_impl="dense", **serve_kw)
+    rids = [s.submit(p, max_new) for p in prompts]
+    done = s.drain()
+    dense_streams = [done[r] for r in rids]
+    del s
+    empty_cache(torch, dev)
+    match = match_rate(serves["bf16"]["streams"], dense_streams)
+    fp8_match = match_rate(serves["fp8"]["streams"], serves["bf16"]["streams"])
+    print(f"(c) branches: GQA + RoPE final-prefill logits, kernel vs plain gather, prompts "
+          f"{[len(p) for p in pair]}: max_abs_err {logit_err:.4f} (limit 0.25); greedy match "
+          f"with the dense-gather serve over {len(prompts)} x {max_new} tokens {match:.3f}; fp8 "
+          f"pools against bf16 pools {fp8_match:.3f}")
+    if not logit_err <= 0.25:
+        problems.append(f"GQA final-prefill logits {logit_err} from the plain gather's")
+    out["serve"] = {k: {n: v for n, v in r.items() if n != "streams"} for k, r in serves.items()}
+    out["serve"].update(prefill_max_abs_err=logit_err, dense_match=match, fp8_match=fp8_match)
+
+    # ---- the dense path ----
+    four = prompts[:4]
+    drawn, err32, same32 = ragged_fp32(torch, gcfg, gstate, four, 16, dev)
+    gen = generate(gcfg, gstate, four[0][None], 16, device=dev).cpu().numpy()
+    print(f"(c) branches: GQA + RoPE generate_ragged in fp32, prompts {[len(q) for q in four]} "
+          f"x 16: tokens the argmax of its steps' logits {drawn}, those against the full "
+          f"causal forward max_abs_err {err32:.2e} (limit {DECODE_TOL['fp32']}), equal to "
+          f"per-request generate's {same32}; bf16 generate {gen.shape}")
+    if not (drawn and err32 <= DECODE_TOL["fp32"] and same32 and gen.shape == (1, len(four[0]) + 16)
+            and ((gen >= 0) & (gen < gcfg.vocab_size)).all()):
+        problems.append(f"GQA dense decode: drawn {drawn}, err {err32}, same {same32}")
+    out["dense_decode"] = {"max_abs_err": err32, "drawn": drawn, "equal_to_generate": same32}
+    empty_cache(torch, dev)
+
+    # ---- training: LMTrainer on flash ----
+    bsz, seq, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    tcfg = full_config(attention="flash", **BRANCH_MODEL)
+
+    def trainer(cfg, n_steps, save="t", watcher=None, **kw):
+        return LMTrainer(cfg, SyntheticTokens(n_steps * bsz, seq, cfg.vocab_size),
+                         SyntheticTokens(bsz, seq, cfg.vocab_size, seed=1),
+                         LMTrainerConfig(batch_size=bsz, lr=3e-4, warmup_steps=0, log_every=1,
+                                         grad_clip_norm=1.0, save_dir=os.path.join(tmp, save),
+                                         **kw),
+                         device=dev, suspend_watcher=watcher)
+
+    def release(*dirs):
+        for d in dirs:
+            shutil.rmtree(os.path.join(tmp, d), ignore_errors=True)
+        gc.collect()
+        empty_cache(torch, dev)
+
+    t = trainer(tcfg, steps)
+    sync(torch, dev)
+    fa.reset_launch_counts()
+    t.train_epoch(0)
+    sync(torch, dev)
+    train_launches = dict(fa.launch_counts)
+    losses = [r["loss"] for r in t.history]
+    step_s = float(np.median([r["step_s"] for r in t.history[1:]]))
+    n = tcfg.num_layers * (1 if dev == "cuda" else 0)  # the plain versions count nothing
+    print(f"(c) branches: GQA + RoPE LMTrainer, {steps} steps of B={bsz} x L={seq}, flash, on "
+          f"{card}: losses {[round(x, 4) for x in losses]}; step p50 {step_s * 1e3:.1f} ms "
+          f"(the MHA step {mha['step_s'] * 1e3:.1f} ms), {bsz * seq / step_s:.0f} tokens/s; "
+          f"launches {train_launches} ({n} + {n} a step wanted)")
+    if (train_launches.get(fa.FWD) != n * steps or train_launches.get(fa.BWD) != n * steps
+            or not all(np.isfinite(losses)) or len(losses) != steps):
+        problems.append(f"GQA trainer: launches {train_launches}, losses {losses}")
+    out["flash"] = {fa.FWD: train_launches.get(fa.FWD, 0), fa.BWD: train_launches.get(fa.BWD, 0)}
+    out["train"] = {"step_p50_s": step_s, "losses": losses, "mha_step_p50_s": mha["step_s"]}
+    del t
+    release("t")
+
+    pair_batch = {k: torch.from_numpy(v).to(dev) for k, v in lm_collate(
+        [SyntheticTokens(2, seq, gcfg.vocab_size, seed=2)[i] for i in range(2)]).items()}
+
+    def first_step(cfg, params, label):
+        """Loss, grad norm and peak memory of one step from ``params`` on
+        ``pair_batch``."""
+        st = create_lm_state(cfg, lr_schedule=lambda step: 0.0, params=params, device=dev)
+        sync(torch, dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _, m = make_lm_train_step(grad_clip_norm=1.0, config=cfg)(st, pair_batch)
+        got = {k: float(v) for k, v in m.items()}
+        got["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda" else 0.0
+        del st, m
+        empty_cache(torch, dev)
+        return got
+
+    def against_dense(label, cfg_of, params, attns=("flash",)):
+        res = {a: first_step(cfg_of(a), params, label) for a in (*attns, "dense")}
+        for a in attns:
+            d_loss = abs(res[a]["loss"] - res["dense"]["loss"])
+            d_norm = abs(res[a]["grad_norm"] / res["dense"]["grad_norm"] - 1)
+            print(f"(c) branches: {label} first step B=2 x L={seq}, {a} vs dense: loss "
+                  f"{res[a]['loss']:.5f} vs {res['dense']['loss']:.5f} (|diff| {d_loss:.2e}, "
+                  f"tol {TRAIN_LOSS_TOL:g}); grad norm {res[a]['grad_norm']:.5f} vs "
+                  f"{res['dense']['grad_norm']:.5f} (rel diff {d_norm:.2e}, tol "
+                  f"{TRAIN_GRAD_NORM_RTOL:g}); peak memory {res[a]['peak_gib']:.2f} vs "
+                  f"{res['dense']['peak_gib']:.2f} GiB")
+            if not (d_loss <= TRAIN_LOSS_TOL and d_norm <= TRAIN_GRAD_NORM_RTOL):
+                problems.append(f"{label}: {a} first step against dense: loss {d_loss}, "
+                                f"grad norm {d_norm}")
+        return res
+
+    out["first_step"] = against_dense(
+        "GQA + RoPE", lambda a: full_config(attention=a, **BRANCH_MODEL), gstate,
+        ("flash", "blockwise"))
+
+    # ---- dropout: two runs from one seed, a suspend and a resume ----
+    dcfg = dataclasses.replace(tcfg, dropout=BRANCH["dropout"])
+    dsteps, k = BRANCH["dropout_steps"], BRANCH["suspend_at"]
+    runs, hist = {}, {}
+    for name in ("d1", "d2"):
+        t = trainer(dcfg, dsteps, name)
+        t.fit()
+        runs[name], hist[name] = state_copy(torch, t), [r["loss"] for r in t.history]
+        del t
+        release(name)
+    repeat = state_diff(torch, runs["d1"], runs["d2"])
+    print(f"(c) branches: dropout {BRANCH['dropout']}, {dsteps} steps twice from one seed: "
+          f"losses {[round(x, 4) for x in hist['d1']]}, bit-equal "
+          f"{hist['d1'] == hist['d2']}; states {repeat}")
+    if hist["d1"] != hist["d2"] or any(repeat.values()):
+        problems.append(f"dropout runs from one seed differ: {hist}, {repeat}")
+    faults.install_plan(FaultPlan([FaultSpec("train.step", "suspend", at=k)]))
+    t = trainer(dcfg, dsteps, "ds", SuspendWatcher(install_handlers=False))
+    try:
+        t.fit()
+        problems.append("the dropout run did not suspend")
+    except SystemExit:
+        pass
+    finally:
+        faults.clear_plan()
+    del t
+    t = trainer(dcfg, dsteps, "ds")
+    t.fit()
+    check_resumed(problems, f"branches: dropout suspend at step {k} / resume", repeat,
+                  state_diff(torch, state_copy(torch, t), runs["d1"]))
+    out["dropout"] = {"losses": hist["d1"], "repeat": repeat}
+    del t, runs
+    release("ds")
+
+    # ---- MoE: 8 experts, top-1 and top-2 ----
+    out["moe"] = {}
+    for top_k in (1, 2):
+        mcfg = full_config(attention="flash", n_experts=BRANCH["moe_experts"], moe_top_k=top_k)
+        t = trainer(mcfg, BRANCH["moe_steps"], "m")
+        t.train_epoch(0)
+        sync(torch, dev)
+        mlosses = [r["loss"] for r in t.history]
+        dropped = [r["moe_dropped_frac"] for r in t.history]
+        m_step = float(np.median([r["step_s"] for r in t.history[1:]]))
+        print(f"(c) branches: MoE {mcfg.n_experts} experts top-{top_k} (every "
+              f"{mcfg.moe_every}nd block, capacity {mcfg.capacity_factor}), "
+              f"{BRANCH['moe_steps']} steps of B={bsz} x L={seq}, flash, on {card}: losses "
+              f"{[round(x, 4) for x in mlosses]}, moe_dropped_frac "
+              f"{[round(x, 4) for x in dropped]}, step p50 {m_step * 1e3:.1f} ms")
+        if not all(np.isfinite(mlosses)) or not all(0.0 <= x < 1.0 for x in dropped):
+            problems.append(f"MoE top-{top_k}: losses {mlosses}, dropped {dropped}")
+        del t
+        release("m")
+        mparams = params_from_jax(init_params(mcfg, seed=0))
+        first = against_dense(f"MoE top-{top_k}",
+                              lambda a, c=mcfg: dataclasses.replace(c, attention=a), mparams)
+        out["moe"][f"top{top_k}"] = {"losses": mlosses, "dropped": dropped,
+                                     "step_p50_s": m_step, "first_step": first}
+        del mparams
+
+    # ---- the recipe in a process of its own ----
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "pytorch_distributed_tpu_torch.recipes.lm_pretrain",
+                        *recipe_argv, "--save-dir", os.path.join(tmp, "recipe")],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    recipe_s = time.perf_counter() - t0
+    try:
+        summary = json.loads(r.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        summary = {}
+    print(f"(c) branches: lm_pretrain {' '.join(recipe_argv)}: exit {r.returncode} in "
+          f"{recipe_s:.1f}s, validation loss {summary.get('loss')}")
+    if r.returncode != 0 or not np.isfinite(summary.get("loss", float("nan"))):
+        problems.append(f"lm_pretrain: exit {r.returncode}: {r.stderr[-2000:]}")
+    out["recipe"] = {"exit": r.returncode, "seconds": recipe_s, "loss": summary.get("loss")}
+    release("recipe")
+
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"(c) branches phase: {out['wall_s']:.1f} s")
+    if problems:
+        raise SystemExit(f"chip_smoke: the model-branches phase failed: {problems}")
+    return out
+
+
 def lagged_drain(sched, max_ticks=100_000) -> dict:
     """Drive ``sched`` by its lagged loop, ``collect_tick();
     dispatch_tick()`` each iteration (one tick in flight between them),
@@ -2636,6 +2960,88 @@ def swap_faults_exact(torch, cfg, state, serve_kw, prompt, kv_dtype, dev="cuda")
     return out
 
 
+def final_prefill_logits(torch, cfg, state, pair, max_new, impl, dev="cuda"):
+    """The logits rows ``PagedEngine`` leaves after prefilling the prompts
+    of ``pair`` chunk by chunk (2 slots, blocks of 16, chunks of 32) with
+    ``gather_impl=impl``."""
+    from pytorch_distributed_tpu_torch.serving import PagedEngine
+    from pytorch_distributed_tpu_torch.serving.engine import ChunkJob
+
+    e = PagedEngine(cfg, state, n_slots=2, block_len=16, prefill_chunk=32,
+                    gather_impl=impl, device=dev)
+    for slot, p in enumerate(pair):
+        e.admit(slot, len(p), max_new)
+    done = [0, 0]
+    while any(done[s] < len(pair[s]) for s in range(2)):
+        jobs = []
+        for s, p in enumerate(pair):
+            if done[s] >= len(p):
+                continue
+            toks = np.zeros(32, np.int32)
+            seg = p[done[s]:done[s] + 32]
+            toks[:len(seg)] = seg
+            last = done[s] + 32 >= len(p)
+            jobs.append(ChunkJob(s, toks, done[s], last, len(p) - 1 - done[s] if last else 0))
+            done[s] += 32
+        e.run_chunks(jobs)
+    return e.logits.clone()
+
+
+def plain_model(torch, config, state, dev="cuda"):
+    """A ``TransformerLM`` of ``config`` with the weights ``state``, for
+    inference."""
+    from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
+
+    with torch.device(dev):
+        model = TransformerLM(config)
+    model.load_state_dict(state)
+    return model.eval().requires_grad_(False)
+
+
+def full_forward_rows(torch, model, prompt, stream, dev="cuda"):
+    """The full causal forward's logits at the positions that drew
+    ``stream`` after ``prompt``."""
+    seq = np.concatenate([prompt, np.asarray(stream[:-1], np.int32)])
+    with torch.no_grad():
+        full = model(torch.as_tensor(seq[None], device=dev).long())[0].float()
+    return full[len(prompt) - 1:]
+
+
+def ragged_fp32(torch, cfg, state, prompts, n_new, dev="cuda"):
+    """``generate_ragged`` in fp32 (``cfg`` at fp32, weights ``state``) on
+    ``prompts``: whether its tokens are the argmax of the logits its
+    prefill and per-request decode steps give, those logits' largest
+    distance from the full causal forward, and whether per-request
+    ``generate`` gives the same tokens."""
+    from pytorch_distributed_tpu_torch.models.generate import (
+        generate,
+        generate_ragged,
+        ragged_decode_step,
+        ragged_prefill,
+    )
+
+    lengths = [len(q) for q in prompts]
+    padded = np.zeros((len(prompts), max(lengths)), np.int32)
+    for i, q in enumerate(prompts):
+        padded[i, :len(q)] = q
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    m32 = plain_model(torch, cfg32, state, dev)
+    tokens32 = generate_ragged(cfg32, m32, padded, lengths, n_new)
+    alone32 = [generate(cfg32, m32, q[None], n_new)[0, len(q):] for q in prompts]
+    cache, logits = ragged_prefill(cfg32, m32, padded, lengths)
+    stepped, pos = [logits], torch.as_tensor(lengths, device=dev)
+    for i in range(n_new - 1):
+        cache, logits = ragged_decode_step(cfg32, m32, cache, tokens32[:, i], pos + i)
+        stepped.append(logits)
+    stepped = torch.stack(stepped, dim=1)
+    del cache
+    drawn = bool(torch.equal(stepped.argmax(-1).to(torch.int32), tokens32))
+    err32 = max((stepped[i] - full_forward_rows(torch, m32, q, tokens32[i].tolist(), dev))
+                .abs().max().item() for i, q in enumerate(prompts))
+    same32 = all(torch.equal(a, r) for a, r in zip(alone32, tokens32))
+    return drawn, err32, same32
+
+
 def lifecycle_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, pressure_kw,
                    pressure_streams, busy, recipe_argv, dev="cuda") -> dict:
     """(c) the request lifecycle and the dense decode path. The warmed-up
@@ -2671,10 +3077,7 @@ def lifecycle_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, pressur
         ContinuousBatcher,
         generate,
         generate_ragged,
-        ragged_decode_step,
-        ragged_prefill,
     )
-    from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
     from pytorch_distributed_tpu_torch.ops import paged_flash
     from pytorch_distributed_tpu_torch.resilience import faults
     from pytorch_distributed_tpu_torch.serving import TRASH_BLOCK, Scheduler
@@ -2876,20 +3279,10 @@ def lifecycle_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, pressur
     # the dense path: the batcher in both layouts, generate_ragged, the recipe.
     # Each logits row a request's token was drawn from is held against the
     # full causal forward of its prompt and stream (the plain model, no cache)
-    def plain_model(config):
-        with torch.device(dev):
-            model = TransformerLM(config)
-        model.load_state_dict(state)
-        return model.eval().requires_grad_(False)
-
-    plain = plain_model(cfg)
-
     def forward_rows(model, prompt, stream):
-        """The full forward's logits at the positions that drew ``stream``."""
-        seq = np.concatenate([prompt, np.asarray(stream[:-1], np.int32)])
-        with torch.no_grad():
-            full = model(torch.as_tensor(seq[None], device=dev).long())[0].float()
-        return full[len(prompt) - 1:]
+        return full_forward_rows(torch, model, prompt, stream, dev)
+
+    plain = plain_model(torch, cfg, state, dev)
 
     slots = serve_kw["n_slots"]
     batch = {}
@@ -2955,22 +3348,7 @@ def lifecycle_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, pressur
     alone = [generate(cfg, state, q[None], 16, device=dev)[0, len(q):].cpu().numpy()
              for q in four]
     ragged_match = match_rate([list(r) for r in ragged], [list(a) for a in alone])
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    m32 = plain_model(cfg32)
-    tokens32 = generate_ragged(cfg32, m32, padded, lengths, 16)
-    alone32 = [generate(cfg32, m32, q[None], 16)[0, len(q):] for q in four]
-    cache, logits = ragged_prefill(cfg32, m32, padded, lengths)
-    stepped, pos = [logits], torch.as_tensor(lengths, device=dev)
-    for i in range(15):
-        cache, logits = ragged_decode_step(cfg32, m32, cache, tokens32[:, i], pos + i)
-        stepped.append(logits)
-    stepped = torch.stack(stepped, dim=1)
-    del cache
-    drawn = bool(torch.equal(stepped.argmax(-1).to(torch.int32), tokens32))
-    err32 = max((stepped[i] - forward_rows(m32, q, tokens32[i].tolist())).abs().max().item()
-                for i, q in enumerate(four))
-    same32 = all(torch.equal(a, r) for a, r in zip(alone32, tokens32))
-    del m32, stepped
+    drawn, err32, same32 = ragged_fp32(torch, cfg, state, four, 16, dev)
     print(f"(c) lifecycle: generate_ragged, prompts {lengths} x 16 tokens: bf16 greedy match "
           f"with per-request generate {ragged_match:.3f}; fp32: tokens the argmax of its "
           f"prefill and decode steps' logits {drawn}, those logits against the full causal "
@@ -3828,6 +4206,25 @@ def main(argv) -> int:
                       paged_flash.paged_flash_attention(**inp, split_s=split_s), ref, BF16_TOL)
             check_split_repeat(f"{label} {kv} pools, bf16 q", inp, splits[-1])
 
+    # the GQA + RoPE model's geometry (slice 18): H 12 over H_kv 4 (G = 3),
+    # D 64, bf16 q; the decode tick (R = G·C = 3) and the prefill chunk (R =
+    # 96: two tensor-core row tiles), on bf16 and fp8 pools; each split
+    # twice, bit for bit
+    g3 = {}
+    for shape, raw in (("decode", decode_inputs(torch, f32, h_kv=4, seed=21)),
+                       ("prefill chunk", prefill_inputs(torch, f32, seed=22, h_kv=4))):
+        for kv in ("bf16", "fp8"):
+            inp = (dict(raw, k_pool=raw["k_pool"].to(bf16), v_pool=raw["v_pool"].to(bf16))
+                   if kv == "bf16" else quantized(torch, raw, kv))
+            inp["q"] = inp["q"].to(bf16)
+            ref = paged_attention_reference(**inp)
+            label = f"G=3 {shape} H=12 H_kv=4 D=64 {kv} pools, bf16 q"
+            for name, split_s in ((paged_flash.SWEEP, 1), (paged_flash.SPLIT, None)):
+                check(f"{label}, {name}",
+                      paged_flash.paged_flash_attention(**inp, split_s=split_s), ref, BF16_TOL)
+            check_split_repeat(label, inp, None)
+            g3[(shape, kv)] = inp
+
     # quantize-on-scatter: bit-equal to the plain version (the trash block,
     # where the dead lane's rows land in no fixed order, aside)
     for kv in QUANT:
@@ -3943,7 +4340,8 @@ def main(argv) -> int:
                              f"launches, append {app}, sweep + split {attn}): {launches}")
         return app + launches.get(scatter, 0)
 
-    def serve(label, reqs, *, stagger=0, warm=False, lagged=False, hook=None, **kw):
+    def serve(label, reqs, *, stagger=0, warm=False, lagged=False, hook=None, model=None,
+              **kw):
         """Serve ``reqs`` (``stagger`` steps between submissions) through
         the kernels by ``step()`` (``lagged``: by the lagged loop,
         ``lagged_drain``), the launch counts reset just before and read just
@@ -3954,8 +4352,9 @@ def main(argv) -> int:
         the serve must capture no graph, hold no program the registry did
         not predict and count no cold request. Returns the scheduler, the
         streams in submit order, the metrics, the wall and the launches.
-        ``hook(sched)`` runs before the first submit."""
-        sched = Scheduler(cfg, state, gather_impl="kernel", **{**serve_kw, **kw})
+        ``hook(sched)`` runs before the first submit; ``model`` = (config,
+        weights) serves another model than the MHA one."""
+        sched = Scheduler(*(model or (cfg, state)), gather_impl="kernel", **{**serve_kw, **kw})
         if warm:
             sched.warmup(background=False)
         if hook is not None:
@@ -4014,6 +4413,7 @@ def main(argv) -> int:
     sched, bf16_streams, m, wall, launches = serve("bf16 pools", prompts)
     on_tensor_cores("bf16 pools", launches, launches.get(paged_flash.SWEEP, 0),
                     launches.get(paged_flash.SPLIT, 0))
+    mha_launches = dict(launches)
     print(f"(c) launches per decode tick: {per_tick(sched.engine)}")
     n_bf16 = sched.engine.allocator.n_blocks
     del sched
@@ -4021,28 +4421,8 @@ def main(argv) -> int:
 
     # final-prefill logits: kernel path against a plain-attention engine
     pair = [prompts[1], prompts[2]]
-    rows = {}
-    for impl in ("kernel", "dense"):
-        e = PagedEngine(cfg, state, n_slots=2, block_len=16, prefill_chunk=32,
-                        gather_impl=impl, device="cuda")
-        for slot, p in enumerate(pair):
-            e.admit(slot, len(p), max_new)
-        done = [0, 0]
-        while any(done[s] < len(pair[s]) for s in range(2)):
-            jobs = []
-            for s, p in enumerate(pair):
-                if done[s] >= len(p):
-                    continue
-                toks = np.zeros(32, np.int32)
-                seg = p[done[s]:done[s] + 32]
-                toks[:len(seg)] = seg
-                last = done[s] + 32 >= len(p)
-                jobs.append(ChunkJob(s, toks, done[s], last,
-                                     len(p) - 1 - done[s] if last else 0))
-                done[s] += 32
-            e.run_chunks(jobs)
-        rows[impl] = e.logits.clone()
-        del e
+    rows = {impl: final_prefill_logits(torch, cfg, state, pair, max_new, impl)
+            for impl in ("kernel", "dense")}
     logit_err = (rows["kernel"] - rows["dense"]).abs().max().item()
     greedy = {}
     for impl in ("kernel", "dense"):
@@ -4225,6 +4605,13 @@ def main(argv) -> int:
     if not (d_loss <= TRAIN_LOSS_TOL and d_norm <= TRAIN_GRAD_NORM_RTOL):
         raise SystemExit("chip_smoke: the flash training step disagrees with the dense one")
 
+    # ---- (c) the model branches: GQA + RoPE served and trained, MoE, dropout, blockwise ----
+    with tempfile.TemporaryDirectory() as tmp:
+        branches = branches_runs(torch, card, serve, per_tick, {
+            "launches": mha_launches, "warm_bf16": graphs["bf16"], "warm_fp8": graphs["fp8"],
+            "step_s": step_s}, prompts, serve_kw, tmp, BRANCH_RECIPE)
+    torch.cuda.empty_cache()
+
     # ---- (c) ResNet-50: the fused bf16 trainer, the first step, the recipe ----
     synthetic = resnet_runs(torch, card)
     torch.cuda.empty_cache()
@@ -4303,6 +4690,26 @@ def main(argv) -> int:
           f"{pbd['bound_ms'] * 1e3:.2f} us ({pbd['bound_by']}: {pbd['bytes'] / 1e6:.2f} MB, "
           f"{pbd['flops'] / 1e6:.1f} MFLOP)")
     del pqg, pkg, pvg, pmask
+
+    # kernels 7 and 8 at the GQA + RoPE model's G = 3 shapes, bf16 and fp8
+    # pools: the sweep and the split at decode (R = 3), the sweep at the
+    # prefill chunk (R = 96); the pool read is a third of MHA's bytes
+    g3_times = {}
+    for (shape, kv), inp in g3.items():
+        bq = bound(inp)
+        t_plain = time_ms(torch, lambda: paged_attention_reference(**inp))
+        tag = "g3_" + shape.replace(" ", "_")
+        calls = ((paged_flash.SWEEP, 1), (paged_flash.SPLIT, None))
+        for name, split_s in calls if shape == "decode" else calls[:1]:
+            key = name if kv == "bf16" else paged_flash.variant(name, inp["k_pool"].dtype)
+            t = time_ms(torch, lambda: paged_flash.paged_flash_attention(**inp, split_s=split_s))
+            g3_times.setdefault(key, {}).update({
+                f"{tag}_ms": t, f"{tag}_plain_ms": t_plain, f"{tag}_bound_ms": bq["bound_ms"],
+                f"{tag}_bound_by": bq["bound_by"]})
+            print(f"(d) {key} at G=3 {shape} (H 12 over H_kv 4, D 64, R = "
+                  f"{3 * inp['q'].shape[1]}), {kv} pools, bf16 q, on {card}: {t * 1e3:.1f} us "
+                  f"per call, plain {t_plain * 1e3:.1f} us, bound {bq['bound_ms'] * 1e3:.2f} us "
+                  f"({bq['bound_by']}: {bq['bytes'] / 1e6:.2f} MB, {bq['flops'] / 1e6:.1f} MFLOP)")
 
     # the quantized pools with bf16 q (the tensor-core kernels) at the decode
     # shape, the sweep also at the prefill chunk, where the serve runs it
@@ -4498,10 +4905,14 @@ def main(argv) -> int:
         paged_flash.SPLIT: "pytorch_distributed_tpu/ops/paged_flash.py:430",
         paged_flash.QUANTIZE: "pytorch_distributed_tpu/ops/paged_flash.py:563",
     }
+    # every path's launches: the MHA serves' and the model-branches phase's
+    # GQA serves (``gqa_launches`` apart)
     kernels = [{
         "name": name, "route": "cuda",
         "source": "pytorch_distributed_tpu_torch/csrc/paged_attention.cu",
-        "replaces": replaces[name.split("[")[0]], "launches": launches[name],
+        "replaces": replaces[name.split("[")[0]],
+        "launches": launches[name] + branches["launches"].get(name, 0),
+        "gqa_launches": branches["launches"].get(name, 0),
         "fleet_launches": fleet_launches.get(name, 0), "max_abs_err": errs[name],
         "ms": timed[name], "plain_ms": plains[name],
         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
@@ -4512,13 +4923,16 @@ def main(argv) -> int:
         **({"kernel": "paged_sweep_tc_kernel"} if name == paged_flash.SWEEP else {}),
         **quant_extra.get(name, {}),
         **({"append_out_max_abs_err": append_errs[name]} if name in append_errs else {}),
+        **g3_times.get(name, {}),
     } for name in timed]
     flash_replaces = {FWD: "pytorch_distributed_tpu/ops/flash_attention.py:138",
                       BWD: "pytorch_distributed_tpu/ops/flash_attention.py:375"}
     kernels += [{
         "name": name, "route": "cuda",
         "source": "pytorch_distributed_tpu_torch/csrc/flash_attention.cu",
-        "replaces": flash_replaces[name], "launches": train_launches[name],
+        "replaces": flash_replaces[name],
+        "launches": train_launches[name] + branches["flash"][name],
+        "gqa_launches": branches["flash"][name],
         "max_abs_err": flash_errs[name], "ms": flash_ms[name],
         "plain_ms": flash_plain_ms[name], "bound_ms": fb[part]["bound_ms"],
         "bound_by": fb[part]["bound_by"], "library_ms": flash_lib_ms[name],

@@ -5,12 +5,17 @@ list of ``LayerCache`` and back.
 
 The flax layout (``pytorch_distributed_tpu/models/transformer.py``):
 
-- ``wte``/``wpe``: ``Embed.embedding`` ``[V, E]`` / ``[max_seq_len, E]``;
+- ``wte``/``wpe``: ``Embed.embedding`` ``[V, E]`` / ``[max_seq_len, E]``
+  (no ``wpe`` under RoPE);
 - ``block{i}/attn/qkv``: ``DenseGeneral`` kernel ``[E, 3, H, D]`` and bias
-  ``[3, H, D]``; ``block{i}/attn/proj``: kernel ``[H, D, E]``, no bias;
+  ``[3, H, D]``; under GQA ``attn/q`` (kernel ``[E, H, D]``, bias ``[H,
+  D]``) and ``attn/kv`` (kernel ``[E, 2, H_kv, D]``, bias ``[2, H_kv,
+  D]``) instead; ``block{i}/attn/proj``: kernel ``[H, D, E]``, no bias;
 - ``block{i}/mlp_up`` (kernel ``[E, 4E]``, bias) and ``mlp_down`` (kernel
   ``[4E, E]``, no bias): ``Dense`` kernels are ``[in, out]``, the transpose
-  of ``nn.Linear.weight``;
+  of ``nn.Linear.weight``; an MoE block has ``block{i}/moe`` instead:
+  ``router`` (kernel ``[E, n_experts]``, no bias), ``w_up [n_experts, E,
+  4E]`` and ``w_down [n_experts, 4E, E]`` (the port's own layout too);
 - ``ln1``/``ln2``/``ln_f``: ``scale`` and ``bias``;
 - ``lm_head``: kernel ``[E, V]``, no bias;
 - the paged cache: ``block{i}/attn/{key,value}`` pools and, for quantized
@@ -64,18 +69,25 @@ def _np(x) -> np.ndarray:
 def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """State dict for the port's ``TransformerLM`` from a flax parameter
     tree whose leaves are numpy arrays (``jax.tree.map(np.asarray, p)``)
-    or the tree ``init_params`` makes. Tensors are fp32 on the CPU;
-    ``load_state_dict`` casts them to the module's dtypes."""
+    or the tree ``init_params`` makes: MHA or GQA attention, learned or
+    rotary positions, dense or MoE blocks, each told by the tree's keys.
+    Tensors are fp32 on the CPU; ``load_state_dict`` casts them to the
+    module's dtypes."""
     n_layers = sum(1 for k in params if k.startswith("block"))
-    expected = {"wte", "wpe", "ln_f", "lm_head"} | {
-        f"block{i}" for i in range(n_layers)}
-    if set(params) != expected:
+    expected = {"wte", "ln_f", "lm_head"} | {f"block{i}" for i in range(n_layers)}
+    if set(params) - {"wpe"} != expected:
         raise ValueError(
-            f"unexpected flax tree: keys {sorted(params)}; a learned-position "
-            f"MHA TransformerLM has {sorted(expected)}")
+            f"unexpected flax tree: keys {sorted(params)}; a TransformerLM has "
+            f"{sorted(expected | {'wpe'})} (wpe only with learned positions)")
 
     def t(x) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(_np(x)))
+
+    def linear(pre, p, out):  # a DenseGeneral over its input's last axis
+        k = _np(p["kernel"])
+        out[f"{pre}.weight"] = t(k.reshape(k.shape[0], -1).T)
+        if "bias" in p:
+            out[f"{pre}.bias"] = t(_np(p["bias"]).reshape(-1))
 
     def ln(prefix, p, out):
         out[f"{prefix}.weight"] = t(p["scale"])
@@ -83,21 +95,26 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 
     sd: Dict[str, torch.Tensor] = {
         "wte.weight": t(params["wte"]["embedding"]),
-        "wpe.weight": t(params["wpe"]["embedding"]),
         "lm_head.weight": t(_np(params["lm_head"]["kernel"]).T),
     }
+    if "wpe" in params:
+        sd["wpe.weight"] = t(params["wpe"]["embedding"])
     ln("ln_f", params["ln_f"], sd)
     for i in range(n_layers):
         p, pre = params[f"block{i}"], f"blocks.{i}"
-        qkv_k = _np(p["attn"]["qkv"]["kernel"])  # [E, 3, H, D]
-        e = qkv_k.shape[0]
-        sd[f"{pre}.attn.qkv.weight"] = t(qkv_k.reshape(e, -1).T)
-        sd[f"{pre}.attn.qkv.bias"] = t(_np(p["attn"]["qkv"]["bias"]).reshape(-1))
+        for name in ("qkv", "q", "kv"):
+            if name in p["attn"]:
+                linear(f"{pre}.attn.{name}", p["attn"][name], sd)
         proj_k = _np(p["attn"]["proj"]["kernel"])  # [H, D, E]
         sd[f"{pre}.attn.proj.weight"] = t(proj_k.reshape(-1, proj_k.shape[-1]).T)
-        sd[f"{pre}.mlp_up.weight"] = t(_np(p["mlp_up"]["kernel"]).T)
-        sd[f"{pre}.mlp_up.bias"] = t(p["mlp_up"]["bias"])
-        sd[f"{pre}.mlp_down.weight"] = t(_np(p["mlp_down"]["kernel"]).T)
+        if "moe" in p:
+            sd[f"{pre}.moe.router.weight"] = t(_np(p["moe"]["router"]["kernel"]).T)
+            sd[f"{pre}.moe.w_up"] = t(p["moe"]["w_up"])
+            sd[f"{pre}.moe.w_down"] = t(p["moe"]["w_down"])
+        else:
+            sd[f"{pre}.mlp_up.weight"] = t(_np(p["mlp_up"]["kernel"]).T)
+            sd[f"{pre}.mlp_up.bias"] = t(p["mlp_up"]["bias"])
+            sd[f"{pre}.mlp_down.weight"] = t(_np(p["mlp_down"]["kernel"]).T)
         ln(f"{pre}.ln1", p["ln1"], sd)
         ln(f"{pre}.ln2", p["ln2"], sd)
     return sd
@@ -108,6 +125,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
     """The inverse of ``params_from_jax``: the flax parameter tree, numpy
     fp32 leaves, of a ``TransformerLM`` state dict (any device and
     dtype), so a trained state compares with the JAX package's."""
+    from pytorch_distributed_tpu_torch.models.transformer import use_moe
 
     def a(name) -> np.ndarray:  # a copy: never a view of a live parameter
         return state_dict[name].detach().float().cpu().numpy().copy()
@@ -122,23 +140,32 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
     e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     params = {
         "wte": {"embedding": a("wte.weight")},
-        "wpe": {"embedding": a("wpe.weight")},
         "ln_f": ln("ln_f"),
         "lm_head": {"kernel": kernel("lm_head")},
     }
+    if cfg.pos_embedding == "learned":
+        params["wpe"] = {"embedding": a("wpe.weight")}
     for i in range(cfg.num_layers):
         pre = f"blocks.{i}"
-        params[f"block{i}"] = {
-            "ln1": ln(f"{pre}.ln1"),
-            "attn": {
-                "qkv": {"kernel": kernel(f"{pre}.attn.qkv", e, 3, h, d),
-                        "bias": a(f"{pre}.attn.qkv.bias").reshape(3, h, d)},
-                "proj": {"kernel": kernel(f"{pre}.attn.proj", h, d, e)},
-            },
-            "ln2": ln(f"{pre}.ln2"),
-            "mlp_up": {"kernel": kernel(f"{pre}.mlp_up"), "bias": a(f"{pre}.mlp_up.bias")},
-            "mlp_down": {"kernel": kernel(f"{pre}.mlp_down")},
-        }
+        if cfg.num_kv_heads is None:
+            attn = {"qkv": {"kernel": kernel(f"{pre}.attn.qkv", e, 3, h, d),
+                            "bias": a(f"{pre}.attn.qkv.bias").reshape(3, h, d)}}
+        else:
+            hk = cfg.num_kv_heads
+            attn = {"q": {"kernel": kernel(f"{pre}.attn.q", e, h, d),
+                          "bias": a(f"{pre}.attn.q.bias").reshape(h, d)},
+                    "kv": {"kernel": kernel(f"{pre}.attn.kv", e, 2, hk, d),
+                           "bias": a(f"{pre}.attn.kv.bias").reshape(2, hk, d)}}
+        attn["proj"] = {"kernel": kernel(f"{pre}.attn.proj", h, d, e)}
+        block = {"ln1": ln(f"{pre}.ln1"), "attn": attn, "ln2": ln(f"{pre}.ln2")}
+        if use_moe(cfg, i):
+            block["moe"] = {"router": {"kernel": kernel(f"{pre}.moe.router")},
+                            "w_up": a(f"{pre}.moe.w_up"), "w_down": a(f"{pre}.moe.w_down")}
+        else:
+            block["mlp_up"] = {"kernel": kernel(f"{pre}.mlp_up"),
+                               "bias": a(f"{pre}.mlp_up.bias")}
+            block["mlp_down"] = {"kernel": kernel(f"{pre}.mlp_down")}
+        params[f"block{i}"] = block
     return params
 
 
@@ -158,13 +185,18 @@ def init_params(cfg: TransformerConfig, seed: int = 0) -> Dict:
     """Random weights in the flax layout at flax's default scales, from a
     numpy seed: ``lecun_normal`` Dense kernels (truncated normal, variance
     1/fan_in), zero biases, unit LayerNorm scales, ``Embed`` tables
-    normal with variance 1/E. Feed the result to ``params_from_jax``."""
+    normal with variance 1/E; MoE experts ``variance_scaling(2.0,
+    "fan_in", "truncated_normal")`` with flax's fan-in of a 3-D kernel
+    (n_experts · in). Feed the result to ``params_from_jax``."""
+    from pytorch_distributed_tpu_torch.models.transformer import use_moe
+
     rng = np.random.default_rng(seed)
     e, h, d, v = cfg.embed_dim, cfg.num_heads, cfg.head_dim, cfg.vocab_size
     m = e * cfg.mlp_ratio
 
-    def dense(fan_in, shape):
-        return _truncated_normal(rng, shape, fan_in ** -0.5)
+    def dense(fan_in, shape, gain=1.0):
+        return _truncated_normal(rng, shape, fan_in ** -0.5 if gain == 1.0
+                                 else (gain / fan_in) ** 0.5)
 
     def ln():
         return {"scale": np.ones(e, np.float32), "bias": np.zeros(e, np.float32)}
@@ -172,22 +204,31 @@ def init_params(cfg: TransformerConfig, seed: int = 0) -> Dict:
     params = {
         "wte": {"embedding": rng.standard_normal((v, e), dtype=np.float32)
                 * np.float32(e ** -0.5)},
-        "wpe": {"embedding": rng.standard_normal((cfg.max_seq_len, e),
-                                                 dtype=np.float32)
-                * np.float32(e ** -0.5)},
     }
+    if cfg.pos_embedding == "learned":
+        params["wpe"] = {"embedding": rng.standard_normal((cfg.max_seq_len, e),
+                                                          dtype=np.float32)
+                         * np.float32(e ** -0.5)}
     for i in range(cfg.num_layers):
-        params[f"block{i}"] = {
-            "ln1": ln(),
-            "attn": {
-                "qkv": {"kernel": dense(e, (e, 3, h, d)),
-                        "bias": np.zeros((3, h, d), np.float32)},
-                "proj": {"kernel": dense(h * d, (h, d, e))},
-            },
-            "ln2": ln(),
-            "mlp_up": {"kernel": dense(e, (e, m)), "bias": np.zeros(m, np.float32)},
-            "mlp_down": {"kernel": dense(m, (m, e))},
-        }
+        if cfg.num_kv_heads is None:
+            attn = {"qkv": {"kernel": dense(e, (e, 3, h, d)),
+                            "bias": np.zeros((3, h, d), np.float32)}}
+        else:
+            hk = cfg.num_kv_heads
+            attn = {"q": {"kernel": dense(e, (e, h, d)), "bias": np.zeros((h, d), np.float32)},
+                    "kv": {"kernel": dense(e, (e, 2, hk, d)),
+                           "bias": np.zeros((2, hk, d), np.float32)}}
+        attn["proj"] = {"kernel": dense(h * d, (h, d, e))}
+        block = {"ln1": ln(), "attn": attn, "ln2": ln()}
+        if use_moe(cfg, i):
+            n = cfg.n_experts
+            block["moe"] = {"router": {"kernel": dense(e, (e, n))},
+                            "w_up": dense(n * e, (n, e, m), gain=2.0),
+                            "w_down": dense(n * m, (n, m, e), gain=2.0)}
+        else:
+            block["mlp_up"] = {"kernel": dense(e, (e, m)), "bias": np.zeros(m, np.float32)}
+            block["mlp_down"] = {"kernel": dense(m, (m, e))}
+        params[f"block{i}"] = block
     params["ln_f"] = ln()
     params["lm_head"] = {"kernel": dense(e, (e, v))}
     return params

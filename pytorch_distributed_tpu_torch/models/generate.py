@@ -136,9 +136,10 @@ def _generator(device: torch.device, generator: Optional[torch.Generator],
 
 def init_cache(config, batch_size: int, device=None) -> List[DenseCache]:
     """A zero dense cache: per layer ``DenseCache`` of ``[batch_size,
-    max_seq_len, H, D]`` K and V in ``config.dtype``."""
+    max_seq_len, H_kv, D]`` K and V in ``config.dtype`` (H_kv = the
+    config's ``kv_heads``)."""
     device = resolve_device(device)
-    shape = (batch_size, config.max_seq_len, config.num_heads, config.head_dim)
+    shape = (batch_size, config.max_seq_len, config.kv_heads, config.head_dim)
     return [DenseCache(torch.zeros(shape, dtype=config.dtype, device=device),
                        torch.zeros(shape, dtype=config.dtype, device=device))
             for _ in range(config.num_layers)]

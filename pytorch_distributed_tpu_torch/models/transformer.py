@@ -1,11 +1,31 @@
 """Causal transformer LM, in PyTorch.
 
-The port of ``pytorch_distributed_tpu/models/transformer.py`` along two
-paths: learned token and position embeddings, pre-LN blocks (attention,
-GELU MLP), a final LayerNorm and an untied LM head with fp32 logits.
+The port of ``pytorch_distributed_tpu/models/transformer.py``: token
+embeddings with learned positions (``wpe``) or rotary ones (RoPE: q and k
+rotated at their absolute positions, no table), pre-LN blocks (attention
+with all heads or grouped-query attention, then a GELU MLP or, in every
+``moe_every``-th block, a mixture of experts, ``models.moe``), a final
+LayerNorm and an untied LM head with fp32 logits.
+
+- GQA (``num_kv_heads``): separate ``q`` and ``kv`` projections (the flax
+  tree's ``q`` kernel ``[E, H, D]`` and ``kv`` ``[E, 2, H_kv, D]``, both
+  with bias); MHA keeps the fused ``qkv``. Every cache holds H_kv heads;
+  the paged kernels and the dense decode read them by group (query head h
+  reads KV head h // G), and training repeats K/V to H heads
+  (``repeat_interleave``, JAX's ``jnp.repeat``) before any attention path.
+- RoPE (``pos_embedding="rope"``): interleaved pairs (``x[..., ::2]``,
+  ``x[..., 1::2]``), fp32 angles and trig, cast back; q and k are rotated
+  before the cache write and before any attention path, so caches hold
+  rotated keys and the ring ships them. The rotations are computed once a
+  forward from the one resolved position array (``rope_angles``), never
+  kept across calls, and applied as one complex multiply a tensor.
+- Dropout (``dropout``) at the embedding sum, after the attention
+  projection, after the MLP and after the MoE output, only in a training
+  forward given a ``dropout_rng`` generator (the train step derives it from
+  the seed, the step and the shard, ``train.lm.dropout_generator``).
 
 - Dense decoding (``cache=`` a list of ``DenseCache``, no block tables;
-  ``models.generate``): one ``[B, max_seq_len, H, D]`` K and V per
+  ``models.generate``): one ``[B, max_seq_len, H_kv, D]`` K and V per
   layer, written in place. Prefill (``decode=False``) writes the prompt's
   K/V at a scalar ``position_offset`` and attends causally over the
   prompt; decode (``decode=True``, one token a request) writes at a
@@ -19,7 +39,8 @@ GELU MLP), a final LayerNorm and an untied LM head with fp32 logits.
   attends to the quantized values it wrote, as every later read does.
 - Training (no cache): causal self-attention over the whole sequence,
   ``attention="flash"`` through the CUDA kernels of
-  ``ops.flash_attention`` or ``"dense"`` in plain PyTorch; with
+  ``ops.flash_attention``, or ``"dense"`` / ``"blockwise"``
+  (``ops.attention.blockwise_attention``) in plain PyTorch; with
   ``return_hidden`` it stops after the final LayerNorm for the fused loss.
   Sequence-parallel training shards the sequence over the mesh's
   ``config.seq_axis`` group and attends round the ring: ``"ring_flash"``
@@ -46,10 +67,9 @@ What must match the flax module exactly:
   (``train.lm.create_lm_state``), because AdamW on bf16 parameters loses
   most updates.
 
-The blockwise, MoE, tensor-parallel, RoPE, dropout and GQA branches of the
-JAX module are not ported yet: their config fields raise
-``NotImplementedError`` when set, and ``attention="blockwise"`` when the
-training forward runs.
+The tensor-parallel and expert-parallel branches of the JAX module are not
+ported yet: ``tp_size > 1`` and ``ep_size > 1`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,9 +81,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pytorch_distributed_tpu_torch.models.moe import MoEMLP
 from pytorch_distributed_tpu_torch.ops.attention import (
     GATHER_IMPLS,
     NEG_INF,
+    blockwise_attention,
     dense_attention,
     paged_attention,
 )
@@ -73,11 +95,11 @@ from pytorch_distributed_tpu_torch.parallel.mesh import SEQ_AXIS, axis_group
 from pytorch_distributed_tpu_torch.parallel.sequence import LAYOUTS, ring_attention
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
-ATTENTIONS = ("dense", "flash", "ring", "ring_flash")
+ATTENTIONS = ("dense", "blockwise", "flash", "ring", "ring_flash")
 RING_ATTENTIONS = ("ring", "ring_flash")
+POS_EMBEDDINGS = ("learned", "rope")
 #: JAX config fields whose branches are not ported, with their defaults
-NOT_PORTED = {"dropout": 0.0, "num_kv_heads": None, "pos_embedding": "learned",
-              "n_experts": 0, "tp_size": 1}
+NOT_PORTED = {"tp_size": 1, "ep_size": 1}
 
 
 class LayerCache(NamedTuple):
@@ -94,15 +116,15 @@ class LayerCache(NamedTuple):
 
 class DenseCache(NamedTuple):
     """One layer's dense decode cache, ``key``/``value`` ``[B, max_seq_len,
-    H, D]`` in ``config.dtype`` (``models.generate.init_cache``)."""
+    H_kv, D]`` in ``config.dtype`` (``models.generate.init_cache``)."""
 
     key: torch.Tensor
     value: torch.Tensor
 
 
 def _later(what: str) -> str:
-    return (f"{what}: not ported yet (ROADMAP.md, the port's queue: dropout, "
-            "GQA, RoPE, MoE, TP and blockwise come with later slices)")
+    return (f"{what}: not ported yet (ROADMAP.md, the port's queue: tensor and "
+            "expert parallelism come with the next slice)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,11 +138,13 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     # parameters' dtype; None = dtype (serving). Training keeps fp32.
     param_dtype: Optional[torch.dtype] = None
-    # training attention: "flash" (the CUDA kernels), "dense", or over a
-    # sequence-parallel group "ring_flash" (the kernels per ring visit) or
-    # "ring" (plain PyTorch); serving requires "dense" (models.generate) and
-    # reads through gather_impl
+    # training attention: "flash" (the CUDA kernels), "dense", "blockwise"
+    # (plain PyTorch, K/V blocks of block_size), or over a sequence-parallel
+    # group "ring_flash" (the kernels per ring visit) or "ring" (plain
+    # PyTorch); serving requires "dense" (models.generate) and reads
+    # through gather_impl
     attention: str = "dense"
+    block_size: int = 512  # the K/V block of blockwise attention
     # the mesh axis whose group the ring runs over (parallel.mesh.make_mesh
     # registers it), and the shards' layout: "contiguous" or "zigzag"
     seq_axis: str = SEQ_AXIS
@@ -131,11 +155,24 @@ class TransformerConfig:
     # flash-decoding workers: None = auto (ops.paged_flash.auto_split_s),
     # 1 = single sweep, S > 1 forced
     split_s: Optional[int] = None
-    # not ported: any value but the default raises NotImplementedError
+    # residual dropout at four sites, active only in a training forward
+    # given a dropout_rng
     dropout: float = 0.0
+    # grouped-query attention: K/V heads (dividing num_heads); None = MHA
+    # with the fused qkv projection
     num_kv_heads: Optional[int] = None
+    # "learned" (the wpe table) or "rope" (rotary q/k, no table)
     pos_embedding: str = "learned"
+    rope_theta: float = 10000.0
+    # mixture of experts (models.moe) in every moe_every-th block when
+    # n_experts > 0
     n_experts: int = 0
+    moe_every: int = 2
+    capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_top_k: int = 1
+    # not ported: any value but 1 raises NotImplementedError
+    ep_size: int = 1
     tp_size: int = 1
 
     def __post_init__(self):
@@ -143,10 +180,34 @@ class TransformerConfig:
                  if getattr(self, k) != default]
         if later:
             raise NotImplementedError(_later(", ".join(later)))
+        if self.n_experts and self.n_experts % self.ep_size:
+            raise ValueError(
+                f"n_experts {self.n_experts} not divisible by ep_size {self.ep_size}")
+        if self.n_experts and not 1 <= self.moe_top_k <= self.n_experts:
+            raise ValueError(
+                f"moe_top_k {self.moe_top_k} must be in [1, n_experts="
+                f"{self.n_experts}]")
         if self.embed_dim % self.num_heads:
             raise ValueError(
                 f"embed_dim {self.embed_dim} not divisible by num_heads "
                 f"{self.num_heads}")
+        if self.pos_embedding not in POS_EMBEDDINGS:
+            raise ValueError(
+                f"pos_embedding {self.pos_embedding!r} must be 'learned' or 'rope'")
+        if self.pos_embedding == "rope" and (self.embed_dim // self.num_heads) % 2:
+            raise ValueError(
+                f"rope needs an even head_dim, got {self.embed_dim // self.num_heads}")
+        if self.rope_theta <= 0.0:
+            raise ValueError(f"rope_theta must be > 0, got {self.rope_theta}")
+        if self.num_kv_heads is not None:
+            if self.num_kv_heads < 1:
+                raise ValueError(f"num_kv_heads must be >= 1, got {self.num_kv_heads}")
+            if self.num_heads % self.num_kv_heads:
+                raise ValueError(
+                    f"num_heads {self.num_heads} not divisible by num_kv_heads "
+                    f"{self.num_kv_heads}")
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"dropout must be in [0, 1), got {self.dropout}")
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {self.dtype}")
         if self.param_dtype not in (None, torch.float32, torch.bfloat16):
@@ -171,6 +232,11 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
+
+    @property
+    def kv_heads(self) -> int:
+        """The heads K/V (and every cache) hold: ``num_kv_heads``, or all."""
+        return self.num_kv_heads or self.num_heads
 
     @property
     def weight_dtype(self) -> torch.dtype:
@@ -244,44 +310,111 @@ class Embed(nn.Embedding):
         return super().forward(idx).to(self.compute_dtype)
 
 
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.Tensor:
+    """The rotations ``e^{i·ang}`` (complex64 ``[B or 1, L, 1, D/2]``) of
+    the absolute ``positions`` (``[L]`` shared or ``[B, L]`` a request),
+    the JAX ``_rope_rotate``'s ``ang = pos · θ^(-2i/D)`` with fp32 trig;
+    computed once a forward for every layer."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=positions.device) / head_dim))
+    pos = positions if positions.dim() == 2 else positions[None]
+    ang = pos.float()[..., None] * inv
+    return torch.complex(torch.cos(ang), torch.sin(ang))[:, :, None, :]
+
+
+def rope_apply(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """Rotate ``x [B, L, H, D]`` by ``rope_angles``' rotations: the
+    interleaved pairs ``(x[..., ::2], x[..., 1::2])`` as complex numbers
+    times ``rot`` in fp32, i.e. ``(x1·cos - x2·sin, x1·sin + x2·cos)``,
+    cast back to x's dtype (three kernels a tensor, where the pairwise
+    spelling takes about ten)."""
+    xc = torch.view_as_complex(x.float().unflatten(-1, (-1, 2)))
+    return torch.view_as_real(xc * rot).flatten(-2).to(x.dtype)
+
+
+def rope_rotate(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """The JAX ``_rope_rotate(x, positions, theta)``: ``x [B, L, H, D]`` at
+    ``positions`` ``[1, L]`` / ``[L]`` or ``[B, L]``."""
+    return rope_apply(x, rope_angles(positions, x.shape[-1], theta))
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate
+    (a uniform draw from ``generator`` below it) and scale the kept ones
+    by 1 / (1 - rate), in x's dtype."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def repeat_kv(x: torch.Tensor, group: int) -> torch.Tensor:
+    """``[B, L, H_kv, D]`` → ``[B, L, H_kv·G, D]``, KV head j repeated for
+    query heads j·G .. j·G + G - 1 (``jnp.repeat(x, G, axis=2)``)."""
+    return x if group == 1 else torch.repeat_interleave(x, group, dim=2)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
         e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
-        self.qkv = Dense(cfg, e, 3 * h * d)  # out (3, H, D)
+        if cfg.num_kv_heads is None:
+            self.qkv = Dense(cfg, e, 3 * h * d)  # out (3, H, D)
+        else:
+            self.q = Dense(cfg, e, h * d)  # out (H, D)
+            self.kv = Dense(cfg, e, 2 * cfg.num_kv_heads * d)  # out (2, H_kv, D)
         self.proj = Dense(cfg, h * d, e, bias=False)
 
-    def forward(self, x: torch.Tensor, index: Optional["PagedIndex"] = None,
-                cache=None, position_offset=0, decode: bool = False) -> torch.Tensor:
-        """``x [B, L, E]`` (LayerNorm output).
-
-        Dense (``cache`` a ``DenseCache``): the K/V rows are written at
-        ``position_offset`` (a scalar, or ``[B]`` for a one-token decode),
-        then prefill attends causally over the L tokens and decode in fp32
-        to the whole cache row, positions past each request's own masked
-        out (JAX ``transformer.py:422-505``).
-
-        Paged (``cache`` given): writes the chunk's K/V into the pools in
-        place at ``(index.blk, index.off)``, then attends through the
-        tables; the chunk just written is visible to itself through the
-        same frontier mask. On quantized pools with ``gather_impl="kernel"``
-        the two are one op, ``paged_quantize_scatter_attention`` (one
-        launch with bf16 q), which derives the same places from the tables
-        and positions. Training (no cache): causal self-attention over
-        the L tokens by ``cfg.attention``; the flash kernel masks from
-        position 0, which is exact for equal q/k offsets, and the rings
-        take their causal structure from the ring positions (the contiguous
-        plain ring from the document's base, ``position_offset`` less this
-        shard's start)."""
+    def project(self, x: torch.Tensor):
+        """q ``[B, L, H, D]``, k and v ``[B, L, H_kv, D]`` (views of the
+        projections' outputs)."""
         cfg = self.cfg
         b, l, _ = x.shape
         h, d = cfg.num_heads, cfg.head_dim
-        q, k, v = self.qkv(x).view(b, l, 3, h, d).unbind(dim=2)
+        if cfg.num_kv_heads is None:
+            return self.qkv(x).view(b, l, 3, h, d).unbind(dim=2)
+        k, v = self.kv(x).view(b, l, 2, cfg.num_kv_heads, d).unbind(dim=2)
+        return self.q(x).view(b, l, h, d), k, v
+
+    def forward(self, x: torch.Tensor, index: Optional["PagedIndex"] = None,
+                cache=None, position_offset=0, decode: bool = False,
+                rope=None, drop=None) -> torch.Tensor:
+        """``x [B, L, E]`` (LayerNorm output). ``rope``: the forward's
+        ``rope_angles`` rotations (under RoPE), applied to q and k before anything
+        else reads them; ``drop``: the training forward's dropout, applied
+        to the projection's output.
+
+        Dense (``cache`` a ``DenseCache``): the K/V rows are written at
+        ``position_offset`` (a scalar, or ``[B]`` for a one-token decode),
+        then prefill attends causally over the L tokens (K/V repeated to H
+        heads) and decode in fp32 to the whole cache row, positions past
+        each request's own masked out, by group against the H_kv-head
+        cache (JAX ``transformer.py:422-505``).
+
+        Paged (``cache`` given): writes the chunk's K/V into the pools in
+        place at ``(index.blk, index.off)``, then attends through the
+        tables (the kernels fold a GQA group into rows); the chunk just
+        written is visible to itself through the same frontier mask. On
+        quantized pools with ``gather_impl="kernel"`` the two are one op,
+        ``paged_quantize_scatter_attention`` (one launch with bf16 q),
+        which derives the same places from the tables and positions.
+        Training (no cache): K/V repeated to H heads, then causal
+        self-attention over the L tokens by ``cfg.attention``; the flash
+        kernel masks from position 0, which is exact for equal q/k offsets,
+        and the rings take their causal structure from the ring positions
+        (the contiguous plain ring from the document's base,
+        ``position_offset`` less this shard's start)."""
+        cfg = self.cfg
+        b, l, _ = x.shape
+        h, d = cfg.num_heads, cfg.head_dim
+        q, k, v = self.project(x)
+        if rope is not None:
+            q, k = rope_apply(q, rope), rope_apply(k, rope)
         if isinstance(cache, DenseCache):
             out = self._dense_cached(q, k, v, cache, position_offset, decode)
             return self.proj(out.reshape(b, l, h * d))
         if cache is None:
+            group = h // cfg.kv_heads
+            k, v = repeat_kv(k, group), repeat_kv(v, group)
             if cfg.attention == "flash":
                 out = flash_attention(q, k, v, causal=True)
             elif cfg.attention == "ring_flash":
@@ -292,10 +425,15 @@ class Attention(nn.Module):
                 base = 0 if cfg.ring_layout == "zigzag" else position_offset - ax.index * l
                 out = ring_attention(q, k, v, group=ax, causal=True, base_offset=base,
                                      layout=cfg.ring_layout)
+            elif cfg.attention == "blockwise":
+                out = blockwise_attention(q, k, v, causal=True,
+                                          block_size=min(cfg.block_size, l),
+                                          q_offset=position_offset, k_offset=position_offset)
             else:
                 out = dense_attention(q, k, v, causal=True, q_offset=position_offset,
                                       k_offset=position_offset)
-            return self.proj(out.reshape(b, l, h * d))
+            out = self.proj(out.reshape(b, l, h * d))
+            return out if drop is None else drop(out)
         k_pool, v_pool, k_scale, v_scale = cache
         # inactive lanes write to the trash block, where clashes are harmless
         if k_scale is not None and cfg.gather_impl == "kernel":
@@ -322,7 +460,9 @@ class Attention(nn.Module):
     def _dense_cached(self, q, k, v, cache: DenseCache, position_offset,
                       decode: bool) -> torch.Tensor:
         ck, cv = cache
-        b, l = q.shape[:2]
+        b, l, h, d = q.shape
+        h_kv = ck.shape[2]
+        group = h // h_kv
         if torch.is_tensor(position_offset) and position_offset.dim() == 1:
             # one token a request, each at its own row position
             pos_b = position_offset.to(q.device).long()
@@ -335,32 +475,51 @@ class Attention(nn.Module):
             cv[:, p0:p0 + l] = v.to(cv.dtype)
             pos_b = torch.full((b,), p0, dtype=torch.long, device=q.device)
         if not decode:  # prefill: a scalar offset (TransformerLM checks)
-            return dense_attention(q, k, v, causal=True, q_offset=p0, k_offset=p0)
-        # one layer's cache cast to fp32 at a time, as the JAX module does
+            return dense_attention(q, repeat_kv(k, group), repeat_kv(v, group), causal=True,
+                                   q_offset=p0, k_offset=p0)
+        # one layer's cache cast to fp32 at a time, as the JAX module does;
+        # under GQA query head h reads cache head h // G, never widened
         scale = self.cfg.head_dim ** -0.5
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, ck.float())
-        mask = (torch.arange(ck.shape[1], device=q.device)[None, None, None, :]
-                <= pos_b[:, None, None, None])
+        qg = (q.float() * scale).reshape(b, 1, h_kv, group, d)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck.float())
+        mask = (torch.arange(ck.shape[1], device=q.device)[None, None, None, None, :]
+                <= pos_b[:, None, None, None, None])
         p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", p, cv.float()).to(self.cfg.dtype)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p, cv.float())
+        return out.reshape(b, 1, h, d).to(self.cfg.dtype)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, use_moe: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.use_moe = use_moe
         e = cfg.embed_dim
         self.ln1 = LayerNorm32(e)
         self.attn = Attention(cfg)
         self.ln2 = LayerNorm32(e)
-        self.mlp_up = Dense(cfg, e, e * cfg.mlp_ratio)
-        self.mlp_down = Dense(cfg, e * cfg.mlp_ratio, e, bias=False)
+        if use_moe:
+            self.moe = MoEMLP(cfg.n_experts, e, e * cfg.mlp_ratio,
+                              capacity_factor=cfg.capacity_factor,
+                              aux_loss_weight=cfg.moe_aux_weight, top_k=cfg.moe_top_k,
+                              dtype=cfg.dtype, param_dtype=cfg.weight_dtype)
+        else:
+            self.mlp_up = Dense(cfg, e, e * cfg.mlp_ratio)
+            self.mlp_down = Dense(cfg, e * cfg.mlp_ratio, e, bias=False)
 
     def forward(self, x, index: Optional["PagedIndex"] = None,
-                cache=None, position_offset=0, decode: bool = False):
-        x = x + self.attn(self.ln1(x), index, cache, position_offset, decode)
-        hdn = F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh")
-        return x + self.mlp_down(hdn)
+                cache=None, position_offset=0, decode: bool = False, rope=None, drop=None):
+        x = x + self.attn(self.ln1(x), index, cache, position_offset, decode, rope, drop)
+        if self.use_moe:
+            out = self.moe(self.ln2(x))
+        else:
+            out = self.mlp_down(F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh"))
+        return x + (out if drop is None else drop(out))
+
+
+def use_moe(cfg: TransformerConfig, layer: int) -> bool:
+    """Whether block ``layer`` holds the MoE (every ``moe_every``-th)."""
+    return bool(cfg.n_experts) and layer % cfg.moe_every == cfg.moe_every - 1
 
 
 class TransformerLM(nn.Module):
@@ -380,12 +539,17 @@ class TransformerLM(nn.Module):
     the LM head then runs on B rows instead of B·L.
 
     Training: ``forward(tokens [B, L], position_offset=0, positions=None,
-    return_hidden=False)`` → logits ``[B, L, vocab]`` fp32, or with
-    ``return_hidden`` the fp32 output of the final LayerNorm (the fused
-    loss applies ``lm_head.weight`` itself). ``positions [L]`` overrides
-    ``position_offset + arange(L)`` for the position embedding (required
-    for a zigzag shard). Sequence-parallel: ``tokens`` is this rank's shard
-    and ``position_offset`` its first token's position.
+    return_hidden=False, dropout_rng=None)`` → logits ``[B, L, vocab]``
+    fp32, or with ``return_hidden`` the fp32 output of the final LayerNorm
+    (the fused loss applies ``lm_head.weight`` itself). ``positions [L]``
+    overrides ``position_offset + arange(L)`` for the position embedding or
+    rotation (required for a zigzag shard). Sequence-parallel: ``tokens``
+    is this rank's shard and ``position_offset`` its first token's
+    position. Dropout runs when ``cfg.dropout > 0``, the module is in
+    training mode and ``dropout_rng`` (a ``torch.Generator`` on the
+    tokens' device) is given; the masks are its draws, in the order of the
+    sites. The MoE blocks leave each call's aux loss and drop share on
+    their ``MoEMLP`` (``models.moe.moe_layers``).
     """
 
     def __init__(self, cfg: TransformerConfig):
@@ -393,19 +557,30 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         e = cfg.embed_dim
         self.wte = Embed(cfg, cfg.vocab_size, e)
-        self.wpe = Embed(cfg, cfg.max_seq_len, e)
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
+        if cfg.pos_embedding == "learned":
+            self.wpe = Embed(cfg, cfg.max_seq_len, e)
+        self.blocks = nn.ModuleList(Block(cfg, use_moe(cfg, i)) for i in range(cfg.num_layers))
         self.ln_f = LayerNorm32(e)
         self.lm_head = Dense(cfg, e, cfg.vocab_size, bias=False)
+
+    def embed(self, tokens: torch.Tensor, positions: torch.Tensor):
+        """Token embeddings plus the learned positions', and the rotary
+        rotations under RoPE (None otherwise), from one position array."""
+        x = self.wte(tokens)
+        if self.cfg.pos_embedding == "learned":
+            return x + self.wpe(positions), None
+        return x, rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
 
     def forward(self, tokens: torch.Tensor, position_offset=0,
                 block_tables: Optional[torch.Tensor] = None,
                 cache: Optional[List[LayerCache]] = None,
                 logits_index: Optional[torch.Tensor] = None, *,
                 positions: Optional[torch.Tensor] = None,
-                return_hidden: bool = False, decode: bool = False) -> torch.Tensor:
+                return_hidden: bool = False, decode: bool = False,
+                dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
         if cache is None:
-            return self._forward_train(tokens, position_offset, positions, return_hidden)
+            return self._forward_train(tokens, position_offset, positions, return_hidden,
+                                       dropout_rng)
         if block_tables is None:
             return self._forward_dense(tokens, position_offset, cache, decode)
         if len(cache) != self.cfg.num_layers:
@@ -415,9 +590,9 @@ class TransformerLM(nn.Module):
         positions = (position_offset.to(tokens.device).long()[:, None]
                      + torch.arange(l, device=tokens.device))
         index = PagedIndex.build(positions, block_tables, cache[0][0].shape[1])
-        x = self.wte(tokens) + self.wpe(positions)
+        x, rope = self.embed(tokens, positions)
         for blk, layer_cache in zip(self.blocks, cache):
-            x = blk(x, index, layer_cache)
+            x = blk(x, index, layer_cache, rope=rope)
         if logits_index is not None:
             x = x[torch.arange(b, device=x.device), logits_index.long()][:, None]
         return self.lm_head(self.ln_f(x)).float()
@@ -442,22 +617,20 @@ class TransformerLM(nn.Module):
             if decode and l != 1:
                 raise ValueError(f"decode processes one token a step, got {l}")
             positions = int(position_offset) + torch.arange(l, device=tokens.device)
-        x = self.wte(tokens) + self.wpe(positions)
+        x, rope = self.embed(tokens, positions)
         for blk, layer_cache in zip(self.blocks, cache):
-            x = blk(x, None, layer_cache, position_offset, decode)
+            x = blk(x, None, layer_cache, position_offset, decode, rope)
         return self.lm_head(self.ln_f(x)).float()
 
     def _forward_train(self, tokens: torch.Tensor, position_offset,
-                       positions: Optional[torch.Tensor],
-                       return_hidden: bool) -> torch.Tensor:
+                       positions: Optional[torch.Tensor], return_hidden: bool,
+                       dropout_rng: Optional[torch.Generator]) -> torch.Tensor:
         if torch.is_tensor(position_offset) and position_offset.dim() > 0:
             raise ValueError(
                 "a [B] position_offset is the paged serving convention (pass "
                 "block_tables and cache); training takes a scalar offset or "
                 "positions=")
         if self.cfg.attention not in ATTENTIONS:
-            if self.cfg.attention == "blockwise":
-                raise NotImplementedError(_later(f"attention={self.cfg.attention!r}"))
             raise ValueError(
                 f"attention {self.cfg.attention!r} must be one of {ATTENTIONS}")
         if self.cfg.ring_layout == "zigzag" and positions is None:
@@ -470,9 +643,18 @@ class TransformerLM(nn.Module):
         offset = int(position_offset)
         if positions is None:
             positions = offset + torch.arange(tokens.shape[1], device=tokens.device)
-        x = self.wte(tokens) + self.wpe(positions)
+        drop = None
+        if self.cfg.dropout > 0.0 and self.training and dropout_rng is not None:
+            rate = self.cfg.dropout
+
+            def drop(t):
+                return dropout(t, rate, dropout_rng)
+
+        x, rope = self.embed(tokens, positions)
+        if drop is not None:
+            x = drop(x)
         for blk in self.blocks:
-            x = blk(x, position_offset=offset)
+            x = blk(x, position_offset=offset, rope=rope, drop=drop)
         x = self.ln_f(x)
         if return_hidden:
             return x

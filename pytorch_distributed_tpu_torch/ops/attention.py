@@ -1,5 +1,6 @@
-"""Attention in plain PyTorch: ``dense_attention`` for training, and
-paged attention's plain version and spelling switch for serving.
+"""Attention in plain PyTorch: ``dense_attention`` and
+``blockwise_attention`` for training, and paged attention's plain version
+and spelling switch for serving.
 
 ``paged_attention_reference`` is the dense-gather spelling of
 ``pytorch_distributed_tpu/ops/attention.py:paged_attention``: take each
@@ -21,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 NEG_INF = -1e30  # finite additive mask value: NEG_INF - NEG_INF is 0, not nan
 
@@ -157,6 +159,51 @@ def dense_attention(
     if causal:
         probs = probs * allowed
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+
+
+def blockwise_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    block_size: int = 512,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    remat: bool = True,
+) -> torch.Tensor:
+    """Memory-efficient attention (``ops/attention.py:293`` of the JAX
+    package): scan the K/V blocks of ``min(block_size, Lk)`` keys, each
+    folded into an fp32 online-softmax state by ``attend_block`` (the JAX
+    ``attend_block``:67 recurrence, which the plain ring folds too). With
+    ``remat`` each block's fold runs under ``torch.utils.checkpoint``, as
+    JAX's scan body under ``jax.checkpoint``: the backward recomputes a
+    block's logits instead of keeping them. Returns ``[B, Lq, H, D]`` in q's
+    dtype; a fully masked row comes out 0."""
+    from pytorch_distributed_tpu_torch.parallel.sequence import SoftmaxState, attend_block
+
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    bs = min(block_size, lk)
+    if lk % bs:
+        raise ValueError(f"kv length {lk} not divisible by block_size {bs}")
+
+    def fold(o, m, l, kb, vb, k_off):
+        st = attend_block(SoftmaxState(o, m, l), q, kb, vb, scale=scale, causal=causal,
+                          q_offset=q_offset, k_offset=k_off)
+        return tuple(st)
+
+    state = tuple(SoftmaxState.zero(b, lq, h, d, q.device))
+    for i in range(lk // bs):
+        kb, vb = k[:, i * bs:(i + 1) * bs], v[:, i * bs:(i + 1) * bs]
+        if remat and torch.is_grad_enabled():
+            state = torch.utils.checkpoint.checkpoint(fold, *state, kb, vb, k_offset + i * bs,
+                                                      use_reentrant=False)
+        else:
+            state = fold(*state, kb, vb, k_offset + i * bs)
+    return SoftmaxState(*state).finalize(q.dtype)
 
 
 def paged_attention(

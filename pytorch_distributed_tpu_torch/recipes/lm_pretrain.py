@@ -7,12 +7,17 @@ its attention in the CUDA FlashAttention kernels by default:
     python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --synthetic --steps 8
     python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --tokens corpus.npy
     python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --synthetic --seq-parallel 2
+    python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --synthetic --steps 8 \
+        --kv-heads 4 --pos-embedding rope --dropout 0.1
     python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --device cpu --tiny \
         --seq-parallel 2 [--ring-layout zigzag]
 
 Without ``--device`` it runs on CUDA and fails where there is none. Token
 data is a flat int array (.npy) windowed to ``--seq-len``; ``--synthetic``
-makes deterministic fake tokens (``--steps`` batches of them).
+makes deterministic fake tokens (``--steps`` batches of them). ``--kv-heads``
+(grouped-query attention), ``--pos-embedding rope`` and ``--dropout`` shape
+the full-width model as in the JAX recipe; ``--tiny`` takes ``--dropout``
+alone, as there.
 
 On CUDA every visible card (on every node) takes one rank, and the grid
 is factored as the JAX recipe factors its devices: ``--seq-parallel S``
@@ -79,10 +84,21 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--vocab-size", type=int, default=32000)
     p.add_argument("--layers", type=int, default=12)
     p.add_argument("--heads", type=int, default=12)
+    p.add_argument("--kv-heads", type=int, default=None,
+                   help="grouped-query attention: K/V head count (must "
+                        "divide --heads; default = MHA). Shrinks the "
+                        "decode KV cache and kv projection by the group "
+                        "factor")
+    p.add_argument("--pos-embedding", default="learned",
+                   choices=["learned", "rope"],
+                   help="position encoding: GPT-2-style learned wpe table "
+                        "or rotary (q/k rotation in attention, no table)")
     p.add_argument("--embed-dim", type=int, default=768)
+    p.add_argument("--dropout", type=float, default=0.0)
     p.add_argument("--attention", default="flash",
-                   choices=["flash", "dense", "ring", "ring_flash"],
-                   help="the CUDA FlashAttention kernels, or plain PyTorch; with "
+                   choices=["dense", "blockwise", "flash", "ring", "ring_flash"],
+                   help="the CUDA FlashAttention kernels, or plain PyTorch (dense, "
+                        "or blockwise: K/V blocks with an online softmax); with "
                         "--seq-parallel > 1 ring_flash (the kernels per ring visit) "
                         "unless ring (plain PyTorch) is asked for")
     p.add_argument("--batch-size", type=int, default=None,
@@ -137,11 +153,14 @@ def model_config(args, seq_len: int, vocab: int) -> TransformerConfig:
         attention = "ring_flash"
     layout = args.ring_layout if sp > 1 else "contiguous"
     if args.tiny:
-        return tiny_config(attention=attention, ring_layout=layout)
+        # as the JAX recipe: the tiny config takes --dropout, not the
+        # width flags
+        return tiny_config(attention=attention, ring_layout=layout, dropout=args.dropout)
     return TransformerConfig(
         vocab_size=vocab, num_layers=args.layers, num_heads=args.heads,
-        embed_dim=args.embed_dim, max_seq_len=seq_len, dtype=torch.bfloat16,
-        attention=attention, ring_layout=layout)
+        num_kv_heads=args.kv_heads, pos_embedding=args.pos_embedding,
+        embed_dim=args.embed_dim, max_seq_len=seq_len, dropout=args.dropout,
+        dtype=torch.bfloat16, attention=attention, ring_layout=layout)
 
 
 def train(args, device=None, mesh=None) -> dict:

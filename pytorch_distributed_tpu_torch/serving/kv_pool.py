@@ -310,7 +310,7 @@ def init_paged_cache(config, n_blocks: int, block_len: int,
         raise ValueError(f"block_len must be >= 1, got {block_len}")
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype {kv_dtype!r} must be one of {KV_DTYPES}")
-    shape = (n_blocks, block_len, config.num_heads, config.head_dim)
+    shape = (n_blocks, block_len, config.kv_heads, config.head_dim)
     if kv_dtype is None:
         return [LayerCache(torch.zeros(shape, dtype=config.dtype, device=device),
                            torch.zeros(shape, dtype=config.dtype, device=device))

@@ -16,7 +16,8 @@ prints:
 - the time of the prefill and decode halves of a tick, by host clock.
 
     python -m pytorch_distributed_tpu_torch.tools.profile_serve \
-        [--gather-impl kernel|dense] [--kv-dtype int8|fp8|fp8_e5m2] [--eager]
+        [--gather-impl kernel|dense] [--kv-dtype int8|fp8|fp8_e5m2] [--eager] \
+        [--kv-heads 4 --pos-embedding rope]
 
 ``--eager`` runs the engine's programs without CUDA graphs, one launch at
 a time: run the tool with and without it on one card, one after the
@@ -144,11 +145,13 @@ def main(argv=None) -> None:
     p.add_argument("--kv-dtype", choices=("int8", "fp8", "fp8_e5m2"), default=None)
     p.add_argument("--eager", action="store_true",
                    help="run the programs eagerly, without CUDA graphs")
+    p.add_argument("--kv-heads", type=int, default=None, help="grouped-query attention")
+    p.add_argument("--pos-embedding", choices=("learned", "rope"), default="learned")
     args = p.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    cfg = full_config()
+    cfg = full_config(num_kv_heads=args.kv_heads, pos_embedding=args.pos_embedding)
     state = params_from_jax(init_params(cfg, seed=0))
     kw = dict(n_slots=8, block_len=16, prefill_chunk=32, gather_impl=args.gather_impl,
               kv_dtype=args.kv_dtype, cuda_graphs=not args.eager, device="cuda")

@@ -23,7 +23,17 @@ exactly:
   does;
 - a seq-sharded mesh needs ring attention (``check_seq_parallel_attention``),
   and a zigzag shard's wpe positions follow the chunk map
-  (``shard_positions``).
+  (``shard_positions``);
+- MoE: each MoE layer's pre-weighted aux loss enters each rank's loss
+  divided by the number of ranks, so the summed loss carries their mean
+  across shards (``:533-540``); ``moe_dropped_frac`` is the mean over the
+  layers, then over the ranks (``:612-617``); evaluation runs the experts
+  at ``models.moe.eval_capacity_factor`` (``:640-674``);
+- dropout: each step's masks come from a generator seeded by
+  (``dropout_seed``, ``state.step``, shard = data index · S + seq index)
+  alone (``dropout_generator``; JAX folds the same three into its key,
+  ``:493-504``), so a resumed run draws the uninterrupted run's masks. The
+  bits are torch's, not ``jax.random``'s.
 
 Parameters train in fp32 with ``config.dtype`` compute, as flax does:
 ``create_lm_state`` sets the config's ``param_dtype``.
@@ -39,6 +49,11 @@ import torch
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
+from pytorch_distributed_tpu_torch.models.moe import (
+    eval_capacity_factor,
+    moe_layers,
+    relaxed_capacity,
+)
 from pytorch_distributed_tpu_torch.models.transformer import (
     RING_ATTENTIONS,
     TransformerConfig,
@@ -130,18 +145,48 @@ def shard_positions(config, tokens: torch.Tensor, mesh: Optional[Mesh]):
     return None, mesh.seq.index * lq
 
 
+def shard_index(mesh: Optional[Mesh]) -> int:
+    """This rank's shard of the (data, seq) grid: data index · S + seq
+    index (0 without a mesh)."""
+    return 0 if mesh is None else mesh.data.index * mesh.seq.size + mesh.seq.index
+
+
+def dropout_generator(seed: int, step: int, shard: int, device) -> torch.Generator:
+    """The generator of one step's dropout masks on one shard, a function
+    of (seed, step, shard) alone: seeded by a numpy ``SeedSequence`` of
+    the three."""
+    state = np.random.SeedSequence([seed, step, shard]).generate_state(2, np.uint32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(state[0]) << 31) ^ int(state[1]))
+    return gen
+
+
+def moe_aux_and_dropped(model) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The last forward's MoE aux losses summed over the layers, and their
+    drop shares' mean (None, None for a dense model)."""
+    layers = list(moe_layers(model))
+    if not layers:
+        return None, None
+    return (sum(m.aux_loss for m in layers),
+            sum(m.dropped_frac for m in layers) / len(layers))
+
+
 def make_lm_train_step(*, grad_clip_norm: float = 0.0, fused_ce: bool = True,
-                       nan_guard: bool = False, mesh: Optional[Mesh] = None, config=None):
+                       nan_guard: bool = False, mesh: Optional[Mesh] = None, config=None,
+                       dropout_seed: int = 0):
     """``step(state, batch) -> (state, metrics)`` with ``batch``
     ``{"tokens", "labels", "weights"}`` ``[B, L]`` on the model's device:
     this rank's shard on a ``mesh`` (``train.lm_trainer.shard_lm_batch``).
     Metrics are 0-dim device tensors (reading one waits for the step), the
-    same on every rank: ``loss``, ``tokens``, and ``grad_norm`` (with
-    clipping) and ``step_good`` (with ``nan_guard``, which reads its
-    verdict on the host every step). ``config``, when given, is checked
-    against the mesh."""
+    same on every rank: ``loss``, ``tokens``, ``grad_norm`` (with
+    clipping), ``step_good`` (with ``nan_guard``, which reads its verdict
+    on the host every step) and ``moe_dropped_frac`` (MoE models).
+    ``config``, when given, is checked against the mesh. A model with
+    dropout draws its masks from ``dropout_generator(dropout_seed,
+    state.step, shard)``."""
     if config is not None:
         check_seq_parallel_attention(mesh, config)
+    n_shards = 1 if mesh is None else mesh.data.size * mesh.seq.size
 
     def step(state: TrainState, batch: Batch):
         model, opt = state.model, state.optimizer
@@ -150,14 +195,23 @@ def make_lm_train_step(*, grad_clip_norm: float = 0.0, fused_ce: bool = True,
         positions, offset = shard_positions(model.cfg, batch["tokens"], mesh)
         # the global count: each rank's loss is its share of the global mean
         count = _over_mesh(mesh, batch["weights"].sum())
+        rng = None
+        if model.cfg.dropout > 0.0:
+            rng = dropout_generator(dropout_seed, state.step, shard_index(mesh),
+                                    batch["tokens"].device)
         out = model(batch["tokens"], position_offset=offset, positions=positions,
-                    return_hidden=fused_ce)
+                    return_hidden=fused_ce, dropout_rng=rng)
         loss = lm_loss_sum(out, model, batch, fused_ce) / torch.clamp(count, min=1.0)
+        aux, dropped = moe_aux_and_dropped(model)
+        if aux is not None:
+            loss = loss + aux / n_shards
         loss.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         if mesh is not None:
             all_reduce_grads(grads)
         metrics = {"loss": _over_mesh(mesh, loss.detach().clone()), "tokens": count}
+        if dropped is not None:
+            metrics["moe_dropped_frac"] = _over_mesh(mesh, dropped.detach() / n_shards)
         if grad_clip_norm:
             metrics["grad_norm"] = clip_grads_by_global_norm(grads, grad_clip_norm)
         lr = state.lr_schedule(state.updates)
@@ -181,7 +235,8 @@ def make_lm_eval_step(*, fused_ce: bool = True, mesh: Optional[Mesh] = None, con
     """``eval_step(state, batch, acc) -> acc``: adds the batch's weighted
     CE sum and token count, summed over every rank, to the device
     accumulator (``empty_lm_metrics``); perplexity is
-    exp(loss_sum / tokens)."""
+    exp(loss_sum / tokens). MoE layers run at the relaxed evaluation
+    capacity (``models.moe.eval_capacity_factor``), dropout is off."""
     if config is not None:
         check_seq_parallel_attention(mesh, config)
 
@@ -190,8 +245,9 @@ def make_lm_eval_step(*, fused_ce: bool = True, mesh: Optional[Mesh] = None, con
         model = state.model
         model.eval()
         positions, offset = shard_positions(model.cfg, batch["tokens"], mesh)
-        out = model(batch["tokens"], position_offset=offset, positions=positions,
-                    return_hidden=fused_ce)
+        with relaxed_capacity(model, eval_capacity_factor(model.cfg)):
+            out = model(batch["tokens"], position_offset=offset, positions=positions,
+                        return_hidden=fused_ce)
         acc["loss_sum"] += _over_mesh(mesh, lm_loss_sum(out, model, batch, fused_ce))
         acc["tokens"] += _over_mesh(mesh, batch["weights"].sum())
         return acc

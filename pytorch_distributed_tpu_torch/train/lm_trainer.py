@@ -143,7 +143,7 @@ class LMTrainer(SuspendableTrainer):
             broadcast_from_primary(list(self.state.model.state_dict().values()))
         self.train_step = make_lm_train_step(grad_clip_norm=config.grad_clip_norm,
                                              nan_guard=config.nan_guard, mesh=mesh,
-                                             config=model_config)
+                                             config=model_config, dropout_seed=config.seed)
         self.eval_step = make_lm_eval_step(mesh=mesh, config=model_config)
         self.best_ppl = float("inf")
         self.start_epoch = 0

@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from pytorch_distributed_tpu.data import SyntheticImageClassification as JaxSynthetic
 from pytorch_distributed_tpu.models import resnet as jresnet
@@ -128,6 +129,16 @@ def spawn(tmp, job: dict):
                device="cpu", timeout_s=120)
     dp_check.run(job, RANKS)
     return dp_check.load(job, RANKS)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread in this process, as the gloo ranks it spawns take:
+    the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -276,6 +287,7 @@ def test_recipes_run_two_cpu_ranks_to_the_end(recipe, tmp_path):
     """``python -m ...<recipe> --device cpu --tiny --synthetic
     --cpu-replicas 2``: two gloo ranks, two epochs and their validation."""
     env = {k: v for k, v in os.environ.items() if k not in ("MASTER_IP", "MASTER_PORT")}
+    env["OMP_NUM_THREADS"] = "1"  # one torch thread in the recipe's process too
     r = subprocess.run([sys.executable, "-m", f"pytorch_distributed_tpu_torch.recipes.{recipe}",
                         "--device", "cpu", "--tiny", "--synthetic", "--cpu-replicas", "2",
                         "--save-dir", str(tmp_path)],

@@ -57,6 +57,16 @@ REPO = Path(__file__).resolve().parent.parent
 SIZE, CLASSES, SEQ, VOCAB = 16, 4, 16, 128
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread in this process, as the gloo ranks it spawns take:
+    the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _no_leaked_plan():
     faults.clear_plan()
@@ -298,6 +308,7 @@ def test_a_kill_inside_a_shard_write_is_survived(tmp_path):
     save's shard write (the tmp file written, not yet renamed); the
     relaunch resumes from the first save and runs to the end."""
     env = {k: v for k, v in os.environ.items() if k not in ("MASTER_IP", "MASTER_PORT")}
+    env["OMP_NUM_THREADS"] = "1"  # one torch thread in the recipe's process too
     cmd = [sys.executable, "-m", "pytorch_distributed_tpu_torch.recipes.lm_pretrain",
            "--device", "cpu", "--tiny", "--epochs", "1", "--save-every-n-steps", "2",
            "--save-dir", str(tmp_path)]
