@@ -2452,6 +2452,89 @@ def graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, n_blocks,
     return out
 
 
+def one_hot_moe(torch, layer, x):
+    """``layer`` (a ``MoEMLP``) on ``x [B, L, D]`` spelt as the JAX
+    ``MoEMLP`` spells it, independently of the port's index tensors:
+    ``topk_dispatch``'s one-hot dispatch and combine ``[T, E, C]`` (the top
+    ``k`` by a stable descending sort, positions by a cumulative sum over
+    the tokens a choice rank, capacity filled rank by rank), the expert
+    buffers and the output by einsums in the compute dtype. Returns the
+    output, the weighted aux loss, the drop share and the dispatch mask."""
+    import math
+
+    b, l, d = x.shape
+    t, e, k, dt = b * l, layer.n_experts, layer.top_k, layer.dtype
+    xf = x.reshape(t, d)
+    probs = torch.softmax(layer.router(xf.float()), dim=-1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = order.values[:, :k], order.indices[:, :k]
+    gates = topv if k == 1 else topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    cap = max(math.ceil(layer.capacity_factor * k * t / e), 1)
+    experts = torch.arange(e, device=x.device)
+    places = torch.arange(cap, device=x.device)
+    dispatch = torch.zeros((t, e, cap), device=x.device)
+    combine = torch.zeros_like(dispatch)
+    counts = torch.zeros(e, device=x.device)
+    for r in range(k):
+        onehot = (topi[:, r, None] == experts).float()  # [T, E]
+        pos = ((torch.cumsum(onehot, 0) - 1.0 + counts) * onehot).sum(-1).long()
+        kept = (pos < cap).float()
+        at = (pos[:, None] == places).float()  # [T, C]; none past capacity
+        disp = onehot[:, :, None] * at[:, None, :] * kept[:, None, None]
+        dispatch += disp
+        combine += disp * gates[:, r, None, None]
+        counts += (onehot * kept[:, None]).sum(0)
+        del onehot, at, disp
+    first = (topi[:, 0, None] == experts).float()
+    aux = layer.aux_loss_weight * e * torch.sum(first.mean(0) * probs.mean(0))
+    dropped = (dispatch.sum((1, 2)) == 0).float().mean()
+    xe = torch.einsum("tec,td->ecd", dispatch.to(dt), xf.to(dt))
+    h = torch.nn.functional.gelu(torch.einsum("ecd,edf->ecf", xe, layer.w_up.to(dt)),
+                                 approximate="tanh")
+    ye = torch.einsum("ecf,efd->ecd", h, layer.w_down.to(dt))
+    out = torch.einsum("tec,ecd->td", combine.to(dt), ye).reshape(b, l, d)
+    return out, aux, dropped, dispatch > 0
+
+
+def moe_against_one_hot(torch, cfg, params, tokens, dev="cuda") -> dict:
+    """The first MoE layer of the LM ``cfg`` with weights ``params``, on
+    its input from a forward of ``tokens [B, L]``: the port's layer (index
+    tensors, ``index_copy`` / ``index_select``) against ``one_hot_moe``.
+    The dispatch the port's routes give (rebuilt to ``[T, E, C]``) must
+    equal the one-hot one; the drop share equal; the aux loss within
+    1e-5 relative (the same fp32 sums in another order); the output
+    within two bf16 units in the last place of its largest magnitude (the
+    expert buffers are the same bits; the combine rounds the same products
+    once, or for top-2 a sum of two, where a split-K product may round a
+    partial first). A misrouted token moves its row by its own size."""
+    from pytorch_distributed_tpu_torch.models.moe import capacity_of, moe_layers, topk_routes
+
+    model = plain_model(torch, cfg, params, dev)
+    layer = next(moe_layers(model))
+    seen = []
+    hook = layer.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+    with torch.no_grad():
+        model(tokens, return_hidden=True)
+        hook.remove()
+        x = seen[0]
+        got = layer(x).float()
+        want, aux, dropped, dispatch = one_hot_moe(torch, layer, x)
+        t = x.shape[0] * x.shape[1]
+        cap = capacity_of(layer.capacity_factor, layer.top_k, t, layer.n_experts)
+        routes = topk_routes(layer.router(x.reshape(t, -1).float()), cap, layer.top_k)
+        ours = torch.zeros((t, layer.n_experts * cap + 1), dtype=torch.bool, device=x.device)
+        ours[torch.arange(t, device=x.device)[:, None], routes.slot] = True
+        same_routes = bool(torch.equal(ours[:, :-1].view(dispatch.shape), dispatch))
+        want = want.float()
+        err = (got - want).abs().max().item()
+        tol = 2 * 2.0 ** -7 * want.abs().max().item()
+    out = dict(tokens=t, capacity=cap, same_routes=same_routes, max_abs_err=err, tol=tol,
+               aux=layer.aux_loss.item(), aux_plain=aux.item(),
+               dropped=layer.dropped_frac.item(), dropped_plain=dropped.item())
+    del model, layer, x, seen, got, want, dispatch, ours, routes
+    return out
+
+
 def branches_runs(torch, card, serve, per_tick, mha, prompts, serve_kw, tmp, recipe_argv,
                   dev="cuda") -> dict:
     """(c) the LM's model branches on the card. ``mha``: the MHA serve's
@@ -2466,7 +2549,10 @@ def branches_runs(torch, card, serve, per_tick, mha, prompts, serve_kw, tmp, rec
       12 split launches a decode tick; the final prefill logits against a
       ``gather_impl="dense"`` engine (within 0.25, as the MHA serve's), the
       greedy match with a dense-gather serve and the fp8 serve's with the
-      bf16 one; tick p50, tok/s and TTFT p50 beside the MHA serve's.
+      bf16 one; tick p50, tok/s and TTFT p50 beside the MHA serve's. The
+      warmed bf16 serve drains the prompts again (``serve_record``): every
+      decode logits row a token was drawn from within ``DECODE_TOL["bf16"]``
+      of the plain model's full causal forward, as the batchers' rows are.
     - The dense path: ``generate_ragged`` in fp32 (``ragged_fp32``): its
       tokens the argmax of its steps' logits, those within
       ``DECODE_TOL["fp32"]`` of the full causal forward, equal to
@@ -2478,7 +2564,9 @@ def branches_runs(torch, card, serve, per_tick, mha, prompts, serve_kw, tmp, rec
       a suspend at step 4 then a resume bit-equal to them
       (``check_resumed``); the step p50 beside the MHA step's.
     - MoE: 8 experts top-1 and top-2, ``moe_steps`` steps on flash, finite
-      losses and ``moe_dropped_frac``; each first step against dense.
+      losses and ``moe_dropped_frac``; the first MoE layer on B 8 x 2048
+      tokens against a plain one-hot spelling (``moe_against_one_hot``:
+      routes, output, aux loss, drop share); each first step against dense.
     - Blockwise: the first step against dense at B 2, each step's peak
       memory.
     - The recipe: ``lm_pretrain`` with ``recipe_argv`` (on the card
@@ -2560,6 +2648,27 @@ def branches_runs(torch, card, serve, per_tick, mha, prompts, serve_kw, tmp, rec
         if kind == "fp8":  # kernel 9's launches are the append route's
             q9 = pf.variant(pf.QUANTIZE, dt)
             out["launches"][q9] = out["launches"].get(q9, 0) + appended
+        else:  # the warmed serve again: its decode rows against the full forward
+            rec = serve_record(sched)
+            rids = [sched.submit(p, max_new) for p in prompts]
+            again = sched.drain()
+            plain = plain_model(torch, gcfg, gstate, dev)
+            row_err, n_rows = 0.0, 0
+            for p, rid in zip(prompts, rids):
+                want = full_forward_rows(torch, plain, p, again[rid], dev)[1:]
+                got = torch.as_tensor(np.stack([np.frombuffer(r, np.float32) for r in
+                                                rec["rows"][rid][:len(want)]]), device=dev)
+                row_err = max(row_err, (got - want).abs().max().item()
+                              if got.shape == want.shape else float("inf"))
+                n_rows += len(got)
+            print(f"(c) branches: GQA + RoPE bf16 serve, warmed graphs, again: every decode "
+                  f"logits row a token was drawn from ({n_rows} rows) against the plain "
+                  f"model's full causal forward, max_abs_err {row_err:.4f} (limit "
+                  f"{DECODE_TOL['bf16']})")
+            if not row_err <= DECODE_TOL["bf16"]:
+                problems.append(f"GQA bf16 serve: decode rows {row_err} from the full forward")
+            serves[kind].update(drawn_rows_max_abs_err=row_err, drawn_rows=n_rows)
+            del plain, rec
         del sched
         empty_cache(torch, dev)
 
@@ -2710,6 +2819,8 @@ def branches_runs(torch, card, serve, per_tick, mha, prompts, serve_kw, tmp, rec
 
     # ---- MoE: 8 experts, top-1 and top-2 ----
     out["moe"] = {}
+    moe_tokens = torch.from_numpy(np.stack(
+        [SyntheticTokens(bsz, seq, gcfg.vocab_size)[i] for i in range(bsz)])).to(dev).long()
     for top_k in (1, 2):
         mcfg = full_config(attention="flash", n_experts=BRANCH["moe_experts"], moe_top_k=top_k)
         t = trainer(mcfg, BRANCH["moe_steps"], "m")
@@ -2728,10 +2839,25 @@ def branches_runs(torch, card, serve, per_tick, mha, prompts, serve_kw, tmp, rec
         del t
         release("m")
         mparams = params_from_jax(init_params(mcfg, seed=0))
+        one_hot = moe_against_one_hot(torch, mcfg, mparams, moe_tokens, dev)
+        empty_cache(torch, dev)
+        print(f"(c) branches: MoE top-{top_k}, the first MoE layer on its input from B={bsz} x "
+              f"L={seq} synthetic tokens (T {one_hot['tokens']}, capacity "
+              f"{one_hot['capacity']}) against a plain one-hot [T, E, C] dispatch and "
+              f"combine: routes equal {one_hot['same_routes']}; "
+              f"output max_abs_err {one_hot['max_abs_err']:.3e} (limit {one_hot['tol']:.3e}, "
+              f"two bf16 ulps of its largest); aux loss {one_hot['aux']:.6f} vs "
+              f"{one_hot['aux_plain']:.6f}; dropped_frac {one_hot['dropped']:.4f} vs "
+              f"{one_hot['dropped_plain']:.4f}")
+        if not (one_hot["same_routes"] and one_hot["max_abs_err"] <= one_hot["tol"]
+                and rel_err(one_hot["aux"], one_hot["aux_plain"]) <= 1e-5
+                and one_hot["dropped"] == one_hot["dropped_plain"]):
+            problems.append(f"MoE top-{top_k} against the one-hot spelling: {one_hot}")
         first = against_dense(f"MoE top-{top_k}",
                               lambda a, c=mcfg: dataclasses.replace(c, attention=a), mparams)
         out["moe"][f"top{top_k}"] = {"losses": mlosses, "dropped": dropped,
-                                     "step_p50_s": m_step, "first_step": first}
+                                     "step_p50_s": m_step, "first_step": first,
+                                     "one_hot": one_hot}
         del mparams
 
     # ---- the recipe in a process of its own ----

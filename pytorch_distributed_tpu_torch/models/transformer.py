@@ -332,12 +332,6 @@ def rope_apply(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
     return torch.view_as_real(xc * rot).flatten(-2).to(x.dtype)
 
 
-def rope_rotate(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """The JAX ``_rope_rotate(x, positions, theta)``: ``x [B, L, H, D]`` at
-    ``positions`` ``[1, L]`` / ``[L]`` or ``[B, L]``."""
-    return rope_apply(x, rope_angles(positions, x.shape[-1], theta))
-
-
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate
     (a uniform draw from ``generator`` below it) and scale the kept ones

@@ -171,13 +171,12 @@ def blockwise_attention(
     block_size: int = 512,
     q_offset: int = 0,
     k_offset: int = 0,
-    remat: bool = True,
 ) -> torch.Tensor:
     """Memory-efficient attention (``ops/attention.py:293`` of the JAX
     package): scan the K/V blocks of ``min(block_size, Lk)`` keys, each
     folded into an fp32 online-softmax state by ``attend_block`` (the JAX
-    ``attend_block``:67 recurrence, which the plain ring folds too). With
-    ``remat`` each block's fold runs under ``torch.utils.checkpoint``, as
+    ``attend_block``:67 recurrence, which the plain ring folds too). Under
+    autograd each block's fold runs under ``torch.utils.checkpoint``, as
     JAX's scan body under ``jax.checkpoint``: the backward recomputes a
     block's logits instead of keeping them. Returns ``[B, Lq, H, D]`` in q's
     dtype; a fully masked row comes out 0."""
@@ -198,7 +197,7 @@ def blockwise_attention(
     state = tuple(SoftmaxState.zero(b, lq, h, d, q.device))
     for i in range(lk // bs):
         kb, vb = k[:, i * bs:(i + 1) * bs], v[:, i * bs:(i + 1) * bs]
-        if remat and torch.is_grad_enabled():
+        if torch.is_grad_enabled():
             state = torch.utils.checkpoint.checkpoint(fold, *state, kb, vb, k_offset + i * bs,
                                                       use_reentrant=False)
         else:

@@ -3,7 +3,7 @@
 ``--model lm`` (the default) trains the ``chip_smoke.py`` LM configuration
 (the full-width LM, random weights from seed 0, synthetic tokens, batch
 8 x 2048, bf16 compute on fp32 parameters, flash attention, clip 1.0;
-``--kv-heads``, ``--pos-embedding`` and ``--experts`` / ``--top-k`` give
+``--kv-heads``, ``--pos-embedding`` and ``--experts`` give
 its GQA, RoPE and MoE variants);
 ``--model resnet50`` trains ResNet-50 (bf16 compute on fp32 parameters,
 synthetic 224^2 images, batch 128, SGD(0.1, 0.9, 1e-4)), with ``--fused``
@@ -21,7 +21,7 @@ steps, then three profiled under ``torch.profiler``; it prints:
 
     python -m pytorch_distributed_tpu_torch.tools.profile_train [--attention dense --batch 2]
     python -m pytorch_distributed_tpu_torch.tools.profile_train --kv-heads 4 --pos-embedding rope
-    python -m pytorch_distributed_tpu_torch.tools.profile_train --experts 8 [--top-k 2]
+    python -m pytorch_distributed_tpu_torch.tools.profile_train --experts 8
     python -m pytorch_distributed_tpu_torch.tools.profile_train --model resnet50 [--fused]
 """
 
@@ -87,8 +87,7 @@ def kind_of(kernel_name: str) -> str:
 
 def _lm(args):
     cfg = full_config(attention=args.attention, num_kv_heads=args.kv_heads,
-                      pos_embedding=args.pos_embedding, n_experts=args.experts,
-                      moe_top_k=args.top_k)
+                      pos_embedding=args.pos_embedding, n_experts=args.experts)
     state = create_lm_state(cfg, lr_schedule=lambda step: 3e-4, weight_decay=0.1,
                             device="cuda")
     step = make_lm_train_step(grad_clip_norm=1.0)
@@ -121,7 +120,6 @@ def main(argv=None) -> dict:
     p.add_argument("--pos-embedding", choices=("learned", "rope"), default="learned")
     p.add_argument("--experts", type=int, default=0,
                    help="lm: MoE in every second block with this many experts")
-    p.add_argument("--top-k", type=int, default=1, help="lm: experts a token (MoE)")
     args = p.parse_args(argv)
     args.batch = args.batch or (128 if args.model == "resnet50" else 8)
     card = subprocess.run(
@@ -170,8 +168,7 @@ def main(argv=None) -> dict:
             k: device_ms.get(k, 0.0) / total for k in TAIL_KINDS}
     else:
         summary.update(attention=args.attention, seq=args.seq, kv_heads=args.kv_heads,
-                       pos_embedding=args.pos_embedding, experts=args.experts,
-                       top_k=args.top_k)
+                       pos_embedding=args.pos_embedding, experts=args.experts)
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25,
                                     max_name_column_width=60))
     print(json.dumps(summary))

@@ -1,10 +1,11 @@
 """``chip_smoke.py``'s model-branches step (phase (c): the GQA + RoPE LM
-served, decoded densely and trained, dropout, MoE, blockwise and the
-recipe) rehearsed on the CPU at a small size: the full-width config is
-replaced by a narrow one of the same geometry (G = 3), the serve by a
-plain ``Scheduler`` drain, and the kernels run their plain versions (so
-no launch is counted). Torch runs one thread here, as in the other
-rehearsals."""
+served (each drawn decode row against the full forward), decoded densely
+and trained, dropout, MoE (a layer against the one-hot spelling),
+blockwise and the recipe) rehearsed on the CPU at a small size: the
+full-width config is replaced by a narrow one of the same geometry (G =
+3), the serve by a plain ``Scheduler`` drain, and the kernels run their
+plain versions (so no launch is counted). Torch runs one thread here, as
+in the other rehearsals."""
 
 import importlib.util
 from pathlib import Path
@@ -76,6 +77,8 @@ def test_branches_phase_rehearses_on_cpu(chip_smoke, monkeypatch, tmp_path, caps
     assert out["serve"]["bf16"]["pool_bytes"] * 3 == out["serve"]["bf16"]["mha_pool_bytes"]
     assert out["serve"]["fp8"]["pool_bytes"] * 3 == out["serve"]["fp8"]["mha_pool_bytes"]
     assert out["serve"]["dense_match"] == 1.0 and out["serve"]["prefill_max_abs_err"] < 1e-4
+    assert out["serve"]["bf16"]["drawn_rows"] == len(prompts) * 31
+    assert out["serve"]["bf16"]["drawn_rows_max_abs_err"] < 1e-4
     assert out["dense_decode"]["drawn"] and out["dense_decode"]["equal_to_generate"]
     assert len(out["train"]["losses"]) == 3 and all(np.isfinite(out["train"]["losses"]))
     assert set(out["first_step"]) == {"flash", "blockwise", "dense"}
@@ -83,4 +86,7 @@ def test_branches_phase_rehearses_on_cpu(chip_smoke, monkeypatch, tmp_path, caps
     assert "dropout suspend at step 2 / resume: params" in text and "FAIL" not in text
     for top in ("top1", "top2"):
         assert len(out["moe"][top]["dropped"]) == 2
+        one_hot = out["moe"][top]["one_hot"]
+        assert one_hot["same_routes"] and one_hot["max_abs_err"] <= one_hot["tol"]
+        assert one_hot["tokens"] == 2 * 32 and one_hot["dropped"] == one_hot["dropped_plain"]
     assert out["recipe"]["exit"] == 0 and np.isfinite(out["recipe"]["loss"])

@@ -2,14 +2,15 @@
 package.
 
 Same weights (the flax tree carried across by ``params_from_jax``), same
-seeded numpy inputs, fp32: ``rope_rotate`` against ``_rope_rotate``; the
-training forward and its gradients for GQA, RoPE and both; three train
-steps against ``make_lm_train_step``; the paged serve's greedy streams
-against the JAX ``Scheduler`` and the dense decode against ``generate`` /
-``generate_ragged``, at 4 query heads over 2 KV heads, learned and rotary;
-and RoPE and GQA under the port's plain ring on 2 gloo ranks against one
-rank's dense step. JAX attention is ``dense`` wherever it computes the
-same thing, flash once (interpret-mode Pallas is slow here).
+seeded numpy inputs, fp32: ``rope_apply`` at ``rope_angles`` against
+``_rope_rotate``; the training forward and its gradients for GQA, RoPE and
+both; three train steps against ``make_lm_train_step``; the paged
+serve's greedy streams against the JAX ``Scheduler`` and the dense decode
+against ``generate`` / ``generate_ragged``, at 4 query heads over 2 KV
+heads, learned and rotary; and RoPE and GQA under the port's plain ring on
+2 gloo ranks against one rank's dense step. JAX attention is ``dense``
+wherever it computes the same thing, flash once (interpret-mode Pallas is
+slow here).
 
 Tolerances are ``test_torch_lm_train.py``'s: rtol 1e-4 and atol 1e-5 on
 activations and gradients of order 1, 1e-5 relative on losses and grad
@@ -40,7 +41,7 @@ from pytorch_distributed_tpu_torch.models import (
     tiny_config,
 )
 from pytorch_distributed_tpu_torch.models.generate import generate, generate_ragged, init_cache
-from pytorch_distributed_tpu_torch.models.transformer import rope_angles, rope_rotate
+from pytorch_distributed_tpu_torch.models.transformer import rope_angles, rope_apply
 from pytorch_distributed_tpu_torch.ops.losses import cross_entropy_loss
 from pytorch_distributed_tpu_torch.ops.schedules import warmup_cosine
 from pytorch_distributed_tpu_torch.serving import Scheduler, init_paged_cache
@@ -96,7 +97,7 @@ def test_rope_rotate_matches_jax(shared):
     x = rng.standard_normal((3, 5, 4, 16)).astype(np.float32)
     pos = (rng.integers(0, 2048, (1, 5)) if shared else rng.integers(0, 2048, (3, 5)))
     want = np.asarray(_rope_rotate(jnp.asarray(x), jnp.asarray(pos), 10000.0))
-    got = rope_rotate(torch.from_numpy(x), torch.from_numpy(pos), 10000.0)
+    got = rope_apply(torch.from_numpy(x), rope_angles(torch.from_numpy(pos), 16, 10000.0))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
     # the rotations come from the one position array, for every layer: the
     # JAX angles' cos and sin
@@ -108,7 +109,7 @@ def test_rope_rotate_matches_jax(shared):
     np.testing.assert_allclose(rot.imag[:, :, 0].numpy(), np.sin(ang), rtol=1e-4, atol=1e-5)
     # bf16 in, bf16 out; fp32 trig inside
     xb = torch.from_numpy(x).bfloat16()
-    got_b = rope_rotate(xb, torch.from_numpy(pos), 500.0)
+    got_b = rope_apply(xb, rope_angles(torch.from_numpy(pos), 16, 500.0))
     want_b = _rope_rotate(jnp.asarray(x, jnp.bfloat16), jnp.asarray(pos), 500.0)
     assert got_b.dtype == torch.bfloat16
     np.testing.assert_allclose(got_b.float().numpy(), np.asarray(want_b, np.float32),

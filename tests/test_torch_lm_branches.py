@@ -108,20 +108,8 @@ def test_blockwise_matches_jax_and_dense(block, causal, offsets):
         dense = dense_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
                                 q_offset=qo, k_offset=ko)
     np.testing.assert_allclose(got.detach().numpy(), dense.numpy(), rtol=1e-4, atol=1e-5)
-
-
-def test_blockwise_without_remat_gives_the_same_gradients():
-    q, k, v, do = qkv(seed=3)
-    grads = []
-    for remat in (True, False):
-        ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
-        blockwise_attention(*ts, causal=True, block_size=8, remat=remat).backward(
-            torch.from_numpy(do))
-        grads.append([t.grad for t in ts])
-    for a, b in zip(*grads):
-        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="not divisible by block_size"):
-        blockwise_attention(*(torch.from_numpy(x) for x in (q, k, v)), block_size=12)
+        blockwise_attention(*(torch.from_numpy(x) for x in (q, k, v)), block_size=7)
 
 
 def test_blockwise_lm_matches_flax():

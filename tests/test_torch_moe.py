@@ -278,3 +278,93 @@ def test_tiny_moe_serve_matches_jax_scheduler(top_k):
                   params_from_jax(jax.tree.map(np.asarray, params)), device="cpu", **serve)
     assert drain(s) == want
     assert s.engine.allocator.in_use == 0
+
+
+FULL_WIDTH = dict(vocab_size=32_000, num_layers=2, num_heads=12, embed_dim=768,
+                  max_seq_len=2048, n_experts=8)  # moe_every 2, capacity 1.25
+
+
+def mean_share(x):
+    """The share of the rows' mean square that lies along their mean."""
+    x = x.reshape(-1, x.shape[-1])
+    return (x.mean(0).square().sum() / x.square().sum(-1).mean()).item()
+
+
+@pytest.fixture(scope="module")
+def full_width():
+    """The full-width MoE LM (width 768, 12 heads, 8 experts in every
+    second block, the 32,000-token vocabulary) cut to its first MoE block
+    (block 1 of 2), fp32, weights ``init_params(seed=0)``; one batch of
+    1 × 1024 tokens. Returns the flax tree, the tokens, the MoE layer's
+    input and router logits and its drop share in the port's forward, and
+    the mean-direction share of each part of that input."""
+    cfg = tiny_config(**FULL_WIDTH)
+    np_params = init_params(cfg, seed=0)
+    model = TransformerLM(cfg)
+    model.load_state_dict(params_from_jax(np_params))
+    model.eval().requires_grad_(False)
+    b0, b1 = model.blocks
+    parts = {}
+
+    def keep(name):
+        return lambda mod, args, out: parts.setdefault(name, out)
+
+    hooks = [b0.register_forward_pre_hook(lambda mod, args: parts.setdefault("embed", args[0])),
+             b0.attn.register_forward_hook(keep("attn0")),
+             b0.mlp_down.register_forward_hook(keep("mlp0")),
+             b1.attn.register_forward_hook(keep("attn1")),
+             b1.moe.register_forward_pre_hook(lambda mod, args: parts.setdefault("moe_in",
+                                                                                 args[0]))]
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 1024)).astype(np.int32)
+    with torch.no_grad():
+        model(torch.from_numpy(toks))
+        logits = b1.moe.router(parts["moe_in"].reshape(-1, cfg.embed_dim))
+    for h in hooks:
+        h.remove()
+    return dict(params=np_params, tokens=toks, logits=logits,
+                dropped=b1.moe.dropped_frac.item(),
+                shares={k: mean_share(v) for k, v in parts.items()})
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_full_width_moe_routing_equals_topk_dispatch(full_width, top_k):
+    """At the full width, on the router logits of the port's forward, the
+    port's routes rebuild ``topk_dispatch``'s dispatch exactly, the aux
+    loss to 1e-6 and the drop share exactly; JAX's own forward of the same
+    weights and tokens drops the same share (to one token, 1/1024: its
+    logits may round apart from the port's).
+
+    It also pins down why most tokens are dropped at random weights: the
+    embedding is small against block 0's MLP output, which carries the
+    GELU's positive mean through ``mlp_down`` (a direction shared by every
+    token); block 1's near-uniform causal attention averages the values
+    over each prefix, so its output is almost all that shared direction.
+    The router's input thus has a large share along the tokens' mean, its
+    logits a per-expert offset common to all tokens, and a few experts take
+    most first choices past their capacity of 1.25 T / E."""
+    logits, t = full_width["logits"], full_width["logits"].shape[0]
+    capacity = capacity_of(1.25, top_k, t, 8)
+    want_d, _, want_aux, stats = topk_dispatch(jnp.asarray(logits.numpy()), capacity, k=top_k)
+    routes = topk_routes(logits, capacity, top_k)
+    got_d, _ = one_hot_of(routes, capacity, 8)
+    np.testing.assert_array_equal(got_d, np.asarray(want_d))
+    np.testing.assert_allclose(routes.aux.item(), float(want_aux), rtol=1e-6)
+    assert routes.dropped_frac.item() == float(stats["dropped_frac"])
+    if top_k == 1:
+        assert routes.dropped_frac.item() == full_width["dropped"]
+    jcfg = jax_tiny_config(attention="dense", moe_top_k=top_k, **FULL_WIDTH)
+    _, mut = JaxLM(jcfg).apply({"params": full_width["params"]},
+                               jnp.asarray(full_width["tokens"]), mutable=["moe_stats"])
+    jax_dropped = float(jax.tree.leaves(mut["moe_stats"])[0])
+    assert abs(jax_dropped - routes.dropped_frac.item()) <= 1 / t
+    first = torch.bincount(routes.expert[:, 0], minlength=8).sort(descending=True).values / t
+    shares = full_width["shares"]
+    print(f"full width, top-{top_k}: dropped {routes.dropped_frac.item():.4f} (JAX's forward "
+          f"{jax_dropped:.4f}); first-choice fractions {[round(float(f), 4) for f in first]}; "
+          f"router logits' spread of per-expert means "
+          f"{np.ptp(logits.mean(0).numpy()):.3f}, per-token std "
+          f"{logits.std(0).mean().item():.3f}; mean-direction shares "
+          f"{ {k: round(v, 4) for k, v in shares.items()} }")
+    assert shares["embed"] < 0.01 and shares["attn1"] > 0.8 and shares["moe_in"] > 0.4
+    assert first[:2].sum() > 0.8
+    assert routes.dropped_frac.item() > (0.5 if top_k == 1 else 0.05)
