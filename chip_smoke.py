@@ -4,6 +4,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU (an H100):
 
     python3 chip_smoke.py                  # everything
     python3 chip_smoke.py --kernels-only   # (a) and (b), then stop
+    python3 chip_smoke.py --parallel-only  # (a) for flash and the tail, then the
+                                           # FSDP and pipeline ranks (no recipes)
 
 With 2-4 cards (a ``--chips 4`` machine) the same script runs the ring
 and the data-parallel phases a rank a card over NCCL and times the DP
@@ -104,7 +106,7 @@ Phases, each of which fails the run:
       weights (B = 64, fp32 and bf16), then ``recipes/resnet_single.py``
       (fp32, plain blocks: no tail launch) for 4 steps of B = 64; the
       input pipeline (``data_runs``, in a spawned process of its own,
-      ``data_phase``): raw splits of seeded 256^2 uint8
+      ``in_child``): raw splits of seeded 256^2 uint8
       images packed without PIL (2048 train and 256 val records), each
       opened with the native reader; the loader's img/s for the random
       crop on the native whole-batch path and the per-sample path at 0 and
@@ -158,7 +160,24 @@ Phases, each of which fails the run:
       single-card flash (relative error), with each rank's launches;
       ``LMTrainer`` at dp 1 x sp ranks with ``ring_flash``, 4 steps of
       B = 8 x 2048 and a validation pass in each layout, the first step
-      against the one-card flash step;
+      against the one-card flash step; ZeRO-3 FSDP and the GPipe pipeline
+      (``parallel_runs``, the ranks spawned once by ``tools/parallel_check.py``
+      on the ring's ranks): the full-width LM under FSDP and replicated DP
+      for 3 steps at a global B = 8 x 2048 and a validation batch (relative
+      error by step and of the validation loss; FSDP's first step against
+      the one-card step), the pipeline with a stage a rank, 8 microbatches
+      of B = 8, 3 steps and a validation batch against
+      ``make_pp_reference_step`` and the plain eval step on one card, every
+      stage's embedding and head bit-equal, ResNet-50's fused bf16
+      ``Trainer(fsdp=True)`` against the replicated trainer at lr 1e-3 (3
+      steps of B = 32 a rank and a validation batch), each rank's flash
+      (12 + 12 a step under FSDP, (12/S)·8 a stage) and tail (20 / 16 /
+      16) launches, parameter + optimizer bytes (FSDP at most 0.55 of
+      replicated), peak memory, step p50 and a profiled step's busy share;
+      ``lm_pretrain --fsdp`` run to its end, and ``--pipeline-stages 2``
+      (refused on one card), the whole phase in a spawned process of its
+      own (``in_child``); the kernels line adds these launches
+      (``parallel_launches``);
   (d) kernel, plain-version and library times beside each kernel's bound
       (the flash calls also by their kernels' device time):
       the paged kernels at the decode shape (library: SDPA on pre-gathered
@@ -379,6 +398,51 @@ DP_SYNC_RTOL = dict(loss=(1e-5, 3e-2, 5e-2), grad_norm=(5e-3, 5e-2, 0.3), grad_f
 #: the NCCL timing: a rank a card, B a card, ranks 1, 2, 4 (as many as there
 #: are cards) and back, each rank profiled over ``profiled`` more steps
 DP_TIMING = dict(fused=128, plain=64, warmup=3, steps=20, profiled=3)
+
+# the FSDP and pipeline phase, on the ranks of ring_ranks: the
+# full-width LM (RING_MODEL, 2048 positions, bf16, flash, grad clip 1.0,
+# lr 3e-4) for 3 steps, ZeRO-3 FSDP and replicated DP at a global batch of
+# 8 (4 a rank on 2 ranks), from the seed-0 weights; the pipeline at B 8 x
+# 2048 in 8 microbatches, a stage a rank, for 3 steps, and both on a
+# validation batch; the fused bf16 ResNet-50 of the DP phase under FSDP and
+# replicated at B 32 a rank for 3 steps and a validation batch; one more
+# step of each LM run
+# profiled for the card's busy share; then the recipe with --fsdp (and
+# with --pipeline-stages 2 where 2 cards exist) for 2 steps
+PARALLEL = dict(batch=8, seq=2048, steps=3, microbatches=8, profiled=1, recipe_steps=2,
+                timeout_s=600)
+#: the kernel sources the phase runs (``--parallel-only`` builds these)
+PARALLEL_SOURCES = ("bottleneck_tail", "flash_attention")
+PARALLEL_SCHEDULE = (3e-4, 1000, 0, 3e-4)  # warmup_cosine: lr 3e-4 throughout
+#: FSDP against replicated DP on the same ranks and the pipeline against the
+#: one-card sequential reference from the same stacked weights, relative
+#: error of each step's loss and grad norm: the same function, its sums in
+#: another order (a reduce-scatter for an all-reduce; the pipeline's
+#: gradients accumulated a microbatch at a time, last first, where the
+#: reference takes one backward of the summed loss), bf16 compute through
+#: 12 layers; later steps carry AdamW's first moves of gradients that are
+#: rounding noise (about lr each). The first step of FSDP also against the
+#: one-card step at B 8: RING_LOSS_TOL and RING_GRAD_NORM_RTOL
+PARALLEL_RTOL = dict(loss=(1e-3, 2e-3, 2e-3), grad_norm=(2e-3, 1e-2, 1e-2))
+#: ResNet-50's Trainer(fsdp=True) against the replicated trainer: both at
+#: lr RESNET_FSDP_LR, where a step's rounding does not grow. At the
+#: Trainer's lr 0.1 these random-weight bf16 steps are chaotic (the DP
+#: phase's fp32 run against its emulation reads 1.2e-6 at step 1 and
+#: 6.5e-4 at step 2), and evaluation on three steps' running BatchNorm
+#: statistics (losses in the hundreds) amplifies that again: over 4 NCCL
+#: cards FSDP read 2.1e-4 / 1.7e-3 by step and 0.21 on the validation
+#: loss against the replicated run, rounding and a fault alike (PERF.md).
+#: At lr 1e-3 an update moves a weight by ~1e-3 of itself, so the
+#: reduce-scatter's other summation order moves it by ~1e-10, which
+#: rarely flips a bf16 rounding; a fault in the update (a wrong mean, a
+#: part not written back) moves the loss by its share of a step's change,
+#: which the phase prints beside the limits. Relative error of each
+#: step's loss and of the validation loss
+RESNET_FSDP_LR = 1e-3
+RESNET_FSDP_RTOL = dict(loss=(1e-5, 1e-4, 1e-3), val=1e-3)
+#: ZeRO-3 at 2 ranks: a rank's parameter and AdamW bytes against the
+#: replicated rank's (the LayerNorm scales and biases stay whole)
+FSDP_STATE_SHARE = 0.55
 
 # the resume phase: the fused bf16 ResNet-50 (as bench.py builds it)
 # at B = 128 for 6 steps, suspended at step 3 (the train.step fault site's
@@ -1559,27 +1623,29 @@ def data_runs(torch, card, tmp, synthetic, dev="cuda") -> dict:
             "tail_launches": launches, "recipes": recipes, "wall_s": wall}
 
 
-def _data_child(card, synthetic) -> dict:
-    """``data_runs`` on the card in this (spawned) process, under a
-    temporary directory, with main's numerics settings."""
+def _child(runs, card, kw) -> dict:
+    """``runs(torch, card, tmp, **kw)`` on the card in this (spawned)
+    process, under a temporary directory, with main's numerics settings."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
-        return data_runs(torch, card, tmp, synthetic)
+        return runs(torch, card, tmp, **kw)
 
 
-def data_phase(card, synthetic) -> dict:
-    """``data_runs`` in a process of its own, which ends with it: run in
-    this process, it left every later ``torch.profiler`` trace of it short
-    of launches, so phase (d)'s device times failed (PERF.md §7)."""
+def in_child(runs, card, **kw) -> dict:
+    """A phase's ``runs`` in a process of its own, which ends with it: run
+    in this process, the data phase's and the FSDP phase's recipe runs
+    left a trainer's loader behind, and every later ``torch.profiler``
+    trace of it short of launches, so phase (d)'s device times failed
+    (PERF.md §7)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=1, mp_context=ctx, max_tasks_per_child=1) as ex:
-        return ex.submit(_data_child, card, synthetic).result()
+        return ex.submit(_child, runs, card, kw).result()
 
 
 def state_copy(torch, trainer) -> dict:
@@ -2130,6 +2196,303 @@ def dp_runs(torch, card, tmp, dev="cuda") -> dict:
         print("(c) DP step times across cards: need 2-4 cards (NCCL); not measured here")
         return {"cases": measured, "timing": None}
     return {"cases": measured, "timing": dp_timing(torch, card, tmp, ranks, dev)}
+
+
+def pp_launches(n_layers: int, stages: int, microbatches: int) -> int:
+    """Flash forward (and fused backward) launches of one pipeline step on
+    each stage: its layers once a microbatch, no recomputation."""
+    return n_layers // stages * microbatches
+
+
+def parallel_runs(torch, card, tmp, dev="cuda", recipes=True) -> dict:
+    """Phase (c) for ZeRO-3 FSDP and the GPipe pipeline (``PARALLEL``), the
+    ranks of ``ring_ranks`` spawned once through ``tools/parallel_check.py``:
+    the full-width LM under FSDP and replicated DP (each step's loss and
+    grad norm, ``PARALLEL_RTOL``, and the validation loss; FSDP's first
+    step also against the one-card step at the global batch), the
+    pipeline with a stage a rank against ``make_pp_reference_step`` on one
+    card from the same stacked weights and its validation loss against
+    the plain eval step on the reference's weights, each stage's embedding
+    and head equal, the fused bf16 ResNet-50's ``Trainer(fsdp=True)``
+    against ``tools/dp_check.py``'s replicated trainer on the same ranks
+    at ``RESNET_FSDP_LR`` (an epoch of the DP phase's steps and a
+    validation batch, ``RESNET_FSDP_RTOL``), each rank's flash and tail
+    launches a step against the table's, its parameter and optimizer
+    bytes and peak memory against the replicated run's, step p50 and busy
+    share; then, with ``recipes``, the recipe with ``--fsdp`` and
+    ``--pipeline-stages 2`` (its refusal on one card). Returns the
+    launches for the kernels line. With ``dev="cpu"`` (a rehearsal) the
+    ranks meet over gloo on the CPU."""
+    from pytorch_distributed_tpu_torch.models.convert import (
+        init_params,
+        params_from_jax,
+        pp_stack,
+        pp_unstack,
+    )
+    from pytorch_distributed_tpu_torch.models.transformer import TransformerConfig
+    from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_tpu_torch.ops.schedules import warmup_cosine
+    from pytorch_distributed_tpu_torch.tools import dp_check, parallel_check
+    from pytorch_distributed_tpu_torch.train import (
+        create_lm_state,
+        empty_lm_metrics,
+        lm_collate,
+        make_lm_eval_step,
+        make_lm_train_step,
+        pp,
+    )
+
+    t_phase = time.perf_counter()
+    on_card = 1 if dev == "cuda" else 0
+    ranks, backend = ring_ranks(torch.cuda.device_count() if dev == "cuda" else 0)
+    where = (f"{ranks} ranks on {ranks} cards" if backend == "nccl" else
+             f"{ranks} ranks on 1 card, collectives and P2P staged through the host")
+    print(f"(c) FSDP and pipeline: backend {backend}, {where}")
+    bsz, seq, steps, micro = (PARALLEL[k] for k in ("batch", "seq", "steps", "microbatches"))
+    n_layers = RING_MODEL["num_layers"]
+    model = dict(RING_MODEL, max_seq_len=seq, dtype="bfloat16", attention="flash")
+    vocab = RING_MODEL["vocab_size"]
+    rng = np.random.default_rng(11)
+    batches = [lm_collate(list(rng.integers(1, vocab, (bsz, seq)).astype(np.int32)))
+               for _ in range(steps)]
+    val = [lm_collate(list(rng.integers(1, vocab, (bsz, seq)).astype(np.int32)))]
+    lm = {"fsdp": dict(model=model, mode="fsdp", clip=1.0),
+          "replicated": dict(model=model, mode="replicated", clip=1.0, profiled=0)}
+    image = dict(task="image_trainer", model=dict(DP_MODEL, dtype="bfloat16", fused=True),
+                 data=dict(n_train=DP["steps"] * DP["batch"] * ranks, n_val=DP["batch"] * ranks,
+                           size=DP_SIZE, classes=DP_MODEL["num_classes"]))
+    trainers = {f"resnet {m}": dict(image, config=dict(
+        epochs=1, batch_size=DP["batch"], lr=RESNET_FSDP_LR, precision="bf16", num_workers=0,
+        log_every=1, save_dir=os.path.join(tmp, m), fsdp=m == "fsdp"))
+        for m in ("fsdp", "replicated")}
+    # one spawn of the ranks: the data grid for FSDP, then a stage a rank
+    job = dict(task="many", backend=backend, device=dev, timeout_s=PARALLEL["timeout_s"],
+               schedule=PARALLEL_SCHEDULE, profiled=PARALLEL["profiled"] * on_card,
+               params_out=False, dp=ranks, rendezvous=f"file://{tmp}/rendezvous-parallel",
+               out=f"{tmp}/parallel", jobs={
+                   "lm": dict(task="lm", cases=lm, batches=batches, val_batches=val),
+                   **trainers,
+                   "pp": dict(task="lm", dp=1, mp=ranks, batches=batches, val_batches=val,
+                              cases={"pp": dict(model=model, mode="pp", clip=1.0,
+                                                microbatches=micro)})})
+    empty_cache(torch, dev)
+    t0 = time.perf_counter()
+    parallel_check.run(job, ranks)
+    results = parallel_check.load(job)
+    print(f"(c) {ranks} ranks: {time.perf_counter() - t0:.1f}s spawned, built and run")
+    failures = []
+    staged = "-staged: not a speed figure" if backend == "gloo" else ""
+
+    def device_ms(rank_runs):
+        return [(round(x["nccl_ms"], 1), round(x["compute_ms"], 1)) if "nccl_ms" in x else None
+                for x in rank_runs]
+
+    def per_step(got, want, what, rtol):
+        errs = {k: [rel_err(a, b) for a, b in zip(got[k], want[k])] for k in rtol}
+        ok = all(len(got[k]) == len(want[k]) and all(np.isfinite(got[k])) and
+                 all(e <= t for e, t in zip(errs[k], rtol[k])) for k in rtol)
+        print(f"(c) {what}: relative error by step, "
+              + "; ".join(f"{k} {[f'{e:.2e}' for e in errs[k]]} (tol {list(rtol[k])})"
+                          for k in rtol) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(what)
+        return errs
+
+    # ---- FSDP and replicated DP, the LM ----
+    runs = {m: [r["lm"][m] for r in results] for m in lm}
+    f0, r0 = runs["fsdp"][0], runs["replicated"][0]
+    want_launches = [n_layers * on_card] * 2
+    fsdp_launches = [x["metrics"]["launches"] for x in runs["fsdp"]]
+    launches_ok = all(step_l == want_launches for rank in fsdp_launches for step_l in rank)
+    share = [f["state_bytes"] / r["state_bytes"] for f, r in zip(runs["fsdp"],
+                                                                  runs["replicated"])]
+    for mode in lm:
+        m = runs[mode][0]["metrics"]
+        print(f"(c) LM {mode} dp {ranks}, {steps} steps of B={bsz // ranks} a rank x L={seq} "
+              f"bf16 on {card}: losses {[round(x, 5) for x in m['loss']]}, grad norms "
+              f"{[round(x, 4) for x in m['grad_norm']]}; step p50 "
+              f"{np.median(m['step_s']) * 1e3:.1f} ms ({backend}{staged}), busy share "
+              f"{[round(x.get('busy', float('nan')), 3) for x in runs[mode]]} (device ms a "
+              f"step in NCCL / the rest {device_ms(runs[mode])}); parameter + "
+              f"optimizer bytes per rank {[x['state_bytes'] for x in runs[mode]]}, peak memory "
+              f"{[round(x['peak_gib'], 2) for x in runs[mode]]} GiB")
+    share_ok = all(x <= FSDP_STATE_SHARE for x in share) or ranks == 1
+    print(f"(c) LM FSDP: flash forward / backward launches a step per rank "
+          f"{[rank[0] for rank in fsdp_launches]} (want {want_launches}) "
+          f"{'ok' if launches_ok else 'FAIL'}; state bytes / replicated "
+          f"{[round(x, 4) for x in share]} (at most {FSDP_STATE_SHARE}) "
+          f"{'ok' if share_ok else 'FAIL'}")
+    if not (launches_ok and share_ok):
+        failures.append("FSDP launches or state bytes")
+    fsdp_errs = per_step(f0["metrics"], r0["metrics"], "LM FSDP vs replicated DP on the same "
+                         "ranks", PARALLEL_RTOL)
+    # the validation batch after the steps: FSDP's eval step gathers the
+    # parts as its train step does
+    fv, rv = f0["val"], r0["val"]
+    fsdp_val_launches = [x["val_launches"] for x in runs["fsdp"]]
+    fl, rl = (v["loss_sum"] / max(v["tokens"], 1) for v in (fv, rv))
+    val_err = rel_err(fl, rl)
+    ok = (fv["tokens"] == rv["tokens"] > 0 and val_err <= PARALLEL_RTOL["loss"][0]
+          and all(v == [n_layers * on_card, 0] for v in fsdp_val_launches))
+    print(f"(c) LM FSDP validation vs replicated DP: loss {fl:.5f} vs {rl:.5f} over "
+          f"{rv['tokens']:.0f} tokens (relative error {val_err:.2e}, tol {PARALLEL_RTOL['loss'][0]:g}); flash launches per "
+          f"rank {fsdp_val_launches} (want [{n_layers * on_card}, 0]) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("FSDP validation")
+    # the one-card step at the global batch, from the same weights
+    cfg = TransformerConfig(**dict(model, dtype=torch.bfloat16))
+    init = params_from_jax(init_params(cfg, 0))
+    st = create_lm_state(cfg, lr_schedule=lambda step: 0.0, params=init, device=dev)
+    _, m = make_lm_train_step(grad_clip_norm=1.0)(
+        st, {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()})
+    one = {k: float(x) for k, x in m.items()}
+    del st, m
+    empty_cache(torch, dev)
+    d_loss = abs(f0["metrics"]["loss"][0] - one["loss"])
+    d_norm = abs(f0["metrics"]["grad_norm"][0] / one["grad_norm"] - 1)
+    ok = d_loss <= RING_LOSS_TOL and d_norm <= RING_GRAD_NORM_RTOL
+    print(f"(c) LM FSDP first step vs one card at B={bsz}: loss {f0['metrics']['loss'][0]:.5f} "
+          f"vs {one['loss']:.5f} (|diff| {d_loss:.2e}, tol {RING_LOSS_TOL:g}); grad norm rel "
+          f"diff {d_norm:.2e} (tol {RING_GRAD_NORM_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("FSDP first step vs one card")
+
+    # ---- the pipeline against the one-card sequential reference ----
+    pruns = [r["pp"]["pp"] for r in results]
+    want_pp = pp_launches(n_layers, ranks, micro) * on_card
+    pp_launch = [x["metrics"]["launches"] for x in pruns]
+    pp_val = [x["val_launches"] for x in pruns]
+    pp_ok = (all(step_l == [want_pp] * 2 for rank in pp_launch for step_l in rank)
+             and all(v == [want_pp, 0] for v in pp_val))
+    same = all(x["replicated"] == pruns[0]["replicated"] for x in pruns)
+    pm, pv = pruns[-1]["metrics"], pruns[-1]["val"]
+    print(f"(c) LM pipeline, {ranks} stages of {n_layers // ranks} layers, {steps} steps of "
+          f"B={bsz} x L={seq} in {micro} microbatches on {card}: losses "
+          f"{[round(x, 5) for x in pm['loss']]}, grad norms "
+          f"{[round(x, 4) for x in pm['grad_norm']]}; "
+          f"step p50 {np.median(pm['step_s']) * 1e3:.1f} ms ({backend}{staged}), busy share "
+          f"{[round(x.get('busy', float('nan')), 3) for x in pruns]} (device ms a step in NCCL / "
+          f"the rest {device_ms(pruns)}), bubble (S-1)/(M+S-1) "
+          f"{pm['pp_bubble_frac'][0]:.3f}; parameter + optimizer bytes per stage "
+          f"{[x['state_bytes'] for x in pruns]}, peak memory "
+          f"{[round(x['peak_gib'], 2) for x in pruns]} GiB")
+    print(f"(c) LM pipeline: flash forward / backward launches a step per stage "
+          f"{[rank[0] for rank in pp_launch]}, in validation {pp_val} (want {want_pp} each, "
+          f"(L/S)·M, no recomputation) {'ok' if pp_ok else 'FAIL'}; every stage's embedding "
+          f"and head bit-equal {'ok' if same else 'FAIL'}")
+    if not (pp_ok and same):
+        failures.append("pipeline launches or replicated leaves")
+    st = pp.create_pp_reference_state(cfg, ranks, lr_schedule=warmup_cosine(*PARALLEL_SCHEDULE),
+                                      weight_decay=0.1, params=pp_stack(init, ranks), device=dev)
+    del init
+    ref_step = pp.make_pp_reference_step(cfg, ranks, micro, grad_clip_norm=1.0)
+    ref = {"loss": [], "grad_norm": []}
+    for b in batches:
+        st, m = ref_step(st, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        for k in ref:
+            ref[k].append(float(m[k]))
+    pp_errs = per_step(pm, ref, "LM pipeline vs the one-card sequential reference",
+                       PARALLEL_RTOL)
+    # the validation batch: the reference's weights after its steps
+    # through the plain model's eval step
+    plain = create_lm_state(cfg, lr_schedule=lambda step: 0.0, device=dev,
+                            params=pp_unstack(st.model.stacked_state_dict()))
+    del st, m
+    acc = make_lm_eval_step()(plain, {k: torch.from_numpy(v).to(dev) for k, v in val[0].items()},
+                              empty_lm_metrics(dev))
+    ref_val = float(acc["loss_sum"]) / max(float(acc["tokens"]), 1)
+    del plain, acc
+    empty_cache(torch, dev)
+    pp_val_loss = pv["loss_sum"] / max(pv["tokens"], 1)
+    val_err = rel_err(pp_val_loss, ref_val)
+    ok = all(x["val"] == pv for x in pruns) and val_err <= PARALLEL_RTOL["loss"][0]
+    print(f"(c) LM pipeline validation vs the reference's weights in the plain eval step: loss "
+          f"{pp_val_loss:.5f} vs {ref_val:.5f} over {pv['tokens']:.0f} tokens, the same on every "
+          f"stage (relative error {val_err:.2e}, tol {PARALLEL_RTOL['loss'][0]:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("pipeline validation")
+
+    # ---- ResNet-50: Trainer(fsdp=True) against the replicated trainer ----
+    rr = {m: [r[f"resnet {m}"] for r in results] for m in ("fsdp", "replicated")}
+    steps_r = DP["steps"]
+    tail_want = [n * steps_r * on_card for n in RESNET_TAIL_LAUNCHES]
+    tail_got = [[x["launches"].get(k, 0) for k in (bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ)]
+                for x in rr["fsdp"]]
+    tail_ok = all(t == tail_want for t in tail_got)
+    for m, runs_r in rr.items():
+        hist = runs_r[0]["history"]
+        print(f"(c) ResNet-50 fused bf16 Trainer(fsdp={m == 'fsdp'}) dp {ranks}, {len(hist)} "
+              f"steps of B={DP['batch']} a rank at lr {RESNET_FSDP_LR:g} on {card}: losses "
+              f"{[round(h['loss'], 5) for h in hist]}; step times "
+              f"{[round(h['step_s'] * 1e3, 1) for h in hist]} ms ({backend}{staged}); validation "
+              f"loss {runs_r[0]['val']['loss']:.5f}, acc1 {runs_r[0]['val']['acc1']:.2f}; "
+              f"parameter + momentum bytes per rank {[x['state_bytes'] for x in runs_r]}, peak "
+              f"memory {[round(x['peak_gib'], 2) for x in runs_r]} GiB")
+    print(f"(c) ResNet-50 FSDP: tail launches in {steps_r} steps per rank {tail_got} (want "
+          f"{tail_want}) {'ok' if tail_ok else 'FAIL'}")
+    if not tail_ok:
+        failures.append("ResNet FSDP tail launches")
+    hf, hr = ([h["loss"] for h in rr[m][0]["history"]] for m in ("fsdp", "replicated"))
+    resnet_errs = per_step({"loss": hf}, {"loss": hr}, "ResNet-50 Trainer(fsdp=True) vs the "
+                           "replicated trainer", {"loss": RESNET_FSDP_RTOL["loss"]})
+    vf, vr = (rr[m][0]["val"] for m in ("fsdp", "replicated"))
+    val_err = rel_err(vf["loss"], vr["loss"])
+    ok = vf["count"] == vr["count"] > 0 and val_err <= RESNET_FSDP_RTOL["val"]
+    print(f"(c) ResNet-50 FSDP validation vs the replicated trainer: loss {vf['loss']:.5f} vs "
+          f"{vr['loss']:.5f} over {vr['count']:.0f} images (relative error {val_err:.2e}, tol "
+          f"{RESNET_FSDP_RTOL['val']:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("ResNet FSDP validation")
+    resnet_errs["val"] = val_err
+
+    # ---- the recipe: --fsdp, and --pipeline-stages 2 (refused on one card) ----
+    # in this process: on one card the recipe trains here, on more it
+    # spawns its ranks
+    from pytorch_distributed_tpu_torch.recipes import lm_pretrain
+
+    recipe = {}
+    extra = ["--device", "cpu", "--tiny"] if dev == "cpu" else ["--synthetic"]
+    cards = torch.cuda.device_count() if dev == "cuda" else 2
+    for label, flags in ((("--fsdp", ["--fsdp"]),
+                          ("--pipeline-stages 2", ["--pipeline-stages", "2"])) if recipes else ()):
+        argv = [*extra, *flags, "--steps", str(PARALLEL["recipe_steps"]), "--epochs", "1",
+                "--log-every", "1", "--save-dir", os.path.join(tmp, label[2:6])]
+        t0 = time.perf_counter()
+        refused = label.startswith("--pipeline") and cards < 2
+        try:
+            summary, error = lm_pretrain.main(argv), ""
+        except SystemExit as e:
+            summary, error = {}, str(e)
+        secs = time.perf_counter() - t0
+        empty_cache(torch, dev)
+        if refused:
+            ok = "needs a card per rank" in error
+            what = f"refused on {cards} card: {error[:60]}..."
+        else:
+            ok = not error and np.isfinite(summary.get("loss", float("nan")))
+            what = f"validation loss {summary.get('loss')}{error}"
+        print(f"(c) recipes/lm_pretrain.py {label}: {what} in {secs:.1f}s "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"lm_pretrain {label}: {error}")
+        recipe[label] = {"seconds": secs, "loss": summary.get("loss"), "error": error}
+
+    wall = time.perf_counter() - t_phase
+    print(f"(c) FSDP and pipeline phase: {wall:.1f} s")
+    if failures:
+        raise SystemExit(f"chip_smoke: FSDP or the pipeline failed: {failures}")
+    flash = {fa.FWD: sum(s_[0] for x in runs["fsdp"] for s_ in x["metrics"]["launches"])
+             + sum(s_[0] for x in pruns for s_ in x["metrics"]["launches"])
+             + sum(v[0] for v in pp_val + fsdp_val_launches),
+             fa.BWD: sum(s_[1] for x in runs["fsdp"] for s_ in x["metrics"]["launches"])
+             + sum(s_[1] for x in pruns for s_ in x["metrics"]["launches"])}
+    tail = {k: sum(t[i] for t in tail_got)
+            for i, k in enumerate((bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ))}
+    return {"flash_launches": flash, "tail_launches": tail, "fsdp_errs": fsdp_errs,
+            "pp_errs": pp_errs, "resnet_errs": resnet_errs, "state_share": share,
+            "recipe": recipe, "wall_s": wall}
 
 
 def dp_timing(torch, card, tmp, ranks, dev="cuda") -> dict:
@@ -4195,7 +4558,8 @@ def main(argv) -> int:
 
     # ---- (a) build every kernel source, one nvcc each, all at once ----
     t0 = time.perf_counter()
-    paths = _build.build(_build.kernel_sources())
+    parallel_only = "--parallel-only" in argv
+    paths = _build.build(PARALLEL_SOURCES if parallel_only else _build.kernel_sources())
     print(f"(a) built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     print(f"(a) built the native record reader {native.build().name} with g++ in "
@@ -4204,6 +4568,11 @@ def main(argv) -> int:
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"    ptxas {name}: {line.strip()}")
+
+    if parallel_only:
+        in_child(parallel_runs, card, recipes=False)
+        print(f"(c) --parallel-only: stopping after {time.perf_counter() - t_start:.1f}s")
+        return 0
 
     # ---- (b) kernels against the plain version on the card ----
     failures = []
@@ -4743,7 +5112,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # ---- (c) the input pipeline: raw splits, the loader, ResNet-50 fed from records ----
-    data = data_phase(card, synthetic)
+    data = in_child(data_runs, card, synthetic=synthetic)
 
     # ---- (c) data-parallel ResNet-50: the ranks, sync-BN, fp16, the recipes ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -4759,6 +5128,9 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ring = ring_runs(torch, card, tmp)
     torch.cuda.empty_cache()
+
+    # ---- (c) ZeRO-3 FSDP and the GPipe pipeline over the ring's ranks ----
+    parallel = in_child(parallel_runs, card)
 
     # ---- (d) times at the decode shape ----
     import torch.nn.functional as F
@@ -5057,8 +5429,10 @@ def main(argv) -> int:
         "name": name, "route": "cuda",
         "source": "pytorch_distributed_tpu_torch/csrc/flash_attention.cu",
         "replaces": flash_replaces[name],
-        "launches": train_launches[name] + branches["flash"][name],
+        "launches": (train_launches[name] + branches["flash"][name]
+                     + parallel["flash_launches"][name]),
         "gqa_launches": branches["flash"][name],
+        "parallel_launches": parallel["flash_launches"][name],
         "max_abs_err": flash_errs[name], "ms": flash_ms[name],
         "plain_ms": flash_plain_ms[name], "bound_ms": fb[part]["bound_ms"],
         "bound_by": fb[part]["bound_by"], "library_ms": flash_lib_ms[name],
@@ -5082,7 +5456,9 @@ def main(argv) -> int:
     kernels += [{
         "name": name, "route": "cuda",
         "source": "pytorch_distributed_tpu_torch/csrc/bottleneck_tail.cu",
-        "replaces": tail_replaces[name], "launches": data["tail_launches"][name],
+        "replaces": tail_replaces[name],
+        "launches": data["tail_launches"][name] + parallel["tail_launches"][name],
+        "parallel_launches": parallel["tail_launches"][name],
         "max_abs_err": tail_errs[name], **tail_times[name],
     } for name in (bt.MOMENTS, bt.BWD_REDUCE, bt.BWD_DZ)]
     print(f"total {time.perf_counter() - t_start:.1f}s")

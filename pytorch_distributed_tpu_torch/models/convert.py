@@ -33,8 +33,16 @@ The fp16 loss scaler's state (``ops/precision.py`` ``DynamicLossScaler``:
 ``scale`` fp32, ``growth_tracker`` int32 and its three constants) crosses
 with ``scaler_from_jax``.
 
+The pipeline's LM (``train.pp``; JAX ``train/pp.py``) is
+``{"embed": {wte, wpe}, "stages": {layer{j}: ...}, "head": {ln_f,
+lm_head}}`` with every stage leaf stacked ``[S, ...]``: stage s's layer j
+is the plain LM's block ``s·L/S + j``. ``pp_stack`` / ``pp_unstack`` move
+a ``TransformerLM`` state dict to the port's stacked one (``embed.*``,
+``stages.layers.{j}.*`` ``[S, ...]``, ``head.*``) and back;
+``pp_params_from_jax`` / ``pp_params_to_jax`` cross the flax tree.
+
 A whole JAX checkpoint crosses with ``resnet_payload_from_jax`` /
-``lm_payload_from_jax``: its leaves (``utils.checkpoint.ManifestReader``
+``lm_payload_from_jax`` (``pp_payload_from_jax`` for a pipeline run's): its leaves (``utils.checkpoint.ManifestReader``
 reads them from a directory the JAX ``Trainer`` / ``LMTrainer`` wrote:
 ``state/params``, ``state/batch_stats``, ``state/opt_state``,
 ``state/step``, ``state/scaler``, ``epoch``, ``step``, ``best_*``) become
@@ -479,4 +487,106 @@ def lm_payload_from_jax(flat: Mapping) -> Dict:
         out.update(_model_leaves({k: step for k in mu}, "step"))
         out.update(_model_leaves(mu, "exp_avg"))
         out.update(_model_leaves(params_from_jax(parts["nu"]), "exp_avg_sq"))
+    return out
+
+
+_PP_OUTER = {"wte.": "embed.wte.", "wpe.": "embed.wpe.", "ln_f.": "head.ln_f.",
+             "lm_head.": "head.lm_head."}
+
+
+def pp_stack(state_dict: Mapping[str, torch.Tensor], n_stages: int) -> Dict[str, torch.Tensor]:
+    """The pipeline's stacked state dict of a ``TransformerLM`` state dict
+    (module docstring): block ``s·L/S + j`` becomes index s of
+    ``stages.layers.{j}.*``."""
+    n_layers = 1 + max(int(k.split(".")[1]) for k in state_dict if k.startswith("blocks."))
+    if n_layers % n_stages:
+        raise ValueError(f"num_layers {n_layers} not divisible by n_stages {n_stages}")
+    lps = n_layers // n_stages
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in state_dict.items():
+        for a, b in _PP_OUTER.items():
+            if k.startswith(a):
+                out[b + k[len(a):]] = v
+    for j in range(lps):
+        for k in state_dict:
+            if k.startswith(f"blocks.{j}."):
+                rest = k[len(f"blocks.{j}."):]
+                out[f"stages.layers.{j}.{rest}"] = torch.stack(
+                    [state_dict[f"blocks.{s * lps + j}.{rest}"] for s in range(n_stages)])
+    return out
+
+
+def pp_unstack(stacked: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The ``TransformerLM`` state dict of a stacked one (the inverse of
+    ``pp_stack``)."""
+    out: Dict[str, torch.Tensor] = {}
+    lps = 1 + max(int(n.split(".")[2]) for n in stacked if n.startswith("stages."))
+    for k, v in stacked.items():
+        if k.startswith("stages.layers."):
+            j, rest = k[len("stages.layers."):].split(".", 1)
+            for s in range(v.shape[0]):
+                out[f"blocks.{s * lps + int(j)}.{rest}"] = v[s]
+            continue
+        for a, b in _PP_OUTER.items():
+            if k.startswith(b):
+                out[a + k[len(b):]] = v
+    return out
+
+
+def _flat_from_pp(tree: Mapping) -> Dict:
+    """The plain LM's flax tree of a pipeline's (``block{s·L/S + j}`` the
+    slice s of ``stages/layer{j}``)."""
+    def index(node, s):
+        return {k: index(v, s) if isinstance(v, Mapping) else np.asarray(v)[s]
+                for k, v in node.items()}
+
+    stages = tree["stages"]
+    lps = len(stages)
+    n_stages = len(np.asarray(next(iter(_leaves(stages)))[1]))
+    flat = {k: v for part in ("embed", "head") for k, v in tree[part].items()}
+    for s in range(n_stages):
+        for j in range(lps):
+            flat[f"block{s * lps + j}"] = index(stages[f"layer{j}"], s)
+    return flat
+
+
+def pp_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's stacked state dict of a JAX pipeline's parameter tree
+    (``create_pp_lm_state``'s ``{"embed", "stages", "head"}``)."""
+    n_stages = len(np.asarray(next(iter(_leaves(tree["stages"])))[1]))
+    return pp_stack(params_from_jax(_flat_from_pp(tree)), n_stages)
+
+
+def pp_params_to_jax(stacked: Mapping[str, torch.Tensor], cfg: TransformerConfig) -> Dict:
+    """The JAX pipeline's parameter tree of a stacked state dict (the
+    inverse of ``pp_params_from_jax``), numpy fp32 leaves."""
+    n_stages = next(v.shape[0] for k, v in stacked.items() if k.startswith("stages."))
+    flat = params_to_jax(pp_unstack(stacked), cfg)
+    lps = cfg.num_layers // n_stages
+    stages = {}
+    for j in range(lps):
+        blocks = [flat[f"block{s * lps + j}"] for s in range(n_stages)]
+
+        def stack(*xs):
+            return (np.stack(xs) if not isinstance(xs[0], Mapping)
+                    else {k: stack(*(x[k] for x in xs)) for k in xs[0]})
+
+        stages[f"layer{j}"] = stack(*blocks)
+    embed = {k: flat[k] for k in ("wte", "wpe") if k in flat}
+    return {"embed": embed, "stages": stages,
+            "head": {"ln_f": flat["ln_f"], "lm_head": flat["lm_head"]}}
+
+
+def pp_payload_from_jax(flat: Mapping) -> Dict:
+    """The port's checkpoint leaves of a JAX pipeline ``LMTrainer``'s
+    (``pipeline_stages`` > 0): the stacked global leaves."""
+    parts = _optax_parts(flat)
+    out = _common_leaves(flat, parts)
+    out.update(_model_leaves(pp_params_from_jax(_subtree(flat, "state/params/"))))
+    if "mu" in parts:
+        mu = pp_params_from_jax(parts["mu"])
+        step = torch.tensor(float(parts["adam_count"]), dtype=torch.float32)
+        out.update(_model_leaves({k: step for k in mu}, "step"))
+        out.update(_model_leaves(mu, "exp_avg"))
+        out.update(_model_leaves(pp_params_from_jax(parts["nu"]), "exp_avg_sq"))
     return out

@@ -17,9 +17,11 @@ step by the train step from the schedule.
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Iterable, List, Optional, Sequence
 
 import torch
+
+from pytorch_distributed_tpu_torch.parallel.collectives import all_reduce_
 
 
 def sgd_with_weight_decay(params: Iterable[torch.nn.Parameter], momentum: float = 0.9,
@@ -38,19 +40,34 @@ def adamw(params: Iterable[torch.nn.Parameter],
                              weight_decay=weight_decay)
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over every gradient, accumulated in fp32 (one card: the
-    sharding-aware sums of the JAX version reduce to this)."""
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+def global_norm(grads: List[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
+                axis=None) -> torch.Tensor:
+    """L2 norm over every gradient, accumulated in fp32. ``sharded`` flags
+    the gradients that are this rank's part of a leaf split over ``axis``
+    (a ``parallel.mesh.AxisGroup``: FSDP's data axis, the pipeline's
+    model axis): their square sums add over the axis, while every other
+    gradient, the same on each rank, counts once (``sharded_global_norm``
+    :44 of the JAX package)."""
+    if not sharded or not any(sharded):
+        return torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    sq = [torch.linalg.vector_norm(g.float()) ** 2 for g in grads]
+    parts = torch.stack([x for x, s in zip(sq, sharded) if s]).sum()
+    whole = [x for x, s in zip(sq, sharded) if not s]
+    total = parts if axis is None or axis.size == 1 else all_reduce_(parts, group=axis.group)
+    if whole:
+        total = total + torch.stack(whole).sum()
+    return torch.sqrt(total)
 
 
-def clip_grads_by_global_norm(grads: List[torch.Tensor],
-                              max_norm: float) -> torch.Tensor:
+def clip_grads_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                              sharded: Optional[Sequence[bool]] = None,
+                              axis=None) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / max(norm, max_norm)`` —
     identity under the threshold, never an up-scale, and no epsilon, as
-    optax's ``clip_by_global_norm``. Returns the pre-clip norm."""
-    norm = global_norm(grads)
+    optax's ``clip_by_global_norm``; the norm is ``global_norm``'s.
+    Returns the pre-clip norm."""
+    norm = global_norm(grads, sharded, axis)
     scale = max_norm / torch.clamp(norm, min=max_norm)
     torch._foreach_mul_(grads, scale)
     return norm

@@ -10,6 +10,10 @@
   sums the cotangents over the group, as JAX transposes ``psum`` under
   ``shard_map`` (every rank's loss depends on every rank's input);
 - ``broadcast_from_primary``: every rank gets rank 0's tensors;
+- ``all_gather`` and ``reduce_scatter``: every rank's tensor stacked in
+  rank order, and this rank's chunk of the sum of ``[n, ...]`` chunks
+  (FSDP's gather and its transpose); gloo has no reduce-scatter, so
+  there it is the sum's all-reduce and this rank's chunk of it;
 - ``start_ring_permute`` and ``ring_permute``: the ring's collective
   permutation (JAX's ``ppermute`` with ``perm = [(i, (i + 1) % s)]``): send
   to ``(r + 1) % s`` and receive from ``(r - 1) % s`` of the group, posted
@@ -41,8 +45,14 @@ def group_size(group: Optional[dist.ProcessGroup]) -> int:
     return dist.get_world_size(group)
 
 
-def _staged(group: Optional[dist.ProcessGroup], t: torch.Tensor) -> bool:
-    return t.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+def _gloo(group: Optional[dist.ProcessGroup]) -> bool:
+    return dist.get_backend(group) == dist.Backend.GLOO
+
+
+def staged(group: Optional[dist.ProcessGroup], t: torch.Tensor) -> bool:
+    """Whether ``t`` crosses ``group`` through the host: a CUDA tensor on a
+    gloo group."""
+    return t.is_cuda and _gloo(group)
 
 
 def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM,
@@ -50,7 +60,7 @@ def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM,
     """Reduce ``t`` in place over ``group`` (None = every rank)."""
     if group_size(group) == 1:
         return t
-    if _staged(group, t):
+    if staged(group, t):
         host = t.cpu()
         dist.all_reduce(host, op, group)
         t.copy_(host)
@@ -129,12 +139,38 @@ def broadcast_from_primary(tensors: Sequence[torch.Tensor]) -> None:
     if group_size(None) == 1:
         return
     for t in tensors:
-        if _staged(None, t):
+        if staged(None, t):
             host = t.cpu()
             dist.broadcast(host, 0)
             t.copy_(host)
         else:
             dist.broadcast(t, 0)
+
+
+def all_gather(t: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """Every rank's ``t`` in ``group``, stacked in rank order (``[n,
+    *t.shape]``, where ``t`` lies)."""
+    n = group_size(group)
+    t = t.contiguous()
+    if not _gloo(group):
+        out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t, group=group)
+        return out
+    host = t.cpu()
+    parts = [torch.empty_like(host) for _ in range(n)]
+    dist.all_gather(parts, host, group=group)
+    return torch.stack(parts).to(t.device)
+
+
+def reduce_scatter(chunks: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """This rank's chunk of the sum over ``group`` of ``chunks`` (``[n,
+    ...]``, one chunk a rank)."""
+    if _gloo(group):
+        total = all_reduce_(chunks.clone(memory_format=torch.contiguous_format), group=group)
+        return total[dist.get_rank(group)]
+    out = torch.empty(chunks.shape[1:], dtype=chunks.dtype, device=chunks.device)
+    dist.reduce_scatter_tensor(out, chunks.contiguous(), group=group)
+    return out
 
 
 class PendingPermute:
@@ -162,8 +198,8 @@ def start_ring_permute(tensors: Sequence[torch.Tensor], group: Optional[dist.Pro
         return PendingPermute([], tensors, tensors, tensors[0].device)
     s, r = dist.get_world_size(group), dist.get_rank(group)
     dst, src = ((r - 1) % s, (r + 1) % s) if reverse else ((r + 1) % s, (r - 1) % s)
-    staged = _staged(group, tensors[0])
-    sent = [t.cpu() if staged else t.contiguous() for t in tensors]
+    host = staged(group, tensors[0])
+    sent = [t.cpu() if host else t.contiguous() for t in tensors]
     received = [torch.empty_like(t) for t in sent]
     ops = ([dist.P2POp(dist.isend, t, dist.get_global_rank(group, dst), group) for t in sent]
            + [dist.P2POp(dist.irecv, t, dist.get_global_rank(group, src), group)

@@ -1,12 +1,14 @@
-"""The data × seq grid of ranks (``pytorch_distributed_tpu/parallel/mesh.py``).
+"""The data × seq × model grid of ranks (``pytorch_distributed_tpu/parallel/mesh.py``).
 
-``make_mesh`` lays ``dp * sp`` ranks out in the JAX grid order
-``(data, seq, model)`` (``make_mesh``:94), model of size 1: rank
-``d * sp + s`` holds data replica ``d`` and sequence shard ``s``. It
-builds one process group per row and column and registers this rank's
-two under the JAX axis names (``DATA_AXIS``, ``SEQ_AXIS``), so that a
-model config names its ring's group as the JAX config names its mesh axis
-(``TransformerConfig.seq_axis``). Every rank must call ``make_mesh`` with
+``make_mesh`` lays ``dp * sp * mp`` ranks out in the JAX grid order
+``(data, seq, model)`` (``make_mesh``:52): rank ``(d * sp + s) * mp + m``
+holds data replica ``d``, sequence shard ``s`` and model shard ``m`` (with
+``mp`` 1, rank ``d * sp + s``). It builds one process group along each
+axis through every point of the others and registers this rank's three
+under the JAX axis names (``DATA_AXIS``, ``SEQ_AXIS``, ``MODEL_AXIS``), so
+that a model config names its ring's group as the JAX config names its
+mesh axis (``TransformerConfig.seq_axis``). The model axis carries the
+pipeline's stages (``train.pp``). Every rank must call ``make_mesh`` with
 the same sizes, as ``torch.distributed.new_group`` requires.
 """
 
@@ -21,6 +23,7 @@ from pytorch_distributed_tpu_torch.parallel.distributed import ranks_per_node
 
 DATA_AXIS = "data"
 SEQ_AXIS = "seq"
+MODEL_AXIS = "model"
 
 _groups: Dict[str, "AxisGroup"] = {}
 
@@ -35,36 +38,52 @@ class AxisGroup:
     index: int
 
 
+_ONE = AxisGroup(None, 1, 0)
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     data: AxisGroup
     seq: AxisGroup
+    model: AxisGroup = _ONE
+
+    def rank_of(self, data: int = 0, seq: int = 0, model: int = 0) -> int:
+        """The global rank at grid point ``(data, seq, model)``."""
+        return (data * self.seq.size + seq) * self.model.size + model
 
 
-def make_mesh(data_parallel: int, seq_parallel: int = 1) -> Mesh:
-    """This rank's place in a ``data_parallel x seq_parallel`` grid over
-    the whole process group (rank = d·sp + s), with the axes' groups
-    registered under ``DATA_AXIS`` and ``SEQ_AXIS``. Without a process
-    group only the 1 x 1 grid exists."""
+def make_mesh(data_parallel: int, seq_parallel: int = 1, model_parallel: int = 1) -> Mesh:
+    """This rank's place in a ``data_parallel x seq_parallel x
+    model_parallel`` grid over the whole process group (rank =
+    (d·sp + s)·mp + m), with the axes' groups registered under
+    ``DATA_AXIS``, ``SEQ_AXIS`` and ``MODEL_AXIS``. Without a process
+    group only the 1 x 1 x 1 grid exists."""
+    sizes = (data_parallel, seq_parallel, model_parallel)
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if data_parallel < 1 or seq_parallel < 1 or data_parallel * seq_parallel != world:
-        raise ValueError(f"mesh {data_parallel}x{seq_parallel} != {world} processes")
+    if min(sizes) < 1 or data_parallel * seq_parallel * model_parallel != world:
+        raise ValueError(f"mesh {'x'.join(map(str, sizes))} != {world} processes")
     rank = dist.get_rank() if dist.is_initialized() else 0
-    d, s = divmod(rank, seq_parallel)
-    seq = data = None
-    # new_group is collective over the whole group: every rank builds every group
-    for row in range(data_parallel):
-        ranks = [row * seq_parallel + c for c in range(seq_parallel)]
-        g = dist.new_group(ranks) if seq_parallel > 1 else None
-        if row == d:
-            seq = g
-    for col in range(seq_parallel):
-        ranks = [r * seq_parallel + col for r in range(data_parallel)]
-        g = dist.new_group(ranks) if data_parallel > 1 else None
-        if col == s:
-            data = g
-    mesh = Mesh(AxisGroup(data, data_parallel, d), AxisGroup(seq, seq_parallel, s))
-    _groups[DATA_AXIS], _groups[SEQ_AXIS] = mesh.data, mesh.seq
+    mine = (rank // (seq_parallel * model_parallel), (rank // model_parallel) % seq_parallel,
+            rank % model_parallel)
+    axes = []
+    for axis, n in enumerate(sizes):
+        group = None
+        # new_group is collective over the whole group: every rank builds
+        # every line of every axis, in the same order
+        others = [range(m) for k, m in enumerate(sizes) if k != axis]
+        for a in others[0]:
+            for b in others[1]:
+                line = []
+                for i in range(n):
+                    point = [a, b]
+                    point.insert(axis, i)
+                    line.append((point[0] * seq_parallel + point[1]) * model_parallel + point[2])
+                g = dist.new_group(line) if n > 1 else None
+                if rank in line:
+                    group = g
+        axes.append(AxisGroup(group, n, mine[axis]))
+    mesh = Mesh(*axes)
+    _groups[DATA_AXIS], _groups[SEQ_AXIS], _groups[MODEL_AXIS] = axes
     return mesh
 
 
@@ -96,11 +115,13 @@ def global_batch_size(mesh: Mesh, per_replica_batch: int) -> int:
 
 def local_replica_count(mesh: Optional[Mesh]) -> int:
     """Data replicas this node feeds (``local_replica_count``:165): its
-    ranks over the seq axis's size. A node's loader batches this many
-    per-replica batches; 1 without a mesh."""
+    ranks over the seq and model axes' sizes, so every seq shard and
+    every stage of a replica gets its rows (JAX replicates the batch over
+    the model axis). A node's loader batches this many per-replica
+    batches; 1 without a mesh."""
     if mesh is None:
         return 1
-    return max(ranks_per_node() // mesh.seq.size, 1)
+    return max(ranks_per_node() // (mesh.seq.size * mesh.model.size), 1)
 
 
 def local_replica_index(mesh: Optional[Mesh]) -> int:

@@ -75,6 +75,21 @@ def add_resilience_flags(p: argparse.ArgumentParser, save_dir: str) -> None:
                         "every thread's stack and latches the suspend (0 = off)")
 
 
+def add_lm_parallel_flags(p: argparse.ArgumentParser) -> None:
+    """The LM recipe's ZeRO and pipeline flags (``recipes/common.py``
+    :298-309 of the JAX package)."""
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-shard replicated params/optimizer over the "
+                        "data axis (gather/scatter in the step; composes with SP)")
+    p.add_argument("--pipeline-stages", type=int, default=0,
+                   help="train through the GPipe pipeline with this many "
+                        "stages on the model axis (0 = off; excludes "
+                        "--model-parallel/--seq-parallel)")
+    p.add_argument("--pp-microbatches", type=int, default=8,
+                   help="GPipe microbatches per step (clamped to the "
+                        "per-shard batch; 8 is the JAX package's measured default)")
+
+
 def parse_args(description: str, argv: Optional[List[str]] = None,
                replicas: bool = False) -> argparse.Namespace:
     """The image recipes' flags; ``replicas`` adds the multi-card recipes'

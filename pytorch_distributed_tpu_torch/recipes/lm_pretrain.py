@@ -11,6 +11,12 @@ its attention in the CUDA FlashAttention kernels by default:
         --kv-heads 4 --pos-embedding rope --dropout 0.1
     python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --device cpu --tiny \
         --seq-parallel 2 [--ring-layout zigzag]
+    python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --synthetic --steps 8 --fsdp
+    python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --synthetic --steps 8 \
+        --pipeline-stages 2 [--pp-microbatches 8]
+    python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --device cpu --tiny --fsdp
+    python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --device cpu --tiny \
+        --pipeline-stages 2
 
 Without ``--device`` it runs on CUDA and fails where there is none. Token
 data is a flat int array (.npy) windowed to ``--seq-len``; ``--synthetic``
@@ -21,11 +27,17 @@ alone, as there.
 
 On CUDA every visible card (on every node) takes one rank, and the grid
 is factored as the JAX recipe factors its devices: ``--seq-parallel S``
-sequence shards a replica, ``cards // S`` data replicas
-(``parallel.mesh``); the ranks are spawned here and meet over NCCL, and an
-S that is larger than the cards or does not divide them is refused
-(``CUDA_VISIBLE_DEVICES`` picks the cards). With ``--device cpu`` one
-replica of S ranks meets over gloo. Each row of the grid runs ring
+sequence shards a replica, ``--pipeline-stages P`` pipeline stages (the
+model axis), ``cards // (S·P)`` data replicas (``parallel.mesh``); the
+ranks are spawned here and meet over NCCL, and a grid that is larger than
+the cards or does not divide them is refused (``CUDA_VISIBLE_DEVICES``
+picks the cards). With ``--device cpu`` one replica of S·P ranks meets
+over gloo. ``--fsdp`` shards the parameters and AdamW's moments over the
+data replicas (ZeRO-3, ``parallel.fsdp``; on one replica the data axis
+has size 1 and nothing is split); the
+pipeline (``train.pp``) trains with ``--pp-microbatches`` microbatches,
+overrides ``--seq-parallel`` to 1 and refuses ``--model-parallel``, as the
+JAX recipe does. Each row of the grid runs ring
 attention (``ring_flash`` unless ``--attention ring``, as in the JAX
 recipe); gradients are summed over every rank. The ranks rendezvous where
 ``MASTER_IP``/``MASTER_PORT`` say (``WORLD_SIZE`` nodes, this one ``RANK``;
@@ -64,7 +76,7 @@ from pytorch_distributed_tpu_torch.models.transformer import (
 from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.parallel import distributed
 from pytorch_distributed_tpu_torch.parallel.mesh import global_batch_size, make_mesh
-from pytorch_distributed_tpu_torch.recipes.common import add_resilience_flags
+from pytorch_distributed_tpu_torch.recipes.common import add_lm_parallel_flags, add_resilience_flags
 from pytorch_distributed_tpu_torch.train import LMTrainer, LMTrainerConfig
 from pytorch_distributed_tpu_torch.utils.suspend import SuspendWatcher
 
@@ -123,6 +135,7 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="ring shards: contiguous, or chunk pairs (r, 2s-1-r)")
     p.add_argument("--model-parallel", type=int, default=1,
                    help="must be 1: tensor parallelism is not ported")
+    add_lm_parallel_flags(p)
     return p.parse_args(argv)
 
 
@@ -174,14 +187,16 @@ def train(args, device=None, mesh=None) -> dict:
         log_every=args.log_every, seed=args.seed, grad_clip_norm=args.grad_clip_norm,
         save_dir=args.save_dir, save_every_n_steps=args.save_every_n_steps,
         keep_last_ckpts=args.keep_last_ckpts, nan_guard=args.nan_guard,
-        max_bad_steps=args.max_bad_steps, watchdog_timeout_s=args.watchdog_timeout)
+        max_bad_steps=args.max_bad_steps, watchdog_timeout_s=args.watchdog_timeout,
+        fsdp=args.fsdp, pipeline_stages=args.pipeline_stages,
+        pp_microbatches=args.pp_microbatches)
     watcher = SuspendWatcher()
     trainer = LMTrainer(model_cfg, train_ds, val_ds, cfg, device=device, mesh=mesh,
                         suspend_watcher=watcher)
     if distributed.is_primary():
-        grid = (f", grid {mesh.data.size} x {mesh.seq.size} (data x seq), global "
-                f"batch {global_batch_size(mesh, batch_size)}, ring layout "
-                f"{model_cfg.ring_layout}" if mesh else "")
+        grid = (f", grid {mesh.data.size} x {mesh.seq.size} x {mesh.model.size} (data x seq "
+                f"x stages), global batch {global_batch_size(mesh, batch_size)}, ring layout "
+                f"{model_cfg.ring_layout}{', fsdp' if args.fsdp else ''}" if mesh else "")
         print(f"device {trainer.device}, {trainer.state.param_count()} parameters, "
               f"batch {batch_size} x {seq_len} tokens per replica, attention "
               f"{model_cfg.attention}{grid}")
@@ -197,27 +212,31 @@ def train(args, device=None, mesh=None) -> dict:
 def grid(args) -> Tuple[int, int]:
     """``(data replicas, ranks on this node)``. On CUDA every card of every
     node (``WORLD_SIZE`` of the environment contract, else 1) takes a rank
-    and the replicas are cards // ``--seq-parallel``, as the JAX recipe
-    factors ``jax.device_count()``; on the CPU one replica of
-    ``--seq-parallel`` ranks. Refuses a grid the cards cannot hold."""
-    sp = args.seq_parallel
+    and the replicas are cards // (``--seq-parallel`` x stages), as the
+    JAX recipe factors ``jax.device_count()``; on the CPU one replica of
+    that many ranks. Refuses a grid the cards cannot hold."""
+    sp, mp = args.seq_parallel, max(args.pipeline_stages, 1)
     if sp < 1:
         raise SystemExit("--seq-parallel must be >= 1")
+    inner = sp * mp
     nodes = int(os.environ.get("WORLD_SIZE", "1")) if distributed.env_rendezvous() else 1
     if args.device == "cpu":
-        if sp % nodes:
-            raise SystemExit(f"{sp} ranks do not split over {nodes} nodes")
-        return 1, sp // nodes
+        if inner % nodes:
+            raise SystemExit(f"{inner} ranks do not split over {nodes} nodes")
+        return 1, inner // nodes
     cards = torch.cuda.device_count()
     world = max(cards, 1) * nodes  # no card: the one-rank path says so
-    if sp > world:
+    what = (f"--seq-parallel {sp}" if mp == 1 else f"--pipeline-stages {mp}"
+            if sp == 1 else f"--seq-parallel {sp} x --pipeline-stages {mp}")
+    if inner > world:
         raise SystemExit(
-            f"--seq-parallel {sp} needs a card per rank (NCCL puts one rank on a "
-            f"card), and {cards} per node on {nodes} node(s) are visible; use a "
-            "smaller --seq-parallel, or --device cpu to run the ranks over gloo")
-    if world % sp:
-        raise SystemExit(f"{world} cards do not split into sequence groups of {sp}")
-    return world // sp, world // nodes
+            f"{what} needs a card per rank (NCCL puts one rank on a "
+            f"card), and {cards} per node on {nodes} node(s) are visible; use fewer, "
+            "or --device cpu to run the ranks over gloo")
+    if world % inner:
+        kind = "sequence groups" if mp == 1 else "groups of stages x sequence shards"
+        raise SystemExit(f"{world} cards do not split into {kind} of {inner}")
+    return world // inner, world // nodes
 
 
 def _rank_main(local_rank: int, argv: List[str], rendezvous: Optional[str],
@@ -225,8 +244,9 @@ def _rank_main(local_rank: int, argv: List[str], rendezvous: Optional[str],
     """One rank: join the group, take a card (or the CPU), build the grid,
     train; rank 0 writes the summary to ``result``."""
     args = _parse(argv)
+    _check_parallel(args)
     backend = "gloo" if args.device == "cpu" else "nccl"
-    world = dp * args.seq_parallel
+    world = dp * args.seq_parallel * max(args.pipeline_stages, 1)
     if rendezvous is None:
         distributed.init_process_group(backend, local_rank=local_rank,
                                        procs_per_node=per_node)
@@ -239,7 +259,7 @@ def _rank_main(local_rank: int, argv: List[str], rendezvous: Optional[str],
             torch.cuda.set_device(device)
         else:
             torch.set_num_threads(1)  # the ranks share the host's cores
-        mesh = make_mesh(dp, args.seq_parallel)
+        mesh = make_mesh(dp, args.seq_parallel, max(args.pipeline_stages, 1))
         summary = train(args, device=device, mesh=mesh)
         if distributed.is_primary():
             with open(result, "w") as f:
@@ -248,8 +268,28 @@ def _rank_main(local_rank: int, argv: List[str], rendezvous: Optional[str],
         distributed.destroy_process_group()
 
 
+def _check_parallel(args) -> None:
+    """The JAX recipe's checks of the pipeline flags (:79-102): a negative
+    stage count is refused, the pipeline refuses --model-parallel and
+    overrides --seq-parallel to 1 (in ``args``)."""
+    if args.pipeline_stages < 0:
+        raise SystemExit(
+            f"--pipeline-stages must be >= 1 (or 0 = off), got {args.pipeline_stages}")
+    if args.pipeline_stages:
+        if args.model_parallel > 1:
+            raise SystemExit(
+                "--pipeline-stages uses the model axis for stages; drop "
+                "--model-parallel (TP-within-PP needs the train.pp API "
+                "with a dedicated stage axis)")
+        args.seq_parallel = 1
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     args = _parse(argv)
+    if args.pipeline_stages > 0 and args.seq_parallel > 1 and distributed.is_primary():
+        print(f"pipeline run: overriding --seq-parallel {args.seq_parallel} -> 1 "
+              "(PP batches shard over data only)")
+    _check_parallel(args)
     if args.model_parallel > 1:
         raise SystemExit(
             "--model-parallel > 1 is not ported yet: tensor parallelism comes "
@@ -260,7 +300,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.keep_last_ckpts < 1:
         raise SystemExit(f"--keep-last-ckpts must be >= 1, got {args.keep_last_ckpts}")
     dp, per_node = grid(args)
-    if dp * args.seq_parallel == 1:
+    if dp * args.seq_parallel * max(args.pipeline_stages, 1) == 1:
         return train(args, device=args.device)
     env = distributed.env_rendezvous()
     if args.device != "cpu":

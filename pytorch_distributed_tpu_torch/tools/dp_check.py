@@ -11,17 +11,21 @@ the JAX ``shard_batch`` lays a batch over a mesh. The tasks:
 - ``"steps"``: for each case of ``job["cases"]`` (a model spec, see
   ``build_model``; its weights ``params``, a state dict, or the seed-0
   initialisation; ``nan_guard``, ``grad_clip_norm``, the ``step_lr``
-  ``schedule``, ``scaler`` for fp16, and ``plant``: ``(step, rank)`` of
-  an inf planted in that rank's rows), ``make_train_step(mesh)`` on the
-  global batches of ``job["batches"]`` (or made from ``job["data"]``),
-  with each step's metrics, the combined gradient's norm, the largest
-  change of any parameter and momentum, the scaler's scale and the tail
-  kernels' launches, then rank 0's combined gradient of the first step,
-  its state dict after the first step and the last, and its momenta;
+  ``schedule``, ``scaler`` for fp16, ``plant``: ``(step, rank)`` of an
+  inf planted in that rank's rows, and ``fsdp``: the state ZeRO-sharded
+  over the data axis, ``parallel.fsdp.shard_state``),
+  ``make_train_step(mesh, fsdp=)`` on the global batches of
+  ``job["batches"]`` (or made from ``job["data"]``), with each step's
+  metrics, the combined gradient's global norm, the largest change of
+  any parameter and momentum (of this rank's parts under FSDP), the
+  scaler's scale and the tail kernels' launches, then rank 0's combined
+  gradient of the first step, its state dict after the first step and
+  the last (whole leaves under FSDP) and its momenta;
 - ``"trainer"``: ``Trainer(mesh=)`` (from ``job["params"]`` when given)
   for one epoch and a validation pass on synthetic images, or on
   ``job["datasets"]`` (train, val), which cross to the ranks pickled,
-  with its history, the validation summary and the tail launches;
+  with its history, the validation summary, the tail launches, the
+  rank's parameter and optimizer bytes and its peak device memory;
 - ``"timing"``: on CUDA, for each case of ``job["models"]`` (a model
   spec and a ``batch`` a rank), ``job["steps"]`` timed steps (host clock
   after a sync) after ``job["warmup"]``, then ``job["profiled"]`` steps
@@ -45,6 +49,7 @@ from pytorch_distributed_tpu_torch.data import SyntheticImageClassification, ima
 from pytorch_distributed_tpu_torch.models import resnet
 from pytorch_distributed_tpu_torch.ops import bottleneck_tail as bt
 from pytorch_distributed_tpu_torch.parallel import distributed
+from pytorch_distributed_tpu_torch.parallel.fsdp import global_leaves, shard_state, state_bytes
 from pytorch_distributed_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -136,6 +141,7 @@ def _steps(job: dict, mesh: Mesh, device) -> Dict[str, dict]:
     from pytorch_distributed_tpu_torch.train import create_resnet_state, make_train_step
 
     batches = global_batches(job)
+    primary = distributed.is_primary()
     out = {}
     for name, case in job["cases"].items():
         plant_step, plant_rank = case.get("plant", (None, None))
@@ -143,8 +149,11 @@ def _steps(job: dict, mesh: Mesh, device) -> Dict[str, dict]:
         scaler = (DynamicLossScaler.create(**case["scaler"]) if "scaler" in case else None)
         state = create_resnet_state(model, lr_schedule=step_lr(*case["schedule"]),
                                     params=case.get("params"), device=device, scaler=scaler)
+        fsdp = case.get("fsdp", False)
+        if fsdp:
+            shard_state(state, mesh)
         step = make_train_step(mesh, grad_clip_norm=case.get("grad_clip_norm", 0.0),
-                               nan_guard=case.get("nan_guard", False))
+                               nan_guard=case.get("nan_guard", False), fsdp=fsdp)
         rec: Dict[str, list] = {}
         for i, batch in enumerate(batches):
             local = rows(batch, mesh.data.index, mesh.data.size)
@@ -160,8 +169,10 @@ def _steps(job: dict, mesh: Mesh, device) -> Dict[str, dict]:
                 torch.cuda.synchronize()
             step_s = time.perf_counter() - t0
             launches = dict(bt.launch_counts)
-            grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-            for k, v in dict(m, grad_norm=global_norm(grads), step_s=step_s,
+            named = {n: p.grad for n, p in state.model.named_parameters() if p.grad is not None}
+            norm = global_norm(list(named.values()), [n in state.layout for n in named],
+                               mesh.data)
+            for k, v in dict(m, grad_norm=norm, step_s=step_s,
                              scale=torch.as_tensor(state.scaler.scale),
                              param_change=_largest_change(
                                  params, [p.detach() for p in state.model.parameters()]),
@@ -169,17 +180,14 @@ def _steps(job: dict, mesh: Mesh, device) -> Dict[str, dict]:
                                  momenta, _momenta(state.optimizer))).items():
                 rec.setdefault(k, []).append(float(v))
             rec.setdefault("launches", []).append([launches.get(k, 0) for k in TAIL])
-            if i == 0 and distributed.is_primary():
-                first = {k: v.detach().to("cpu", copy=True)
-                         for k, v in state.model.state_dict().items()}
-                grad_first = {k: p.grad.to("cpu", copy=True)
-                              for k, p in state.model.named_parameters() if p.grad is not None}
-        primary = distributed.is_primary()
+            if i == 0:
+                first = global_leaves(state.model.state_dict(), state.layout, mesh)
+                grad_first = global_leaves(named, state.layout, mesh)
+        params = global_leaves(state.model.state_dict(), state.layout, mesh)
         out[name] = {
             "metrics": rec, "step": state.step, "updates": state.updates,
             "first": first if primary else None, "grad_first": grad_first if primary else None,
-            "params": ({k: v.detach().cpu() for k, v in state.model.state_dict().items()}
-                       if primary else None),
+            "params": params if primary else None,
             "momenta": ([m.cpu() for m in _momenta(state.optimizer)] if primary else None)}
         del state
         if device.type == "cuda":
@@ -201,13 +209,18 @@ def _trainer(job: dict, mesh: Mesh, device) -> dict:
     if job.get("params") is not None:  # in place of the seed's initialisation
         trainer.state.model.load_state_dict(job["params"])
     trainer.train_sampler.set_epoch(0)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     bt.reset_launch_counts()
     trainer.train_epoch(0)
     launches = dict(bt.launch_counts)
     val = trainer.validate()
     return {"history": trainer.history, "val": val, "launches": launches,
             "steps_per_epoch": len(trainer.train_loader),
-            "native_batches": [getattr(ds, "native_batches", None) for ds in datasets]}
+            "native_batches": [getattr(ds, "native_batches", None) for ds in datasets],
+            "state_bytes": state_bytes(trainer.state),
+            "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                         if device.type == "cuda" else 0.0)}
 
 
 def device_split(prof, wall_us: float, steps: int) -> Dict[str, float]:

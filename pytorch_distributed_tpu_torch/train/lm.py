@@ -3,10 +3,20 @@
 The JAX steps run under ``shard_map`` over a (data, seq) mesh. Here each
 process is one rank of a ``parallel.mesh.Mesh`` (or, with ``mesh=None``,
 the one device) and runs the JAX ``_local_step`` on its shard of the
-batch: its data replica's rows, its sequence shard's columns. FSDP,
-tensor, expert and pipeline parallelism are not ported. What carries over
-exactly:
+batch: its data replica's rows, its sequence shard's columns. Tensor and
+expert parallelism are not ported; the pipeline's steps are ``train.pp``'s.
+What carries over exactly:
 
+- FSDP (``fsdp=True`` on a state from ``shard_lm_state(..., fsdp=True)``,
+  ``shard_lm_state``:214): the leaves ``lm_fsdp_membership`` names live as
+  this rank's parts over the data axis (``parallel.fsdp``); the step
+  all-gathers them before the forward, and their gradients come back
+  reduce-scattered over data (sums: each rank's loss is its share of the
+  global mean), then summed over seq, while the replicated leaves' sum
+  over every rank (``make_lm_train_step``:472-565); clipping takes the
+  sharded global norm (the parts' squares summed over data, the
+  replicated leaves' once); AdamW runs on the parts; the eval step
+  gathers the same way;
 - the loss is Σ(w·ce)/max(Σw, 1) (``_lm_loss_sum``:391), by default
   through the fused linear cross-entropy on the post-ln_f hidden states,
   with Σw the token count all-reduced over data × seq, so each rank's
@@ -63,7 +73,13 @@ from pytorch_distributed_tpu_torch.ops.fused_ce import fused_linear_cross_entrop
 from pytorch_distributed_tpu_torch.ops.losses import cross_entropy_loss
 from pytorch_distributed_tpu_torch.ops.optim import adamw, clip_grads_by_global_norm
 from pytorch_distributed_tpu_torch.parallel.collectives import all_reduce_, all_reduce_grads
-from pytorch_distributed_tpu_torch.parallel.mesh import Mesh
+from pytorch_distributed_tpu_torch.parallel.fsdp import (
+    call_with,
+    fsdp_dim,
+    gather_params,
+    shard_state,
+)
+from pytorch_distributed_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
 from pytorch_distributed_tpu_torch.parallel.sequence import zigzag_positions
 from pytorch_distributed_tpu_torch.resilience.stepguard import finite_ok, guarded_step
 from pytorch_distributed_tpu_torch.train.state import TrainState
@@ -100,14 +116,14 @@ def create_lm_state(config: TransformerConfig, *, lr_schedule: Callable[[int], f
 
 
 def lm_loss_sum(out: torch.Tensor, model: TransformerLM, batch: Batch,
-                use_fused: bool) -> torch.Tensor:
+                use_fused: bool, head_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Σ(w·ce) of one forward's output: hidden states through the fused
-    CE with ``model.lm_head`` (the JAX steps' 512-row blocks), or full
-    logits through the plain CE."""
+    CE with ``head_weight`` (``model.lm_head.weight`` by default; the
+    JAX steps' 512-row blocks), or full logits through the plain CE."""
     if use_fused:
         return fused_linear_cross_entropy(
-            out, model.lm_head.weight, batch["labels"], batch["weights"],
-            compute_dtype=model.cfg.dtype)
+            out, model.lm_head.weight if head_weight is None else head_weight,
+            batch["labels"], batch["weights"], compute_dtype=model.cfg.dtype)
     per_tok = cross_entropy_loss(out.reshape(-1, out.shape[-1]),
                                  batch["labels"].reshape(-1), reduction="none")
     return (per_tok * batch["weights"].reshape(-1)).sum()
@@ -123,6 +139,47 @@ def check_seq_parallel_attention(mesh: Optional[Mesh], config) -> None:
             f"config.attention={config.attention!r}: non-ring attention is "
             "shard-local under sequence parallelism and computes the wrong "
             "function. Use attention='ring'/'ring_flash' (or a seq-axis size of 1).")
+
+
+#: TP and EP placement rules, ``(name pattern, mesh axes)``, that claim a
+#: leaf for a compute sharding before FSDP may store it sharded
+#: (``_lm_placement_rules``:253). Tensor and expert parallelism are not
+#: ported, so the set is empty, as the JAX rules claim nothing at TP 1.
+LM_PLACEMENT_RULES: Tuple[Tuple[str, Tuple[str, ...]], ...] = ()
+
+
+def _rule_claimed(name: str, rules, mesh: Mesh) -> bool:
+    """Whether a rule claims ``name`` with an axis of size > 1
+    (``_rule_claimed``:272): a matched rule over axes of size 1 shards
+    nothing, and the leaf falls through to ZeRO."""
+    import re
+
+    sizes = {DATA_AXIS: mesh.data.size, SEQ_AXIS: mesh.seq.size, MODEL_AXIS: mesh.model.size}
+    for pattern, axes in rules:
+        if re.search(pattern, name):
+            return any(sizes.get(a, 1) > 1 for a in axes)
+    return False
+
+
+def lm_fsdp_membership(model: torch.nn.Module, mesh: Mesh,
+                       rules=LM_PLACEMENT_RULES) -> Dict[str, bool]:
+    """Which parameters FSDP shards (``lm_fsdp_membership``:285): big
+    enough for ``fsdp_dim`` over the data axis and not claimed by a rule.
+    Takes the whole (global) shapes, before sharding."""
+    return {name: (fsdp_dim(tuple(p.shape), mesh.data.size) is not None
+                   and not _rule_claimed(name, rules, mesh))
+            for name, p in model.named_parameters()}
+
+
+def shard_lm_state(state: TrainState, mesh: Mesh, fsdp: bool = False) -> TrainState:
+    """The state placed on the mesh: replicated as it is, or with ``fsdp``
+    every ``lm_fsdp_membership`` leaf ZeRO-sharded over the data axis
+    (``shard_lm_state``:214). Call it on every rank after the weights
+    are the same everywhere (rank 0's broadcast)."""
+    if not fsdp:
+        return state
+    members = lm_fsdp_membership(state.model, mesh)
+    return shard_state(state, mesh, {n for n, m in members.items() if m})
 
 
 def _over_mesh(mesh: Optional[Mesh], t: torch.Tensor,
@@ -173,7 +230,7 @@ def moe_aux_and_dropped(model) -> Tuple[Optional[torch.Tensor], Optional[torch.T
 
 def make_lm_train_step(*, grad_clip_norm: float = 0.0, fused_ce: bool = True,
                        nan_guard: bool = False, mesh: Optional[Mesh] = None, config=None,
-                       dropout_seed: int = 0):
+                       dropout_seed: int = 0, fsdp: bool = False):
     """``step(state, batch) -> (state, metrics)`` with ``batch``
     ``{"tokens", "labels", "weights"}`` ``[B, L]`` on the model's device:
     this rank's shard on a ``mesh`` (``train.lm_trainer.shard_lm_batch``).
@@ -183,9 +240,12 @@ def make_lm_train_step(*, grad_clip_norm: float = 0.0, fused_ce: bool = True,
     on the host every step) and ``moe_dropped_frac`` (MoE models).
     ``config``, when given, is checked against the mesh. A model with
     dropout draws its masks from ``dropout_generator(dropout_seed,
-    state.step, shard)``."""
+    state.step, shard)``. ``fsdp``: the state's parameters are
+    ``shard_lm_state(..., fsdp=True)``'s parts over the mesh's data axis."""
     if config is not None:
         check_seq_parallel_attention(mesh, config)
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True shards over a mesh's data axis: pass mesh")
     n_shards = 1 if mesh is None else mesh.data.size * mesh.seq.size
 
     def step(state: TrainState, batch: Batch):
@@ -199,21 +259,32 @@ def make_lm_train_step(*, grad_clip_norm: float = 0.0, fused_ce: bool = True,
         if model.cfg.dropout > 0.0:
             rng = dropout_generator(dropout_seed, state.step, shard_index(mesh),
                                     batch["tokens"].device)
-        out = model(batch["tokens"], position_offset=offset, positions=positions,
-                    return_hidden=fused_ce, dropout_rng=rng)
-        loss = lm_loss_sum(out, model, batch, fused_ce) / torch.clamp(count, min=1.0)
+        # FSDP: the whole leaves, all-gathered; their gradients come back
+        # to the parts reduce-scattered over data (sums)
+        full = gather_params(model, state.layout, mesh.data, mean=False) if fsdp else {}
+        out = call_with(model, full, batch["tokens"], position_offset=offset,
+                         positions=positions, return_hidden=fused_ce, dropout_rng=rng)
+        loss = lm_loss_sum(out, model, batch, fused_ce, full.get("lm_head.weight"))
+        loss = loss / torch.clamp(count, min=1.0)
         aux, dropped = moe_aux_and_dropped(model)
         if aux is not None:
             loss = loss + aux / n_shards
         loss.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        if mesh is not None:
+        named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+        grads = [g for _, g in named]
+        sharded = [n in state.layout for n, _ in named] if fsdp else None
+        if fsdp:
+            all_reduce_grads([g for g, s in zip(grads, sharded) if not s])
+            if mesh.seq.size > 1:
+                all_reduce_grads([g for g, s in zip(grads, sharded) if s], mesh.seq.group)
+        elif mesh is not None:
             all_reduce_grads(grads)
         metrics = {"loss": _over_mesh(mesh, loss.detach().clone()), "tokens": count}
         if dropped is not None:
             metrics["moe_dropped_frac"] = _over_mesh(mesh, dropped.detach() / n_shards)
         if grad_clip_norm:
-            metrics["grad_norm"] = clip_grads_by_global_norm(grads, grad_clip_norm)
+            metrics["grad_norm"] = clip_grads_by_global_norm(
+                grads, grad_clip_norm, sharded, mesh.data if fsdp else None)
         lr = state.lr_schedule(state.updates)
         for group in opt.param_groups:
             group["lr"] = lr
@@ -231,12 +302,14 @@ def make_lm_train_step(*, grad_clip_norm: float = 0.0, fused_ce: bool = True,
     return step
 
 
-def make_lm_eval_step(*, fused_ce: bool = True, mesh: Optional[Mesh] = None, config=None):
+def make_lm_eval_step(*, fused_ce: bool = True, mesh: Optional[Mesh] = None, config=None,
+                      fsdp: bool = False):
     """``eval_step(state, batch, acc) -> acc``: adds the batch's weighted
     CE sum and token count, summed over every rank, to the device
     accumulator (``empty_lm_metrics``); perplexity is
     exp(loss_sum / tokens). MoE layers run at the relaxed evaluation
-    capacity (``models.moe.eval_capacity_factor``), dropout is off."""
+    capacity (``models.moe.eval_capacity_factor``), dropout is off.
+    ``fsdp``: the parts are all-gathered first, as in the train step."""
     if config is not None:
         check_seq_parallel_attention(mesh, config)
 
@@ -245,10 +318,12 @@ def make_lm_eval_step(*, fused_ce: bool = True, mesh: Optional[Mesh] = None, con
         model = state.model
         model.eval()
         positions, offset = shard_positions(model.cfg, batch["tokens"], mesh)
+        full = gather_params(model, state.layout, mesh.data, mean=False) if fsdp else {}
         with relaxed_capacity(model, eval_capacity_factor(model.cfg)):
-            out = model(batch["tokens"], position_offset=offset, positions=positions,
-                        return_hidden=fused_ce)
-        acc["loss_sum"] += _over_mesh(mesh, lm_loss_sum(out, model, batch, fused_ce))
+            out = call_with(model, full, batch["tokens"], position_offset=offset,
+                             positions=positions, return_hidden=fused_ce)
+        acc["loss_sum"] += _over_mesh(mesh, lm_loss_sum(out, model, batch, fused_ce,
+                                                        full.get("lm_head.weight")))
         acc["tokens"] += _over_mesh(mesh, batch["weights"].sum())
         return acc
 

@@ -9,7 +9,10 @@ data × seq ``parallel.mesh.Mesh``: as in JAX (``train/lm_trainer.py``
 batches its local data replicas together; the rank collates its replica's
 rows of each node batch (``data.loader.rank_rows``), ``shard_lm_batch``
 gives it its sequence columns, the steps all-reduce over every rank, and
-only rank 0 prints. Validation zero-weights the sampler's wrap-padding
+only rank 0 prints. With ``fsdp`` the state is ZeRO-3-sharded over the
+data axis (``train.lm``); with ``pipeline_stages`` every stage of a
+replica collates the replica's rows and trains through ``train.pp``.
+Validation zero-weights the sampler's wrap-padding
 duplicates and pads a partial node batch with zero-weight rows (:519-545),
 so each sequence counts once. The checkpoint contract is
 ``train.base.SuspendableTrainer``'s, as in ``train.Trainer``, with
@@ -31,7 +34,7 @@ import torch
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.data import DataLoader, DistributedSampler, to_device
-from pytorch_distributed_tpu_torch.models.convert import lm_payload_from_jax
+from pytorch_distributed_tpu_torch.models.convert import lm_payload_from_jax, pp_payload_from_jax
 from pytorch_distributed_tpu_torch.ops.schedules import warmup_cosine
 from pytorch_distributed_tpu_torch.parallel import distributed
 from pytorch_distributed_tpu_torch.parallel.collectives import broadcast_from_primary
@@ -39,6 +42,7 @@ from pytorch_distributed_tpu_torch.parallel.mesh import (
     Mesh,
     local_replica_count,
     local_replica_index,
+    make_mesh,
 )
 from pytorch_distributed_tpu_torch.parallel.sequence import zigzag_shard
 from pytorch_distributed_tpu_torch.train.base import SuspendableTrainer
@@ -47,7 +51,14 @@ from pytorch_distributed_tpu_torch.train.lm import (
     empty_lm_metrics,
     make_lm_eval_step,
     make_lm_train_step,
+    shard_lm_state,
     shift_labels,
+)
+from pytorch_distributed_tpu_torch.train.pp import (
+    create_pp_lm_state,
+    make_pp_lm_eval_step,
+    make_pp_lm_train_step,
+    pp_microbatches,
 )
 from pytorch_distributed_tpu_torch.utils.checkpoint import Checkpointer
 from pytorch_distributed_tpu_torch.utils.logging import rank0_print
@@ -102,13 +113,23 @@ class LMTrainerConfig:
     nan_guard: bool = False
     max_bad_steps: int = 0
     watchdog_timeout_s: float = 0.0
+    # ZeRO-3 over the mesh's data axis (train.lm.shard_lm_state)
+    fsdp: bool = False
+    # > 0: train through the GPipe pipeline (train.pp), the stages on the
+    # mesh's model axis, pp_microbatches clamped to a divisor of batch_size
+    pipeline_stages: int = 0
+    pp_microbatches: int = 8
 
 
 class LMTrainer(SuspendableTrainer):
     """Drives a ``TransformerConfig`` over token datasets on one device
     (CUDA unless ``device="cpu"``), or as this process's rank of ``mesh``,
     from the seeded initialisation (rank 0's, broadcast).
-    ``config.batch_size`` is per data replica."""
+    ``config.batch_size`` is per data replica. ``config.fsdp`` shards the
+    state over the data axis; ``config.pipeline_stages`` = S trains
+    through the pipeline on a mesh whose model axis has S ranks (JAX
+    :233-330, with its refusals: no ``nan_guard``, no seq axis, no
+    ``fsdp`` with the pipeline)."""
 
     def __init__(self, model_config, train_dataset, val_dataset,
                  config: LMTrainerConfig, device=None, mesh: Optional[Mesh] = None,
@@ -136,15 +157,22 @@ class LMTrainer(SuspendableTrainer):
         schedule = warmup_cosine(
             config.lr, total_steps=max(len(self.train_loader) * config.epochs, 1),
             warmup_steps=config.warmup_steps, final_lr=config.lr * config.min_lr_ratio)
-        self.state = create_lm_state(model_config, lr_schedule=schedule,
-                                     weight_decay=config.weight_decay, seed=config.seed,
-                                     device=self.device)
-        if mesh is not None:
-            broadcast_from_primary(list(self.state.model.state_dict().values()))
-        self.train_step = make_lm_train_step(grad_clip_norm=config.grad_clip_norm,
-                                             nan_guard=config.nan_guard, mesh=mesh,
-                                             config=model_config, dropout_seed=config.seed)
-        self.eval_step = make_lm_eval_step(mesh=mesh, config=model_config)
+        if config.pipeline_stages > 0:
+            self._init_pipeline(schedule)
+        else:
+            if config.fsdp and mesh is None:  # one device: a data axis of 1, as in JAX
+                mesh = self.mesh = make_mesh(1)
+            self.state = create_lm_state(model_config, lr_schedule=schedule,
+                                         weight_decay=config.weight_decay, seed=config.seed,
+                                         device=self.device)
+            if mesh is not None:
+                broadcast_from_primary(list(self.state.model.state_dict().values()))
+                self.state = shard_lm_state(self.state, mesh, fsdp=config.fsdp)
+            self.train_step = make_lm_train_step(
+                grad_clip_norm=config.grad_clip_norm, nan_guard=config.nan_guard, mesh=mesh,
+                config=model_config, dropout_seed=config.seed, fsdp=config.fsdp)
+            self.eval_step = make_lm_eval_step(mesh=mesh, config=model_config,
+                                               fsdp=config.fsdp)
         self.best_ppl = float("inf")
         self.start_epoch = 0
         self.start_step = 0
@@ -153,6 +181,40 @@ class LMTrainer(SuspendableTrainer):
         #: mean wall time of the steps since the previous record
         self.history: List[dict] = []
 
+    def _init_pipeline(self, schedule) -> None:
+        """The pipeline's state and steps, with the JAX trainer's checks."""
+        cfg, s = self.config, self.config.pipeline_stages
+        if cfg.nan_guard:
+            raise ValueError(
+                "nan_guard does not compose with pipeline_stages: the "
+                "GPipe executor owns its own update path (train/pp.py)")
+        mesh = self.mesh if self.mesh is not None else make_mesh(1)
+        if mesh.model.size != s:
+            raise ValueError(
+                f"pipeline_stages={s} needs the mesh's 'model' axis to carry the stages "
+                f"(got {mesh.model.size}); build the mesh with that axis sized to "
+                "pipeline_stages")
+        if mesh.seq.size > 1:
+            raise ValueError(
+                "the PP trainer shards batches over data only; use "
+                "seq_parallel=1 (ring attention cannot run inside a "
+                "pipeline stage)")
+        if cfg.fsdp:
+            raise ValueError(
+                "fsdp does not compose with pipeline_stages in the "
+                "trainer (stage stacks already shard the model axis)")
+        # every rank initialises the same stacked weights from the seed
+        self.state = create_pp_lm_state(self.model_config, s, lr_schedule=schedule,
+                                        weight_decay=cfg.weight_decay, seed=cfg.seed,
+                                        mesh=mesh, device=self.device)
+        mb, note = pp_microbatches(cfg.pp_microbatches, cfg.batch_size)
+        if note:
+            rank0_print(note)
+        self.train_step = make_pp_lm_train_step(mesh, self.model_config, mb,
+                                                dropout_seed=cfg.seed,
+                                                grad_clip_norm=cfg.grad_clip_norm)
+        self.eval_step = make_pp_lm_eval_step(mesh, self.model_config, mb)
+
     def _extra_payload(self) -> dict:
         return {"best_ppl": self.best_ppl}
 
@@ -160,6 +222,8 @@ class LMTrainer(SuspendableTrainer):
         self.best_ppl = float(leaves["best_ppl"])
 
     def _from_jax(self, leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if any(p.startswith("state/params/stages/") for p in leaves):
+            return pp_payload_from_jax(leaves)
         return lm_payload_from_jax(leaves)
 
     def _report_epoch(self, epoch: int, summary: dict, seconds: float) -> bool:

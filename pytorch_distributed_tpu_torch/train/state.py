@@ -24,13 +24,22 @@ fp16.
 ``restore_state`` puts such leaves back into a built state in place, on
 its devices; the JAX package's layout (``state/params/...``) crosses
 through ``models.convert.resnet_payload_from_jax`` /
-``lm_payload_from_jax`` first."""
+``lm_payload_from_jax`` first.
+
+A sharded state (FSDP, ``parallel.fsdp.shard_state``; a pipeline stage,
+``train.pp``) names in ``layout`` each parameter this rank holds only a
+part of, with its ``utils.checkpoint.Shard``. Its leaves, and the
+optimizer's moments of the same shape, go out as ``ShardedLeaf``s, so
+the checkpoint holds the global leaf whatever the topology, and a
+restore takes this rank's part of each global leaf: a sharded run's
+checkpoint restores into a replicated run and the reverse."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Mapping, Optional, Union
 
+import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch._device import resolve_device
@@ -40,6 +49,7 @@ from pytorch_distributed_tpu_torch.models.convert import (
 )
 from pytorch_distributed_tpu_torch.ops.optim import sgd_with_weight_decay
 from pytorch_distributed_tpu_torch.ops.precision import DynamicLossScaler, NoOpLossScaler
+from pytorch_distributed_tpu_torch.utils.checkpoint import Shard, ShardedLeaf
 
 
 @dataclasses.dataclass
@@ -51,9 +61,14 @@ class TrainState:
     scaler: Union[NoOpLossScaler, DynamicLossScaler] = dataclasses.field(
         default_factory=NoOpLossScaler)
     updates: int = 0
+    #: parameter name -> its ``Shard`` for every parameter this rank holds
+    #: a part of (empty: the whole model is here)
+    layout: Dict[str, Shard] = dataclasses.field(default_factory=dict)
 
     def param_count(self) -> int:
-        return sum(p.numel() for p in self.model.parameters())
+        """Parameters of the global model."""
+        return sum(int(np.prod(self.layout[n].shape)) if n in self.layout else p.numel()
+                   for n, p in self.model.named_parameters())
 
 
 def create_resnet_state(model, *, lr_schedule: Callable[[int], float], momentum: float = 0.9,
@@ -85,14 +100,21 @@ def state_payload(state: TrainState) -> Dict[str, object]:
     which the checkpoint's snapshot copies."""
     out: Dict[str, object] = {"state/step": int(state.step),
                               "state/updates": int(state.updates)}
+    layout = state.layout
+
+    def leaf(name, v):
+        sh = layout.get(name)
+        return ShardedLeaf(v, sh) if sh is not None and v.dim() else v
+
     for k, v in state.model.state_dict().items():
-        out["state/model/" + k.replace(".", "/")] = v
+        out["state/model/" + k.replace(".", "/")] = leaf(k, v)
     names = _param_names(state.model)
     for group in state.optimizer.param_groups:
         for p in group["params"]:
             for key, v in state.optimizer.state.get(p, {}).items():
                 if isinstance(v, torch.Tensor):
-                    out[f"state/optimizer/{names[id(p)].replace('.', '/')}/{key}"] = v
+                    name = names[id(p)]
+                    out[f"state/optimizer/{name.replace('.', '/')}/{key}"] = leaf(name, v)
     if isinstance(state.scaler, DynamicLossScaler):
         out["state/scaler/scale"] = state.scaler.scale
         out["state/scaler/growth_tracker"] = state.scaler.growth_tracker
@@ -105,17 +127,30 @@ def restore_state(state: TrainState, leaves: Mapping[str, torch.Tensor]) -> None
     parameters and buffers copied onto the model's devices, the
     optimizer's state replaced by the saved one (copies on each
     parameter's device; AdamW's ``step`` where torch keeps it), ``step``,
-    ``updates`` and the fp16 scaler. Raises ``KeyError`` / ``ValueError``
-    when the leaves do not fit the state, before changing anything."""
+    ``updates`` and the fp16 scaler. A parameter in ``state.layout`` and
+    its moments take this rank's part of the global leaf. Raises
+    ``KeyError`` / ``ValueError`` when the leaves do not fit the state,
+    before changing anything."""
     model_keys = {"state/model/" + k.replace(".", "/") for k in state.model.state_dict()}
     saved = {p for p in leaves if p.startswith("state/model/")}
     if saved != model_keys:
         raise KeyError(f"checkpoint model leaves do not match the model: missing "
                        f"{sorted(model_keys - saved)[:4]}, unexpected "
                        f"{sorted(saved - model_keys)[:4]}")
+    layout = state.layout
+
+    def part(name, src):  # this rank's part of a global leaf
+        sh = layout.get(name)
+        if sh is None or src.dim() == 0:
+            return src
+        if tuple(src.shape) != tuple(sh.shape):
+            raise ValueError(f"checkpoint leaf {name}: shape {tuple(src.shape)}, the global "
+                             f"leaf's {tuple(sh.shape)}")
+        return sh.take(src)
+
     sd = state.model.state_dict()
     for k, v in sd.items():
-        src = leaves["state/model/" + k.replace(".", "/")]
+        src = part(k, leaves["state/model/" + k.replace(".", "/")])
         if tuple(src.shape) != tuple(v.shape):
             raise ValueError(f"checkpoint leaf {k}: shape {tuple(src.shape)}, the model's "
                              f"{tuple(v.shape)}")
@@ -124,7 +159,7 @@ def restore_state(state: TrainState, leaves: Mapping[str, torch.Tensor]) -> None
         raise KeyError("the fp16 state's checkpoint has no state/scaler leaves")
     with torch.no_grad():
         for k, v in sd.items():
-            v.copy_(leaves["state/model/" + k.replace(".", "/")])
+            v.copy_(part(k, leaves["state/model/" + k.replace(".", "/")]))
     opt = state.optimizer
     names = _param_names(state.model)
     packed = opt.state_dict()
@@ -139,7 +174,7 @@ def restore_state(state: TrainState, leaves: Mapping[str, torch.Tensor]) -> None
                     key = path[len(prefix):]
                     # torch keeps a non-fused optimizer's step on the CPU
                     entry[key] = (src.clone() if key == "step"
-                                  else src.to(p.device, copy=True))
+                                  else part(names[id(p)], src).to(p.device, copy=True))
             if entry:
                 packed["state"][index] = entry
             index += 1

@@ -12,6 +12,16 @@ JAX ``_local_step`` (:97-229) on its replica's rows, in its order:
 - the gradients' **mean** over the data group (the sums of
   ``parallel.collectives.all_reduce_grads`` divided once by its size),
   then optional global-norm clipping;
+- with ``fsdp`` (a state from ``parallel.fsdp.shard_state``; JAX
+  ``make_train_step``:78-135 with ``state_specs``): the parameters' parts
+  are all-gathered before the forward (conv kernels back in channels-last)
+  and the model runs on them through ``torch.func.functional_call``; the
+  parts' gradients come back reduce-scattered and divided by the group's
+  size (the same mean, delivered shard-wise), the replicated leaves take
+  the plain mean, clipping takes the sharded global norm, and SGD updates
+  the parts. BatchNorm statistics, the fp16 finite gate and its skip and
+  ``nan_guard`` are as without it: the finite flag's min over the group
+  makes a non-finite part anywhere skip the step everywhere;
 - the BatchNorm running statistics' mean over the group, right after the
   forward: each replica normalizes with its own batch (DDP's unsynced
   BatchNorm unless the model syncs it) and the state stays replicated.
@@ -48,6 +58,7 @@ from pytorch_distributed_tpu_torch.parallel.collectives import (
     pmean_,
     pmin,
 )
+from pytorch_distributed_tpu_torch.parallel.fsdp import call_with, gather_params
 from pytorch_distributed_tpu_torch.parallel.mesh import Mesh
 from pytorch_distributed_tpu_torch.resilience.stepguard import finite_ok, guarded_step
 from pytorch_distributed_tpu_torch.train.state import TrainState
@@ -84,13 +95,26 @@ def _psum_metrics(m: ClassificationMetrics, group) -> ClassificationMetrics:
     return ClassificationMetrics(*flat.unbind())
 
 
+def _full_params(state: TrainState, mesh: Optional[Mesh], fsdp: bool) -> Dict[str, torch.Tensor]:
+    """FSDP: every part all-gathered (4-d conv kernels in channels-last,
+    as the model stores them); else nothing to swap in."""
+    if not fsdp:
+        return {}
+    full = gather_params(state.model, state.layout, mesh.data, mean=True)
+    return {n: t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
+            for n, t in full.items()}
+
+
 def make_train_step(mesh: Optional[Mesh] = None, label_smoothing: float = 0.0,
-                    grad_clip_norm: float = 0.0,
-                    nan_guard: bool = False) -> Callable[[TrainState, Batch],
-                                                         Tuple[TrainState, Batch]]:
+                    grad_clip_norm: float = 0.0, nan_guard: bool = False,
+                    fsdp: bool = False) -> Callable[[TrainState, Batch],
+                                                    Tuple[TrainState, Batch]]:
     """``step(state, batch) -> (state, metrics)`` with ``batch``
     ``{"image" [B, H, W, 3], "label" [B]}`` on the model's device: this
-    rank's replica's rows on a ``mesh``."""
+    rank's replica's rows on a ``mesh``. ``fsdp``: the state's parameters
+    are ``shard_state``'s parts over the mesh's data axis."""
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True shards over a mesh's data axis: pass mesh")
     group = _data_group(mesh)
 
     def step(state: TrainState, batch: Batch):
@@ -100,15 +124,18 @@ def make_train_step(mesh: Optional[Mesh] = None, label_smoothing: float = 0.0,
         model.train()
         opt.zero_grad(set_to_none=True)
         saved = [b.clone() for b in model.buffers()] if nan_guard else None
-        logits = model(prepare_image(batch["image"]))
+        logits = call_with(model, _full_params(state, mesh, fsdp), prepare_image(batch["image"]))
         loss = cross_entropy_loss(logits, batch["label"], label_smoothing=label_smoothing)
         scaler.scale_loss(loss).backward()
-        grads = scaler.unscale_grads(
-            [p.grad for p in model.parameters() if p.grad is not None])
+        named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+        grads = scaler.unscale_grads([g for _, g in named])
+        sharded = [n in state.layout for n, _ in named] if fsdp else None
         if group is not None:
-            pmean_(grads, group)
+            # FSDP: the parts came back reduce-scattered, divided by the size
+            pmean_([g for i, g in enumerate(grads) if not (sharded and sharded[i])], group)
         if grad_clip_norm:
-            clip_grads_by_global_norm(grads, grad_clip_norm)
+            clip_grads_by_global_norm(grads, grad_clip_norm, sharded,
+                                      mesh.data if fsdp else None)
         if group is not None:
             pmean_(list(model.buffers()), group)
         with torch.no_grad():
@@ -148,12 +175,13 @@ def make_train_step(mesh: Optional[Mesh] = None, label_smoothing: float = 0.0,
     return step
 
 
-def make_eval_step(mesh: Optional[Mesh] = None) -> Callable[
+def make_eval_step(mesh: Optional[Mesh] = None, fsdp: bool = False) -> Callable[
         [TrainState, Batch, ClassificationMetrics], ClassificationMetrics]:
     """``eval_step(state, batch, metrics) -> metrics``: a forward on the
     running BatchNorm statistics, its loss sum and top-1/5 counts summed
     over the mesh's data group and added to the device accumulator
-    (``ClassificationMetrics.empty``)."""
+    (``ClassificationMetrics.empty``). ``fsdp``: the parts are
+    all-gathered first, as in the train step."""
     group = _data_group(mesh)
 
     @torch.no_grad()
@@ -161,7 +189,7 @@ def make_eval_step(mesh: Optional[Mesh] = None) -> Callable[
                   metrics: ClassificationMetrics) -> ClassificationMetrics:
         model = state.model
         model.eval()
-        logits = model(prepare_image(batch["image"]))
+        logits = call_with(model, _full_params(state, mesh, fsdp), prepare_image(batch["image"]))
         return metrics.merge(_psum_metrics(ClassificationMetrics.from_step(
             cross_entropy_loss(logits, batch["label"], reduction="sum"), logits,
             batch["label"]), group))

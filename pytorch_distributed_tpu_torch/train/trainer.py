@@ -6,7 +6,9 @@ The JAX trainer's epoch loop on one device, or as one rank of a data
 ``parallel.mesh.Mesh``, which is how the reference's recipes differ:
 one card (``resnet_single``), a rank a local card (``resnet_dp``), a rank
 a card on every node (``resnet_ddp``), the same in bf16 (``resnet_ddp_amp``)
-or with fp16's dynamic loss scaler (``precision="fp16"``). As in JAX the
+or with fp16's dynamic loss scaler (``precision="fp16"``), each also with
+its parameters and momenta ZeRO-3-sharded over the replicas
+(``fsdp=True``, JAX :224-243). As in JAX the
 sampler splits the data by node and the node's loader batches its local
 replicas together; each rank collates its rows ``[i·bs, (i+1)·bs)`` of the
 node batch (``data.loader.rank_rows``), and a partial validation batch is
@@ -49,6 +51,7 @@ from pytorch_distributed_tpu_torch.ops.precision import DynamicLossScaler
 from pytorch_distributed_tpu_torch.ops.schedules import step_lr
 from pytorch_distributed_tpu_torch.parallel import distributed
 from pytorch_distributed_tpu_torch.parallel.collectives import broadcast_from_primary
+from pytorch_distributed_tpu_torch.parallel.fsdp import shard_state
 from pytorch_distributed_tpu_torch.parallel.mesh import (
     Mesh,
     local_replica_count,
@@ -99,6 +102,9 @@ class TrainerConfig:
     nan_guard: bool = False
     max_bad_steps: int = 0
     watchdog_timeout_s: float = 0.0
+    # ZeRO-3: parameters and momenta sharded over the mesh's data axis,
+    # all-gathered in the step (parallel.fsdp); BatchNorm stays per replica
+    fsdp: bool = False
 
 
 class Trainer(SuspendableTrainer):
@@ -143,10 +149,14 @@ class Trainer(SuspendableTrainer):
                                          device=self.device, scaler=scaler)
         if mesh is not None:  # DDP's broadcast of rank 0's weights at construction
             broadcast_from_primary(list(self.state.model.state_dict().values()))
+        if config.fsdp:
+            if mesh is None:
+                raise ValueError("fsdp=True shards over a mesh's data axis: pass mesh")
+            shard_state(self.state, mesh)
         self.train_step = make_train_step(mesh, label_smoothing=config.label_smoothing,
                                           grad_clip_norm=config.grad_clip_norm,
-                                          nan_guard=config.nan_guard)
-        self.eval_step = make_eval_step(mesh)
+                                          nan_guard=config.nan_guard, fsdp=config.fsdp)
+        self.eval_step = make_eval_step(mesh, fsdp=config.fsdp)
         self.best_acc = 0.0
         self.start_epoch = 0
         self.start_step = 0

@@ -17,10 +17,16 @@ wrote and the port reads one the JAX trainers wrote:
   only.
 
 A payload is a flat ``{path: leaf}`` dict, leaves being tensors, numpy
-arrays or Python scalars (``train.state.state_payload`` builds the
-trainers'). The state of a data-parallel run is replicated, so rank 0
-writes every leaf as one block, as JAX writes fully replicated leaves from
-process 0; the other ranks only join the barriers.
+arrays, Python scalars or ``ShardedLeaf``s (``train.state.state_payload``
+builds the trainers'). A replicated leaf is one block that rank 0 writes,
+as JAX writes fully replicated leaves from process 0. A ``ShardedLeaf``
+is this rank's part of a leaf split into equal slices along one dimension
+(an FSDP shard, a pipeline stage's slice of a stacked ``[S, ...]`` leaf):
+the manifest holds every part as a block of the global leaf, in the file
+of the rank its ``Shard`` names as that part's owner, and each owner
+writes its own part. So a sharded state saves the canonical global layout
+with no gather, and any topology reads it back (``ManifestReader.read``
+assembles the blocks; ``Shard.take`` cuts a rank's part out again).
 
 A save has three stages, so that the step loop pays only for the first:
 
@@ -42,13 +48,14 @@ A save has three stages, so that the step loop pays only for the first:
    its own token and stay until the new manifest is live.
 
 Not ported: the legacy msgpack single file (``save_checkpoint``:110,
-``legacy_checkpoint_step``:910), the arena's warm-up thread, and restoring
-sharded leaves across topologies (``reshard/``): the port has no sharded
-state yet.
+``legacy_checkpoint_step``:910), the arena's warm-up thread, and the
+elastic reshard of the JAX package (``reshard/``): a restore reads the
+global leaves and each rank takes its part of them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import mmap
@@ -59,7 +66,7 @@ import threading
 import time
 import warnings
 import zipfile
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +91,50 @@ DTYPES = {str(d)[len("torch."):]: d for d in (
     torch.float8_e5m2, torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8,
     torch.bool)}
 _ALIGN = 128  # each block's offset in the snapshot arena
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """Where one rank's tensor lies in its global leaf: part ``index`` of
+    ``len(owners)`` equal slices along ``dim`` of the global ``shape``;
+    ``owners[i]`` is the global rank that writes part i. ``stacked``: the
+    rank's tensor is one index of the stacked dim (a pipeline stage's
+    slice of an ``[S, ...]`` leaf) and lacks that dim."""
+
+    shape: Tuple[int, ...]
+    dim: int
+    index: int
+    owners: Tuple[int, ...]
+    stacked: bool = False
+
+    @property
+    def parts(self) -> int:
+        return len(self.owners)
+
+    def bounds(self, i: int) -> Tuple[List[int], List[int]]:
+        """``(start, stop)`` of part ``i`` in the global leaf."""
+        n = self.shape[self.dim] // self.parts
+        start = [0] * len(self.shape)
+        stop = list(self.shape)
+        start[self.dim], stop[self.dim] = i * n, (i + 1) * n
+        return start, stop
+
+    def take(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the global ``full`` (a view)."""
+        n = self.shape[self.dim] // self.parts
+        part = full.narrow(self.dim, self.index * n, n)
+        return part.squeeze(self.dim) if self.stacked else part
+
+    def block(self, local: torch.Tensor) -> torch.Tensor:
+        """The rank's tensor as its block of the global leaf."""
+        return local.unsqueeze(self.dim) if self.stacked else local
+
+
+class ShardedLeaf(NamedTuple):
+    """A payload leaf of which this rank holds the part ``shard`` says."""
+
+    local: torch.Tensor
+    shard: Shard
 
 
 def _shard_name(token: str, pidx: int) -> str:
@@ -156,14 +207,31 @@ class _ShardedSave:
         self.token = token[0]
         self.fname = _shard_name(self.token, self.pidx)
 
-        leaves = {path: _as_leaf(x) for path, x in payload.items()}
-        self.manifest = {"version": 2, "n_processes": world, "leaves": {
-            path: {"dtype": _dtype_name(x), "shape": list(x.shape), "blocks": [{
-                "file": _shard_name(self.token, 0), "key": f"{path}#0",
-                "start": [0] * x.ndim, "stop": list(x.shape)}]}
-            for path, x in leaves.items()}, "token": self.token}
-        # replicated state: rank 0 owns every block
-        mine = leaves if self.pidx == 0 else {}
+        self.manifest = {"version": 2, "n_processes": world, "leaves": {},
+                         "token": self.token}
+        # this rank's blocks by key: every replicated leaf on rank 0, each
+        # part of a sharded leaf on its owner
+        mine: Dict[str, Any] = {}
+        for path, x in payload.items():
+            if isinstance(x, ShardedLeaf):
+                sh = x.shard
+                blocks = []
+                for i, owner in enumerate(sh.owners):
+                    start, stop = sh.bounds(i)
+                    blocks.append({"file": _shard_name(self.token, owner), "key": f"{path}#{i}",
+                                   "start": start, "stop": stop})
+                    if owner == self.pidx and i == sh.index:
+                        mine[f"{path}#{i}"] = sh.block(x.local)
+                self.manifest["leaves"][path] = {"dtype": _dtype_name(x.local),
+                                                 "shape": list(sh.shape), "blocks": blocks}
+                continue
+            x = _as_leaf(x)
+            self.manifest["leaves"][path] = {
+                "dtype": _dtype_name(x), "shape": list(x.shape), "blocks": [{
+                    "file": _shard_name(self.token, 0), "key": f"{path}#0",
+                    "start": [0] * x.ndim, "stop": list(x.shape)}]}
+            if self.pidx == 0:
+                mine[f"{path}#0"] = x
         self.nbytes = sum(_nbytes(x) for x in mine.values())
         self.seconds = {"snapshot": 0.0, "copy": 0.0, "write": 0.0, "commit": 0.0}
         self._ready: Optional[torch.cuda.Event] = None
@@ -173,7 +241,7 @@ class _ShardedSave:
         if arena is None:
             # blocking: the caller waits for the write, so it reads the
             # live leaves (a card's through a plain copy at write time)
-            self.my_blocks = {f"{p}#0": x for p, x in mine.items()}
+            self.my_blocks = mine
             self.seconds["snapshot"] = time.perf_counter() - t0
             return
         offsets, total = [], 0
@@ -184,7 +252,7 @@ class _ShardedSave:
         buf = arena.ensure(total)
         self.my_blocks = {}
         on_card = False
-        for (path, x), off in zip(mine.items(), offsets):
+        for (key, x), off in zip(mine.items(), offsets):
             dst = buf[off:off + _nbytes(x)]
             if isinstance(x, torch.Tensor):
                 src = x.detach().reshape(-1)
@@ -192,7 +260,7 @@ class _ShardedSave:
                 dst.view(src.dtype).copy_(src, non_blocking=arena.pin)
             else:
                 np.copyto(dst.numpy(), _raw_bytes(x))
-            self.my_blocks[f"{path}#0"] = dst
+            self.my_blocks[key] = dst
         if on_card:
             # queued ahead of the next step on this stream; the writer
             # waits on the event before it reads the arena
@@ -281,7 +349,8 @@ class _ShardedSave:
 
 def save_sharded(dirpath: str, payload: Dict[str, Any]) -> "_ShardedSave":
     """Write, commit and clean up one checkpoint synchronously (every rank
-    calls it; rank 0 writes). Returns the save, with its ``seconds``."""
+    calls it; rank 0 writes the replicated leaves, each owner its parts).
+    Returns the save, with its ``seconds``."""
     s = _ShardedSave(dirpath, payload)
     s.write()
     s.finalize()
