@@ -6,6 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU (an H100):
     python3 chip_smoke.py --kernels-only   # (a) and (b), then stop
     python3 chip_smoke.py --parallel-only  # (a) for flash and the tail, then the
                                            # FSDP and pipeline ranks (no recipes)
+    python3 chip_smoke.py --tp-only        # (a) for flash, then the tensor-parallel
+                                           # phase (with its recipes)
 
 With 2-4 cards (a ``--chips 4`` machine) the same script runs the ring
 and the data-parallel phases a rank a card over NCCL and times the DP
@@ -177,7 +179,25 @@ Phases, each of which fails the run:
       ``lm_pretrain --fsdp`` run to its end, and ``--pipeline-stages 2``
       (refused on one card), the whole phase in a spawned process of its
       own (``in_child``); the kernels line adds these launches
-      (``parallel_launches``);
+      (``parallel_launches``); Megatron tensor parallelism (``tp_runs``, in
+      a process of its own, the ranks spawned once by
+      ``tools/parallel_check.py``): on one card 2 ranks over gloo, every
+      tp_copy / tp_reduce staged through the host, the full-width LM at
+      T 2 with MHA, with vocab parallelism and with GQA + RoPE, 3 steps of
+      B 4 x 2048 and a validation batch, each step's loss and grad norm,
+      every parameter gathered to its global leaf (its update) and the
+      validation loss against the one-card step from the same weights, 12 +
+      12 flash launches a step on each rank at H 6, a rank's parameter and
+      optimizer bytes against the predicted share, ``lm_pretrain
+      --model-parallel 2`` refused; on 4 cards over NCCL T 2 x DP 2 (also
+      vocab-parallel and with FSDP), T 4 (also vocab-parallel) and
+      replicated DP 4 against the one-card step, step p50 against DP 4's,
+      the state shares, and the recipe with ``--model-parallel 2``, ``4``
+      and ``2 --fsdp`` against its one-card run; then kernels 4 and 5 at
+      the TP shapes (B 8, L 2048, H 6 and H 3, q/k/v strided views of one
+      fused projection) against their plain versions and timed beside
+      SDPA and the bound; the kernels line adds these launches
+      (``tp_launches``) and times (``tp``);
   (d) kernel, plain-version and library times beside each kernel's bound
       (the flash calls also by their kernels' device time):
       the paged kernels at the decode shape (library: SDPA on pre-gathered
@@ -443,6 +463,49 @@ RESNET_FSDP_RTOL = dict(loss=(1e-5, 1e-4, 1e-3), val=1e-3)
 #: ZeRO-3 at 2 ranks: a rank's parameter and AdamW bytes against the
 #: replicated rank's (the LayerNorm scales and biases stay whole)
 FSDP_STATE_SHARE = 0.55
+
+# the tensor-parallel phase (``tp_runs``): the full-width LM (RING_MODEL,
+# 2048 positions, bf16, flash, grad clip 1.0, lr 3e-4, the seed-0 weights)
+# under Megatron TP, against a one-card replicated reference from the same
+# weights and global batches. On one card 2 ranks share it over gloo,
+# every tp_copy / tp_reduce of a [B, L, E] activation (48 a step) staged
+# through the host: T 2 with MHA, with vocab parallelism and with GQA +
+# RoPE (TP_GQA), 3 steps of B 4 x 2048 (the training phase's B 8 cut to
+# half for the staging's time) and a validation batch. On 4 cards over
+# NCCL: T 2 x DP 2 (also vocab-parallel and with FSDP), T 4 (also
+# vocab-parallel) and replicated DP 4, 3 steps of a global B 8, and the
+# recipe with --model-parallel 2, 4 and 2 --fsdp (B 4 a replica, 2 steps'
+# sequences) against its one-card run
+TP = dict(batch=4, batch_4=8, seq=2048, steps=3, recipe_steps=2, recipe_batch=4,
+          timeout_s=600)
+TP_GQA = dict(num_kv_heads=4, pos_embedding="rope")
+#: TP against the one-card step, relative error of each step's loss and
+#: grad norm, and of the validation loss (the last step's loss limit);
+#: and every leaf's update over the steps against the one-card one,
+#: ||d_tp - d_one|| / ||d_one|| (the key bias's noise masked), its median
+#: over the leaves and its worst leaf. Set from planted faults in the CPU
+#: rehearsal (``tests/test_torch_chip_smoke_tp.py``'s sizes, bf16, in a
+#: scratch copy) before any chip run: the true code read loss <= 1.5e-4,
+#: grad norm <= 5.4e-4, updates median 0.05 / worst 0.13; tp_copy's
+#: backward without its sum 2.8e-3 / 0.18-0.23 / 0.82 / 1.13; tp_reduce's
+#: backward summing (a plain psum's transpose) 1.3e-3 / 4.0 / 0.53 / 0.79;
+#: the fused CE's dx summed twice under vocab parallelism grad norm 0.93;
+#: qkv cut into contiguous rows, not q/k/v sections, loss 2.6e-2 at step
+#: 0, grad norm 8.2e-2, updates 1.22 / 1.38. bf16 through 12 layers rounds
+#: more than the rehearsal's 2, so the limits sit 4-20x above the true
+#: code's readings
+TP_RTOL = dict(loss=(2e-3, 2e-3, 2e-3), grad_norm=(1e-2, 2e-2, 2e-2))
+TP_UPDATE_RTOL = dict(median=0.25, worst=0.75)
+#: a rank's parameter + AdamW bytes against one card's, beside the share
+#: its parameter counts predict (``predicted_share``: at full width
+#: 135.76 M parameters, 85.00 M in the blocks' matrices and biases, 49.15 M
+#: in wte and lm_head, so 0.687 / 0.530 at T 2 / 4, 0.506 / 0.259
+#: vocab-parallel); AdamW's step counts are the only other bytes
+TP_SHARE_TOL = 1e-4
+#: kernels 4 and 5 at the TP ranks' heads: H 12 / T at T 2 and T 4
+TP_KERNEL_HEADS = (6, 3)
+#: the kernel sources the phase runs (``--tp-only`` builds these)
+TP_SOURCES = ("flash_attention",)
 
 # the resume phase: the fused bf16 ResNet-50 (as bench.py builds it)
 # at B = 128 for 6 steps, suspended at step 3 (the train.step fault site's
@@ -844,7 +907,7 @@ def time_ms(torch, fn, iters=100, warmup=5):
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def kernel_device_ms(torch, fn, match, iters=10, attempts=3) -> dict:
+def kernel_device_ms(torch, fn, match, iters=10, attempts=6) -> dict:
     """Mean device time per call of ``fn`` of the kernels that each entry of
     ``match`` picks out, from a ``torch.profiler`` trace of ``iters`` calls
     with the L2 flushed before each: for kernels that one call launches back
@@ -2204,6 +2267,21 @@ def pp_launches(n_layers: int, stages: int, microbatches: int) -> int:
     return n_layers // stages * microbatches
 
 
+def step_errs(failures: list, got: dict, want: dict, what: str, rtol: dict) -> dict:
+    """Relative error of each step's metric of ``got`` against ``want`` for
+    each key of ``rtol`` (a limit a step), printed; ``what`` joins
+    ``failures`` when a step misses or a value is not finite."""
+    errs = {k: [rel_err(a, b) for a, b in zip(got[k], want[k])] for k in rtol}
+    ok = all(len(got[k]) == len(want[k]) and all(np.isfinite(got[k])) and
+             all(e <= t for e, t in zip(errs[k], rtol[k])) for k in rtol)
+    print(f"(c) {what}: relative error by step, "
+          + "; ".join(f"{k} {[f'{e:.2e}' for e in errs[k]]} (tol {list(rtol[k])})"
+                      for k in rtol) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(what)
+    return errs
+
+
 def parallel_runs(torch, card, tmp, dev="cuda", recipes=True) -> dict:
     """Phase (c) for ZeRO-3 FSDP and the GPipe pipeline (``PARALLEL``), the
     ranks of ``ring_ranks`` spawned once through ``tools/parallel_check.py``:
@@ -2289,15 +2367,7 @@ def parallel_runs(torch, card, tmp, dev="cuda", recipes=True) -> dict:
                 for x in rank_runs]
 
     def per_step(got, want, what, rtol):
-        errs = {k: [rel_err(a, b) for a, b in zip(got[k], want[k])] for k in rtol}
-        ok = all(len(got[k]) == len(want[k]) and all(np.isfinite(got[k])) and
-                 all(e <= t for e, t in zip(errs[k], rtol[k])) for k in rtol)
-        print(f"(c) {what}: relative error by step, "
-              + "; ".join(f"{k} {[f'{e:.2e}' for e in errs[k]]} (tol {list(rtol[k])})"
-                          for k in rtol) + f" {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(what)
-        return errs
+        return step_errs(failures, got, want, what, rtol)
 
     # ---- FSDP and replicated DP, the LM ----
     runs = {m: [r["lm"][m] for r in results] for m in lm}
@@ -2493,6 +2563,296 @@ def parallel_runs(torch, card, tmp, dev="cuda", recipes=True) -> dict:
     return {"flash_launches": flash, "tail_launches": tail, "fsdp_errs": fsdp_errs,
             "pp_errs": pp_errs, "resnet_errs": resnet_errs, "state_share": share,
             "recipe": recipe, "wall_s": wall}
+
+
+def tp_ranks(cards: int) -> tuple:
+    """``(ranks, backend)`` of the tensor-parallel phase: 2 ranks sharing
+    one card (or the CPU) over gloo, 2 ranks on 2-3 cards and 4 on 4 or
+    more over NCCL, a rank a card."""
+    return (2, "gloo") if cards < 2 else (4 if cards >= 4 else 2, "nccl")
+
+
+def predicted_share(torch, model: dict) -> float:
+    """A TP rank's share of the parameters of ``model`` (a spec with
+    ``tp_size``): the leaves a placement rule claims split T ways, the
+    rest whole."""
+    from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
+    from pytorch_distributed_tpu_torch.parallel.tensor import match_partition_rules
+    from pytorch_distributed_tpu_torch.tools.ring_check import _model_config
+    from pytorch_distributed_tpu_torch.train.lm import lm_placement_rules, unsharded
+
+    cfg = _model_config(model)
+    with torch.device("meta"):
+        sizes = {n: p.numel() for n, p in TransformerLM(unsharded(cfg)).named_parameters()}
+    rules = match_partition_rules(lm_placement_rules(cfg), sizes)
+    local = sum(n / cfg.tp_size if rules[k] is not None else n for k, n in sizes.items())
+    return local / sum(sizes.values())
+
+
+def tp_model(t: int, **kw) -> dict:
+    """The phase's model spec at ``t`` tensor-parallel ranks."""
+    model = dict(RING_MODEL, max_seq_len=TP["seq"], dtype="bfloat16", attention="flash", **kw)
+    if t > 1:
+        model.update(tp_size=t, model_axis="model")
+    return model
+
+
+def tp_kernel_checks(torch, card, failures, batch=8, seq=2048) -> dict:
+    """Kernels 4 and 5 at the TP ranks' shapes (``TP_KERNEL_HEADS``: H 6 at
+    T 2, H 3 at T 4; D 64, bf16), q, k and v the strided views of one
+    fused ``[B, L, 3, H, D]`` projection as the model hands them over:
+    against their plain versions, then timed (CUDA events, the wrapper as
+    the step calls it) beside causal SDPA and the bound."""
+    import torch.nn.functional as F
+
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for h in TP_KERNEL_HEADS:
+        rng = np.random.default_rng(20 + h)
+        qkv = torch.from_numpy(rng.standard_normal((batch, seq, 3, h, 64), np.float32)).to(
+            "cuda", torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        do = torch.from_numpy(rng.standard_normal((batch, seq, h, 64), np.float32)).to(
+            "cuda", torch.bfloat16)
+        sc = 64 ** -0.5
+        o, lse = fa.launch_forward(q, k, v, True, sc, 0)
+        ro, rlse = fa.flash_forward_reference(q, k, v, causal=True, scale=sc)
+        label = f"B={batch} L={seq} H={h} D=64 causal bf16, strided q/k/v"
+        err_o = check_abs(torch, failures, f"flash fwd O, {label}", o, ro, BF16_TOL)
+        check_abs(torch, failures, f"flash fwd LSE, {label}", lse, rlse, LSE_TOL)
+        grads = fa.launch_backward(q, k, v, ro, rlse, do, True, sc, 0)
+        want = fa.flash_backward_reference(q, k, v, ro, rlse, do, causal=True, scale=sc)
+        err_g = max(check_abs(torch, failures, f"flash bwd {n}, {label}", g, w, BF16_GRAD_TOL)
+                    for n, g, w in zip(("dQ", "dK", "dV"), grads, want))
+        fb = flash_bound(q, k)
+        qg, kg, vg = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        dog = do.transpose(1, 2).contiguous()
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        times = {
+            fa.FWD: (time_ms(torch, lambda: fa.launch_forward(q, k, v, True, sc, 0), iters=20),
+                     time_ms(torch, lambda: fa.flash_forward_reference(
+                         q, k, v, causal=True, scale=sc), iters=3, warmup=1),
+                     time_ms(torch, lambda: F.scaled_dot_product_attention(
+                         qg, kg, vg, is_causal=True), iters=20), fb["fwd"], err_o),
+            fa.BWD: (time_ms(torch, lambda: fa.launch_backward(
+                         q, k, v, o, lse, do, True, sc, 0), iters=20),
+                     time_ms(torch, lambda: fa.flash_backward_reference(
+                         q, k, v, o, lse, do, causal=True, scale=sc), iters=3, warmup=1),
+                     time_ms(torch, lambda: torch.autograd.grad(
+                         sdpa_out, (qg, kg, vg), dog, retain_graph=True), iters=20),
+                     fb["bwd"], err_g)}
+        for name, (ms, plain, sdpa, bd, err) in times.items():
+            print(f"(c) TP {name} at B, L, H, D = {tuple(q.shape)} causal bf16 on {card}: "
+                  f"{ms * 1e3:.1f} us per call ({bd['flops'] / ms / 1e9:.1f} TFLOP/s), plain "
+                  f"{plain * 1e3:.1f} us, SDPA {sdpa * 1e3:.1f} us, bound "
+                  f"{bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']}); max abs err {err:.2e}")
+            out.setdefault(name, {})[f"h{h}"] = {
+                "ms": ms, "plain_ms": plain, "library_ms": sdpa, "bound_ms": bd["bound_ms"],
+                "bound_by": bd["bound_by"], "max_abs_err": err}
+        del qkv, q, k, v, do, o, lse, ro, rlse, grads, want, qg, kg, vg, dog, sdpa_out
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_runs(torch, card, tmp, dev="cuda", recipes=True, cpu_ranks=2) -> dict:
+    """Phase (c) for Megatron tensor parallelism (``TP``), the ranks of
+    ``tp_ranks`` spawned once through ``tools/parallel_check.py``. On one
+    card (2 ranks over gloo): T 2 with MHA, with vocab parallelism and
+    with GQA + RoPE, each step's loss and grad norm against the one-card
+    replicated step from the same weights (``TP_RTOL``; rank 0 runs it
+    after each case, ``tools/parallel_check.py``'s ``reference``), every parameter
+    gathered to its global leaf and its update against the one-card one
+    (``TP_UPDATE_RTOL``), the validation loss, 12 + 12 flash launches a
+    step on each rank, a rank's parameter and optimizer bytes against the
+    one-card state's (``predicted_share``); the recipe's
+    ``--model-parallel 2`` refused. On 4 cards over NCCL: T 2 x DP 2
+    (also vocab-parallel and with FSDP), T 4 (also vocab-parallel) and
+    replicated DP 4, losses and grad norms against the one-card step, step
+    p50 against DP 4's, the state shares; then, with ``recipes``, the
+    recipe at ``--model-parallel 2``, ``4`` and ``2 --fsdp`` against its
+    one-card run. Then (on a card) kernels 4 and 5 at the TP shapes
+    (``tp_kernel_checks``). Returns the launches for the kernels line and
+    the errors. With ``dev="cpu"`` (a rehearsal) ``cpu_ranks`` ranks (2,
+    or 4 for the 4-card grids) meet over gloo on the CPU and the kernels
+    are not timed."""
+    from pytorch_distributed_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_tpu_torch.tools import parallel_check
+    from pytorch_distributed_tpu_torch.train import lm_collate
+
+    t_phase = time.perf_counter()
+    on_card = 1 if dev == "cuda" else 0
+    cards = torch.cuda.device_count() if dev == "cuda" else 0
+    ranks, backend = tp_ranks(cards) if dev == "cuda" else (cpu_ranks, "gloo")
+    four = ranks == 4
+    where = (f"{ranks} ranks on {ranks} cards" if backend == "nccl" else
+             f"{ranks} ranks on 1 card, every tp_copy / tp_reduce staged through the host")
+    print(f"(c) tensor parallelism: backend {backend}, {where}")
+    seq, steps, n_layers = TP["seq"], TP["steps"], RING_MODEL["num_layers"]
+    bsz = TP["batch_4"] if four else TP["batch"]
+    vocab = RING_MODEL["vocab_size"]
+    rng = np.random.default_rng(13)
+    batches = [lm_collate(list(rng.integers(1, vocab, (bsz, seq)).astype(np.int32)))
+               for _ in range(steps)]
+    val = [lm_collate(list(rng.integers(1, vocab, (bsz, seq)).astype(np.int32)))]
+    failures = []
+    staged = "-staged: not a speed figure" if backend == "gloo" else ""
+    # every case against the one-card step that rank 0 runs after it from
+    # the same weights on the global batches (``reference``)
+    lm = dict(task="lm", batches=batches, val_batches=val, params_out=False)
+    case = dict(mode="replicated", clip=1.0, reference=True)
+    if four:
+        jobs = {
+            "t2 x dp2": dict(lm, dp=2, mp=2, cases={
+                "mha": dict(case, model=tp_model(2)),
+                "vocab": dict(case, model=tp_model(2, vocab_parallel=True)),
+                "fsdp": dict(case, model=tp_model(2), mode="fsdp")}),
+            "t4": dict(lm, dp=1, mp=4, cases={
+                "mha": dict(case, model=tp_model(4)),
+                "vocab": dict(case, model=tp_model(4, vocab_parallel=True))}),
+            "dp4": dict(lm, dp=4, mp=1, cases={"replicated": dict(case, model=tp_model(1))})}
+    else:
+        jobs = {"t2": dict(lm, dp=1, mp=ranks, cases={
+            "mha": dict(case, model=tp_model(2)),
+            "vocab": dict(case, model=tp_model(2, vocab_parallel=True)),
+            "gqa": dict(case, model=tp_model(2, **TP_GQA))})}
+    job = dict(task="many", backend=backend, device=dev, timeout_s=TP["timeout_s"],
+               schedule=PARALLEL_SCHEDULE, dp=ranks, rendezvous=f"file://{tmp}/rendezvous-tp",
+               out=f"{tmp}/tp", jobs=jobs)
+    empty_cache(torch, dev)
+    t0 = time.perf_counter()
+    parallel_check.run(job, ranks)
+    results = parallel_check.load(job)
+    print(f"(c) {ranks} ranks: {time.perf_counter() - t0:.1f}s spawned, built and run")
+
+    tol = {k: tuple(v) for k, v in TP_RTOL.items()}
+    errs, shares, launches, step_p50 = {}, {}, [], {}
+    runs = [(j, c) for j in jobs for c in jobs[j]["cases"]]
+    for j, c in runs:
+        per_rank = [r[j][c] for r in results]
+        t = jobs[j].get("mp", 1)
+        ref = per_rank[0]["reference"]
+        m = per_rank[0]["metrics"]
+        step_p50[f"{j} {c}"] = float(np.median(m["step_s"]))
+        label = f"LM TP {j} {c}" if t > 1 else f"LM {j} {c}"
+        print(f"(c) {label}, {steps} steps of B={bsz // jobs[j].get('dp', 1)} a replica x "
+              f"L={seq} bf16 on {card}: losses {[round(x, 5) for x in m['loss']]}, grad norms "
+              f"{[round(x, 4) for x in m['grad_norm']]}; step p50 "
+              f"{step_p50[f'{j} {c}'] * 1e3:.1f} ms ({backend}{staged}); parameter + optimizer "
+              f"bytes per rank {[x['state_bytes'] for x in per_rank]}, peak memory "
+              f"{[round(x['peak_gib'], 2) for x in per_rank]} GiB")
+        errs[f"{j} {c}"] = step_errs(failures, m, ref["metrics"],
+                                     f"{label} vs the one-card step", tol)
+        if t > 1:
+            want = [n_layers, n_layers]  # every layer once a step, at H/T heads
+            got = [x["metrics"]["launches"] for x in per_rank]
+            ok = all(s_ == [w * on_card for w in want] for rank in got for s_ in rank)
+            print(f"(c) {label}: flash forward / backward launches a step per rank "
+                  f"{[rank[0] for rank in got]} (want {[w * on_card for w in want]} at "
+                  f"H {RING_MODEL['num_heads'] // t}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{label} launches")
+            launches += got
+            share = shares[f"{j} {c}"] = per_rank[0]["state_bytes"] / ref["state_bytes"]
+            if c in ("mha", "vocab"):
+                want_share = predicted_share(torch, jobs[j]["cases"][c]["model"])
+                ok = abs(share - want_share) <= TP_SHARE_TOL
+                print(f"(c) {label}: a rank's parameter + optimizer bytes / one card's "
+                      f"{share:.4f} (predicted {want_share:.4f} from the parameter counts, "
+                      f"tol {TP_SHARE_TOL:g}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"{label} state share")
+            else:
+                print(f"(c) {label}: a rank's parameter + optimizer bytes / one card's "
+                      f"{share:.4f}")
+        # the validation batch after the steps
+        v, rv = per_rank[0]["val"], ref["val"]
+        vl, rl = (x["loss_sum"] / max(x["tokens"], 1) for x in (v, rv))
+        ok = v["tokens"] == rv["tokens"] > 0 and rel_err(vl, rl) <= tol["loss"][-1]
+        print(f"(c) {label} validation vs the one-card state: loss {vl:.5f} vs {rl:.5f} "
+              f"(relative error {rel_err(vl, rl):.2e}, tol {tol['loss'][-1]:g}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{label} validation")
+        if t > 1:
+            upd = ref["update"]
+            worst = max(upd, key=upd.get)
+            median = float(np.median(list(upd.values())))
+            ok = (ref["leaves_ok"] and median <= TP_UPDATE_RTOL["median"]
+                  and upd[worst] <= TP_UPDATE_RTOL["worst"])
+            errs[f"{j} {c}"].update(update=upd[worst], update_median=median)
+            print(f"(c) {label}: every parameter gathered to its global leaf, its update "
+                  f"over {steps} steps against the one-card one: median {median:.3f}, worst "
+                  f"{worst} {upd[worst]:.3f} (tol {TP_UPDATE_RTOL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{label} parameters")
+    del results
+    if four:
+        base = step_p50["dp4 replicated"]
+        print(f"(c) step p50 over {ranks} {backend} ranks on {card}: "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms ({v / base:.2f}x DP 4)"
+                          for k, v in step_p50.items()))
+
+    # ---- the recipe: refused on one card, against its one-card run on 4 ----
+    from pytorch_distributed_tpu_torch.recipes import lm_pretrain
+
+    recipe = {}
+    extra = ["--device", "cpu", "--tiny"] if dev == "cpu" else ["--synthetic"]
+    flag_sets = ((["--model-parallel", "2"], ["--model-parallel", "4"],
+                  ["--model-parallel", "2", "--fsdp"]) if four else
+                 (["--model-parallel", "2"],))
+    for flags in flag_sets if recipes else ():
+        label = " ".join(flags)
+        t = int(flags[1])
+        refused = dev == "cuda" and cards < t
+        dp = max(cards, 1) // t if dev == "cuda" else 1
+        base = [*extra, "--epochs", "1", "--log-every", "1"]
+        argv = [*base, *flags, "--steps", str(TP["recipe_steps"]), "--batch-size",
+                str(TP["recipe_batch"]), "--save-dir", os.path.join(tmp, "r" + label)]
+        t0 = time.perf_counter()
+        try:
+            summary, error = lm_pretrain.main(argv), ""
+        except SystemExit as e:
+            summary, error = {}, str(e)
+        secs = time.perf_counter() - t0
+        empty_cache(torch, dev)
+        if refused:
+            ok = "needs a card per rank" in error
+            print(f"(c) recipes/lm_pretrain.py {label}: refused on {cards} card: "
+                  f"{error[:60]}... {'ok' if ok else 'FAIL'}")
+        else:
+            # the same global batches on one device: the replicas' rows in
+            # one batch, the same sequences
+            ref_argv = [*base, "--steps", str(TP["recipe_steps"] // dp), "--batch-size",
+                        str(TP["recipe_batch"] * dp), "--save-dir",
+                        os.path.join(tmp, "ref" + label)]
+            want = lm_pretrain.train(lm_pretrain._parse(ref_argv), device=dev)
+            empty_cache(torch, dev)
+            err = rel_err(summary.get("loss", float("nan")), want["loss"])
+            ok = not error and err <= tol["loss"][0]
+            print(f"(c) recipes/lm_pretrain.py {label}: validation loss "
+                  f"{summary.get('loss')} vs {want['loss']} on one device (relative error "
+                  f"{err:.2e}, tol {tol['loss'][0]:g}) in {secs:.1f}s{error} "
+                  f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"lm_pretrain {label}: {error}")
+        recipe[label] = {"seconds": secs, "loss": summary.get("loss"), "error": error}
+
+    kernels = tp_kernel_checks(torch, card, failures) if dev == "cuda" else {}
+    wall = time.perf_counter() - t_phase
+    print(f"(c) tensor-parallel phase: {wall:.1f} s")
+    if failures:
+        raise SystemExit(f"chip_smoke: tensor parallelism failed: {failures}")
+    flash = {fa.FWD: sum(s_[0] for rank in launches for s_ in rank),
+             fa.BWD: sum(s_[1] for rank in launches for s_ in rank)}
+    return {"flash_launches": flash, "errs": errs, "state_share": shares,
+            "step_p50": step_p50, "recipe": recipe, "kernels": kernels, "wall_s": wall}
+
+
+def parallel_and_tp(torch, card, tmp, dev="cuda") -> dict:
+    """``parallel_runs`` and then ``tp_runs``, in one (spawned) process."""
+    return {"parallel": parallel_runs(torch, card, tmp, dev),
+            "tp": tp_runs(torch, card, tmp, dev)}
 
 
 def dp_timing(torch, card, tmp, ranks, dev="cuda") -> dict:
@@ -4559,7 +4919,9 @@ def main(argv) -> int:
     # ---- (a) build every kernel source, one nvcc each, all at once ----
     t0 = time.perf_counter()
     parallel_only = "--parallel-only" in argv
-    paths = _build.build(PARALLEL_SOURCES if parallel_only else _build.kernel_sources())
+    tp_only = "--tp-only" in argv
+    paths = _build.build(PARALLEL_SOURCES if parallel_only else TP_SOURCES if tp_only
+                         else _build.kernel_sources())
     print(f"(a) built {sorted(paths)} in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     print(f"(a) built the native record reader {native.build().name} with g++ in "
@@ -4572,6 +4934,10 @@ def main(argv) -> int:
     if parallel_only:
         in_child(parallel_runs, card, recipes=False)
         print(f"(c) --parallel-only: stopping after {time.perf_counter() - t_start:.1f}s")
+        return 0
+    if tp_only:
+        in_child(tp_runs, card)
+        print(f"(c) --tp-only: stopping after {time.perf_counter() - t_start:.1f}s")
         return 0
 
     # ---- (b) kernels against the plain version on the card ----
@@ -5129,8 +5495,10 @@ def main(argv) -> int:
         ring = ring_runs(torch, card, tmp)
     torch.cuda.empty_cache()
 
-    # ---- (c) ZeRO-3 FSDP and the GPipe pipeline over the ring's ranks ----
-    parallel = in_child(parallel_runs, card)
+    # ---- (c) ZeRO-3 FSDP and the GPipe pipeline over the ring's ranks, then
+    # Megatron tensor parallelism, with vocab parallelism ----
+    phases = in_child(parallel_and_tp, card)
+    parallel, tp = phases["parallel"], phases["tp"]
 
     # ---- (d) times at the decode shape ----
     import torch.nn.functional as F
@@ -5430,9 +5798,10 @@ def main(argv) -> int:
         "source": "pytorch_distributed_tpu_torch/csrc/flash_attention.cu",
         "replaces": flash_replaces[name],
         "launches": (train_launches[name] + branches["flash"][name]
-                     + parallel["flash_launches"][name]),
+                     + parallel["flash_launches"][name] + tp["flash_launches"][name]),
         "gqa_launches": branches["flash"][name],
         "parallel_launches": parallel["flash_launches"][name],
+        "tp_launches": tp["flash_launches"][name], "tp": tp["kernels"][name],
         "max_abs_err": flash_errs[name], "ms": flash_ms[name],
         "plain_ms": flash_plain_ms[name], "bound_ms": fb[part]["bound_ms"],
         "bound_by": fb[part]["bound_by"], "library_ms": flash_lib_ms[name],

@@ -41,6 +41,11 @@ a ``TransformerLM`` state dict to the port's stacked one (``embed.*``,
 ``stages.layers.{j}.*`` ``[S, ...]``, ``head.*``) and back;
 ``pp_params_from_jax`` / ``pp_params_to_jax`` cross the flax tree.
 
+Tensor parallelism keeps the global leaves in checkpoints; ``tp_parts``
+cuts a rank's Megatron parts out of a global state dict and ``tp_join``
+puts the ranks' parts back together (``train.lm.tp_layout`` gives each
+rank's ``Shard`` of each leaf).
+
 A whole JAX checkpoint crosses with ``resnet_payload_from_jax`` /
 ``lm_payload_from_jax`` (``pp_payload_from_jax`` for a pipeline run's): its leaves (``utils.checkpoint.ManifestReader``
 reads them from a directory the JAX ``Trainer`` / ``LMTrainer`` wrote:
@@ -57,7 +62,8 @@ keep their paths.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+import functools
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -177,6 +183,32 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
     return params
 
 
+def tp_parts(state_dict: Mapping[str, torch.Tensor], layout: Mapping) -> Dict[str, torch.Tensor]:
+    """One tensor-parallel rank's state dict from a global one (e.g.
+    ``params_from_jax``'s): each leaf ``layout`` names (a
+    ``utils.checkpoint.Shard``, ``train.lm.tp_layout``'s) cut to the rank's
+    part, the rest as it is."""
+    return {k: (layout[k].take(v).contiguous() if k in layout else v)
+            for k, v in state_dict.items()}
+
+
+def tp_join(parts: Sequence[Mapping[str, torch.Tensor]],
+            layouts: Sequence[Mapping]) -> Dict[str, torch.Tensor]:
+    """The global state dict from every model rank's (``parts[r]`` with
+    ``layouts[r]``, any order): each sharded leaf put together from the
+    ranks' parts in part order, each whole leaf rank 0's."""
+    out = {}
+    for k, v in parts[0].items():
+        sh = layouts[0].get(k)
+        if sh is None:
+            out[k] = v
+            continue
+        by_index = {lay[k].index: p[k] for p, lay in zip(parts, layouts)}
+        out[k] = sh.assemble(torch.stack([sh.block(by_index[i].detach().cpu())
+                                          for i in range(sh.parts)]))
+    return out
+
+
 def _truncated_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:
     """Normal cut at ±2 standard deviations, rescaled to ``std`` (flax's
     ``truncated_normal`` variance scaling)."""
@@ -195,9 +227,30 @@ def init_params(cfg: TransformerConfig, seed: int = 0) -> Dict:
     1/fan_in), zero biases, unit LayerNorm scales, ``Embed`` tables
     normal with variance 1/E; MoE experts ``variance_scaling(2.0,
     "fan_in", "truncated_normal")`` with flax's fan-in of a 3-D kernel
-    (n_experts · in). Feed the result to ``params_from_jax``."""
+    (n_experts · in). Feed the result to ``params_from_jax``. The tree of
+    one geometry and seed is drawn once a process (the full-width LM's
+    136 M numbers take seconds of host time, and a run may build its model
+    many times) and each caller gets its own copy."""
+    tree = _drawn(tuple(getattr(cfg, f) for f in _GEOMETRY), seed)
+    return {k: _copy_tree(v) for k, v in tree.items()}
+
+
+#: the config fields that decide ``init_params``' tree
+_GEOMETRY = ("vocab_size", "num_layers", "num_heads", "embed_dim", "mlp_ratio", "max_seq_len",
+             "num_kv_heads", "pos_embedding", "n_experts", "moe_every")
+
+
+def _copy_tree(x):
+    return {k: _copy_tree(v) for k, v in x.items()} if isinstance(x, dict) else x.copy()
+
+
+@functools.lru_cache(maxsize=4)
+def _drawn(geometry: tuple, seed: int) -> Dict:
+    """``init_params``' tree for the config fields ``geometry``
+    (``_GEOMETRY``'s), never handed out itself."""
     from pytorch_distributed_tpu_torch.models.transformer import use_moe
 
+    cfg = TransformerConfig(**dict(zip(_GEOMETRY, geometry)))
     rng = np.random.default_rng(seed)
     e, h, d, v = cfg.embed_dim, cfg.num_heads, cfg.head_dim, cfg.vocab_size
     m = e * cfg.mlp_ratio

@@ -67,8 +67,24 @@ What must match the flax module exactly:
   (``train.lm.create_lm_state``), because AdamW on bf16 parameters loses
   most updates.
 
-The tensor-parallel and expert-parallel branches of the JAX module are not
-ported yet: ``tp_size > 1`` and ``ep_size > 1`` raise
+- Tensor parallelism (``tp_size`` T > 1 with ``model_axis``, the mesh
+  axis whose group ``parallel.mesh.make_mesh`` registers): Megatron's
+  split, each model rank holding the parameters at its local shapes
+  (``train.lm.shard_lm_state`` places them): the fused ``qkv`` (or GQA's
+  ``q`` / ``kv``) holds H/T (H_kv/T) heads after ``tp_copy``, ``proj``
+  takes the local heads' width and ``tp_reduce`` sums it (no bias), the
+  MLP's ``mlp_up`` holds 4E/T features after ``tp_copy`` and ``mlp_down``
+  their rows before ``tp_reduce``; residual dropout comes after
+  ``tp_reduce``, one mask on every model rank. ``vocab_parallel`` also
+  splits the vocabulary: each rank's ``wte`` holds V/T rows, looked up
+  masked and summed by ``tp_reduce``, and its ``lm_head`` V/T rows; the
+  logits path gathers the ranks' slices (``tp_all_gather``), the hidden
+  state of ``return_hidden`` goes to the fused CE's ``vocab_axis`` with no
+  ``tp_copy`` (the CE sums dx itself). Under TP only training runs: a
+  decode, prefill or paged call raises ``NotImplementedError`` (serving
+  under TP is ROADMAP queue 1 item 6.3), and so do MoE blocks (item 6.4).
+
+Expert parallelism (``ep_size > 1``) is not ported yet and raises
 ``NotImplementedError``.
 """
 
@@ -93,13 +109,14 @@ from pytorch_distributed_tpu_torch.ops.flash_attention import flash_attention
 from pytorch_distributed_tpu_torch.ops.ring_flash import ring_flash_attention
 from pytorch_distributed_tpu_torch.parallel.mesh import SEQ_AXIS, axis_group
 from pytorch_distributed_tpu_torch.parallel.sequence import LAYOUTS, ring_attention
+from pytorch_distributed_tpu_torch.parallel.tensor import tp_all_gather, tp_copy, tp_reduce
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 ATTENTIONS = ("dense", "blockwise", "flash", "ring", "ring_flash")
 RING_ATTENTIONS = ("ring", "ring_flash")
 POS_EMBEDDINGS = ("learned", "rope")
 #: JAX config fields whose branches are not ported, with their defaults
-NOT_PORTED = {"tp_size": 1, "ep_size": 1}
+NOT_PORTED = {"ep_size": 1}
 
 
 class LayerCache(NamedTuple):
@@ -122,9 +139,8 @@ class DenseCache(NamedTuple):
     value: torch.Tensor
 
 
-def _later(what: str) -> str:
-    return (f"{what}: not ported yet (ROADMAP.md, the port's queue: tensor and "
-            "expert parallelism come with the next slice)")
+def _later(what: str, item: str = "6.4") -> str:
+    return f"{what}: not ported yet (ROADMAP.md, queue 1 item {item})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,7 +189,13 @@ class TransformerConfig:
     moe_top_k: int = 1
     # not ported: any value but 1 raises NotImplementedError
     ep_size: int = 1
+    # Megatron tensor parallelism over the mesh axis model_axis, of size
+    # tp_size (parameters at their local shapes on each model rank;
+    # train.lm.shard_lm_state places them); vocab_parallel also splits
+    # wte's and lm_head's vocabulary over it
     tp_size: int = 1
+    model_axis: Optional[str] = None
+    vocab_parallel: bool = False
 
     def __post_init__(self):
         later = [f"{k}={getattr(self, k)!r}" for k, default in NOT_PORTED.items()
@@ -191,6 +213,11 @@ class TransformerConfig:
             raise ValueError(
                 f"embed_dim {self.embed_dim} not divisible by num_heads "
                 f"{self.num_heads}")
+        if self.tp_size < 1:
+            raise ValueError(f"tp_size must be >= 1, got {self.tp_size}")
+        if self.num_heads % self.tp_size:
+            raise ValueError(
+                f"num_heads {self.num_heads} not divisible by tp_size {self.tp_size}")
         if self.pos_embedding not in POS_EMBEDDINGS:
             raise ValueError(
                 f"pos_embedding {self.pos_embedding!r} must be 'learned' or 'rope'")
@@ -206,6 +233,27 @@ class TransformerConfig:
                 raise ValueError(
                     f"num_heads {self.num_heads} not divisible by num_kv_heads "
                     f"{self.num_kv_heads}")
+            if self.num_kv_heads % self.tp_size:
+                raise ValueError(
+                    f"num_kv_heads {self.num_kv_heads} not divisible by tp_size "
+                    f"{self.tp_size} (each TP rank needs whole KV heads)")
+        if self.vocab_parallel and self.vocab_size % self.tp_size:
+            raise ValueError(
+                f"vocab_size {self.vocab_size} not divisible by tp_size {self.tp_size} "
+                "(vocab_parallel shards the vocab dim)")
+        if self.tp_size > 1 and self.model_axis is None:
+            raise ValueError(
+                f"tp_size {self.tp_size} > 1 requires model_axis: without the axis "
+                "name the TP collectives are skipped and the model silently trains "
+                "with thin local shards")
+        if (self.embed_dim * self.mlp_ratio) % self.tp_size:
+            raise ValueError(
+                f"mlp width {self.embed_dim * self.mlp_ratio} not divisible by tp_size "
+                f"{self.tp_size}")
+        if self.n_experts and self.tp_size > 1:
+            raise NotImplementedError(_later(
+                f"n_experts={self.n_experts} with tp_size={self.tp_size} (TP inside "
+                "each expert)"))
         if not 0.0 <= self.dropout < 1.0:
             raise ValueError(f"dropout must be in [0, 1), got {self.dropout}")
         if self.dtype not in (torch.float32, torch.bfloat16):
@@ -232,6 +280,17 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
+
+    def uses_vocab_parallel(self) -> bool:
+        """The one vocab-parallel predicate (the JAX config's): the
+        model's embedding and head, the placement rules and the loss
+        tail all ask it."""
+        return self.vocab_parallel and self.model_axis is not None and self.tp_size > 1
+
+    def model_group(self):
+        """The model axis's ``AxisGroup`` under TP (the mesh registry's),
+        else None."""
+        return axis_group(self.model_axis) if self.tp_size > 1 else None
 
     @property
     def kv_heads(self) -> int:
@@ -347,26 +406,33 @@ def repeat_kv(x: torch.Tensor, group: int) -> torch.Tensor:
 
 
 class Attention(nn.Module):
+    """Under TP (``tp_size`` T) this rank's H/T query heads and H_kv/T
+    K/V heads: ``qkv`` ``[3·(H/T)·D, E]`` (its heads of q, of k and of v),
+    GQA's ``q`` / ``kv`` likewise, ``proj`` ``[E, (H/T)·D]``."""
+
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
-        e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+        e, d = cfg.embed_dim, cfg.head_dim
+        self.heads = cfg.num_heads // cfg.tp_size
+        self.kv_heads = cfg.kv_heads // cfg.tp_size
+        h = self.heads
         if cfg.num_kv_heads is None:
             self.qkv = Dense(cfg, e, 3 * h * d)  # out (3, H, D)
         else:
             self.q = Dense(cfg, e, h * d)  # out (H, D)
-            self.kv = Dense(cfg, e, 2 * cfg.num_kv_heads * d)  # out (2, H_kv, D)
+            self.kv = Dense(cfg, e, 2 * self.kv_heads * d)  # out (2, H_kv, D)
         self.proj = Dense(cfg, h * d, e, bias=False)
 
     def project(self, x: torch.Tensor):
         """q ``[B, L, H, D]``, k and v ``[B, L, H_kv, D]`` (views of the
-        projections' outputs)."""
+        projections' outputs; this rank's heads under TP)."""
         cfg = self.cfg
         b, l, _ = x.shape
-        h, d = cfg.num_heads, cfg.head_dim
+        h, d = self.heads, cfg.head_dim
         if cfg.num_kv_heads is None:
             return self.qkv(x).view(b, l, 3, h, d).unbind(dim=2)
-        k, v = self.kv(x).view(b, l, 2, cfg.num_kv_heads, d).unbind(dim=2)
+        k, v = self.kv(x).view(b, l, 2, self.kv_heads, d).unbind(dim=2)
         return self.q(x).view(b, l, h, d), k, v
 
     def forward(self, x: torch.Tensor, index: Optional["PagedIndex"] = None,
@@ -399,7 +465,10 @@ class Attention(nn.Module):
         ``position_offset`` less this shard's start)."""
         cfg = self.cfg
         b, l, _ = x.shape
-        h, d = cfg.num_heads, cfg.head_dim
+        h, d = self.heads, cfg.head_dim
+        tp = cfg.model_group()
+        if tp is not None:
+            x = tp_copy(x, tp)  # column-parallel projections below
         q, k, v = self.project(x)
         if rope is not None:
             q, k = rope_apply(q, rope), rope_apply(k, rope)
@@ -407,7 +476,7 @@ class Attention(nn.Module):
             out = self._dense_cached(q, k, v, cache, position_offset, decode)
             return self.proj(out.reshape(b, l, h * d))
         if cache is None:
-            group = h // cfg.kv_heads
+            group = h // self.kv_heads
             k, v = repeat_kv(k, group), repeat_kv(v, group)
             if cfg.attention == "flash":
                 out = flash_attention(q, k, v, causal=True)
@@ -427,6 +496,10 @@ class Attention(nn.Module):
                 out = dense_attention(q, k, v, causal=True, q_offset=position_offset,
                                       k_offset=position_offset)
             out = self.proj(out.reshape(b, l, h * d))
+            if tp is not None:
+                # row-parallel proj (no bias): the heads' partial sums;
+                # dropout after it, one mask on every model rank
+                out = tp_reduce(out, tp)
             return out if drop is None else drop(out)
         k_pool, v_pool, k_scale, v_scale = cache
         # inactive lanes write to the trash block, where clashes are harmless
@@ -498,8 +571,11 @@ class Block(nn.Module):
                               aux_loss_weight=cfg.moe_aux_weight, top_k=cfg.moe_top_k,
                               dtype=cfg.dtype, param_dtype=cfg.weight_dtype)
         else:
-            self.mlp_up = Dense(cfg, e, e * cfg.mlp_ratio)
-            self.mlp_down = Dense(cfg, e * cfg.mlp_ratio, e, bias=False)
+            # under TP this rank's 4E/T features: mlp_up's rows, mlp_down's
+            # columns
+            m = e * cfg.mlp_ratio // cfg.tp_size
+            self.mlp_up = Dense(cfg, e, m)
+            self.mlp_down = Dense(cfg, m, e, bias=False)
 
     def forward(self, x, index: Optional["PagedIndex"] = None,
                 cache=None, position_offset=0, decode: bool = False, rope=None, drop=None):
@@ -507,7 +583,13 @@ class Block(nn.Module):
         if self.use_moe:
             out = self.moe(self.ln2(x))
         else:
-            out = self.mlp_down(F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh"))
+            h = self.ln2(x)
+            tp = self.cfg.model_group()
+            if tp is not None:
+                h = tp_copy(h, tp)  # column-parallel mlp_up
+            out = self.mlp_down(F.gelu(self.mlp_up(h), approximate="tanh"))
+            if tp is not None:
+                out = tp_reduce(out, tp)  # row-parallel mlp_down, no bias
         return x + (out if drop is None else drop(out))
 
 
@@ -550,17 +632,32 @@ class TransformerLM(nn.Module):
         super().__init__()
         self.cfg = cfg
         e = cfg.embed_dim
-        self.wte = Embed(cfg, cfg.vocab_size, e)
+        # vocab-parallel: this rank's V/T rows of wte and of lm_head
+        vocab = cfg.vocab_size // cfg.tp_size if cfg.uses_vocab_parallel() else cfg.vocab_size
+        self.wte = Embed(cfg, vocab, e)
         if cfg.pos_embedding == "learned":
             self.wpe = Embed(cfg, cfg.max_seq_len, e)
         self.blocks = nn.ModuleList(Block(cfg, use_moe(cfg, i)) for i in range(cfg.num_layers))
         self.ln_f = LayerNorm32(e)
-        self.lm_head = Dense(cfg, e, cfg.vocab_size, bias=False)
+        self.lm_head = Dense(cfg, e, vocab, bias=False)
 
     def embed(self, tokens: torch.Tensor, positions: torch.Tensor):
         """Token embeddings plus the learned positions', and the rotary
-        rotations under RoPE (None otherwise), from one position array."""
-        x = self.wte(tokens)
+        rotations under RoPE (None otherwise), from one position array.
+        Vocab-parallel: this rank looks up the tokens of its rows (the
+        others a clamped row, zeroed) and ``tp_reduce`` sums the one real
+        row a token; the mask keeps foreign rows' gradients off this
+        rank's table."""
+        if self.cfg.uses_vocab_parallel():
+            tp = self.cfg.model_group()
+            n = self.wte.num_embeddings
+            loc = tokens - tp.index * n
+            ok = (loc >= 0) & (loc < n)
+            emb = self.wte(loc.clamp(0, n - 1))
+            x = tp_reduce(torch.where(ok[..., None], emb, torch.zeros((), dtype=emb.dtype,
+                                                                      device=emb.device)), tp)
+        else:
+            x = self.wte(tokens)
         if self.cfg.pos_embedding == "learned":
             return x + self.wpe(positions), None
         return x, rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
@@ -572,6 +669,10 @@ class TransformerLM(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 return_hidden: bool = False, decode: bool = False,
                 dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.cfg.tp_size > 1 and (cache is not None or decode):
+            raise NotImplementedError(_later(
+                f"decoding, prefill and paged serving with tp_size={self.cfg.tp_size}",
+                "6.3"))
         if cache is None:
             return self._forward_train(tokens, position_offset, positions, return_hidden,
                                        dropout_rng)
@@ -652,4 +753,9 @@ class TransformerLM(nn.Module):
         x = self.ln_f(x)
         if return_hidden:
             return x
-        return self.lm_head(x).float()
+        if not self.cfg.uses_vocab_parallel():
+            return self.lm_head(x).float()
+        # column-parallel head, then every rank's vocabulary slice in
+        # rank order for the replicated loss
+        tp = self.cfg.model_group()
+        return tp_all_gather(self.lm_head(tp_copy(x, tp)).float(), tp, dim=-1)

@@ -40,34 +40,37 @@ def adamw(params: Iterable[torch.nn.Parameter],
                              weight_decay=weight_decay)
 
 
-def global_norm(grads: List[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
-                axis=None) -> torch.Tensor:
-    """L2 norm over every gradient, accumulated in fp32. ``sharded`` flags
-    the gradients that are this rank's part of a leaf split over ``axis``
-    (a ``parallel.mesh.AxisGroup``: FSDP's data axis, the pipeline's
-    model axis): their square sums add over the axis, while every other
-    gradient, the same on each rank, counts once (``sharded_global_norm``
-    :44 of the JAX package)."""
-    if not sharded or not any(sharded):
+def global_norm(grads: List[torch.Tensor], axes: Optional[Sequence] = None) -> torch.Tensor:
+    """L2 norm over every gradient, accumulated in fp32. ``axes`` gives
+    each gradient the ``parallel.mesh.AxisGroup`` it is split over (this
+    rank holds a part of the leaf: FSDP's data axis, the pipeline's or
+    tensor parallelism's model axis), or None for a whole leaf, the same
+    on each rank: square sums add over their own axis, one all-reduce an
+    axis, and a whole leaf counts once (``sharded_global_norm``:44 of the
+    JAX package, which buckets by the axes a leaf's spec names)."""
+    if axes is None or all(a is None for a in axes):
         return torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
-    sq = [torch.linalg.vector_norm(g.float()) ** 2 for g in grads]
-    parts = torch.stack([x for x, s in zip(sq, sharded) if s]).sum()
-    whole = [x for x, s in zip(sq, sharded) if not s]
-    total = parts if axis is None or axis.size == 1 else all_reduce_(parts, group=axis.group)
-    if whole:
-        total = total + torch.stack(whole).sum()
+    buckets: dict = {}
+    for g, a in zip(grads, axes):
+        key = None if a is None or a.size == 1 else id(a)
+        buckets.setdefault(key, (a, []))[1].append(torch.linalg.vector_norm(g.float()) ** 2)
+    total = None
+    for key, (a, sq) in buckets.items():
+        part = torch.stack(sq).sum()
+        if key is not None:
+            part = all_reduce_(part, group=a.group)
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
 def clip_grads_by_global_norm(grads: List[torch.Tensor], max_norm: float,
-                              sharded: Optional[Sequence[bool]] = None,
-                              axis=None) -> torch.Tensor:
+                              axes: Optional[Sequence] = None) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / max(norm, max_norm)`` —
     identity under the threshold, never an up-scale, and no epsilon, as
     optax's ``clip_by_global_norm``; the norm is ``global_norm``'s.
     Returns the pre-clip norm."""
-    norm = global_norm(grads, sharded, axis)
+    norm = global_norm(grads, axes)
     scale = max_norm / torch.clamp(norm, min=max_norm)
     torch._foreach_mul_(grads, scale)
     return norm

@@ -130,15 +130,22 @@ class _Gather(torch.autograd.Function):
         return part, None, None, None
 
 
+def zero_parts(layout: Dict[str, Shard]) -> Dict[str, Shard]:
+    """The ZeRO parts of ``layout``: its shards over the data axis (a
+    tensor-parallel or pipeline part, on the model axis, stays local)."""
+    return {name: sh for name, sh in layout.items() if sh.axis == "data"}
+
+
 def gather_params(model: torch.nn.Module, layout: Dict[str, Shard], axis: AxisGroup,
                   mean: bool = True) -> Dict[str, torch.Tensor]:
-    """The whole value of every parameter in ``layout`` (gathered over
+    """The whole value of every ZeRO part in ``layout`` (gathered over
     ``axis``, differentiable: the gradient of each comes back to its part
     reduce-scattered, divided by the axis's size when ``mean``), to pass
-    to ``torch.func.functional_call``."""
+    to ``torch.func.functional_call``; parts on other axes stay as they
+    are."""
     params = dict(model.named_parameters())
     return {name: _Gather.apply(params[name], shard.dim, axis, mean)
-            for name, shard in layout.items()}
+            for name, shard in zero_parts(layout).items()}
 
 
 def call_with(model: torch.nn.Module, full: Dict[str, torch.Tensor], *args, **kw):
@@ -153,14 +160,15 @@ def global_leaves(tensors: Dict[str, torch.Tensor], layout: Dict[str, Shard],
                   mesh: Mesh) -> Dict[str, torch.Tensor]:
     """``tensors`` (a state dict, or gradients by parameter name) whole, on
     the host: each one ``layout`` names gathered over its axis (the data
-    axis; the model axis for a pipeline stage's stacked slice). Every rank
-    of the axes takes part."""
+    axis for a ZeRO part; the model axis for a pipeline stage's stacked
+    slice or a tensor-parallel part). Every rank of the axes takes part."""
     out = {}
     for k, v in tensors.items():
         sh = layout.get(k)
         if sh is not None:
-            axis = mesh.model if sh.stacked else mesh.data
-            v = all_gather_dim(sh.block(v.detach()), sh.dim, axis)
+            axis = getattr(mesh, sh.axis)
+            b = sh.block(v.detach()).contiguous()
+            v = sh.assemble(all_gather(b, axis.group) if axis.size > 1 else b[None])
         out[k] = v.detach().cpu().clone()
     return out
 
@@ -175,4 +183,4 @@ def state_bytes(state) -> int:
 
 
 __all__ = ["MIN_SHARD_ELEMS", "all_gather_dim", "call_with", "fsdp_dim", "gather_params",
-           "global_leaves", "reduce_scatter_dim", "shard_state", "state_bytes"]
+           "global_leaves", "reduce_scatter_dim", "shard_state", "state_bytes", "zero_parts"]

@@ -7,9 +7,14 @@ holds data replica ``d``, sequence shard ``s`` and model shard ``m`` (with
 axis through every point of the others and registers this rank's three
 under the JAX axis names (``DATA_AXIS``, ``SEQ_AXIS``, ``MODEL_AXIS``), so
 that a model config names its ring's group as the JAX config names its
-mesh axis (``TransformerConfig.seq_axis``). The model axis carries the
-pipeline's stages (``train.pp``). Every rank must call ``make_mesh`` with
-the same sizes, as ``torch.distributed.new_group`` requires.
+mesh axis (``TransformerConfig.seq_axis``, ``model_axis``). The model axis
+carries the pipeline's stages (``train.pp``) or the Megatron shards of
+tensor parallelism (``parallel.tensor``). ``Mesh.data_seq`` is the group
+of the (data, seq) points of this rank's model index: the JAX steps'
+``psum`` over ``(data, seq)``, which leaves the model axis alone (the
+whole job when the model axis has size 1). Every rank must call
+``make_mesh`` with the same sizes, as ``torch.distributed.new_group``
+requires.
 """
 
 from __future__ import annotations
@@ -46,6 +51,14 @@ class Mesh:
     data: AxisGroup
     seq: AxisGroup
     model: AxisGroup = _ONE
+    #: the (data, seq) points of this rank's model index, index d·S + s
+    data_seq: Optional[AxisGroup] = None
+
+    def __post_init__(self):
+        if self.data_seq is None:  # a hand-made mesh: no model axis
+            object.__setattr__(self, "data_seq", AxisGroup(
+                None, self.data.size * self.seq.size,
+                self.data.index * self.seq.size + self.seq.index))
 
     def rank_of(self, data: int = 0, seq: int = 0, model: int = 0) -> int:
         """The global rank at grid point ``(data, seq, model)``."""
@@ -82,7 +95,19 @@ def make_mesh(data_parallel: int, seq_parallel: int = 1, model_parallel: int = 1
                 if rank in line:
                     group = g
         axes.append(AxisGroup(group, n, mine[axis]))
-    mesh = Mesh(*axes)
+    # the (data, seq) plane of each model index; with one model index the
+    # whole job, as the default group
+    n = data_parallel * seq_parallel
+    plane = None
+    if model_parallel == 1:
+        plane = dist.group.WORLD if n > 1 else None
+    else:
+        for m in range(model_parallel):
+            line = list(range(m, world, model_parallel))
+            g = dist.new_group(line) if n > 1 else None
+            if rank in line:
+                plane = g
+    mesh = Mesh(*axes, data_seq=AxisGroup(plane, n, mine[0] * seq_parallel + mine[1]))
     _groups[DATA_AXIS], _groups[SEQ_AXIS], _groups[MODEL_AXIS] = axes
     return mesh
 

@@ -17,6 +17,10 @@ its attention in the CUDA FlashAttention kernels by default:
     python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --device cpu --tiny --fsdp
     python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --device cpu --tiny \
         --pipeline-stages 2
+    python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --synthetic --steps 8 \
+        --model-parallel 2 [--vocab-parallel] [--fsdp]
+    python -m pytorch_distributed_tpu_torch.recipes.lm_pretrain --device cpu --tiny \
+        --model-parallel 2 [--vocab-parallel] [--fsdp]
 
 Without ``--device`` it runs on CUDA and fails where there is none. Token
 data is a flat int array (.npy) windowed to ``--seq-len``; ``--synthetic``
@@ -27,23 +31,29 @@ alone, as there.
 
 On CUDA every visible card (on every node) takes one rank, and the grid
 is factored as the JAX recipe factors its devices: ``--seq-parallel S``
-sequence shards a replica, ``--pipeline-stages P`` pipeline stages (the
-model axis), ``cards // (S·P)`` data replicas (``parallel.mesh``); the
-ranks are spawned here and meet over NCCL, and a grid that is larger than
-the cards or does not divide them is refused (``CUDA_VISIBLE_DEVICES``
-picks the cards). With ``--device cpu`` one replica of S·P ranks meets
-over gloo. ``--fsdp`` shards the parameters and AdamW's moments over the
+sequence shards a replica, ``--model-parallel T`` tensor-parallel ranks
+or ``--pipeline-stages P`` pipeline stages (the model axis), ``cards //
+(S·T)`` data replicas (``parallel.mesh``); the ranks are spawned here and
+meet over NCCL, and a grid that is larger than the cards or does not
+divide them is refused (``CUDA_VISIBLE_DEVICES`` picks the cards). With
+``--device cpu`` one replica of S·T ranks meets over gloo.
+``--model-parallel T`` splits every block's heads and MLP features over
+the T ranks (Megatron tensor parallelism, ``parallel.tensor``; the heads,
+the K/V heads and the MLP width must divide by T) and ``--vocab-parallel``
+the embedding's and head's vocabulary too (the vocabulary must divide by
+T); both compose with ``--fsdp``, which shards what they leave whole. ``--fsdp`` shards the parameters and AdamW's moments over the
 data replicas (ZeRO-3, ``parallel.fsdp``; on one replica the data axis
 has size 1 and nothing is split); the
 pipeline (``train.pp``) trains with ``--pp-microbatches`` microbatches,
 overrides ``--seq-parallel`` to 1 and refuses ``--model-parallel``, as the
-JAX recipe does. Each row of the grid runs ring
+JAX recipe does, and ``--vocab-parallel`` needs ``--model-parallel`` above
+1 and refuses the pipeline. Each row of the grid runs ring
 attention (``ring_flash`` unless ``--attention ring``, as in the JAX
-recipe); gradients are summed over every rank. The ranks rendezvous where
+recipe); gradients are summed over the data and seq ranks. The ranks rendezvous where
 ``MASTER_IP``/``MASTER_PORT`` say (``WORLD_SIZE`` nodes, this one ``RANK``;
 each node spawns its share of the ranks), else through a file in a
 temporary directory. ``--seq-parallel`` defaults to 1 where the JAX recipe
-has 2: the port's default run is one card. Tensor parallelism is refused.
+has 2: the port's default run is one card.
 
 Checkpoints go to ``--save-dir`` (``output_lm``): ``latest.ckpt`` when a
 suspend arrives (SIGTERM, SIGUSR1, the file named by ``SUSPEND_FLAG_FILE``;
@@ -75,7 +85,7 @@ from pytorch_distributed_tpu_torch.models.transformer import (
 )
 from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.parallel import distributed
-from pytorch_distributed_tpu_torch.parallel.mesh import global_batch_size, make_mesh
+from pytorch_distributed_tpu_torch.parallel.mesh import MODEL_AXIS, global_batch_size, make_mesh
 from pytorch_distributed_tpu_torch.recipes.common import add_lm_parallel_flags, add_resilience_flags
 from pytorch_distributed_tpu_torch.train import LMTrainer, LMTrainerConfig
 from pytorch_distributed_tpu_torch.utils.suspend import SuspendWatcher
@@ -134,7 +144,11 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--ring-layout", default="contiguous", choices=["contiguous", "zigzag"],
                    help="ring shards: contiguous, or chunk pairs (r, 2s-1-r)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="must be 1: tensor parallelism is not ported")
+                   help="tensor-parallel ranks a replica (Megatron: heads and MLP "
+                        "features split over them)")
+    p.add_argument("--vocab-parallel", action="store_true",
+                   help="with --model-parallel > 1: split the embedding's and LM "
+                        "head's vocabulary over the tensor-parallel ranks too")
     add_lm_parallel_flags(p)
     return p.parse_args(argv)
 
@@ -160,20 +174,23 @@ def build_token_datasets(args, batch_size: int):
 def model_config(args, seq_len: int, vocab: int) -> TransformerConfig:
     """The tiny or full-width config; on a seq-sharded grid the ring
     (``ring_flash`` unless ``--attention ring``) with ``--ring-layout``."""
-    sp = args.seq_parallel
+    sp, tp = args.seq_parallel, args.model_parallel
     attention = args.attention
     if sp > 1 and attention not in ("ring", "ring_flash"):
         attention = "ring_flash"
     layout = args.ring_layout if sp > 1 else "contiguous"
+    tensor = dict(tp_size=tp, model_axis=MODEL_AXIS if tp > 1 else None,
+                  vocab_parallel=args.vocab_parallel)
     if args.tiny:
         # as the JAX recipe: the tiny config takes --dropout, not the
         # width flags
-        return tiny_config(attention=attention, ring_layout=layout, dropout=args.dropout)
+        return tiny_config(attention=attention, ring_layout=layout, dropout=args.dropout,
+                           **tensor)
     return TransformerConfig(
         vocab_size=vocab, num_layers=args.layers, num_heads=args.heads,
         num_kv_heads=args.kv_heads, pos_embedding=args.pos_embedding,
         embed_dim=args.embed_dim, max_seq_len=seq_len, dropout=args.dropout,
-        dtype=torch.bfloat16, attention=attention, ring_layout=layout)
+        dtype=torch.bfloat16, attention=attention, ring_layout=layout, **tensor)
 
 
 def train(args, device=None, mesh=None) -> dict:
@@ -194,9 +211,12 @@ def train(args, device=None, mesh=None) -> dict:
     trainer = LMTrainer(model_cfg, train_ds, val_ds, cfg, device=device, mesh=mesh,
                         suspend_watcher=watcher)
     if distributed.is_primary():
+        model_axis = "stages" if args.pipeline_stages else "model"
+        vp = ", vocab-parallel" if model_cfg.uses_vocab_parallel() else ""
         grid = (f", grid {mesh.data.size} x {mesh.seq.size} x {mesh.model.size} (data x seq "
-                f"x stages), global batch {global_batch_size(mesh, batch_size)}, ring layout "
-                f"{model_cfg.ring_layout}{', fsdp' if args.fsdp else ''}" if mesh else "")
+                f"x {model_axis}), global batch {global_batch_size(mesh, batch_size)}, ring "
+                f"layout {model_cfg.ring_layout}{', fsdp' if args.fsdp else ''}{vp}"
+                if mesh else "")
         print(f"device {trainer.device}, {trainer.state.param_count()} parameters, "
               f"batch {batch_size} x {seq_len} tokens per replica, attention "
               f"{model_cfg.attention}{grid}")
@@ -212,10 +232,11 @@ def train(args, device=None, mesh=None) -> dict:
 def grid(args) -> Tuple[int, int]:
     """``(data replicas, ranks on this node)``. On CUDA every card of every
     node (``WORLD_SIZE`` of the environment contract, else 1) takes a rank
-    and the replicas are cards // (``--seq-parallel`` x stages), as the
-    JAX recipe factors ``jax.device_count()``; on the CPU one replica of
-    that many ranks. Refuses a grid the cards cannot hold."""
-    sp, mp = args.seq_parallel, max(args.pipeline_stages, 1)
+    and the replicas are cards // (``--seq-parallel`` x the model axis:
+    stages or ``--model-parallel``), as the JAX recipe factors
+    ``jax.device_count()``; on the CPU one replica of that many ranks.
+    Refuses a grid the cards cannot hold."""
+    sp, mp = args.seq_parallel, model_axis_size(args)
     if sp < 1:
         raise SystemExit("--seq-parallel must be >= 1")
     inner = sp * mp
@@ -226,15 +247,18 @@ def grid(args) -> Tuple[int, int]:
         return 1, inner // nodes
     cards = torch.cuda.device_count()
     world = max(cards, 1) * nodes  # no card: the one-rank path says so
-    what = (f"--seq-parallel {sp}" if mp == 1 else f"--pipeline-stages {mp}"
-            if sp == 1 else f"--seq-parallel {sp} x --pipeline-stages {mp}")
+    axis = "--pipeline-stages" if args.pipeline_stages else "--model-parallel"
+    what = (f"--seq-parallel {sp}" if mp == 1 else f"{axis} {mp}"
+            if sp == 1 else f"--seq-parallel {sp} x {axis} {mp}")
     if inner > world:
         raise SystemExit(
             f"{what} needs a card per rank (NCCL puts one rank on a "
             f"card), and {cards} per node on {nodes} node(s) are visible; use fewer, "
             "or --device cpu to run the ranks over gloo")
     if world % inner:
-        kind = "sequence groups" if mp == 1 else "groups of stages x sequence shards"
+        kind = ("sequence groups" if mp == 1 else
+                f"groups of {'stages' if args.pipeline_stages else 'model ranks'} x "
+                "sequence shards")
         raise SystemExit(f"{world} cards do not split into {kind} of {inner}")
     return world // inner, world // nodes
 
@@ -246,7 +270,7 @@ def _rank_main(local_rank: int, argv: List[str], rendezvous: Optional[str],
     args = _parse(argv)
     _check_parallel(args)
     backend = "gloo" if args.device == "cpu" else "nccl"
-    world = dp * args.seq_parallel * max(args.pipeline_stages, 1)
+    world = dp * args.seq_parallel * model_axis_size(args)
     if rendezvous is None:
         distributed.init_process_group(backend, local_rank=local_rank,
                                        procs_per_node=per_node)
@@ -259,7 +283,7 @@ def _rank_main(local_rank: int, argv: List[str], rendezvous: Optional[str],
             torch.cuda.set_device(device)
         else:
             torch.set_num_threads(1)  # the ranks share the host's cores
-        mesh = make_mesh(dp, args.seq_parallel, max(args.pipeline_stages, 1))
+        mesh = make_mesh(dp, args.seq_parallel, model_axis_size(args))
         summary = train(args, device=device, mesh=mesh)
         if distributed.is_primary():
             with open(result, "w") as f:
@@ -268,20 +292,35 @@ def _rank_main(local_rank: int, argv: List[str], rendezvous: Optional[str],
         distributed.destroy_process_group()
 
 
+def model_axis_size(args) -> int:
+    """The mesh's model axis: the pipeline's stages, else the
+    tensor-parallel ranks."""
+    return args.pipeline_stages or args.model_parallel
+
+
 def _check_parallel(args) -> None:
-    """The JAX recipe's checks of the pipeline flags (:79-102): a negative
+    """The JAX recipe's checks of the parallel flags (:79-155): a negative
     stage count is refused, the pipeline refuses --model-parallel and
-    overrides --seq-parallel to 1 (in ``args``)."""
+    --vocab-parallel and overrides --seq-parallel to 1 (in ``args``),
+    --vocab-parallel needs --model-parallel > 1."""
     if args.pipeline_stages < 0:
         raise SystemExit(
             f"--pipeline-stages must be >= 1 (or 0 = off), got {args.pipeline_stages}")
+    if args.model_parallel < 1:
+        raise SystemExit(f"--model-parallel must be >= 1, got {args.model_parallel}")
     if args.pipeline_stages:
         if args.model_parallel > 1:
             raise SystemExit(
                 "--pipeline-stages uses the model axis for stages; drop "
                 "--model-parallel (TP-within-PP needs the train.pp API "
                 "with a dedicated stage axis)")
+        if args.vocab_parallel:
+            raise SystemExit(
+                "--vocab-parallel does not compose with --pipeline-stages "
+                "(PPEmbed/PPHead are stage-replicated; train/pp.py)")
         args.seq_parallel = 1
+    if args.vocab_parallel and args.model_parallel <= 1:
+        raise SystemExit("--vocab-parallel needs --model-parallel > 1")
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -290,17 +329,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
         print(f"pipeline run: overriding --seq-parallel {args.seq_parallel} -> 1 "
               "(PP batches shard over data only)")
     _check_parallel(args)
-    if args.model_parallel > 1:
-        raise SystemExit(
-            "--model-parallel > 1 is not ported yet: tensor parallelism comes "
-            "with a later slice (ROADMAP.md)")
     if args.save_every_n_steps < 0:
         raise SystemExit(f"--save-every-n-steps must be >= 0 (0 = off), got "
                          f"{args.save_every_n_steps}")
     if args.keep_last_ckpts < 1:
         raise SystemExit(f"--keep-last-ckpts must be >= 1, got {args.keep_last_ckpts}")
     dp, per_node = grid(args)
-    if dp * args.seq_parallel * max(args.pipeline_stages, 1) == 1:
+    if dp * args.seq_parallel * model_axis_size(args) == 1:
         return train(args, device=args.device)
     env = distributed.env_rendezvous()
     if args.device != "cpu":

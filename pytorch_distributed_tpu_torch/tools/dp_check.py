@@ -170,8 +170,8 @@ def _steps(job: dict, mesh: Mesh, device) -> Dict[str, dict]:
             step_s = time.perf_counter() - t0
             launches = dict(bt.launch_counts)
             named = {n: p.grad for n, p in state.model.named_parameters() if p.grad is not None}
-            norm = global_norm(list(named.values()), [n in state.layout for n in named],
-                               mesh.data)
+            norm = global_norm(list(named.values()),
+                               [mesh.data if n in state.layout else None for n in named])
             for k, v in dict(m, grad_norm=norm, step_s=step_s,
                              scale=torch.as_tensor(state.scaler.scale),
                              param_change=_largest_change(

@@ -10,14 +10,23 @@ Each rank runs ``job["task"]`` and writes what it found to
 ``<job["out"]>/rank<r>.pt``; ``load`` reads them back. The tasks:
 
 - ``"lm"``: for each case of ``job["cases"]`` (``model``: a
-  ``TransformerConfig`` spec; ``mode``: ``"replicated"``, ``"fsdp"`` or
-  ``"pp"``; ``params``: global weights, a ``TransformerLM`` state dict, or
-  for ``"pp"`` a stacked one, else the seed-0 initialisation; ``clip``,
-  ``fused_ce``, ``microbatches``, ``dropout_seed``), the train step on
+  ``TransformerConfig`` spec, tensor-parallel when it sets ``tp_size`` >
+  1 and ``model_axis`` (the grid's model axis of that size); ``mode``:
+  ``"replicated"``, ``"fsdp"`` or ``"pp"``; ``params``: global weights, a
+  ``TransformerLM`` state dict, or for ``"pp"`` a stacked one, else the
+  seed-0 initialisation; ``clip``, ``fused_ce``, ``microbatches``,
+  ``dropout_seed``, ``nan_guard``, ``params_out``; ``plant``: ``(step, value)`` written
+  into this rank's first TP part's gradient on model rank 1 at that step,
+  through a hook; ``reference``: rank 0 then also trains the one-device
+  model from the same weights on the whole global batches, ``reference``
+  in its result: that run's metrics, eval sums, parameter + optimizer
+  bytes, and each leaf's update against the gathered one, ``update_errs``),
+  the train step on
   this rank's rows (and seq columns) of each global batch of
   ``job["batches"]`` and the eval step on ``job["val_batches"]``: each
   step's metrics, flash launches and host time, the rank's parameter and
-  optimizer bytes and peak device memory, the global parameters after the
+  optimizer bytes and peak device memory, its layout (each sharded
+  parameter's axis, dim and sections), the global parameters after the
   steps (rank 0; not with ``job["params_out"]`` False), and under
   ``"pp"`` a SHA-256 digest of each of the rank's embedding and head
   leaves; on CUDA with ``profiled`` > 0 (the case's, else the job's)
@@ -36,6 +45,13 @@ Each rank runs ``job["task"]`` and writes what it found to
 - ``"image_trainer"``: ``tools/dp_check.py``'s ``"trainer"`` task (the
   image ``Trainer`` for one epoch and a validation pass, ``job["config"]``
   its ``TrainerConfig``, ``fsdp`` among them);
+- ``"tp_ops"``: ``parallel.tensor``'s ``tp_copy``, ``tp_reduce`` and
+  ``tp_all_gather`` (last dim) over the model axis on model rank r's
+  ``job["x"][r]``, each differentiated against ``job["cot"][op][r]`` (the
+  output and the input's gradient), and the vocab-parallel
+  ``fused_linear_cross_entropy`` on ``job["ce"]`` (``x``, the global
+  head ``w`` ``[V, E]`` of which rank r takes rows ``[r·V/T, (r+1)·V/T)``,
+  ``labels``, ``weights``, ``block_n``): the loss, dx and the rank's dW;
 - ``"toy"``: ``parallel.pipeline.gpipe`` over the model axis with the
   stage ``relu(x @ w + b)`` (stage s's ``w``, ``b`` from the stacked
   ``job["w"]``, ``job["b"]``), ``job["x"]`` in ``job["microbatches"]``
@@ -143,7 +159,9 @@ def _lm(job: dict, mesh: Mesh, device) -> Dict[str, dict]:
         mode = case["mode"]
         params = case.get("params")
         if params is None:
-            key = repr(sorted(case["model"].items()))
+            # one initialisation a global model, whatever its TP layout
+            key = repr(sorted((k, v) for k, v in case["model"].items()
+                              if k not in ("tp_size", "model_axis", "vocab_parallel")))
             if key not in inits:
                 inits[key] = params_from_jax(init_params(cfg, 0))
             params = inits[key]
@@ -163,17 +181,20 @@ def _lm(job: dict, mesh: Mesh, device) -> Dict[str, dict]:
             fsdp = mode == "fsdp"
             state = create_lm_state(cfg, lr_schedule=sched, weight_decay=wd, params=params,
                                     device=device)
-            state = shard_lm_state(state, mesh, fsdp=fsdp)
+            state = shard_lm_state(state, mesh, fsdp=fsdp, config=cfg)
             step = make_lm_train_step(mesh=mesh, config=cfg, fsdp=fsdp,
-                                      dropout_seed=case.get("dropout_seed", 0), **kw)
+                                      dropout_seed=case.get("dropout_seed", 0),
+                                      nan_guard=case.get("nan_guard", False), **kw)
             eval_step = make_lm_eval_step(mesh=mesh, config=cfg, fsdp=fsdp,
                                           fused_ce=kw["fused_ce"])
         if device.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(device)
         rec: Dict[str, list] = {}
-        for batch in job["batches"]:
+        plant = _plant(state, mesh, case.get("plant"))
+        for i, batch in enumerate(job["batches"]):
             local = {k: x.to(device) for k, x in shard(batch, mesh, cfg.ring_layout).items()}
+            plant["step"] = i
             fa.reset_launch_counts()
             _sync(device)
             t0 = time.perf_counter()
@@ -191,12 +212,16 @@ def _lm(job: dict, mesh: Mesh, device) -> Dict[str, dict]:
         res = {"metrics": rec, "val": {k: float(v) for k, v in acc.items()},
                "val_launches": [fa.launch_counts[k] for k in FLASH],
                "state_bytes": state_bytes(state),
+               "layout": {n: (sh.axis, sh.dim, sh.sections) for n, sh in state.layout.items()},
                "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
                             if device.type == "cuda" else 0.0),
                "step": state.step}
-        if job.get("params_out", True):
-            params = global_leaves(state.model.state_dict(), state.layout, mesh)
-            res["params"] = params if distributed.is_primary() else None
+        keep = case.get("params_out", job.get("params_out", True))
+        if keep or case.get("reference"):
+            got = global_leaves(state.model.state_dict(), state.layout, mesh)
+            res["params"] = got if keep and distributed.is_primary() else None
+            if case.get("reference") and distributed.is_primary():
+                res["reference"] = _reference(job, case, cfg, params, got, sched, wd, device)
         if mode == "pp":
             res["replicated"] = {
                 k: hashlib.sha256(v.detach().cpu().contiguous().view(torch.uint8).numpy()
@@ -211,6 +236,92 @@ def _lm(job: dict, mesh: Mesh, device) -> Dict[str, dict]:
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return out
+
+
+def _reference(job, case, cfg, params, got, sched, wd, device) -> dict:
+    """The one-device run of ``case`` from ``params`` on the whole global
+    batches (``_lm``'s ``reference``), held against ``got``, the sharded
+    run's gathered leaves."""
+    from pytorch_distributed_tpu_torch.train import (
+        create_lm_state,
+        empty_lm_metrics,
+        make_lm_eval_step,
+        make_lm_train_step,
+    )
+    from pytorch_distributed_tpu_torch.train.lm import unsharded
+
+    one = unsharded(cfg)
+    state = create_lm_state(one, lr_schedule=sched, weight_decay=wd, params=params,
+                            device=device)
+    step = make_lm_train_step(grad_clip_norm=case.get("clip", 0.0), config=one,
+                              fused_ce=case.get("fused_ce", True),
+                              dropout_seed=case.get("dropout_seed", 0))
+    rec: Dict[str, list] = {}
+    for batch in job["batches"]:
+        state, m = step(state, {k: torch.from_numpy(x).to(device) for k, x in batch.items()})
+        for k, x in m.items():
+            rec.setdefault(k, []).append(float(x))
+    acc = empty_lm_metrics(device)
+    for batch in job.get("val_batches", []):
+        acc = make_lm_eval_step(config=one, fused_ce=case.get("fused_ce", True))(
+            state, {k: torch.from_numpy(x).to(device) for k, x in batch.items()}, acc)
+    want = {k: v.detach().float().cpu() for k, v in state.model.state_dict().items()}
+    out = {"metrics": rec, "val": {k: float(v) for k, v in acc.items()},
+           "state_bytes": state_bytes(state),
+           "leaves_ok": (set(got) == set(want)
+                         and all(tuple(got[k].shape) == tuple(want[k].shape) for k in want)),
+           "update": update_errs(got, want, params) if set(got) == set(want) else {}}
+    del state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def key_bias_masked(name: str, x: torch.Tensor) -> torch.Tensor:
+    """A leaf with the attention key bias zeroed (its gradient is rounding
+    noise that AdamW scales to ~lr a step: the k section of ``qkv.bias``,
+    the first half of GQA's ``kv.bias``)."""
+    if name.endswith("attn.qkv.bias"):
+        x = x.clone()
+        x[x.shape[0] // 3:2 * x.shape[0] // 3] = 0
+    elif name.endswith("attn.kv.bias"):
+        x = x.clone()
+        x[:x.shape[0] // 2] = 0
+    return x
+
+
+def update_errs(got: dict, want: dict, init: dict) -> dict:
+    """Each leaf's relative error of its update over the steps:
+    ||(got - init) - (want - init)|| / ||want - init||, the key bias's
+    noise masked (``key_bias_masked``)."""
+    out = {}
+    for name, w in want.items():
+        d_want = key_bias_masked(name, w.float() - init[name].float())
+        d_got = key_bias_masked(name, got[name].float() - init[name].float())
+        out[name] = float((d_got - d_want).norm() / d_want.norm().clamp_min(1e-30))
+    return out
+
+
+def _plant(state, mesh: Mesh, plant) -> dict:
+    """A hook writing ``plant = (step, value)``'s value into the gradient
+    of the first tensor-parallel part on model rank 1 at that step (the
+    step index is the returned dict's ``"step"``, which the caller sets)."""
+    box: dict = {"step": -1}
+    if plant is None or mesh.model.index != 1:
+        return box
+    at, value = plant
+    name = next(n for n, sh in state.layout.items() if sh.axis == "model")
+    param = dict(state.model.named_parameters())[name]
+
+    def hook(g):
+        if box["step"] != at:
+            return g
+        g = g.clone()
+        g.view(-1)[0] = value
+        return g
+
+    param.register_hook(hook)
+    return box
 
 
 def _profiled(step, state, batch: dict, n: int, device) -> dict:
@@ -284,6 +395,30 @@ def _trainer(job: dict, mesh: Mesh, device) -> List[dict]:
     return out
 
 
+def _tp_ops(job: dict, mesh: Mesh, device) -> dict:
+    from pytorch_distributed_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
+    from pytorch_distributed_tpu_torch.parallel.tensor import tp_all_gather, tp_copy, tp_reduce
+
+    r, axis = mesh.model.index, mesh.model
+    out = {}
+    for name, op in (("copy", tp_copy), ("reduce", tp_reduce), ("gather", tp_all_gather)):
+        x = torch.tensor(job["x"][r], device=device, requires_grad=True)
+        y = op(x, axis)
+        (y * torch.tensor(job["cot"][name][r], device=device)).sum().backward()
+        out[name] = (y.detach().cpu(), x.grad.cpu())
+    ce = job["ce"]
+    n = ce["w"].shape[0] // axis.size
+    x = torch.tensor(ce["x"], device=device, requires_grad=True)
+    w = torch.tensor(ce["w"][r * n:(r + 1) * n], device=device, requires_grad=True)
+    loss = fused_linear_cross_entropy(
+        x, w, torch.tensor(ce["labels"], device=device),
+        torch.tensor(ce["weights"], device=device), block_n=ce["block_n"],
+        compute_dtype=torch.float32, vocab_axis=axis)
+    loss.backward()
+    out["ce"] = (float(loss), x.grad.cpu(), w.grad.cpu())
+    return out
+
+
 def _toy(job: dict, mesh: Mesh, device) -> dict:
     from pytorch_distributed_tpu_torch.parallel.pipeline import gpipe
 
@@ -305,4 +440,4 @@ def _toy(job: dict, mesh: Mesh, device) -> dict:
 
 
 TASKS = {"lm": _lm, "resnet": dp_check.TASKS["steps"], "trainer": _trainer, "toy": _toy,
-         "image_trainer": dp_check.TASKS["trainer"]}
+         "image_trainer": dp_check.TASKS["trainer"], "tp_ops": _tp_ops}

@@ -8,10 +8,15 @@ data × seq ``parallel.mesh.Mesh``: as in JAX (``train/lm_trainer.py``
 :203-210) the sampler splits the data by node and the node's loader
 batches its local data replicas together; the rank collates its replica's
 rows of each node batch (``data.loader.rank_rows``), ``shard_lm_batch``
-gives it its sequence columns, the steps all-reduce over every rank, and
-only rank 0 prints. With ``fsdp`` the state is ZeRO-3-sharded over the
-data axis (``train.lm``); with ``pipeline_stages`` every stage of a
-replica collates the replica's rows and trains through ``train.pp``.
+gives it its sequence columns, the steps all-reduce over data × seq, and
+only rank 0 prints. A tensor-parallel model config (``tp_size`` T > 1)
+trains on a mesh whose model axis has T ranks: every model rank of a
+(data, seq) point collates the same rows, and the state, the same on
+every rank after rank 0's broadcast, then takes each rank's Megatron
+parts (``train.lm.shard_lm_state``). With ``fsdp`` the state is
+ZeRO-3-sharded over the data axis (``train.lm``), the TP parts left as
+they are; with ``pipeline_stages`` every stage of a replica collates the
+replica's rows and trains through ``train.pp``.
 Validation zero-weights the sampler's wrap-padding
 duplicates and pads a partial node batch with zero-weight rows (:519-545),
 so each sequence counts once. The checkpoint contract is
@@ -129,7 +134,9 @@ class LMTrainer(SuspendableTrainer):
     state over the data axis; ``config.pipeline_stages`` = S trains
     through the pipeline on a mesh whose model axis has S ranks (JAX
     :233-330, with its refusals: no ``nan_guard``, no seq axis, no
-    ``fsdp`` with the pipeline)."""
+    ``fsdp`` with the pipeline); otherwise the model axis carries the
+    model config's ``tp_size`` ranks of tensor parallelism, and a model
+    axis above 1 without it is refused (JAX :249-282)."""
 
     def __init__(self, model_config, train_dataset, val_dataset,
                  config: LMTrainerConfig, device=None, mesh: Optional[Mesh] = None,
@@ -162,12 +169,16 @@ class LMTrainer(SuspendableTrainer):
         else:
             if config.fsdp and mesh is None:  # one device: a data axis of 1, as in JAX
                 mesh = self.mesh = make_mesh(1)
+            self._check_model_axis()
             self.state = create_lm_state(model_config, lr_schedule=schedule,
                                          weight_decay=config.weight_decay, seed=config.seed,
                                          device=self.device)
             if mesh is not None:
+                # the global weights rank 0's everywhere, then each rank's
+                # Megatron parts and ZeRO parts
                 broadcast_from_primary(list(self.state.model.state_dict().values()))
-                self.state = shard_lm_state(self.state, mesh, fsdp=config.fsdp)
+                self.state = shard_lm_state(self.state, mesh, fsdp=config.fsdp,
+                                            config=model_config)
             self.train_step = make_lm_train_step(
                 grad_clip_norm=config.grad_clip_norm, nan_guard=config.nan_guard, mesh=mesh,
                 config=model_config, dropout_seed=config.seed, fsdp=config.fsdp)
@@ -180,6 +191,23 @@ class LMTrainer(SuspendableTrainer):
         #: one record per logged step: its metrics, epoch, step, and the
         #: mean wall time of the steps since the previous record
         self.history: List[dict] = []
+
+    def _check_model_axis(self) -> None:
+        """The JAX trainer's model-axis checks (:249-282) off the
+        pipeline: tensor parallelism needs a model axis of ``tp_size``
+        ranks, and a model axis above 1 without it would make every rank
+        on it do the same work."""
+        tp, mesh = self.model_config.tp_size, self.mesh
+        size = 1 if mesh is None else mesh.model.size
+        if tp > 1 and size != tp:
+            raise ValueError(
+                f"tp_size {tp} needs the mesh's {self.model_config.model_axis!r} axis of "
+                f"{tp} ranks (got {size}); build the mesh with model_parallel={tp}")
+        if tp == 1 and size > 1:
+            raise ValueError(
+                f"the mesh carries a model axis of size {size} but the model config has "
+                "no model_axis: every rank on it would do duplicate work; set "
+                "model_axis/tp_size or size the axis to 1")
 
     def _init_pipeline(self, schedule) -> None:
         """The pipeline's state and steps, with the JAX trainer's checks."""

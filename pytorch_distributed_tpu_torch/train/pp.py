@@ -197,6 +197,11 @@ def check_pp_config(config: TransformerConfig, n_stages: int) -> int:
             "the stage axis (train/pp.py grad combine) — a vocab-sharded "
             "embedding there would need its own placement + combine rules. "
             "Use the (data, seq, model) LM trainer for vocab parallelism.")
+    if config.tp_size > 1:
+        raise NotImplementedError(
+            f"tp_size={config.tp_size} inside the pipeline's stages: not ported yet "
+            "(ROADMAP.md, queue 1 item 6.5: the stages ride the model axis, and TP "
+            "within them needs a stage axis of its own)")
     lps = config.num_layers // n_stages
     if config.n_experts and lps % config.moe_every:
         raise ValueError(
@@ -243,7 +248,7 @@ def create_pp_lm_state(config: TransformerConfig, n_stages: int, *,
     layout, local = {}, {}
     for k, v in stacked.items():
         if k.startswith("stages."):
-            layout[k] = Shard(tuple(v.shape), 0, stage, owners, stacked=True)
+            layout[k] = Shard(tuple(v.shape), 0, stage, owners, stacked=True, axis="model")
             v = v[stage]
         local[k] = v
     model.load_state_dict(local)
@@ -403,7 +408,8 @@ def make_pp_lm_train_step(mesh: Mesh, config: TransformerConfig, n_microbatches:
                                                   device=dev)}
         if grad_clip_norm:
             metrics["grad_norm"] = clip_grads_by_global_norm(
-                grads, grad_clip_norm, [n.startswith("stages.") for n, _ in named], s_axis)
+                grads, grad_clip_norm,
+                [s_axis if n.startswith("stages.") else None for n, _ in named])
         lr = state.lr_schedule(state.updates)
         for group in opt.param_groups:
             group["lr"] = lr

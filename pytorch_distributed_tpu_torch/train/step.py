@@ -134,8 +134,9 @@ def make_train_step(mesh: Optional[Mesh] = None, label_smoothing: float = 0.0,
             # FSDP: the parts came back reduce-scattered, divided by the size
             pmean_([g for i, g in enumerate(grads) if not (sharded and sharded[i])], group)
         if grad_clip_norm:
-            clip_grads_by_global_norm(grads, grad_clip_norm, sharded,
-                                      mesh.data if fsdp else None)
+            clip_grads_by_global_norm(grads, grad_clip_norm,
+                                      [mesh.data if s else None for s in sharded]
+                                      if fsdp else None)
         if group is not None:
             pmean_(list(model.buffers()), group)
         with torch.no_grad():

@@ -21,8 +21,10 @@ arrays, Python scalars or ``ShardedLeaf``s (``train.state.state_payload``
 builds the trainers'). A replicated leaf is one block that rank 0 writes,
 as JAX writes fully replicated leaves from process 0. A ``ShardedLeaf``
 is this rank's part of a leaf split into equal slices along one dimension
-(an FSDP shard, a pipeline stage's slice of a stacked ``[S, ...]`` leaf):
-the manifest holds every part as a block of the global leaf, in the file
+(an FSDP shard, a pipeline stage's slice of a stacked ``[S, ...]`` leaf, a
+tensor-parallel rank's heads, which in a fused projection are one slice
+of each section: ``Shard.sections``): the manifest holds every part as
+blocks of the global leaf (one a section), in the file
 of the rank its ``Shard`` names as that part's owner, and each owner
 writes its own part. So a sharded state saves the canonical global layout
 with no gather, and any topology reads it back (``ManifestReader.read``
@@ -97,37 +99,73 @@ _ALIGN = 128  # each block's offset in the snapshot arena
 class Shard:
     """Where one rank's tensor lies in its global leaf: part ``index`` of
     ``len(owners)`` equal slices along ``dim`` of the global ``shape``;
-    ``owners[i]`` is the global rank that writes part i. ``stacked``: the
-    rank's tensor is one index of the stacked dim (a pipeline stage's
-    slice of an ``[S, ...]`` leaf) and lacks that dim."""
+    ``owners[i]`` is the global rank that writes part i; ``axis`` names
+    the mesh axis the parts lie on (``"data"`` for ZeRO, ``"model"`` for a
+    pipeline stage or a tensor-parallel rank). ``stacked``: the rank's
+    tensor is one index of the stacked dim (a pipeline stage's slice of
+    an ``[S, ...]`` leaf) and lacks that dim. ``sections`` > 1: the leaf is
+    viewed with ``dim`` split into ``[sections, shape[dim] / sections]``
+    and the part is one block along the second of them, i.e. the same
+    slice of each section (a tensor-parallel rank's heads of q, of k and
+    of v in the fused ``[3·H·D, E]`` projection: sections 3)."""
 
     shape: Tuple[int, ...]
     dim: int
     index: int
     owners: Tuple[int, ...]
     stacked: bool = False
+    axis: str = "data"
+    sections: int = 1
 
     @property
     def parts(self) -> int:
         return len(self.owners)
 
-    def bounds(self, i: int) -> Tuple[List[int], List[int]]:
-        """``(start, stop)`` of part ``i`` in the global leaf."""
-        n = self.shape[self.dim] // self.parts
-        start = [0] * len(self.shape)
-        stop = list(self.shape)
-        start[self.dim], stop[self.dim] = i * n, (i + 1) * n
-        return start, stop
+    @property
+    def span(self) -> int:
+        """One part's length along ``dim`` within one section."""
+        return self.shape[self.dim] // self.sections // self.parts
+
+    def blocks(self, i: int) -> List[Tuple[List[int], List[int]]]:
+        """``(start, stop)`` in the global leaf of each block of part
+        ``i``, one a section."""
+        n, whole = self.span, self.shape[self.dim] // self.sections
+        out = []
+        for j in range(self.sections):
+            start = [0] * len(self.shape)
+            stop = list(self.shape)
+            start[self.dim] = j * whole + i * n
+            stop[self.dim] = start[self.dim] + n
+            out.append((start, stop))
+        return out
 
     def take(self, full: torch.Tensor) -> torch.Tensor:
-        """This rank's part of the global ``full`` (a view)."""
-        n = self.shape[self.dim] // self.parts
-        part = full.narrow(self.dim, self.index * n, n)
+        """This rank's part of the global ``full`` (a view; a copy when
+        ``sections`` > 1)."""
+        if self.sections > 1:
+            d = self.dim
+            part = full.unflatten(d, (self.sections, -1)).narrow(
+                d + 1, self.index * self.span, self.span)
+            return part.flatten(d, d + 1)
+        part = full.narrow(self.dim, self.index * self.span, self.span)
         return part.squeeze(self.dim) if self.stacked else part
 
     def block(self, local: torch.Tensor) -> torch.Tensor:
-        """The rank's tensor as its block of the global leaf."""
+        """The rank's tensor as its block of the global leaf (of the leaf
+        viewed by sections)."""
         return local.unsqueeze(self.dim) if self.stacked else local
+
+    def pieces(self, local: torch.Tensor) -> List[torch.Tensor]:
+        """The rank's tensor cut into its blocks of ``blocks`` (views)."""
+        b = self.block(local)
+        return [b.narrow(self.dim, j * self.span, self.span) for j in range(self.sections)]
+
+    def assemble(self, parts: torch.Tensor) -> torch.Tensor:
+        """The global leaf from every rank's ``block``, stacked in part
+        order (``[parts, ...]``, an all-gather's result)."""
+        d = self.dim + 1  # dim in ``parts``
+        x = parts.unflatten(d, (self.sections, -1)).movedim(0, d)  # [.., sec, parts, n, ..]
+        return x.flatten(self.dim, self.dim + 2)
 
 
 class ShardedLeaf(NamedTuple):
@@ -217,11 +255,14 @@ class _ShardedSave:
                 sh = x.shard
                 blocks = []
                 for i, owner in enumerate(sh.owners):
-                    start, stop = sh.bounds(i)
-                    blocks.append({"file": _shard_name(self.token, owner), "key": f"{path}#{i}",
-                                   "start": start, "stop": stop})
-                    if owner == self.pidx and i == sh.index:
-                        mine[f"{path}#{i}"] = sh.block(x.local)
+                    pieces = (sh.pieces(x.local) if owner == self.pidx and i == sh.index
+                              else None)
+                    for j, (start, stop) in enumerate(sh.blocks(i)):
+                        key = f"{path}#{i * sh.sections + j}"
+                        blocks.append({"file": _shard_name(self.token, owner), "key": key,
+                                       "start": start, "stop": stop})
+                        if pieces is not None:
+                            mine[key] = pieces[j]
                 self.manifest["leaves"][path] = {"dtype": _dtype_name(x.local),
                                                  "shape": list(sh.shape), "blocks": blocks}
                 continue

@@ -316,17 +316,17 @@ def test_device_times_count_every_launch(monkeypatch, traces, want_taken):
 
 
 def test_device_times_raise_when_launches_stay_missing(monkeypatch):
-    """Three traces short of launches (or with extra ones) raise, naming the
+    """Six traces short of launches (or with extra ones) raise, naming the
     counts, and no time is returned."""
     import torch.profiler
 
     short = [FULL[0], ("tail_merge_kernel<false>", 9, 27.0)]
     extra = [FULL[0], ("tail_merge_kernel<false>", 11, 33.0)]
-    trace = _FakeTrace([short, extra, short])
+    trace = _FakeTrace([short, extra, short, extra, short, extra])
     monkeypatch.setattr(torch.profiler, "profile", trace)
     with pytest.raises(RuntimeError, match="not {'moments': 20, 'merge': 10}"):
         _unpatched_chip_smoke().kernel_device_ms(_fake_card(), lambda: None, TAIL_MATCH)
-    assert trace.taken == 3
+    assert trace.taken == 6
 
 
 @pytest.mark.parametrize("cards, want", [(0, (2, "gloo")), (1, (2, "gloo")), (2, (2, "nccl")),

@@ -133,12 +133,17 @@ def test_params_to_jax_inverts_params_from_jax():
 
 
 def test_training_config_refuses_unported_branches():
-    """Only the parallel modes are left: tensor and expert parallelism."""
-    for field, value in [("tp_size", 2), ("ep_size", 2)]:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tiny_config(**{field: value})
+    """Only expert parallelism is left (and MoE under TP); tensor
+    parallelism needs its mesh axis, as in JAX."""
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tiny_config(ep_size=2)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tiny_config(n_experts=4, ep_size=2)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tiny_config(n_experts=4, tp_size=2, model_axis="model")
+    with pytest.raises(ValueError, match="requires model_axis"):
+        tiny_config(tp_size=2)
+    assert tiny_config(tp_size=2, model_axis="model").tp_size == 2
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
@@ -365,8 +370,11 @@ def test_recipe_trains_tiny_on_the_cpu(tmp_path):
     summary = lm_pretrain.main(["--device", "cpu", "--tiny", "--steps", "3", "--epochs", "1",
                                 "--log-every", "1", "--save-dir", str(tmp_path)])
     assert np.isfinite(summary["loss"]) and summary["tokens"] == 8 * 31
-    with pytest.raises(SystemExit, match="not ported"):
-        lm_pretrain.main(["--device", "cpu", "--tiny", "--model-parallel", "2"])
+    # tensor parallelism runs (tests/test_torch_vocab_parallel.py); the
+    # pipeline still refuses it, as the JAX recipe does
+    with pytest.raises(SystemExit, match="drop --model-parallel"):
+        lm_pretrain.main(["--device", "cpu", "--tiny", "--model-parallel", "2",
+                          "--pipeline-stages", "2"])
 
 
 def test_create_lm_state_keeps_fp32_parameters():
