@@ -88,7 +88,8 @@ Phases, each of which fails the run:
       mixed ones on the card, sharing its weights, by the synchronous and
       the lagged loop in turns (streams, placement and decisions
       bit-equal, step and tick p50, tok/s, TTFT, busy by CUDA events and
-      profiled a process each, host syncs a step: none), disaggregated 1 +
+      profiled (``graph_runs``' graph-path process), host syncs a step:
+      none), disaggregated 1 +
       1 with every handoff byte-equal on bf16 and fp8 pools, a seeded
       64-request trace that spills and sheds (each loop's decisions its
       CPU twin's), a replica killed mid-serve and revived (no capture by
@@ -160,18 +161,18 @@ Phases, each of which fails the run:
       NCCL: ``ring_flash_attention`` at B = 8, L = 2048, contiguous and
       zigzag, fused and split backward, gathered and held against
       single-card flash (relative error), with each rank's launches;
-      ``LMTrainer`` at dp 1 x sp ranks with ``ring_flash``, 4 steps of
+      ``LMTrainer`` at dp 1 x sp ranks with ``ring_flash``, 2 steps of
       B = 8 x 2048 and a validation pass in each layout, the first step
       against the one-card flash step; ZeRO-3 FSDP and the GPipe pipeline
       (``parallel_runs``, the ranks spawned once by ``tools/parallel_check.py``
       on the ring's ranks): the full-width LM under FSDP and replicated DP
-      for 3 steps at a global B = 8 x 2048 and a validation batch (relative
+      for 2 steps at a global B = 8 x 2048 and a validation batch (relative
       error by step and of the validation loss; FSDP's first step against
       the one-card step), the pipeline with a stage a rank, 8 microbatches
-      of B = 8, 3 steps and a validation batch against
+      of B = 8, 2 steps and a validation batch against
       ``make_pp_reference_step`` and the plain eval step on one card, every
       stage's embedding and head bit-equal, ResNet-50's fused bf16
-      ``Trainer(fsdp=True)`` against the replicated trainer at lr 1e-3 (3
+      ``Trainer(fsdp=True)`` against the replicated trainer at lr 1e-3 (2
       steps of B = 32 a rank and a validation batch), each rank's flash
       (12 + 12 a step under FSDP, (12/S)·8 a stage) and tail (20 / 16 /
       16) launches, parameter + optimizer bytes (FSDP at most 0.55 of
@@ -281,7 +282,7 @@ FLEET_SLO = dict(spill_queue_depth=3, shed_queue_depth=8)
 FLEET_HANG = dict(tick_deadline_s=0.5, seconds=0.75)
 # the fleet phase's recipe runs, each in a process of its own
 FLEET_RECIPES = {"disaggregated": ["--replicas", "2", "--disaggregate", "--async-host"],
-                 "gateway": ["--replicas", "2", "--http-port", "0", "--http-duration", "5"]}
+                 "gateway": ["--replicas", "2", "--http-port", "0", "--http-duration", "3"]}
 
 # kernel 6, the split backward, against its plain version, the fused kernel
 # and itself: (label, dtype, causal, shift, flash_inputs shape); a shape
@@ -311,8 +312,9 @@ SPLIT_CHECKS = (
     ("rows 0-36 fully masked (shift -37) fp32", "float32", True, -37,
      dict(b=1, l=100, h=2, seed=4)),
 )
-# the ring: the training shape, 4 steps in each layout, the full-width model
-RING = dict(batch=8, seq=2048, steps=4, timeout_s=300)
+# the ring: the training shape, 2 steps in each layout (4 until the TP
+# serve's phase bought its time back), the full-width model
+RING = dict(batch=8, seq=2048, steps=2, timeout_s=300)
 RING_MODEL = dict(vocab_size=32000, num_layers=12, num_heads=12, embed_dim=768)
 RING_CASES = [dict(impl="ring_flash", layout=layout, bwd_impl=bwd, causal=True)
               for layout in ("contiguous", "zigzag") for bwd in ("fused", "split")]
@@ -421,15 +423,16 @@ DP_TIMING = dict(fused=128, plain=64, warmup=3, steps=20, profiled=3)
 
 # the FSDP and pipeline phase, on the ranks of ring_ranks: the
 # full-width LM (RING_MODEL, 2048 positions, bf16, flash, grad clip 1.0,
-# lr 3e-4) for 3 steps, ZeRO-3 FSDP and replicated DP at a global batch of
-# 8 (4 a rank on 2 ranks), from the seed-0 weights; the pipeline at B 8 x
-# 2048 in 8 microbatches, a stage a rank, for 3 steps, and both on a
-# validation batch; the fused bf16 ResNet-50 of the DP phase under FSDP and
-# replicated at B 32 a rank for 3 steps and a validation batch; one more
+# lr 3e-4) for 2 steps (3 until the TP serve's phase bought its time back),
+# ZeRO-3 FSDP and replicated DP at a global batch of 8 (4 a rank on 2
+# ranks), from the seed-0 weights; the pipeline at B 8 x 2048 in 8
+# microbatches, a stage a rank, for 2 steps, and both on a validation
+# batch; the fused bf16 ResNet-50 of the DP phase under FSDP and
+# replicated at B 32 a rank for 2 steps and a validation batch; one more
 # step of each LM run
 # profiled for the card's busy share; then the recipe with --fsdp (and
 # with --pipeline-stages 2 where 2 cards exist) for 2 steps
-PARALLEL = dict(batch=8, seq=2048, steps=3, microbatches=8, profiled=1, recipe_steps=2,
+PARALLEL = dict(batch=8, seq=2048, steps=2, microbatches=8, profiled=1, recipe_steps=2,
                 timeout_s=600)
 #: the kernel sources the phase runs (``--parallel-only`` builds these)
 PARALLEL_SOURCES = ("bottleneck_tail", "flash_attention")
@@ -505,19 +508,54 @@ TP_SHARE_TOL = 1e-4
 #: kernels 4 and 5 at the TP ranks' heads: H 12 / T at T 2 and T 4
 TP_KERNEL_HEADS = (6, 3)
 #: the kernel sources the phase runs (``--tp-only`` builds these)
-TP_SOURCES = ("flash_attention",)
+TP_SOURCES = ("flash_attention", "paged_attention")
+# the tensor-parallel serve (slice 22), cases of the TP phase's spawn on one
+# card: its 2 gloo ranks at T 2, eager (the gloo group stages every
+# tp_reduce through the host, which no CUDA graph holds), the full-width LM
+# at 2048 positions in bf16, 8 slots, blocks of 16, chunk 32, 4 requests of
+# 64-512 prompt tokens (requests 0 and 2 share their first 256 tokens, 16
+# blocks; with the prefix cache each submit is followed by ``stagger``
+# steps, so request 0's blocks are indexed before request 2 looks them up),
+# 16 new tokens, greedy:
+# (i) bf16 pools, (ii) fp8 pools (kernel 9's append route), (iii) GQA + RoPE
+# (H_kv 4, 2 KV heads a rank) with the prefix cache, (iv) vocab-parallel;
+# each against the one-card replicated Scheduler serve rank 0 runs after it
+# from the same weights
+TP_SERVE = dict(slots=8, block_len=16, chunk=32, lengths=(320, 64, 512, 200), prefix=256,
+                stagger=9, max_new=16, max_seq_len=2048)
+TP_SERVE_CASES = {"bf16": ({}, {}), "fp8": ({}, {"kv_dtype": "fp8"}),
+                  "gqa_prefix": (TP_GQA, {"prefix_cache": True}),
+                  "vocab": ({"vocab_parallel": True}, {})}
+#: the TP serve's logits against the one-card serve's, max abs error: each
+#: prompt's first-token row, and every decoded row while the two streams
+#: agree. Set from planted faults in the CPU rehearsal
+#: (``tests/test_torch_chip_smoke_serve_tp.py``'s sizes: 2 layers, 4 heads
+#: of 32, bf16; in a scratch copy) before any chip run: the true code read
+#: first rows <= 3.9e-2 and rows <= 3.9e-2 (fp8) in the four cases; rank 1
+#: holding rank 0's K/V heads (its pool the wrong heads) 2.97-3.32 / 3.06-
+#: 3.32, greedy match 0-0.08; proj's tp_reduce dropped 2.12-2.58 / 2.12-
+#: 2.58 (and the ranks' streams apart but for vocab-parallel); rank 1's
+#: clock skewed with no broadcast desynchronizes the ranks' collectives
+#: (``tests/test_torch_serving_tp.py``'s deadline serve: the spawn dies).
+#: Twelve bf16 layers round more than two, so the limits sit 6-13x above
+#: the true code's readings and 4-8x below the faults'
+TP_SERVE_TOL = dict(first=0.25, rows=0.5)
+#: kernels 7 and 8 at the TP ranks' heads (``tp_paged_kernel_checks``):
+#: H 6 and H 3 (MHA at T 2 and T 4), and GQA's H 6 over H_kv 2 (T 2)
+TP_PAGED_HEADS = ((6, 6), (3, 3), (6, 2))
 
 # the resume phase: the fused bf16 ResNet-50 (as bench.py builds it)
 # at B = 128 for 6 steps, suspended at step 3 (the train.step fault site's
 # suspend latches the watcher, as SIGTERM's handler does), interval saves
 # every 2 steps, NaN batches at steps 2 and 3; the full-width LM at B = 8 x
 # 2048 for 4 steps, suspended at step 2; the ranks of ring_ranks at B = 32 a
-# rank for 4 steps, SIGUSR1 to rank 1 alone before step 1. Every run from
+# rank for 3 steps (4 until the TP serve's phase bought its time back),
+# SIGUSR1 to rank 1 alone before step 1. Every run from
 # the seed-0 weights and the same synthetic data, its save_dir in a
 # temporary directory
 RESUME = dict(batch=128, steps=6, suspend_at=3, every=2, nan_at=2, size=224,
               lm_batch=8, lm_seq=2048, lm_steps=4, lm_suspend_at=2,
-              dp_batch=32, dp_steps=4, dp_signal=1, timeout_s=600)
+              dp_batch=32, dp_steps=3, dp_signal=1, timeout_s=600)
 RESUME_RESNET = dict(DP_MODEL, dtype="bfloat16", fused=True)
 RESUME_LM = dict(vocab_size=32000, num_layers=12, num_heads=12, embed_dim=768)
 
@@ -570,13 +608,13 @@ def decode_inputs(torch, dtype, *, b=8, c=1, h=12, h_kv=12, d=64, bl=16, w=128,
                 q_positions=torch.from_numpy(positions).to(dev, torch.int32))
 
 
-def prefill_inputs(torch, dtype, dev="cuda", seed=2, h_kv=12):
+def prefill_inputs(torch, dtype, dev="cuda", seed=2, h_kv=12, h=12):
     """A prefill chunk as the serve runs the single sweep on it: 4 jobs x
     32 rows (the serve's prefill chunk) at chain starts 0, 32, 480 and 992,
     W = 64 blocks of 16; R = G·C = 32 rows per KV head (96 at ``h_kv`` 4,
     the GQA model's G = 3)."""
     starts = np.array([0, 32, 480, 992])
-    return decode_inputs(torch, dtype, b=4, c=32, w=64, seed=seed, dev=dev, h_kv=h_kv,
+    return decode_inputs(torch, dtype, b=4, c=32, w=64, seed=seed, dev=dev, h=h, h_kv=h_kv,
                          positions=starts[:, None] + np.arange(32))
 
 
@@ -2655,7 +2693,196 @@ def tp_kernel_checks(torch, card, failures, batch=8, seq=2048) -> dict:
     return out
 
 
-def tp_runs(torch, card, tmp, dev="cuda", recipes=True, cpu_ranks=2) -> dict:
+def tp_serve_model(**kw) -> dict:
+    """The TP serve's model spec at T 2: the phase's LM for serving
+    (dense attention, ``TP_SERVE``'s positions, bf16)."""
+    return dict(RING_MODEL, max_seq_len=TP_SERVE["max_seq_len"], dtype="bfloat16",
+                attention="dense", tp_size=2, model_axis="model", **kw)
+
+
+def tp_serve_prompts() -> list:
+    """``TP_SERVE``'s prompts from seed 22: request 2 begins with request
+    0's first ``prefix`` tokens (whole blocks)."""
+    rng = np.random.default_rng(22)
+    vocab = RING_MODEL["vocab_size"]
+    out = [rng.integers(1, vocab, n).astype(np.int32) for n in TP_SERVE["lengths"]]
+    out[2][:TP_SERVE["prefix"]] = out[0][:TP_SERVE["prefix"]]
+    return out
+
+
+def tp_serve_job() -> dict:
+    """The ``"serve"`` job of the TP phase's spawn (``tools/serve_tp.py``):
+    the ``TP_SERVE_CASES`` on the model axis of 2 ranks, each recorded
+    (every decoded row) and with rank 0's replicated reference."""
+    kw = dict(n_slots=TP_SERVE["slots"], block_len=TP_SERVE["block_len"],
+              prefill_chunk=TP_SERVE["chunk"], cuda_graphs=False)
+    prompts = tp_serve_prompts()
+    cases = {name: dict(model=tp_serve_model(**model), kw=dict(kw, **extra), prompts=prompts,
+                        max_new=TP_SERVE["max_new"], record=True, reference=True,
+                        stagger=TP_SERVE["stagger"] if extra.get("prefix_cache") else 0)
+             for name, (model, extra) in TP_SERVE_CASES.items()}
+    return dict(task="serve", dp=1, mp=2, cases=cases)
+
+
+def row_errs(got: dict, want: dict, streams: dict, ref_streams: dict):
+    """``(first, rows, compared)``: the max abs error of each prompt's
+    first-token logits row, and of every row while the two streams agree
+    (row i is compared when tokens 0..i-1 agree), and how many rows that
+    was."""
+    first = rows = 0.0
+    n = 0
+    for rid, g in got.items():
+        w = want[rid]
+        first = max(first, (g[0] - w[0]).abs().max().item())
+        for i in range(min(len(g), len(w))):
+            if streams[rid][:i] != ref_streams[rid][:i]:
+                break
+            rows = max(rows, (g[i] - w[i]).abs().max().item())
+            n += 1
+    return first, rows, n
+
+
+def tp_serve_checks(torch, card, per_rank, failures, on_card) -> dict:
+    """Phase (c)'s checks of the TP serve cases: the ranks' streams and
+    logits rows bit-equal, each case's rows against the one-card serve's
+    (``TP_SERVE_TOL``; then the greedy match rate), a rank's pool bytes
+    exactly half the one-card pool's, and on the card each rank's kernel 7
+    and 8 launches: 12 (one a layer) for each chunk call and decode tick
+    whose table routes it to that kernel. Returns the launches by kernel
+    line name and the errors."""
+    from pytorch_distributed_tpu_torch.ops import paged_flash
+    from pytorch_distributed_tpu_torch.serving.kv_pool import kv_pool_dtype
+
+    layers = RING_MODEL["num_layers"]
+    launches, out = {}, {}
+    for name, (model, extra) in TP_SERVE_CASES.items():
+        res = [r[name] for r in per_rank]
+        ref = res[0]["reference"]
+        label = f"LM TP serve t2 {name}"
+        equal = (all(r["streams"] == res[0]["streams"] for r in res)
+                 and all(r["rows_digest"] == res[0]["rows_digest"] for r in res))
+        first, rows, n = row_errs(res[0]["rows"], ref["rows"], res[0]["streams"],
+                                  ref["streams"])
+        match = match_rate(*([s[r] for r in sorted(s)] for s in (res[0]["streams"],
+                                                                 ref["streams"])))
+        share = res[0]["pool_bytes"] / ref["pool_bytes"]
+        ok = (equal and first <= TP_SERVE_TOL["first"] and rows <= TP_SERVE_TOL["rows"]
+              and all(r["pool_bytes"] * 2 == ref["pool_bytes"] for r in res))
+        dt = kv_pool_dtype(extra["kv_dtype"]) if "kv_dtype" in extra else None
+        keys = {k: (k if dt is None else paged_flash.variant(k, dt))
+                for k in (paged_flash.SWEEP, paged_flash.SPLIT)}
+        for r in res:
+            want = {keys[paged_flash.SWEEP]: layers * (r["chunk_sweep"] + r["tick_sweep"]),
+                    keys[paged_flash.SPLIT]: layers * (r["chunk_split"] + r["tick_split"])}
+            got = {k: r["launches"].get(k, 0) for k in want}
+            if dt is not None:  # every launch on the append route, none standalone
+                got.update({f"append {k}": r["launches"].get(paged_flash.append_key(k, dt), 0)
+                            for k in (paged_flash.SWEEP, paged_flash.SPLIT)})
+                want.update({f"append {k}": want[keys[k]]
+                             for k in (paged_flash.SWEEP, paged_flash.SPLIT)})
+                got["standalone"] = r["launches"].get(paged_flash.variant(
+                    paged_flash.QUANTIZE, dt), 0)
+                want["standalone"] = 0
+            want = {k: v * on_card for k, v in want.items()}
+            launches_ok = got == want and (not on_card or r["ticks"] > 0)
+            ok = ok and launches_ok
+            for k in (paged_flash.SWEEP, paged_flash.SPLIT):
+                launches[keys[k]] = launches.get(keys[k], 0) + got[keys[k]]
+            if dt is not None:
+                q = paged_flash.variant(paged_flash.QUANTIZE, dt)
+                launches[q] = launches.get(q, 0) + got["append " + paged_flash.SWEEP] + got[
+                    "append " + paged_flash.SPLIT]
+        hits = res[0]["metrics"]["prefix_hits"]
+        if extra.get("prefix_cache"):
+            ok = ok and hits >= 1 and ref["metrics"]["prefix_hits"] == hits
+        r0 = res[0]
+        print(f"(c) {label} ({TP_SERVE['lengths']} prompt tokens, {TP_SERVE['max_new']} new, "
+              f"eager) on {card}: ranks' streams and logits rows bit-equal {equal}; against "
+              f"the one-card serve: first-token rows max abs err {first:.3e} (tol "
+              f"{TP_SERVE_TOL['first']:g}), {n} rows while the streams agree {rows:.3e} (tol "
+              f"{TP_SERVE_TOL['rows']:g}), greedy match {match:.3f}; a rank's pool "
+              f"{r0['pool_bytes']} bytes = {share:.4f} of {ref['pool_bytes']}; "
+              f"{r0['chunk_calls']} chunk calls ({r0['chunk_sweep']} sweep, "
+              f"{r0['chunk_split']} split) and {r0['ticks']} ticks ({r0['tick_split']} split), "
+              f"launches by rank {[r['launches'] for r in res]}"
+              + (f"; prefix hits {hits}" if extra.get("prefix_cache") else "")
+              + f"; tick p50 {r0['metrics']['tick_p50_s'] * 1e3:.1f} ms (staged: not a speed "
+              f"figure) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+        out[name] = dict(first=first, rows=rows, match=match, pool_share=share,
+                         pool_bytes=r0["pool_bytes"])
+    return {"launches": launches, "cases": out}
+
+
+def head_slice(inp: dict, h: int, h_kv: int) -> dict:
+    """A paged call's inputs at their first ``h`` query heads over their
+    first ``h_kv`` KV heads (pools and any scales), each contiguous."""
+    cut = {"q": h, "k_pool": h_kv, "v_pool": h_kv, "k_scale": h_kv, "v_scale": h_kv}
+    return {k: v[:, :, :cut[k]].contiguous() if k in cut and v is not None else v
+            for k, v in inp.items()}
+
+
+def tp_paged_kernel_checks(torch, card, failures) -> dict:
+    """Kernels 7 and 8 at the TP ranks' heads (``TP_PAGED_HEADS``, D 64,
+    bf16 q): kernel 8 (the auto split) at decode (B 8, W 128) on bf16 and
+    fp8 pools, kernel 7 (the sweep) at the prefill chunk (B 4 x C 32, W
+    64), each against its plain version, then timed (CUDA events, the
+    wrapper, 20 calls) beside its plain version, SDPA on gathered K/V (bf16
+    pools; no PyTorch call reads fp8 K/V with per-row scales) and the
+    bound."""
+    import torch.nn.functional as F
+
+    from pytorch_distributed_tpu_torch.ops import paged_flash
+    from pytorch_distributed_tpu_torch.ops.attention import paged_attention_reference
+
+    out = {}
+    # phase (d)'s inputs cut to the rank's heads: the same chains and
+    # positions, so each bound is (d)'s at h / 12 of the heads
+    full = {"decode": decode_inputs(torch, torch.bfloat16),
+            "prefill chunk": prefill_inputs(torch, torch.bfloat16)}
+    fp8 = quantized(torch, decode_inputs(torch, torch.float32, seed=5), "fp8")
+    full["decode fp8"] = dict(fp8, q=fp8["q"].to(torch.bfloat16))
+    for h, h_kv in TP_PAGED_HEADS:
+        shapes = [("decode", paged_flash.SPLIT, None)]
+        if h == 6:
+            shapes.append(("prefill chunk", paged_flash.SWEEP, 1))
+        if h_kv == h:
+            shapes.append(("decode fp8", paged_flash.SPLIT, None))
+        for shape, name, split_s in shapes:
+            inp = head_slice(full[shape], h, h_kv)
+            tag = f"h{h}" + (f"_hkv{h_kv}" if h_kv != h else "") + "_" + shape.replace(" ", "_")
+            label = f"{name} at {shape}, H {h} over H_kv {h_kv}, D 64, bf16 q"
+            ref = paged_attention_reference(**inp)
+            err = check_abs(torch, failures, f"TP {label}",
+                            paged_flash.paged_flash_attention(**inp, split_s=split_s), ref,
+                            BF16_TOL)
+            bd = bound(inp)
+            ms = time_ms(torch, lambda: paged_flash.paged_flash_attention(
+                **inp, split_s=split_s), iters=20)
+            plain = time_ms(torch, lambda: paged_attention_reference(**inp), iters=20)
+            lib = None
+            if "k_scale" not in inp:
+                qg, kg, vg, mask = gathered(torch, inp)
+                lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qg, kg, vg, attn_mask=mask), iters=20)
+                del qg, kg, vg, mask
+            key = name if "k_scale" not in inp else paged_flash.variant(
+                name, inp["k_pool"].dtype)
+            print(f"(c) TP {label} on {card}: {ms * 1e3:.1f} us per call, plain "
+                  f"{plain * 1e3:.1f} us, SDPA on gathered K/V "
+                  f"{'none' if lib is None else f'{lib * 1e3:.1f} us'}, bound "
+                  f"{bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']}: {bd['bytes'] / 1e6:.2f} MB)"
+                  f"; max abs err {err:.2e}")
+            out.setdefault(key, {})[tag] = {
+                "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bd["bound_ms"],
+                "bound_by": bd["bound_by"], "max_abs_err": err}
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_runs(torch, card, tmp, dev="cuda", recipes=True, cpu_ranks=2, serve=None,
+            train=True) -> dict:
     """Phase (c) for Megatron tensor parallelism (``TP``), the ranks of
     ``tp_ranks`` spawned once through ``tools/parallel_check.py``. On one
     card (2 ranks over gloo): T 2 with MHA, with vocab parallelism and
@@ -2671,11 +2898,15 @@ def tp_runs(torch, card, tmp, dev="cuda", recipes=True, cpu_ranks=2) -> dict:
     replicated DP 4, losses and grad norms against the one-card step, step
     p50 against DP 4's, the state shares; then, with ``recipes``, the
     recipe at ``--model-parallel 2``, ``4`` and ``2 --fsdp`` against its
-    one-card run. Then (on a card) kernels 4 and 5 at the TP shapes
-    (``tp_kernel_checks``). Returns the launches for the kernels line and
-    the errors. With ``dev="cpu"`` (a rehearsal) ``cpu_ranks`` ranks (2,
-    or 4 for the 4-card grids) meet over gloo on the CPU and the kernels
-    are not timed."""
+    one-card run. With ``serve`` (None: on a card) and 2 ranks the same
+    spawn also runs the TP serve's cases (``tp_serve_job``, checked by
+    ``tp_serve_checks``); ``train=False`` leaves out the training cases
+    and the recipes. Then (on a card) kernels 4 and 5 at the TP shapes
+    (``tp_kernel_checks``) and kernels 7 and 8 at the serve's
+    (``tp_paged_kernel_checks``). Returns the launches for the kernels
+    line and the errors. With ``dev="cpu"`` (a rehearsal) ``cpu_ranks``
+    ranks (2, or 4 for the 4-card grids) meet over gloo on the CPU and the
+    kernels are not timed."""
     from pytorch_distributed_tpu_torch.ops import flash_attention as fa
     from pytorch_distributed_tpu_torch.tools import parallel_check
     from pytorch_distributed_tpu_torch.train import lm_collate
@@ -2716,6 +2947,11 @@ def tp_runs(torch, card, tmp, dev="cuda", recipes=True, cpu_ranks=2) -> dict:
             "mha": dict(case, model=tp_model(2)),
             "vocab": dict(case, model=tp_model(2, vocab_parallel=True)),
             "gqa": dict(case, model=tp_model(2, **TP_GQA))})}
+    if not train:
+        jobs, recipes = {}, False
+    serve = (dev == "cuda") if serve is None else serve
+    if serve and ranks == 2:
+        jobs["serve"] = tp_serve_job()
     job = dict(task="many", backend=backend, device=dev, timeout_s=TP["timeout_s"],
                schedule=PARALLEL_SCHEDULE, dp=ranks, rendezvous=f"file://{tmp}/rendezvous-tp",
                out=f"{tmp}/tp", jobs=jobs)
@@ -2727,7 +2963,7 @@ def tp_runs(torch, card, tmp, dev="cuda", recipes=True, cpu_ranks=2) -> dict:
 
     tol = {k: tuple(v) for k, v in TP_RTOL.items()}
     errs, shares, launches, step_p50 = {}, {}, [], {}
-    runs = [(j, c) for j in jobs for c in jobs[j]["cases"]]
+    runs = [(j, c) for j in jobs if j != "serve" for c in jobs[j]["cases"]]
     for j, c in runs:
         per_rank = [r[j][c] for r in results]
         t = jobs[j].get("mp", 1)
@@ -2786,6 +3022,9 @@ def tp_runs(torch, card, tmp, dev="cuda", recipes=True, cpu_ranks=2) -> dict:
                   f"{worst} {upd[worst]:.3f} (tol {TP_UPDATE_RTOL}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"{label} parameters")
+    served = {}
+    if "serve" in jobs:
+        served = tp_serve_checks(torch, card, [r["serve"] for r in results], failures, on_card)
     del results
     if four:
         base = step_p50["dp4 replicated"]
@@ -2838,7 +3077,8 @@ def tp_runs(torch, card, tmp, dev="cuda", recipes=True, cpu_ranks=2) -> dict:
             failures.append(f"lm_pretrain {label}: {error}")
         recipe[label] = {"seconds": secs, "loss": summary.get("loss"), "error": error}
 
-    kernels = tp_kernel_checks(torch, card, failures) if dev == "cuda" else {}
+    kernels = tp_kernel_checks(torch, card, failures) if dev == "cuda" and train else {}
+    paged = tp_paged_kernel_checks(torch, card, failures) if dev == "cuda" and serve else {}
     wall = time.perf_counter() - t_phase
     print(f"(c) tensor-parallel phase: {wall:.1f} s")
     if failures:
@@ -2846,7 +3086,9 @@ def tp_runs(torch, card, tmp, dev="cuda", recipes=True, cpu_ranks=2) -> dict:
     flash = {fa.FWD: sum(s_[0] for rank in launches for s_ in rank),
              fa.BWD: sum(s_[1] for rank in launches for s_ in rank)}
     return {"flash_launches": flash, "errs": errs, "state_share": shares,
-            "step_p50": step_p50, "recipe": recipe, "kernels": kernels, "wall_s": wall}
+            "step_p50": step_p50, "recipe": recipe, "kernels": kernels, "wall_s": wall,
+            "serve_launches": served.get("launches", {}), "serve": served.get("cases", {}),
+            "paged_kernels": paged}
 
 
 def parallel_and_tp(torch, card, tmp, dev="cuda") -> dict:
@@ -3031,34 +3273,41 @@ def profiled_busy(torch, cfg, state, prompts, max_new, kw) -> float:
     return busy_share(prof, wall * 1e6)
 
 
-def _busy_child(cfg, prompts, max_new, kws) -> list:
-    """``profiled_busy`` of each serve of ``kws`` in this (spawned)
-    process, on the seed-0 weights."""
+def _busy_child(cfg, prompts, max_new, kws_by_path, weights) -> dict:
+    """``profiled_busy`` of each serve of ``kws_by_path`` in this (spawned)
+    process, in order, on the seed-0 weights main saved to ``weights``
+    (memory-mapped: a full-width draw takes seconds of host time)."""
     import torch
 
-    from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
+    state = torch.load(weights, mmap=True)
+    return {path: [profiled_busy(torch, cfg, state, prompts, max_new, kw) for kw in kws]
+            for path, kws in kws_by_path.items()}
 
-    state = params_from_jax(init_params(cfg, seed=0))
-    return [profiled_busy(torch, cfg, state, prompts, max_new, kw) for kw in kws]
 
-
-def busy_shares(cfg, prompts, max_new, kws_by_path) -> dict:
-    """``profiled_busy`` of the serves of each path (``{path: [kw, ...]}``),
-    each path's in a process of its own, one after the other. Profiled in
-    turns in one process (eager, graphs, eager, graphs), the serves left
-    later traces of that process short of launches, every one, so the
-    paths stay apart, and away from phase (d)'s device times."""
+def busy_shares(cfg, prompts, max_new, kws_by_path, weights) -> dict:
+    """``profiled_busy`` of the serves of each path (``{path: [kw, ...]}``):
+    the eager path's in a process of its own, then every path that replays
+    graphs in one more, in the order given, both away from phase (d)'s
+    device times. Eager and graph serves profiled in turns in one process
+    (eager, graphs, eager, graphs) left that process's later traces short
+    of launches, every one; the graph paths one after another read within
+    the spread of a process each (PERF.md §6), and each process pays its
+    imports, its weights and the profiler's first trace."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
+    groups = [{p: k for p, k in kws_by_path.items() if p == "eager"},
+              {p: k for p, k in kws_by_path.items() if p != "eager"}]
     ctx = multiprocessing.get_context("spawn")
+    out = {}
     with ProcessPoolExecutor(max_workers=1, mp_context=ctx, max_tasks_per_child=1) as ex:
-        futures = {path: ex.submit(_busy_child, cfg, prompts, max_new, kws)
-                   for path, kws in kws_by_path.items()}
-        return {path: f.result() for path, f in futures.items()}
+        for f in [ex.submit(_busy_child, cfg, prompts, max_new, g, weights)
+                  for g in groups if g]:
+            out.update(f.result())
+    return {path: out[path] for path in kws_by_path}
 
 
-def graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, n_blocks,
+def graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, n_blocks, weights,
                dev="cuda") -> dict:
     """(c) the serve's CUDA graphs. The 16 requests on bf16 pools and on
     fp8 pools (``n_blocks`` of them) through the eager path
@@ -3074,7 +3323,9 @@ def graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, n_blocks,
     differently; the sampler draws as ``torch.multinomial`` on the card.
     Fails the run on any difference. The bf16 serve's busy share is also
     taken by the lagged loop (``lagged_drain``), a third path, for
-    ``lifecycle_runs``."""
+    ``lifecycle_runs``, and by a fleet of two replicas under each loop
+    (``fleet_busy``, for ``fleet_line``), in processes that load
+    ``weights``, main's saved copy of ``state``."""
     from pytorch_distributed_tpu_torch.compilecache import serving_registry
     from pytorch_distributed_tpu_torch.models.generate import _sample
     from pytorch_distributed_tpu_torch.ops.attention import NEG_INF
@@ -3085,7 +3336,9 @@ def graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, n_blocks,
     busy = busy_shares(cfg, prompts, max_new, {
         **{path: [{**serve_kw, **extra, "cuda_graphs": path == "graphs"}
                   for _, extra in kinds] for path in ("eager", "graphs")},
-        "lagged": [{**serve_kw, "cuda_graphs": True, "lagged": True}]})
+        "lagged": [{**serve_kw, "cuda_graphs": True, "lagged": True}],
+        **{path: [dict(serve_kw, fleet=dict(n_replicas=2, async_host=path == "fleet_async"))]
+           for path in ("fleet_sync", "fleet_async")}}, weights)
     out = {}
     for i, (kind, extra) in enumerate(kinds):
         runs = {}
@@ -3119,6 +3372,7 @@ def graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, *, n_blocks,
                      ((f"{path}_{name}", x) for name, x in r.items()
                       if name not in ("streams", "launches"))}
     out["bf16"]["lagged_busy"] = busy["lagged"][0]
+    out["fleet_busy"] = {path: busy[path][0] for path in ("fleet_sync", "fleet_async")}
 
     # the warmup itself, its captures program by program
     sched = Scheduler(cfg, state, gather_impl="kernel", **serve_kw)
@@ -4824,20 +5078,18 @@ def fleet_runs(torch, card, cfg, state, prompts, serve_kw, *, kill_tick=40, reci
     return out
 
 
-def _fleet_child(card, cfg, prompts, serve_kw, recipes) -> dict:
+def _fleet_child(card, cfg, prompts, serve_kw, recipes, weights) -> dict:
     """``fleet_runs`` on the card in this (spawned) process, on the seed-0
-    weights, with main's numerics settings."""
+    weights main saved to ``weights``, with main's numerics settings."""
     import torch
-
-    from pytorch_distributed_tpu_torch.models.convert import init_params, params_from_jax
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return fleet_runs(torch, card, cfg, params_from_jax(init_params(cfg, seed=0)), prompts,
-                      serve_kw, recipes=recipes)
+    return fleet_runs(torch, card, cfg, torch.load(weights, mmap=True), prompts, serve_kw,
+                      recipes=recipes)
 
 
-def fleet_phase(card, cfg, prompts, serve_kw, recipes) -> dict:
+def fleet_phase(card, cfg, prompts, serve_kw, recipes, weights) -> dict:
     """``fleet_runs`` in a process of its own, as the data phase runs (its
     profiled serves would otherwise share this process's traces)."""
     import multiprocessing
@@ -4845,16 +5097,16 @@ def fleet_phase(card, cfg, prompts, serve_kw, recipes) -> dict:
 
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=1, mp_context=ctx, max_tasks_per_child=1) as ex:
-        return ex.submit(_fleet_child, card, cfg, prompts, serve_kw, recipes).result()
+        return ex.submit(_fleet_child, card, cfg, prompts, serve_kw, recipes, weights).result()
 
 
 def fleet_line(card, fleet: dict, busy: dict) -> str:
     """The fleet's loops beside one replica's, all in the same call:
     ``fleet["loops"]`` (``fleet_runs``' host-clock and CUDA-event figures
     of one replica and of two by each loop, each run twice, in turns) and
-    ``busy``, the profiled busy shares a process each (``one_step``,
-    ``one_lagged``: ``graph_runs``' one-scheduler serves; ``fleet_sync``,
-    ``fleet_async``)."""
+    ``busy``, the profiled busy shares of ``graph_runs``' graph-path
+    process (``one_step``, ``one_lagged``: one scheduler's serves;
+    ``fleet_sync``, ``fleet_async``)."""
     f = fleet["loops"]
 
     def each(key, scale=1e3, fmt=".3f"):
@@ -4868,7 +5120,7 @@ def fleet_line(card, fleet: dict, busy: dict) -> str:
             f"ms, tok/s {each('tok_per_s', 1, '.1f')}, TTFT p50 {each('ttft_p50_s', 1e3, '.1f')}"
             f" ms, p95 {each('ttft_p95_s', 1e3, '.1f')} ms, busy by CUDA events "
             f"{each('busy_events', 1)}, host syncs a step {each('syncs_per_step', 1, '.4f')}; "
-            f"busy profiled (a process each) one replica {busy['one_step']:.3f} (lagged "
+            f"busy profiled one replica {busy['one_step']:.3f} (lagged "
             f"{busy['one_lagged']:.3f}), fleet {busy['fleet_sync']:.3f} / "
             f"{busy['fleet_async']:.3f}")
 
@@ -5155,9 +5407,17 @@ def main(argv) -> int:
               f"{time.perf_counter() - t_start:.1f}s")
         return 0
 
+    def elapsed(label):
+        print(f"(t) {label}: {time.perf_counter() - t_start:.1f}s since the start")
+
+    elapsed("(a) and (b)")
     # ---- (c) the main path: serve the full-width model ----
     cfg = full_config()
     state = params_from_jax(init_params(cfg, seed=0))
+    # one copy on disk for the spawned serves (``_busy_child``, ``_fleet_child``)
+    weights_dir = tempfile.TemporaryDirectory()
+    weights = os.path.join(weights_dir.name, "lm-seed0.pt")
+    torch.save(state, weights)
     serve_kw = dict(n_slots=8, block_len=16, prefill_chunk=32, device="cuda")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
@@ -5329,7 +5589,8 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
 
     # the serve's CUDA graphs against the eager path, warmup, a sampled serve
-    graphs = graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, n_blocks=n_blocks)
+    graphs = graph_runs(torch, card, serve, cfg, state, prompts, serve_kw, n_blocks=n_blocks,
+                        weights=weights)
 
     # prefix sharing: 16 requests on one 512-token prefix, submitted 4 steps apart
     prng = np.random.default_rng(1)
@@ -5373,22 +5634,22 @@ def main(argv) -> int:
         del sched
         torch.cuda.empty_cache()
 
+    elapsed("the serves")
     # the request lifecycle and the dense decode path
     lifecycle_runs(
         torch, card, serve, cfg, state, prompts, serve_kw,
         pressure_kw={**PRESSURE, "swap_policy": "swap"}, pressure_streams=pressure_streams["swap"],
-        busy=graphs["bf16"], recipe_argv=["--dense"])
+        busy=graphs["bf16"], recipe_argv=["--dense", "--requests", "8"])
 
+    elapsed("the lifecycle")
     # the serving fleet and its gateway, in a process of its own; the
-    # fleets' busy shares a process each, beside one replica's
+    # fleets' busy shares (``graph_runs``) beside one replica's
     torch.cuda.empty_cache()
-    fleet = fleet_phase(card, cfg, prompts, serve_kw, FLEET_RECIPES)
-    fleet_busy = busy_shares(cfg, prompts, max_new, {
-        path: [dict(serve_kw, fleet=dict(n_replicas=2, async_host=path == "fleet_async"))]
-        for path in ("fleet_sync", "fleet_async")})
+    fleet = fleet_phase(card, cfg, prompts, serve_kw, FLEET_RECIPES, weights)
     print(fleet_line(card, fleet, {
         "one_step": graphs["bf16"]["graphs_busy"], "one_lagged": graphs["bf16"]["lagged_busy"],
-        "fleet_sync": fleet_busy["fleet_sync"][0], "fleet_async": fleet_busy["fleet_async"][0]}))
+        **graphs["fleet_busy"]}))
+    weights_dir.cleanup()
     dt8 = kv_pool_dtype("fp8")
     fleet_launches = {**fleet["launches"], **fleet["fp8_launches"]}
     fleet_launches[paged_flash.variant(paged_flash.QUANTIZE, dt8)] = sum(
@@ -5396,6 +5657,7 @@ def main(argv) -> int:
             paged_flash.variant(paged_flash.QUANTIZE, dt8),
             *(paged_flash.append_key(k, dt8) for k in (paged_flash.SWEEP, paged_flash.SPLIT))))
 
+    elapsed("the fleet")
     # ---- (c) the training path: LMTrainer on the full-width model ----
     torch.cuda.empty_cache()
     bsz, seq, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
@@ -5466,6 +5728,7 @@ def main(argv) -> int:
     if not (d_loss <= TRAIN_LOSS_TOL and d_norm <= TRAIN_GRAD_NORM_RTOL):
         raise SystemExit("chip_smoke: the flash training step disagrees with the dense one")
 
+    elapsed("LM training")
     # ---- (c) the model branches: GQA + RoPE served and trained, MoE, dropout, blockwise ----
     with tempfile.TemporaryDirectory() as tmp:
         branches = branches_runs(torch, card, serve, per_tick, {
@@ -5473,32 +5736,39 @@ def main(argv) -> int:
             "step_s": step_s}, prompts, serve_kw, tmp, BRANCH_RECIPE)
     torch.cuda.empty_cache()
 
+    elapsed("the branches")
     # ---- (c) ResNet-50: the fused bf16 trainer, the first step, the recipe ----
     synthetic = resnet_runs(torch, card)
     torch.cuda.empty_cache()
+    elapsed("ResNet-50")
 
     # ---- (c) the input pipeline: raw splits, the loader, ResNet-50 fed from records ----
     data = in_child(data_runs, card, synthetic=synthetic)
+    elapsed("the data phase")
 
     # ---- (c) data-parallel ResNet-50: the ranks, sync-BN, fp16, the recipes ----
     with tempfile.TemporaryDirectory() as tmp:
         dp_runs(torch, card, tmp)
     torch.cuda.empty_cache()
+    elapsed("data parallelism")
 
     # ---- (c) suspend, resume, fallback and rollback in both trainers ----
     with tempfile.TemporaryDirectory() as tmp:
         resume_runs(torch, card, tmp)
     torch.cuda.empty_cache()
+    elapsed("resume")
 
     # ---- (c) the ring: ring_flash_attention and LMTrainer over 2 ranks ----
     with tempfile.TemporaryDirectory() as tmp:
         ring = ring_runs(torch, card, tmp)
     torch.cuda.empty_cache()
+    elapsed("the ring")
 
     # ---- (c) ZeRO-3 FSDP and the GPipe pipeline over the ring's ranks, then
     # Megatron tensor parallelism, with vocab parallelism ----
     phases = in_child(parallel_and_tp, card)
     parallel, tp = phases["parallel"], phases["tp"]
+    elapsed("FSDP, the pipeline and TP")
 
     # ---- (d) times at the decode shape ----
     import torch.nn.functional as F
@@ -5764,6 +6034,7 @@ def main(argv) -> int:
           f"{flash_lib_ms[BWD] * 1e3:.1f} us")
 
     tail_times = time_tail_kernels(torch, card)
+    elapsed("(d)")
 
     # ---- (e) the kernels line; (f) the result ----
     replaces = {
@@ -5771,14 +6042,18 @@ def main(argv) -> int:
         paged_flash.SPLIT: "pytorch_distributed_tpu/ops/paged_flash.py:430",
         paged_flash.QUANTIZE: "pytorch_distributed_tpu/ops/paged_flash.py:563",
     }
-    # every path's launches: the MHA serves' and the model-branches phase's
-    # GQA serves (``gqa_launches`` apart)
+    # every path's launches: the MHA serves', the model-branches phase's
+    # GQA serves (``gqa_launches`` apart) and the TP serve's on every rank
+    # (``tp_serve_launches`` apart)
     kernels = [{
         "name": name, "route": "cuda",
         "source": "pytorch_distributed_tpu_torch/csrc/paged_attention.cu",
         "replaces": replaces[name.split("[")[0]],
-        "launches": launches[name] + branches["launches"].get(name, 0),
+        "launches": (launches[name] + branches["launches"].get(name, 0)
+                     + tp["serve_launches"].get(name, 0)),
         "gqa_launches": branches["launches"].get(name, 0),
+        "tp_serve_launches": tp["serve_launches"].get(name, 0),
+        **({"tp": tp["paged_kernels"][name]} if name in tp["paged_kernels"] else {}),
         "fleet_launches": fleet_launches.get(name, 0), "max_abs_err": errs[name],
         "ms": timed[name], "plain_ms": plains[name],
         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],

@@ -14,14 +14,26 @@ KV cache (``pytorch_distributed_tpu/models/generate.py``).
   (``cache_layout="paged"``, the kernels of ``ops.paged_flash``) or one
   ``max_seq_len`` cache row per slot (``"dense"``).
 
+- ``generate_tp``, ``generate_ragged_tp`` and ``ContinuousBatcher(mesh=)``:
+  the same under Megatron tensor parallelism (a config with ``tp_size`` T
+  and ``model_axis``, and the ``parallel.mesh.Mesh`` whose model axis has
+  T ranks). Every model rank runs the call with the same arguments: it
+  keeps its part of the global ``params`` (``models.convert.tp_parts`` of
+  ``train.lm.tp_layout``; the JAX ``_tp_rules``), its cache holds its
+  H_kv/T heads (the JAX ``_cache_specs``), the model's ``tp_copy`` /
+  ``tp_reduce`` run inside each forward, and the logits come out whole on
+  every rank, so each rank samples the same tokens from a generator seeded
+  the same.
+
 The cache is ``models.transformer.DenseCache`` per layer, written in
 place. The JAX module compiles prefill and a ``lax.scan`` of decode steps
 as one program; here they run as one forward each. ``params`` is a state
-dict of ``TransformerLM`` (``models.convert.params_from_jax``) or the
-built model. The entry points run on CUDA unless ``device="cpu"`` is
-passed. Sampling draws from a ``torch.Generator``, not ``jax.random``, so
-only greedy streams are comparable with the JAX package's. The
-tensor-parallel variants are not ported.
+dict of ``TransformerLM`` (``models.convert.params_from_jax``; under TP the
+global one) or the built model (under TP, a rank's). The entry points run
+on CUDA unless ``device="cpu"`` is passed. Sampling draws from a
+``torch.Generator``, not ``jax.random``, so only greedy streams are
+comparable with the JAX package's; sampled TP streams are comparable with
+the port's replicated ones.
 """
 
 from __future__ import annotations
@@ -80,11 +92,51 @@ def _validate_dense_decode(config) -> None:
             "ring/ring_flash are training-time sequence-parallel layouts")
 
 
-def _validate_serving_config(config) -> None:
-    """The JAX check without its mesh half (tensor-parallel serving is
-    not ported): generation is dense-attention only, because the KV cache
-    is the whole sequence."""
+def _validate_serving_config(config, mesh=None) -> None:
+    """The JAX check (``_validate_serving_config``:282): generation is
+    dense-attention only, because the KV cache is the whole sequence; a
+    mesh needs a TP config, a TP config needs the mesh, and the mesh's
+    model axis must have ``tp_size`` ranks."""
     _validate_dense_decode(config)
+    if mesh is not None and config.model_axis is None:
+        raise ValueError(
+            "a mesh was passed but config.model_axis is unset — serving "
+            "would silently run replicated on one device; set "
+            "model_axis/tp_size (or drop mesh=)")
+    if config.model_axis is not None:
+        if mesh is None:
+            raise ValueError(
+                "a TP config (model_axis set) needs the mesh: pass "
+                "mesh= to ContinuousBatcher/generate_ragged_tp — or "
+                "clear model_axis/tp_size for replicated serving")
+        if mesh.axis_size(config.model_axis) != config.tp_size:
+            raise ValueError(
+                f"mesh {config.model_axis!r} size "
+                f"{mesh.axis_size(config.model_axis)} != tp_size "
+                f"{config.tp_size}")
+
+
+def _require_tp(config, what: str, replicated: str) -> None:
+    if config.model_axis is None or config.tp_size <= 1:
+        raise ValueError(
+            f"{what} needs a TP config (model_axis + tp_size > 1); "
+            f"use {replicated}() for replicated "
+            f"{'decoding' if what == 'generate_tp' else 'serving'}")
+
+
+def tp_state(config, params, mesh) -> dict:
+    """This model rank's state dict from the global one (``params``, e.g.
+    ``params_from_jax``'s): each leaf a Megatron rule of ``config`` claims
+    cut to the rank's part (``train.lm.tp_layout``; the JAX serving
+    ``_tp_rules``), the rest whole. ``params`` itself without TP."""
+    if config.tp_size == 1:
+        return params
+    from pytorch_distributed_tpu_torch.models.convert import tp_parts
+    from pytorch_distributed_tpu_torch.train.lm import tp_layout
+
+    shapes = {k: tuple(v.shape) for k, v in params.items()}
+    owners = tuple(mesh.rank_of(model=i) for i in range(mesh.model.size))
+    return tp_parts(params, tp_layout(config, shapes, mesh.model.index, owners))
 
 
 def _validate_generate_args(config, prompt, max_new_tokens: int, temperature: float,
@@ -112,14 +164,15 @@ def _validate_ragged(config, prompts, max_new_tokens: int, temperature: float = 
             "(static worst case: a request may be full-length)")
 
 
-def _model(config, params, device=None) -> TransformerLM:
+def _model(config, params, device=None, mesh=None) -> TransformerLM:
     """``params`` as a model in eval mode: a ``TransformerLM`` as it is, a
-    state dict loaded into one built on ``device``."""
+    state dict loaded into one built on ``device`` (under TP this rank's
+    part of it, ``tp_state``)."""
     if isinstance(params, TransformerLM):
         return params
     with torch.device(resolve_device(device)):
         model = TransformerLM(config)
-    model.load_state_dict(params)
+    model.load_state_dict(tp_state(config, params, mesh))
     return model.eval().requires_grad_(False)
 
 
@@ -137,9 +190,10 @@ def _generator(device: torch.device, generator: Optional[torch.Generator],
 def init_cache(config, batch_size: int, device=None) -> List[DenseCache]:
     """A zero dense cache: per layer ``DenseCache`` of ``[batch_size,
     max_seq_len, H_kv, D]`` K and V in ``config.dtype`` (H_kv = the
-    config's ``kv_heads``)."""
+    config's ``kv_heads``, a rank's ``kv_heads // tp_size`` under TP)."""
     device = resolve_device(device)
-    shape = (batch_size, config.max_seq_len, config.kv_heads, config.head_dim)
+    shape = (batch_size, config.max_seq_len, config.kv_heads // config.tp_size,
+             config.head_dim)
     return [DenseCache(torch.zeros(shape, dtype=config.dtype, device=device),
                        torch.zeros(shape, dtype=config.dtype, device=device))
             for _ in range(config.num_layers)]
@@ -152,9 +206,42 @@ def generate(config, params, prompt, max_new_tokens: int = 32, temperature: floa
     """Continue ``prompt`` ``[B, L]`` by ``max_new_tokens`` tokens; returns
     ``[B, L + max_new_tokens]`` int32 on the model's device. Temperature 0
     is greedy; otherwise ``generator`` (or one seeded with ``seed``)
-    draws."""
+    draws. A TP config is refused, as in JAX: ``generate_tp``."""
     _validate_generate_args(config, prompt, max_new_tokens, temperature, top_k)
-    model = _model(config, params, device)
+    if config.model_axis is not None:
+        raise ValueError(
+            "generate() runs replicated; for tensor-parallel decoding use "
+            "generate_tp(mesh, config, params, ...) — or clear "
+            "model_axis/tp_size (checkpoints are interchangeable across tp "
+            "degrees, so TP-trained params load into the replicated config)")
+    return _generate_core(config, _model(config, params, device), prompt, max_new_tokens,
+                          temperature, top_k, seed, generator)
+
+
+@torch.no_grad()
+def generate_tp(mesh, config, params, prompt, max_new_tokens: int = 32,
+                temperature: float = 0.0, top_k: Optional[int] = None, *, seed: int = 0,
+                generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+    """Tensor-parallel ``generate`` (JAX ``generate_tp``:147), called on
+    every model rank of ``mesh`` with the same arguments: the rank keeps
+    its part of the global ``params``, its cache holds its heads, and the
+    tokens, sampled on the whole logits every rank holds, come out the same
+    on every rank."""
+    _require_tp(config, "generate_tp", "generate")
+    if mesh.axis_size(config.model_axis) != config.tp_size:
+        raise ValueError(
+            f"mesh {config.model_axis!r} size {mesh.axis_size(config.model_axis)} "
+            f"!= tp_size {config.tp_size}")
+    _validate_generate_args(config, prompt, max_new_tokens, temperature, top_k)
+    return _generate_core(config, _model(config, params, device, mesh), prompt,
+                          max_new_tokens, temperature, top_k, seed, generator)
+
+
+def _generate_core(config, model: TransformerLM, prompt, max_new_tokens: int,
+                   temperature: float, top_k: Optional[int], seed: int,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The prefill and the decode loop (JAX ``_generate_core``), replicated
+    or on a TP rank's model."""
     dev = _device_of(model)
     prompt = torch.as_tensor(prompt, device=dev).long()
     gen = _generator(dev, generator, seed)
@@ -209,7 +296,33 @@ def generate_ragged(config, params, prompts, lengths, max_new_tokens: int = 32,
     max_new_tokens]`` int32, request b's continuation from its own
     position ``lengths[b]``."""
     _validate_ragged(config, prompts, max_new_tokens, temperature, top_k)
-    model = _model(config, params, device)
+    return _ragged_core(config, _model(config, params, device), prompts, lengths,
+                        max_new_tokens, temperature, top_k, seed, generator)
+
+
+@torch.no_grad()
+def generate_ragged_tp(mesh, config, params, prompts, lengths, max_new_tokens: int = 32,
+                       temperature: float = 0.0, top_k: Optional[int] = None, *,
+                       seed: int = 0, generator: Optional[torch.Generator] = None,
+                       device=None) -> torch.Tensor:
+    """Tensor-parallel ``generate_ragged`` (JAX ``generate_ragged_tp``:421),
+    called on every model rank of ``mesh`` with the same arguments (the
+    rank's parameter parts, its heads' cache, the same tokens on every
+    rank)."""
+    _require_tp(config, "generate_ragged_tp", "generate_ragged")
+    _validate_serving_config(config, mesh)
+    _validate_sampling(config, temperature, top_k)
+    if prompts.shape[1] + max_new_tokens > config.max_seq_len:
+        raise ValueError(
+            f"padded prompt length ({prompts.shape[1]}) + max_new_tokens "
+            f"({max_new_tokens}) exceeds max_seq_len {config.max_seq_len}")
+    return _ragged_core(config, _model(config, params, device, mesh), prompts, lengths,
+                        max_new_tokens, temperature, top_k, seed, generator)
+
+
+def _ragged_core(config, model: TransformerLM, prompts, lengths, max_new_tokens: int,
+                 temperature: float, top_k: Optional[int], seed: int,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
     dev = _device_of(model)
     gen = _generator(dev, generator, seed)
     cache, logits = ragged_prefill(config, model, prompts, lengths)
@@ -239,15 +352,23 @@ class ContinuousBatcher:
     cache row per slot: ``submit`` prefills the prompt padded to
     ``prefill_bucket`` into its slot's row, ``step`` decodes every slot
     against its row. Both give the same greedy streams. For queueing
-    instead of a refused submit, use ``serving.Scheduler``."""
+    instead of a refused submit, use ``serving.Scheduler``.
+
+    ``mesh`` (with a TP config): every model rank builds the batcher from
+    the same global ``params`` and drives it with the same calls; it holds
+    its parameter parts and its heads of the cache (either layout; the
+    paged engine's pool is its H_kv/T heads), and every rank steps out the
+    same tokens. ``cuda_graphs`` is the paged engine's (``False`` on a gloo
+    group sharing one card, which stages every collective through the
+    host)."""
 
     def __init__(self, config, params, n_slots: int, temperature: float = 0.0,
                  top_k: Optional[int] = None, prefill_bucket: int = 128, seed: int = 0,
-                 eos_id: Optional[int] = None, cache_layout: str = "paged",
+                 eos_id: Optional[int] = None, mesh=None, cache_layout: str = "paged",
                  block_len: int = 16, n_blocks: Optional[int] = None,
                  gather_impl: Optional[str] = None, kv_dtype: Optional[str] = None,
-                 split_s: Optional[int] = None, device=None):
-        _validate_serving_config(config)
+                 split_s: Optional[int] = None, cuda_graphs: bool = True, device=None):
+        _validate_serving_config(config, mesh)
         _validate_sampling(config, temperature, top_k)
         if eos_id is not None and not 0 <= eos_id < config.vocab_size:
             raise ValueError(
@@ -278,12 +399,12 @@ class ContinuousBatcher:
                 config, params, n_slots, n_blocks=n_blocks, block_len=block_len,
                 prefill_chunk=prefill_bucket, temperature=temperature, top_k=top_k,
                 gather_impl=gather_impl, kv_dtype=kv_dtype, split_s=split_s,
-                seed=seed, device=device)
+                seed=seed, cuda_graphs=cuda_graphs, mesh=mesh, device=device)
             self.config = self.engine.config
             self.device = self.engine.device
             return
         self.engine = None
-        self.model = _model(config, params, device)
+        self.model = _model(config, params, device, mesh)
         self.device = _device_of(self.model)
         self._cache = init_cache(config, n_slots, self.device)
         self._logits = torch.zeros((n_slots, config.vocab_size), dtype=torch.float32,
@@ -293,8 +414,9 @@ class ContinuousBatcher:
     @property
     def cache(self):
         """The KV cache: the block pools under the paged layout (per layer
-        ``[n_blocks, block_len, H, D]``), the per-slot rows (``[n_slots,
-        max_seq_len, H, D]``) under the dense one."""
+        ``[n_blocks, block_len, H_kv, D]``), the per-slot rows (``[n_slots,
+        max_seq_len, H_kv, D]``) under the dense one; a rank's H_kv/T heads
+        under TP."""
         return self.engine.cache if self.engine is not None else self._cache
 
     @property

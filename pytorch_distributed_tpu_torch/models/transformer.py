@@ -80,9 +80,14 @@ What must match the flax module exactly:
   masked and summed by ``tp_reduce``, and its ``lm_head`` V/T rows; the
   logits path gathers the ranks' slices (``tp_all_gather``), the hidden
   state of ``return_hidden`` goes to the fused CE's ``vocab_axis`` with no
-  ``tp_copy`` (the CE sums dx itself). Under TP only training runs: a
-  decode, prefill or paged call raises ``NotImplementedError`` (serving
-  under TP is ROADMAP queue 1 item 6.3), and so do MoE blocks (item 6.4).
+  ``tp_copy`` (the CE sums dx itself). Serving runs under TP too: every
+  cache (``DenseCache``, the paged ``LayerCache``) holds this rank's
+  H_kv/T heads, the attention writes and reads them (through the paged
+  kernels at the local head count; the GQA group H/H_kv is the same on
+  every rank), ``proj``'s ``tp_reduce`` completes each path, and the logits
+  come out whole on every rank (the replicated head after the last
+  ``tp_reduce``, or the vocab slices gathered). MoE blocks under TP raise
+  (ROADMAP queue 1 item 6.4).
 
 Expert parallelism (``ep_size > 1``) is not ported yet and raises
 ``NotImplementedError``.
@@ -123,7 +128,7 @@ class LayerCache(NamedTuple):
     """One layer's KV pools, ``key``/``value`` ``[n_blocks, block_len,
     H_kv, D]``. Quantized pools carry ``key_scale``/``value_scale``
     ``[n_blocks, block_len, H_kv]`` (``serving.kv_pool``); float pools
-    leave them None."""
+    leave them None. Under TP, H_kv is this rank's H_kv/T heads."""
 
     key: torch.Tensor
     value: torch.Tensor
@@ -133,14 +138,15 @@ class LayerCache(NamedTuple):
 
 class DenseCache(NamedTuple):
     """One layer's dense decode cache, ``key``/``value`` ``[B, max_seq_len,
-    H_kv, D]`` in ``config.dtype`` (``models.generate.init_cache``)."""
+    H_kv, D]`` in ``config.dtype`` (``models.generate.init_cache``); under
+    TP this rank's H_kv/T heads."""
 
     key: torch.Tensor
     value: torch.Tensor
 
 
-def _later(what: str, item: str = "6.4") -> str:
-    return f"{what}: not ported yet (ROADMAP.md, queue 1 item {item})"
+def _later(what: str) -> str:
+    return f"{what}: not ported yet (ROADMAP.md, queue 1 item 6.4)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -473,8 +479,7 @@ class Attention(nn.Module):
         if rope is not None:
             q, k = rope_apply(q, rope), rope_apply(k, rope)
         if isinstance(cache, DenseCache):
-            out = self._dense_cached(q, k, v, cache, position_offset, decode)
-            return self.proj(out.reshape(b, l, h * d))
+            return self._out(self._dense_cached(q, k, v, cache, position_offset, decode), tp)
         if cache is None:
             group = h // self.kv_heads
             k, v = repeat_kv(k, group), repeat_kv(v, group)
@@ -495,11 +500,8 @@ class Attention(nn.Module):
             else:
                 out = dense_attention(q, k, v, causal=True, q_offset=position_offset,
                                       k_offset=position_offset)
-            out = self.proj(out.reshape(b, l, h * d))
-            if tp is not None:
-                # row-parallel proj (no bias): the heads' partial sums;
-                # dropout after it, one mask on every model rank
-                out = tp_reduce(out, tp)
+            # dropout after the reduce, one mask on every model rank
+            out = self._out(out, tp)
             return out if drop is None else drop(out)
         k_pool, v_pool, k_scale, v_scale = cache
         # inactive lanes write to the trash block, where clashes are harmless
@@ -510,7 +512,7 @@ class Attention(nn.Module):
 
             out = paged_flash.paged_quantize_scatter_attention(
                 q, k, v, *cache, index.tables, index.positions, split_s=cfg.split_s)
-            return self.proj(out.reshape(b, l, h * d))
+            return self._out(out, tp)
         if k_scale is None:
             k_pool[index.blk, index.off] = k.to(k_pool.dtype)
             v_pool[index.blk, index.off] = v.to(v_pool.dtype)
@@ -521,8 +523,14 @@ class Attention(nn.Module):
         out = paged_attention(q, k_pool, v_pool, index.tables, index.positions,
                               gather_impl=cfg.gather_impl, split_s=cfg.split_s,
                               k_scale=k_scale, v_scale=v_scale)
-        return self.proj(out.reshape(b, l, h * d))
+        return self._out(out, tp)
 
+    def _out(self, out: torch.Tensor, tp) -> torch.Tensor:
+        """The heads' output ``[B, L, H, D]`` through ``proj``; under TP the
+        row-parallel ``proj`` (no bias) gives this rank's partial sum, which
+        ``tp_reduce`` completes."""
+        out = self.proj(out.flatten(2))
+        return out if tp is None else tp_reduce(out, tp)
 
     def _dense_cached(self, q, k, v, cache: DenseCache, position_offset,
                       decode: bool) -> torch.Tensor:
@@ -669,13 +677,13 @@ class TransformerLM(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 return_hidden: bool = False, decode: bool = False,
                 dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.cfg.tp_size > 1 and (cache is not None or decode):
-            raise NotImplementedError(_later(
-                f"decoding, prefill and paged serving with tp_size={self.cfg.tp_size}",
-                "6.3"))
         if cache is None:
             return self._forward_train(tokens, position_offset, positions, return_hidden,
                                        dropout_rng)
+        if self.cfg.tp_size > 1 and self.cfg.model_group().size != self.cfg.tp_size:
+            raise ValueError(
+                f"mesh {self.cfg.model_axis!r} size {self.cfg.model_group().size} != tp_size "
+                f"{self.cfg.tp_size}: the caches hold a rank's H_kv/T heads")
         if block_tables is None:
             return self._forward_dense(tokens, position_offset, cache, decode)
         if len(cache) != self.cfg.num_layers:
@@ -690,7 +698,7 @@ class TransformerLM(nn.Module):
             x = blk(x, index, layer_cache, rope=rope)
         if logits_index is not None:
             x = x[torch.arange(b, device=x.device), logits_index.long()][:, None]
-        return self.lm_head(self.ln_f(x)).float()
+        return self.logits(self.ln_f(x))
 
     def _forward_dense(self, tokens: torch.Tensor, position_offset,
                        cache: List[DenseCache], decode: bool) -> torch.Tensor:
@@ -715,7 +723,7 @@ class TransformerLM(nn.Module):
         x, rope = self.embed(tokens, positions)
         for blk, layer_cache in zip(self.blocks, cache):
             x = blk(x, None, layer_cache, position_offset, decode, rope)
-        return self.lm_head(self.ln_f(x)).float()
+        return self.logits(self.ln_f(x))
 
     def _forward_train(self, tokens: torch.Tensor, position_offset,
                        positions: Optional[torch.Tensor], return_hidden: bool,
@@ -751,11 +759,14 @@ class TransformerLM(nn.Module):
         for blk in self.blocks:
             x = blk(x, position_offset=offset, rope=rope, drop=drop)
         x = self.ln_f(x)
-        if return_hidden:
-            return x
+        return x if return_hidden else self.logits(x)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """fp32 logits ``[..., vocab]`` of the final LayerNorm's output,
+        whole on every model rank: the replicated head, or under vocab
+        parallelism the column-parallel head's slices gathered in rank
+        order."""
         if not self.cfg.uses_vocab_parallel():
             return self.lm_head(x).float()
-        # column-parallel head, then every rank's vocabulary slice in
-        # rank order for the replicated loss
         tp = self.cfg.model_group()
         return tp_all_gather(self.lm_head(tp_copy(x, tp)).float(), tp, dim=-1)

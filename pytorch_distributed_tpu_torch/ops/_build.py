@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` compiles on first use, with ``nvcc`` for Hopper
 ``csrc/build/``; the library is loaded with ``ctypes``. A file that
 includes no PyTorch header builds in seconds, where
 ``torch.utils.cpp_extension.load`` takes minutes. The library's name
-carries a hash of its source and of the headers the sources share
-(``csrc/*.cuh``), so an edited source never loads a stale build.
+carries a hash of the compiler's flags, its source and the headers the
+sources share (``csrc/*.cuh``), so an edited source never loads a stale
+build.
 
 Nothing here runs at import time. A missing ``nvcc`` or a failed build
 raises: no caller falls back to a plain version on a build failure.
@@ -25,9 +26,11 @@ from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
+#: ``--split-compile=0`` runs the device compiler's optimizations on every
+#: core: ``csrc/paged_attention.cu`` holds some 70 kernels (PERF.md §6)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 ]
 
 _lock = threading.Lock()
@@ -58,7 +61,7 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"

@@ -12,9 +12,12 @@ carries the pipeline's stages (``train.pp``) or the Megatron shards of
 tensor parallelism (``parallel.tensor``). ``Mesh.data_seq`` is the group
 of the (data, seq) points of this rank's model index: the JAX steps'
 ``psum`` over ``(data, seq)``, which leaves the model axis alone (the
-whole job when the model axis has size 1). Every rank must call
-``make_mesh`` with the same sizes, as ``torch.distributed.new_group``
-requires.
+whole job when the model axis has size 1). ``Mesh.model_cpu`` is the
+model axis over gloo (the model group itself on a gloo job, else a gloo
+group of the same ranks), for host values the model ranks exchange (the
+tensor-parallel serve's rank-0 readings, ``serving.scheduler``). Every
+rank must call ``make_mesh`` with the same sizes, as
+``torch.distributed.new_group`` requires.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ class Mesh:
     model: AxisGroup = _ONE
     #: the (data, seq) points of this rank's model index, index d·S + s
     data_seq: Optional[AxisGroup] = None
+    #: the model axis over gloo (host values); None for an axis of size 1
+    model_cpu: Optional[AxisGroup] = None
 
     def __post_init__(self):
         if self.data_seq is None:  # a hand-made mesh: no model axis
@@ -63,6 +68,12 @@ class Mesh:
     def rank_of(self, data: int = 0, seq: int = 0, model: int = 0) -> int:
         """The global rank at grid point ``(data, seq, model)``."""
         return (data * self.seq.size + seq) * self.model.size + model
+
+    def axis_size(self, name: str) -> Optional[int]:
+        """The size of the axis registered under ``name`` (None for a name
+        the grid has not): the JAX ``mesh.shape.get(name)``."""
+        return {DATA_AXIS: self.data.size, SEQ_AXIS: self.seq.size,
+                MODEL_AXIS: self.model.size}.get(name)
 
 
 def make_mesh(data_parallel: int, seq_parallel: int = 1, model_parallel: int = 1) -> Mesh:
@@ -107,7 +118,21 @@ def make_mesh(data_parallel: int, seq_parallel: int = 1, model_parallel: int = 1
             g = dist.new_group(line) if n > 1 else None
             if rank in line:
                 plane = g
-    mesh = Mesh(*axes, data_seq=AxisGroup(plane, n, mine[0] * seq_parallel + mine[1]))
+    model_cpu = None
+    if model_parallel > 1:
+        # the model lines again over gloo, unless the job's backend is gloo
+        cpu = axes[2].group
+        if dist.get_backend() != dist.Backend.GLOO:
+            for a in range(data_parallel):
+                for b in range(seq_parallel):
+                    line = [(a * seq_parallel + b) * model_parallel + m
+                            for m in range(model_parallel)]
+                    g = dist.new_group(line, backend="gloo")
+                    if rank in line:
+                        cpu = g
+        model_cpu = AxisGroup(cpu, model_parallel, mine[2])
+    mesh = Mesh(*axes, data_seq=AxisGroup(plane, n, mine[0] * seq_parallel + mine[1]),
+                model_cpu=model_cpu)
     _groups[DATA_AXIS], _groups[SEQ_AXIS], _groups[MODEL_AXIS] = axes
     return mesh
 

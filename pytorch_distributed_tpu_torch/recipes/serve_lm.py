@@ -47,15 +47,35 @@ depth). ``--http-port`` serves the HTTP/SSE gateway for
 ``--http-duration`` seconds instead (the lagged loop, results dropped as
 they stream; port 0 picks a free one, printed on the ``gateway:`` line).
 
+``--tp T`` serves under Megatron tensor parallelism: T ranks, spawned
+here, each build ``parallel.mesh.make_mesh(1, 1, T)`` and run the same
+``Scheduler(mesh=)`` on the same prompts, each holding its parts of the
+weights and an H_kv/T-head pool; ``--vocab-parallel`` also splits the
+embedding and the LM head's vocabulary. On CUDA a rank takes a card and
+talks NCCL (T above the visible cards is refused); with ``--device cpu``
+T gloo ranks share the host. Rank 0 prints the metrics, after every
+rank's streams are gathered and found equal (``streams_sha256`` in the
+metrics is their digest, the same at every ``--tp``). As in JAX, ``--tp``
+refuses ``--dense`` and the fleet's flags:
+
+    python -m pytorch_distributed_tpu_torch.recipes.serve_lm --tp 2 --warmup
+    python -m pytorch_distributed_tpu_torch.recipes.serve_lm --device cpu --tiny --tp 2 \
+        --kv-dtype fp8 --prefix-cache
+
 Without ``--device`` it runs on CUDA and fails where there is none.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
 import json
+import os
+import sys
+import tempfile
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -66,6 +86,8 @@ from pytorch_distributed_tpu_torch.models.transformer import (
     TransformerConfig,
     tiny_config,
 )
+from pytorch_distributed_tpu_torch.parallel import distributed
+from pytorch_distributed_tpu_torch.parallel.mesh import make_mesh
 from pytorch_distributed_tpu_torch.serving import Scheduler
 
 FLEET_FLAGS = ("--replicas", "--disaggregate", "--async-host", "--trace", "--http-port")
@@ -87,6 +109,9 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--requests", type=int, default=24)
     p.add_argument("--slots", type=int, default=8, help="decode lanes")
     p.add_argument("--max-new", type=int, default=16, help="decode budget per request")
+    p.add_argument("--prompt-range", type=int, nargs=2, default=None, metavar=("MIN", "MAX"),
+                   help="prompt lengths drawn from [MIN, MAX) (default: [4, max_seq_len - "
+                        "max_new))")
     p.add_argument("--block-len", type=int, default=16)
     p.add_argument("--n-blocks", type=int, default=None,
                    help="KV pool blocks (default: every slot can hold "
@@ -119,6 +144,12 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="serve through the dense-cache ContinuousBatcher (one "
                         "max_seq_len row per slot) instead of the paged scheduler")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tp", type=int, default=1,
+                   help="serve under tensor parallelism over this many ranks (a card "
+                        "each on CUDA, gloo ranks with --device cpu)")
+    p.add_argument("--vocab-parallel", action="store_true",
+                   help="with --tp > 1: split the embedding's and the LM head's "
+                        "vocabulary over the ranks too")
     p.add_argument("--replicas", type=int, default=1,
                    help="serve through a FleetRouter with this many replicas (session "
                         "affinity, the SLO gate); 1 without another fleet flag keeps the "
@@ -160,12 +191,24 @@ def _parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
         if pool_flags:
             p.error(f"{', '.join(pool_flags)}: block-pool knobs (the dense layout has "
                     "no program registry, block pool or chain sweep); drop --dense")
+    # the JAX recipe's refusals (recipes/serve_lm.py:363-365, :479-481)
+    if args.tp < 1:
+        raise SystemExit(f"--tp must be >= 1, got {args.tp}")
+    if args.fleet and args.tp > 1:
+        raise SystemExit("fleet replicas are single-device in this "
+                         "round; drop --tp or --replicas")
+    if args.dense and args.tp > 1:
+        raise SystemExit("--tp > 1 needs the paged layout; drop "
+                         "--dense")
+    if args.vocab_parallel and args.tp <= 1:
+        raise SystemExit("--vocab-parallel needs --tp > 1")
     return args
 
 
 def _prompts(args, cfg) -> List[np.ndarray]:
     rng = np.random.default_rng(args.seed)
-    lens = rng.integers(4, cfg.max_seq_len - args.max_new, size=args.requests)
+    lo, hi = args.prompt_range or (4, cfg.max_seq_len - args.max_new)
+    lens = rng.integers(lo, hi, size=args.requests)
     return [rng.integers(1, cfg.vocab_size, size=l).astype(np.int32) for l in lens]
 
 
@@ -256,10 +299,116 @@ def _serve_fleet(args, cfg, t0: float) -> dict:
             **router.metrics(), "wall_s": time.perf_counter() - t0}
 
 
+def streams_digest(streams: Dict[int, List[int]]) -> str:
+    """SHA-256 of the streams in rid order: equal digests, equal streams."""
+    h = hashlib.sha256()
+    for rid in sorted(streams):
+        h.update(np.asarray([rid, len(streams[rid]), *streams[rid]], np.int64).tobytes())
+    return h.hexdigest()
+
+
+def _serve_paged(args, cfg, t0: float, device=None, mesh=None) -> dict:
+    """The prompts through ``serving.Scheduler`` (on this model rank of
+    ``mesh`` under TP); its metrics, the pool's bytes and the streams'
+    digest, with the streams under ``"streams"`` (``main`` returns them
+    and prints the rest)."""
+    s = Scheduler(
+        cfg, params_from_jax(init_params(cfg, args.seed)), n_slots=args.slots,
+        block_len=args.block_len, prefill_chunk=args.prefill_chunk,
+        n_blocks=args.n_blocks, admit_per_step=args.admit_per_step,
+        seed=args.seed, gather_impl=args.gather_impl, split_s=args.split_s,
+        kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
+        offload=args.preempt, preempt_on_oom=args.preempt,
+        swap_policy=args.swap_policy, mesh=mesh, device=device,
+    )
+    if args.warmup:
+        # everything in the foreground, each run inert first: every
+        # request that follows is warm
+        ws = s.warmup(background=False).summary()
+        if distributed.is_primary():
+            print(f"warmup: {ws['programs']} programs in {ws['total_s']:.2f}s "
+                  f"({ws['backend_compile_s']:.2f}s of capture)")
+    for prompt in _prompts(args, cfg):
+        s.submit(prompt, args.max_new)
+    streams = s.drain()
+    if len(streams) != args.requests:
+        raise RuntimeError(f"served {len(streams)} of {args.requests} requests")
+    pool = sum(t.numel() * t.element_size() for layer in s.engine.cache for t in layer
+               if t is not None)
+    return {"layout": "paged", "device": str(s.engine.device), "tp": cfg.tp_size,
+            **s.metrics(), "pool_bytes": pool, "streams_sha256": streams_digest(streams),
+            "wall_s": time.perf_counter() - t0, "streams": streams}
+
+
+def _rank_main(local_rank: int, argv: List[str], rendezvous: str, result: str) -> None:
+    """One tensor-parallel rank: join the group, take a card (or the CPU),
+    serve; rank 0 checks every rank's streams equal and writes the
+    metrics to ``result``."""
+    args = _parse(argv)
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    distributed.init_process_group(backend, init_method=rendezvous, world_size=args.tp,
+                                   rank=local_rank)
+    try:
+        device = distributed.rank_device(args.device or "cuda", local_rank)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        else:
+            torch.set_num_threads(1)  # the ranks share the host's cores
+        mesh = make_mesh(1, 1, args.tp)
+        t0 = time.perf_counter()
+        metrics = _serve_paged(args, _config(args), t0, device=device, mesh=mesh)
+        streams = metrics["streams"]
+        every: List[Optional[dict]] = [None] * args.tp
+        torch.distributed.all_gather_object(every, streams, group=mesh.model_cpu.group)
+        if distributed.is_primary():
+            if any(other != streams for other in every):
+                raise RuntimeError("the tensor-parallel ranks' streams differ: "
+                                   + str([streams_digest(x) for x in every]))
+            with open(result, "w") as f:
+                json.dump(dict(metrics, ranks_equal=True), f)
+    finally:
+        distributed.destroy_process_group()
+
+
+def _serve_tp(args, argv: List[str]) -> dict:
+    """``--tp`` T ranks spawned over a ``file://`` rendezvous; rank 0's
+    metrics."""
+    if args.device != "cpu":
+        cards = torch.cuda.device_count()
+        if args.tp > cards:
+            raise SystemExit(
+                f"--tp {args.tp} needs a card per rank (NCCL puts one rank on a card), "
+                f"and {cards} are visible; use fewer, or --device cpu to run the ranks "
+                "over gloo")
+        from pytorch_distributed_tpu_torch.ops import _build
+
+        _build.build(["paged_attention"])  # here, so the ranks only load it
+    with tempfile.TemporaryDirectory() as tmp:
+        result = os.path.join(tmp, "metrics.json")
+        distributed.spawn(_rank_main, args.tp,
+                          (argv, f"file://{os.path.join(tmp, 'rendezvous')}", result))
+        with open(result) as f:
+            metrics = json.load(f)
+    metrics["streams"] = {int(rid): toks for rid, toks in metrics["streams"].items()}
+    return metrics
+
+
+def _config(args) -> TransformerConfig:
+    cfg = tiny_config(max_seq_len=128) if args.tiny else full_config()
+    if args.tp > 1:
+        cfg = dataclasses.replace(cfg, tp_size=args.tp, model_axis="model",
+                                  vocab_parallel=args.vocab_parallel)
+    return cfg
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     args = _parse(argv)
-    cfg = tiny_config(max_seq_len=128) if args.tiny else full_config()
+    cfg = _config(args)
     t0 = time.perf_counter()
+    if args.tp > 1:
+        metrics = _serve_tp(args, list(argv if argv is not None else sys.argv[1:]))
+        print(json.dumps({k: v for k, v in metrics.items() if k != "streams"}, indent=2))
+        return metrics
     if args.fleet:
         metrics = _serve_fleet(args, cfg, t0)
         print(json.dumps(metrics, indent=2))
@@ -270,29 +419,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
             raise RuntimeError(f"served {metrics['completed']} of {args.requests} requests")
         print(json.dumps(metrics, indent=2))
         return metrics
-    s = Scheduler(
-        cfg, params_from_jax(init_params(cfg, args.seed)), n_slots=args.slots,
-        block_len=args.block_len, prefill_chunk=args.prefill_chunk,
-        n_blocks=args.n_blocks, admit_per_step=args.admit_per_step,
-        seed=args.seed, gather_impl=args.gather_impl, split_s=args.split_s,
-        kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
-        offload=args.preempt, preempt_on_oom=args.preempt,
-        swap_policy=args.swap_policy, device=args.device,
-    )
-    if args.warmup:
-        # everything in the foreground, each run inert first: every
-        # request that follows is warm
-        ws = s.warmup(background=False).summary()
-        print(f"warmup: {ws['programs']} programs in {ws['total_s']:.2f}s "
-              f"({ws['backend_compile_s']:.2f}s of capture)")
-    for prompt in _prompts(args, cfg):
-        s.submit(prompt, args.max_new)
-    streams = s.drain()
-    if len(streams) != args.requests:
-        raise RuntimeError(f"served {len(streams)} of {args.requests} requests")
-    metrics = {"layout": "paged", "device": str(s.engine.device), **s.metrics(),
-               "wall_s": time.perf_counter() - t0}
-    print(json.dumps(metrics, indent=2))
+    metrics = _serve_paged(args, cfg, t0, device=args.device)
+    print(json.dumps({k: v for k, v in metrics.items() if k != "streams"}, indent=2))
     return metrics
 
 

@@ -55,6 +55,22 @@ The JAX engine donates the pool and the logits buffer to its programs;
 here the model writes the pools in place and the engine writes new
 logits rows into its buffer in place, so neither is ever copied whole.
 
+**Tensor parallelism** (``mesh=``, a config with ``tp_size`` T; JAX
+``PagedEngine(mesh=)``, whose programs run under ``shard_map``): every
+model rank of the mesh builds the engine from the same global weights and
+makes the same calls in the same order. A rank holds its parameter parts
+(``models.generate.tp_state``) and a pool of its H_kv/T heads (the JAX
+``paged_cache_specs``), so the chunk and decode programs run the paged
+kernels at the local head count with the model's ``tp_copy`` /
+``tp_reduce`` inside, and every rank holds the same logits, samples the
+same tokens and keeps the same allocator and tables. Block copies and
+swaps move the rank's head shard; the fleet's handoff is refused (the JAX
+fleet refuses TP). A graph's NCCL collectives are captured with it on the
+capture stream, after one all-reduce outside any capture has created the
+communicator; a gloo group of ranks sharing one card stages every
+collective through the host, which no graph can hold, so graphs are
+refused there (``cuda_graphs=False`` runs it eagerly).
+
 The engine owns the pools, the logits buffer, the allocator and the
 tables; the caller (``serving.scheduler.Scheduler``) decides what to
 admit and when to decode.
@@ -71,6 +87,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.ops import paged_flash
@@ -79,8 +96,10 @@ from pytorch_distributed_tpu_torch.models.generate import (
     _sample,
     _validate_sampling,
     _validate_serving_config,
+    tp_state,
 )
 from pytorch_distributed_tpu_torch.models.transformer import TransformerLM
+from pytorch_distributed_tpu_torch.parallel.collectives import all_reduce_
 from pytorch_distributed_tpu_torch.serving.kv_pool import (
     KV_DTYPES,
     SWAPPING_IN,
@@ -218,7 +237,9 @@ class PagedEngine:
     fleet's replicas on one card share one copy of the weights).
     ``seed`` seeds the engine's sampling generator.
     ``cuda_graphs=False`` runs the programs eagerly on CUDA too: a switch
-    for comparisons, like ``gather_impl="dense"``.
+    for comparisons, like ``gather_impl="dense"``. ``mesh`` serves a TP
+    config on this model rank (module docstring; ``params`` the global
+    state dict, or a ``TransformerLM`` at the rank's shapes).
 
     Every program the engine can run is enumerable ahead of traffic
     (``chunk_buckets``, the decode tick, ``handoff_buckets``,
@@ -240,9 +261,10 @@ class PagedEngine:
                  kv_dtype: Optional[str] = None,
                  prefix_cache: bool = False, swap: bool = False,
                  handoff: bool = False, split_s: Optional[int] = None, seed: int = 0,
-                 cuda_graphs: bool = True, device=None):
-        _validate_serving_config(config)
+                 cuda_graphs: bool = True, mesh=None, device=None):
+        _validate_serving_config(config, mesh)
         _validate_sampling(config, temperature, top_k)
+        self.tp = config.model_group() if config.tp_size > 1 else None
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if n_slots < 1:
@@ -254,6 +276,12 @@ class PagedEngine:
         if split_s is not None and split_s != config.split_s:
             config = dataclasses.replace(config, split_s=split_s)
         self.device = resolve_device(device)
+        if (self.tp is not None and cuda_graphs and self.device.type == "cuda"
+                and dist.get_backend(self.tp.group) == dist.Backend.GLOO):
+            raise ValueError(
+                "cuda_graphs=True on a gloo model group: its ranks share a card and every "
+                "tp_reduce is staged through the host, which no CUDA graph can hold; build "
+                "the engine with cuda_graphs=False (or give each rank a card over NCCL)")
         self.config = config
         self.kv_dtype = kv_dtype
         self.n_slots = n_slots
@@ -308,7 +336,7 @@ class PagedEngine:
         else:
             with torch.device(self.device):
                 model = TransformerLM(config)
-            model.load_state_dict(params)
+            model.load_state_dict(tp_state(config, params, mesh))
             self.model = model.eval().requires_grad_(False)
 
     def _on_card(self):
@@ -607,12 +635,20 @@ class PagedEngine:
                 "predict kv_export/kv_import (fleet routers enable it on every replica "
                 "they own)")
 
+    def _refuse_tp(self, what: str) -> None:
+        if self.tp is not None:
+            raise RuntimeError(
+                f"{what}: a tensor-parallel engine holds one head shard of each chain; the "
+                "fleet's handoff moves whole chains between single-device replicas (the "
+                "fleet refuses tensor parallelism)")
+
     def export_chain(self, slot: int) -> KVExport:
         """Detach ``slot``'s KV for another engine's pool: gather the chain's
         blocks from every pool tensor (K and V, and the scales of a
         quantized pool) and the slot's logits row, then record an event.
         A pure read: the slot stays resident until ``release``, so an
         import that fails leaves this export valid for a retry."""
+        self._refuse_tp("export_chain")
         self._require_handoff()
         # before the chain is read: the fleet counts the source as failed
         fault_point("serve.handoff_export")
@@ -643,6 +679,7 @@ class PagedEngine:
         unchanged, when the pool cannot supply the chain: the caller keeps
         the export and retries. A failure after the allocation frees the
         fresh chain and raises, the export still valid."""
+        self._refuse_tp("import_chain")
         self._require_handoff()
         # before any block is allocated here: the source stays exportable
         fault_point("serve.handoff_import")
@@ -981,17 +1018,22 @@ class PagedEngine:
     def _begin_capturing(self) -> None:
         """Once, before the first capture: the shared pool, the capture
         stream, cuBLAS's handle and workspace on that stream (created by a
-        product outside any capture), and the paged kernels' library and
-        split scratch sized for every program (``reserve_split_buffers``)."""
+        product outside any capture), under TP the model group's NCCL
+        communicator (an all-reduce on that stream: every rank reaches its
+        first capture at the same call), and the paged kernels' library and
+        split scratch sized for every program at the rank's heads
+        (``reserve_split_buffers``)."""
         self._pool = torch.cuda.graph_pool_handle()
         self._capture_stream = torch.cuda.Stream(self.device)
         dt = self.config.dtype
         with torch.cuda.stream(self._capture_stream), torch.no_grad():
             x = torch.ones((16, 16), dtype=dt, device=self.device)
             torch.nn.functional.linear(x, x, x[0])
+            if self.tp is not None:
+                all_reduce_(x, group=self.tp.group)
         self._capture_stream.synchronize()
         if self.config.gather_impl == "kernel":
-            h = self.config.num_heads
+            h = self.config.num_heads // self.config.tp_size
             calls = [(self.n_slots, 1, h, self.table_width, self.config.split_s)]
             calls += [(k, self.chunk, h, w, self.config.split_s)
                       for k, w in self.chunk_buckets()]
@@ -1018,9 +1060,13 @@ class PagedEngine:
             graph.register_generator_state(self.generator)
         snap = paged_flash.launch_snapshot()
         t0 = time.perf_counter()
+        # under TP, NCCL's watchdog thread queries its events while this
+        # thread captures: only this thread's calls are checked
+        mode = "global" if self.tp is None else "thread_local"
         try:
             with torch.no_grad(), torch.cuda.graph(graph, pool=self._pool,
-                                                   stream=self._capture_stream):
+                                                   stream=self._capture_stream,
+                                                   capture_error_mode=mode):
                 body(prog.views)
             prog.launches = paged_flash.launches_since(snap)
         finally:

@@ -305,12 +305,15 @@ def init_paged_cache(config, n_blocks: int, block_len: int,
     layer, key and value ``[n_blocks, block_len, H_kv, D]`` in
     ``config.dtype``, or in the ``kv_dtype`` storage dtype with scales
     ``[n_blocks, block_len, H_kv]`` (fp32 for int8, int8 exponents for
-    fp8)."""
+    fp8). Under tensor parallelism (``config.tp_size`` T) H_kv is a
+    rank's ``kv_heads // T`` heads, the JAX ``paged_cache_specs`` split of
+    the head dim (the scales' last): a rank's pool is 1/T of the
+    replicated pool's bytes."""
     if block_len < 1:
         raise ValueError(f"block_len must be >= 1, got {block_len}")
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype {kv_dtype!r} must be one of {KV_DTYPES}")
-    shape = (n_blocks, block_len, config.kv_heads, config.head_dim)
+    shape = (n_blocks, block_len, config.kv_heads // config.tp_size, config.head_dim)
     if kv_dtype is None:
         return [LayerCache(torch.zeros(shape, dtype=config.dtype, device=device),
                            torch.zeros(shape, dtype=config.dtype, device=device))
@@ -326,7 +329,7 @@ def init_paged_cache(config, n_blocks: int, block_len: int,
 
 def pool_block_bytes(config, block_len: int, kv_dtype: Optional[str] = None) -> int:
     """Bytes one pool block costs across every layer (K, V and any scales):
-    the unit a fixed pool budget divides by."""
+    the unit a fixed pool budget divides by (a rank's, under TP)."""
     cache = init_paged_cache(config, 1, block_len, kv_dtype, device="meta")
     return sum(t.numel() * t.element_size()
                for layer in cache for t in layer if t is not None)

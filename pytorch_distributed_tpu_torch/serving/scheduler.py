@@ -76,6 +76,24 @@ the swaps and ``serve.handoff_*`` in the handoff. A failed swap-out
 reverts the preemption; a failed swap-in leaves the request parked with
 its host copy, retried the next tick.
 
+- **tensor parallelism** (``mesh=``, a config with ``tp_size`` T; JAX
+  ``Scheduler(mesh=)``): every model rank runs its own scheduler over its
+  ``PagedEngine(mesh=)`` and receives the same submissions in the same
+  order. The ranks' collectives pair only if every host decision agrees,
+  yet JAX has one host process and the port has T, each with its own
+  clock and measurements. So the decisions that read them are the
+  leader's, model rank 0's: at the top of each dispatch (while a live
+  request has a deadline, or under ``offload``) rank 0 reads the deadline
+  sweep's expired rids (its clock against its deadlines), its mean chunk
+  wall and its host link rates (the swap-versus-recompute inputs), and
+  broadcasts them once over the model axis's gloo group
+  (``Mesh.model_cpu``); every rank, rank 0 too, decides from that one
+  reading. The LRU victims are ordered by a host event sequence (the
+  admission or collect that last served a request), which orders them as
+  one process's wall clock does and is the same on every rank.
+  ``warmup`` captures every program in the foreground, in the registry's
+  order, on every rank.
+
 Metrics are exact host-side counters and latency series. The flight
 recorder, request tracing, the block sanitizer and the anomaly sentinel
 are not ported yet.
@@ -84,6 +102,7 @@ are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import threading
 import time
@@ -91,17 +110,21 @@ from collections import deque
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from pytorch_distributed_tpu_torch.resilience.faults import fault_point
 from pytorch_distributed_tpu_torch.serving.engine import ChunkJob, PagedEngine
 from pytorch_distributed_tpu_torch.serving.kv_pool import HostBlockStore
 from pytorch_distributed_tpu_torch.telemetry.costmodel import (
     SwapDecision,
+    link_bandwidth,
     swap_vs_recompute,
 )
 from pytorch_distributed_tpu_torch.telemetry.latency import LatencySeries, percentiles
 
 SWAP_POLICIES = ("auto", "swap", "recompute")
+#: the process's host events (admissions, collects), in program order
+_HOST_EVENTS = itertools.count()
 
 
 @dataclasses.dataclass
@@ -137,6 +160,9 @@ class Request:
     # (a re-dispatch rebuilds the original prompt from it)
     session: Optional[int] = None
     orig_len: int = 0
+    # the host event (an admission, a collect) that last served it: the
+    # LRU victims' order, the same on every model rank
+    served_seq: int = -1
 
     @property
     def length(self) -> int:
@@ -158,6 +184,17 @@ class TickHandle(NamedTuple):
     cold_decode: bool
 
 
+class HostReadings(NamedTuple):
+    """What model rank 0 read at the top of a dispatch, for every rank to
+    decide from (module docstring): the rids whose deadline passed, the
+    mean wall of a warm chunk call (None before one), and the host link's
+    ``(h2d, d2h)`` bytes/s (None where unmeasured)."""
+
+    expired: Tuple[int, ...]
+    chunk_wall_s: Optional[float]
+    link: Tuple[Optional[float], Optional[float]]
+
+
 class Scheduler:
     """``submit`` enqueues, ``step`` advances the system one tick and
     returns ``[(rid, token)]`` for the tokens it produced (or
@@ -167,7 +204,8 @@ class Scheduler:
     greedy). ``host_store_max_bytes`` bounds the host tier.
     ``cuda_graphs=False`` runs the engine's programs eagerly (a switch for
     comparisons). ``replica_id``, ``prefill_only``, ``handoff`` and
-    ``host_pool`` are the fleet router's (module docstring)."""
+    ``host_pool`` are the fleet router's (module docstring). ``mesh``
+    serves a TP config on this model rank (module docstring)."""
 
     def __init__(self, config, params, n_slots: int, *,
                  n_blocks: Optional[int] = None, block_len: int = 16,
@@ -181,7 +219,7 @@ class Scheduler:
                  swap_policy: str = "auto", protect_ticks: int = 2,
                  host_store_max_bytes: Optional[int] = None,
                  split_s: Optional[int] = None, cuda_graphs: bool = True,
-                 device=None, replica_id: int = 0, prefill_only: bool = False,
+                 mesh=None, device=None, replica_id: int = 0, prefill_only: bool = False,
                  handoff: bool = False, host_pool=None):
         if swap_policy not in SWAP_POLICIES:
             raise ValueError(f"swap_policy {swap_policy!r} must be auto|swap|recompute")
@@ -197,8 +235,15 @@ class Scheduler:
             prefill_chunk=prefill_chunk, temperature=temperature, top_k=top_k,
             gather_impl=gather_impl, kv_dtype=kv_dtype, prefix_cache=prefix_cache,
             swap=offload, handoff=handoff or prefill_only, split_s=split_s, seed=seed,
-            cuda_graphs=cuda_graphs, device=device,
+            cuda_graphs=cuda_graphs, mesh=mesh, device=device,
         )
+        # under TP: the model axis's gloo group and its rank 0 (the
+        # leader), whose readings every rank decides from
+        self._readings_group = None
+        if self.engine.tp is not None:
+            self._readings_group = mesh.model_cpu.group
+            self._leader = mesh.rank_of(data=mesh.data.index, seq=mesh.seq.index, model=0)
+        self._readings: Optional[HostReadings] = None
         # the engine may have replaced gather_impl/split_s into the config
         self.config = self.engine.config
         self.n_slots = n_slots
@@ -290,10 +335,15 @@ class Scheduler:
         run inert, then are captured, now; with ``background=True`` the
         other buckets are captured at their first use or by the runner's
         ``wait()``, which the serving thread calls between steps. ``background=False`` prepares everything now,
-        each run inert first: no request is cold. Returns the
-        ``compilecache.WarmupRunner`` (``records``, ``summary()``)."""
+        each run inert first: no request is cold. Under TP everything is
+        prepared now whatever ``background`` says, in the registry's order
+        on every rank (an inert run's collectives pair with the other
+        ranks'). Returns the ``compilecache.WarmupRunner`` (``records``,
+        ``summary()``)."""
         from pytorch_distributed_tpu_torch.compilecache import WarmupRunner, serving_registry
 
+        if self.engine.tp is not None:
+            background = False
         return WarmupRunner(serving_registry(self.engine)).run(background=background)
 
     def submit(self, prompt, max_new_tokens: int, *,
@@ -373,6 +423,7 @@ class Scheduler:
         free = self._free_slots()
         admitted = 0
         now = time.perf_counter()
+        seq = self._next_event()
         while self.queue and free and admitted < self.admit_per_step:
             req = self.queue[0]
             slot = free[0]
@@ -390,6 +441,8 @@ class Scheduler:
             self.queue.popleft()
             free.pop(0)
             req.admit_time = now
+            if math.isnan(req.last_token_time):
+                req.served_seq = seq
             self._place(req, slot, hit)
             self._admitted += 1
             self._adm_latency_steps += self._step_count - req.submit_step
@@ -399,10 +452,18 @@ class Scheduler:
 
     # ---- the pressure tier: preempt, park, restore ----
 
-    def _victims(self) -> List[Tuple[float, int, int]]:
-        """``(last token time, rid, slot)`` of the preemptible requests,
-        least recently served first: decoding (not handoff-ready), not mid
-        swap-out, and out of their post-restore protection."""
+    @staticmethod
+    def _next_event() -> int:
+        """The next host event of this process (one sequence for every
+        scheduler in it, as its wall clock is one)."""
+        return next(_HOST_EVENTS)
+
+    def _victims(self) -> List[Tuple[int, int, int]]:
+        """``(served_seq, rid, slot)`` of the preemptible requests, least
+        recently served first (the host event of the last token, else of
+        the admission: the order of their wall times in one process, and
+        the same on every model rank): decoding (not handoff-ready), not
+        mid swap-out, and out of their post-restore protection."""
         if not self.offload:
             return []
         out = []
@@ -413,8 +474,7 @@ class Scheduler:
                 continue  # held for the fleet's handoff
             if self._step_count < req.protect_until:
                 continue
-            last = req.last_token_time
-            out.append((req.admit_time if math.isnan(last) else last, req.rid, slot))
+            out.append((req.served_seq, req.rid, slot))
         out.sort()
         return out
 
@@ -427,9 +487,15 @@ class Scheduler:
         bytes_to_move = self.engine.chain_bytes(len(self.engine.allocator.chain(slot)))
         seq_len = req.length + len(req.generated or ())
         c = self.engine.chunk
-        chunk_wall = self._chunk_wall_s / self._chunk_calls if self._chunk_calls else None
+        if self._readings_group is not None:
+            # the leader's measurements (module docstring)
+            chunk_wall, (h2d, d2h) = self._readings.chunk_wall_s, self._readings.link
+        else:
+            chunk_wall = self._chunk_wall_s / self._chunk_calls if self._chunk_calls else None
+            h2d = d2h = None
         decision = swap_vs_recompute(bytes_to_move, chunks=-(-seq_len // c),
-                                     chunk_wall_s=chunk_wall)
+                                     chunk_wall_s=chunk_wall, h2d_bytes_s=h2d,
+                                     d2h_bytes_s=d2h)
         if self.swap_policy != "auto":
             decision = dataclasses.replace(decision, choice=self.swap_policy,
                                            reason=f"forced-{self.swap_policy}")
@@ -593,6 +659,7 @@ class Scheduler:
         if self._start_time is None:
             self._start_time = time.perf_counter()
         t0 = time.perf_counter()
+        self._sync_readings()
         self._expire_deadlines()
         if self.offload:
             self._finalize_swaps()
@@ -679,14 +746,46 @@ class Scheduler:
         now = time.perf_counter()  # tokens are on the host: delivery time
         self._process_collected(h, tokens, now)
 
+    def _read_host(self, link: bool = True) -> HostReadings:
+        """This process's readings (``HostReadings``): its clock against
+        its requests' deadlines, its chunk walls, and with ``link`` under
+        ``offload`` its link probe."""
+        now = time.perf_counter()
+        expired = tuple(req.rid
+                        for bucket in (self.queue, self.resident.values(),
+                                       (r for r, _ in self.parked.values()),
+                                       (entry[1] for entry in self._swapping))
+                        for req in bucket if req.deadline <= now)
+        wall = self._chunk_wall_s / self._chunk_calls if self._chunk_calls else None
+        return HostReadings(expired, wall,
+                            link_bandwidth() if link and self.offload else (None, None))
+
+    def _sync_readings(self) -> None:
+        """Under TP, every rank takes model rank 0's ``HostReadings`` of
+        this dispatch, broadcast once over the model axis's gloo group;
+        only while a live request has a deadline or under ``offload``
+        (both the same on every rank: the same submissions), else none is
+        taken. Without TP each decision reads this process."""
+        self._readings = None
+        if self._readings_group is None:
+            return
+        if not self.offload and not any(
+                req.deadline != float("inf") for req in self.harvest_requests()):
+            return
+        packet = [self._read_host() if dist.get_rank() == self._leader else None]
+        dist.broadcast_object_list(packet, src=self._leader, group=self._readings_group)
+        self._readings = packet[0]
+
     def _process_collected(self, h: TickHandle, tokens: np.ndarray, now: float) -> None:
         """Per-token work of one collected tick: latencies, the stream,
         retirement (the chain freed at once)."""
         out: List[Tuple[int, int]] = []
+        seq = self._next_event()
         for slot in h.lanes:
             req = self.resident[slot]
             token = int(tokens[slot])
             out.append((req.rid, token))
+            req.served_seq = seq
             if req.produced == 0:
                 req.first_token_time = now
                 self.ttft.observe(now - req.submit_time)
@@ -837,14 +936,11 @@ class Scheduler:
 
     def _expire_deadlines(self) -> None:
         """Cancel every live request whose deadline has passed, before the
-        restores and admissions, so an expired request takes no slot."""
-        now = time.perf_counter()
-        expired = [req.rid
-                   for bucket in (self.queue, self.resident.values(),
-                                  (r for r, _ in self.parked.values()),
-                                  (entry[1] for entry in self._swapping))
-                   for req in bucket if req.deadline <= now]
-        for rid in expired:
+        restores and admissions, so an expired request takes no slot;
+        under TP those rank 0 found (``_sync_readings``)."""
+        readings = (self._readings if self._readings_group is not None
+                    else self._read_host(link=False))
+        for rid in readings.expired if readings is not None else ():
             self.cancel(rid, outcome="deadline")
 
     def _finish_cancel(self, req: Request, outcome: str) -> None:
@@ -940,6 +1036,7 @@ class Scheduler:
         req.prefill_done = req.length
         if math.isnan(req.admit_time):  # adopted without an admission
             req.admit_time = time.perf_counter()
+            req.served_seq = self._next_event()
             self.queue_wait.observe(req.admit_time - req.submit_time)
         self.resident[slot] = req
         self.positions[slot] = req.length

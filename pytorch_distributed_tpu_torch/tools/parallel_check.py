@@ -56,7 +56,12 @@ Each rank runs ``job["task"]`` and writes what it found to
   stage ``relu(x @ w + b)`` (stage s's ``w``, ``b`` from the stacked
   ``job["w"]``, ``job["b"]``), ``job["x"]`` in ``job["microbatches"]``
   microbatches and the loss Σ y² on the last stage: the last stage's
-  outputs and every stage's gradients.
+  outputs and every stage's gradients;
+- ``"serve"``: tensor-parallel serving (``tools/serve_tp.py``): each case
+  of ``job["cases"]`` (a ``Scheduler``, ``ContinuousBatcher``,
+  ``generate_tp`` or ``generate_ragged_tp`` run on every model rank) with
+  each rank's streams, outcomes, pool bytes, kernel launches and logits
+  rows, and rank 0's replicated reference run.
 
 ``"many"`` runs each of ``job["jobs"]`` (a task and its keys, by label)
 in turn on one spawn of the ranks, each rank's result a dict by label; a
@@ -80,7 +85,7 @@ from pytorch_distributed_tpu_torch.ops import flash_attention as fa
 from pytorch_distributed_tpu_torch.parallel import distributed
 from pytorch_distributed_tpu_torch.parallel.fsdp import global_leaves, state_bytes
 from pytorch_distributed_tpu_torch.parallel.mesh import Mesh, make_mesh
-from pytorch_distributed_tpu_torch.tools import dp_check
+from pytorch_distributed_tpu_torch.tools import dp_check, serve_tp
 from pytorch_distributed_tpu_torch.tools.ring_check import _model_config, shard
 
 FLASH = (fa.FWD, fa.BWD)
@@ -440,4 +445,5 @@ def _toy(job: dict, mesh: Mesh, device) -> dict:
 
 
 TASKS = {"lm": _lm, "resnet": dp_check.TASKS["steps"], "trainer": _trainer, "toy": _toy,
-         "image_trainer": dp_check.TASKS["trainer"], "tp_ops": _tp_ops}
+         "image_trainer": dp_check.TASKS["trainer"], "tp_ops": _tp_ops,
+         "serve": serve_tp.serve}

@@ -4,6 +4,7 @@ the rehearsals out. Torch runs one thread here: the workers share the
 machine's cores, and eight threads a worker made this rehearsal some 40
 times slower."""
 
+import concurrent.futures
 import importlib.util
 from pathlib import Path
 
@@ -54,17 +55,21 @@ def test_graph_phase_rehearses_on_cpu(chip_smoke, monkeypatch, capsys):
         served.append((label, m["cold_requests"]))
         return sched, [out[r] for r in rids], m, 1.0, {}
 
-    def busy(cfg_, prompts_, max_new, kws_by_path):
-        assert max_new == 32 and list(kws_by_path) == ["eager", "graphs", "lagged"]
-        assert [[kw["cuda_graphs"] for kw in kws] for kws in kws_by_path.values()] == [
-            [False, False], [True, True], [True]]
+    def busy(cfg_, prompts_, max_new, kws_by_path, weights):
+        assert max_new == 32 and weights == "lm.pt" and list(kws_by_path) == [
+            "eager", "graphs", "lagged", "fleet_sync", "fleet_async"]
+        assert [[kw.get("cuda_graphs", True) for kw in kws]
+                for kws in kws_by_path.values()] == [
+            [False, False], [True, True], [True], [True], [True]]
         assert kws_by_path["lagged"][0]["lagged"]
+        assert [kws_by_path[p][0]["fleet"] for p in ("fleet_sync", "fleet_async")] == [
+            dict(n_replicas=2, async_host=False), dict(n_replicas=2, async_host=True)]
         return {path: [0.5] * len(kws) for path, kws in kws_by_path.items()}
 
     monkeypatch.setattr(chip_smoke, "busy_shares", busy)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
     out = chip_smoke.graph_runs(torch, "CPU", serve, cfg, state, prompts, serve_kw,
-                                n_blocks=40, dev="cpu")
+                                n_blocks=40, weights="lm.pt", dev="cpu")
     text = capsys.readouterr().out
     assert [label for label, _ in served] == [
         "bf16 pools, eager, warmed up", "bf16 pools, graphs, warmed up",
@@ -74,5 +79,38 @@ def test_graph_phase_rehearses_on_cpu(chip_smoke, monkeypatch, capsys):
     assert text.count("eager vs CUDA graphs (both warmed up)") == 2
     assert out["bf16"]["eager_busy"] == out["fp8"]["graphs_busy"] == 0.5
     assert out["bf16"]["lagged_busy"] == 0.5
+    assert out["fleet_busy"] == {"fleet_sync": 0.5, "fleet_async": 0.5}
     assert out["warmup"]["programs"] == 13 and out["warmup"]["graphs"] == 0
     assert out["sampled"]["tokens"] == 4 * 32 and "sampled serve" in text
+
+
+def test_busy_shares_profile_eager_apart_and_the_graph_paths_together(chip_smoke,
+                                                                       monkeypatch):
+    """The profiled serves take two processes: the eager path's, then every
+    graph path's in the order given; each path's shares come back under its
+    name, in the caller's order."""
+    groups = []
+
+    class InOrder:  # each submit a process of its own, run here
+        def __init__(self, **kw):
+            assert kw["max_workers"] == 1 and kw["max_tasks_per_child"] == 1
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def submit(self, fn, cfg, prompts, max_new, kws_by_path, weights):
+            assert fn is chip_smoke._busy_child and weights == "lm.pt"
+            groups.append(list(kws_by_path))
+            done = concurrent.futures.Future()
+            done.set_result({p: [len(groups)] * len(k) for p, k in kws_by_path.items()})
+            return done
+
+    monkeypatch.setattr(concurrent.futures, "ProcessPoolExecutor", InOrder)
+    kws = {"graphs": [{}, {}], "eager": [{}, {}], "lagged": [{}], "fleet_sync": [{}]}
+    out = chip_smoke.busy_shares(None, [], 32, kws, "lm.pt")
+    assert groups == [["eager"], ["graphs", "lagged", "fleet_sync"]]
+    assert list(out) == list(kws)
+    assert out == {"graphs": [2, 2], "eager": [1, 1], "lagged": [2], "fleet_sync": [2]}

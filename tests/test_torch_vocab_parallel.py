@@ -276,14 +276,20 @@ def test_vocab_parallelism_is_refused_under_the_pipeline(tmp_path):
 
 
 def test_moe_and_decoding_under_tp_are_refused():
+    """MoE under TP is still refused; decoding under TP now runs
+    (``tests/test_torch_serving_tp.py``), but never without a model axis
+    of the config's size: a TP model's caches hold its ranks' heads."""
+    from pytorch_distributed_tpu_torch.parallel.mesh import make_mesh
+
     with pytest.raises(NotImplementedError, match="item 6.4"):
         tiny_config(n_experts=4, **TP2)
     model = TransformerLM(tiny_config(**VP))
     tokens = torch.ones((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 6.3"):
+    make_mesh(1)  # a model axis of one rank
+    with pytest.raises(ValueError, match="!= tp_size 2"):
         model(tokens, 0, cache=init_cache(model.cfg, 1, "cpu"))
-    with pytest.raises(NotImplementedError, match="item 6.3"):
-        model(tokens[:, :1], 4, decode=True)
+    with pytest.raises(ValueError, match="!= tp_size 2"):
+        model(tokens[:, :1], 4, cache=init_cache(model.cfg, 1, "cpu"), decode=True)
 
 
 # ---- the recipe ----
