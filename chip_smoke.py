@@ -88,7 +88,7 @@ Phases, each of which fails the run:
       mixed ones on the card, sharing its weights, by the synchronous and
       the lagged loop in turns (streams, placement and decisions
       bit-equal, step and tick p50, tok/s, TTFT, busy by CUDA events and
-      profiled (``graph_runs``' graph-path process), host syncs a step:
+      profiled (``graph_runs``' ``busy_shares``), host syncs a step:
       none), disaggregated 1 +
       1 with every handoff byte-equal on bf16 and fp8 pools, a seeded
       64-request trace that spills and sheds (each loop's decisions its
@@ -3273,6 +3273,10 @@ def profiled_busy(torch, cfg, state, prompts, max_new, kw) -> float:
     return busy_share(prof, wall * 1e6)
 
 
+#: the profiled paths that take a process of their own (``busy_shares``)
+BUSY_APART = ("eager", "fleet_async")
+
+
 def _busy_child(cfg, prompts, max_new, kws_by_path, weights) -> dict:
     """``profiled_busy`` of each serve of ``kws_by_path`` in this (spawned)
     process, in order, on the seed-0 weights main saved to ``weights``
@@ -3286,18 +3290,20 @@ def _busy_child(cfg, prompts, max_new, kws_by_path, weights) -> dict:
 
 def busy_shares(cfg, prompts, max_new, kws_by_path, weights) -> dict:
     """``profiled_busy`` of the serves of each path (``{path: [kw, ...]}``):
-    the eager path's in a process of its own, then every path that replays
-    graphs in one more, in the order given, both away from phase (d)'s
-    device times. Eager and graph serves profiled in turns in one process
-    (eager, graphs, eager, graphs) left that process's later traces short
-    of launches, every one; the graph paths one after another read within
-    the spread of a process each (PERF.md §6), and each process pays its
-    imports, its weights and the profiler's first trace."""
+    each path of ``BUSY_APART`` in a process of its own, then the other
+    paths, which replay graphs, in one more, in the order given; all away
+    from phase (d)'s device times. Eager and graph serves profiled in turns
+    in one process (eager, graphs, eager, graphs) left that process's later
+    traces short of launches, every one; after the other graph paths in one
+    process the lagged fleet read well above its share in a process of its
+    own, the others within the spread of a process each (PERF.md §6). Each
+    process pays its imports, its weights and the profiler's first
+    trace."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    groups = [{p: k for p, k in kws_by_path.items() if p == "eager"},
-              {p: k for p, k in kws_by_path.items() if p != "eager"}]
+    groups = [{p: k} for p, k in kws_by_path.items() if p in BUSY_APART]
+    groups.append({p: k for p, k in kws_by_path.items() if p not in BUSY_APART})
     ctx = multiprocessing.get_context("spawn")
     out = {}
     with ProcessPoolExecutor(max_workers=1, mp_context=ctx, max_tasks_per_child=1) as ex:
@@ -5104,9 +5110,9 @@ def fleet_line(card, fleet: dict, busy: dict) -> str:
     """The fleet's loops beside one replica's, all in the same call:
     ``fleet["loops"]`` (``fleet_runs``' host-clock and CUDA-event figures
     of one replica and of two by each loop, each run twice, in turns) and
-    ``busy``, the profiled busy shares of ``graph_runs``' graph-path
-    process (``one_step``, ``one_lagged``: one scheduler's serves;
-    ``fleet_sync``, ``fleet_async``)."""
+    ``busy``, ``graph_runs``' profiled busy shares (``one_step``,
+    ``one_lagged``: one scheduler's serves; ``fleet_sync``,
+    ``fleet_async``)."""
     f = fleet["loops"]
 
     def each(key, scale=1e3, fmt=".3f"):

@@ -86,9 +86,10 @@ def test_graph_phase_rehearses_on_cpu(chip_smoke, monkeypatch, capsys):
 
 def test_busy_shares_profile_eager_apart_and_the_graph_paths_together(chip_smoke,
                                                                        monkeypatch):
-    """The profiled serves take two processes: the eager path's, then every
-    graph path's in the order given; each path's shares come back under its
-    name, in the caller's order."""
+    """The profiled serves take a process for each path kept apart (the
+    eager one, the lagged fleet), then one for every other graph path in
+    the order given; each path's shares come back under its name, in the
+    caller's order."""
     groups = []
 
     class InOrder:  # each submit a process of its own, run here
@@ -109,8 +110,10 @@ def test_busy_shares_profile_eager_apart_and_the_graph_paths_together(chip_smoke
             return done
 
     monkeypatch.setattr(concurrent.futures, "ProcessPoolExecutor", InOrder)
-    kws = {"graphs": [{}, {}], "eager": [{}, {}], "lagged": [{}], "fleet_sync": [{}]}
+    kws = {"graphs": [{}, {}], "eager": [{}, {}], "lagged": [{}], "fleet_sync": [{}],
+           "fleet_async": [{}]}
     out = chip_smoke.busy_shares(None, [], 32, kws, "lm.pt")
-    assert groups == [["eager"], ["graphs", "lagged", "fleet_sync"]]
+    assert groups == [["eager"], ["fleet_async"], ["graphs", "lagged", "fleet_sync"]]
     assert list(out) == list(kws)
-    assert out == {"graphs": [2, 2], "eager": [1, 1], "lagged": [2], "fleet_sync": [2]}
+    assert out == {"graphs": [3, 3], "eager": [1, 1], "lagged": [3], "fleet_sync": [3],
+                   "fleet_async": [2]}
